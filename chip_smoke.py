@@ -3,26 +3,39 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written kernels from ``dalm_tpu_torch/csrc/``,
-holds each against its plain PyTorch version on the card, then drives the
-serving path once at full width: ``RagPipeline`` with a bge-large
-retriever and a Llama-2-7B generator, random-initialised from a seed in
-bf16, over a 16,384-passage synthetic corpus. Fails (non-zero exit, no
-result line) without a CUDA device, without the repository beside it, or
-if any phase fails.
+Builds the port's hand-written kernels from ``dalm_tpu_torch/csrc/`` (one
+``nvcc`` per source, started together), holds each against its plain PyTorch
+version on the card, and drives both main paths once at full width and
+depth, bf16, random-initialised from a seed: serving (``RagPipeline`` with a
+bge-large retriever and a Llama-2-7B generator over a 16,384-passage
+synthetic corpus) and training (``train_e2e`` on a synthetic CSV, fused
+QLoRA, int8 generator base, ``int8_compute="all"``, batch 18, 4 optimiser
+steps). Fails (non-zero exit, no result line) without a CUDA device, without
+the repository beside it, or if any phase fails. ``--phases`` runs a subset
+while developing and prints no result line.
 
-Output: per-phase lines, one ``{"k3_cases": [...]}`` JSON line (every
-K3 case measured), the card's name and power limit, one
-``{"kernels": [...]}`` JSON line (one entry per K3 row storage mode, with
-its launches in the main path's ``answer()``), and as the last line
-``{"ok": true, "device": {...}}``.
+Phases: ``small`` (tiny pipeline, card vs CPU), ``serve``, ``k3``, ``k2``,
+``k1`` (K1 and the two int8 GEMM entries), ``grad``, ``train-small`` (tiny
+``train_e2e``, card vs CPU), ``train``; and, only when named, ``profile``
+(a ``torch.profiler`` trace of the training steps: device busy share and the
+top kernels by device time).
+
+Output: per-phase lines, one JSON line of every measured case per kernel
+phase (``k3_cases``, ``k2_cases``, ``k1_cases``), the card's name and power
+limit, one ``{"kernels": [...]}`` JSON line (one entry per K3 row storage
+mode, K2, K1 and each GEMM entry, each with its launches in its main path:
+``answer()`` for K3, the ``train_e2e`` run for the others), and as the last
+line ``{"ok": true, "device": {...}}``.
 
 Tolerances: K3 on exact-arithmetic inputs (small integers times powers of
 two, so every partial sum is exact in f32 whatever the order) must match
 the plain version exactly, ids and scores. On unit-norm float inputs and
 on the pipeline's own embeddings, scores agree within 1e-5 and ids are
 equal except where two rows' f64 scores lie within 1e-5 of each other
-(a near tie that f32 sums in another order may resolve either way).
+(a near tie that f32 sums in another order may resolve either way). The
+int8 kernels' tolerances stand in their phases' docstrings: K2 and the GEMM
+entries equal, K1 equal on integer-valued inputs and within one bf16 ulp on
+real-valued ones, gradients equal, tiny training losses within 2e-3.
 """
 
 from __future__ import annotations
@@ -31,18 +44,19 @@ import json
 import string
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 NEAR_TIE = 1e-5
 
 # Published peaks (NVIDIA data sheets; dense rates). memory B/s, f32
-# CUDA-core FLOP/s, bf16 tensor-core FLOP/s. A name without "PCIe" or
-# "NVL" is taken as the SXM part.
+# CUDA-core FLOP/s, bf16 tensor-core FLOP/s, int8 tensor-core OP/s. A name
+# without "PCIe" or "NVL" is taken as the SXM part.
 PEAKS = {
-    "PCIe": (2.0e12, 51e12, 756e12),
-    "NVL": (3.9e12, 60e12, 835e12),
-    "SXM": (3.35e12, 67e12, 989e12),
+    "PCIe": (2.0e12, 51e12, 756e12, 1513e12),
+    "NVL": (3.9e12, 60e12, 835e12, 1671e12),
+    "SXM": (3.35e12, 67e12, 989e12, 1979e12),
 }
 
 
@@ -122,7 +136,7 @@ def k3_phase(gen, device, peaks):
     from dalm_tpu_torch.kernels.topk import _dequantized_rows, fused_dot_topk, fused_dot_topk_ref
 
     N, D, Q = 1 << 20, 1024, 32
-    mem_bw, f32_rate, bf16_rate = peaks
+    mem_bw, f32_rate, bf16_rate, _ = peaks
 
     def grid(shape, lo, hi, dtype):
         """Exact-arithmetic data: integers in [lo, hi] / 16."""
@@ -200,6 +214,222 @@ def k3_phase(gen, device, peaks):
     return entries, reps
 
 
+def i8_record(name, replaces, case, ms, plain_ms, lib_ms, max_err, nbytes, ops, peaks, **extra):
+    """One measured int8 kernel case, in the kernels line's keys (without ``launches``)."""
+    t_bytes = nbytes / peaks[0] * 1e3
+    t_ops = ops / peaks[3] * 1e3
+    return {
+        "name": name, "route": "cuda", "source": "dalm_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": replaces, "case": case, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, **extra,
+    }
+
+
+def show(tag, e):
+    lib = "n/a" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+    print(f"[{tag}] {e['name']} {e['case']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library {lib}, "
+          f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), max_abs_err {e['max_abs_err']}", flush=True)
+
+
+M_TRAIN = 4608  # generator rows of one train step: batch 18 x 256 tokens
+LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))  # q/k/v/o, gate/up, down, lm_head
+K2_AT = "dalm_tpu/kernels/int8_matmul.py:72"
+K1_AT = "dalm_tpu/kernels/int8_matmul.py:194"
+DOT_AT = "dalm_tpu/kernels/int8_matmul.py:237"
+
+
+def k2_phase(gen, device, peaks):
+    """K2 against ``rowquant_ref``: q and s must be EQUAL (tolerance 0; the
+    kernel divides and rounds as the plain version does). R = 4608 rows,
+    K in {4096, 11008, 32000}, bf16 and f32, with and without the column
+    scale; row 0 all zero, row 1 made of exact .5 ties. Returns
+    (all records, the record at the main path's commonest shape)."""
+    import torch
+
+    from dalm_tpu_torch.kernels.int8_matmul import rowquant, rowquant_ref
+
+    R = M_TRAIN
+    entries, main_entry = [], None
+    for K in (4096, 11008, 32000):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((R, K), generator=gen, device=device).to(dtype)
+            x[0] = 0
+            ties = torch.randint(-126, 127, (K,), generator=gen, device=device).float() + 0.5
+            ties[0] = 127.0  # absmax 127 -> s = 1 -> every other x / s ends in .5
+            x[1] = ties.to(dtype)
+            cs = torch.rand((1, K), generator=gen, device=device) * 0.01 + 1e-4
+            for colscale in (None, cs):
+                q, s = rowquant(x, None if colscale is None else colscale.reshape(-1))
+                rq, rs = rowquant_ref(x, colscale)
+                torch.cuda.synchronize()
+                label = f"R={R} K={K} {str(dtype).split('.')[-1]}{' colscale' if colscale is not None else ''}"
+                check(torch.equal(s, rs), f"k2 {label}: scales differ from the plain version")
+                check(torch.equal(q, rq), f"k2 {label}: q differs from the plain version")
+                if colscale is None:
+                    check(float(s[0]) == 1.0 and not bool(q[0].any()), f"k2 {label}: zero row")
+                    check(float(s[1]) == 1.0, f"k2 {label}: tie row scale")
+                    want = torch.round(ties).clamp(-127, 127).to(torch.int8)
+                    check(torch.equal(q[1], want), f"k2 {label}: ties must round half to even")
+            if dtype != torch.bfloat16:
+                continue
+            csf = cs.reshape(-1).contiguous()
+            ms = cuda_ms(lambda: rowquant(x, csf), 20)
+            plain_ms = cuda_ms(lambda: rowquant_ref(x, cs), 5)
+
+            def library():
+                xf = x.float() * cs
+                sc = xf.abs().amax(-1, keepdim=True) / 127.0
+                return torch.round(xf / sc).clamp(-127, 127).to(torch.int8), sc
+
+            lib_ms = cuda_ms(library, 5)
+            nbytes = R * K * 2 + K * 4 + R * K + R * 4
+            e = i8_record("rowquant", K2_AT, f"R={R} K={K} bf16 colscale", ms, plain_ms, lib_ms, 0.0,
+                          nbytes, 4.0 * R * K, peaks, K=K)
+            show("k2", e)
+            entries.append(e)
+            if K == 4096:
+                main_entry = e
+            del x
+    torch.cuda.empty_cache()
+    return entries, main_entry
+
+
+def _weights(gen, device, K, N):
+    import torch
+
+    q = torch.randint(-127, 128, (K, N), generator=gen, device=device, dtype=torch.int8)
+    scale = torch.rand((1, N), generator=gen, device=device) * 1e-3 + 1e-4
+    return q, scale
+
+
+def k1_phase(gen, device, peaks):
+    """K1 and the two int8 GEMM entries against their plain versions at the
+    Llama-7B shapes, M = 4608. Integer-valued activations: equal. Real-valued
+    bf16 activations: within one bf16 ulp of the plain result (2^-7 relative;
+    the f32 accumulators follow the same order of operations, so in practice
+    equal). The GEMM entries are integer arithmetic: equal. One shape the
+    feasibility rule rejects goes through ``int8_matmul`` (K2 + GEMM)."""
+    import torch
+
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    M = M_TRAIN
+    entries, mains = [], {}
+    for K, N in LLAMA_KN:
+        check(im.w8a8_fused_feasible(M, K, N), f"({M},{K},{N}) should take the fused form")
+        q, scale = _weights(gen, device, K, N)
+        xi = torch.randint(-8, 9, (M, K), generator=gen, device=device).to(torch.bfloat16)
+        check(torch.equal(im.w8a8_fused(xi, q, scale), im.w8a8_fused_ref(xi, q, scale)),
+              f"k1 ({K},{N}): kernel != plain version on integer-valued inputs")
+        x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+        x[0] = 0
+        y, ry = im.w8a8_fused(x, q, scale), im.w8a8_fused_ref(x, q, scale)
+        torch.cuda.synchronize()
+        err = (y.float() - ry.float()).abs()
+        check(bool((err <= ry.float().abs() * 2.0 ** -7 + 1e-6).all()), f"k1 ({K},{N}): above one bf16 ulp")
+        max_err = float(err.max())
+        xf = x.float()
+        yf, ryf = im.w8a8_fused(xf, q, scale), im.w8a8_fused_ref(xf, q, scale)
+        check(bool(((yf - ryf).abs() <= ryf.abs() * 1e-6 + 1e-9).all()), f"k1 ({K},{N}) f32: above 1e-6 relative")
+        del xf, yf, ryf
+
+        ms = cuda_ms(lambda: im.w8a8_fused(x, q, scale), 10)
+        plain_ms = cuda_ms(lambda: im.w8a8_fused_ref(x, q, scale), 2)
+
+        def lib_q():
+            xf = x.float()
+            sc = xf.abs().amax(-1, keepdim=True) / 127.0
+            return torch.round(xf / sc).clamp(-127, 127).to(torch.int8), sc
+
+        def library():
+            xq, sc = lib_q()
+            return (torch._int_mm(xq, q).float() * sc * scale).to(x.dtype)
+
+        lib_ms = cuda_ms(library, 5)
+        wd = (q.float() * scale).to(torch.bfloat16)
+        deq_ms = cuda_ms(lambda: x @ wd, 10)
+        del wd
+        nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+        e = i8_record("w8a8_fused", K1_AT, f"M={M} K={K} N={N} bf16", ms, plain_ms, lib_ms, max_err,
+                      nbytes, 2.0 * M * K * N, peaks, KN=[K, N], bf16_dequant_matmul_ms=deq_ms)
+        show("k1", e)
+        print(f"[k1]   x @ dequant(W) in bf16 (torch.matmul): {deq_ms:.4f} ms; "
+              f"kernel {2.0 * M * K * N / ms / 1e9:.1f} TOP/s", flush=True)
+        entries.append(e)
+        if (K, N) == (4096, 4096):
+            mains["w8a8_fused"] = e
+
+        # The GEMM entries on int8 operands.
+        a = torch.randint(-127, 128, (M, K), generator=gen, device=device, dtype=torch.int8)
+        check(torch.equal(im.int8_gemm_kn(a, q), im.int8_gemm_kn_ref(a, q)), f"gemm_kn ({K},{N}) != plain")
+        ms = cuda_ms(lambda: im.int8_gemm_kn(a, q), 10)
+        plain_ms = cuda_ms(lambda: im.int8_gemm_kn_ref(a, q), 2)
+        lib_ms = cuda_ms(lambda: torch._int_mm(a, q), 10)
+        e = i8_record("int8_gemm_kn", DOT_AT, f"M={M} K={K} N={N}", ms, plain_ms, lib_ms, 0.0,
+                      M * K + K * N + M * N * 4, 2.0 * M * K * N, peaks, KN=[K, N])
+        show("k1", e)
+        entries.append(e)
+        if (K, N) == (4096, 4096):
+            mains["int8_gemm_kn"] = e
+        d = torch.randint(-127, 128, (M, N), generator=gen, device=device, dtype=torch.int8)
+        check(torch.equal(im.int8_gemm_nt(d, q), im.int8_gemm_nt_ref(d, q)), f"gemm_nt ({K},{N}) != plain")
+        ms = cuda_ms(lambda: im.int8_gemm_nt(d, q), 10)
+        plain_ms = cuda_ms(lambda: im.int8_gemm_nt_ref(d, q), 2)
+        lib_ms = cuda_ms(lambda: torch._int_mm(d, q.T), 10)
+        e = i8_record("int8_gemm_nt", DOT_AT, f"M={M} C={N} N={K} (dx of K={K} N={N})", ms, plain_ms, lib_ms, 0.0,
+                      M * N + K * N + M * K * 4, 2.0 * M * K * N, peaks, KN=[K, N])
+        show("k1", e)
+        entries.append(e)
+        if (K, N) == (4096, 4096):
+            mains["int8_gemm_nt"] = e
+        del a, d, x, xi, q, scale
+        torch.cuda.empty_cache()
+
+    # A shape the feasibility rule rejects (K = 4160 has no k-block that is a
+    # multiple of 128): int8_matmul takes K2 + the GEMM, edges guarded.
+    M2, K2, N2 = 1000, 4160, 1028
+    check(not im.w8a8_fused_feasible(M2, K2, N2), "the rejected shape is feasible")
+    q, scale = _weights(gen, device, K2, N2)
+    x = (torch.randn((M2, K2), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+    before = (im.rowquant.launches, im.int8_gemm_kn.launches, im.w8a8_fused.launches)
+    y = im.int8_matmul(x, q, scale)
+    after = (im.rowquant.launches, im.int8_gemm_kn.launches, im.w8a8_fused.launches)
+    check(after == (before[0] + 1, before[1] + 1, before[2]), "a rejected shape must take K2 + GEMM")
+    check(torch.equal(y, im.int8_matmul_ref(x, q, scale)), "unfused forward != plain version")
+    print(f"[k1] rejected shape M={M2} K={K2} N={N2}: K2 + int8_gemm_kn equal to the plain version", flush=True)
+    torch.cuda.empty_cache()
+    return entries, mains
+
+
+def grad_phase(gen, device):
+    """``int8_matmul`` forward and backward on the card against the plain
+    version's autograd, ``bwd_int8`` both ways: equal (tolerance 0; the int8
+    backward is K2 + integer GEMM + the same f32 rescale)."""
+    import torch
+
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    for K, N in ((4096, 11008), (4160, 1040)):  # the second takes K2 + GEMM forward
+        q, scale = _weights(gen, device, K, N)
+        x0 = (torch.randn((2, 1152, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+        g = torch.randn((2, 1152, N), generator=gen, device=device).to(torch.bfloat16)
+        for bwd_int8 in (False, True):
+            outs = []
+            for fn in (im.int8_matmul, im.int8_matmul_ref):
+                x = x0.clone().requires_grad_()
+                y = fn(x, q, scale, bwd_int8)
+                y.backward(g)
+                outs.append((y.detach(), x.grad))
+            torch.cuda.synchronize()
+            check(torch.equal(outs[0][0], outs[1][0]), f"grad ({K},{N}) bwd_int8={bwd_int8}: forward differs")
+            check(torch.equal(outs[0][1], outs[1][1]), f"grad ({K},{N}) bwd_int8={bwd_int8}: dx differs")
+            check(bool(torch.isfinite(outs[0][1]).all()) and float(outs[0][1].abs().max()) > 0, "dx is empty")
+    print("[grad] int8_matmul forward and dx equal to the plain version's autograd, bwd_int8 False and True",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
 def corpus(n: int, rng) -> list:
     letters = list(string.ascii_lowercase + " ")
     return ["".join(rng.choice(letters, size=90)) + f" topic {i}" for i in range(n)]
@@ -240,8 +470,8 @@ def small_pipeline_agrees(device) -> None:
     torch.cuda.empty_cache()
 
 
-def main_path(device, rng):
-    """bge-large + Llama-2-7B RagPipeline at full width, bf16, one timed answer()."""
+def serve_path(device, rng):
+    """bge-large + Llama-2-7B RagPipeline at full width and depth, bf16, one timed answer()."""
     import numpy as np
     import torch
 
@@ -319,8 +549,256 @@ def main_path(device, rng):
     return launches, (q, e, ms, plain_ms, lib_ms)
 
 
-def main() -> int:
+TRAIN_KW = dict(use_peft="both", lora_runtime="fused", int8_compute="all", a8_calibrate_every=0,
+                num_warmup_steps=0, with_tracking=False)
+
+
+def write_csv(path, n, rng):
+    """A synthetic Question/Abstract/Answer CSV: random lower-case text, lengths
+    that leave an answer region inside 256 generator tokens."""
+    import csv
+
+    letters = list(string.ascii_lowercase + " ")
+
+    def text(k):
+        return "".join(rng.choice(letters, size=k))
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Question", "Abstract", "Answer"])
+        for i in range(n):
+            w.writerow([f"{text(28)} {i}", f"{text(90)} {i}", f"{text(56)} {i}"])
+
+
+def train_small_phase(device, workdir):
+    """The tiny preset through ``train_e2e`` (fused QLoRA, int8 bases on both
+    sub-models, ``int8_compute="all"``) on the card and on the CPU, from the
+    same initial weights and over the same batches. Losses after 1, 2 and 3
+    steps agree within 2e-3 (total, retriever, generator; f32 models: the
+    int8 kernels equal their plain versions, what differs is the order of
+    f32 sums in the other matmuls and the odd rounding that flips)."""
+    import numpy as np
     import torch
+
+    from dalm_tpu_torch.kernels import int8_matmul as im
+    from dalm_tpu_torch.train import train_e2e
+
+    csv_path = str(Path(workdir) / "small.csv")
+    write_csv(csv_path, 12, np.random.default_rng(1))
+    kw = dict(TRAIN_KW, use_bnb="both", query_max_len=48, passage_max_len=112, generator_max_len=256,
+              per_device_train_batch_size=4, learning_rate=1e-3, lr_scheduler_type="constant", seed=3)
+    initial = {}
+
+    def keep(setup):
+        for sub in ("retriever", "generator"):
+            initial[sub] = {k: v.detach().clone() for k, v in getattr(setup.rag, sub).state_dict().items()}
+
+    def give(setup):
+        for sub in ("retriever", "generator"):
+            getattr(setup.rag, sub).load_state_dict(initial[sub])
+
+    before = (im.rowquant.launches, im.int8_gemm_kn.launches, im.int8_gemm_nt.launches)
+    worst = 0.0
+    for steps in (1, 2, 3):
+        cpu = train_e2e(csv_path, "tiny", "tiny", max_train_steps=steps, device="cpu", setup_hook=keep, **kw)
+        card = train_e2e(csv_path, "tiny", "tiny", max_train_steps=steps, device=device, setup_hook=give, **kw)
+        for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+            check(np.isfinite(card[key]), f"train-small: {key} is not finite")
+            worst = max(worst, abs(card[key] - cpu[key]))
+            check(abs(card[key] - cpu[key]) <= 2e-3, f"train-small step {steps}: {key} {card[key]} vs CPU {cpu[key]}")
+        print(f"[train-small] step {steps}: card loss {card['final_loss']:.6f}, CPU {cpu['final_loss']:.6f}", flush=True)
+    after = (im.rowquant.launches, im.int8_gemm_kn.launches, im.int8_gemm_nt.launches)
+    check(all(a > b for a, b in zip(after, before)), "train-small did not launch K2 and both GEMM entries")
+    print(f"[train-small] tiny train_e2e, card vs CPU, 3-step loss trajectories: max difference {worst:.2e}; "
+          f"launches K2 {after[0] - before[0]}, int8_gemm_kn {after[1] - before[1]}, "
+          f"int8_gemm_nt {after[2] - before[2]}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def train_phase(device, workdir, batch, steps, kernel_ms):
+    """The training main path: ``train_e2e`` on a synthetic CSV, bge-large +
+    Llama-2-7B at full width and depth, bf16, fused QLoRA, int8 generator
+    base, ``int8_compute="all"``, dynamic per-row activation quant,
+    Q/P/G = 50/128/256. Two epochs of ``steps / 2`` batches: the trainer's
+    throughput meter leaves the first epoch (warm-up) out of its average.
+    Returns the launches of each int8 kernel in that run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.kernels import int8_matmul as im
+    from dalm_tpu_torch.train import train_e2e
+
+    per_epoch = max(steps // 2, 1)
+    csv_path = str(Path(workdir) / "train.csv")
+    write_csv(csv_path, batch * per_epoch, np.random.default_rng(2))
+    held = {}
+
+    def snapshot(setup):
+        held["setup"] = setup
+        held["trainable"] = {k: p.detach().clone() for k, p in setup.state.params.items()}
+        held["frozen"] = {
+            f"{sub}.{k}": v.double().sum().item()
+            for sub in ("retriever", "generator")
+            for k, v in getattr(setup.rag, sub).state_dict().items() if f"{sub}.{k}" not in setup.state.params
+        }
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (im.rowquant, im.w8a8_fused, im.int8_gemm_kn, im.int8_gemm_nt):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = train_e2e(csv_path, "bge-large", "llama2-7b", dtype="bfloat16", use_bnb="generator",
+                    query_max_len=50, passage_max_len=128, generator_max_len=256,
+                    per_device_train_batch_size=batch, num_train_epochs=2, seed=0,
+                    retriever_tokenizer="byte@30522", generator_tokenizer="byte@32000",
+                    device=device, setup_hook=snapshot, **TRAIN_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rowquant": im.rowquant.launches, "w8a8_fused": im.w8a8_fused.launches,
+                "int8_gemm_kn": im.int8_gemm_kn.launches, "int8_gemm_nt": im.int8_gemm_nt.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = out["steps"]
+    check(n_steps == 2 * per_epoch and n_steps >= 3, f"took {n_steps} optimiser steps")
+    for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+        check(np.isfinite(out[key]), f"train: {key} is not finite")
+
+    setup = held["setup"]
+    layers = setup.rag.generator_config.num_layers
+    # Per step: every packed linear (7 per layer + lm_head) once forward and
+    # the layers' once more in the checkpointed recompute; in the backward one
+    # K2 + one dx GEMM per linear whose input needs a gradient (all but layer
+    # 0's q/k/v, which read the frozen embeddings).
+    want = {"w8a8_fused": (14 * layers + 1) * n_steps, "rowquant": (7 * layers - 2) * n_steps,
+            "int8_gemm_nt": (7 * layers - 2) * n_steps, "int8_gemm_kn": 0}
+    check(launches == want, f"train: launches {launches}, the layer count predicts {want}")
+    unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
+    check(not unchanged, f"train: {len(unchanged)} trainable tensors did not change, e.g. {unchanged[:3]}")
+    for sub in ("retriever", "generator"):
+        for k, v in getattr(setup.rag, sub).state_dict().items():
+            name = f"{sub}.{k}"
+            if name in held["frozen"]:
+                check(v.double().sum().item() == held["frozen"][name], f"train: frozen {name} changed")
+    per_step = {k: v // n_steps for k, v in launches.items()}
+    print(f"[train] bge-large + llama2-7b ({layers} layers), batch {batch}, Q/P/G 50/128/256, bf16, fused QLoRA, "
+          f"int8 generator base, int8_compute=all: {n_steps} optimiser steps in {wall:.1f} s (init included); "
+          f"step time {out['avg_step_time']:.3f} s = {out['samples_per_sec']:.2f} samples/s (second epoch); "
+          f"losses total/retriever/generator {out['final_loss']:.4f}/{out['final_retriever_loss']:.4f}/"
+          f"{out['final_generator_loss']:.4f}; peak memory {peak_gib:.2f} GiB; launches per step {per_step}; "
+          f"{len(held['trainable'])} trainable tensors all changed, {len(held['frozen'])} frozen unchanged", flush=True)
+    if kernel_ms:
+        # Where one step's time goes, from each kernel's time at each shape
+        # (this run's k1/k2 phases) times its launches at that shape.
+        shapes = {(4096, 4096): 4 * layers, (4096, 11008): 2 * layers, (11008, 4096): layers, (4096, 32000): 1}
+        k1 = sum(kernel_ms["w8a8_fused", kn] * n * 2 for kn, n in shapes.items()) - kernel_ms["w8a8_fused", (4096, 32000)]
+        nt = sum(kernel_ms["int8_gemm_nt", kn] * n for kn, n in shapes.items()) - 3 * kernel_ms["int8_gemm_nt", (4096, 4096)]
+        k2 = (kernel_ms["rowquant", 4096] * (5 * layers - 3) + kernel_ms["rowquant", 11008] * 2 * layers
+              + kernel_ms["rowquant", 32000])
+        step_ms = out["avg_step_time"] * 1e3
+        print(f"[train] one step = {step_ms:.0f} ms; kernels at their measured times x launches: K1 {k1:.0f} ms, "
+              f"dx GEMM {nt:.0f} ms, K2 {k2:.0f} ms, everything else (retriever, attention, norms, LoRA, loss, "
+              f"optimiser, host) {step_ms - k1 - nt - k2:.0f} ms", flush=True)
+    held.clear()
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_phase(device, workdir, batch, steps):
+    """Not part of the default run: ``--phases profile`` traces the training
+    main path's optimiser steps with ``torch.profiler`` (CPU + CUDA
+    activities, started when the trainer's setup is done) and prints the
+    device's busy share of the wall time and the kernels that take most of
+    the device time, per step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dalm_tpu_torch.train import train_e2e
+
+    per_epoch = max(steps // 2, 1)
+    csv_path = str(Path(workdir) / "profile.csv")
+    write_csv(csv_path, batch * per_epoch, np.random.default_rng(2))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def start(setup):
+        torch.cuda.synchronize()
+        prof.__enter__()
+        clock["t0"] = time.perf_counter()
+
+    try:
+        out = train_e2e(csv_path, "bge-large", "llama2-7b", dtype="bfloat16", use_bnb="generator",
+                        query_max_len=50, passage_max_len=128, generator_max_len=256,
+                        per_device_train_batch_size=batch, num_train_epochs=2, seed=0,
+                        retriever_tokenizer="byte@30522", generator_tokenizer="byte@32000",
+                        device=device, setup_hook=start, **TRAIN_KW)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - clock["t0"]) * 1e3
+    finally:
+        prof.__exit__(None, None, None)
+    n = out["steps"]
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    check(rows, "the profiler recorded no device time")
+    busy = sum(r[1] for r in rows)
+    print(f"[profile] {n} steps under the profiler: wall {wall_ms / n:.0f} ms/step, device busy {busy / n:.0f} ms/step "
+          f"= {100 * busy / wall_ms:.1f}% (idle {100 - 100 * busy / wall_ms:.1f}%)", flush=True)
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:25]:
+        print(f"[profile] {ms / n:9.2f} ms/step {count // n:6d} launches/step  {key[:110]}", flush=True)
+    del prof
+    torch.cuda.empty_cache()
+
+
+def serve_phase(device, rng, peaks, kernels):
+    """The serving main path, then K3 against its plain version at that path's
+    own shapes. Fills ``kernels`` with the f32 record and the launch counts
+    of every row storage mode."""
+    import gc
+
+    import torch
+
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
+
+    launches, (q, e, ms, plain_ms, lib_ms) = serve_path(device, rng)
+    Q, D = q.shape
+    N = e.shape[0]
+    ks, ki = fused_dot_topk(q, e, 4)
+    rs, ri = fused_dot_topk_ref(q, e, 4)
+    max_err, _ = compare_topk(ks, ki, rs, ri, q, e, None)
+    nbytes = N * D * 4 + Q * D * 4 + Q * 4 * 8
+    entry = k3_record("f32", f"main path Q={Q} N={N} D={D} k=4", ms, plain_ms, lib_ms, max_err,
+                      nbytes, 2.0 * Q * N * D, peaks[0], peaks[1])
+    print(f"[k3] main-path shape f32 Q={Q} N={N} D={D} k=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})", flush=True)
+    kernels["fused_dot_topk[f32]"] = dict(entry, launches=launches["f32"])
+    kernels["_k3_launches"] = launches
+    del q, e, ks, ki, rs, ri
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+KERNEL_SOURCES = ("topk", "int8_matmul")
+TRAIN_BATCH = 18
+TRAIN_STEPS = 4
+PHASES = ("small", "serve", "k3", "k2", "k1", "grad", "train-small", "train")
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases to run (default: all, which the result line needs)")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES) - {"profile"})
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -339,42 +817,61 @@ def main() -> int:
     peaks = peaks_for(torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
-    build.build("topk")
+    build.build_all(KERNEL_SOURCES)  # one nvcc per source, started together
     print(f"[build] kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in build.build_log("topk").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    for name in KERNEL_SOURCES:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device=device).manual_seed(0)
-    small_pipeline_agrees(device)
-    launches, (q, e, ms, plain_ms, lib_ms) = main_path(device, np.random.default_rng(0))
-    Q, D = q.shape
-    N = e.shape[0]
-    from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
-
-    ks, ki = fused_dot_topk(q, e, 4)
-    rs, ri = fused_dot_topk_ref(q, e, 4)
-    max_err, _ = compare_topk(ks, ki, rs, ri, q, e, None)
-    nbytes = N * D * 4 + Q * D * 4 + Q * 4 * 8
-    main_entry = k3_record("f32", f"main path Q={Q} N={N} D={D} k=4", ms, plain_ms, lib_ms, max_err,
-                           nbytes, 2.0 * Q * N * D, peaks[0], peaks[1])
-    print(f"[k3] main-path shape f32 Q={Q} N={N} D={D} k=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {lib_ms:.4f} ms, bound {main_entry['bound_ms']:.4f} ms ({main_entry['bound_by']})", flush=True)
-    del q, e, ks, ki, rs, ri
-    import gc
-
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    cases, reps = k3_phase(gen, device, peaks)
-    # One entry per kernel instantiation (row storage mode): f32 at the main
-    # path's shape, the others (which the main path does not run) at N = 1M,
-    # k = 4. ``launches`` is each mode's count from the main path's answer().
-    reps["f32"] = main_entry
-    kernels = [dict(reps[m], launches=launches[m]) for m in ("f32", "bf16", "int8", "int4")]
-    print(json.dumps({"k3_cases": cases}), flush=True)
+    kernels = {}
+    if "small" in phases:
+        small_pipeline_agrees(device)
+    if "serve" in phases:
+        serve_phase(device, np.random.default_rng(0), peaks, kernels)
+    if "k3" in phases:
+        cases, reps = k3_phase(gen, device, peaks)
+        print(json.dumps({"k3_cases": cases}), flush=True)
+        for mode, entry in reps.items():  # the modes the serving path does not run, at N = 1M, k = 4
+            kernels[entry["name"]] = dict(entry, launches=kernels.get("_k3_launches", {}).get(mode, 0))
+    kernel_ms = {}
+    if "k2" in phases:
+        cases, main_entry = k2_phase(gen, device, peaks)
+        print(json.dumps({"k2_cases": cases}), flush=True)
+        kernels["rowquant"] = main_entry
+        kernel_ms.update({("rowquant", e["K"]): e["ms"] for e in cases})
+    if "k1" in phases:
+        cases, mains = k1_phase(gen, device, peaks)
+        print(json.dumps({"k1_cases": cases}), flush=True)
+        kernels.update(mains)
+        kernel_ms.update({(e["name"], tuple(e["KN"])): e["ms"] for e in cases})
+    if "grad" in phases:
+        grad_phase(gen, device)
+    with tempfile.TemporaryDirectory() as workdir:
+        if "train-small" in phases:
+            train_small_phase(device, workdir)
+        if "train" in phases:
+            full = "k1" in phases and "k2" in phases
+            launches = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, kernel_ms if full else None)
+            for name, n in launches.items():
+                if name in kernels:
+                    kernels[name]["launches"] = n
+        if "profile" in phases:
+            profile_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
+    kernels.pop("_k3_launches", None)
+    if set(phases) != set(PHASES):
+        print(f"chip_smoke: ran only {phases}; no result line", flush=True)
+        return 0
+    order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
+             "rowquant", "w8a8_fused", "int8_gemm_kn", "int8_gemm_nt")
+    line = [kernels[name] for name in order]
+    for e in line:
+        check("launches" in e, f"{e['name']}: no launch count from its main path")
+    for name in ("fused_dot_topk[f32]", "rowquant", "w8a8_fused", "int8_gemm_nt"):
+        check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -8,6 +8,12 @@ keeps Dense kernels in the flax ``(in, out)`` layout (``FlexLinear``
 computes ``x @ kernel``; no ``nn.Linear`` is involved), so each leaf maps
 to the key of its dotted path unchanged. A leaf the module lacks, a
 module parameter no leaf fills, or a shape mismatch raises.
+
+The fused-QLoRA collections carry across the same way: ``load_packed``
+takes the reference's ``params`` residual, ``quant`` (``q`` + ``scale`` or
+``w``) and ``lora`` (``a``, ``b``) trees into a module's buffers and
+parameters, ``load_factors`` replaces only the factors, and
+``factors_tree`` reads them back as a tree of numpy arrays.
 """
 
 from __future__ import annotations
@@ -18,17 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-
-def flatten(tree: Mapping, prefix: str = "") -> dict:
-    """Nested dict → {"a.b.c": leaf}."""
-    out = {}
-    for name, v in tree.items():
-        key = f"{prefix}{name}"
-        if isinstance(v, Mapping):
-            out.update(flatten(v, key + "."))
-        else:
-            out[key] = v
-    return out
+from dalm_tpu_torch.core.tree import flatten, unflatten
 
 
 def _to_tensor(x) -> torch.Tensor:
@@ -66,3 +62,40 @@ def load_params(module: nn.Module, params: Mapping) -> nn.Module:
     prefix = "module." if isinstance(module, SentenceEmbedder) else ""
     module.load_state_dict(state_dict_for(module, params, prefix))
     return module
+
+
+def _tensor_tree(tree: Mapping) -> dict:
+    return unflatten({k: _to_tensor(v) for k, v in flatten(tree).items()})
+
+
+def load_packed(module: nn.Module, params: Mapping, quant: Mapping, lora: Mapping = None) -> nn.Module:
+    """Copy the reference's fused-QLoRA collections into the port's
+    ``Encoder`` or ``Decoder`` in place: the ``quant`` tree becomes frozen
+    buffers, the ``lora`` tree trainable f32 parameters, the ``params``
+    residual the remaining parameters. Returns ``module``."""
+    from dalm_tpu_torch.models import qlora
+
+    return qlora.load_packed(module, _tensor_tree(params), _tensor_tree(quant),
+                             _tensor_tree(lora) if lora is not None else None)
+
+
+def load_factors(module: nn.Module, lora: Mapping) -> nn.Module:
+    """Overwrite the LoRA factors a module already has with a ``lora`` tree;
+    the tree must name exactly the module's factors."""
+    leaves = {k: _to_tensor(v) for k, v in flatten(lora).items()}
+    mine = {k: p for k, p in module.named_parameters() if k.rpartition(".")[2] in ("a", "b")}
+    if set(leaves) != set(mine):
+        raise KeyError(f"lora tree does not match the module's factors: "
+                       f"missing {sorted(set(mine) - set(leaves))}, unused {sorted(set(leaves) - set(mine))}")
+    with torch.no_grad():
+        for k, p in mine.items():
+            if tuple(leaves[k].shape) != tuple(p.shape):
+                raise ValueError(f"{k}: leaf shape {tuple(leaves[k].shape)} != parameter shape {tuple(p.shape)}")
+            p.copy_(leaves[k])
+    return module
+
+
+def factors_tree(module: nn.Module) -> dict:
+    """The module's LoRA factors as a ``lora`` tree of numpy arrays."""
+    return unflatten({k: p.detach().cpu().float().numpy() for k, p in module.named_parameters()
+                      if k.rpartition(".")[2] in ("a", "b")})

@@ -48,18 +48,35 @@ def _paths(name: str) -> tuple:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless it is built already; returns the .so path."""
-    src, lib, log = _paths(name)
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    with open(log, "w") as log_f:
-        rc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                            stdout=log_f, stderr=subprocess.STDOUT).returncode
-    if rc != 0:
-        raise RuntimeError(f"kernel build failed: {name} (nvcc exit {rc}):\n{log.read_text()}")
-    os.replace(tmp, lib)
-    return lib
+    return build_all([name])[0]
+
+
+def build_all(names) -> list:
+    """Compile several sources at once, one ``nvcc`` process each, all started
+    together; returns their .so paths in order."""
+    jobs, libs = [], []
+    for name in names:
+        src, lib, log = _paths(name)
+        libs.append(lib)
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        log_f = open(log, "w")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=log_f, stderr=subprocess.STDOUT)
+        jobs.append((name, proc, log_f, tmp, lib, log))
+    failed = []
+    for name, proc, log_f, tmp, lib, log in jobs:
+        rc = proc.wait()
+        log_f.close()
+        if rc != 0:
+            failed.append(f"kernel build failed: {name} (nvcc exit {rc}):\n{log.read_text()}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def build_log(name: str) -> str:

@@ -2,9 +2,11 @@
 
 RMSNorm pre-norm, rotate-half RoPE at the default theta, MHA or grouped
 GQA attention on plain matmuls (the reference's einsum path,
-``decoder.py:762-776``), SwiGLU MLP. Two modes, as in the reference:
+``decoder.py:762-776``), SwiGLU MLP. The reference's modes:
 
 - full sequence: ``forward(ids, mask)`` → logits (B, S, V);
+- training: ``train_forward(ids, mask)`` → the same logits with gradients,
+  each layer recomputed in the backward when ``cfg.remat`` is set;
 - cached: ``forward(ids, slot_mask, positions, kv_cache, cache_index)``
   with a scalar ``cache_index``; the new keys/values are written into the
   cache buffers IN PLACE (the JAX version returns an updated copy) and
@@ -25,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dalm_tpu_torch.models.encoder import Embed
 from dalm_tpu_torch.models.layers import FlexLinear
@@ -91,10 +94,10 @@ class DecoderConfig:
     max_position_embeddings: int = 2048
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
-    remat: bool = False  # training knob; inference ignores it
+    remat: bool = False  # recompute each layer in the backward (train_forward only)
     attention_impl: str = "einsum"
     sliding_window: Optional[int] = None
-    # Only meaningful with int8 weight storage, which this slice lacks.
+    # "fwd" | "all": int8 kernels for layers with int8 storage (models/layers.py).
     int8_compute: str = "none"
     kv_quant: bool = False
     dtype: torch.dtype = torch.float32
@@ -173,7 +176,8 @@ class RMSNorm(nn.Module):
 
 
 def _proj(cfg: DecoderConfig, n_in: int, n_out: int, device) -> FlexLinear:
-    return FlexLinear(n_in, n_out, use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+    return FlexLinear(n_in, n_out, use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+                      int8_compute=cfg.int8_compute)
 
 
 class DecoderAttention(nn.Module):
@@ -254,7 +258,7 @@ class Decoder(nn.Module):
     def init_kv_cache(self, batch_size: int, max_len: int, dtype=None, device=None) -> dict:
         cfg = self.cfg
         dtype = dtype or cfg.dtype
-        device = device or self.lm_head.kernel.device
+        device = device or self.final_norm.scale.device
         shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
         return {
             f"layer_{i}": {
@@ -268,10 +272,22 @@ class Decoder(nn.Module):
     def forward(self, input_ids, attention_mask=None, positions=None, kv_cache=None,
                 cache_index: Optional[int] = None, return_hidden: bool = False,
                 logits_last_only: bool = False):
-        """Full-sequence: logits (B, S, V). With ``kv_cache``: (logits, kv_cache).
+        """Inference (no gradient). Full-sequence: logits (B, S, V). With
+        ``kv_cache``: (logits, kv_cache).
 
         ``attention_mask``: (B, S) for full-sequence; (B, max_len) over the
         cache slots when decoding with a cache."""
+        return self._run(input_ids, attention_mask, positions, kv_cache, cache_index, return_hidden,
+                         logits_last_only, remat=False)
+
+    def train_forward(self, input_ids, attention_mask=None):
+        """Training: full-sequence logits (B, S, V) with gradients and no
+        cache. With ``cfg.remat`` every layer is checkpointed: its
+        activations are recomputed in the backward instead of kept."""
+        return self._run(input_ids, attention_mask, None, None, None, False, False, remat=self.cfg.remat)
+
+    def _run(self, input_ids, attention_mask, positions, kv_cache, cache_index, return_hidden,
+             logits_last_only, remat):
         cfg = self.cfg
         B, S = input_ids.shape
         dev = input_ids.device
@@ -302,7 +318,11 @@ class Decoder(nn.Module):
 
         for i in range(cfg.num_layers):
             layer_cache = kv_cache[f"layer_{i}"] if kv_cache is not None else None
-            hidden = getattr(self, f"layer_{i}")(hidden, mask, cos, sin, layer_cache, cache_index)
+            layer = getattr(self, f"layer_{i}")
+            if remat and torch.is_grad_enabled():
+                hidden = checkpoint(layer, hidden, mask, cos, sin, use_reentrant=False)
+            else:
+                hidden = layer(hidden, mask, cos, sin, layer_cache, cache_index)
         hidden = self.final_norm(hidden)
         if return_hidden:
             return hidden

@@ -6,8 +6,8 @@ exact-GELU MLP, each followed by a residual LayerNorm. Parameter names
 mirror the flax tree (``layer_0.attention.query.kernel`` …) so the JAX
 weights carry across through ``dalm_tpu_torch/interop.py`` leaf for leaf.
 
-Inference only: dropout is the identity here, as in the reference's
-deterministic ``embed`` (training waits for a later slice).
+Dropout is the identity here, as in the reference's deterministic
+``embed`` and in its trainers' default (``use_dropout=False``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class EncoderConfig:
     attention_dropout: float = 0.1
     dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
-    # Only meaningful with int8 weight storage, which this slice lacks.
+    # "fwd" | "all": int8 kernels for layers with int8 storage (models/layers.py).
     int8_compute: str = "none"
 
     @property
@@ -102,7 +102,8 @@ class LayerNorm(nn.Module):
 
 
 def _dense(cfg: EncoderConfig, n_in: int, n_out: int, device) -> FlexLinear:
-    return FlexLinear(n_in, n_out, use_bias=True, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
+    return FlexLinear(n_in, n_out, use_bias=True, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+                      int8_compute=cfg.int8_compute)
 
 
 class EncoderSelfAttention(nn.Module):

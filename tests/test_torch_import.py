@@ -1,6 +1,6 @@
 """The port stands alone: importing ``dalm_tpu_torch`` and every module of
-it loads no JAX, flax, optax or ``dalm_tpu`` module, and no source file
-under ``dalm_tpu_torch/`` imports them."""
+it loads no JAX, flax, optax, orbax, ``datasets`` or ``dalm_tpu`` module, and
+no source file under ``dalm_tpu_torch/`` imports them."""
 
 import ast
 import json
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parent.parent / "dalm_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dalm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "datasets", "pandas", "dalm_tpu")
 
 
 def _modules():
@@ -39,7 +39,7 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                          cwd=str(PKG.parent), check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "dalm_tpu_torch.serve" in loaded
+    assert "dalm_tpu_torch.serve" in loaded and "dalm_tpu_torch.train.rag_e2e" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
