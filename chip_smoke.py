@@ -5,27 +5,34 @@
 
 Builds the port's hand-written kernels from ``dalm_tpu_torch/csrc/`` (one
 ``nvcc`` per source, started together), holds each against its plain PyTorch
-version on the card, and drives both main paths once at full width and
+version on the card, and drives the three main paths once at full width and
 depth, bf16, random-initialised from a seed: serving (``RagPipeline`` with a
 bge-large retriever and a Llama-2-7B generator over a 16,384-passage
-synthetic corpus) and training (``train_e2e`` on a synthetic CSV, fused
+synthetic corpus), RAG training (``train_e2e`` on a synthetic CSV, fused
 QLoRA, int8 generator base, ``int8_compute="all"``, batch 18, 4 optimiser
-steps). Fails (non-zero exit, no result line) without a CUDA device, without
-the repository beside it, or if any phase fails. ``--phases`` runs a subset
-while developing and prints no result line.
+steps) and generator SFT (``train_generator`` on a synthetic chat dataset,
+Llama-2-7B, LoRA r = 256 in the merge runtime, packed blocks of 2560 tokens,
+batch 2, 3 optimiser steps and a validation pass, every attention call
+through the flash-attention kernels). Fails (non-zero exit, no result line)
+without a CUDA device, without the repository beside it, or if any phase
+fails. ``--phases`` runs a subset while developing and prints no result line.
 
 Phases: ``small`` (tiny pipeline, card vs CPU), ``serve``, ``k3``, ``k2``,
-``k1`` (K1 and the two int8 GEMM entries), ``grad``, ``train-small`` (tiny
-``train_e2e``, card vs CPU), ``train``; and, only when named, ``profile``
-(a ``torch.profiler`` trace of the training steps: device busy share and the
-top kernels by device time).
+``k1`` (K1 and the two int8 GEMM entries), ``grad``, ``k4`` (flash attention
+forward, dq, dk/dv), ``train-small`` (tiny ``train_e2e``, card vs CPU),
+``train``, ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``;
+and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
+trace of the RAG / SFT training steps: device busy share and the top kernels
+by device time).
 
 Output: per-phase lines, one JSON line of every measured case per kernel
-phase (``k3_cases``, ``k2_cases``, ``k1_cases``), the card's name and power
-limit, one ``{"kernels": [...]}`` JSON line (one entry per K3 row storage
-mode, K2, K1 and each GEMM entry, each with its launches in its main path:
-``answer()`` for K3, the ``train_e2e`` run for the others), and as the last
-line ``{"ok": true, "device": {...}}``.
+phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``), the card's
+name and power limit, one ``{"kernels": [...]}`` JSON line (one entry per K3
+row storage mode, K2, K1, each GEMM entry and each of the three K4 kernels,
+each with its launches in its main path: ``answer()`` for K3, the
+``train_e2e`` run for the int8 kernels, the ``train_generator`` run for K4,
+every count set to 0 just before that path is driven), and as the last line
+``{"ok": true, "device": {...}}``.
 
 Tolerances: K3 on exact-arithmetic inputs (small integers times powers of
 two, so every partial sum is exact in f32 whatever the order) must match
@@ -35,7 +42,8 @@ equal except where two rows' f64 scores lie within 1e-5 of each other
 (a near tie that f32 sums in another order may resolve either way). The
 int8 kernels' tolerances stand in their phases' docstrings: K2 and the GEMM
 entries equal, K1 equal on integer-valued inputs and within one bf16 ulp on
-real-valued ones, gradients equal, tiny training losses within 2e-3.
+real-valued ones, gradients equal, tiny training losses within 2e-3. K4's
+stand beside ``K4_TOL``, the tiny SFT run's beside ``SFT_SMALL_TOL``.
 """
 
 from __future__ import annotations
@@ -430,6 +438,241 @@ def grad_phase(gen, device):
     torch.cuda.empty_cache()
 
 
+
+K4_AT = {"k4_fwd": "dalm_tpu/kernels/flash_attention.py:221", "k4_bwd_dq": "dalm_tpu/kernels/flash_attention.py:443",
+         "k4_bwd_dkv": "dalm_tpu/kernels/flash_attention.py:461"}
+# name, B, H, Hk, Sq, Sk, D, then keyword options of the kernel and "seg": None | "pad" | "packed"
+K4_CASES = (
+    ("causal", 2, 4, 4, 256, 256, 64, dict()),
+    ("non-causal", 2, 4, 4, 256, 256, 64, dict(causal=False)),
+    ("segments + pad segment", 2, 4, 4, 384, 384, 64, dict(seg="pad")),
+    ("packed segments, non-causal", 2, 4, 4, 256, 256, 64, dict(seg="packed", causal=False)),
+    ("gqa 8/2", 2, 8, 2, 256, 256, 64, dict()),
+    ("gqa 8/2 + segments", 2, 8, 2, 256, 256, 64, dict(seg="packed")),
+    ("window 128", 1, 4, 4, 384, 384, 64, dict(window=128)),
+    ("window 200", 1, 4, 4, 384, 384, 64, dict(window=200)),
+    ("softcap 2", 2, 4, 4, 256, 256, 64, dict(softcap=2.0)),
+    ("softcap 2 + window 100", 1, 4, 4, 384, 384, 64, dict(softcap=2.0, window=100)),
+    ("q_offset 128, Sq 128 Sk 256", 2, 4, 4, 128, 256, 64, dict(q_offset=128)),
+    ("q_offset -128, Sq 256 Sk 384 (rows 0..127 see nothing)", 2, 4, 4, 256, 384, 64, dict(q_offset=-128)),
+    ("q_offset -128, Sq 128 Sk 128 (every row masked)", 2, 4, 2, 128, 128, 64, dict(q_offset=-128)),
+    ("D 32", 2, 2, 2, 256, 256, 32, dict(seg="pad")),
+    ("D 128", 2, 4, 2, 256, 256, 128, dict(seg="pad")),
+    ("D 48, ragged Sq 200 Sk 333", 2, 4, 2, 200, 333, 48, dict(q_offset=133)),
+    ("the SFT length: S 2560, D 128, 40 k tiles a row", 1, 2, 2, 2560, 2560, 128, dict(seg="pad")),
+)
+# Tolerances, row by row: |kernel - plain| <= tol * max(max |plain| over the row, K4_FLOOR), a row being
+# the D values of one (batch, head, position); an lse value is a row of its own with floor 1. Scaling by
+# the row and not by the tensor keeps the bound tight where it matters: at S = 2560 the first rows of
+# out are O(1) (row 0 is v[0]) while late rows, averages over hundreds of keys, are ~0.05, and a fault
+# in a late k tile shows only there.
+# float32: both sum in f32 but in another order (the kernel tile by tile with a running maximum), and
+# expf / tanhf differ from PyTorch's by an ulp or two: 2e-5 forward, 2e-4 gradients (sums over up to
+# 2560 keys of O(1) terms, and dp - dsum cancels).
+# bfloat16: the plain version makes the same casts, but rounds p against the row's final maximum where
+# the kernel rounds it against the running one and rescales in f32, so single products differ by a
+# bf16 ulp (2^-8 relative) and the outputs are themselves rounded to bf16: 2e-2 of the row's largest
+# value, forward and gradients; lse stays in f32 on exact bf16 products: 1e-4.
+K4_TOL = {"float32": dict(out=2e-5, lse=2e-5, grad=2e-4), "bfloat16": dict(out=2e-2, lse=1e-4, grad=2e-2)}
+K4_FLOOR = 0.02
+K4_SHARE = [0.0]  # the largest error / bound seen by k4_err since it was last set to 0
+
+
+def k4_inputs(gen, device, dtype, B, H, Hk, Sq, Sk, D, seg):
+    """q, k, v, do as (B, H, S, D) views of (B, S, H, D) storage (the layout the
+    decoder hands over) and segment ids: "pad" = a real segment then a pad
+    segment 0 of per-row length, "packed" = sorted ids in 0..2."""
+    import torch
+
+    def mk(S, heads):
+        return torch.randn((B, S, heads, D), generator=gen, device=device).to(dtype).transpose(1, 2)
+
+    q, k, v, do = mk(Sq, H), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, H)
+    seg_q = seg_k = None
+    if seg == "pad":
+        n_real = torch.randint(Sq // 3, Sq - 8, (B, 1), generator=gen, device=device)
+        seg_q = (torch.arange(Sq, device=device)[None, :] < n_real).to(torch.int32)
+        seg_k = (torch.arange(Sk, device=device)[None, :] < n_real).to(torch.int32)
+    elif seg == "packed":
+        seg_k = torch.sort(torch.randint(0, 3, (B, Sk), generator=gen, device=device), dim=1).values.to(torch.int32)
+        seg_q = seg_k[:, :Sq].contiguous() if Sq <= Sk else None
+    return q, k, v, do, seg_q, seg_k
+
+
+def k4_ops_bytes(B, H, Hk, Sq, Sk, D, esize, q_offset, causal):
+    """The work the three kernels NEED on these inputs: the visible share of
+    the (Sq, Sk) scores times 2 Sq Sk D per product (forward 2 products, dq 3:
+    s, dp, dq; dk/dv 4: s, dp, dv, dk), and each input read and output written once."""
+    vis = 1.0
+    if causal:
+        rows = [min(max(q_offset + i + 1, 0), Sk) for i in range(Sq)]
+        vis = sum(rows) / float(Sq * Sk)
+    prod = 2.0 * B * H * Sq * Sk * D * vis
+    qb, kb, stat = B * H * Sq * D * esize, B * Hk * Sk * D * esize, B * H * Sq * 4
+    return {"k4_fwd": (2 * prod, 2 * qb + 2 * kb + stat),
+            "k4_bwd_dq": (3 * prod, 3 * qb + 2 * kb + 2 * stat),
+            "k4_bwd_dkv": (4 * prod, 2 * qb + 4 * kb + 2 * stat)}
+
+
+def k4_time(gen, device, peaks, B, S, label, iters):
+    """Times of the three kernels at (B, H = 32, S, D = 128), bf16, causal, all
+    tokens in one segment (what a packed SFT block gives), beside the plain
+    versions, one library call (SDPA, is_causal) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from dalm_tpu_torch.kernels import flash_attention as fa
+
+    H = Hk = 32
+    D = 128
+    q, k, v, do, _, _ = k4_inputs(gen, device, torch.bfloat16, B, H, Hk, S, S, D, None)
+    seg = torch.ones((B, S), dtype=torch.int32, device=device)
+    kw = dict(causal=True, scale=1.0 / D ** 0.5)
+    out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+    torch.cuda.synchronize()
+    tol = K4_TOL["bfloat16"]
+    K4_SHARE[0] = 0.0
+    errs = {"k4_fwd": max(k4_err(out, ro, tol["out"], f"{label} out"), k4_err(lse, rl, tol["lse"], f"{label} lse")),
+            "k4_bwd_dq": k4_err(dq, rq, tol["grad"], f"{label} dq"),
+            "k4_bwd_dkv": max(k4_err(dk, rk, tol["grad"], f"{label} dk"), k4_err(dv, rv, tol["grad"], f"{label} dv"))}
+    share = K4_SHARE[0]
+    del ro, rl, rq, rk, rv
+
+    ms = {"k4_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, seg, seg, **kw), iters)}
+    dims = fa._check("time", q, k, v, seg, seg, None, None, out=out, do=do)
+    dsum = (do.float() * out.float()).sum(dim=-1).contiguous()
+    a = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims,
+                 dout=do, lse=lse, dsum=dsum, dq=dq, dk=dk, dv=dv)
+    ms["k4_bwd_dq"] = cuda_ms(lambda: fa._launch("dalm_fa_bwd_dq", "dq", a, q), iters)
+    ms["k4_bwd_dkv"] = cuda_ms(lambda: fa._launch("dalm_fa_bwd_dkv", "dkv", a, q), iters)
+    dsum_ms = cuda_ms(lambda: (do.float() * out.float()).sum(dim=-1), iters)
+    plain_f = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, seg, seg, **kw), 2)
+    plain_b = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw), 2)
+
+    # The library's backward alone: the graph is built once, outside the timed region, and kept.
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), iters)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), iters)
+    del lib_out
+    work = k4_ops_bytes(B, H, Hk, S, S, D, 2, 0, True)
+    entries = {}
+    for name in ("k4_fwd", "k4_bwd_dq", "k4_bwd_dkv"):
+        ops, nbytes = work[name]
+        t_ops, t_bytes = ops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
+        entries[name] = {
+            "name": name, "route": "cuda", "source": "dalm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": K4_AT[name], "case": label, "max_abs_err": errs[name],
+            "ms": ms[name], "plain_ms": plain_f if name == "k4_fwd" else plain_b,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_f if name == "k4_fwd" else lib_b,
+            "library_is": "SDPA forward" if name == "k4_fwd" else "SDPA backward: dq, dk and dv in one call, "
+                          "the work of k4_bwd_dq + k4_bwd_dkv + dsum together",
+            "tflops": ops / ms[name] / 1e9,
+        }
+    print(f"[k4] {label}: forward kernel {ms['k4_fwd']:.4f} ms, plain {plain_f:.3f} ms, SDPA {lib_f:.4f} ms, bound "
+          f"{entries['k4_fwd']['bound_ms']:.4f} ms ({entries['k4_fwd']['bound_by']}); backward dq "
+          f"{ms['k4_bwd_dq']:.4f} ms + dk/dv {ms['k4_bwd_dkv']:.4f} ms (+ dsum reduction {dsum_ms:.4f} ms), plain "
+          f"(all three gradients) {plain_b:.3f} ms, SDPA backward (all three gradients, one call, graph built "
+          f"outside the timing) {lib_b:.4f} ms, bounds {entries['k4_bwd_dq']['bound_ms']:.4f} / "
+          f"{entries['k4_bwd_dkv']['bound_ms']:.4f} ms; max errors {errs}, the worst row at {share:.3f} of its "
+          f"bound ({tol['out']} x max(row max, {K4_FLOOR}))", flush=True)
+    print(f"[k4]   achieved bf16 TFLOP/s on the needed work: forward {entries['k4_fwd']['tflops']:.1f}, dq "
+          f"{entries['k4_bwd_dq']['tflops']:.1f}, dk/dv {entries['k4_bwd_dkv']['tflops']:.1f}", flush=True)
+    torch.cuda.empty_cache()
+    return entries
+
+
+def k4_err(got, want, tol, what) -> float:
+    """max |got - want|, after holding every row to tol * max(max |want| of the row, floor): rows are the
+    last axis of a 4-d tensor (floor ``K4_FLOOR``), single values of a 3-d lse (floor 1). No NaN allowed."""
+    import torch
+
+    check(bool(torch.isfinite(got.float()).all()), f"k4 {what}: non-finite values")
+    g, w, floor = got.float(), want.float(), K4_FLOOR
+    if w.dim() == 3:
+        g, w, floor = g[..., None], w[..., None], 1.0
+    err = (g - w).abs()
+    share = float((err / (tol * w.abs().amax(dim=-1, keepdim=True).clamp(min=floor))).max())
+    K4_SHARE[0] = max(K4_SHARE[0], share)
+    check(share <= 1.0, f"k4 {what}: a row's error is {share:.3g} x its bound (tol {tol} x max(row max, {floor}))")
+    return float(err.max())
+
+
+def k4_phase(gen, device, peaks, sft_batch):
+    """K4 (forward, dq, dk/dv) against its plain versions on the card, every
+    case in bf16 and f32 at ``K4_TOL``; fully masked rows must give out = 0,
+    lse = -1e30 and zero gradients exactly; two key halves must merge into the
+    full result. Then the kernels' times at the SFT shape and at the RAG
+    trainer's. Returns (all timed records, the records at the SFT shape)."""
+    import torch
+
+    from dalm_tpu_torch.kernels import flash_attention as fa
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name_t = str(dtype).split(".")[-1]
+        tol = K4_TOL[name_t]
+        for label, B, H, Hk, Sq, Sk, D, opts in K4_CASES:
+            opts = dict(opts)
+            q, k, v, do, seg_q, seg_k = k4_inputs(gen, device, dtype, B, H, Hk, Sq, Sk, D, opts.pop("seg", None))
+            if seg_q is None:
+                seg_k = None
+            kw = dict(causal=opts.get("causal", True), scale=1.0 / D ** 0.5, q_offset=opts.get("q_offset", 0),
+                      window=opts.get("window"), softcap=opts.get("softcap"))
+            out, lse = fa.flash_fwd(q, k, v, seg_q, seg_k, **kw)
+            ro, rl = fa.flash_fwd_ref(q, k, v, seg_q, seg_k, **kw)
+            dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg_q, seg_k, **kw)
+            rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg_q, seg_k, **kw)
+            torch.cuda.synchronize()
+            what = f"{name_t} {label}"
+            errs = [k4_err(out, ro, tol["out"], f"{what} out"), k4_err(lse, rl, tol["lse"], f"{what} lse"),
+                    k4_err(dq, rq, tol["grad"], f"{what} dq"), k4_err(dk, rk, tol["grad"], f"{what} dk"),
+                    k4_err(dv, rv, tol["grad"], f"{what} dv")]
+            dead = rl <= -1e29  # rows with no visible key
+            if bool(dead.any()):
+                check(bool((lse[dead] == -1e30).all()), f"k4 {what}: lse of a fully masked row is not -1e30")
+                check(not bool(out[dead].any()), f"k4 {what}: out of a fully masked row is not 0")
+                check(not bool(dq[dead].any()), f"k4 {what}: dq of a fully masked row is not 0")
+            if kw["q_offset"] < 0 and Sq == Sk:
+                check(bool(dead.all()) and not bool(dk.any()) and not bool(dv.any()),
+                      f"k4 {what}: every row is masked, so dk and dv must be 0")
+            worst[name_t] = [max(a, b) for a, b in zip(worst.get(name_t, [0.0] * 5), errs)]
+            print(f"[k4] {what}: B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D}; max errors out {errs[0]:.2e} lse "
+                  f"{errs[1]:.2e} dq {errs[2]:.2e} dk {errs[3]:.2e} dv {errs[4]:.2e}; fully masked rows "
+                  f"{int(dead.sum())}", flush=True)
+        # The merge identity ring attention is built on: two key halves, merged by their lse, give the full result.
+        q, k, v, _, _, _ = k4_inputs(gen, device, dtype, 2, 4, 4, 256, 256, 64, None)
+        kw = dict(causal=True, scale=0.125)
+        full, lse_full = fa.flash_fwd(q, k, v, **kw)
+        o1, l1 = fa.flash_fwd(q, k[:, :, :128], v[:, :, :128], q_offset=0, **kw)
+        o2, l2 = fa.flash_fwd(q, k[:, :, 128:], v[:, :, 128:], q_offset=-128, **kw)
+        m = torch.maximum(l1, l2)
+        w1, w2 = torch.exp(l1 - m), torch.exp(l2 - m)
+        merged = (o1.float() * w1[..., None] + o2.float() * w2[..., None]) / torch.clamp(w1 + w2, min=1e-30)[..., None]
+        e_out = k4_err(merged, full, tol["out"], f"{name_t} merge identity out")
+        e_lse = k4_err(m + torch.log(torch.clamp(w1 + w2, min=1e-30)), lse_full, tol["lse"], f"{name_t} merge identity lse")
+        print(f"[k4] {name_t} merge of two key halves: out {e_out:.2e}, lse {e_lse:.2e}", flush=True)
+    print(f"[k4] worst errors (out, lse, dq, dk, dv) over {len(K4_CASES)} cases: {worst}; tolerances {K4_TOL} of "
+          f"max(row max, {K4_FLOOR}); the worst row used {K4_SHARE[0]:.3f} of its bound", flush=True)
+
+    # A CUDA tensor the kernel does not take raises; nothing falls back to the plain version.
+    bad = torch.zeros((1, 1, 64, 24), device=device, dtype=torch.bfloat16)
+    try:
+        fa.flash_fwd(bad, bad, bad)
+    except ValueError:
+        pass
+    else:
+        check(False, "k4: head dim 24 must raise on a CUDA tensor")
+
+    main = k4_time(gen, device, peaks, sft_batch, 2560, f"SFT shape B={sft_batch} H=32 S=2560 D=128 bf16 causal", 10)
+    rag = k4_time(gen, device, peaks, 18, 256, "RAG trainer's shape B=18 H=32 S=256 D=128 bf16 causal", 20)
+    return list(main.values()) + list(rag.values()), main
+
+
 def corpus(n: int, rng) -> list:
     letters = list(string.ascii_lowercase + " ")
     return ["".join(rng.choice(letters, size=90)) + f" topic {i}" for i in range(n)]
@@ -706,21 +949,190 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
     return launches
 
 
-def profile_phase(device, workdir, batch, steps):
-    """Not part of the default run: ``--phases profile`` traces the training
-    main path's optimiser steps with ``torch.profiler`` (CPU + CUDA
-    activities, started when the trainer's setup is done) and prints the
-    device's busy share of the wall time and the kernels that take most of
-    the device time, per step."""
+
+def write_chat_jsonl(path, n, chars, rng):
+    """A synthetic ``messages`` dataset: ``n`` two-turn rows of random lower-case text, ``chars`` characters a turn."""
+    letters = list(string.ascii_lowercase + " ")
+    with open(path, "w") as f:
+        for i in range(n):
+            turns = [{"role": role, "content": "".join(rng.choice(letters, size=chars)) + f" {i}"}
+                     for role in ("user", "assistant")]
+            f.write(json.dumps({"messages": turns}) + "\n")
+
+
+# f32 losses near 6 are spaced 4.8e-7; card and CPU differed by at most 2 such steps (9.5e-7) in the runs
+# recorded in PERF.md: the tolerance is 3 times that.
+SFT_SMALL_TOL = 3e-6
+
+
+def sft_small_phase(device, workdir):
+    """The tiny preset through ``train_generator`` (LoRA merge runtime, packed
+    blocks of 256 tokens so that the flash branch is taken, f32, no NEFTune
+    noise) on the card and on the CPU, from the same saved model and the same
+    factors. Train and validation losses after 1, 2 and 3 steps agree within
+    ``SFT_SMALL_TOL`` (the K4 kernels equal their plain versions to 1e-5 in
+    f32; what differs is the order of f32 sums in the matmuls, amplified by
+    Adam's normalised update). A control run whose updates do nothing (learning
+    rate 0) must miss that tolerance by far, so the tolerance does tell a
+    sound trainer from a broken one. The counters must show 2 layers x (forward + recompute)
+    forward launches and 2 dq and 2 dk/dv launches a step."""
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+    from dalm_tpu_torch.models.registry import save_pretrained
+    from dalm_tpu_torch.train import train_generator
+
+    data = str(Path(workdir) / "chat_small.jsonl")
+    write_chat_jsonl(data, 48, 150, np.random.default_rng(3))
+    base = Decoder(DecoderConfig.tiny(vocab_size=384), device="cpu")
+    base.reset_parameters(torch.Generator().manual_seed(4))
+    model_dir = str(Path(workdir) / "tiny_generator")
+    save_pretrained(model_dir, base.cfg, base.state_dict())
+    kw = dict(seq_length=256, per_device_train_batch_size=4, per_device_eval_batch_size=4, validation_split=0.3,
+              lora_r=8, lora_alpha=16, learning_rate=1e-2, num_warmup_steps=0, neftune_noise_alpha=0,
+              logging_steps=1, eval_steps=0, output_dir=None, seed=3)
+    factors = {}
+
+    def keep(setup):
+        factors.update({k: p.detach().clone() for k, p in setup.state.params.items()})
+
+    def give(setup):
+        with torch.no_grad():
+            for k, p in setup.state.params.items():
+                p.copy_(factors[k])
+
+    worst = 0.0
+    for steps in (1, 2, 3):
+        cpu = train_generator(model_dir, data, max_train_blocks=4 * steps, device="cpu", setup_hook=keep, **kw)
+        flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
+        card = train_generator(model_dir, data, max_train_blocks=4 * steps, device=device, setup_hook=give, **kw)
+        launches = dict(flash_attention.launches)
+        check(card["steps"] == cpu["steps"] == steps, f"sft-small: took {card['steps']} steps, wanted {steps}")
+        for key in ("final_loss", "eval_loss"):
+            check(np.isfinite(card[key]), f"sft-small: {key} is not finite")
+            worst = max(worst, abs(card[key] - cpu[key]))
+            check(abs(card[key] - cpu[key]) <= SFT_SMALL_TOL, f"sft-small step {steps}: {key} {card[key]} vs CPU {cpu[key]}")
+        layers = base.cfg.num_layers
+        evals = launches["fwd"] - 2 * layers * steps  # the validation pass at the end: one forward per layer and batch
+        check(launches["dq"] == launches["dkv"] == layers * steps and evals > 0 and evals % layers == 0,
+              f"sft-small step {steps}: K4 launches {launches}")
+        print(f"[sft-small] {steps} step(s): card loss {card['final_loss']:.6f} / eval {card['eval_loss']:.6f}, CPU "
+              f"{cpu['final_loss']:.6f} / {cpu['eval_loss']:.6f}; K4 launches {launches} "
+              f"({evals // layers} validation batches)", flush=True)
+    still = train_generator(model_dir, data, max_train_blocks=4 * 3, device=device, setup_hook=give,
+                            **dict(kw, learning_rate=0.0))
+    control = min(abs(still[key] - cpu[key]) for key in ("final_loss", "eval_loss"))
+    check(control > 100 * SFT_SMALL_TOL, f"sft-small: a run that learns nothing is within {control} of the trained one")
+    print(f"[sft-small] tiny train_generator, card vs CPU, max loss difference {worst:.2e} (tolerance {SFT_SMALL_TOL}); "
+          f"control with learning rate 0 differs by {control:.2e}", flush=True)
+    torch.cuda.empty_cache()
+
+
+SFT_KW = dict(seq_length=2560, dtype="bfloat16", use_peft=True, lora_r=256, lora_alpha=512, packing=True,
+              gradient_checkpointing=True, neftune_noise_alpha=5, tokenizer="byte@32000", output_dir=None,
+              logging_steps=1, eval_steps=0, num_warmup_steps=0, validation_split=0.3, seed=0)
+
+
+def sft_phase(device, workdir, batch, steps, k4_ms):
+    """The SFT main path: ``train_generator`` on a synthetic chat dataset,
+    Llama-2-7B at full width and depth, bf16, LoRA r = 256 on q_proj / v_proj in
+    the merge runtime, packed blocks of 2560 tokens, per-layer recomputation,
+    NEFTune noise, ``steps`` optimiser steps and one validation batch. Returns
+    the launches of the three K4 kernels in that run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention
+    from dalm_tpu_torch.losses.causal import causal_lm_loss
+    from dalm_tpu_torch.train import train_generator
+
+    data = str(Path(workdir) / "chat.jsonl")
+    # 2 x 1000 characters a row: 11 training rows pack into 8 blocks of 2560 tokens, 5 validation rows into 4
+    write_chat_jsonl(data, 16, 1000, np.random.default_rng(5))
+    held = {}
+
+    def snapshot(setup):
+        held["setup"] = setup
+        held["trainable"] = {k: p.detach().clone() for k, p in setup.state.params.items()}
+        held["frozen"] = {k: v.double().sum().item() for k, v in setup.model.state_dict().items()
+                          if k not in setup.state.params}
+        # The factors start with B = 0, so the model is still the random base: its loss on the first
+        # training batch must lie near ln(vocabulary), above it by about half the variance of the random
+        # logits (0.02^2 x 4096 = 1.6).
+        ids = torch.as_tensor(setup.train_blocks[:batch].astype(np.int64), device=setup.device)
+        held["initial_loss"] = float(causal_lm_loss(setup.model(ids, torch.ones_like(ids)), ids))
+        # every count to 0 just before the first step
+        flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_generator("llama2-7b", data, per_device_train_batch_size=batch, per_device_eval_batch_size=batch,
+                          max_train_blocks=batch * steps, device=device, setup_hook=snapshot, **SFT_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_attention.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    setup = held["setup"]
+    cfg = setup.model.cfg
+    layers, n_steps = cfg.num_layers, out["steps"]
+    check(n_steps == steps and steps >= 3, f"sft: took {n_steps} optimiser steps, wanted {steps}")
+    check(cfg.attention_impl == "flash" and cfg.remat and setup.train_blocks.shape == (batch * steps, 2560),
+          f"sft: config {cfg.attention_impl}, remat {cfg.remat}, blocks {setup.train_blocks.shape}")
+    check(np.isfinite(out["final_loss"]) and np.isfinite(out["eval_loss"]), f"sft: losses {out}")
+    ln_v = float(np.log(cfg.vocab_size))
+    check(abs(held["initial_loss"] - ln_v) < 1.0,
+          f"sft: the untrained loss {held['initial_loss']} is not near ln({cfg.vocab_size}) = {ln_v:.3f}")
+    check(out["final_loss"] < held["initial_loss"] + 0.5, f"sft: the loss rose from {held['initial_loss']} to {out['final_loss']}")
+    # Per step and layer: the forward kernel once in the forward and once more in the checkpointed
+    # recompute, one dq and one dk/dv launch in the backward; per validation batch one forward a layer.
+    eval_batches = len(range(0, len(setup.valid_blocks) - batch + 1, batch))
+    want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps}
+    check(eval_batches >= 1 and launches == want, f"sft: K4 launches {launches}, {layers} layers predict {want}")
+    unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
+    check(len(held["trainable"]) == 4 * layers and not unchanged,
+          f"sft: {len(unchanged)} of {len(held['trainable'])} LoRA factors did not change, e.g. {unchanged[:3]}")
+    for k, v in setup.model.state_dict().items():
+        if k in held["frozen"]:
+            check(v.double().sum().item() == held["frozen"][k], f"sft: base tensor {k} changed")
+    step_s = out["avg_step_time"]
+    tokens = batch * 2560
+    print(f"[sft] llama2-7b ({layers} layers, width {cfg.hidden_size}), batch {batch} x 2560 tokens, bf16, LoRA r=256 "
+          f"(merge runtime), recompute, NEFTune 5: {n_steps} optimiser steps + {eval_batches} validation batch(es) in "
+          f"{wall:.1f} s (init included); step time after the first step {step_s:.3f} s = {tokens / step_s:.0f} "
+          f"tokens/s; loss before training {held['initial_loss']:.4f} (ln vocab {ln_v:.3f}), at step {n_steps} "
+          f"{out['final_loss']:.4f}, validation after it {out['eval_loss']:.4f}; "
+          f"peak memory {peak_gib:.2f} GiB; K4 launches per step fwd {2 * layers} dq {layers} dkv {layers} "
+          f"(+ {layers} fwd per validation batch), total {launches}; {len(held['trainable'])} LoRA factors all "
+          f"changed, {len(held['frozen'])} base tensors unchanged", flush=True)
+    if k4_ms:
+        k4 = (2 * k4_ms["k4_fwd"] + k4_ms["k4_bwd_dq"] + k4_ms["k4_bwd_dkv"]) * layers
+        print(f"[sft] one step = {step_s * 1e3:.0f} ms; K4 at its measured times x launches = {k4:.0f} ms "
+              f"({100 * k4 / (step_s * 1e3):.1f}% of the step); the rest is the torch.matmul projections, the "
+              f"LoRA merges, norms, rope, loss, optimiser and host (see --phases profile-sft)", flush=True)
+    held.clear()
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_phase(device, workdir, which, batch, steps):
+    """Not part of the default run: ``--phases profile`` (the RAG trainer) or
+    ``--phases profile-sft`` (the SFT trainer) traces that main path's
+    optimiser steps with ``torch.profiler`` (CPU + CUDA activities, started
+    when the trainer's setup is done) and prints the device's busy share of
+    the wall time and the kernels that take most of the device time, per step."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from dalm_tpu_torch.train import train_e2e
+    from dalm_tpu_torch.train import train_e2e, train_generator
 
-    per_epoch = max(steps // 2, 1)
-    csv_path = str(Path(workdir) / "profile.csv")
-    write_csv(csv_path, batch * per_epoch, np.random.default_rng(2))
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     clock = {}
 
@@ -730,11 +1142,21 @@ def profile_phase(device, workdir, batch, steps):
         clock["t0"] = time.perf_counter()
 
     try:
-        out = train_e2e(csv_path, "bge-large", "llama2-7b", dtype="bfloat16", use_bnb="generator",
-                        query_max_len=50, passage_max_len=128, generator_max_len=256,
-                        per_device_train_batch_size=batch, num_train_epochs=2, seed=0,
-                        retriever_tokenizer="byte@30522", generator_tokenizer="byte@32000",
-                        device=device, setup_hook=start, **TRAIN_KW)
+        if which == "profile-sft":
+            data = str(Path(workdir) / "profile.jsonl")
+            write_chat_jsonl(data, 16, 1000, np.random.default_rng(5))
+            out = train_generator("llama2-7b", data, per_device_train_batch_size=batch,
+                                  per_device_eval_batch_size=batch, max_train_blocks=batch * steps, device=device,
+                                  setup_hook=start, **SFT_KW)
+        else:
+            per_epoch = max(steps // 2, 1)
+            csv_path = str(Path(workdir) / "profile.csv")
+            write_csv(csv_path, batch * per_epoch, np.random.default_rng(2))
+            out = train_e2e(csv_path, "bge-large", "llama2-7b", dtype="bfloat16", use_bnb="generator",
+                            query_max_len=50, passage_max_len=128, generator_max_len=256,
+                            per_device_train_batch_size=batch, num_train_epochs=2, seed=0,
+                            retriever_tokenizer="byte@30522", generator_tokenizer="byte@32000",
+                            device=device, setup_hook=start, **TRAIN_KW)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - clock["t0"]) * 1e3
     finally:
@@ -744,10 +1166,11 @@ def profile_phase(device, workdir, batch, steps):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
     check(rows, "the profiler recorded no device time")
     busy = sum(r[1] for r in rows)
-    print(f"[profile] {n} steps under the profiler: wall {wall_ms / n:.0f} ms/step, device busy {busy / n:.0f} ms/step "
-          f"= {100 * busy / wall_ms:.1f}% (idle {100 - 100 * busy / wall_ms:.1f}%)", flush=True)
+    tail = " (the validation batch at the end included)" if which == "profile-sft" else ""
+    print(f"[{which}] {n} steps under the profiler{tail}: wall {wall_ms / n:.0f} ms/step, device busy "
+          f"{busy / n:.0f} ms/step = {100 * busy / wall_ms:.1f}% (idle {100 - 100 * busy / wall_ms:.1f}%)", flush=True)
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:25]:
-        print(f"[profile] {ms / n:9.2f} ms/step {count // n:6d} launches/step  {key[:110]}", flush=True)
+        print(f"[{which}] {ms / n:9.2f} ms/step {count // n:6d} launches/step  {key[:110]}", flush=True)
     del prof
     torch.cuda.empty_cache()
 
@@ -780,10 +1203,12 @@ def serve_phase(device, rng, peaks, kernels):
     torch.cuda.empty_cache()
 
 
-KERNEL_SOURCES = ("topk", "int8_matmul")
+KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention")
 TRAIN_BATCH = 18
 TRAIN_STEPS = 4
-PHASES = ("small", "serve", "k3", "k2", "k1", "grad", "train-small", "train")
+SFT_BATCH = 2
+SFT_STEPS = 3
+PHASES = ("small", "serve", "k3", "k2", "k1", "grad", "k4", "train-small", "train", "sft-small", "sft")
 
 
 def main() -> int:
@@ -796,7 +1221,7 @@ def main() -> int:
                     help="comma-separated subset of the phases to run (default: all, which the result line needs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    unknown = sorted(set(phases) - set(PHASES) - {"profile"})
+    unknown = sorted(set(phases) - set(PHASES) - {"profile", "profile-sft"})
     if unknown:
         ap.error(f"unknown phases {unknown}")
 
@@ -848,6 +1273,10 @@ def main() -> int:
         kernel_ms.update({(e["name"], tuple(e["KN"])): e["ms"] for e in cases})
     if "grad" in phases:
         grad_phase(gen, device)
+    if "k4" in phases:
+        cases, mains = k4_phase(gen, device, peaks, SFT_BATCH)
+        print(json.dumps({"k4_cases": cases}), flush=True)
+        kernels.update(mains)
     with tempfile.TemporaryDirectory() as workdir:
         if "train-small" in phases:
             train_small_phase(device, workdir)
@@ -857,18 +1286,28 @@ def main() -> int:
             for name, n in launches.items():
                 if name in kernels:
                     kernels[name]["launches"] = n
+        if "sft-small" in phases:
+            sft_small_phase(device, workdir)
+        if "sft" in phases:
+            k4_ms = {name: kernels[name]["ms"] for name in K4_AT} if "k4" in phases else None
+            launches = sft_phase(device, workdir, SFT_BATCH, SFT_STEPS, k4_ms)
+            for name, n in zip(K4_AT, (launches["fwd"], launches["dq"], launches["dkv"])):
+                if name in kernels:
+                    kernels[name]["launches"] = n
         if "profile" in phases:
-            profile_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
+            profile_phase(device, workdir, "profile", TRAIN_BATCH, TRAIN_STEPS)
+        if "profile-sft" in phases:
+            profile_phase(device, workdir, "profile-sft", SFT_BATCH, SFT_STEPS)
     kernels.pop("_k3_launches", None)
     if set(phases) != set(PHASES):
         print(f"chip_smoke: ran only {phases}; no result line", flush=True)
         return 0
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", "w8a8_fused", "int8_gemm_kn", "int8_gemm_nt")
+             "rowquant", "w8a8_fused", "int8_gemm_kn", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv")
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
-    for name in ("fused_dot_topk[f32]", "rowquant", "w8a8_fused", "int8_gemm_nt"):
+    for name in ("fused_dot_topk[f32]", "rowquant", "w8a8_fused", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv"):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

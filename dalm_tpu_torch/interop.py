@@ -14,6 +14,11 @@ takes the reference's ``params`` residual, ``quant`` (``q`` + ``scale`` or
 ``w``) and ``lora`` (``a``, ``b``) trees into a module's buffers and
 parameters, ``load_factors`` replaces only the factors, and
 ``factors_tree`` reads them back as a tree of numpy arrays.
+
+The merge-runtime LoRA tree of the SFT trainer (``{"layer_0/attention/q_proj/
+kernel": {"lora_a", "lora_b"}}``, scaling not folded in) goes onto a module
+with ``load_merge_lora`` and comes back as numpy arrays with
+``merge_lora_tree``.
 """
 
 from __future__ import annotations
@@ -99,3 +104,21 @@ def factors_tree(module: nn.Module) -> dict:
     """The module's LoRA factors as a ``lora`` tree of numpy arrays."""
     return unflatten({k: p.detach().cpu().float().numpy() for k, p in module.named_parameters()
                       if k.rpartition(".")[2] in ("a", "b")})
+
+
+def load_merge_lora(module: nn.Module, lora_params: Mapping, spec) -> nn.Module:
+    """Attach the reference's flat merge-runtime LoRA dict (numpy leaves) to the
+    port's module as trainable ``lora_a`` / ``lora_b`` factors; a module that
+    has them already gets them overwritten."""
+    from dalm_tpu_torch.models import lora as lora_mod
+
+    flat = {path: {k: _to_tensor(v).float() for k, v in ab.items()} for path, ab in lora_params.items()}
+    return lora_mod.attach_merge_lora(module, flat, spec)
+
+
+def merge_lora_tree(module: nn.Module) -> dict:
+    """The module's merge-runtime factors in the reference's flat form, as numpy arrays."""
+    from dalm_tpu_torch.models import lora as lora_mod
+
+    return {path: {k: p.detach().cpu().float().numpy() for k, p in ab.items()}
+            for path, ab in lora_mod.merge_lora_params(module).items()}

@@ -1,12 +1,21 @@
 """Decoder-only causal LM, Llama-2 subset (counterpart of ``dalm_tpu/models/decoder.py``).
 
 RMSNorm pre-norm, rotate-half RoPE at the default theta, MHA or grouped
-GQA attention on plain matmuls (the reference's einsum path,
-``decoder.py:762-776``), SwiGLU MLP. The reference's modes:
+GQA attention, SwiGLU MLP. Attention runs on plain matmuls (the reference's
+einsum path, ``decoder.py:762-776``) or, with ``attention_impl="flash"``,
+through ``kernels.flash_attention`` (K4) whenever there is no cache and the
+sequence is at least 256 long and a multiple of 128 (the reference's rule,
+``decoder.py:738-744``, decided by the config alone: the kernel's wrapper
+looks at the tensor's device). Padding then goes in as segment ids (pads are
+segment 0, real tokens segment 1) under a slot-causal mask, where the matmul
+path masks by rope position: the two agree at every real token, and differ at
+pad rows, which feed no real token and carry no loss. The reference's modes:
 
 - full sequence: ``forward(ids, mask)`` → logits (B, S, V);
 - training: ``train_forward(ids, mask)`` → the same logits with gradients,
-  each layer recomputed in the backward when ``cfg.remat`` is set;
+  each layer recomputed in the backward when ``cfg.remat`` is set (the flash
+  forward kernel then runs twice per layer and step), optionally with NEFTune
+  noise on the embeddings;
 - cached: ``forward(ids, slot_mask, positions, kv_cache, cache_index)``
   with a scalar ``cache_index``; the new keys/values are written into the
   cache buffers IN PLACE (the JAX version returns an updated copy) and
@@ -29,8 +38,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dalm_tpu_torch.kernels.flash_attention import flash_attention
 from dalm_tpu_torch.models.encoder import Embed
 from dalm_tpu_torch.models.layers import FlexLinear
+
+ATTENTION_IMPLS = ("einsum", "flash")
 
 # Reference config fields this slice does not port, with the value at
 # which each is inert. A saved config carrying any other value raises.
@@ -128,7 +140,7 @@ class DecoderConfig:
 
 
 def _check_supported(cfg: DecoderConfig) -> None:
-    if cfg.attention_impl != "einsum":
+    if cfg.attention_impl not in ATTENTION_IMPLS:
         raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported yet")
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window attention is not ported yet")
@@ -190,14 +202,19 @@ class DecoderAttention(nn.Module):
         self.v_proj = _proj(cfg, h, kvh * hd, device)
         self.o_proj = _proj(cfg, nh * hd, h, device)
 
-    def forward(self, hidden, mask, cos, sin, kv_cache=None, cache_index=None):
-        """mask: (B, 1, S_q, S_k) bool (True = attend)."""
+    def forward(self, hidden, mask, cos, sin, kv_cache=None, cache_index=None, segment_mask=None):
+        """mask: (B, 1, S_q, S_k) bool (True = attend), or None on the flash
+        path, which takes ``segment_mask`` (B, S) int32 (None: all valid)."""
         cfg = self.cfg
         B, S, _ = hidden.shape
         nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         q = apply_rope(self.q_proj(hidden).view(B, S, nh, hd), cos, sin)
         k = apply_rope(self.k_proj(hidden).view(B, S, kvh, hd), cos, sin)
         v = self.v_proj(hidden).view(B, S, kvh, hd)
+        if mask is None:
+            # K4: never builds the (S, S) scores; K/V go in at the kv head count.
+            ctx = flash_attention(q, k, v, segment_mask, segment_mask, causal=True, scale=1.0 / math.sqrt(hd))
+            return self.o_proj(ctx.reshape(B, S, nh * hd).to(cfg.dtype))
         if kv_cache is not None:
             # Scalar-index write, in place (the reference's
             # dynamic_update_slice mode, decoder.py:624-628).
@@ -233,8 +250,9 @@ class DecoderLayer(nn.Module):
         self.up_proj = _proj(cfg, h, cfg.intermediate_size, device)
         self.down_proj = _proj(cfg, cfg.intermediate_size, h, device)
 
-    def forward(self, hidden, mask, cos, sin, kv_cache=None, cache_index=None):
-        hidden = hidden + self.attention(self.input_norm(hidden), mask, cos, sin, kv_cache, cache_index)
+    def forward(self, hidden, mask, cos, sin, kv_cache=None, cache_index=None, segment_mask=None):
+        hidden = hidden + self.attention(self.input_norm(hidden), mask, cos, sin, kv_cache, cache_index,
+                                         segment_mask)
         normed = self.post_attention_norm(hidden)
         return hidden + self.down_proj(F.silu(self.gate_proj(normed)) * self.up_proj(normed))
 
@@ -280,14 +298,32 @@ class Decoder(nn.Module):
         return self._run(input_ids, attention_mask, positions, kv_cache, cache_index, return_hidden,
                          logits_last_only, remat=False)
 
-    def train_forward(self, input_ids, attention_mask=None):
+    def train_forward(self, input_ids, attention_mask=None, neftune_alpha: float = 0.0,
+                      noise_generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None):
         """Training: full-sequence logits (B, S, V) with gradients and no
         cache. With ``cfg.remat`` every layer is checkpointed: its
-        activations are recomputed in the backward instead of kept."""
-        return self._run(input_ids, attention_mask, None, None, None, False, False, remat=self.cfg.remat)
+        activations are recomputed in the backward instead of kept.
+
+        NEFTune (``decoder.py:927-937`` of the reference): with
+        ``neftune_alpha > 0``, uniform(-1, 1) noise times
+        ``alpha / sqrt(S * hidden)``, drawn in f32 from ``noise_generator`` (on
+        the inputs' device) or given ready as ``noise`` (B, S, hidden) in
+        [-1, 1], is cast to the hidden type and added after the embedding."""
+        if neftune_alpha > 0.0 and noise is None and noise_generator is not None:
+            B, S = input_ids.shape
+            noise = torch.rand((B, S, self.cfg.hidden_size), generator=noise_generator, device=input_ids.device,
+                               dtype=torch.float32) * 2.0 - 1.0
+        if not neftune_alpha > 0.0:
+            noise = None
+        return self._run(input_ids, attention_mask, None, None, None, False, False, remat=self.cfg.remat,
+                         neftune_alpha=neftune_alpha, noise=noise)
+
+    def uses_flash(self, seq_len: int, cached: bool = False) -> bool:
+        """Whether a full-sequence call of this length takes the flash kernel."""
+        return self.cfg.attention_impl == "flash" and not cached and seq_len >= 256 and seq_len % 128 == 0
 
     def _run(self, input_ids, attention_mask, positions, kv_cache, cache_index, return_hidden,
-             logits_last_only, remat):
+             logits_last_only, remat, neftune_alpha=0.0, noise=None):
         cfg = self.cfg
         B, S = input_ids.shape
         dev = input_ids.device
@@ -302,9 +338,17 @@ class Decoder(nn.Module):
                 positions = torch.arange(S, device=dev)[None, :].expand(B, S)
 
         hidden = self.embed_tokens(input_ids)
+        if noise is not None:
+            scale = neftune_alpha / math.sqrt(S * cfg.hidden_size)
+            hidden = hidden + (noise.to(device=dev, dtype=torch.float32) * scale).to(hidden.dtype)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
 
-        if kv_cache is not None:
+        segment_mask = None
+        if self.uses_flash(S, cached=kv_cache is not None):
+            mask = None
+            if attention_mask is not None:
+                segment_mask = attention_mask.to(torch.int32)
+        elif kv_cache is not None:
             # Causality over cache SLOTS: with left padding the rope
             # position lags the slot index by a per-row constant.
             key_len = kv_cache["layer_0"]["k"].shape[1]
@@ -313,16 +357,16 @@ class Decoder(nn.Module):
             mask = key_slot <= q_slot
         else:
             mask = positions[:, None, None, :] <= positions[:, None, :, None]
-        if attention_mask is not None:
+        if mask is not None and attention_mask is not None:
             mask = mask & (attention_mask[:, None, None, :] > 0)
 
         for i in range(cfg.num_layers):
             layer_cache = kv_cache[f"layer_{i}"] if kv_cache is not None else None
             layer = getattr(self, f"layer_{i}")
             if remat and torch.is_grad_enabled():
-                hidden = checkpoint(layer, hidden, mask, cos, sin, use_reentrant=False)
+                hidden = checkpoint(layer, hidden, mask, cos, sin, None, None, segment_mask, use_reentrant=False)
             else:
-                hidden = layer(hidden, mask, cos, sin, layer_cache, cache_index)
+                hidden = layer(hidden, mask, cos, sin, layer_cache, cache_index, segment_mask)
         hidden = self.final_norm(hidden)
         if return_hidden:
             return hidden

@@ -13,7 +13,12 @@ reference does. Three storages, named after the reference's collections:
   is dequantised inside this layer's matmul;
 - ``a (in, r)``, ``b (r, out)`` (parameters, f32): LoRA factors with
   alpha/r folded into ``a``, applied as ``(x @ a) @ b``, set by
-  :meth:`add_lora`.
+  :meth:`add_lora` (the fused runtime);
+- ``lora_a (in, r)``, ``lora_b (r, out)`` (parameters, f32) beside a
+  ``kernel``, set by :meth:`add_merge_lora` (the merge runtime of the
+  reference's ``lora.merge_lora``, ``lora.py:98-121``): each forward forms the
+  effective weight ``kernel + (lora_a @ lora_b * scaling).to(kernel.dtype)``
+  and autograd carries the weight's gradient back to the two factors.
 
 So ``y = x @ dequant(W) + (x @ a) @ b [+ bias]``. The calibrated-scale
 branches of the reference (``a_scale``, ``dy_scale``, ``:84-108``) and its
@@ -48,8 +53,9 @@ class FlexLinear(nn.Module):
         )
         for name in ("q", "scale", "w"):
             self.register_buffer(name, None)
-        self.register_parameter("a", None)
-        self.register_parameter("b", None)
+        for name in ("a", "b", "lora_a", "lora_b"):
+            self.register_parameter(name, None)
+        self.merge_scaling = 1.0
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """normal(0.02) kernel and zero bias, as the JAX layer initialises."""
@@ -81,6 +87,16 @@ class FlexLinear(nn.Module):
         self.a = nn.Parameter(torch.zeros(self.in_features, rank, dtype=torch.float32, device=device))
         self.b = nn.Parameter(torch.zeros(rank, self.out_features, dtype=torch.float32, device=device))
 
+    def add_merge_lora(self, rank: int, scaling: float, device=None) -> None:
+        """Trainable f32 factors ``lora_a (in, rank)`` and ``lora_b (rank, out)``
+        (zero until filled) merged into ``kernel`` in every forward, times ``scaling``."""
+        if self.kernel is None:
+            raise ValueError("the merge runtime needs a dense kernel; a packed base takes add_lora")
+        device = device if device is not None else self.kernel.device
+        self.lora_a = nn.Parameter(torch.zeros(self.in_features, rank, dtype=torch.float32, device=device))
+        self.lora_b = nn.Parameter(torch.zeros(rank, self.out_features, dtype=torch.float32, device=device))
+        self.merge_scaling = float(scaling)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.q is not None and self.int8_compute != "none":
             y = int8_matmul(x, self.q, self.scale, self.int8_compute == "all")
@@ -89,6 +105,9 @@ class FlexLinear(nn.Module):
                 kernel = (self.q.float() * self.scale.float()).to(self.dtype)
             elif self.w is not None:
                 kernel = self.w.to(self.dtype)
+            elif self.lora_a is not None:
+                delta = (self.lora_a @ self.lora_b) * self.merge_scaling
+                kernel = (self.kernel + delta.to(self.kernel.dtype)).to(self.dtype)
             else:
                 kernel = self.kernel.to(self.dtype)
             y = x @ kernel

@@ -1,3 +1,4 @@
+from dalm_tpu_torch.train.generator_only import train_generator
 from dalm_tpu_torch.train.rag_e2e import train_e2e
 
-__all__ = ["train_e2e"]
+__all__ = ["train_e2e", "train_generator"]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from dalm_tpu_torch.index.dense import quantize_int4, quantize_int8
+from dalm_tpu_torch.kernels import flash_attention as fa
 from dalm_tpu_torch.kernels import int8_matmul as im
 from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
 
@@ -163,3 +164,139 @@ def test_int8_wrappers_reject_what_they_do_not_take(cuda):
                       torch.ones((1, 128), device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         im.rowquant(torch.zeros((8, 16), device=cuda).T)
+
+
+# K4. Tolerances row by row: |kernel - plain| <= tol * max(max |plain| over the row, 0.02), a row being the last
+# axis (an lse value is a row of its own, floor 1), so that small late rows are not held to the size of the first
+# ones: float32 2e-5 forward and 2e-4 gradients (the same f32 terms summed tile by tile under a running maximum);
+# bfloat16 2e-2 (p and ds are rounded to bf16 against another maximum, the outputs to bf16 again), lse 1e-4
+# (f32 on exact bf16 products).
+K4_TOL = {torch.float32: (2e-5, 2e-5, 2e-4), torch.bfloat16: (2e-2, 1e-4, 2e-2)}
+K4_CASES = {
+    "causal": (2, 4, 4, 256, 256, 64, None, dict()),
+    "non_causal": (2, 4, 4, 256, 256, 64, None, dict(causal=False)),
+    "pad_segment": (2, 4, 4, 384, 384, 64, "pad", dict()),
+    "gqa": (2, 8, 2, 256, 256, 64, None, dict()),
+    "gqa_segments": (2, 8, 2, 256, 256, 64, "packed", dict()),
+    "window_128": (1, 4, 4, 384, 384, 64, None, dict(window=128)),
+    "window_200": (1, 4, 4, 384, 384, 64, None, dict(window=200)),
+    "softcap": (2, 4, 4, 256, 256, 64, None, dict(softcap=2.0)),
+    "softcap_window": (1, 4, 4, 384, 384, 64, None, dict(softcap=2.0, window=100)),
+    "q_offset_128": (2, 4, 4, 128, 256, 64, None, dict(q_offset=128)),
+    "q_offset_minus_128": (2, 4, 4, 256, 384, 64, None, dict(q_offset=-128)),
+    "all_rows_masked": (2, 4, 2, 128, 128, 64, None, dict(q_offset=-128)),
+    "d_32": (2, 2, 2, 256, 256, 32, "pad", dict()),
+    "d_128": (2, 4, 2, 256, 256, 128, "pad", dict()),
+    "ragged_d_48": (2, 4, 2, 200, 333, 48, None, dict(q_offset=133)),
+    "sft_length_2560": (1, 2, 2, 2560, 2560, 128, "pad", dict()),
+}
+
+
+def _k4_inputs(name, dtype, device):
+    B, H, Hk, Sq, Sk, D, seg, opts = K4_CASES[name]
+    rng = np.random.default_rng(sorted(K4_CASES).index(name))
+
+    def mk(S, heads):  # (B, H, S, D) views of (B, S, H, D) storage, as the decoder hands them over
+        return torch.from_numpy(rng.standard_normal((B, S, heads, D)).astype(np.float32)).to(device, dtype).transpose(1, 2)
+
+    q, k, v, do = mk(Sq, H), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, H)
+    seg_ids = None
+    if seg == "pad":
+        n_real = rng.integers(Sq // 3, Sq - 8, size=(B, 1))
+        seg_ids = torch.from_numpy((np.arange(Sq)[None, :] < n_real).astype(np.int32)).to(device)
+    elif seg == "packed":
+        seg_ids = torch.from_numpy(np.sort(rng.integers(0, 3, size=(B, Sq)), axis=1).astype(np.int32)).to(device)
+    return q, k, v, do, seg_ids, {"causal": True, **opts}
+
+
+def _k4_close(got, want, tol, floor=0.02):
+    assert bool(torch.isfinite(got.float()).all())
+    g, w = got.float(), want.float()
+    if w.dim() == 3:  # lse
+        g, w, floor = g[..., None], w[..., None], 1.0
+    share = (g - w).abs() / (tol * w.abs().amax(dim=-1, keepdim=True).clamp(min=floor))
+    assert float(share.max()) <= 1.0, float(share.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(K4_CASES))
+def test_flash_kernels_match_ref_on_card(cuda, name, dtype):
+    q, k, v, do, seg, kw = _k4_inputs(name, dtype, cuda)
+    tol_out, tol_lse, tol_grad = K4_TOL[dtype]
+    before = dict(fa.flash_attention.launches)
+    out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == {n: c + 1 for n, c in before.items()}
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+    _k4_close(out, ro, tol_out)
+    _k4_close(lse, rl, tol_lse)
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _k4_close(got, want, tol_grad)
+    dead = rl <= -1e29
+    if name in ("q_offset_minus_128", "all_rows_masked"):
+        assert bool(dead.any())
+    assert bool((lse[dead] == -1e30).all()) and not bool(out[dead].any()) and not bool(dq[dead].any())
+    if name == "all_rows_masked":
+        assert not bool(dk.any()) and not bool(dv.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_op_and_decoder_on_card(cuda, dtype):
+    """The differentiable op in (B, S, H, D) against the plain op, and the tiny
+    decoder's flash path against its matmul path at real positions."""
+    import dataclasses
+
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+
+    tol_out, _, tol_grad = K4_TOL[dtype]
+    rng = np.random.default_rng(0)
+    seg = torch.from_numpy(np.sort(rng.integers(0, 2, size=(2, 256)), axis=1).astype(np.int32)).to(cuda)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_ref):
+        r = np.random.default_rng(1)
+        q, k, v = (torch.from_numpy(r.standard_normal((2, 256, h, 64)).astype(np.float32)).to(cuda, dtype).requires_grad_()
+                   for h in (4, 2, 2))
+        out = fn(q, k, v, seg, seg)
+        (out.float() ** 2).sum().backward()
+        grads.append((out.detach(), q.grad, k.grad, v.grad))
+    _k4_close(grads[0][0], grads[1][0], tol_out)
+    for a, b in zip(grads[0][1:], grads[1][1:]):
+        _k4_close(a, b, 4 * tol_grad)
+
+    cfg = dataclasses.replace(DecoderConfig.tiny(), dtype=dtype, attention_impl="flash")
+    flash = Decoder(cfg, device=cuda)
+    flash.reset_parameters(torch.Generator(device=cuda).manual_seed(0))
+    plain = Decoder(dataclasses.replace(cfg, attention_impl="einsum"), device=cuda)
+    plain.load_state_dict(flash.state_dict())
+    ids = torch.from_numpy(rng.integers(0, 259, size=(2, 256))).to(cuda)
+    mask = (torch.arange(256, device=cuda)[None, :] < torch.tensor([[200], [256]], device=cuda)).long()
+    before = fa.flash_attention.launches["fwd"]
+    a, b = flash(ids, mask), plain(ids, mask)
+    assert fa.flash_attention.launches["fwd"] == before + cfg.num_layers
+    real = mask.bool()
+    # two paths through two layers, not a kernel against its plain version: held over the whole tensor
+    a, b = a[real].float(), b[real].float()
+    assert float((a - b).abs().max()) <= (1e-4 if dtype == torch.float32 else 3e-2) * max(1.0, float(b.abs().max()))
+
+
+def test_flash_wrappers_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 2, 64, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(torch.zeros((1, 2, 64, 24), device=cuda), torch.zeros((1, 2, 64, 24), device=cuda),
+                     torch.zeros((1, 2, 64, 24), device=cuda))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="k is"):
+        fa.flash_fwd(q, q.float(), q.float())
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_fwd(torch.zeros((1, 3, 64, 32), device=cuda, dtype=torch.bfloat16), q, q)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        wide = torch.zeros((1, 2, 64, 64), device=cuda, dtype=torch.bfloat16)[..., ::2]
+        fa.flash_fwd(wide, wide, wide)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_fwd(q, q.cpu(), q.cpu())
+    with pytest.raises(ValueError, match="segment ids"):
+        fa.flash_fwd(q, q, q, torch.zeros((1, 64), dtype=torch.int32, device=cuda), None)

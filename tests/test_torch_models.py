@@ -128,4 +128,6 @@ def test_unported_decoder_knobs_raise():
     with pytest.raises(NotImplementedError):
         Decoder(dataclasses.replace(DecoderConfig.tiny(), kv_quant=True))
     with pytest.raises(NotImplementedError):
-        Decoder(dataclasses.replace(DecoderConfig.tiny(), attention_impl="flash"))
+        Decoder(dataclasses.replace(DecoderConfig.tiny(), attention_impl="ring"))
+    # "flash" is ported (kernels/flash_attention.py); the decoder takes it
+    assert Decoder(dataclasses.replace(DecoderConfig.tiny(), attention_impl="flash")).uses_flash(256)
