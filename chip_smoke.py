@@ -13,26 +13,33 @@ QLoRA, int8 generator base, ``int8_compute="all"``, batch 18, 4 optimiser
 steps) and generator SFT (``train_generator`` on a synthetic chat dataset,
 Llama-2-7B, LoRA r = 256 in the merge runtime, packed blocks of 2560 tokens,
 batch 2, 3 optimiser steps and a validation pass, every attention call
-through the flash-attention kernels). Fails (non-zero exit, no result line)
+through the flash-attention kernels); and serves again with the generator
+packed to 4 bits (``RagPipeline(quantize_generator="int4", kv_quant=True)``,
+every projection through the int4 kernel K5, then nf4, int4pc and the
+i8mxu / groupmm variants). Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
 
-Phases: ``small`` (tiny pipeline, card vs CPU), ``serve``, ``k3``, ``k2``,
-``k1`` (K1 and the two int8 GEMM entries), ``grad``, ``k4`` (flash attention
-forward, dq, dk/dv), ``train-small`` (tiny ``train_e2e``, card vs CPU),
+Phases: ``small`` (tiny pipeline, card vs CPU; and a tiny pipeline wide
+enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``,
+``serve-q`` (the 4-bit tiers; reuses ``serve``'s bf16 pipeline when both
+run), ``k3``, ``k2``, ``k1`` (K1 and the two int8 GEMM entries), ``grad``,
+``k4`` (flash attention forward, dq, dk/dv), ``k5`` (the five K5 instances),
+``train-small`` (tiny ``train_e2e``, card vs CPU),
 ``train``, ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
 trace of the RAG / SFT training steps: device busy share and the top kernels
 by device time).
 
 Output: per-phase lines, one JSON line of every measured case per kernel
-phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``), the card's
-name and power limit, one ``{"kernels": [...]}`` JSON line (one entry per K3
-row storage mode, K2, K1, each GEMM entry and each of the three K4 kernels,
-each with its launches in its main path: ``answer()`` for K3, the
-``train_e2e`` run for the int8 kernels, the ``train_generator`` run for K4,
-every count set to 0 just before that path is driven), and as the last line
-``{"ok": true, "device": {...}}``.
+phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
+the card's name and power limit, one ``{"kernels": [...]}`` JSON line (one
+entry per K3 row storage mode, K2, K1, each GEMM entry, each of the three K4
+kernels and each of the five K5 instances, each with its launches in its
+main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
+the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
+K5 instance, every count set to 0 just before that path is driven), and as
+the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances: K3 on exact-arithmetic inputs (small integers times powers of
 two, so every partial sum is exact in f32 whatever the order) must match
@@ -43,11 +50,14 @@ equal except where two rows' f64 scores lie within 1e-5 of each other
 int8 kernels' tolerances stand in their phases' docstrings: K2 and the GEMM
 entries equal, K1 equal on integer-valued inputs and within one bf16 ulp on
 real-valued ones, gradients equal, tiny training losses within 2e-3. K4's
-stand beside ``K4_TOL``, the tiny SFT run's beside ``SFT_SMALL_TOL``.
+stand beside ``K4_TOL``, the tiny SFT run's beside ``SFT_SMALL_TOL``, K5's
+beside ``K5_TOL``, the 4-bit tiers' logits beside ``K5_LOGIT_BOUND`` and the
+tiny K5 pipeline's beside ``SMALL_Q_TOL``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import string
 import subprocess
@@ -789,7 +799,7 @@ def serve_path(device, rng):
     ms = cuda_ms(lambda: fused_dot_topk(q, e, 4), 50)
     plain_ms = cuda_ms(lambda: fused_dot_topk_ref(q, e, 4), 20)
     lib_ms = cuda_ms(lambda: torch.topk(q @ e.T, 4), 50)
-    return launches, (q, e, ms, plain_ms, lib_ms)
+    return pipe, launches, (q, e, ms, plain_ms, lib_ms)
 
 
 TRAIN_KW = dict(use_peft="both", lora_runtime="fused", int8_compute="all", a8_calibrate_every=0,
@@ -1175,17 +1185,464 @@ def profile_phase(device, workdir, which, batch, steps):
     torch.cuda.empty_cache()
 
 
+K5_AT = {"base": "dalm_tpu/kernels/int4_matmul.py:496", "groupmm": "dalm_tpu/kernels/int4_matmul.py:496",
+         "nf4": "dalm_tpu/kernels/int4_matmul.py:496", "i8mxu": "dalm_tpu/kernels/int4_matmul.py:464",
+         "pcol": "dalm_tpu/kernels/int4_matmul.py:299"}
+# Tolerances against the plain version, each row held to tol x its largest |plain| value. float32 outputs: pcol
+# equal (int32 sums, then the same two f32 products); i8mxu 3e-5 (exact int8 products; where the kernel splits K
+# across blocks its slices' folds are added in another order than the plain version's one sequential fold, each
+# fold step rounding by 2^-24); base / groupmm / nf4 1e-4 (the same bf16 x bf16 products summed in another order).
+# bfloat16 outputs, every instance: one bf16 ulp of the row's largest value (2^-7), as the final rounding may fall
+# the other way.
+K5_TOL = {"base": 1e-4, "groupmm": 1e-4, "nf4": 1e-4, "i8mxu": 3e-5, "pcol": 0.0}
+K5_FORMAT = {"base": "int4", "groupmm": "int4", "i8mxu": "int4", "nf4": "nf4", "pcol": "int4pc"}
+# Relative error ||a - b|| / ||b|| of the last-position logits on the 32 prompts, random-initialised weights.
+# Tiny CPU runs (f32; 2 layers of width 64 / 2 of 256 / 8 of 256): against the float generator, the per-group
+# tiers (int4 in every variant, nf4) 0.067-0.073 / 0.21-0.22 / 0.28-0.29, int4pc 0.13 / 0.32 / 0.42, int8 0.007 /
+# 0.018 / 0.025; the 4-bit tiers through K5's plain version against the same packed weights through x @ dequant(W)
+# (the JAX package's path off the TPU): base, groupmm, nf4 0.003-0.005, i8mxu and pcol (int8 activations)
+# 0.015-0.016. The random 7B amplifies every perturbation: on the card (NVIDIA H100 80GB HBM3, 700 W) int8
+# weights give 0.18 against bf16 (0.025 in the 8-layer tiny model), and 4-bit weights leave the logits unrelated
+# to the bf16 ones (1.04-1.23: unrelated logits of one norm sit at sqrt(2)); K5 against x @ dequant(W) gave 0.050-0.077
+# (base, groupmm, nf4) and 0.24-0.25 (i8mxu, pcol). So the 7B check that can fail is K5 against x @ dequant(W),
+# bounded at 0.15 and 0.5 (a kernel that wrote zeros or garbage would sit at 1 or above); against bf16 the logits
+# must be finite and below 1.5.
+K5_LOGIT_BOUND = {"base": 0.15, "groupmm": 0.15, "nf4": 0.15, "i8mxu": 0.5, "pcol": 0.5}
+K5_LOGIT_BOUND_BF16 = 1.5
+
+
+def k5_err(y, ry, instance):
+    """max |y - ry| after holding every row to its K5 tolerance; returns (max error, worst share of the bound)."""
+    import torch
+
+    check(bool(torch.isfinite(y.float()).all()), f"k5 {instance}: non-finite output")
+    tol = K5_TOL[instance] if y.dtype == torch.float32 else 2.0 ** -7
+    err = (y.float() - ry.float()).abs()
+    bound = tol * ry.float().abs().amax(dim=1, keepdim=True)
+    bad = err > bound
+    check(not bool(bad.any()), f"k5 {instance} {str(y.dtype)}: {int(bad.sum())} values beyond {tol} of their row's max")
+    share = float((err / bound.clamp(min=1e-30)).max()) if tol > 0 else 0.0
+    return float(err.max()), share
+
+
+def k5_weights(gen, device, K, N):
+    """One random (K, N) f32 weight in each 4-bit format, quantised on the card with the port's quantisers."""
+    import torch
+
+    from dalm_tpu_torch.models import quant
+
+    w = torch.randn((K, N), generator=gen, device=device) * 0.02
+    out = {"int4": quant.quantize_tensor_int4(w), "nf4": quant.quantize_tensor_nf4(w),
+           "int4pc": quant.quantize_tensor_int4pc(w)}
+    del w
+    return out
+
+
+def k5_phase(gen, device, peaks):
+    """Each K5 instance against its plain version on the card: small and ragged shapes (M 1-300, N not a
+    multiple of 128, groups 16-128, x in f32 and bf16), then the Llama-2-7B shapes at decode (M = 32; x in
+    f32 and bf16) and prefill (M = 8192, bf16; lm_head at M = 32 only), timed there beside the plain version,
+    two library yardsticks and the bound. Returns (all timed records, {instance: its record at (4096, 4096),
+    M = 32}, {(instance, K, N, M): ms})."""
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models import quant
+
+    mem_bw, _, bf16_rate, int8_rate = peaks
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    worst = dict.fromkeys(k5.INSTANCES, 0.0)
+    for M, K, N, group in ((1, 256, 136, 16), (5, 2048, 1000, 128), (77, 512, 264, 32), (300, 1024, 512, 64),
+                           (33, 11008, 256, 16)):
+        w = torch.randn((K, N), generator=gen, device=device) * 0.02
+        fmts = {"int4": quant.quantize_tensor_int4(w, group), "nf4": quant.quantize_tensor_nf4(w, group),
+                "int4pc": quant.quantize_tensor_int4pc(w)}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(dtype)
+            x[0] = 0
+            for inst in k5.INSTANCES:
+                d = fmts[K5_FORMAT[inst]]
+                y, ry = k5.int4_matmul_fwd(x, d["q4"], d["scale4"], inst), k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], inst)
+                torch.cuda.synchronize()
+                check(tuple(y.shape) == (M, N) and y.dtype == dtype and not bool(y[0].any()), f"k5 {inst}: shape/zero row")
+                worst[inst] = max(worst[inst], k5_err(y, ry, inst)[1])
+    print(f"[k5] small and ragged shapes (M 1-300, N 136-1000, groups 16-128, f32 and bf16): every instance within "
+          f"its tolerance; worst share of the bound by instance {worst}", flush=True)
+
+    entries, mains, ms_at = [], {}, {}
+    for K, N in LLAMA_KN:
+        fmts = k5_weights(gen, device, K, N)
+        group = K // fmts["int4"]["scale4"].shape[0]
+        w_bf16 = {f: quant.dequantize_tensor_int4(d, torch.bfloat16) for f, d in fmts.items()}
+        for M in ((32,) if N == 32000 else (32, 8192)):
+            x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+            xf = x.float() if M == 32 else None
+            iters = 50 if M == 32 else 10
+            for inst in k5.INSTANCES:
+                fmt = K5_FORMAT[inst]
+                d = fmts[fmt]
+                q4, s4 = d["q4"], d["scale4"]
+                y, ry = k5.int4_matmul_fwd(x, q4, s4, inst), k5.int4_matmul_fwd_ref(x, q4, s4, inst)
+                torch.cuda.synchronize()
+                max_err, share = k5_err(y, ry, inst)
+                if xf is not None:
+                    k5_err(k5.int4_matmul_fwd(xf, q4, s4, inst), k5.int4_matmul_fwd_ref(xf, q4, s4, inst), inst)
+                del y, ry
+                # the kernel alone on operands prepared once (K2's rowquant for i8mxu / pcol outside the timing),
+                # then the wrapper as the model calls it (checks, allocation, K2)
+                g_arg = K if inst == "pcol" else group
+                splits = k5._splits(M, N, K // 2, g_arg, inst, sms)
+                a, xs = k5.rowquant(x) if inst in ("i8mxu", "pcol") else (x, None)
+                o = torch.empty((M, N), dtype=x.dtype, device=device)
+                ws = torch.empty((splits, M, N), dtype=torch.float32, device=device) if splits > 1 else None
+                ms = cuda_ms(lambda: k5.launch(inst, a, xs, q4, s4, g_arg, splits, ws, o), iters)
+                wrapper_ms = cuda_ms(lambda: k5.int4_matmul_fwd(x, q4, s4, inst), iters)
+                plain_ms = cuda_ms(lambda: k5.int4_matmul_fwd_ref(x, q4, s4, inst), 2)
+                wb = w_bf16[fmt]
+                lib_ms = cuda_ms(lambda: x @ wb, iters)
+                deq_ms = cuda_ms(lambda: x @ quant.dequantize_tensor_int4(d, torch.bfloat16), max(iters // 5, 2))
+                nbytes = a.numel() * a.element_size() + (M * 4 if xs is not None else 0) + q4.numel() + s4.numel() * 4 + M * N * 2
+                ops = 2.0 * M * K * N
+                t_bytes, t_ops = nbytes / mem_bw * 1e3, ops / (int8_rate if inst in ("i8mxu", "pcol") else bf16_rate) * 1e3
+                e = {"name": f"int4_matmul[{inst}]", "route": "cuda", "source": "dalm_tpu_torch/csrc/int4_matmul.cu",
+                     "replaces": K5_AT[inst], "case": f"M={M} K={K} N={N} group={group if inst != 'pcol' else K} bf16",
+                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+                     "library_is": "x @ W_bf16 (torch.matmul on the weight dequantised beforehand: the bf16 tier)",
+                     "dequant_matmul_ms": deq_ms, "wrapper_ms": wrapper_ms, "splits": splits,
+                     "worst_share_of_tolerance": share}
+                show("k5", e)
+                print(f"[k5]   through int4_matmul_fwd (checks, allocation{', K2' if xs is not None else ''}): "
+                      f"{wrapper_ms:.4f} ms; K split in {splits}", flush=True)
+                entries.append(e)
+                ms_at[inst, K, N, M] = ms
+                del a, xs, o, ws
+                if (K, N, M) == (4096, 4096, 32):
+                    mains[inst] = e
+            print(f"[k5]   M={M} K={K} N={N}: x @ dequantize_tensor_int4(...) (dequant + cuBLAS) "
+                  f"{entries[-1]['dequant_matmul_ms']:.4f} ms (int4pc weights)", flush=True)
+            del x, xf
+        del fmts, w_bf16
+        torch.cuda.empty_cache()
+    return entries, mains, ms_at
+
+
+def forced_logits(decoder, ids, mask, forced):
+    """The last-position logits of every step of a cached decode that is fed ``forced`` (B, T) tokens, as
+    ``build_greedy_generate`` runs it: (B, T, V) f32 on the CPU."""
+    import torch
+
+    B, P = ids.shape
+    T = forced.shape[1]
+    cache = decoder.init_kv_cache(B, P + T, device=ids.device)
+    slot_mask = torch.cat([mask, torch.ones((B, T), dtype=mask.dtype, device=ids.device)], dim=1)
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    logits, cache = decoder(ids, slot_mask, positions=positions, kv_cache=cache, cache_index=0, logits_last_only=True)
+    out = [logits[:, -1].float().cpu()]
+    pos = mask.sum(dim=1)
+    for t in range(T - 1):
+        logits, cache = decoder(forced[:, t:t + 1].to(ids.device), slot_mask, positions=pos[:, None], kv_cache=cache,
+                                cache_index=P + t)
+        out.append(logits[:, 0].float().cpu())
+        pos = pos + 1
+    return torch.stack(out, dim=1)
+
+
+# The tiny feasible-width pipeline, card (K5) against CPU (plain K5) on the same weights, teacher-forced with the
+# CPU's tokens. The model is f32 and its float version agrees within 1e-6 between card and CPU, but where K5 rounds
+# (an activation to bf16, an int4pc activation to int8, a key or value to int8) a value that card and CPU computed
+# an f32 ulp apart can round to the neighbouring step, and the next layers carry that on. Measured on the card
+# (max logit about 1.1): 2.1e-3 (int4) and 2.4e-3 (nf4) with the float cache; 2.7e-3, 2.9e-3 and 1.2e-2 (int4pc,
+# whose int8 steps are the coarsest) with the int8 cache. Bounds: SMALL_Q_TOL = 3e-2 of the largest logit; the
+# int4pc model with the float cache, whose K5 sums are exact integers, 1e-5. A wrong weight, scale or group moves
+# the logits by tens of percent.
+SMALL_Q_TOL = 3e-2
+
+
+def small_quant_agrees(device):
+    """A tiny pipeline whose generator is wide enough for the reference's rule to admit every projection
+    (hidden 256, intermediate 512: groups 16 and 32), packed by ``RagPipeline`` in int4, nf4 and int4pc with
+    the int8 KV cache, on the card and on the CPU from the same weights. The packed buffers are equal; the
+    teacher-forced logits agree within ``SMALL_Q_TOL`` (int4pc without the int8 cache within 1e-5); answers
+    agree except where the CPU's top two logits at the first differing token lie within twice that (near ties,
+    counted)."""
+    import dataclasses
+
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+    from dalm_tpu_torch.models.embedder import SentenceEmbedder
+    from dalm_tpu_torch.serve import RagPipeline
+
+    passages = [f"passage about topic {i} with unique content {i}" for i in range(64)]
+    queries = [f"what is topic {i}" for i in range(8)]
+    opts = dict(max_passage_len=48, max_prompt_len=96, max_new_tokens=8, embed_batch=16)
+    cpu0 = RagPipeline.from_pretrained("tiny", "tiny", passages, device="cpu", **opts)
+    retriever = SentenceEmbedder(cpu0.retriever.config, device=device)
+    retriever.load_state_dict(cpu0.retriever.state_dict())
+    cfg = dataclasses.replace(DecoderConfig.tiny(), hidden_size=256, num_heads=4, intermediate_size=512)
+    base = Decoder(cfg, device="cpu")
+    base.reset_parameters(torch.Generator().manual_seed(1))
+    _, ids = cpu0.retrieve(queries, 1)
+    prompts = [f"#query# {q} #passage# {passages[int(ids[i, 0])]} #answer# " for i, q in enumerate(queries)]
+    toks = cpu0.g_tok(prompts, padding="max_length", max_length=opts["max_prompt_len"], truncation=True)
+    p_ids, p_mask = torch.as_tensor(toks["input_ids"]), torch.as_tensor(toks["attention_mask"])
+    for fmt in ("int4", "nf4", "int4pc"):
+        gens = {}
+        for dev in ("cpu", device):
+            g = Decoder(cfg, device=dev)
+            g.load_state_dict(base.state_dict())
+            gens[dev] = g.eval()
+        cpu = RagPipeline(cpu0.retriever, cpu0.r_tok, gens["cpu"], cpu0.g_tok, passages, device="cpu",
+                          quantize_generator=fmt, kv_quant=True, **opts)
+        before = dict(k5.int4_matmul_fwd.launches)
+        card = RagPipeline(retriever.eval(), cpu0.r_tok, gens[device], cpu0.g_tok, passages, device=device,
+                           quantize_generator=fmt, kv_quant=True, **opts)
+        cb = dict(cpu.generator.named_buffers())
+        check(all(torch.equal(v.cpu(), cb[k]) for k, v in card.generator.named_buffers()),
+              f"small {fmt}: the card's packed weights differ from the CPU's")
+        t_cpu = cpu._generate(p_ids, p_mask)
+        t_card = card._generate(p_ids.to(device), p_mask.to(device)).cpu()
+        diffs, l_cpu = {}, None
+        for kv in (False, True):  # the same packed models with the float cache, then with the int8 one
+            for g in (cpu.generator, card.generator):
+                g.cfg = dataclasses.replace(g.cfg, kv_quant=kv)
+            lc = forced_logits(cpu.generator, p_ids, p_mask, t_cpu)
+            ld = forced_logits(card.generator, p_ids.to(device), p_mask.to(device), t_cpu)
+            diffs[kv] = float((ld - lc).abs().max())
+            l_cpu = lc
+        inst = {"int4": "base", "nf4": "nf4", "int4pc": "pcol"}[fmt]
+        check(k5.int4_matmul_fwd.launches[inst] > before[inst], f"small {fmt}: the card pipeline never launched K5")
+        scale = float(l_cpu.abs().max())
+        exact = 1e-5 if fmt == "int4pc" else SMALL_Q_TOL
+        check(diffs[False] <= exact * scale and diffs[True] <= SMALL_Q_TOL * scale,
+              f"small {fmt}: teacher-forced logits differ by {diffs} (max logit {scale})")
+        ties = 0
+        for b in range(t_cpu.shape[0]):
+            differ = (t_card[b] != t_cpu[b]).nonzero()
+            if len(differ):
+                t = int(differ[0])
+                gap = float(l_cpu[b, t, int(t_cpu[b, t])] - l_cpu[b, t, int(t_card[b, t])])
+                check(gap <= 2 * SMALL_Q_TOL * scale, f"small {fmt}: row {b} differs at step {t} with a gap of {gap}")
+                ties += 1
+        a_cpu = [a.answer for a in cpu.answer(queries, 4)]
+        a_card = [a.answer for a in card.answer(queries, 4)]
+        check(sum(x != y for x, y in zip(a_cpu, a_card)) <= ties, f"small {fmt}: answers differ beyond the near ties")
+        print(f"[small] feasible-width tiny pipeline {fmt}, card (K5 {inst}) vs CPU: packed weights equal; "
+              f"teacher-forced logits max diff {diffs[False]:.3e} with the float KV cache, {diffs[True]:.3e} with "
+              f"the int8 one (max logit {scale:.3f}; bounds {exact} and {SMALL_Q_TOL} of it); near-tie rows {ties}, "
+              f"{len(a_card)} answers", flush=True)
+        del cpu, card, gens
+    torch.cuda.empty_cache()
+
+
+def packed_copy(base, device):
+    """A generator that shares every tensor of ``base`` (no copy) until ``RagPipeline`` packs it."""
+    from dalm_tpu_torch.models.decoder import Decoder
+
+    g = Decoder(base.cfg, device="meta")
+    g.load_state_dict(base.state_dict(), assign=True)
+    return g.eval()
+
+
+def serve_q_phase(device, rng, base_pipe):
+    """The 4-bit serving tiers at full width and depth: the bf16 pipeline's bge-large retriever, corpus and
+    Llama-2-7B weights, the generator packed by ``RagPipeline(quantize_generator=..., kv_quant=True)``. int4
+    (K5 base): a warm and a timed ``answer()`` of 32 queries, top-4, 256-token prompts, 64 new tokens, split
+    as in ``[main]``, K5 launches counted (225 a forward x 64 forwards); then one ``answer()`` each for nf4,
+    int4pc, and int4 with ``DEFAULT_VARIANT`` i8mxu and groupmm; the last-position logits of each tier against
+    the bf16 generator's; a sampled ``answer()`` that repeats. Returns the K5 launches of each instance in its
+    own ``answer()`` and the decode times."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.kernels import int8_matmul as im
+    from dalm_tpu_torch.models.generate import build_greedy_generate
+    from dalm_tpu_torch.models.sampling import SamplerConfig
+    from dalm_tpu_torch.serve import RagPipeline
+
+    pipe = base_pipe
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]
+    opts = dict(max_passage_len=pipe.max_passage_len, max_prompt_len=pipe.max_prompt_len, max_new_tokens=64,
+                embed_batch=pipe.embed_batch)
+    scores, ids = pipe.retrieve(queries, 4)
+    prompts = [f"#query# {q} #passage# {pipe.passages[int(ids[i, 0])]} #answer# " for i, q in enumerate(queries)]
+    toks = pipe.g_tok(prompts, padding="max_length", max_length=pipe.max_prompt_len, truncation=True)
+    p_ids = torch.as_tensor(toks["input_ids"], device=device)
+    p_mask = torch.as_tensor(toks["attention_mask"], device=device)
+    ref_logits = pipe.generator(p_ids, p_mask, logits_last_only=True).float()
+    layers = pipe.generator.cfg.num_layers
+    per_forward = 7 * layers + 1
+    launches, out = {}, {}
+
+    def tier_pipeline(fmt, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = RagPipeline(pipe.retriever, pipe.r_tok, packed_copy(pipe.generator, device), pipe.g_tok, pipe.passages,
+                        device=device, quantize_generator=fmt, kv_quant=True, **dict(opts, **kw))
+        torch.cuda.synchronize()
+        return q, time.perf_counter() - t0
+
+    def last_logits(q, fallback=False):
+        """The tier's last-position logits on the prompts; ``fallback``: through the reference's off-TPU
+        path, ``x @ dequant(W)``, instead of K5 (the same packed weights)."""
+        saved = k5._kernel_feasible, k5._pcol_feasible
+        if fallback:
+            k5._kernel_feasible = k5._pcol_feasible = lambda *a: False
+        try:
+            return q.generator(p_ids, p_mask, logits_last_only=True).float()
+        finally:
+            k5._kernel_feasible, k5._pcol_feasible = saved
+
+    def rel_err(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def logit_err(q, inst):
+        """(relative error against the bf16 generator, against the same tier through x @ dequant(W))."""
+        got = last_logits(q)
+        check(bool(torch.isfinite(got).all()), f"serve-q {inst}: non-finite logits")
+        errs = (rel_err(got, ref_logits), rel_err(got, last_logits(q, fallback=True)))
+        rels[inst] = errs
+        return errs
+
+    rels = {}
+    i8 = packed_copy(pipe.generator, device)
+    from dalm_tpu_torch.models.qlora import pack_module
+
+    pack_module(i8, True)
+    rels["int8"] = (rel_err(i8(p_ids, p_mask, logits_last_only=True).float(), ref_logits), 0.0)
+    print(f"[serve-q] int8 generator (dequantised in each matmul): last-position logits relative error "
+          f"{rels['int8'][0]:.4f} against bf16", flush=True)
+    del i8
+    torch.cuda.empty_cache()
+
+    def counted_answer(q):
+        k5.int4_matmul_fwd.launches = dict.fromkeys(k5.INSTANCES, 0)
+        k2 = im.rowquant.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = q.answer(queries, top_k=4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(len(answers) == len(queries) and all(len(a.passages) == 4 for a in answers), "serve-q: answers")
+        check([a.passages for a in answers] == [[pipe.passages[int(j)] for j in row] for row in ids],
+              "serve-q: retrieval differs from the bf16 pipeline's")
+        return answers, dt, dict(k5.int4_matmul_fwd.launches), im.rowquant.launches - k2
+
+    # int4 + int8 KV cache, K5 base: the slice's main path
+    q, build_s = tier_pipeline("int4")
+    gen = q.generator
+    packed = sum(b.numel() * b.element_size() for n, b in gen.named_buffers() if n.endswith(("q4", "scale4")))
+    check(sum(1 for n, _ in gen.named_buffers() if n.endswith(".q4")) == per_forward, "serve-q: not every projection is packed")
+    q.answer(queries, top_k=4)  # warm
+    answers, answer_s, counts, _ = counted_answer(q)
+    want = per_forward * 64
+    check(counts["base"] == want and sum(counts.values()) == want,
+          f"serve-q int4: K5 launches {counts}, {layers} layers x 64 forwards predict {want} base")
+    launches["base"] = counts["base"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_embs = q._embed_texts([f"#query# {x}" for x in queries], q.max_passage_len)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q.index.search(q_embs, 4)
+    search_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_out = q._generate(p_ids, p_mask)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    first = build_greedy_generate(gen, 1, eos_token_id=q.g_tok.eos_token_id, pad_token_id=q.g_tok.pad_token_id or 0)
+    first(p_ids, p_mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first(p_ids, p_mask)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(tuple(toks_out.shape) == (len(queries), 64) and bool(((toks_out >= 0) & (toks_out < 32000)).all()),
+          "serve-q int4: generated ids")
+    step_ms = (decode_s - prefill_s) / 63 * 1e3
+    err, err_fb = logit_err(q, "base")
+    out.update(int4_answer_s=answer_s, decode_step_ms=step_ms, prefill_s=prefill_s, decode_s=decode_s)
+    print(f"[serve-q] int4 + int8 KV cache (K5 base): pipeline built in {build_s:.2f} s (pack + {len(pipe.passages)} "
+          f"passages embedded; packed weights and scales {packed / 1e9:.3f} GB); answer(): {answer_s:.3f} s for "
+          f"{len(queries)} queries; query embed {embed_s:.4f} s; search {search_ms:.3f} ms; prefill+decode "
+          f"{decode_s:.3f} s = {toks_out.numel() / decode_s:.1f} tokens/s; prefill (+ first token) {prefill_s:.3f} s; "
+          f"decode {step_ms:.2f} ms/step against a weight-read bound of 1.19 ms; K5 launches per answer() {counts}; "
+          f"last-position logits: relative error {err:.4f} against bf16, {err_fb:.4f} against x @ dequant(W)",
+          flush=True)
+    print(f"[serve-q] sample answer: {answers[0].answer[:60]!r}", flush=True)
+
+    for variant in ("i8mxu", "groupmm"):
+        k5.DEFAULT_VARIANT = variant
+        try:
+            _, dt, counts, k2 = counted_answer(q)
+            err, err_fb = logit_err(q, variant)
+        finally:
+            k5.DEFAULT_VARIANT = "base"
+        check(counts[variant] == want and sum(counts.values()) == want, f"serve-q {variant}: K5 launches {counts}")
+        check(k2 == (want if variant == "i8mxu" else 0), f"serve-q {variant}: {k2} K2 launches")
+        launches[variant] = counts[variant]
+        out[f"{variant}_answer_s"] = dt
+        print(f"[serve-q] int4 with DEFAULT_VARIANT={variant}: answer() {dt:.3f} s; K5 {variant} launches "
+              f"{counts[variant]}, K2 {k2}; logits relative error {err:.4f} against bf16, {err_fb:.4f} against "
+              f"x @ dequant(W)", flush=True)
+
+    # a sampled answer(): valid ids, the same ids again from the same seed
+    sampler = SamplerConfig(temperature=0.7, top_k=50, top_p=0.9, seed=0)
+    s = RagPipeline(pipe.retriever, pipe.r_tok, gen, pipe.g_tok, pipe.passages, device=device, kv_quant=True,
+                    sampler=sampler, **opts)
+    a1 = s._generate(p_ids, p_mask)
+    a2 = s._generate(p_ids, p_mask)
+    sampled = s.answer(queries, top_k=4)
+    check(bool(((a1 >= 0) & (a1 < 32000)).all()) and torch.equal(a1, a2), "serve-q: sampled ids invalid or not repeated")
+    check([x.answer for x in sampled] == [s.g_tok.decode(r, skip_special_tokens=True).split("#answer#")[0].strip()
+                                          for r in a1.cpu().numpy()], "serve-q: sampled answer() differs from its ids")
+    greedy_same = int((a1 == toks_out).all(dim=1).sum())
+    print(f"[serve-q] sampled answer() (temperature 0.7, top-k 50, top-p 0.9, seed 0): ids in range, repeated "
+          f"exactly; {greedy_same} of {len(queries)} rows equal the greedy ones", flush=True)
+    del s, q, gen, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for fmt, inst in (("nf4", "nf4"), ("int4pc", "pcol")):
+        q, build_s = tier_pipeline(fmt)
+        _, dt, counts, k2 = counted_answer(q)
+        check(counts[inst] == want and sum(counts.values()) == want, f"serve-q {fmt}: K5 launches {counts}")
+        err, err_fb = logit_err(q, inst)
+        launches[inst] = counts[inst]
+        out[f"{fmt}_answer_s"] = dt
+        print(f"[serve-q] {fmt} + int8 KV cache: built in {build_s:.2f} s; answer() {dt:.3f} s (first, not warmed); "
+              f"K5 {inst} launches {counts[inst]}, K2 {k2}; logits relative error {err:.4f} against bf16, "
+              f"{err_fb:.4f} against x @ dequant(W)", flush=True)
+        del q
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[serve-q] last-position logits, relative error by K5 instance (against bf16, against the same tier "
+          f"through x @ dequant(W)): {rels}; bounds {K5_LOGIT_BOUND_BF16} and {K5_LOGIT_BOUND}", flush=True)
+    for inst, (err, err_fb) in rels.items():
+        check(err <= K5_LOGIT_BOUND_BF16, f"serve-q {inst}: logits relative error {err} against bf16")
+        check(inst == "int8" or err_fb <= K5_LOGIT_BOUND[inst],
+              f"serve-q {inst}: logits relative error {err_fb} against x @ dequant(W)")
+    return launches, out
+
+
 def serve_phase(device, rng, peaks, kernels):
     """The serving main path, then K3 against its plain version at that path's
     own shapes. Fills ``kernels`` with the f32 record and the launch counts
-    of every row storage mode."""
+    of every row storage mode. Returns the bf16 pipeline."""
     import gc
 
     import torch
 
     from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
 
-    launches, (q, e, ms, plain_ms, lib_ms) = serve_path(device, rng)
+    pipe, launches, (q, e, ms, plain_ms, lib_ms) = serve_path(device, rng)
     Q, D = q.shape
     N = e.shape[0]
     ks, ki = fused_dot_topk(q, e, 4)
@@ -1201,14 +1658,15 @@ def serve_phase(device, rng, peaks, kernels):
     del q, e, ks, ki, rs, ri
     gc.collect()
     torch.cuda.empty_cache()
+    return pipe
 
 
-KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention")
+KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "int4_matmul")
 TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
 SFT_STEPS = 3
-PHASES = ("small", "serve", "k3", "k2", "k1", "grad", "k4", "train-small", "train", "sft-small", "sft")
+PHASES = ("small", "serve", "serve-q", "k3", "k2", "k1", "grad", "k4", "k5", "train-small", "train", "sft-small", "sft")
 
 
 def main() -> int:
@@ -1228,6 +1686,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
@@ -1253,8 +1712,22 @@ def main() -> int:
     kernels = {}
     if "small" in phases:
         small_pipeline_agrees(device)
+        small_quant_agrees(device)
+    base_pipe = None
     if "serve" in phases:
-        serve_phase(device, np.random.default_rng(0), peaks, kernels)
+        base_pipe = serve_phase(device, np.random.default_rng(0), peaks, kernels)
+    k5_launches = {}
+    if "serve-q" in phases:
+        if base_pipe is None:
+            from dalm_tpu_torch.serve import RagPipeline
+
+            base_pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", corpus(16384, np.random.default_rng(0)),
+                                                    dtype="bfloat16", device=device, max_passage_len=128,
+                                                    max_prompt_len=256, max_new_tokens=64, embed_batch=256)
+        k5_launches, _ = serve_q_phase(device, np.random.default_rng(0), base_pipe)
+    del base_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     if "k3" in phases:
         cases, reps = k3_phase(gen, device, peaks)
         print(json.dumps({"k3_cases": cases}), flush=True)
@@ -1277,6 +1750,11 @@ def main() -> int:
         cases, mains = k4_phase(gen, device, peaks, SFT_BATCH)
         print(json.dumps({"k4_cases": cases}), flush=True)
         kernels.update(mains)
+    if "k5" in phases:
+        cases, mains, _ = k5_phase(gen, device, peaks)
+        print(json.dumps({"k5_cases": cases}), flush=True)
+        for inst, e in mains.items():
+            kernels[e["name"]] = dict(e, launches=k5_launches.get(inst, 0)) if "serve-q" in phases else e
     with tempfile.TemporaryDirectory() as workdir:
         if "train-small" in phases:
             train_small_phase(device, workdir)
@@ -1302,13 +1780,16 @@ def main() -> int:
     if set(phases) != set(PHASES):
         print(f"chip_smoke: ran only {phases}; no result line", flush=True)
         return 0
+    k5_names = [f"int4_matmul[{i}]" for i in ("base", "groupmm", "nf4", "i8mxu", "pcol")]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", "w8a8_fused", "int8_gemm_kn", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv")
+             "rowquant", "w8a8_fused", "int8_gemm_kn", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv", *k5_names)
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
-    for name in ("fused_dot_topk[f32]", "rowquant", "w8a8_fused", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv"):
+    for name in ("fused_dot_topk[f32]", "rowquant", "w8a8_fused", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv",
+                 *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
+    print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

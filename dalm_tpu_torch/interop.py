@@ -10,9 +10,9 @@ to the key of its dotted path unchanged. A leaf the module lacks, a
 module parameter no leaf fills, or a shape mismatch raises.
 
 The fused-QLoRA collections carry across the same way: ``load_packed``
-takes the reference's ``params`` residual, ``quant`` (``q`` + ``scale`` or
-``w``) and ``lora`` (``a``, ``b``) trees into a module's buffers and
-parameters, ``load_factors`` replaces only the factors, and
+takes the reference's ``params`` residual, ``quant`` (``q`` + ``scale``,
+``w``, or the 4-bit ``q4`` + ``scale4`` with an ``nf4`` or ``pcol`` marker)
+and ``lora`` (``a``, ``b``) trees into a module's buffers and parameters, ``load_factors`` replaces only the factors, and
 ``factors_tree`` reads them back as a tree of numpy arrays.
 
 The merge-runtime LoRA tree of the SFT trainer (``{"layer_0/attention/q_proj/

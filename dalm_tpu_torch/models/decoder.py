@@ -20,7 +20,10 @@ pad rows, which feed no real token and carry no loss. The reference's modes:
   with a scalar ``cache_index``; the new keys/values are written into the
   cache buffers IN PLACE (the JAX version returns an updated copy) and
   attention runs over the whole buffer under a slot-causal mask
-  (``decoder.py:961-977``). Returns ``(logits, kv_cache)``.
+  (``decoder.py:961-977``). Returns ``(logits, kv_cache)``. With
+  ``cfg.kv_quant`` the cache holds int8 keys and values with one f32 scale per
+  (token, kv head) (``decoder.py:555-571,856-870``): the new entries are
+  quantised on write and attention reads the dequantised buffers.
 
 Parameter names mirror the flax tree so JAX weights carry across leaf
 for leaf (``dalm_tpu_torch/interop.py``). Every other family knob of the
@@ -144,8 +147,6 @@ def _check_supported(cfg: DecoderConfig) -> None:
         raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported yet")
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window attention is not ported yet")
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     if cfg.num_heads % cfg.kv_heads:
         raise ValueError("num_heads must be a multiple of num_kv_heads")
 
@@ -192,6 +193,20 @@ def _proj(cfg: DecoderConfig, n_in: int, n_out: int, device) -> FlexLinear:
                       int8_compute=cfg.int8_compute)
 
 
+def _kv_quantize(x: torch.Tensor) -> tuple:
+    """(B, S, H, D) float -> (int8 values, (B, S, H) f32 scales): per (token,
+    head) absmax over D, ``scale = max(amax, 1e-6) / 127``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=1e-6) / torch.full_like(amax, 127.0)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 product (int8 * f32 promotes exactly), cast to the compute type."""
+    return (q * scale[..., None]).to(dtype)
+
+
 class DecoderAttention(nn.Module):
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
@@ -218,9 +233,16 @@ class DecoderAttention(nn.Module):
         if kv_cache is not None:
             # Scalar-index write, in place (the reference's
             # dynamic_update_slice mode, decoder.py:624-628).
-            kv_cache["k"][:, cache_index:cache_index + S] = k.to(kv_cache["k"].dtype)
-            kv_cache["v"][:, cache_index:cache_index + S] = v.to(kv_cache["v"].dtype)
-            k, v = kv_cache["k"], kv_cache["v"]
+            at = slice(cache_index, cache_index + S)
+            if "k_scale" in kv_cache:  # int8 cache: quantise on write, read dequantised
+                (kv_cache["k"][:, at], kv_cache["k_scale"][:, at]) = _kv_quantize(k)
+                (kv_cache["v"][:, at], kv_cache["v_scale"][:, at]) = _kv_quantize(v)
+                k = _kv_dequantize(kv_cache["k"], kv_cache["k_scale"], cfg.dtype)
+                v = _kv_dequantize(kv_cache["v"], kv_cache["v_scale"], cfg.dtype)
+            else:
+                kv_cache["k"][:, at] = k.to(kv_cache["k"].dtype)
+                kv_cache["v"][:, at] = v.to(kv_cache["v"].dtype)
+                k, v = kv_cache["k"], kv_cache["v"]
         rep = nh // kvh
         # Grouped attention without repeating K/V: query head j·rep+g reads
         # kv head j (MHA is rep == 1). Layouts: (B, kvh, rep, S, hd) and
@@ -278,6 +300,17 @@ class Decoder(nn.Module):
         dtype = dtype or cfg.dtype
         device = device or self.final_norm.scale.device
         shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
+        if cfg.kv_quant:
+            # Zero scales dequantise unwritten slots to 0, which the masks exclude anyway.
+            return {
+                f"layer_{i}": {
+                    "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                }
+                for i in range(cfg.num_layers)
+            }
         return {
             f"layer_{i}": {
                 "k": torch.zeros(shape, dtype=dtype, device=device),

@@ -1,4 +1,4 @@
-"""Greedy KV-cache generation (counterpart of ``dalm_tpu/models/generate.py``).
+"""KV-cache generation, greedy or sampled (counterpart of ``dalm_tpu/models/generate.py``).
 
 Same semantics as the reference (``generate.py:52-108``):
 
@@ -7,7 +7,9 @@ Same semantics as the reference (``generate.py:52-108``):
 - the slot mask is ``[mask, ones(max_new_tokens)]``;
 - prefill writes cache slots ``[0, P)``; decode step ``t`` writes slot
   ``P + t`` at position ``real_len + t``;
-- tokens strictly after the first EOS are replaced by pad.
+- tokens strictly after the first EOS are replaced by pad;
+- a sampler draws the token of row ``b`` at step ``t`` keyed by the request
+  index ``b`` and the token index ``t`` (``models/sampling.py``).
 
 The reference's ``lax.scan`` is a Python loop here, and the cache is
 written in place.
@@ -48,13 +50,14 @@ def build_greedy_generate(
             input_ids, slot_mask, positions=prompt_positions, kv_cache=cache,
             cache_index=0, logits_last_only=True,
         )
-        tok = select_token(logits[:, -1, :], cfg)
+        rows = torch.arange(B, dtype=torch.int32)  # request index = batch row
+        tok = select_token(logits[:, -1, :], cfg, rows, torch.zeros_like(rows))
         toks = [tok]
         for t in range(max_new_tokens - 1):
             logits, cache = decoder(
                 tok[:, None], slot_mask, positions=pos[:, None], kv_cache=cache, cache_index=P + t,
             )
-            tok = select_token(logits[:, 0, :], cfg)
+            tok = select_token(logits[:, 0, :], cfg, rows, torch.full_like(rows, t + 1))
             toks.append(tok)
             pos = pos + 1
         out = torch.stack(toks, dim=1)

@@ -11,6 +11,11 @@ reference does. Three storages, named after the reference's collections:
   ``int8_compute`` "fwd" or "all" an int8 base runs through
   ``kernels.int8_matmul`` (K1/K2; "all" also runs dx in int8), otherwise it
   is dequantised inside this layer's matmul;
+- ``q4`` uint8 ``(in/2, out)`` + ``scale4`` f32 ``(in/group, out)`` (buffers,
+  frozen; the 4-bit serving storages of ``models/quant.py``), with a 0-d
+  marker buffer ``nf4`` (NormalFloat4 codebook) or ``pcol`` (one scale per
+  column, ``scale4 (1, out)``) as the reference's ``quant`` tree has it: runs
+  through ``kernels.int4_matmul`` (K5); ``int8_compute`` does not apply;
 - ``a (in, r)``, ``b (r, out)`` (parameters, f32): LoRA factors with
   alpha/r folded into ``a``, applied as ``(x @ a) @ b``, set by
   :meth:`add_lora` (the fused runtime);
@@ -21,8 +26,8 @@ reference does. Three storages, named after the reference's collections:
   and autograd carries the weight's gradient back to the two factors.
 
 So ``y = x @ dequant(W) + (x @ a) @ b [+ bias]``. The calibrated-scale
-branches of the reference (``a_scale``, ``dy_scale``, ``:84-108``) and its
-int4 storages are not ported yet and raise.
+branches of the reference (``a_scale``, ``dy_scale``, ``:84-108``) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -30,10 +35,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dalm_tpu_torch.kernels.int4_matmul import int4_matmul
 from dalm_tpu_torch.kernels.int8_matmul import int8_matmul
+from dalm_tpu_torch.models.quant import _int4_group
 
 INT8_COMPUTE = ("none", "fwd", "all")
-UNPORTED_QUANT_LEAVES = ("a_scale", "dy_scale", "q4", "scale4", "nf4", "pcol")
+UNPORTED_QUANT_LEAVES = ("a_scale", "dy_scale")
+STORAGES = ("int8", "bf16", "int4", "nf4", "int4pc")
+PACKED_LEAVES = ("q", "scale", "w", "q4", "scale4", "nf4", "pcol")
 
 
 class FlexLinear(nn.Module):
@@ -51,7 +60,7 @@ class FlexLinear(nn.Module):
             nn.Parameter(torch.zeros(out_features, dtype=param_dtype, device=device))
             if use_bias else None
         )
-        for name in ("q", "scale", "w"):
+        for name in PACKED_LEAVES:
             self.register_buffer(name, None)
         for name in ("a", "b", "lora_a", "lora_b"):
             self.register_parameter(name, None)
@@ -65,25 +74,38 @@ class FlexLinear(nn.Module):
             with torch.no_grad():
                 self.bias.zero_()
 
-    def to_packed(self, storage: str, device=None) -> None:
-        """Drop ``kernel`` for empty frozen buffers: ``storage`` "int8"
-        (``q`` + ``scale``) or "bf16" (``w``). The caller fills them."""
+    def to_packed(self, storage: str, device=None, group: int | None = None) -> None:
+        """Drop ``kernel`` for empty frozen buffers of a storage in ``STORAGES``:
+        "int8" (``q`` + ``scale``), "bf16" (``w``), or the 4-bit "int4", "nf4"
+        and "int4pc" (``q4`` + ``scale4`` + marker; ``group`` defaults to what
+        the quantiser picks for this width). The caller fills them."""
+        if storage not in STORAGES:
+            raise ValueError(f"packed storage must be one of {STORAGES}, not {storage!r}")
         device = device if device is not None else (self.kernel.device if self.kernel is not None else None)
-        shape = (self.in_features, self.out_features)
+        n_in, n_out = self.in_features, self.out_features
         self.kernel = None
-        self.q = self.scale = self.w = None
+        for name in PACKED_LEAVES:
+            setattr(self, name, None)
         if storage == "int8":
-            self.q = torch.empty(shape, dtype=torch.int8, device=device)
-            self.scale = torch.empty((1, self.out_features), dtype=torch.float32, device=device)
+            self.q = torch.empty((n_in, n_out), dtype=torch.int8, device=device)
+            self.scale = torch.empty((1, n_out), dtype=torch.float32, device=device)
         elif storage == "bf16":
-            self.w = torch.empty(shape, dtype=torch.bfloat16, device=device)
+            self.w = torch.empty((n_in, n_out), dtype=torch.bfloat16, device=device)
         else:
-            raise ValueError(f"packed storage must be 'int8' or 'bf16', not {storage!r}")
+            if n_in % 2:
+                raise ValueError(f"4-bit packing needs an even input width, not {n_in}")
+            rows = 1 if storage == "int4pc" else n_in // (group or _int4_group(n_in // 2))
+            self.q4 = torch.empty((n_in // 2, n_out), dtype=torch.uint8, device=device)
+            self.scale4 = torch.empty((rows, n_out), dtype=torch.float32, device=device)
+            if storage == "nf4":
+                self.nf4 = torch.ones((), dtype=torch.uint8, device=device)
+            elif storage == "int4pc":
+                self.pcol = torch.ones((), dtype=torch.int8, device=device)
 
     def add_lora(self, rank: int, device=None) -> None:
         """Trainable f32 factors ``a (in, rank)`` and ``b (rank, out)``, zero until filled."""
         device = device if device is not None else next(
-            t.device for t in (self.kernel, self.q, self.w) if t is not None)
+            t.device for t in (self.kernel, self.q, self.w, self.q4) if t is not None)
         self.a = nn.Parameter(torch.zeros(self.in_features, rank, dtype=torch.float32, device=device))
         self.b = nn.Parameter(torch.zeros(rank, self.out_features, dtype=torch.float32, device=device))
 
@@ -98,7 +120,9 @@ class FlexLinear(nn.Module):
         self.merge_scaling = float(scaling)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.q is not None and self.int8_compute != "none":
+        if self.q4 is not None:
+            y = int4_matmul(x, self.q4, self.scale4, self.nf4 is not None, self.pcol is not None)
+        elif self.q is not None and self.int8_compute != "none":
             y = int8_matmul(x, self.q, self.scale, self.int8_compute == "all")
         else:
             if self.q is not None:

@@ -1,8 +1,11 @@
 """Fused QLoRA: frozen packed base + trainable low-rank factors (counterpart
 of ``dalm_tpu/models/qlora.py:71-145,216-298,365-423``).
 
-The frozen base kernels are stored int8 (``q`` + ``scale``) or bf16 (``w``)
-and every ``FlexLinear`` computes ``x @ dequant(W) + (x @ a) @ b`` locally.
+The frozen base kernels are stored int8 (``q`` + ``scale``), bf16 (``w``) or
+4-bit (``q4`` + ``scale4``, with an ``nf4`` or ``pcol`` marker for the nf4 and
+int4pc formats), and every ``FlexLinear`` computes ``x @ dequant(W) + (x @ a) @ b``
+locally. ``quantize`` names the storage as the reference does: True or "int8",
+False (bf16), "int4", "nf4", "int4pc".
 Two views of the same state:
 
 - trees (nested dicts of tensors, the reference's collections):
@@ -24,11 +27,41 @@ import torch
 from torch import nn
 
 from dalm_tpu_torch.core.tree import flatten, set_path, unflatten
-from dalm_tpu_torch.models.layers import UNPORTED_QUANT_LEAVES, FlexLinear
+from dalm_tpu_torch.models.layers import PACKED_LEAVES, UNPORTED_QUANT_LEAVES, FlexLinear
 from dalm_tpu_torch.models.lora import LoraSpec, _target_kernel_paths
-from dalm_tpu_torch.models.quant import quantize_tensor
+from dalm_tpu_torch.models.quant import (dequantize_tensor_int4, quantize_tensor, quantize_tensor_int4,
+                                         quantize_tensor_int4pc, quantize_tensor_nf4)
 
 MIN_SIZE = 4096
+_QUANTISERS = {"int4": quantize_tensor_int4, "nf4": quantize_tensor_nf4, "int4pc": quantize_tensor_int4pc}
+
+
+def storage_of(quantize) -> str:
+    """The storage a ``quantize`` value names: True / "int8" -> "int8",
+    False -> "bf16", "int4" / "nf4" / "int4pc" as they are."""
+    if quantize is True or quantize == "int8":
+        return "int8"
+    if quantize is False:
+        return "bf16"
+    if quantize in _QUANTISERS:
+        return quantize
+    raise ValueError(f"quantize must be True, False, 'int8', 'int4', 'nf4' or 'int4pc', not {quantize!r}")
+
+
+def _pack_leaf(kernel: torch.Tensor, storage: str) -> dict:
+    """One kernel in a storage, as the leaves of its ``quant`` node."""
+    if storage == "int8":
+        qt = quantize_tensor(kernel)
+        return {"q": qt["__int8__"], "scale": qt["scale"]}
+    if storage == "bf16":
+        return {"w": kernel.to(torch.bfloat16)}
+    return _QUANTISERS[storage](kernel)
+
+
+def _storage_of_node(node: dict) -> str:
+    if "q4" in node:
+        return "nf4" if "nf4" in node else "int4pc" if "pcol" in node else "int4"
+    return "int8" if "q" in node else "bf16"
 
 
 def _walk_kernels(params: Any, path=()):
@@ -40,23 +73,18 @@ def _walk_kernels(params: Any, path=()):
             yield path + (k,), v
 
 
-def pack_qlora_frozen(params: Any, quantize: bool = True, min_size: int = MIN_SIZE) -> Tuple[dict, dict]:
+def pack_qlora_frozen(params: Any, quantize: "bool | str" = True, min_size: int = MIN_SIZE) -> Tuple[dict, dict]:
     """Move every 2-D kernel of >= ``min_size`` elements out of ``params`` into
-    a ``quant`` tree: int8 + scale (``quantize=True``) or bf16 ``w``. Returns
-    (residual, quant); the input is not changed."""
-    if quantize not in (True, False):
-        raise NotImplementedError(f"quantize={quantize!r}: only int8 (True) and bf16 (False) storage are ported")
+    a ``quant`` tree in the storage ``quantize`` names (``storage_of``).
+    Returns (residual, quant); the input is not changed."""
+    storage = storage_of(quantize)
     residual = flatten(params)
     quant: dict = {}
     for path, kernel in _walk_kernels(params):
         if kernel.numel() < min_size:
             continue
-        if quantize:
-            qt = quantize_tensor(kernel)
-            set_path(quant, path[:-1] + ("q",), qt["__int8__"])
-            set_path(quant, path[:-1] + ("scale",), qt["scale"])
-        else:
-            set_path(quant, path[:-1] + ("w",), kernel.to(torch.bfloat16))
+        for leaf, value in _pack_leaf(kernel, storage).items():
+            set_path(quant, path[:-1] + (leaf,), value)
         del residual[".".join(path)]
     return unflatten(residual), quant
 
@@ -84,13 +112,18 @@ def init_qlora_factors(generator: torch.Generator, params: Any, spec: LoraSpec) 
 
 def unpack_to_params(residual: Any, quant: Any, dtype=torch.bfloat16) -> dict:
     """A full parameter tree from packed storage: each packed kernel is
-    dequantised (``q * scale``, or the stored ``w``) back into its module's
-    ``kernel`` slot, on the CPU."""
+    dequantised (``q * scale``, the 4-bit formats' ``dequantize_tensor_int4``,
+    or the stored ``w``) back into its module's ``kernel`` slot, on the CPU."""
     out = {k: v.detach().cpu() for k, v in flatten(residual).items()}
 
     def walk(node, path):
-        if "q" in node or "w" in node:
-            kernel = node["q"].float() * node["scale"].float() if "q" in node else node["w"].float()
+        if "q" in node or "w" in node or "q4" in node:
+            if "q4" in node:
+                kernel = dequantize_tensor_int4(node)
+            elif "q" in node:
+                kernel = node["q"].float() * node["scale"].float()
+            else:
+                kernel = node["w"].float()
             out[".".join(path + ("kernel",))] = kernel.to(dtype).cpu()
         else:
             for k, v in node.items():
@@ -152,11 +185,15 @@ def load_packed(module: nn.Module, residual: dict, quant: dict, lora: Optional[d
     and copy all three trees in. Tensors land on the device the module's
     parameters are on."""
     device = next(module.parameters()).device
-    for path, node in _sites(quant, ("q", "w") + UNPORTED_QUANT_LEAVES):
+    for path, node in _sites(quant, ("q", "w", "q4") + UNPORTED_QUANT_LEAVES):
         bad = [k for k in UNPORTED_QUANT_LEAVES if k in node]
         if bad:
             raise NotImplementedError(f"quant leaves {bad} at {'.'.join(path)} are not ported yet")
-        _flex(module, path).to_packed("int8" if "q" in node else "bf16", device=device)
+        storage = _storage_of_node(node)
+        group = None
+        if storage in ("int4", "nf4"):
+            group = 2 * node["q4"].shape[0] // node["scale4"].shape[0]
+        _flex(module, path).to_packed(storage, device=device, group=group)
     for path, node in _sites(lora or {}, ("a",)):
         _flex(module, path).add_lora(node["a"].shape[1], device=device)
     state = {**flatten(residual), **flatten(quant), **flatten(lora or {})}
@@ -164,7 +201,7 @@ def load_packed(module: nn.Module, residual: dict, quant: dict, lora: Optional[d
     return module
 
 
-def pack_module(module: nn.Module, quantize: bool = True, min_size: int = MIN_SIZE) -> nn.Module:
+def pack_module(module: nn.Module, quantize: "bool | str" = True, min_size: int = MIN_SIZE) -> nn.Module:
     """:func:`pack_qlora_frozen` on the module's own kernels, in place."""
     residual, quant = pack_qlora_frozen(unflatten(dict(module.state_dict())), quantize, min_size)
     return load_packed(module, residual, quant)
@@ -193,7 +230,7 @@ def split_state(module: nn.Module) -> Tuple[dict, dict, dict]:
     packed = {n for n, m in module.named_modules() if isinstance(m, FlexLinear)}
     for key, v in module.state_dict().items():
         owner, _, leaf = key.rpartition(".")
-        if owner in packed and leaf in ("q", "scale", "w"):
+        if owner in packed and leaf in PACKED_LEAVES:
             quant[key] = v
         elif owner in packed and leaf in ("a", "b"):
             lora[key] = v
@@ -203,15 +240,17 @@ def split_state(module: nn.Module) -> Tuple[dict, dict, dict]:
 
 
 def init_packed_on_device(module: nn.Module, generator: torch.Generator, spec: Optional[LoraSpec] = None,
-                          quantize: bool = True, min_size: int = MIN_SIZE,
+                          quantize: "bool | str" = True, min_size: int = MIN_SIZE,
                           dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """Random-initialise a model built on the ``meta`` device straight into
     packed storage on the generator's device. Every leaf is drawn, cast to
     ``dtype``, quantised if it is a big kernel, and freed before the next:
     the peak beyond the packed model is one kernel in f32. Kernels and
     embeddings are N(0, 0.02), norm scales 1, other vectors 0; factors (for
-    ``spec``'s targets) ``a ~ N(0, 0.02) * alpha/r``, ``b = 0``."""
+    ``spec``'s targets) ``a ~ N(0, 0.02) * alpha/r``, ``b = 0``. ``quantize``
+    names the storage (``storage_of``)."""
     device = generator.device
+    storage = storage_of(quantize)
 
     def draw(shape):
         return (torch.randn(shape, generator=generator, device=device) * 0.02).to(dtype)
@@ -221,13 +260,9 @@ def init_packed_on_device(module: nn.Module, generator: torch.Generator, spec: O
             shape = (m.in_features, m.out_features)
             if shape[0] * shape[1] >= min_size:
                 leaf = draw(shape)
-                m.to_packed("int8" if quantize else "bf16", device=device)
-                if quantize:
-                    qt = quantize_tensor(leaf)
-                    m.q.copy_(qt["__int8__"])
-                    m.scale.copy_(qt["scale"])
-                else:
-                    m.w.copy_(leaf)
+                m.to_packed(storage, device=device)
+                for buf, value in _pack_leaf(leaf, storage).items():
+                    getattr(m, buf).copy_(value)
                 del leaf
             else:
                 m.kernel = nn.Parameter(draw(shape))

@@ -3,13 +3,19 @@
 The passage corpus is embedded once into a :class:`DenseIndex` on the
 device; ``answer`` embeds the queries, retrieves with K3 (the CUDA top-k
 kernel on the card), builds ``#query# … #passage# … #answer# `` prompts
-from each query's best passage, left-pads them and decodes greedily with
-the KV cache. Continuous batching, streaming, speculative decoding, the
-int8 KV cache and quantised generators wait for later slices and raise.
+from each query's best passage, left-pads them and decodes with the KV
+cache, greedily or with a ``SamplerConfig``. Serving tiers, as in the
+reference (``dalm_tpu/serve.py:65-114``): ``quantize_generator`` packs the
+generator's big kernels IN PLACE into int8 (True / "int8"), or 4-bit
+("int4", "nf4", "int4pc": every projection then runs on K5,
+``kernels/int4_matmul.py``); ``kv_quant`` switches the generator's config to
+the int8 KV cache, also in place. Continuous batching, streaming and
+speculative decoding wait for later slices and raise.
 
 Usage::
 
-    pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", passages, dtype="bfloat16")
+    pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", passages, dtype="bfloat16",
+                                       quantize_generator="int4", kv_quant=True)
     answers = pipe.answer(["what is ..?"], top_k=4)
 """
 
@@ -28,6 +34,7 @@ from dalm_tpu_torch.eval.retriever import build_embed_fn, load_retriever_for_eva
 from dalm_tpu_torch.index.dense import DenseIndex
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.generate import build_greedy_generate
+from dalm_tpu_torch.models.qlora import pack_module
 from dalm_tpu_torch.models.registry import resolve_decoder
 
 
@@ -52,24 +59,25 @@ class RagPipeline:
         max_new_tokens: int = 64,
         embed_batch: int = 64,
         index_quantize: "bool | str" = False,  # True/"int8" = int8 rows, "int4" = nibble rows
-        quantize_generator: "bool | str" = False,
-        kv_quant: bool = False,
-        sampler=None,
+        quantize_generator: "bool | str" = False,  # True/"int8" = int8; "int4", "nf4", "int4pc" = 4-bit
+        kv_quant: bool = False,  # int8 KV cache (per-token/head scales)
+        sampler=None,  # models.sampling.SamplerConfig; None = greedy
         speculative: bool = False,
         device=None,
     ):
         """``retriever`` (a SentenceEmbedder) and ``generator`` hold their
-        weights and must already be on ``device`` (default ``cuda``)."""
-        if quantize_generator:
-            raise NotImplementedError("quantised generators are not ported yet")
-        if kv_quant:
-            raise NotImplementedError("the int8 KV cache is not ported yet")
+        weights and must already be on ``device`` (default ``cuda``).
+        ``quantize_generator`` and ``kv_quant`` change ``generator`` in place."""
         if speculative:
             raise NotImplementedError("speculative decoding is not ported yet")
         self.device = resolve_device(device)
         for name, m in (("retriever", retriever), ("generator", generator)):
             if next(m.parameters()).device != self.device:
                 raise ValueError(f"the {name} is not on {self.device}")
+        if quantize_generator:
+            pack_module(generator, quantize=quantize_generator)
+        if kv_quant:
+            generator.cfg = dataclasses.replace(generator.cfg, kv_quant=True)
         self.retriever = retriever
         self.r_tok = retriever_tok
         self.generator = generator

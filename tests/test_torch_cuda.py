@@ -13,8 +13,10 @@ import torch
 
 from dalm_tpu_torch.index.dense import quantize_int4, quantize_int8
 from dalm_tpu_torch.kernels import flash_attention as fa
+from dalm_tpu_torch.kernels import int4_matmul as k5
 from dalm_tpu_torch.kernels import int8_matmul as im
 from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
+from dalm_tpu_torch.models import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -300,3 +302,94 @@ def test_flash_wrappers_reject_what_they_do_not_take(cuda):
         fa.flash_fwd(q, q.cpu(), q.cpu())
     with pytest.raises(ValueError, match="segment ids"):
         fa.flash_fwd(q, q, q, torch.zeros((1, 64), dtype=torch.int32, device=cuda), None)
+
+
+# K5. Tolerances against the plain version, row by row (a row's largest |plain| value sets its scale): pcol equal
+# (int32 sums, then the same two f32 products); i8mxu 3e-5 of the row in f32 (exact int8 products; only where the
+# kernel splits K does the scale fold add its slices in another order), base / groupmm / nf4 1e-4 of the row in f32
+# (the same bf16 x bf16 products summed in another order); bf16 outputs of every instance one bf16 ulp of the row's
+# largest value (2^-7), as the final rounding may fall the other way.
+K5_TOL = {"base": 1e-4, "groupmm": 1e-4, "nf4": 1e-4, "i8mxu": 3e-5, "pcol": 0.0}
+
+
+def _k5_weights(rng, K, N, instance, device, group=64):
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.02).astype(np.float32))
+    if instance == "pcol":
+        d = quant.quantize_tensor_int4pc(w)
+    elif instance == "nf4":
+        d = quant.quantize_tensor_nf4(w, group)
+    else:
+        d = quant.quantize_tensor_int4(w, group)
+    return d["q4"].to(device), d["scale4"].to(device)
+
+
+def _k5_close(y, ry, instance):
+    tol = K5_TOL[instance] if y.dtype == torch.float32 else 2.0 ** -7
+    err = (y.float() - ry.float()).abs()
+    bound = tol * ry.float().abs().amax(dim=1, keepdim=True)
+    assert torch.isfinite(y.float()).all() and bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("instance", ["base", "groupmm", "nf4", "i8mxu", "pcol"])
+@pytest.mark.parametrize("mkng", [(32, 4096, 4096, 64), (32, 11008, 512, 16), (300, 512, 1000, 32),
+                                  (5, 2048, 136, 128), (1, 1024, 256, 16), (200, 4096, 384, 64)])
+def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
+    """Each K5 instance against its plain version: decode rows (K split across blocks), ragged M and N, groups 16-128."""
+    M, K, N, group = mkng
+    rng = np.random.default_rng(4)
+    q4, scale4 = _k5_weights(rng, K, N, instance, cuda, group)
+    x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, dtype)
+    x[0] = 0
+    before = k5.int4_matmul_fwd.launches[instance]
+    y, ry = k5.int4_matmul_fwd(x, q4, scale4, instance), k5.int4_matmul_fwd_ref(x, q4, scale4, instance)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (M, N) and not y[0].any()
+    _k5_close(y, ry, instance)
+    assert k5.int4_matmul_fwd.launches[instance] == before + 1
+
+
+@pytest.mark.parametrize("fmt", ["int4", "nf4", "int4pc"])
+def test_int4_matmul_grad_on_card(cuda, fmt):
+    """int4_matmul against the plain version's autograd: forward within K5_TOL (bf16), dx equal (both
+    bf16(dy) @ bf16(W)^T in f32), no gradient into the storage but zeros for a scale that asks for one."""
+    rng = np.random.default_rng(5)
+    instance = {"int4": "base", "nf4": "nf4", "int4pc": "pcol"}[fmt]
+    q4, scale4 = _k5_weights(rng, 512, 384, instance, cuda)
+    scale4.requires_grad_()
+    x0 = torch.from_numpy(rng.standard_normal((2, 24, 512)).astype(np.float32)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((2, 24, 384)).astype(np.float32)).to(cuda, torch.bfloat16)
+    outs = []
+    for fn in (k5.int4_matmul, k5.int4_matmul_ref):
+        x = x0.clone().requires_grad_()
+        y = fn(x, q4, scale4, fmt == "nf4", fmt == "int4pc")
+        y.backward(g)
+        outs.append((y.detach(), x.grad, scale4.grad.clone()))
+        scale4.grad = None
+    torch.cuda.synchronize()
+    _k5_close(outs[0][0].reshape(48, 384), outs[1][0].reshape(48, 384), instance)
+    assert torch.equal(outs[0][1], outs[1][1]) and not outs[0][2].any()
+
+
+def test_int4_wrapper_rejects_what_it_does_not_take(cuda):
+    q4 = torch.zeros((128, 256), dtype=torch.uint8, device=cuda)
+    s = torch.ones((4, 256), device=cuda)
+    x = torch.zeros((8, 256), device=cuda)
+    with pytest.raises(ValueError, match="do not agree"):
+        k5.int4_matmul_fwd(torch.zeros((8, 255), device=cuda), q4, s, "base")  # odd K
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k5.int4_matmul_fwd(x, q4[:, :254].contiguous(), s[:, :254].contiguous(), "base")  # N % 4
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.int4_matmul_fwd(torch.zeros((256, 8), device=cuda).T, q4, s, "base")
+    with pytest.raises(TypeError):
+        k5.int4_matmul_fwd(x.half(), q4, s, "base")
+    with pytest.raises(TypeError):
+        k5.int4_matmul_fwd(x, q4.to(torch.int8), s, "base")
+    with pytest.raises(ValueError, match="group"):
+        k5.int4_matmul_fwd(x, q4, torch.ones((3, 256), device=cuda), "groupmm")  # the group does not divide K/2
+    with pytest.raises(ValueError, match="group"):
+        k5.int4_matmul_fwd(x, q4, torch.ones((32, 256), device=cuda), "base")  # group 8
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.int4_matmul_fwd(x, q4.cpu(), s, "base")
+    with pytest.raises(ValueError, match="unknown"):
+        k5.int4_matmul_fwd(x, q4, s, "decomp")

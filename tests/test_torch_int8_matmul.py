@@ -245,4 +245,4 @@ def test_flexlinear_rejects_what_is_not_ported():
     with pytest.raises(ValueError, match="int8_compute"):
         FlexLinear(8, 8, int8_compute="bwd")
     with pytest.raises(ValueError, match="storage"):
-        FlexLinear(8, 8).to_packed("int4")
+        FlexLinear(8, 8).to_packed("int3")

@@ -125,8 +125,9 @@ def test_greedy_generate_matches_jax_with_eos_mid_answer():
 def test_unported_decoder_knobs_raise():
     with pytest.raises(NotImplementedError):
         Decoder(dataclasses.replace(DecoderConfig.tiny(), sliding_window=16))
-    with pytest.raises(NotImplementedError):
-        Decoder(dataclasses.replace(DecoderConfig.tiny(), kv_quant=True))
+    # the int8 KV cache is ported (tests/test_torch_quant_serve.py): its cache holds int8 and scales
+    cache = Decoder(dataclasses.replace(DecoderConfig.tiny(), kv_quant=True)).init_kv_cache(1, 4)["layer_0"]
+    assert cache["k"].dtype == torch.int8 and cache["k_scale"].shape == (1, 4, 2)
     with pytest.raises(NotImplementedError):
         Decoder(dataclasses.replace(DecoderConfig.tiny(), attention_impl="ring"))
     # "flash" is ported (kernels/flash_attention.py); the decoder takes it

@@ -123,8 +123,8 @@ def test_pack_qlora_frozen_trees_equal_jax(quantize):
     # back to a full tree
     _assert_trees_equal(qlora.unpack_to_params(t_res, t_quant, torch.float32),
                         jax.tree.map(lambda a: np.asarray(a, np.float32), jqlora.unpack_to_params(j_res, j_quant, np.float32)))
-    with pytest.raises(NotImplementedError, match="int4"):
-        qlora.pack_qlora_frozen(_torch_tree(params), quantize="int4")
+    with pytest.raises(ValueError, match="int3"):  # the 4-bit storages: tests/test_torch_quant_serve.py
+        qlora.pack_qlora_frozen(_torch_tree(params), quantize="int3")
 
 
 def test_factor_trees_round_trip_and_equal_jax():
@@ -229,7 +229,7 @@ def test_interop_rejects_unported_leaves_and_mismatched_factors():
         interop.load_factors(tmod, {"layer_0": {"attention": {"q_proj": {"a": np.zeros((64, 8), np.float32)}}}})
 
 
-@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("quantize", [True, False, "int4", "nf4", "int4pc"])
 def test_init_packed_on_device_has_the_reference_structure(quantize):
     """Same leaves, shapes and storage types as the JAX package's on-device
     packed init (values differ: other generators); nothing is left on meta."""
@@ -250,9 +250,12 @@ def test_init_packed_on_device_has_the_reference_structure(quantize):
     assert sorted(flatten(t_lora)) == sorted(flatten(jax.tree.map(np.asarray, j_lora)))
     assert float(state["layer_0.input_norm.scale"].float().mean()) == 1.0
     assert not state["layer_1.attention.v_proj.b"].any() and state["layer_1.attention.v_proj.a"].any()
-    if quantize:
+    if quantize is True:
         deq = state["layer_0.gate_proj.q"].float() * state["layer_0.gate_proj.scale"]
         assert abs(float(deq.std()) - 0.02) < 0.005
+    elif quantize:
+        node = {k.rpartition(".")[2]: v for k, v in state.items() if k.startswith("layer_0.gate_proj.")}
+        assert abs(float(quant.dequantize_tensor_int4(node).std()) - 0.02) < 0.005
     logits = tmod.train_forward(torch.zeros((2, 6), dtype=torch.long), torch.ones((2, 6), dtype=torch.long))
     assert logits.shape == (2, 6, 512) and bool(torch.isfinite(logits).all())
 

@@ -2,7 +2,9 @@
 tiny retriever and generator weights, ByteTokenizer, 12 passages and 2
 queries through ``RagPipeline.answer`` on both sides. Retrieved ids are
 equal, scores within 1e-5 (unit-norm embeddings, f32) and answer strings
-equal. Also round-trips the port's ``save_pretrained`` / ``from_pretrained``.
+equal, with the float generator and with each serving tier (an int8 or 4-bit
+generator packed by the pipeline, the int8 KV cache). Also round-trips the
+port's ``save_pretrained`` / ``from_pretrained``.
 """
 
 import jax
@@ -64,6 +66,22 @@ def test_pipeline_matches_jax(jax_weights, quantize):
     assert [a.passages for a in t_ans] == [a.passages for a in j_ans]
     for a in t_ans:
         assert len(a.passages) == 4 and a.scores == sorted(a.scores, reverse=True)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["float-cache", "int8-cache"])
+@pytest.mark.parametrize("quantize_generator", [True, "int4", "nf4", "int4pc"])
+def test_quantized_pipeline_matches_jax(jax_weights, quantize_generator, kv_quant):
+    """The generator packed in place by the pipeline, as the reference packs its tree."""
+    retriever, r_params, generator, g_params = jax_weights
+    ref = JaxRagPipeline(retriever, r_params, JaxByteTokenizer(), generator, g_params, JaxByteTokenizer(),
+                         PASSAGES, quantize_generator=quantize_generator, kv_quant=kv_quant, **OPTS)
+    pipe = _port_pipeline(r_params, g_params, quantize_generator=quantize_generator, kv_quant=kv_quant)
+    leaves = dict(pipe.generator.named_buffers())
+    assert ("layer_0.attention.q_proj.q4" in leaves) == (quantize_generator is not True)
+    assert pipe.generator.cfg.kv_quant == kv_quant
+    j_ans, t_ans = ref.answer(QUERIES, top_k=4), pipe.answer(QUERIES, top_k=4)
+    assert [a.answer for a in t_ans] == [a.answer for a in j_ans]
+    assert [a.passages for a in t_ans] == [a.passages for a in j_ans]
 
 
 def test_save_and_from_pretrained_round_trip(jax_weights, tmp_path):
