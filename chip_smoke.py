@@ -24,7 +24,10 @@ Phases: ``small`` (tiny pipeline, card vs CPU; and a tiny pipeline wide
 enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``,
 ``serve-q`` (the 4-bit tiers; reuses ``serve``'s bf16 pipeline when both
 run), ``k3``, ``k2``, ``k1`` (K1 and the two int8 GEMM entries), ``grad``,
-``k4`` (flash attention forward, dq, dk/dv), ``k5`` (the five K5 instances),
+``k4`` (flash attention forward, dq, dk/dv), ``k5`` (the five K5 instances;
+K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, against the
+fused kernel forced on the same operands, and the two routes' crossover by
+rows),
 ``train-small`` (tiny ``train_e2e``, card vs CPU),
 ``train``, ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
@@ -35,7 +38,8 @@ Output: per-phase lines, one JSON line of every measured case per kernel
 phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
 the card's name and power limit, one ``{"kernels": [...]}`` JSON line (one
 entry per K3 row storage mode, K2, K1, each GEMM entry, each of the three K4
-kernels and each of the five K5 instances, each with its launches in its
+kernels, each of the five K5 instances and the prefill route's pre-pass (base,
+nf4) and GEMM, each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven), and as
@@ -1238,6 +1242,112 @@ def k5_weights(gen, device, K, N):
     return out
 
 
+K5_PREFILL_SOURCE = "dalm_tpu_torch/csrc/int4_prefill.cu"
+
+
+def prefill_timing(k5, quant, x, d, fmt, inst, group, w_bf16, out, fused_ms, peaks):
+    """K5's prefill route at one shape: the pre-pass (held equal to its plain version), the GEMM (held to K5_TOL)
+    and both together, each alone on operands prepared once, beside the plain versions, ``x @ Wt^T`` and the
+    bounds. Returns (the keys it adds to the K5 record, the records of the two kernels)."""
+    import torch
+
+    mem_bw, _, bf16_rate, _ = peaks
+    M, K = x.shape
+    N = w_bf16.shape[1]
+    q4, s4 = d["q4"], d["scale4"]
+    nf4 = inst == "nf4"
+    wt = torch.empty((N, K), dtype=torch.bfloat16, device=x.device)
+    k5.launch_dequant(q4, s4, group, nf4, wt)
+    torch.cuda.synchronize()
+    check(torch.equal(wt, w_bf16.T), f"k5 prefill pre-pass {inst} K={K} N={N}: not equal to its plain version")
+    dq_ms = cuda_ms(lambda: k5.launch_dequant(q4, s4, group, nf4, wt), 20)
+    dq_plain_ms = cuda_ms(lambda: k5.prefill_dequant_ref(q4, s4, nf4), 2)
+    gemm_ms = cuda_ms(lambda: k5.launch_gemm(x, wt, out), 10)
+    gemm_err, share = k5_err(out, k5.prefill_gemm_ref(x, wt), inst)
+    gemm_plain_ms = cuda_ms(lambda: k5.prefill_gemm_ref(x, wt), 2)
+    lib_ms = cuda_ms(lambda: x @ wt.T, 10)
+    both_ms = cuda_ms(lambda: (k5.launch_dequant(q4, s4, group, nf4, wt), k5.launch_gemm(x, wt, out)), 10)
+    dq_bytes = q4.numel() + s4.numel() * 4 + N * K * 2
+    t_bytes, t_ops = (M * K + N * K + M * N) * 2 / mem_bw * 1e3, 2.0 * M * K * N / bf16_rate * 1e3
+    del wt
+    recs = [
+        {"name": f"k5_prefill_dequant[{inst}]", "route": "cuda", "source": K5_PREFILL_SOURCE, "replaces": K5_AT[inst],
+         "case": f"K={K} N={N} group={group} ({fmt})", "max_abs_err": 0.0, "ms": dq_ms, "plain_ms": dq_plain_ms,
+         "bound_ms": dq_bytes / mem_bw * 1e3, "bound_by": "bytes", "library_ms": None,
+         "library_is": "none: no one PyTorch call decodes the packed nibbles"},
+        {"name": "k5_prefill_gemm", "route": "cuda", "source": K5_PREFILL_SOURCE, "replaces": K5_AT[inst],
+         "case": f"M={M} K={K} N={N} bf16 (Wt of {fmt})", "max_abs_err": gemm_err, "ms": gemm_ms,
+         "plain_ms": gemm_plain_ms, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+         "library_is": "x @ Wt.T (torch.matmul)", "worst_share_of_tolerance": share,
+         "tflops": 2.0 * M * K * N / gemm_ms * 1e-9},
+    ]
+    print(f"[k5]   prefill route {inst} M={M} K={K} N={N}: pre-pass {dq_ms:.4f} ms (bound {recs[0]['bound_ms']:.4f}, "
+          f"plain {dq_plain_ms:.4f}), GEMM {gemm_ms:.4f} ms = {recs[1]['tflops']:.0f} TFLOP/s (x @ Wt^T {lib_ms:.4f}, "
+          f"bound {recs[1]['bound_ms']:.4f}), both {both_ms:.4f} ms; the fused route forced {fused_ms:.4f} ms: "
+          f"{fused_ms / both_ms:.2f}x faster, {both_ms / lib_ms:.2f}x the library", flush=True)
+    extra = {"prefill_ms": both_ms, "prefill_dequant_ms": dq_ms, "prefill_gemm_ms": gemm_ms,
+             "speedup_over_fused": fused_ms / both_ms}
+    return extra, recs
+
+
+def k5_prefill_phase(gen, device, peaks):
+    """The prefill route beyond the Llama shapes: base and nf4 on ragged shapes (M from M_PREFILL up, N no
+    multiple of 128, groups 16-128) against the plain version, counted per route; the two routes timed by rows
+    at two Llama shapes (the crossover that sets M_PREFILL). Returns the crossover records."""
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models import quant
+
+    worst = {}
+    for M, K, N, group in ((k5.M_PREFILL, 1024, 136, 64), (300, 2048, 1000, 128), (1000, 11008, 264, 16),
+                           (8192, 4096, 136, 32), (8192, 11008, 11008, 16)):
+        w = torch.randn((K, N), generator=gen, device=device) * 0.02
+        for inst, qz in (("base", quant.quantize_tensor_int4), ("nf4", quant.quantize_tensor_nf4)):
+            d = qz(w, group)
+            check(K // d["scale4"].shape[0] == group, f"k5 prefill: group {group} at K={K}")
+            x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+            x[0] = 0
+            before = k5.int4_matmul_fwd.route_launches[inst, "prefill"]
+            y = k5.int4_matmul_fwd(x, d["q4"], d["scale4"], inst)
+            ry = k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], inst)
+            torch.cuda.synchronize()
+            check(k5.int4_matmul_fwd.route_launches[inst, "prefill"] == before + 1, f"k5 prefill {inst}: route not taken")
+            check(tuple(y.shape) == (M, N) and not bool(y[0].any()), f"k5 prefill {inst}: shape / zero row")
+            worst[inst] = max(worst.get(inst, 0.0), k5_err(y, ry, inst)[1])
+            del x, y, ry
+        del w
+    print(f"[k5] prefill route on ragged shapes (M {k5.M_PREFILL}-8192, N 136-11008, groups 16-128, bf16): base and "
+          f"nf4 within their tolerance; worst share of the bound {worst}", flush=True)
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    crossover = []
+    for K, N in ((4096, 4096), (11008, 4096)):
+        d = quant.quantize_tensor_int4(torch.randn((K, N), generator=gen, device=device) * 0.02)
+        group = K // d["scale4"].shape[0]
+        wt = torch.empty((N, K), dtype=torch.bfloat16, device=device)
+        row = []
+        for M in (32, 64, 128, 192, 256, 384, 512, 1024, 2048):
+            x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+            out = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+            splits = k5._splits(M, N, K // 2, group, "base", sms)
+            ws = torch.empty((splits, M, N), dtype=torch.float32, device=device) if splits > 1 else None
+            fused = cuda_ms(lambda: k5.launch("base", x, None, d["q4"], d["scale4"], group, splits, ws, out), 20)
+            pre = cuda_ms(lambda: (k5.launch_dequant(d["q4"], d["scale4"], group, False, wt),
+                                   k5.launch_gemm(x, wt, out)), 20)
+            row.append({"M": M, "fused_ms": fused, "prefill_ms": pre})
+        first = next((r["M"] for r in row if r["prefill_ms"] < r["fused_ms"]), None)
+        crossover.append({"K": K, "N": N, "group": group, "rows": row, "prefill_faster_from_M": first})
+        print(f"[k5] crossover K={K} N={N} (base, bf16), ms fused / prefill by M: "
+              + ", ".join(f"{r['M']}: {r['fused_ms']:.4f} / {r['prefill_ms']:.4f}" for r in row)
+              + f"; prefill faster from M = {first}; M_PREFILL = {k5.M_PREFILL}", flush=True)
+        del d, wt
+
+    torch.cuda.empty_cache()
+    return {"crossover": crossover}
+
+
 def k5_phase(gen, device, peaks):
     """Each K5 instance against its plain version on the card: small and ragged shapes (M 1-300, N not a
     multiple of 128, groups 16-128, x in f32 and bf16), then the Llama-2-7B shapes at decode (M = 32; x in
@@ -1287,15 +1397,28 @@ def k5_phase(gen, device, peaks):
                 max_err, share = k5_err(y, ry, inst)
                 if xf is not None:
                     k5_err(k5.int4_matmul_fwd(xf, q4, s4, inst), k5.int4_matmul_fwd_ref(xf, q4, s4, inst), inst)
-                del y, ry
-                # the kernel alone on operands prepared once (K2's rowquant for i8mxu / pcol outside the timing),
+                del y
+                # the kernels alone on operands prepared once (K2's rowquant for i8mxu / pcol outside the timing),
                 # then the wrapper as the model calls it (checks, allocation, K2)
                 g_arg = K if inst == "pcol" else group
+                route = k5._route(x, inst)
                 splits = k5._splits(M, N, K // 2, g_arg, inst, sms)
                 a, xs = k5.rowquant(x) if inst in ("i8mxu", "pcol") else (x, None)
                 o = torch.empty((M, N), dtype=x.dtype, device=device)
                 ws = torch.empty((splits, M, N), dtype=torch.float32, device=device) if splits > 1 else None
                 ms = cuda_ms(lambda: k5.launch(inst, a, xs, q4, s4, g_arg, splits, ws, o), iters)
+                # the fused kernel's own output, also where int4_matmul_fwd took the prefill route above
+                fused_err, fused_share = k5_err(o, ry, inst)
+                del ry
+                extra = {}
+                if route == "prefill":
+                    extra, prefill_records = prefill_timing(k5, quant, x, d, fmt, inst, group, w_bf16[fmt], o, ms,
+                                                            peaks)
+                    extra.update(prefill_max_abs_err=max_err, prefill_worst_share_of_tolerance=share)
+                    entries.extend(prefill_records)
+                    if (K, N) == (4096, 4096):
+                        for r in prefill_records:
+                            mains.setdefault(r["name"], r)
                 wrapper_ms = cuda_ms(lambda: k5.int4_matmul_fwd(x, q4, s4, inst), iters)
                 plain_ms = cuda_ms(lambda: k5.int4_matmul_fwd_ref(x, q4, s4, inst), 2)
                 wb = w_bf16[fmt]
@@ -1306,13 +1429,13 @@ def k5_phase(gen, device, peaks):
                 t_bytes, t_ops = nbytes / mem_bw * 1e3, ops / (int8_rate if inst in ("i8mxu", "pcol") else bf16_rate) * 1e3
                 e = {"name": f"int4_matmul[{inst}]", "route": "cuda", "source": "dalm_tpu_torch/csrc/int4_matmul.cu",
                      "replaces": K5_AT[inst], "case": f"M={M} K={K} N={N} group={group if inst != 'pcol' else K} bf16",
-                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                     "max_abs_err": fused_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
                      "library_is": "x @ W_bf16 (torch.matmul on the weight dequantised beforehand: the bf16 tier)",
                      "dequant_matmul_ms": deq_ms, "wrapper_ms": wrapper_ms, "splits": splits,
-                     "worst_share_of_tolerance": share}
+                     "worst_share_of_tolerance": fused_share, "k5_route": route, **extra}
                 show("k5", e)
-                print(f"[k5]   through int4_matmul_fwd (checks, allocation{', K2' if xs is not None else ''}): "
+                print(f"[k5]   route {route}; through int4_matmul_fwd (checks, allocation{', K2' if xs is not None else ''}): "
                       f"{wrapper_ms:.4f} ms; K split in {splits}", flush=True)
                 entries.append(e)
                 ms_at[inst, K, N, M] = ms
@@ -1450,7 +1573,9 @@ def serve_q_phase(device, rng, base_pipe):
     """The 4-bit serving tiers at full width and depth: the bf16 pipeline's bge-large retriever, corpus and
     Llama-2-7B weights, the generator packed by ``RagPipeline(quantize_generator=..., kv_quant=True)``. int4
     (K5 base): a warm and a timed ``answer()`` of 32 queries, top-4, 256-token prompts, 64 new tokens, split
-    as in ``[main]``, K5 launches counted (225 a forward x 64 forwards); then one ``answer()`` each for nf4,
+    as in ``[main]``, K5 launches counted (225 a forward x 64 forwards; the prefill forward's 224 projections on
+    the prefill route, the rest on the fused kernel), the prefill timed again with every projection on the fused
+    kernel; then one ``answer()`` each for nf4,
     int4pc, and int4 with ``DEFAULT_VARIANT`` i8mxu and groupmm; the last-position logits of each tier against
     the bf16 generator's; a sampled ``answer()`` that repeats. Returns the K5 launches of each instance in its
     own ``answer()`` and the decode times."""
@@ -1522,6 +1647,9 @@ def serve_q_phase(device, rng, base_pipe):
 
     def counted_answer(q):
         k5.int4_matmul_fwd.launches = dict.fromkeys(k5.INSTANCES, 0)
+        k5.int4_matmul_fwd.route_launches = dict.fromkeys(k5.int4_matmul_fwd.route_launches, 0)
+        k5.prefill_dequant.launches = dict.fromkeys(k5.PREFILL_INSTANCES, 0)
+        k5.prefill_gemm.launches = 0
         k2 = im.rowquant.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1533,6 +1661,19 @@ def serve_q_phase(device, rng, base_pipe):
               "serve-q: retrieval differs from the bf16 pipeline's")
         return answers, dt, dict(k5.int4_matmul_fwd.launches), im.rowquant.launches - k2
 
+    def check_routes(inst, label):
+        """K5's routes in the last counted answer(): every projection of the prefill forward (8192 rows) on the
+        prefill route for base / nf4, the rest (lm_head at 32 rows, 63 decode forwards) on the fused kernel."""
+        routes = k5.int4_matmul_fwd.route_launches
+        pre = 7 * layers if inst in k5.PREFILL_INSTANCES else 0
+        got = {r: routes[inst, r] for r in k5.ROUTES}
+        check(got == {"prefill": pre, "fused": want - pre} and sum(routes.values()) == want,
+              f"serve-q {label}: K5 routes {got}, want {pre} prefill and {want - pre} fused")
+        dq = k5.prefill_dequant.launches
+        check(dq == {i: pre if i == inst else 0 for i in k5.PREFILL_INSTANCES} and k5.prefill_gemm.launches == pre,
+              f"serve-q {label}: prefill kernels launched {dq}, {k5.prefill_gemm.launches} times, want {pre} each")
+        return got
+
     # int4 + int8 KV cache, K5 base: the slice's main path
     q, build_s = tier_pipeline("int4")
     gen = q.generator
@@ -1543,7 +1684,10 @@ def serve_q_phase(device, rng, base_pipe):
     want = per_forward * 64
     check(counts["base"] == want and sum(counts.values()) == want,
           f"serve-q int4: K5 launches {counts}, {layers} layers x 64 forwards predict {want} base")
-    launches["base"] = counts["base"]
+    routes = check_routes("base", "int4")
+    launches["base"] = routes["fused"]  # the fused kernel's own launches; the prefill route's are the new kernels
+    launches["k5_prefill_dequant[base]"] = k5.prefill_dequant.launches["base"]
+    launches["k5_prefill_gemm"] = k5.prefill_gemm.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     q_embs = q._embed_texts([f"#query# {x}" for x in queries], q.max_passage_len)
@@ -1564,16 +1708,30 @@ def serve_q_phase(device, rng, base_pipe):
     first(p_ids, p_mask)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    m_prefill = k5.M_PREFILL
+    k5.M_PREFILL = 1 << 30  # the same prefill with every projection on the fused kernel
+    try:
+        first(p_ids, p_mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first(p_ids, p_mask)
+        torch.cuda.synchronize()
+        prefill_fused_s = time.perf_counter() - t0
+    finally:
+        k5.M_PREFILL = m_prefill
     check(tuple(toks_out.shape) == (len(queries), 64) and bool(((toks_out >= 0) & (toks_out < 32000)).all()),
           "serve-q int4: generated ids")
     step_ms = (decode_s - prefill_s) / 63 * 1e3
     err, err_fb = logit_err(q, "base")
-    out.update(int4_answer_s=answer_s, decode_step_ms=step_ms, prefill_s=prefill_s, decode_s=decode_s)
+    out.update(int4_answer_s=answer_s, decode_step_ms=step_ms, prefill_s=prefill_s, decode_s=decode_s,
+               prefill_fused_s=prefill_fused_s)
     print(f"[serve-q] int4 + int8 KV cache (K5 base): pipeline built in {build_s:.2f} s (pack + {len(pipe.passages)} "
           f"passages embedded; packed weights and scales {packed / 1e9:.3f} GB); answer(): {answer_s:.3f} s for "
           f"{len(queries)} queries; query embed {embed_s:.4f} s; search {search_ms:.3f} ms; prefill+decode "
-          f"{decode_s:.3f} s = {toks_out.numel() / decode_s:.1f} tokens/s; prefill (+ first token) {prefill_s:.3f} s; "
-          f"decode {step_ms:.2f} ms/step against a weight-read bound of 1.19 ms; K5 launches per answer() {counts}; "
+          f"{decode_s:.3f} s = {toks_out.numel() / decode_s:.1f} tokens/s; prefill (+ first token) {prefill_s:.3f} s "
+          f"(every projection on the fused kernel instead: {prefill_fused_s:.3f} s); "
+          f"decode {step_ms:.2f} ms/step against a weight-read bound of 1.19 ms; K5 launches per answer() {counts}, "
+          f"by route {routes}; "
           f"last-position logits: relative error {err:.4f} against bf16, {err_fb:.4f} against x @ dequant(W)",
           flush=True)
     print(f"[serve-q] sample answer: {answers[0].answer[:60]!r}", flush=True)
@@ -1582,12 +1740,12 @@ def serve_q_phase(device, rng, base_pipe):
         k5.DEFAULT_VARIANT = variant
         try:
             _, dt, counts, k2 = counted_answer(q)
+            launches[variant] = check_routes(variant, variant)["fused"]
             err, err_fb = logit_err(q, variant)
         finally:
             k5.DEFAULT_VARIANT = "base"
         check(counts[variant] == want and sum(counts.values()) == want, f"serve-q {variant}: K5 launches {counts}")
         check(k2 == (want if variant == "i8mxu" else 0), f"serve-q {variant}: {k2} K2 launches")
-        launches[variant] = counts[variant]
         out[f"{variant}_answer_s"] = dt
         print(f"[serve-q] int4 with DEFAULT_VARIANT={variant}: answer() {dt:.3f} s; K5 {variant} launches "
               f"{counts[variant]}, K2 {k2}; logits relative error {err:.4f} against bf16, {err_fb:.4f} against "
@@ -1614,11 +1772,14 @@ def serve_q_phase(device, rng, base_pipe):
         q, build_s = tier_pipeline(fmt)
         _, dt, counts, k2 = counted_answer(q)
         check(counts[inst] == want and sum(counts.values()) == want, f"serve-q {fmt}: K5 launches {counts}")
+        routes = check_routes(inst, fmt)
+        if inst == "nf4":
+            launches["k5_prefill_dequant[nf4]"] = k5.prefill_dequant.launches["nf4"]
         err, err_fb = logit_err(q, inst)
-        launches[inst] = counts[inst]
+        launches[inst] = routes["fused"]
         out[f"{fmt}_answer_s"] = dt
         print(f"[serve-q] {fmt} + int8 KV cache: built in {build_s:.2f} s; answer() {dt:.3f} s (first, not warmed); "
-              f"K5 {inst} launches {counts[inst]}, K2 {k2}; logits relative error {err:.4f} against bf16, "
+              f"K5 {inst} launches {counts[inst]} (by route {routes}), K2 {k2}; logits relative error {err:.4f} against bf16, "
               f"{err_fb:.4f} against x @ dequant(W)", flush=True)
         del q
         gc.collect()
@@ -1661,7 +1822,7 @@ def serve_phase(device, rng, peaks, kernels):
     return pipe
 
 
-KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "int4_matmul")
+KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "int4_matmul", "int4_prefill")
 TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
@@ -1753,8 +1914,9 @@ def main() -> int:
     if "k5" in phases:
         cases, mains, _ = k5_phase(gen, device, peaks)
         print(json.dumps({"k5_cases": cases}), flush=True)
-        for inst, e in mains.items():
-            kernels[e["name"]] = dict(e, launches=k5_launches.get(inst, 0)) if "serve-q" in phases else e
+        print(json.dumps({"k5_prefill": k5_prefill_phase(gen, device, peaks)}), flush=True)
+        for key, e in mains.items():
+            kernels[e["name"]] = dict(e, launches=k5_launches.get(key, 0)) if "serve-q" in phases else e
     with tempfile.TemporaryDirectory() as workdir:
         if "train-small" in phases:
             train_small_phase(device, workdir)
@@ -1781,6 +1943,7 @@ def main() -> int:
         print(f"chip_smoke: ran only {phases}; no result line", flush=True)
         return 0
     k5_names = [f"int4_matmul[{i}]" for i in ("base", "groupmm", "nf4", "i8mxu", "pcol")]
+    k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
              "rowquant", "w8a8_fused", "int8_gemm_kn", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv", *k5_names)
     line = [kernels[name] for name in order]

@@ -58,6 +58,8 @@
 
 #include <type_traits>
 
+#include "int4_decode.cuh"
+
 namespace {
 
 constexpr int BM = 64;           // output tile rows
@@ -70,15 +72,6 @@ constexpr int LD8 = 2 * BH + 16; // int8 tile rows, [m][k] and [n][k]: 64 bytes 
 
 enum Decode { LINEAR = 0, NF4 = 1 };
 enum ScaleAt { BEFORE = 0, AFTER_GROUP = 1, AT_WRITE = 2 };
-
-// The same f32 values as models/quant.py NF4_CODEBOOK.
-__device__ const float kNF4[16] = {
-    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
-    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
-    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f,
-    0.33791524171829224f, 0.44070982933044434f, 0.5626170039176941f,
-    0.7229568362236023f, 1.0f,
-};
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
     asm volatile(
@@ -209,10 +202,6 @@ struct Tile {
         kq = (warp >> 2) * 4 + (lane >> 3);
     }
 
-    __device__ static float decode(uint32_t nib, const float* cb) {
-        return DEC == NF4 ? cb[nib] : (float)((int)nib - 8);
-    }
-
     // Registers -> shared memory: x as bf16 [m][k]; W as bf16 [k][n].
     __device__ static void store(const Stage<false, T>& st, __nv_bfloat16* As, __nv_bfloat16* Bs, const float* cb,
                                  int tid) {
@@ -239,10 +228,7 @@ struct Tile {
             const uint8_t* b = reinterpret_cast<const uint8_t*>(&st.q[i]);
             float lo[8], hi[8];
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                lo[j] = decode(b[j] & 0xF, cb);
-                hi[j] = decode(b[j] >> 4, cb);
-            }
+            for (int j = 0; j < 8; ++j) decode_pair<DEC == NF4>(b[j], cb, lo[j], hi[j]);
             if (SC == BEFORE) {
                 const float* sl = reinterpret_cast<const float*>(&st.s[i][0][0]);
                 const float* sh = reinterpret_cast<const float*>(&st.s[i][1][0]);

@@ -26,11 +26,20 @@ the high one) and ``scale4 (K/group, N)`` f32 (``(1, N)`` for pcol). Output in
   ``(f32(acc) * xs) * s``.
 
 ``int4_matmul`` routes as the reference does (``:553-593``): a shape that
-``_kernel_feasible`` / ``_pcol_feasible`` rejects takes ``x @ dequant(W)`` in
+``_kernel_feasible`` / ``_pcol_feasible`` rejects, or whose N is not a
+multiple of 8 (the kernels' column pairs), takes ``x @ dequant(W)`` in
 ``x.dtype`` on any device; an admitted one takes the instance named by
 ``nf4`` / ``pcol`` or else by ``DEFAULT_VARIANT`` (read from
 ``DALM_INT4_VARIANT`` at import, looked up at every call). The JAX package
 runs the kernel only on a TPU and dequantises everywhere else.
+
+On the card ``int4_matmul_fwd`` has two routes (``_route``). ``"fused"``:
+the one-launch kernel of ``csrc/int4_matmul.cu``, which dequantises inside its
+product loop (decode's few rows, float32 activations, groupmm / i8mxu / pcol).
+``"prefill"``: bfloat16 activations of base or nf4 with at least ``M_PREFILL``
+rows take ``csrc/int4_prefill.cu``, a pre-pass that writes the weight once as
+bf16 ``Wt (N, K)`` into a scratch (``prefill_dequant``) and a wgmma / TMA GEMM
+``x @ Wt^T`` (``prefill_gemm``); the same values up to the order of the f32 sums.
 """
 
 from __future__ import annotations
@@ -57,7 +66,16 @@ if DEFAULT_VARIANT not in VARIANTS:
 
 TILE_HALF = 32  # packed rows per k-step of the kernel (64 K values: 32 low, 32 high)
 
+ROUTES = ("fused", "prefill")
+PREFILL_INSTANCES = ("base", "nf4")  # the instances that scale the weight before the product
+# Rows from which bf16 base / nf4 take the prefill route: the crossover of the two routes measured on an
+# H100 80GB HBM3 at 700 W (chip_smoke.py's k5 phase, "[k5] crossover"; PERF.md section 6): the fused kernel is
+# faster at 128 rows, the prefill route from 192 on, at (K, N) = (4096, 4096) and (11008, 4096). Decode's 32
+# rows stay below it.
+M_PREFILL = 192
+
 _lib_handle = None
+_prefill_handle = None
 
 
 def _lib():
@@ -71,6 +89,21 @@ def _lib():
         lib.dalm_i4_matmul.restype = i
         _lib_handle = lib
     return _lib_handle
+
+
+def _prefill_lib():
+    global _prefill_handle
+    if _prefill_handle is None:
+        from dalm_tpu_torch.kernels import build
+
+        lib = build.load("int4_prefill")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dalm_i4_dequant_t.argtypes = [i, p, p, i, i, i, p, p]
+        lib.dalm_i4_dequant_t.restype = i
+        lib.dalm_bf16_gemm_nt.argtypes = [p, p, i, i, i, p, p]
+        lib.dalm_bf16_gemm_nt.restype = i
+        _prefill_handle = lib
+    return _prefill_handle
 
 
 # --------------------------------------------------------------------------
@@ -177,42 +210,63 @@ def int4_matmul_fwd_ref(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor
     raise ValueError(f"unknown K5 instance {instance!r}; one of {INSTANCES}")
 
 
+def prefill_dequant_ref(q4: torch.Tensor, scale4: torch.Tensor, nf4: bool = False) -> torch.Tensor:
+    """Plain pre-pass: the weight ``bf16(f32(decode(nib)) * scale[g])`` as ``Wt (N, K)``."""
+    return _dequant(q4, scale4, torch.bfloat16, nf4).T.contiguous()
+
+
+def prefill_gemm_ref(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """Plain GEMM: ``bf16(x2) @ Wt^T`` with f32 sums, in ``x2.dtype``."""
+    return (x2.to(torch.bfloat16).float() @ wt.float().T).to(x2.dtype)
+
+
 # --------------------------------------------------------------------------
-# The kernel
+# The kernels
 # --------------------------------------------------------------------------
 
-def _check(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str) -> int:
-    """Raise on anything the kernel does not take; returns the group (K for pcol)."""
+def _check_weight(q4: torch.Tensor, scale4: torch.Tensor, instance: str, K: int) -> int:
+    """Raise on a packed weight the kernels do not take; returns the group (K for pcol)."""
     if instance not in INSTANCES:
         raise ValueError(f"unknown K5 instance {instance!r}; one of {INSTANCES}")
-    if x2.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"int4_matmul takes float32 or bfloat16 activations, not {x2.dtype}")
     if q4.dtype != torch.uint8 or scale4.dtype != torch.float32:
         raise TypeError(f"int4_matmul takes uint8 q4 and float32 scale4, not {q4.dtype} / {scale4.dtype}")
-    if x2.dim() != 2 or q4.dim() != 2 or scale4.dim() != 2:
-        raise ValueError("int4_matmul: x2, q4 and scale4 must be 2-D")
-    M, K = x2.shape
+    if q4.dim() != 2 or scale4.dim() != 2:
+        raise ValueError("int4_matmul: q4 and scale4 must be 2-D")
     half, N = q4.shape
     if K != 2 * half or scale4.shape[1] != N:
-        raise ValueError(f"int4_matmul: shapes {tuple(x2.shape)}, {tuple(q4.shape)}, {tuple(scale4.shape)} do not agree")
-    if M < 1 or half % TILE_HALF or N % 8:
-        raise ValueError(f"int4_matmul: needs M >= 1, K/2 a multiple of {TILE_HALF} and N a multiple of 8 "
-                         f"(M={M}, K={K}, N={N})")
+        raise ValueError(f"int4_matmul: shapes K={K}, {tuple(q4.shape)}, {tuple(scale4.shape)} do not agree")
+    if half % TILE_HALF or N % 8:
+        raise ValueError(f"int4_matmul: needs K/2 a multiple of {TILE_HALF} and N a multiple of 8 (K={K}, N={N})")
     if instance == "pcol":
         if scale4.shape[0] != 1:
             raise ValueError("int4_matmul: the per-column instance takes scale4 (1, N)")
-        group = K
-    else:
-        rows = scale4.shape[0]
-        group = K // rows if rows and K % rows == 0 else 0
-        if not group or half % group or group % 16:
-            raise ValueError(f"int4_matmul: scale4 has {rows} rows: the group must divide K/2 = {half} "
-                             f"and be a multiple of 16")
-    for name, t in (("x2", x2), ("q4", q4), ("scale4", scale4)):
-        if not t.is_cuda or t.device != x2.device:
-            raise ValueError(f"int4_matmul: {name} must be on the same CUDA device as x2")
+        return K
+    rows = scale4.shape[0]
+    group = K // rows if rows and K % rows == 0 else 0
+    if not group or half % group or group % 16:
+        raise ValueError(f"int4_matmul: scale4 has {rows} rows: the group must divide K/2 = {half} "
+                         f"and be a multiple of 16")
+    return group
+
+
+def _check_cuda(device, what: str = "int4_matmul", **tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{what}: {name} must be on the same CUDA device")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"int4_matmul: {name} must be contiguous and 16-byte aligned")
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+
+
+def _check(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str) -> int:
+    """Raise on anything the kernel does not take; returns the group (K for pcol)."""
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int4_matmul takes float32 or bfloat16 activations, not {x2.dtype}")
+    if x2.dim() != 2:
+        raise ValueError("int4_matmul: x2 must be 2-D")
+    if x2.shape[0] < 1:
+        raise ValueError("int4_matmul: needs M >= 1")
+    group = _check_weight(q4, scale4, instance, x2.shape[1])
+    _check_cuda(x2.device, x2=x2, q4=q4, scale4=scale4)
     return group
 
 
@@ -245,24 +299,100 @@ def launch(instance: str, a: torch.Tensor, xs, q4: torch.Tensor, scale4: torch.T
         raise RuntimeError(f"int4_matmul[{instance}] kernel launch failed: CUDA error {err}")
 
 
-def int4_matmul_fwd(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str) -> torch.Tensor:
-    """One K5 instance on ``x2 (M, K)``: the kernel for CUDA tensors (after K2's
-    ``rowquant`` for i8mxu and pcol), the plain version for CPU tensors."""
-    if not x2.is_cuda:
-        return int4_matmul_fwd_ref(x2, q4, scale4, instance)
-    group = _check(x2, q4, scale4, instance)
-    M, K = x2.shape
+def fused(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str, group: int) -> torch.Tensor:
+    """The fused route on operands ``_check`` passed (``group`` is what it returned), whatever ``_route`` says:
+    K2's ``rowquant`` for i8mxu and pcol, then one launch of ``csrc/int4_matmul.cu``."""
+    M = x2.shape[0]
     half, N = q4.shape
     splits = _splits(M, N, half, group, instance, torch.cuda.get_device_properties(x2.device).multi_processor_count)
     a, xs = (rowquant(x2) if instance in ("i8mxu", "pcol") else (x2, None))
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     ws = torch.empty((splits, M, N), dtype=torch.float32, device=x2.device) if splits > 1 else None
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     launch(instance, a, xs, q4, scale4, group, splits, ws, out)
+    return out
+
+
+def launch_dequant(q4: torch.Tensor, scale4: torch.Tensor, group: int, nf4: bool, wt: torch.Tensor) -> None:
+    """One launch of the pre-pass on checked operands: writes ``wt (N, K)`` bf16."""
+    half, N = q4.shape
+    err = _prefill_lib().dalm_i4_dequant_t(int(nf4), q4.data_ptr(), scale4.data_ptr(), half, N, group, wt.data_ptr(),
+                                           torch.cuda.current_stream(q4.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4 prefill pre-pass launch failed: CUDA error {err}")
+    prefill_dequant.launches["nf4" if nf4 else "base"] += 1
+
+
+def launch_gemm(x2: torch.Tensor, wt: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of the GEMM on checked operands: ``out (M, N) = x2 (M, K) @ wt (N, K)^T``, all bf16."""
+    M, K = x2.shape
+    N = wt.shape[0]
+    err = _prefill_lib().dalm_bf16_gemm_nt(x2.data_ptr(), wt.data_ptr(), M, N, K, out.data_ptr(),
+                                           torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:  # >= 900: the tensor-map encoder is missing (900) or refused a map (1000 + CUresult)
+        raise RuntimeError(f"bf16 wgmma GEMM launch failed: error {err}")
+    prefill_gemm.launches += 1
+
+
+def prefill_dequant(q4: torch.Tensor, scale4: torch.Tensor, nf4: bool = False) -> torch.Tensor:
+    """The prefill route's pre-pass: ``Wt (N, K)`` bf16 from ``q4 (K/2, N)`` and ``scale4 (K/group, N)``;
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not q4.is_cuda:
+        return prefill_dequant_ref(q4, scale4, nf4)
+    half, N = q4.shape
+    group = _check_weight(q4, scale4, "nf4" if nf4 else "base", 2 * half)
+    _check_cuda(q4.device, "prefill_dequant", q4=q4, scale4=scale4)
+    wt = torch.empty((N, 2 * half), dtype=torch.bfloat16, device=q4.device)
+    launch_dequant(q4, scale4, group, nf4, wt)
+    return wt
+
+
+def prefill_gemm(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """The prefill route's GEMM: ``x2 (M, K) @ wt (N, K)^T``, bf16 in and out, f32 sums; the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if not x2.is_cuda:
+        return prefill_gemm_ref(x2, wt)
+    if x2.dtype != torch.bfloat16 or wt.dtype != torch.bfloat16:
+        raise TypeError(f"prefill_gemm takes bfloat16 x2 and wt, not {x2.dtype} / {wt.dtype}")
+    if x2.dim() != 2 or wt.dim() != 2 or wt.shape[1] != x2.shape[1] or x2.shape[0] < 1 or x2.shape[1] % 64 \
+            or wt.shape[0] % 8:
+        raise ValueError(f"prefill_gemm: needs x2 (M, K), wt (N, K) with M >= 1, K a multiple of 64 and N of 8, "
+                         f"not {tuple(x2.shape)}, {tuple(wt.shape)}")
+    _check_cuda(x2.device, "prefill_gemm", x2=x2, wt=wt)
+    M, N = x2.shape[0], wt.shape[0]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
+    launch_gemm(x2, wt, out)
+    return out
+
+
+prefill_dequant.launches = dict.fromkeys(PREFILL_INSTANCES, 0)
+prefill_gemm.launches = 0
+
+
+def _route(x2: torch.Tensor, instance: str) -> str:
+    """The route a CUDA call takes: ``"prefill"`` for bf16 base / nf4 with at least ``M_PREFILL`` rows."""
+    if instance in PREFILL_INSTANCES and x2.dtype == torch.bfloat16 and x2.shape[0] >= M_PREFILL:
+        return "prefill"
+    return "fused"
+
+
+def int4_matmul_fwd(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str) -> torch.Tensor:
+    """One K5 instance on ``x2 (M, K)``: on CUDA tensors the route ``_route`` picks (the fused kernel, after
+    K2's ``rowquant`` for i8mxu and pcol, or the pre-pass and the GEMM), the plain version for CPU tensors."""
+    if not x2.is_cuda:
+        return int4_matmul_fwd_ref(x2, q4, scale4, instance)
+    group = _check(x2, q4, scale4, instance)
+    route = _route(x2, instance)
+    if route == "prefill":  # the scratch Wt is freed when prefill_gemm returns
+        out = prefill_gemm(x2, prefill_dequant(q4, scale4, instance == "nf4"))
+    else:
+        out = fused(x2, q4, scale4, instance, group)
     int4_matmul_fwd.launches[instance] += 1
+    int4_matmul_fwd.route_launches[instance, route] += 1
     return out
 
 
 int4_matmul_fwd.launches = dict.fromkeys(INSTANCES, 0)
+int4_matmul_fwd.route_launches = {(i, r): 0 for i in INSTANCES for r in ROUTES}
 
 
 # --------------------------------------------------------------------------
@@ -285,7 +415,7 @@ def _forward(x, q4, scale4, nf4, pcol, fwd):
     else:
         feasible = _kernel_feasible(half, K // scale4.shape[0])
         instance = "nf4" if nf4 else INSTANCE[DEFAULT_VARIANT]
-    if feasible:
+    if feasible and N % 8 == 0:
         y = fwd(x2.contiguous(), q4, scale4, instance)
     else:  # the reference's own fallback
         y = x2 @ _dequant(q4, scale4, x.dtype, nf4 and not pcol)

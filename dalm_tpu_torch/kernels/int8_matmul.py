@@ -264,6 +264,17 @@ w8a8_fused.launches = 0
 # int8_matmul with its gradient
 # --------------------------------------------------------------------------
 
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` with zero rows and columns appended up to ``(rows, cols)`` (itself if nothing is missing)."""
+    if t.shape == (rows, cols):
+        return t
+    return torch.nn.functional.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, fns) -> torch.Tensor:
     rq, fused, gemm_kn, _ = fns
     lead, K = x.shape[:-1], x.shape[-1]
@@ -273,7 +284,11 @@ def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, fns) -> torc
     if w8a8_fused_feasible(M, K, N):
         return fused(x2.contiguous(), q, scale).reshape(*lead, N)
     xq, xs = rq(x2.contiguous())
-    y = gemm_kn(xq, q).float() * xs * scale.reshape(1, N)
+    # The GEMM takes K in multiples of 16 and N in multiples of 4: zero rows and columns leave every int32 sum
+    # (and each row's absmax, taken before the padding) as they are, so padding and slicing is exact.
+    Kp, Np = _round_up(K, 16), _round_up(N, 4)
+    acc = gemm_kn(_pad_to(xq, M, Kp), _pad_to(q, Kp, Np))[:, :N]
+    y = acc.float() * xs * scale.reshape(1, N)
     return y.to(x.dtype).reshape(*lead, N)
 
 
@@ -285,7 +300,8 @@ def _backward(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bwd_int8: 
     if bwd_int8:
         # dx = (dy * scale) @ q^T: the scale is constant along the contraction.
         dq, ds = rq(dy2, scale.reshape(-1))
-        dx = gemm_nt(dq, q).float() * ds
+        Np = _round_up(N, 16)  # the contraction; zero columns add nothing, as in the forward
+        dx = gemm_nt(_pad_to(dq, dq.shape[0], Np), _pad_to(q, K, Np)).float() * ds
     else:
         dyf = (dy2.float() * scale.reshape(1, N)).to(torch.bfloat16)
         if dy.dtype == torch.bfloat16:

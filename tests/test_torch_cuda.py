@@ -333,9 +333,12 @@ def _k5_close(y, ry, instance):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("instance", ["base", "groupmm", "nf4", "i8mxu", "pcol"])
 @pytest.mark.parametrize("mkng", [(32, 4096, 4096, 64), (32, 11008, 512, 16), (300, 512, 1000, 32),
-                                  (5, 2048, 136, 128), (1, 1024, 256, 16), (200, 4096, 384, 64)])
+                                  (5, 2048, 136, 128), (1, 1024, 256, 16), (200, 4096, 384, 64),
+                                  (191, 1024, 264, 32)])
 def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
-    """Each K5 instance against its plain version: decode rows (K split across blocks), ragged M and N, groups 16-128."""
+    """Each K5 instance against its plain version: decode rows (K split across blocks), ragged M and N, groups 16-128.
+    Where int4_matmul_fwd takes the prefill route (bf16 base / nf4 from M_PREFILL rows), the fused kernel is held to
+    the plain version on the same rows as well."""
     M, K, N, group = mkng
     rng = np.random.default_rng(4)
     q4, scale4 = _k5_weights(rng, K, N, instance, cuda, group)
@@ -347,6 +350,8 @@ def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
     assert y.dtype == dtype and y.shape == (M, N) and not y[0].any()
     _k5_close(y, ry, instance)
     assert k5.int4_matmul_fwd.launches[instance] == before + 1
+    if k5._route(x, instance) == "prefill":
+        _k5_close(k5.fused(x, q4, scale4, instance, k5._check(x, q4, scale4, instance)), ry, instance)
 
 
 @pytest.mark.parametrize("fmt", ["int4", "nf4", "int4pc"])
@@ -393,3 +398,129 @@ def test_int4_wrapper_rejects_what_it_does_not_take(cuda):
         k5.int4_matmul_fwd(x, q4.cpu(), s, "base")
     with pytest.raises(ValueError, match="unknown"):
         k5.int4_matmul_fwd(x, q4, s, "decomp")
+
+
+# K5's prefill route (csrc/int4_prefill.cu). The pre-pass equals its plain version bit for bit (the same f32
+# product, rounded once to bf16). The GEMM and the route within K5_TOL of the plain versions: bf16 outputs, one
+# bf16 ulp of the row's largest value (2^-7), as the f32 sums run in another order and the rounding may fall the
+# other way.
+
+def _k5_dict(q4, scale4, nf4):
+    d = {"q4": q4, "scale4": scale4}
+    if nf4:
+        d["nf4"] = None
+    return d
+
+
+@pytest.mark.parametrize("nf4", [False, True], ids=["int4", "nf4"])
+@pytest.mark.parametrize("kng", [(256, 8, 16), (512, 136, 32), (2048, 4096, 64), (4096, 264, 128), (11008, 4096, 16)])
+def test_prefill_dequant_equals_ref_on_card(cuda, kng, nf4):
+    """The pre-pass against dequantize_tensor_int4(..., bf16).T: equal, groups 16-128, ragged N and K/2."""
+    K, N, group = kng
+    q4, scale4 = _k5_weights(np.random.default_rng(6), K, N, "nf4" if nf4 else "base", cuda, group)
+    assert K // scale4.shape[0] == group
+    key = "nf4" if nf4 else "base"
+    before = k5.prefill_dequant.launches[key]
+    wt = k5.prefill_dequant(q4, scale4, nf4)
+    torch.cuda.synchronize()
+    want = quant.dequantize_tensor_int4(_k5_dict(q4, scale4, nf4), torch.bfloat16).T
+    assert wt.shape == (N, K) and wt.dtype == torch.bfloat16 and wt.is_contiguous()
+    assert torch.equal(wt, want)
+    assert k5.prefill_dequant.launches[key] == before + 1
+
+
+@pytest.mark.parametrize("mnk", [(64, 128, 64), (1, 8, 64), (129, 264, 192), (300, 136, 1024), (1000, 4096, 512),
+                                 (8192, 4096, 4096)])
+def test_prefill_gemm_matches_ref_on_card(cuda, mnk):
+    """The wgmma GEMM: one tile, then ragged M and N, then a prefill shape."""
+    M, N, K = mnk
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    wt = torch.from_numpy((rng.standard_normal((N, K)) * 0.05).astype(np.float32)).to(cuda, torch.bfloat16)
+    out = torch.full((M, N), float("nan"), dtype=torch.bfloat16, device=cuda)
+    k5.launch_gemm(x, wt, out)
+    torch.cuda.synchronize()
+    _k5_close(out, k5.prefill_gemm_ref(x, wt), "base")
+
+
+@pytest.mark.parametrize("instance", ["base", "nf4"])
+@pytest.mark.parametrize("mkng", [(64, 512, 136, 32), (300, 1024, 4096, 64), (1000, 4096, 11008, 128),
+                                  (8192, 11008, 4096, 16), (8192, 4096, 136, 64), (300, 2048, 11008, 16)])
+def test_int4_prefill_route_matches_ref_on_card(cuda, instance, mkng):
+    """int4_matmul_fwd on bf16 rows takes the prefill route from M_PREFILL rows on, within K5_TOL of the plain
+    version, counted per route; the route's two kernels called directly agree at every M."""
+    M, K, N, group = mkng
+    rng = np.random.default_rng(8)
+    q4, scale4 = _k5_weights(rng, K, N, instance, cuda, group)
+    x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, torch.bfloat16)
+    x[0] = 0
+    route = "prefill" if M >= k5.M_PREFILL else "fused"
+    assert k5._route(x, instance) == route
+    routes = dict(k5.int4_matmul_fwd.route_launches)
+    dq, gemm = dict(k5.prefill_dequant.launches), k5.prefill_gemm.launches
+    y, ry = k5.int4_matmul_fwd(x, q4, scale4, instance), k5.int4_matmul_fwd_ref(x, q4, scale4, instance)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N) and not y[0].any()
+    _k5_close(y, ry, instance)
+    assert k5.int4_matmul_fwd.route_launches[instance, route] == routes[instance, route] + 1
+    taken = int(route == "prefill")
+    assert k5.prefill_dequant.launches[instance] == dq[instance] + taken and k5.prefill_gemm.launches == gemm + taken
+    _k5_close(k5.prefill_gemm(x, k5.prefill_dequant(q4, scale4, instance == "nf4")), ry, instance)
+
+
+def test_prefill_wrappers_reject_what_they_do_not_take(cuda):
+    x = torch.zeros((8, 128), dtype=torch.bfloat16, device=cuda)
+    wt = torch.zeros((16, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        k5.prefill_gemm(x.float(), wt)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        k5.prefill_gemm(x[:, :96].contiguous(), wt[:, :96].contiguous())
+    with pytest.raises(ValueError, match="multiple of 64"):
+        k5.prefill_gemm(x, wt[:12])
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.prefill_gemm(torch.zeros((128, 8), dtype=torch.bfloat16, device=cuda).T, wt)
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.prefill_gemm(x, wt.cpu())
+    q4 = torch.zeros((64, 100), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k5.prefill_dequant(q4, torch.ones((8, 100), device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.prefill_dequant(q4[:, :96].contiguous(), torch.ones((8, 96)))
+
+
+def test_int4_matmul_ragged_n_on_card(cuda):
+    """N = 100 is no multiple of 8: the routing sends it to x @ dequant(W) on the card as on the CPU, within
+    K5_TOL of the CPU route (bf16), and K5 is not launched."""
+    rng = np.random.default_rng(9)
+    d = quant.quantize_tensor_int4(torch.from_numpy((rng.standard_normal((256, 100)) * 0.02).astype(np.float32)), 16)
+    assert d["q4"].shape == (128, 100) and d["scale4"].shape == (16, 100) and k5._kernel_feasible(128, 16)
+    x = torch.from_numpy(rng.standard_normal((32, 256)).astype(np.float32)).to(torch.bfloat16)
+    before = dict(k5.int4_matmul_fwd.launches)
+    y = k5.int4_matmul(x.to(cuda), d["q4"].to(cuda), d["scale4"].to(cuda))
+    torch.cuda.synchronize()
+    assert k5.int4_matmul_fwd.launches == before and y.shape == (32, 100)
+    _k5_close(y.cpu(), k5.int4_matmul(x, d["q4"], d["scale4"]), "base")
+
+
+@pytest.mark.parametrize("bwd_int8", [False, True])
+def test_int8_matmul_padded_shapes_on_card(cuda, bwd_int8):
+    """K = 100, N = 102 (no multiples of 16 and 4): the unfused branch pads with zeros for the GEMMs and slices;
+    forward equal to the CPU route (exact int32 sums, the same f32 products), dx equal with the int8 backward and
+    within 1e-6 of the largest value with the f32 one (another order of f32 sums)."""
+    rng = np.random.default_rng(10)
+    x0 = torch.from_numpy(rng.standard_normal((2, 3, 100)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-127, 128, (100, 102)).astype(np.int8))
+    scale = torch.from_numpy((rng.random((1, 102)) * 0.01 + 1e-3).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 3, 102)).astype(np.float32))
+    assert not im.w8a8_fused_feasible(6, 100, 102)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        x = x0.to(dev).requires_grad_()
+        y = im.int8_matmul(x, q.to(dev), scale.to(dev), bwd_int8)
+        y.backward(g.to(dev))
+        outs.append((y.detach().cpu(), x.grad.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    if bwd_int8:
+        assert torch.equal(outs[0][1], outs[1][1])
+    else:
+        assert (outs[0][1] - outs[1][1]).abs().max() <= 1e-6 * outs[1][1].abs().max()

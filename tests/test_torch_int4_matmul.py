@@ -176,3 +176,75 @@ def test_flexlinear_q4_matches_jax(fmt, kn):
     feasible = k5._pcol_feasible(K // 2, N) if fmt == "int4pc" else k5._kernel_feasible(K // 2, group)
     assert feasible == (K == 256)
     _assert_rows_close(got, want, 1e-2 if feasible else 1e-6)
+
+
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+@pytest.mark.parametrize("fmt", ["int4", "nf4"])
+def test_prefill_dequant_ref_equals_jax_dequant(fmt, group):
+    """The prefill route's plain pre-pass, Wt (N, K) bf16, bit-equal to the JAX package's _dequant_xla in bf16,
+    transposed (K/2 = 1024 keeps every group from 16 to 128)."""
+    K, N = 2048, 24
+    d = getattr(jquant, QUANTISERS[fmt])(jnp.asarray(_weights(11, K, N)), group)
+    assert K // d["scale4"].shape[0] == group
+    want = np.asarray(jk5._dequant_xla(d["q4"], d["scale4"], jnp.bfloat16, fmt == "nf4")).astype(np.float32).T
+    got = k5.prefill_dequant_ref(_t(d["q4"]), _t(d["scale4"]), fmt == "nf4")
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (N, K) and got.is_contiguous()
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    # the CPU wrapper is the plain version, and counts no launch
+    before = dict(k5.prefill_dequant.launches)
+    assert torch.equal(k5.prefill_dequant(_t(d["q4"]), _t(d["scale4"]), fmt == "nf4"), got)
+    assert k5.prefill_dequant.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("instance", ["base", "nf4"])
+def test_prefill_gemm_ref_matches_fused_ref(instance, dtype):
+    """Pre-pass then GEMM, in their plain versions, against K5's plain version: the same bf16 operands and f32
+    sums, so within 1e-6 of the row's largest value in f32 (another order of sums) and one bf16 ulp in bf16."""
+    M, K, N = 40, 1024, 136
+    fmt = "nf4" if instance == "nf4" else "int4"
+    d = getattr(quant, QUANTISERS[fmt])(torch.from_numpy(_weights(12, K, N)), 32)
+    x = torch.from_numpy((np.random.default_rng(13).standard_normal((M, K)) * 0.5).astype(np.float32))
+    x = x.to(getattr(torch, dtype))
+    gemm = k5.prefill_gemm_ref(x, k5.prefill_dequant_ref(d["q4"], d["scale4"], instance == "nf4"))
+    before = k5.prefill_gemm.launches
+    assert torch.equal(k5.prefill_gemm(x, k5.prefill_dequant(d["q4"], d["scale4"], instance == "nf4")), gemm)
+    assert k5.prefill_gemm.launches == before
+    want = k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], instance)
+    assert gemm.dtype == x.dtype and gemm.shape == want.shape
+    _assert_rows_close(gemm.float().numpy(), want.float().numpy(), 1e-6 if dtype == "float32" else 2.0 ** -7)
+
+
+def test_prefill_routing_rule():
+    """The card's route by rows, activation type and instance; on the CPU every route is the plain version."""
+    bf = torch.zeros((k5.M_PREFILL, 64), dtype=torch.bfloat16)
+    assert 32 < k5.M_PREFILL <= 8192  # decode's 32 rows stay on the fused kernel, prefill's 8192 do not
+    assert k5.PREFILL_INSTANCES == ("base", "nf4")
+    for inst in k5.INSTANCES:
+        assert k5._route(bf, inst) == ("prefill" if inst in ("base", "nf4") else "fused")
+        assert k5._route(bf[:-1], inst) == "fused"
+        assert k5._route(bf.float(), inst) == "fused"
+    assert set(k5.int4_matmul_fwd.route_launches) == {(i, r) for i in k5.INSTANCES for r in k5.ROUTES}
+    d = quant.quantize_tensor_int4(torch.from_numpy(_weights(14, 256, 64)))
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal((k5.M_PREFILL, 256)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    before = dict(k5.int4_matmul_fwd.route_launches)
+    assert torch.equal(k5.int4_matmul_fwd(x, d["q4"], d["scale4"], "base"),
+                       k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"))
+    assert k5.int4_matmul_fwd.route_launches == before
+
+
+@pytest.mark.parametrize("pcol", [False, True])
+def test_routing_rejects_n_not_multiple_of_8(pcol):
+    """N = 100 passes the reference's rules (the group rule ignores N; pcol's admits a block of all N) but not the
+    kernels' column pairs: every device takes x @ dequant(W), as the JAX package does off the TPU."""
+    w = _weights(16, 256, 100)
+    d = (quant.quantize_tensor_int4pc if pcol else quant.quantize_tensor_int4)(torch.from_numpy(w))
+    assert (k5._pcol_feasible(128, 100) if pcol else k5._kernel_feasible(128, 256 // d["scale4"].shape[0]))
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal((32, 256)).astype(np.float32))
+    calls = []
+    y = k5._forward(x, d["q4"], d["scale4"], False, pcol, lambda *a: calls.append(a))
+    assert not calls and torch.equal(y, x @ quant.dequantize_tensor_int4(d))
+    jd = (jquant.quantize_tensor_int4pc if pcol else jquant.quantize_tensor_int4)(jnp.asarray(w))
+    jy = jk5.int4_matmul(jnp.asarray(x.numpy()), jd["q4"], jd["scale4"], False, False, pcol)
+    _assert_rows_close(y.numpy(), jy, 1e-5)

@@ -246,3 +246,42 @@ def test_flexlinear_rejects_what_is_not_ported():
         FlexLinear(8, 8, int8_compute="bwd")
     with pytest.raises(ValueError, match="storage"):
         FlexLinear(8, 8).to_packed("int3")
+
+
+@pytest.mark.parametrize("bwd_int8", [False, True])
+def test_int8_matmul_pads_ragged_widths_like_jax(bwd_int8):
+    """K = 100 and N = 102 are no multiples of the GEMMs' 16 and 4: the unfused branch pads with zeros and slices,
+    which leaves every int32 sum and row scale as it is; forward and dx against the JAX package (its XLA form takes
+    any width) within 1e-5 of the largest value, as above."""
+    rng = np.random.default_rng(6)
+    K, N = 100, 102
+    x = rng.standard_normal((2, 3, K)).astype(np.float32)
+    g = rng.standard_normal((2, 3, N)).astype(np.float32)
+    _, q, ws = _weights(rng, K, N)
+    shapes = []
+
+    def kn(a, b):
+        shapes.append((a.shape, b.shape))
+        return T.int8_gemm_kn_ref(a, b)
+
+    def nt(a, b):
+        shapes.append((a.shape, b.shape))
+        return T.int8_gemm_nt_ref(a, b)
+
+    fns = (T.rowquant_ref, T.w8a8_fused_ref, kn, nt)
+    tx = torch.from_numpy(x).requires_grad_()
+    ty = T._Int8Matmul.apply(tx, torch.from_numpy(q), torch.from_numpy(ws), bwd_int8, fns)
+    (ty * torch.from_numpy(g)).sum().backward()
+    assert shapes[0] == ((6, 112), (112, 104))  # K to 112, N to 104
+    if bwd_int8:
+        assert shapes[1] == ((6, 112), (100, 112))  # dx contracts N, padded to 112
+    assert ty.shape == (2, 3, N) and tx.grad.shape == (2, 3, K)
+
+    def f(xj):
+        return jnp.sum(J.int8_matmul(xj, jnp.asarray(q), jnp.asarray(ws), bwd_int8) * g)
+
+    jy = J.int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(ws), bwd_int8)
+    jdx = jax.grad(f)(jnp.asarray(x))
+    np.testing.assert_allclose(_np(ty), np.asarray(jy), rtol=0, atol=1e-5 * np.abs(np.asarray(jy)).max())
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=0, atol=1e-5 * np.abs(np.asarray(jdx)).max())
+    assert torch.equal(ty, T.int8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(ws), bwd_int8))
