@@ -23,7 +23,8 @@ fails. ``--phases`` runs a subset while developing and prints no result line.
 Phases: ``small`` (tiny pipeline, card vs CPU; and a tiny pipeline wide
 enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``,
 ``serve-q`` (the 4-bit tiers; reuses ``serve``'s bf16 pipeline when both
-run), ``k3``, ``k2``, ``k1`` (K1 and the two int8 GEMM entries), ``grad``,
+run), ``k3``, ``k2``, ``k1`` (K1, its three launches one by one, and the two
+int8 GEMM entries), ``grad``,
 ``k4`` (flash attention forward, dq, dk/dv), ``k5`` (the five K5 instances;
 K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, against the
 fused kernel forced on the same operands, and the two routes' crossover by
@@ -37,7 +38,8 @@ by device time).
 Output: per-phase lines, one JSON line of every measured case per kernel
 phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
 the card's name and power limit, one ``{"kernels": [...]}`` JSON line (one
-entry per K3 row storage mode, K2, K1, each GEMM entry, each of the three K4
+entry per K3 row storage mode, K2, K1 and each of its three launches (the
+quantise pre-pass, the weight pre-pass, the GEMM), each GEMM entry, each of the three K4
 kernels, each of the five K5 instances and the prefill route's pre-pass (base,
 nf4) and GEMM, each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
@@ -52,8 +54,8 @@ on the pipeline's own embeddings, scores agree within 1e-5 and ids are
 equal except where two rows' f64 scores lie within 1e-5 of each other
 (a near tie that f32 sums in another order may resolve either way). The
 int8 kernels' tolerances stand in their phases' docstrings: K2 and the GEMM
-entries equal, K1 equal on integer-valued inputs and within one bf16 ulp on
-real-valued ones, gradients equal, tiny training losses within 2e-3. K4's
+entries equal, K1 and each of its launches equal on integer-valued and
+real-valued inputs, gradients equal, tiny training losses within 2e-3. K4's
 stand beside ``K4_TOL``, the tiny SFT run's beside ``SFT_SMALL_TOL``, K5's
 beside ``K5_TOL``, the 4-bit tiers' logits beside ``K5_LOGIT_BOUND`` and the
 tiny K5 pipeline's beside ``SMALL_Q_TOL``.
@@ -327,16 +329,19 @@ def _weights(gen, device, K, N):
 
 def k1_phase(gen, device, peaks):
     """K1 and the two int8 GEMM entries against their plain versions at the
-    Llama-7B shapes, M = 4608. Integer-valued activations: equal. Real-valued
-    bf16 activations: within one bf16 ulp of the plain result (2^-7 relative;
-    the f32 accumulators follow the same order of operations, so in practice
-    equal). The GEMM entries are integer arithmetic: equal. One shape the
-    feasibility rule rejects goes through ``int8_matmul`` (K2 + GEMM)."""
+    Llama-7B shapes, M = 4608. K1 on integer-valued and on real-valued
+    activations, bf16 and f32: equal (tolerance 0; the route keeps the plain
+    version's order of operations and roundings). Each of K1's three launches
+    alone: the quantise pre-pass, the weight pre-pass and the GEMM equal to
+    their plain versions, timed beside their bounds. The GEMM entries are
+    integer arithmetic: equal. One shape the feasibility rule rejects goes
+    through ``int8_matmul`` (K2 + GEMM)."""
     import torch
 
     from dalm_tpu_torch.kernels import int8_matmul as im
 
     M = M_TRAIN
+    mem_bw, op_rate = peaks[0], peaks[3]
     entries, mains = [], {}
     for K, N in LLAMA_KN:
         check(im.w8a8_fused_feasible(M, K, N), f"({M},{K},{N}) should take the fused form")
@@ -348,15 +353,37 @@ def k1_phase(gen, device, peaks):
         x[0] = 0
         y, ry = im.w8a8_fused(x, q, scale), im.w8a8_fused_ref(x, q, scale)
         torch.cuda.synchronize()
-        err = (y.float() - ry.float()).abs()
-        check(bool((err <= ry.float().abs() * 2.0 ** -7 + 1e-6).all()), f"k1 ({K},{N}): above one bf16 ulp")
-        max_err = float(err.max())
+        max_err = float((y.float() - ry.float()).abs().max())
+        check(torch.equal(y, ry), f"k1 ({K},{N}) bf16: kernel != plain version (max_abs_err {max_err})")
         xf = x.float()
-        yf, ryf = im.w8a8_fused(xf, q, scale), im.w8a8_fused_ref(xf, q, scale)
-        check(bool(((yf - ryf).abs() <= ryf.abs() * 1e-6 + 1e-9).all()), f"k1 ({K},{N}) f32: above 1e-6 relative")
-        del xf, yf, ryf
+        check(torch.equal(im.w8a8_fused(xf, q, scale), im.w8a8_fused_ref(xf, q, scale)),
+              f"k1 ({K},{N}) f32: kernel != plain version")
+        del xf, y, ry
 
-        ms = cuda_ms(lambda: im.w8a8_fused(x, q, scale), 10)
+        # The route's three launches, each alone on operands prepared once.
+        bk = im.fit_div(K, 512)
+        xq = torch.empty((M, K), dtype=torch.int8, device=device)
+        xs = torch.empty((M, K // bk), dtype=torch.float32, device=device)
+        qt = torch.empty((N, K), dtype=torch.int8, device=device)
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+        im._launch_quant(x, bk, xq, xs)
+        im._launch_transpose(q, qt)
+        im._launch_fold(xq, xs, qt, scale, out)
+        rq, rs = im.quant_prepass_ref(x, bk)
+        torch.cuda.synchronize()
+        check(torch.equal(xq, rq) and torch.equal(xs, rs), f"k1 ({K},{N}): quantise pre-pass != plain version")
+        check(torch.equal(qt, im.weight_prepass_ref(q)), f"k1 ({K},{N}): weight pre-pass != q.T")
+        check(torch.equal(out, im.fold_gemm_ref(xq, xs, qt, scale, torch.bfloat16)), f"k1 ({K},{N}): GEMM != plain")
+        del rq, rs
+        quant_ms = cuda_ms(lambda: im._launch_quant(x, bk, xq, xs), 20)
+        weight_ms = cuda_ms(lambda: im._launch_transpose(q, qt), 20)
+        gemm_ms = cuda_ms(lambda: im._launch_fold(xq, xs, qt, scale, out), 20)
+        quant_plain = cuda_ms(lambda: im.quant_prepass_ref(x, bk), 5)
+        weight_plain = cuda_ms(lambda: im.weight_prepass_ref(q), 5)
+        weight_lib = cuda_ms(lambda: q.t().contiguous(), 20)
+        gemm_plain = cuda_ms(lambda: im.fold_gemm_ref(xq, xs, qt, scale, torch.bfloat16), 2)
+
+        ms = cuda_ms(lambda: im.w8a8_fused(x, q, scale), 20)
         plain_ms = cuda_ms(lambda: im.w8a8_fused_ref(x, q, scale), 2)
 
         def lib_q():
@@ -370,17 +397,39 @@ def k1_phase(gen, device, peaks):
 
         lib_ms = cuda_ms(library, 5)
         wd = (q.float() * scale).to(torch.bfloat16)
-        deq_ms = cuda_ms(lambda: x @ wd, 10)
+        deq_ms = cuda_ms(lambda: x @ wd, 20)
         del wd
+        ops = 2.0 * M * K * N
+        case = f"M={M} K={K} N={N} bf16"
+        parts = [
+            i8_record("k1_quant_prepass", K1_AT, case, quant_ms, quant_plain, None, 0.0,
+                      M * K * 2 + M * K + M * (K // bk) * 4, 4.0 * M * K, peaks, KN=[K, N],
+                      library_is="none: no one PyTorch call quantises per (row, k-block)"),
+            i8_record("k1_weight_prepass", K1_AT, f"K={K} N={N}", weight_ms, weight_plain, weight_lib, 0.0,
+                      2 * K * N, 0.0, peaks, KN=[K, N], library_is="q.t().contiguous()"),
+            i8_record("k1_gemm", K1_AT, case, gemm_ms, gemm_plain, None, 0.0,
+                      M * K + N * K + M * (K // bk) * 4 + N * 4 + M * N * 2, ops, peaks, KN=[K, N],
+                      tops=ops / gemm_ms * 1e-9,
+                      library_is="none: torch._int_mm gives the int32 product of all of K, not the k-block fold"),
+        ]
         nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
-        e = i8_record("w8a8_fused", K1_AT, f"M={M} K={K} N={N} bf16", ms, plain_ms, lib_ms, max_err,
-                      nbytes, 2.0 * M * K * N, peaks, KN=[K, N], bf16_dequant_matmul_ms=deq_ms)
-        show("k1", e)
-        print(f"[k1]   x @ dequant(W) in bf16 (torch.matmul): {deq_ms:.4f} ms; "
-              f"kernel {2.0 * M * K * N / ms / 1e9:.1f} TOP/s", flush=True)
-        entries.append(e)
+        e = i8_record("w8a8_fused", K1_AT, case, ms, plain_ms, lib_ms, max_err, nbytes, ops, peaks, KN=[K, N],
+                      bf16_dequant_matmul_ms=deq_ms, tops=ops / ms * 1e-9,
+                      library_is="rowquant in PyTorch + torch._int_mm + rescale (one K-block)")
+        for r in parts:
+            print(f"[k1]   {r['name']} {r['case']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"plain {r['plain_ms']:.4f} ms" + (f", {r['library_is']} {r['library_ms']:.4f} ms"
+                                                     if r["library_ms"] is not None else ""), flush=True)
+        print(f"[k1] w8a8_fused {case}: route {ms:.4f} ms = {e['tops']:.1f} TOP/s (quantise {quant_ms:.4f} + "
+              f"weight {weight_ms:.4f} + GEMM {gemm_ms:.4f} ms = {parts[2]['tops']:.1f} TOP/s), bound "
+              f"{e['bound_ms']:.4f} ms; yardsticks: x @ dequant(W) in bf16 {deq_ms:.4f} ms (route {ms / deq_ms:.2f}x), "
+              f"torch._int_mm form {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; equal to the plain version in bf16 "
+              f"and f32", flush=True)
+        entries.extend([e, *parts])
         if (K, N) == (4096, 4096):
             mains["w8a8_fused"] = e
+            mains.update({r["name"]: r for r in parts})
+        del xq, xs, qt, out
 
         # The GEMM entries on int8 operands.
         a = torch.randint(-127, 128, (M, K), generator=gen, device=device, dtype=torch.int8)
@@ -400,8 +449,9 @@ def k1_phase(gen, device, peaks):
         plain_ms = cuda_ms(lambda: im.int8_gemm_nt_ref(d, q), 2)
         lib_ms = cuda_ms(lambda: torch._int_mm(d, q.T), 10)
         e = i8_record("int8_gemm_nt", DOT_AT, f"M={M} C={N} N={K} (dx of K={K} N={N})", ms, plain_ms, lib_ms, 0.0,
-                      M * N + K * N + M * K * 4, 2.0 * M * K * N, peaks, KN=[K, N])
+                      M * N + K * N + M * K * 4, 2.0 * M * K * N, peaks, KN=[K, N], tops=2.0 * M * K * N / ms * 1e-9)
         show("k1", e)
+        print(f"[k1]   int8_gemm_nt {e['tops']:.1f} TOP/s, {ms / lib_ms:.2f}x torch._int_mm(d, q.T)", flush=True)
         entries.append(e)
         if (K, N) == (4096, 4096):
             mains["int8_gemm_nt"] = e
@@ -903,7 +953,10 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (im.rowquant, im.w8a8_fused, im.int8_gemm_kn, im.int8_gemm_nt):
+    counted = {"rowquant": im.rowquant, "w8a8_fused": im.w8a8_fused, "k1_quant_prepass": im.quant_prepass,
+               "k1_weight_prepass": im.weight_prepass, "k1_gemm": im.fold_gemm, "int8_gemm_kn": im.int8_gemm_kn,
+               "int8_gemm_nt": im.int8_gemm_nt}
+    for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
     out = train_e2e(csv_path, "bge-large", "llama2-7b", dtype="bfloat16", use_bnb="generator",
@@ -913,8 +966,7 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
                     device=device, setup_hook=snapshot, **TRAIN_KW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rowquant": im.rowquant.launches, "w8a8_fused": im.w8a8_fused.launches,
-                "int8_gemm_kn": im.int8_gemm_kn.launches, "int8_gemm_nt": im.int8_gemm_nt.launches}
+    launches = {name: fn.launches for name, fn in counted.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = out["steps"]
     check(n_steps == 2 * per_epoch and n_steps >= 3, f"took {n_steps} optimiser steps")
@@ -924,11 +976,13 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
     setup = held["setup"]
     layers = setup.rag.generator_config.num_layers
     # Per step: every packed linear (7 per layer + lm_head) once forward and
-    # the layers' once more in the checkpointed recompute; in the backward one
-    # K2 + one dx GEMM per linear whose input needs a gradient (all but layer
-    # 0's q/k/v, which read the frozen embeddings).
-    want = {"w8a8_fused": (14 * layers + 1) * n_steps, "rowquant": (7 * layers - 2) * n_steps,
-            "int8_gemm_nt": (7 * layers - 2) * n_steps, "int8_gemm_kn": 0}
+    # the layers' once more in the checkpointed recompute, each call K1's
+    # three launches; in the backward one K2 + one dx GEMM per linear whose
+    # input needs a gradient (all but layer 0's q/k/v, which read the frozen
+    # embeddings).
+    k1 = (14 * layers + 1) * n_steps
+    want = {"rowquant": (7 * layers - 2) * n_steps, "w8a8_fused": k1, "k1_quant_prepass": k1,
+            "k1_weight_prepass": k1, "k1_gemm": k1, "int8_gemm_kn": 0, "int8_gemm_nt": (7 * layers - 2) * n_steps}
     check(launches == want, f"train: launches {launches}, the layer count predicts {want}")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(not unchanged, f"train: {len(unchanged)} trainable tensors did not change, e.g. {unchanged[:3]}")
@@ -948,12 +1002,19 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
         # Where one step's time goes, from each kernel's time at each shape
         # (this run's k1/k2 phases) times its launches at that shape.
         shapes = {(4096, 4096): 4 * layers, (4096, 11008): 2 * layers, (11008, 4096): layers, (4096, 32000): 1}
-        k1 = sum(kernel_ms["w8a8_fused", kn] * n * 2 for kn, n in shapes.items()) - kernel_ms["w8a8_fused", (4096, 32000)]
+
+        def k1_total(name):  # forward and recompute of every layer's linears, the lm_head once
+            return sum(kernel_ms[name, kn] * n * 2 for kn, n in shapes.items()) - kernel_ms[name, (4096, 32000)]
+
+        k1 = k1_total("w8a8_fused")
+        parts = {name: k1_total(f"k1_{name}") for name in ("quant_prepass", "weight_prepass", "gemm")}
         nt = sum(kernel_ms["int8_gemm_nt", kn] * n for kn, n in shapes.items()) - 3 * kernel_ms["int8_gemm_nt", (4096, 4096)]
         k2 = (kernel_ms["rowquant", 4096] * (5 * layers - 3) + kernel_ms["rowquant", 11008] * 2 * layers
               + kernel_ms["rowquant", 32000])
         step_ms = out["avg_step_time"] * 1e3
-        print(f"[train] one step = {step_ms:.0f} ms; kernels at their measured times x launches: K1 {k1:.0f} ms, "
+        print(f"[train] one step = {step_ms:.0f} ms; kernels at their measured times x launches: K1 {k1:.0f} ms "
+              f"(quantise pre-pass {parts['quant_prepass']:.0f} + weight pre-pass {parts['weight_prepass']:.0f} + "
+              f"GEMM {parts['gemm']:.0f} ms alone), "
               f"dx GEMM {nt:.0f} ms, K2 {k2:.0f} ms, everything else (retriever, attention, norms, LoRA, loss, "
               f"optimiser, host) {step_ms - k1 - nt - k2:.0f} ms", flush=True)
     held.clear()
@@ -1944,12 +2005,13 @@ def main() -> int:
         return 0
     k5_names = [f"int4_matmul[{i}]" for i in ("base", "groupmm", "nf4", "i8mxu", "pcol")]
     k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm"]
+    k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", "w8a8_fused", "int8_gemm_kn", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv", *k5_names)
+             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv", *k5_names)
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
-    for name in ("fused_dot_topk[f32]", "rowquant", "w8a8_fused", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv",
+    for name in ("fused_dot_topk[f32]", "rowquant", *k1_names, "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv",
                  *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)

@@ -47,11 +47,10 @@
 //   call on the host (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint:
 //   no -lcuda) and passed by value as __grid_constant__ parameters.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "int4_decode.cuh"
 
 namespace {
@@ -113,66 +112,11 @@ dequant_t_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ scale
 }
 
 // ---------------------------------------------------------------------------
-// The GEMM: PTX helpers
+// The GEMM: its wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 64;        // k slice per ring slot: 64 bf16 = 128 bytes, one swizzle row
 constexpr int GROUP_M = 16;   // row tiles walked together (L2 reuse)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-        "@!p bra WAIT;\n"
-        "}\n" ::"r"(smem_u32(bar)),
-        "r"(parity)
-        : "memory");
-}
-
-// One box of a 2-D tensor map into shared memory; completion counted in bytes on bar.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-        : "memory");
-}
-
-// A wgmma shared-memory descriptor for a K-major tile written by TMA with the
-// 128-byte swizzle: rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), the
-// leading offset unused by this layout (1), layout type 1 (128B) in bits 62-63.
-// The tile base is 1024-byte aligned; a k step of 16 values adds 32 bytes.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
-
-// Keeps the compiler from moving accumulator reads or writes across the asynchronous products.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 256 f32, the warpgroup's accumulator fragment) += A (64 x 16) . B (256 x 16)^T,
 // both bf16 read from shared memory through their descriptors.
@@ -303,46 +247,6 @@ gemm_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ const CU
     }
 }
 
-// ---------------------------------------------------------------------------
-// Host side
-// ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-constexpr int ERR_NO_ENCODER = 900;   // the driver has no cuTensorMapEncodeTiled
-constexpr int ERR_ENCODE = 1000;      // + the CUresult of a refused tensor map
-
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (!fn) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-        const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
-
-// A (rows, K) bf16 row-major tensor, boxes of box_rows x 64, 128-byte swizzle, zeros beyond its edges.
-int make_map(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
-    const EncodeTiled fn = encode_tiled();
-    if (!fn) return ERR_NO_ENCODER;
-    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-    const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-    const cuuint32_t elem[2] = {1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
-}
-
 }  // namespace
 
 extern "C" {
@@ -367,9 +271,9 @@ int dalm_i4_dequant_t(int nf4, const void* q4, const float* scale4, int half, in
 // when the tensor maps cannot be encoded.
 int dalm_bf16_gemm_nt(const void* x, const void* wt, int M, int N, int K, void* out, cudaStream_t stream) {
     CUtensorMap tx, tw;
-    int err = make_map(&tx, x, M, K, BM);
+    int err = make_map(&tx, x, 2, M, K, BM);
     if (err) return err;
-    err = make_map(&tw, wt, N, K, BN);
+    err = make_map(&tw, wt, 2, N, K, BN);
     if (err) return err;
     const cudaError_t e = cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return (int)e;

@@ -5,9 +5,13 @@ Replaces ``dalm_tpu/kernels/int8_matmul.py``: ``rowquant`` (Pallas
 K1), the two int8 products ``_i8_dot_last`` left to the compiler, and the
 ``int8_matmul`` custom gradient. The kernels are hand-written CUDA for
 ``sm_90a``, ``csrc/int8_matmul.cu``; its header says what bounds each on an
-H100 and what the design does about it. Beside every kernel stands its plain
-PyTorch version (``*_ref``), which a wrapper takes for CPU tensors only: on a
-CUDA tensor it launches the kernel or raises.
+H100 and what the design does about it. On the card K1 is three launches:
+the quantise pre-pass (``quant_prepass``), the weight pre-pass into a
+K-major scratch (``weight_prepass``) and an s8 ``wgmma`` GEMM that folds the
+k-blocks in registers (``fold_gemm``); the int8 products run the same GEMM's
+int32 instance (``int8_gemm_kn`` after the weight pre-pass). Beside every
+kernel stands its plain PyTorch version (``*_ref``), which a wrapper takes
+for CPU tensors only: on a CUDA tensor it launches the kernel or raises.
 
 Semantics (both versions):
 
@@ -45,10 +49,12 @@ def _lib():
         lib = build.load("int8_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dalm_i8_rowquant.argtypes = [p, i, p, i, i, p, p, p]
-        lib.dalm_i8_w8a8_fused.argtypes = [p, i, p, p, i, i, i, i, p, p, p, p]
-        lib.dalm_i8_gemm_kn.argtypes = [p, p, i, i, i, p, p]
+        lib.dalm_i8_act_quant.argtypes = [p, i, i, i, i, p, p, p]
+        lib.dalm_i8_transpose.argtypes = [p, i, i, p, p]
+        lib.dalm_i8_gemm_fold.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.dalm_i8_gemm_nt.argtypes = [p, p, i, i, i, p, p]
-        for fn in ("dalm_i8_rowquant", "dalm_i8_w8a8_fused", "dalm_i8_gemm_kn", "dalm_i8_gemm_nt"):
+        for fn in ("dalm_i8_rowquant", "dalm_i8_act_quant", "dalm_i8_transpose", "dalm_i8_gemm_fold",
+                   "dalm_i8_gemm_nt"):
             getattr(lib, fn).restype = i
         _lib_handle = lib
     return _lib_handle
@@ -59,8 +65,8 @@ def _stream(t: torch.Tensor):
 
 
 def _launched(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    if err != 0:  # >= 900: the tensor-map encoder is missing (900) or refused a map (1000 + CUresult)
+        raise RuntimeError(f"{what} kernel launch failed: error {err}")
 
 
 def _check_cuda(what: str, **tensors) -> None:
@@ -162,15 +168,31 @@ def _check_gemm(what: str, a: torch.Tensor, b: torch.Tensor, contract_b_axis: in
     _check_cuda(what, a=a, b=b)
 
 
+def _launch_transpose(q: torch.Tensor, qt: torch.Tensor) -> None:
+    """One launch of the weight pre-pass on checked operands: ``qt (N, K) = q (K, N)^T``."""
+    K, N = q.shape
+    _launched(_lib().dalm_i8_transpose(q.data_ptr(), K, N, qt.data_ptr(), _stream(q)), "weight pre-pass")
+    weight_prepass.launches += 1
+
+
+def _launch_gemm_i32(a: torch.Tensor, bt: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of the GEMM's int32 instance on checked operands: ``out (M, N) = a (M, C) . bt (N, C)^T``."""
+    M, C = a.shape
+    _launched(_lib().dalm_i8_gemm_nt(a.data_ptr(), bt.data_ptr(), M, C, bt.shape[0], out.data_ptr(), _stream(a)),
+              "int8 GEMM")
+
+
 def int8_gemm_kn(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``a (M, K) int8 . q (K, N) int8 -> (M, N) int32`` (the unfused forward)."""
+    """``a (M, K) int8 . q (K, N) int8 -> (M, N) int32`` (the unfused forward): the weight pre-pass
+    into a K-major scratch, then the GEMM's int32 instance."""
     if not a.is_cuda:
         return int8_gemm_kn_ref(a, q)
     _check_gemm("int8_gemm_kn", a, q, 0)
-    M, K = a.shape
-    N = q.shape[1]
-    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
-    _launched(_lib().dalm_i8_gemm_kn(a.data_ptr(), q.data_ptr(), M, K, N, out.data_ptr(), _stream(a)), "int8_gemm_kn")
+    K, N = q.shape
+    qt = torch.empty((N, K), dtype=torch.int8, device=q.device)
+    _launch_transpose(q, qt)
+    out = torch.empty((a.shape[0], N), dtype=torch.int32, device=a.device)
+    _launch_gemm_i32(a, qt, out)
     int8_gemm_kn.launches += 1
     return out
 
@@ -181,10 +203,8 @@ def int8_gemm_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not a.is_cuda:
         return int8_gemm_nt_ref(a, b)
     _check_gemm("int8_gemm_nt", a, b, 1)
-    M, C = a.shape
-    N = b.shape[0]
-    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
-    _launched(_lib().dalm_i8_gemm_nt(a.data_ptr(), b.data_ptr(), M, C, N, out.data_ptr(), _stream(a)), "int8_gemm_nt")
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32, device=a.device)
+    _launch_gemm_i32(a, b, out)
     int8_gemm_nt.launches += 1
     return out
 
@@ -194,7 +214,7 @@ int8_gemm_nt.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K1: matmul with in-kernel activation quantisation
+# K1: matmul with activation quantisation per (row, k-block)
 # --------------------------------------------------------------------------
 
 def fit_div(dim: int, want: int, align: int = 128) -> int:
@@ -217,7 +237,7 @@ def w8a8_fused_feasible(M: int, K: int, N: int) -> bool:
 
 
 def w8a8_fused_ref(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K1, in the kernel's order of operations."""
+    """Plain PyTorch K1, in the kernels' order of operations."""
     M, K = x2.shape
     bk = fit_div(K, 512)
     if not bk:
@@ -229,9 +249,117 @@ def w8a8_fused_ref(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     return (acc * scale.reshape(1, -1).float()).to(x2.dtype)
 
 
+def quant_prepass_ref(x2: torch.Tensor, bk: int):
+    """Plain quantise pre-pass: ``xq (M, K)`` int8 and ``xs (M, K / bk)`` f32, each (row, k-block)
+    of ``x2`` quantised on its own as ``rowquant`` quantises a row."""
+    M, K = x2.shape
+    xf = x2.float().reshape(M, K // bk, bk)
+    absmax = xf.abs().amax(dim=-1)
+    xs = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0), torch.ones_like(absmax))
+    xq = torch.clamp(torch.round(xf / xs[..., None]), -127, 127).to(torch.int8)
+    return xq.reshape(M, K), xs
+
+
+def weight_prepass_ref(q: torch.Tensor) -> torch.Tensor:
+    """Plain weight pre-pass: the K-major copy ``qt (N, K)`` of ``q (K, N)``."""
+    return q.T.contiguous()
+
+
+def fold_gemm_ref(xq: torch.Tensor, xs: torch.Tensor, qt: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Plain GEMM of the route: ``(sum over k-blocks of f32(xq_kb . qt_kb^T) * xs_kb) * scale``, k-blocks in
+    order, cast to ``dtype``."""
+    M, K = xq.shape
+    nkb = xs.shape[1]
+    bk = K // nkb
+    acc = torch.zeros((M, qt.shape[0]), dtype=torch.float32, device=xq.device)
+    for kb in range(nkb):
+        sl = slice(kb * bk, (kb + 1) * bk)
+        acc = acc + _int_dot_ref(xq[:, sl], qt[:, sl].T).float() * xs[:, kb:kb + 1]
+    return (acc * scale.reshape(1, -1).float()).to(dtype)
+
+
+def _launch_quant(x2: torch.Tensor, bk: int, xq: torch.Tensor, xs: torch.Tensor) -> None:
+    M, K = x2.shape
+    _launched(_lib().dalm_i8_act_quant(x2.data_ptr(), int(x2.dtype == torch.bfloat16), M, K, bk, xq.data_ptr(),
+                                       xs.data_ptr(), _stream(x2)), "quantise pre-pass")
+    quant_prepass.launches += 1
+
+
+def _launch_fold(xq: torch.Tensor, xs: torch.Tensor, qt: torch.Tensor, scale: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    M, K = xq.shape
+    N = qt.shape[0]
+    _launched(_lib().dalm_i8_gemm_fold(xq.data_ptr(), qt.data_ptr(), xs.data_ptr(), scale.data_ptr(), M, N, K,
+                                       K // xs.shape[1], int(out.dtype == torch.bfloat16), out.data_ptr(),
+                                       _stream(xq)), "K1 GEMM")
+    fold_gemm.launches += 1
+
+
+def quant_prepass(x2: torch.Tensor, bk: int):
+    """K1's quantise pre-pass: ``(xq (M, K) int8, xs (M, K / bk) f32)``; the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if not x2.is_cuda:
+        return quant_prepass_ref(x2, bk)
+    if x2.dtype not in (torch.float32, torch.bfloat16) or x2.dim() != 2:
+        raise TypeError(f"quant_prepass takes a 2-D float32 or bfloat16 x2, not {x2.dtype} {tuple(x2.shape)}")
+    M, K = x2.shape
+    if bk < 128 or bk % 128 or K % bk or M < 1:
+        raise ValueError(f"quant_prepass: bk={bk} must be a multiple of 128 dividing K={K}")
+    _check_cuda("quant_prepass", x2=x2)
+    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    xs = torch.empty((M, K // bk), dtype=torch.float32, device=x2.device)
+    _launch_quant(x2, bk, xq, xs)
+    return xq, xs
+
+
+def weight_prepass(q: torch.Tensor) -> torch.Tensor:
+    """K1's weight pre-pass: ``qt (N, K)``, the K-major copy of ``q (K, N)`` int8 (K a multiple of 16,
+    N of 4); the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return weight_prepass_ref(q)
+    if q.dtype != torch.int8 or q.dim() != 2:
+        raise TypeError(f"weight_prepass takes a 2-D int8 weight, not {q.dtype} {tuple(q.shape)}")
+    K, N = q.shape
+    if K < 16 or K % 16 or N < 4 or N % 4:
+        raise ValueError(f"weight_prepass: K={K} must be a multiple of 16 and N={N} of 4")
+    _check_cuda("weight_prepass", q=q)
+    qt = torch.empty((N, K), dtype=torch.int8, device=q.device)
+    _launch_transpose(q, qt)
+    return qt
+
+
+def fold_gemm(xq: torch.Tensor, xs: torch.Tensor, qt: torch.Tensor, scale: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """K1's GEMM on the pre-passes' outputs, in ``dtype`` (float32 or bfloat16); the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if not xq.is_cuda:
+        return fold_gemm_ref(xq, xs, qt, scale, dtype)
+    if xq.dtype != torch.int8 or qt.dtype != torch.int8 or xs.dtype != torch.float32 \
+            or scale.dtype != torch.float32 or dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("fold_gemm takes int8 xq and qt, float32 xs and scale, and a float32 or bfloat16 output")
+    M, K = xq.shape
+    N = qt.shape[0]
+    nkb = xs.shape[1] if xs.dim() == 2 else 0
+    if qt.shape[1] != K or tuple(xs.shape) != (M, nkb) or not nkb or K % nkb or (K // nkb) % 128 \
+            or scale.numel() != N or N % 4 or M < 1:
+        raise ValueError(f"fold_gemm: shapes {tuple(xq.shape)}, {tuple(xs.shape)}, {tuple(qt.shape)}, "
+                         f"{tuple(scale.shape)} do not agree (k-blocks a multiple of 128, N of 4)")
+    _check_cuda("fold_gemm", xq=xq, xs=xs, qt=qt, scale=scale)
+    out = torch.empty((M, N), dtype=dtype, device=xq.device)
+    _launch_fold(xq, xs, qt, scale, out)
+    return out
+
+
+quant_prepass.launches = 0
+weight_prepass.launches = 0
+fold_gemm.launches = 0
+
+
 def w8a8_fused(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``x2 (M, K) float @ q (K, N) int8 * scale (1, N)`` with per-(row, k-block)
-    activation quantisation inside the kernel; output in ``x2.dtype``."""
+    """``x2 (M, K) float @ q (K, N) int8 * scale (1, N)`` with per-(row, k-block) activation quantisation;
+    output in ``x2.dtype``. On CUDA tensors three launches on the current stream: the quantise pre-pass,
+    the weight pre-pass and the GEMM (their scratch is freed on return); one count per call."""
     if not x2.is_cuda:
         return w8a8_fused_ref(x2, q, scale)
     if x2.dtype not in (torch.float32, torch.bfloat16):
@@ -246,13 +374,13 @@ def w8a8_fused(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     if not bk or N % 4 or M < 1:
         raise ValueError(f"w8a8_fused: K={K} needs a k-block that is a multiple of 128, N={N} a multiple of 4")
     _check_cuda("w8a8_fused", x2=x2, q=q, scale=scale)
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)  # the kernel's scratch
+    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)
     xs = torch.empty((M, K // bk), dtype=torch.float32, device=x2.device)
-    err = _lib().dalm_i8_w8a8_fused(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), q.data_ptr(), scale.data_ptr(),
-        M, K, N, bk, xq.data_ptr(), xs.data_ptr(), out.data_ptr(), _stream(x2))
-    _launched(err, "w8a8_fused")
+    qt = torch.empty((N, K), dtype=torch.int8, device=x2.device)
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    _launch_quant(x2, bk, xq, xs)
+    _launch_transpose(q, qt)
+    _launch_fold(xq, xs, qt, scale, out)
     w8a8_fused.launches += 1
     return out
 

@@ -107,10 +107,12 @@ def test_rowquant_kernel_equals_ref_on_card(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mkn", [(256, 512, 384), (200, 1024, 128), (8, 128, 128), (130, 4096, 1028)])
+@pytest.mark.parametrize("mkn", [(256, 512, 384), (200, 1024, 128), (8, 128, 128), (130, 4096, 1028),
+                                 (1, 11008, 136), (256, 4096, 32000)])
 def test_w8a8_fused_kernel_equals_ref_on_card(cuda, mkn, dtype):
-    """K1: equal to the plain version, which follows the kernel's order of
-    operations (true division, two roundings in the fold); ragged M and N guarded."""
+    """K1: equal to the plain version, which follows the kernels' order of
+    operations (true division, two roundings in the fold); ragged M and N guarded,
+    one row with bk = 256, and the lm_head's width."""
     M, K, N = mkn
     rng = np.random.default_rng(1)
     q, scale = _int8_weights(rng, K, N, cuda)
@@ -122,7 +124,8 @@ def test_w8a8_fused_kernel_equals_ref_on_card(cuda, mkn, dtype):
     assert im.w8a8_fused.launches == before + 1
 
 
-@pytest.mark.parametrize("mkn", [(128, 64, 128), (100, 4160, 1028), (4608, 4096, 512), (1, 16, 4)])
+@pytest.mark.parametrize("mkn", [(128, 64, 128), (100, 4160, 1028), (4608, 4096, 512), (1, 16, 4), (1, 4096, 4096),
+                                 (300, 16, 1000), (1, 16, 11008)])
 def test_int8_gemm_entries_equal_ref_on_card(cuda, mkn):
     """Integer arithmetic: equal. ``kn`` contracts the strided axis of the weight, ``nt`` the contiguous one."""
     M, K, N = mkn
@@ -133,6 +136,68 @@ def test_int8_gemm_entries_equal_ref_on_card(cuda, mkn):
     qt = q.T.contiguous()  # (N, K): the nt entry contracts K of both
     assert torch.equal(im.int8_gemm_nt(a, qt), im.int8_gemm_nt_ref(a, qt))
     assert torch.equal(im.int8_gemm_nt(a, qt), im.int8_gemm_kn(a, q))
+
+
+@pytest.mark.parametrize("mkn", [(300, 768, 136), (1, 11008, 4096), (4608, 4096, 1028)])
+def test_k1_route_parts_equal_plain_on_card(cuda, mkn):
+    """K1's three launches one by one: the quantise pre-pass equal to its plain version and to K2 on the
+    (M K / bk, bk) view, the weight pre-pass equal to ``q.T.contiguous()``, the GEMM equal to its plain
+    version, in both output types (tolerance 0); each counts its own launch."""
+    M, K, N = mkn
+    rng = np.random.default_rng(4)
+    q, scale = _int8_weights(rng, K, N, cuda)
+    x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, torch.bfloat16)
+    bk = im.fit_div(K, 512)
+    before = (im.quant_prepass.launches, im.weight_prepass.launches, im.fold_gemm.launches)
+    xq, xs = im.quant_prepass(x, bk)
+    rq, rs = im.quant_prepass_ref(x, bk)
+    kq, ks = im.rowquant(x.reshape(M * K // bk, bk))
+    qt = im.weight_prepass(q)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, rq) and torch.equal(xs, rs)
+    assert torch.equal(xq.reshape(-1, bk), kq) and torch.equal(xs.reshape(-1, 1), ks)
+    assert torch.equal(qt, q.T.contiguous())
+    for dtype in (torch.bfloat16, torch.float32):
+        y = im.fold_gemm(xq, xs, qt, scale, dtype)
+        assert y.dtype == dtype and torch.equal(y, im.fold_gemm_ref(xq, xs, qt, scale, dtype))
+    assert (im.quant_prepass.launches, im.weight_prepass.launches, im.fold_gemm.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.parametrize("kn", [(16, 4), (48, 100), (4160, 1028), (11008, 136), (4096, 32000)])
+def test_weight_prepass_equals_transpose_on_card(cuda, kn):
+    """The weight pre-pass at ragged K (a multiple of 16) and N (a multiple of 4): equal to ``q.T.contiguous()``."""
+    K, N = kn
+    q, _ = _int8_weights(np.random.default_rng(5), K, N, cuda)
+    assert torch.equal(im.weight_prepass(q), q.T.contiguous())
+
+
+@pytest.mark.parametrize("mcn", [(77, 4160, 33), (1, 16, 5)])
+def test_int8_gemm_nt_odd_n_on_card(cuda, mcn):
+    """The dx GEMM at an odd number of output columns (its epilogue's scalar stores): equal."""
+    M, C, N = mcn
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, C)).astype(np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-127, 128, (N, C)).astype(np.int8)).to(cuda)
+    before = im.int8_gemm_nt.launches
+    assert torch.equal(im.int8_gemm_nt(a, b), im.int8_gemm_nt_ref(a, b))
+    assert im.int8_gemm_nt.launches == before + 1
+
+
+def test_k1_wrappers_reject_noncontiguous_weight(cuda):
+    x = torch.zeros((8, 512), device=cuda)
+    q = torch.zeros((256, 512), dtype=torch.int8, device=cuda)
+    scale = torch.ones((1, 256), device=cuda)
+    before = (im.w8a8_fused.launches, im.weight_prepass.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.w8a8_fused(x, q.T, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.weight_prepass(q.T)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_gemm_kn(torch.zeros((8, 512), dtype=torch.int8, device=cuda), q.T)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        im.quant_prepass(x, 192)
+    assert (im.w8a8_fused.launches, im.weight_prepass.launches) == before
 
 
 @pytest.mark.parametrize("bwd_int8", [False, True])

@@ -285,3 +285,75 @@ def test_int8_matmul_pads_ragged_widths_like_jax(bwd_int8):
     np.testing.assert_allclose(_np(ty), np.asarray(jy), rtol=0, atol=1e-5 * np.abs(np.asarray(jy)).max())
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=0, atol=1e-5 * np.abs(np.asarray(jdx)).max())
     assert torch.equal(ty, T.int8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(ws), bwd_int8))
+
+
+# K1's route on the card is three launches: the quantise pre-pass, the weight pre-pass and the GEMM with the
+# k-block fold. Their plain versions are checked here: composed, they must be K1.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [768, 1280])
+def test_quant_prepass_ref_equals_rowquant_on_the_block_view(K, dtype):
+    """Each (row, k-block) quantised on its own is K2 on the (M K / bk, bk) view of x2: equal bytes and scales
+    (tolerance 0), with an all-zero block and a block of .5 ties."""
+    rng = np.random.default_rng(7)
+    M, bk = 6, T.fit_div(K, 512)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x[0, :bk] = 0
+    x[1, bk:2 * bk] = rng.integers(-126, 127, bk) + 0.5
+    x[1, bk] = 127.0  # absmax 127 -> s = 1 -> every other value ends in .5
+    x2 = torch.from_numpy(x).to(dtype)
+    xq, xs = T.quant_prepass(x2, bk)
+    assert xq.shape == (M, K) and xq.dtype == torch.int8 and xs.shape == (M, K // bk) and xs.dtype == torch.float32
+    rq, rs = T.rowquant_ref(x2.reshape(M * K // bk, bk))
+    assert torch.equal(xq.reshape(-1, bk), rq) and torch.equal(xs.reshape(-1, 1), rs)
+    assert float(xs[0, 0]) == 1.0 and not bool(xq[0, :bk].any())
+    assert float(xs[1, 1]) == 1.0
+
+
+def test_weight_prepass_ref_is_the_k_major_copy():
+    q = torch.from_numpy(np.random.default_rng(8).integers(-127, 128, (48, 20)).astype(np.int8))
+    qt = T.weight_prepass(q)
+    assert qt.shape == (20, 48) and qt.is_contiguous() and torch.equal(qt, q.T.contiguous())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [768, 1280])
+def test_k1_route_composition_equals_w8a8_fused_ref_and_pallas(K, dtype):
+    """Quantise pre-pass -> weight pre-pass -> int dot per k-block -> fold -> weight scale, composed from the plain
+    versions: equal to ``w8a8_fused_ref`` (tolerance 0) at bk = 384 (K = 768, two k-blocks) and bk = 256 (K = 1280,
+    five), each k-block of another magnitude; against the Pallas kernel in interpret mode the bounds of the tests
+    above: one f32 ulp of the largest value per k-block in f32 (XLA may fuse the multiply-add), the JAX package's
+    5e-3 of the largest value in bf16 (its interpreted scales sit an f32 ulp off on some rows)."""
+    rng = np.random.default_rng(9)
+    M, N = 16, 384
+    bk = T.fit_div(K, 512)
+    assert (bk, K // bk) == {768: (384, 2), 1280: (256, 5)}[K] and bk == J._fit_div(K, 512)
+    xn = rng.standard_normal((M, K)) * 0.5
+    for kb in range(K // bk):
+        xn[:, kb * bk:(kb + 1) * bk] *= 4.0 ** kb
+    x = jnp.asarray(xn, getattr(jnp, dtype))
+    _, q, ws = _weights(rng, K, N)
+    tx, tq, tws = _to_torch(x), torch.from_numpy(q), torch.from_numpy(ws)
+    xq, xs = T.quant_prepass_ref(tx, bk)
+    route = T.fold_gemm_ref(xq, xs, T.weight_prepass_ref(tq), tws, tx.dtype)
+    assert route.dtype == tx.dtype and torch.equal(route, T.w8a8_fused_ref(tx, tq, tws))
+    jout = np.asarray(J._w8a8_fused_pallas(x, jnp.asarray(q), jnp.asarray(ws), True), np.float32)
+    tout = _np(route)
+    if dtype == "float32":
+        np.testing.assert_allclose(tout, jout, rtol=0, atol=(K // bk) * 2.0 ** -23 * np.abs(jout).max())
+    else:
+        assert np.abs(tout - jout).max() <= 5e-3 * np.abs(jout).max()
+
+
+def test_k1_route_cpu_calls_count_no_launch():
+    """On CPU tensors each part of the route is its plain version, and nothing counts a launch."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((4, 768)).astype(np.float32))
+    _, q, ws = _weights(rng, 768, 8)
+    q, ws = torch.from_numpy(q), torch.from_numpy(ws)
+    counts = (T.quant_prepass, T.weight_prepass, T.fold_gemm, T.w8a8_fused)
+    before = [f.launches for f in counts]
+    xq, xs = T.quant_prepass(x, T.fit_div(768, 512))
+    y = T.fold_gemm(xq, xs, T.weight_prepass(q), ws, torch.float32)
+    assert torch.equal(y, T.w8a8_fused(x, q, ws)) and xs.shape == (4, 2)
+    assert [f.launches for f in counts] == before
