@@ -25,7 +25,8 @@ enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``,
 ``serve-q`` (the 4-bit tiers; reuses ``serve``'s bf16 pipeline when both
 run), ``k3``, ``k2``, ``k1`` (K1, its three launches one by one, and the two
 int8 GEMM entries), ``grad``,
-``k4`` (flash attention forward, dq, dk/dv), ``k5`` (the five K5 instances;
+``k4`` (flash attention: the forward on both routes, the wgmma kernel for
+bf16 at head dim 64 / 128 and the mma.sync kernel for the rest; dq, dk/dv), ``k5`` (the five K5 instances;
 K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, against the
 fused kernel forced on the same operands, and the two routes' crossover by
 rows),
@@ -39,8 +40,9 @@ Output: per-phase lines, one JSON line of every measured case per kernel
 phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
 the card's name and power limit, one ``{"kernels": [...]}`` JSON line (one
 entry per K3 row storage mode, K2, K1 and each of its three launches (the
-quantise pre-pass, the weight pre-pass, the GEMM), each GEMM entry, each of the three K4
-kernels, each of the five K5 instances and the prefill route's pre-pass (base,
+quantise pre-pass, the weight pre-pass, the GEMM), each GEMM entry, each K4 kernel (the
+forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, each with its own
+launches, dq, dk/dv), each of the five K5 instances and the prefill route's pre-pass (base,
 nf4) and GEMM, each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
@@ -503,8 +505,12 @@ def grad_phase(gen, device):
 
 
 
-K4_AT = {"k4_fwd": "dalm_tpu/kernels/flash_attention.py:221", "k4_bwd_dq": "dalm_tpu/kernels/flash_attention.py:443",
-         "k4_bwd_dkv": "dalm_tpu/kernels/flash_attention.py:461"}
+K4_AT = {"k4_fwd_wgmma": "dalm_tpu/kernels/flash_attention.py:221", "k4_fwd": "dalm_tpu/kernels/flash_attention.py:221",
+         "k4_bwd_dq": "dalm_tpu/kernels/flash_attention.py:443", "k4_bwd_dkv": "dalm_tpu/kernels/flash_attention.py:461"}
+# The forward's two routes (kernels/flash_attention.py:fwd_route) by their entry in the kernels line: C entry
+# point and source.
+K4_FWD = {"k4_fwd_wgmma": ("dalm_fa_fwd_wgmma", "dalm_tpu_torch/csrc/flash_fwd_wgmma.cu"),
+          "k4_fwd": ("dalm_fa_fwd", "dalm_tpu_torch/csrc/flash_attention.cu")}
 # name, B, H, Hk, Sq, Sk, D, then keyword options of the kernel and "seg": None | "pad" | "packed"
 K4_CASES = (
     ("causal", 2, 4, 4, 256, 256, 64, dict()),
@@ -524,6 +530,11 @@ K4_CASES = (
     ("D 128", 2, 4, 2, 256, 256, 128, dict(seg="pad")),
     ("D 48, ragged Sq 200 Sk 333", 2, 4, 2, 200, 333, 48, dict(q_offset=133)),
     ("the SFT length: S 2560, D 128, 40 k tiles a row", 1, 2, 2, 2560, 2560, 128, dict(seg="pad")),
+    ("D 128, window 200", 1, 4, 4, 384, 384, 128, dict(window=200)),
+    ("D 128, softcap 2 + window 100", 1, 4, 4, 384, 384, 128, dict(softcap=2.0, window=100)),
+    ("D 128, gqa 32/8", 1, 32, 8, 256, 256, 128, dict()),
+    ("D 128, ragged Sq 200 Sk 333", 2, 4, 2, 200, 333, 128, dict(q_offset=133)),
+    ("D 128, q_offset -128, Sq 128 Sk 128 (every row masked)", 2, 4, 2, 128, 128, 128, dict(q_offset=-128)),
 )
 # Tolerances, row by row: |kernel - plain| <= tol * max(max |plain| over the row, K4_FLOOR), a row being
 # the D values of one (batch, head, position); an lse value is a row of its own with floor 1. Scaling by
@@ -564,24 +575,27 @@ def k4_inputs(gen, device, dtype, B, H, Hk, Sq, Sk, D, seg):
 
 
 def k4_ops_bytes(B, H, Hk, Sq, Sk, D, esize, q_offset, causal):
-    """The work the three kernels NEED on these inputs: the visible share of
-    the (Sq, Sk) scores times 2 Sq Sk D per product (forward 2 products, dq 3:
-    s, dp, dq; dk/dv 4: s, dp, dv, dk), and each input read and output written once."""
+    """The work the kernels NEED on these inputs: the visible share of the (Sq, Sk) scores times
+    2 Sq Sk D per product (forward 2 products, either route; dq 3: s, dp, dq; dk/dv 4: s, dp, dv, dk),
+    and each input read and output written once."""
     vis = 1.0
     if causal:
         rows = [min(max(q_offset + i + 1, 0), Sk) for i in range(Sq)]
         vis = sum(rows) / float(Sq * Sk)
     prod = 2.0 * B * H * Sq * Sk * D * vis
     qb, kb, stat = B * H * Sq * D * esize, B * Hk * Sk * D * esize, B * H * Sq * 4
-    return {"k4_fwd": (2 * prod, 2 * qb + 2 * kb + stat),
+    fwd = (2 * prod, 2 * qb + 2 * kb + stat)
+    return {"k4_fwd_wgmma": fwd, "k4_fwd": fwd,
             "k4_bwd_dq": (3 * prod, 3 * qb + 2 * kb + 2 * stat),
             "k4_bwd_dkv": (4 * prod, 2 * qb + 4 * kb + 2 * stat)}
 
 
 def k4_time(gen, device, peaks, B, S, label, iters):
-    """Times of the three kernels at (B, H = 32, S, D = 128), bf16, causal, all
-    tokens in one segment (what a packed SFT block gives), beside the plain
-    versions, one library call (SDPA, is_causal) and the bound."""
+    """Times of the kernels at (B, H = 32, S, D = 128), bf16, causal, all tokens in one segment (what a
+    packed SFT block gives): the forward on both routes, each launched through its own C entry point on
+    one argument block and timed in turns (wgmma, mma.sync, mma.sync, wgmma), the dq and dk/dv kernels;
+    beside the plain versions, one library call (SDPA, is_causal) and the bound. Both forwards are held
+    against the plain version here."""
     import torch
     import torch.nn.functional as F
 
@@ -592,24 +606,35 @@ def k4_time(gen, device, peaks, B, S, label, iters):
     q, k, v, do, _, _ = k4_inputs(gen, device, torch.bfloat16, B, H, Hk, S, S, D, None)
     seg = torch.ones((B, S), dtype=torch.int32, device=device)
     kw = dict(causal=True, scale=1.0 / D ** 0.5)
+    check(fa.fwd_route(q.dtype, D) == "wgmma", "k4: bf16 at D 128 must take the wgmma route")
     out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
     ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    dims = fa._check("time", q, k, v, seg, seg, None, None)
+    mma_out, mma_lse = torch.empty_like(out), torch.empty_like(lse)
+    a_mma = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims, out=mma_out, lse=mma_lse)
+    fa._launch("dalm_fa_fwd", "fwd", a_mma, q)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
     rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
     torch.cuda.synchronize()
     tol = K4_TOL["bfloat16"]
     K4_SHARE[0] = 0.0
-    errs = {"k4_fwd": max(k4_err(out, ro, tol["out"], f"{label} out"), k4_err(lse, rl, tol["lse"], f"{label} lse")),
+    errs = {"k4_fwd_wgmma": max(k4_err(out, ro, tol["out"], f"{label} out"),
+                                k4_err(lse, rl, tol["lse"], f"{label} lse")),
+            "k4_fwd": max(k4_err(mma_out, ro, tol["out"], f"{label} mma.sync out"),
+                          k4_err(mma_lse, rl, tol["lse"], f"{label} mma.sync lse")),
             "k4_bwd_dq": k4_err(dq, rq, tol["grad"], f"{label} dq"),
             "k4_bwd_dkv": max(k4_err(dk, rk, tol["grad"], f"{label} dk"), k4_err(dv, rv, tol["grad"], f"{label} dv"))}
     share = K4_SHARE[0]
     del ro, rl, rq, rk, rv
 
-    ms = {"k4_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, seg, seg, **kw), iters)}
-    dims = fa._check("time", q, k, v, seg, seg, None, None, out=out, do=do)
-    dsum = (do.float() * out.float()).sum(dim=-1).contiguous()
-    a = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims,
-                 dout=do, lse=lse, dsum=dsum, dq=dq, dk=dk, dv=dv)
+    a_wg = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims, out=out, lse=lse)
+    turns = {"k4_fwd_wgmma": [], "k4_fwd": []}
+    for name in ("k4_fwd_wgmma", "k4_fwd", "k4_fwd", "k4_fwd_wgmma"):
+        a, entry = a_wg if name == "k4_fwd_wgmma" else a_mma, K4_FWD[name][0]
+        turns[name].append(cuda_ms(lambda: fa._launch(entry, "fwd", a, q), iters))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    a = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims, dout=do, lse=lse,
+                 dsum=(do.float() * out.float()).sum(dim=-1).contiguous(), dq=dq, dk=dk, dv=dv)
     ms["k4_bwd_dq"] = cuda_ms(lambda: fa._launch("dalm_fa_bwd_dq", "dq", a, q), iters)
     ms["k4_bwd_dkv"] = cuda_ms(lambda: fa._launch("dalm_fa_bwd_dkv", "dkv", a, q), iters)
     dsum_ms = cuda_ms(lambda: (do.float() * out.float()).sum(dim=-1), iters)
@@ -624,28 +649,37 @@ def k4_time(gen, device, peaks, B, S, label, iters):
     del lib_out
     work = k4_ops_bytes(B, H, Hk, S, S, D, 2, 0, True)
     entries = {}
-    for name in ("k4_fwd", "k4_bwd_dq", "k4_bwd_dkv"):
+    for name in ("k4_fwd_wgmma", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv"):
         ops, nbytes = work[name]
         t_ops, t_bytes = ops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
+        fwd = name in K4_FWD
         entries[name] = {
-            "name": name, "route": "cuda", "source": "dalm_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda",
+            "source": K4_FWD[name][1] if fwd else "dalm_tpu_torch/csrc/flash_attention.cu",
             "replaces": K4_AT[name], "case": label, "max_abs_err": errs[name],
-            "ms": ms[name], "plain_ms": plain_f if name == "k4_fwd" else plain_b,
+            "ms": ms[name], "plain_ms": plain_f if fwd else plain_b,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_f if name == "k4_fwd" else lib_b,
-            "library_is": "SDPA forward" if name == "k4_fwd" else "SDPA backward: dq, dk and dv in one call, "
+            "library_ms": lib_f if fwd else lib_b,
+            "library_is": "SDPA forward" if fwd else "SDPA backward: dq, dk and dv in one call, "
                           "the work of k4_bwd_dq + k4_bwd_dkv + dsum together",
             "tflops": ops / ms[name] / 1e9,
         }
-    print(f"[k4] {label}: forward kernel {ms['k4_fwd']:.4f} ms, plain {plain_f:.3f} ms, SDPA {lib_f:.4f} ms, bound "
-          f"{entries['k4_fwd']['bound_ms']:.4f} ms ({entries['k4_fwd']['bound_by']}); backward dq "
-          f"{ms['k4_bwd_dq']:.4f} ms + dk/dv {ms['k4_bwd_dkv']:.4f} ms (+ dsum reduction {dsum_ms:.4f} ms), plain "
-          f"(all three gradients) {plain_b:.3f} ms, SDPA backward (all three gradients, one call, graph built "
-          f"outside the timing) {lib_b:.4f} ms, bounds {entries['k4_bwd_dq']['bound_ms']:.4f} / "
-          f"{entries['k4_bwd_dkv']['bound_ms']:.4f} ms; max errors {errs}, the worst row at {share:.3f} of its "
+    entries["k4_fwd_wgmma"]["turns_ms"] = turns["k4_fwd_wgmma"]
+    entries["k4_fwd"]["turns_ms"] = turns["k4_fwd"]
+    lib_tflops = work["k4_fwd"][0] / lib_f / 1e9
+    w, m = entries["k4_fwd_wgmma"], entries["k4_fwd"]
+    print(f"[k4] {label}: forward, wgmma route {w['ms']:.4f} ms ({w['tflops']:.1f} TFLOP/s; turns "
+          f"{', '.join(f'{t:.4f}' for t in turns['k4_fwd_wgmma'])}), mma.sync route {m['ms']:.4f} ms "
+          f"({m['tflops']:.1f} TFLOP/s; turns {', '.join(f'{t:.4f}' for t in turns['k4_fwd'])}): the wgmma route "
+          f"{m['ms'] / w['ms']:.2f}x faster; SDPA {lib_f:.4f} ms ({lib_tflops:.1f} TFLOP/s), wgmma / SDPA "
+          f"{w['ms'] / lib_f:.2f}; plain {plain_f:.3f} ms; bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
+          f"{work['k4_fwd'][0] / 1e9:.1f} GFLOP)", flush=True)
+    print(f"[k4] {label}: backward dq {ms['k4_bwd_dq']:.4f} ms ({entries['k4_bwd_dq']['tflops']:.1f} TFLOP/s) + "
+          f"dk/dv {ms['k4_bwd_dkv']:.4f} ms ({entries['k4_bwd_dkv']['tflops']:.1f} TFLOP/s) (+ dsum reduction "
+          f"{dsum_ms:.4f} ms), plain (all three gradients) {plain_b:.3f} ms, SDPA backward (all three gradients, "
+          f"one call, graph built outside the timing) {lib_b:.4f} ms, bounds {entries['k4_bwd_dq']['bound_ms']:.4f} "
+          f"/ {entries['k4_bwd_dkv']['bound_ms']:.4f} ms; max errors {errs}, the worst row at {share:.3f} of its "
           f"bound ({tol['out']} x max(row max, {K4_FLOOR}))", flush=True)
-    print(f"[k4]   achieved bf16 TFLOP/s on the needed work: forward {entries['k4_fwd']['tflops']:.1f}, dq "
-          f"{entries['k4_bwd_dq']['tflops']:.1f}, dk/dv {entries['k4_bwd_dkv']['tflops']:.1f}", flush=True)
     torch.cuda.empty_cache()
     return entries
 
@@ -668,10 +702,13 @@ def k4_err(got, want, tol, what) -> float:
 
 def k4_phase(gen, device, peaks, sft_batch):
     """K4 (forward, dq, dk/dv) against its plain versions on the card, every
-    case in bf16 and f32 at ``K4_TOL``; fully masked rows must give out = 0,
-    lse = -1e30 and zero gradients exactly; two key halves must merge into the
-    full result. Then the kernels' times at the SFT shape and at the RAG
-    trainer's. Returns (all timed records, the records at the SFT shape)."""
+    case in bf16 and f32 at ``K4_TOL``, each forward on its route (bf16 at D 64 /
+    128 on the wgmma kernel, the rest on the mma.sync kernel, counted by route);
+    fully masked rows must give out = 0, lse = -1e30 and zero gradients exactly;
+    two key halves must merge into the full result; a bf16 D 128 call whose
+    tensor map the driver refuses must raise without falling back. Then the
+    kernels' times at the SFT shape and at the RAG trainer's. Returns (all timed
+    records, the records at the SFT shape)."""
     import torch
 
     from dalm_tpu_torch.kernels import flash_attention as fa
@@ -687,7 +724,10 @@ def k4_phase(gen, device, peaks, sft_batch):
                 seg_k = None
             kw = dict(causal=opts.get("causal", True), scale=1.0 / D ** 0.5, q_offset=opts.get("q_offset", 0),
                       window=opts.get("window"), softcap=opts.get("softcap"))
+            route, before = fa.fwd_route(dtype, D), dict(fa.flash_fwd.routes)
             out, lse = fa.flash_fwd(q, k, v, seg_q, seg_k, **kw)
+            check(fa.flash_fwd.routes == dict(before, **{route: before[route] + 1}),
+                  f"k4 {name_t} {label}: the forward did not launch on its route {route}")
             ro, rl = fa.flash_fwd_ref(q, k, v, seg_q, seg_k, **kw)
             dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg_q, seg_k, **kw)
             rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg_q, seg_k, **kw)
@@ -705,7 +745,8 @@ def k4_phase(gen, device, peaks, sft_batch):
                 check(bool(dead.all()) and not bool(dk.any()) and not bool(dv.any()),
                       f"k4 {what}: every row is masked, so dk and dv must be 0")
             worst[name_t] = [max(a, b) for a, b in zip(worst.get(name_t, [0.0] * 5), errs)]
-            print(f"[k4] {what}: B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D}; max errors out {errs[0]:.2e} lse "
+            print(f"[k4] {what}: B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D}, forward on the {route} route; max errors "
+                  f"out {errs[0]:.2e} lse "
                   f"{errs[1]:.2e} dq {errs[2]:.2e} dk {errs[3]:.2e} dv {errs[4]:.2e}; fully masked rows "
                   f"{int(dead.sum())}", flush=True)
         # The merge identity ring attention is built on: two key halves, merged by their lse, give the full result.
@@ -719,11 +760,12 @@ def k4_phase(gen, device, peaks, sft_batch):
         merged = (o1.float() * w1[..., None] + o2.float() * w2[..., None]) / torch.clamp(w1 + w2, min=1e-30)[..., None]
         e_out = k4_err(merged, full, tol["out"], f"{name_t} merge identity out")
         e_lse = k4_err(m + torch.log(torch.clamp(w1 + w2, min=1e-30)), lse_full, tol["lse"], f"{name_t} merge identity lse")
-        print(f"[k4] {name_t} merge of two key halves: out {e_out:.2e}, lse {e_lse:.2e}", flush=True)
+        print(f"[k4] {name_t} merge of two key halves (forward on the {fa.fwd_route(dtype, 64)} route): out "
+              f"{e_out:.2e}, lse {e_lse:.2e}", flush=True)
     print(f"[k4] worst errors (out, lse, dq, dk, dv) over {len(K4_CASES)} cases: {worst}; tolerances {K4_TOL} of "
           f"max(row max, {K4_FLOOR}); the worst row used {K4_SHARE[0]:.3f} of its bound", flush=True)
 
-    # A CUDA tensor the kernel does not take raises; nothing falls back to the plain version.
+    # A CUDA tensor the kernel does not take raises; nothing falls back to the plain version or the other route.
     bad = torch.zeros((1, 1, 64, 24), device=device, dtype=torch.bfloat16)
     try:
         fa.flash_fwd(bad, bad, bad)
@@ -731,8 +773,18 @@ def k4_phase(gen, device, peaks, sft_batch):
         pass
     else:
         check(False, "k4: head dim 24 must raise on a CUDA tensor")
+    k = torch.zeros((1, 2, 256, 128), device=device, dtype=torch.bfloat16)
+    huge = k.as_strided(k.shape, (2 ** 39,) + k.stride()[1:])  # 2^40 bytes between batches: TMA refuses it
+    before = dict(fa.flash_fwd.routes)
+    try:
+        fa.flash_fwd(huge, k, k)
+    except RuntimeError:
+        pass
+    else:
+        check(False, "k4: a bf16 D 128 call whose tensor map the driver refuses must raise")
+    check(fa.flash_fwd.routes == before, "k4: a refused wgmma call fell back to another route")
 
-    main = k4_time(gen, device, peaks, sft_batch, 2560, f"SFT shape B={sft_batch} H=32 S=2560 D=128 bf16 causal", 10)
+    main = k4_time(gen, device, peaks, sft_batch, 2560, f"SFT shape B={sft_batch} H=32 S=2560 D=128 bf16 causal", 20)
     rag = k4_time(gen, device, peaks, 18, 256, "RAG trainer's shape B=18 H=32 S=256 D=128 bf16 causal", 20)
     return list(main.values()) + list(rag.values()), main
 
@@ -1115,13 +1167,13 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
     Llama-2-7B at full width and depth, bf16, LoRA r = 256 on q_proj / v_proj in
     the merge runtime, packed blocks of 2560 tokens, per-layer recomputation,
     NEFTune noise, ``steps`` optimiser steps and one validation batch. Returns
-    the launches of the three K4 kernels in that run."""
+    the launches of the K4 kernels in that run: the forward by route, dq, dk/dv."""
     import gc
 
     import numpy as np
     import torch
 
-    from dalm_tpu_torch.kernels.flash_attention import flash_attention
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention, flash_fwd
     from dalm_tpu_torch.losses.causal import causal_lm_loss
     from dalm_tpu_torch.train import train_generator
 
@@ -1142,6 +1194,7 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
         held["initial_loss"] = float(causal_lm_loss(setup.model(ids, torch.ones_like(ids)), ids))
         # every count to 0 just before the first step
         flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
+        flash_fwd.routes = dict.fromkeys(flash_fwd.routes, 0)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1150,7 +1203,7 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
                           max_train_blocks=batch * steps, device=device, setup_hook=snapshot, **SFT_KW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(flash_attention.launches)
+    launches, routes = dict(flash_attention.launches), dict(flash_fwd.routes)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     setup = held["setup"]
     cfg = setup.model.cfg
@@ -1168,6 +1221,8 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
     eval_batches = len(range(0, len(setup.valid_blocks) - batch + 1, batch))
     want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps}
     check(eval_batches >= 1 and launches == want, f"sft: K4 launches {launches}, {layers} layers predict {want}")
+    check(routes == {"wgmma": want["fwd"], "mma": 0}, f"sft: forward launches by route {routes}: every one of the "
+          f"{want['fwd']} bf16 D {cfg.hidden_size // cfg.num_heads} forwards must take the wgmma route")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(len(held["trainable"]) == 4 * layers and not unchanged,
           f"sft: {len(unchanged)} of {len(held['trainable'])} LoRA factors did not change, e.g. {unchanged[:3]}")
@@ -1182,10 +1237,11 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
           f"tokens/s; loss before training {held['initial_loss']:.4f} (ln vocab {ln_v:.3f}), at step {n_steps} "
           f"{out['final_loss']:.4f}, validation after it {out['eval_loss']:.4f}; "
           f"peak memory {peak_gib:.2f} GiB; K4 launches per step fwd {2 * layers} dq {layers} dkv {layers} "
-          f"(+ {layers} fwd per validation batch), total {launches}; {len(held['trainable'])} LoRA factors all "
+          f"(+ {layers} fwd per validation batch), total {launches}, the forward's by route {routes}; "
+          f"{len(held['trainable'])} LoRA factors all "
           f"changed, {len(held['frozen'])} base tensors unchanged", flush=True)
     if k4_ms:
-        k4 = (2 * k4_ms["k4_fwd"] + k4_ms["k4_bwd_dq"] + k4_ms["k4_bwd_dkv"]) * layers
+        k4 = (2 * k4_ms["k4_fwd_wgmma"] + k4_ms["k4_bwd_dq"] + k4_ms["k4_bwd_dkv"]) * layers
         print(f"[sft] one step = {step_s * 1e3:.0f} ms; K4 at its measured times x launches = {k4:.0f} ms "
               f"({100 * k4 / (step_s * 1e3):.1f}% of the step); the rest is the torch.matmul projections, the "
               f"LoRA merges, norms, rope, loss, optimiser and host (see --phases profile-sft)", flush=True)
@@ -1193,7 +1249,8 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
     del setup
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {"k4_fwd_wgmma": routes["wgmma"], "k4_fwd": routes["mma"], "k4_bwd_dq": launches["dq"],
+            "k4_bwd_dkv": launches["dkv"]}
 
 
 def profile_phase(device, workdir, which, batch, steps):
@@ -1883,7 +1940,7 @@ def serve_phase(device, rng, peaks, kernels):
     return pipe
 
 
-KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "int4_matmul", "int4_prefill")
+KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "int4_matmul", "int4_prefill")
 TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
@@ -1992,7 +2049,7 @@ def main() -> int:
         if "sft" in phases:
             k4_ms = {name: kernels[name]["ms"] for name in K4_AT} if "k4" in phases else None
             launches = sft_phase(device, workdir, SFT_BATCH, SFT_STEPS, k4_ms)
-            for name, n in zip(K4_AT, (launches["fwd"], launches["dq"], launches["dkv"])):
+            for name, n in launches.items():
                 if name in kernels:
                     kernels[name]["launches"] = n
         if "profile" in phases:
@@ -2007,12 +2064,13 @@ def main() -> int:
     k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm"]
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv", *k5_names)
+             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", "k4_fwd_wgmma", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv",
+             *k5_names)
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
-    for name in ("fused_dot_topk[f32]", "rowquant", *k1_names, "int8_gemm_nt", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv",
-                 *k5_names):
+    for name in ("fused_dot_topk[f32]", "rowquant", *k1_names, "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq",
+                 "k4_bwd_dkv", *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(smi, flush=True)

@@ -1,7 +1,9 @@
 // K4: flash attention, forward and backward, hand-written for Hopper (sm_90a).
 //
 // Replaces dalm_tpu/kernels/flash_attention.py:
-//   _flash_fwd / _fwd_kernel                   -> fa_fwd_kernel          (dalm_fa_fwd)
+//   _flash_fwd / _fwd_kernel                   -> fa_fwd_kernel          (dalm_fa_fwd): float32 inputs and
+//                                                 head dims other than 64 / 128; bfloat16 at 64 / 128 takes
+//                                                 csrc/flash_fwd_wgmma.cu (kernels/flash_attention.py:fwd_route)
 //   _flash_bwd / _bwd_dq_kernel                -> fa_bwd_kernel<.., false> (dalm_fa_bwd_dq)
 //   _flash_bwd / _bwd_dkv_kernel               -> fa_bwd_kernel<.., true>  (dalm_fa_bwd_dkv)
 //
@@ -55,8 +57,11 @@
 // while the current tile's softmax and p v run, the next V tile while the
 // next q k^T runs. The backward kernels need both of a tile's operands until
 // their last product, so they wait for each tile and lean on the other blocks
-// of the SM to cover the copy. wgmma, TMA, double buffering and warp
-// specialisation are left for a later change.
+// of the SM to cover the copy. The forward of bfloat16 at head dim 64 / 128 has
+// its own kernel on wgmma with a warp-specialised TMA ring
+// (csrc/flash_fwd_wgmma.cu); the backward on wgmma is left for a later change.
+// The argument block, the mask and its tile classes live in flash_attention.cuh,
+// which both files include.
 //
 // The dk/dv kernel is the dq kernel with the roles swapped: it computes
 // s^T = k q^T and dp^T = v do^T directly, so no operand is ever needed
@@ -66,73 +71,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int BR = 64;        // rows of the tile a block owns: 4 warps x 16
 constexpr int THREADS = 128;
-
-// Every field is 8 bytes wide so that the ctypes mirror has no padding to get wrong.
-struct Args {
-    const void* q; const void* k; const void* v; void* out;
-    const void* dout; void* dq; void* dk; void* dv;
-    float* lse; const float* dsum; const int* seg_q; const int* seg_k;
-    // strides in elements: batch, head, sequence (the last axis has stride 1)
-    long long q_sb, q_sh, q_ss;
-    long long k_sb, k_sh, k_ss;
-    long long v_sb, v_sh, v_ss;
-    long long o_sb, o_sh, o_ss;
-    long long do_sb, do_sh, do_ss;
-    long long dq_sb, dq_sh, dq_ss;
-    long long dk_sb, dk_sh, dk_ss;
-    long long dv_sb, dv_sh, dv_ss;
-    long long B, H, Hk, Sq, Sk, D;
-    long long q_offset, window, causal, is_bf16;  // window <= 0: none
-    double scale, softcap;                        // softcap <= 0: none
-};
-
-// What the kernels read at every element, narrowed once.
-struct Mask {
-    int Sq, Sk, q_offset, window;
-    bool causal, has_seg;
-};
-
-__device__ __forceinline__ Mask make_mask(const Args& a) {
-    Mask m;
-    m.Sq = (int)a.Sq; m.Sk = (int)a.Sk; m.q_offset = (int)a.q_offset; m.window = (int)a.window;
-    m.causal = a.causal != 0; m.has_seg = a.seg_q != nullptr;
-    return m;
-}
-
-// Element (query qi, key kj) is attended to. Rows and keys past the end never are.
-__device__ __forceinline__ bool keep_at(const Mask& m, int qi, int kj, int sq, int sk) {
-    bool keep = (qi < m.Sq) && (kj < m.Sk);
-    const int gq = m.q_offset + qi;
-    if (m.causal) keep = keep && (gq >= kj);
-    if (m.window > 0) keep = keep && (gq - kj < m.window);
-    if (m.has_seg) keep = keep && (sq == sk);
-    return keep;
-}
-
-// False when every element of queries [q0, q0 + qn) x keys [k0, k0 + kn) is masked
-// by causality or the window band (segments are not looked at).
-__device__ __forceinline__ bool tile_visible(const Mask& m, int q0, int qn, int k0, int kn) {
-    const int first_q = m.q_offset + q0, last_q = first_q + qn - 1;
-    if (m.causal && last_q < k0) return false;
-    if (m.window > 0 && first_q - (k0 + kn - 1) >= m.window) return false;
-    return true;
-}
-
-// True when NO element of queries [q0, q0 + qn) x keys [k0, k0 + kn) is masked by the
-// ragged edge, causality or the window band: such a tile needs no per-element test
-// (segments are the caller's to check).
-__device__ __forceinline__ bool tile_full(const Mask& m, int q0, int qn, int k0, int kn) {
-    if (q0 + qn > m.Sq || k0 + kn > m.Sk) return false;
-    const int first_q = m.q_offset + q0, last_q = first_q + qn - 1;
-    if (m.causal && first_q < k0 + kn - 1) return false;
-    if (m.window > 0 && last_q - k0 >= m.window) return false;
-    return true;
-}
 
 template <typename T> struct Pad { static constexpr int v = 16 / (int)sizeof(T); };
 
@@ -239,15 +183,6 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* A, i
             acc[nt][3] = fmaf(a_hi, b1, acc[nt][3]);
         }
     }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // acc rows (g, g + 8 of the warp's 16) -> dst rows r0, r0 + 8 of a (nrows, D) matrix.

@@ -2,12 +2,17 @@
 
 Replaces ``dalm_tpu/kernels/flash_attention.py``: ``_flash_fwd`` (Pallas
 ``_fwd_kernel``), ``_flash_bwd`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``)
-and the ``flash_attention`` custom gradient. The three kernels are
-hand-written CUDA for ``sm_90a``, ``csrc/flash_attention.cu``; its header says
-what bounds them on an H100 and what the design does about it. Beside every
-kernel stands its plain PyTorch version (``*_ref``: dense scores in f32),
-which a wrapper takes for CPU tensors only: on a CUDA tensor it launches the
-kernel or raises.
+and the ``flash_attention`` custom gradient. The kernels are hand-written
+CUDA for ``sm_90a``: the forward has two routes (:func:`fwd_route`, a pure
+function of the input type and the head dim), ``csrc/flash_fwd_wgmma.cu``
+(warp-specialised TMA ring and ``wgmma``) for bfloat16 at head dim 64 or 128,
+and the ``mma.sync`` forward of ``csrc/flash_attention.cu`` for the rest; the
+dq and dk/dv kernels are in ``csrc/flash_attention.cu``. Each file's header
+says what bounds its kernels on an H100 and what the design does about it.
+Beside every kernel stands its plain PyTorch version (``*_ref``: dense scores
+in f32), which a wrapper takes for CPU tensors only: on a CUDA tensor it
+launches the kernel of its route or raises (a route never falls back to the
+other).
 
 Semantics (both versions; ``T`` is the input type, bf16 or f32):
 
@@ -48,6 +53,7 @@ NEG_INF = -1e30  # finite: fully masked rows stay NaN-free
 MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 16
 TILE_ROWS = 64
+WGMMA_HEAD_DIMS = (64, 128)
 
 _STRIDED = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
 
@@ -65,26 +71,31 @@ class _Args(ctypes.Structure):
     )
 
 
-_lib_handle = None
+# C entry point -> the csrc/ source that holds it
+_ENTRIES = {"dalm_fa_fwd": "flash_attention", "dalm_fa_bwd_dq": "flash_attention",
+            "dalm_fa_bwd_dkv": "flash_attention", "dalm_fa_fwd_wgmma": "flash_fwd_wgmma"}
+# the values each library reports of its side of the contract: sizeof(Args) (both), the mma.sync tile rows
+_CONTRACT = {"flash_attention": {"dalm_fa_args_bytes": ctypes.sizeof(_Args), "dalm_fa_tile_rows": TILE_ROWS},
+             "flash_fwd_wgmma": {"dalm_fa_wgmma_args_bytes": ctypes.sizeof(_Args)}}
+_libs: dict = {}
 
 
-def _lib():
-    """The built library, with its C signatures declared (once per process)."""
-    global _lib_handle
-    if _lib_handle is None:
+def _lib(name: str):
+    """The built library ``csrc/<name>.cu``, with its C signatures declared (once per process)."""
+    if name not in _libs:
         from dalm_tpu_torch.kernels import build
 
-        lib = build.load("flash_attention")
-        for fn in ("dalm_fa_fwd", "dalm_fa_bwd_dq", "dalm_fa_bwd_dkv"):
+        lib = build.load(name)
+        for fn in (e for e, n in _ENTRIES.items() if n == name):
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        for fn in ("dalm_fa_args_bytes", "dalm_fa_tile_rows"):
+        for fn, want in _CONTRACT[name].items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = []
-        if (lib.dalm_fa_args_bytes(), lib.dalm_fa_tile_rows()) != (ctypes.sizeof(_Args), TILE_ROWS):
-            raise RuntimeError("csrc/flash_attention.cu and kernels/flash_attention.py disagree on the argument block")
-        _lib_handle = lib
-    return _lib_handle
+            if getattr(lib, fn)() != want:
+                raise RuntimeError(f"csrc/{name}.cu and kernels/flash_attention.py disagree on the argument block")
+        _libs[name] = lib
+    return _libs[name]
 
 
 # --------------------------------------------------------------------------
@@ -229,10 +240,22 @@ def _args(q, k, v, seg_q, seg_k, causal, scale, q_offset, window, softcap, dims,
 
 
 def _launch(fn_name: str, counter: str, a: _Args, like: torch.Tensor) -> None:
-    err = getattr(_lib(), fn_name)(ctypes.byref(a), torch.cuda.current_stream(like.device).cuda_stream)
+    err = getattr(_lib(_ENTRIES[fn_name]), fn_name)(ctypes.byref(a), torch.cuda.current_stream(like.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash attention {counter} kernel launch failed: CUDA error {err}")
+        what = f"a tensor map was refused (CUresult {err - 1000})" if err >= 1000 else (
+            "the driver has no tensor-map encoder" if err == 900 else f"CUDA error {err}")
+        raise RuntimeError(f"flash attention {counter} kernel launch failed ({fn_name}): {what}")
     flash_attention.launches[counter] += 1
+
+
+def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel a CUDA call takes: ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``)
+    for bfloat16 at head dim 64 or 128, ``"mma"`` (the ``mma.sync`` forward of
+    ``csrc/flash_attention.cu``) for float32 and every other head dim."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "mma"
+
+
+_FWD_ENTRY = {"wgmma": "dalm_fa_fwd_wgmma", "mma": "dalm_fa_fwd"}
 
 
 def _empty_like(t: torch.Tensor) -> torch.Tensor:
@@ -248,7 +271,8 @@ def _seg32(seg):
 
 def flash_fwd(q, k, v, seg_q=None, seg_k=None, *, causal=True, scale=None, q_offset=0, window=None, softcap=None):
     """(B, H, Sq, D) q and (B, Hk, Sk, D) k, v -> (out like q, lse (B, H, Sq) f32).
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or raise)."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    :func:`fwd_route` (or raise)."""
     if not q.is_cuda:
         return flash_fwd_ref(q, k, v, seg_q, seg_k, causal=causal, scale=scale, q_offset=q_offset,
                              window=window, softcap=softcap)
@@ -259,7 +283,9 @@ def flash_fwd(q, k, v, seg_q=None, seg_k=None, *, causal=True, scale=None, q_off
     out = _empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     a = _args(q, k, v, seg_q, seg_k, causal, scale, q_offset, window, softcap, dims, out=out, lse=lse)
-    _launch("dalm_fa_fwd", "fwd", a, q)
+    route = fwd_route(q.dtype, D)
+    _launch(_FWD_ENTRY[route], "fwd", a, q)
+    flash_fwd.routes[route] += 1
     return out, lse
 
 
@@ -351,5 +377,7 @@ def flash_attention_ref(q, k, v, segment_ids_q=None, segment_ids_k=None, *, caus
                   softcap)
 
 
-# Kernel launches by kernel; CPU calls (the plain versions) do not count.
+# Kernel launches by kernel ("fwd" counts both forward routes), and the forward's by route; CPU calls (the
+# plain versions) do not count.
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+flash_fwd.routes = {"wgmma": 0, "mma": 0}

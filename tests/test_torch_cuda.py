@@ -259,9 +259,9 @@ K4_CASES = {
 }
 
 
-def _k4_inputs(name, dtype, device):
-    B, H, Hk, Sq, Sk, D, seg, opts = K4_CASES[name]
-    rng = np.random.default_rng(sorted(K4_CASES).index(name))
+def _k4_inputs(name, dtype, device, case=None, seed=None):
+    B, H, Hk, Sq, Sk, D, seg, opts = case or K4_CASES[name]
+    rng = np.random.default_rng(sorted(K4_CASES).index(name) if seed is None else seed)
 
     def mk(S, heads):  # (B, H, S, D) views of (B, S, H, D) storage, as the decoder hands them over
         return torch.from_numpy(rng.standard_normal((B, S, heads, D)).astype(np.float32)).to(device, dtype).transpose(1, 2)
@@ -347,6 +347,102 @@ def test_flash_attention_op_and_decoder_on_card(cuda, dtype):
     # two paths through two layers, not a kernel against its plain version: held over the whole tensor
     a, b = a[real].float(), b[real].float()
     assert float((a - b).abs().max()) <= (1e-4 if dtype == torch.float32 else 3e-2) * max(1.0, float(b.abs().max()))
+
+
+# The forward's wgmma route (bfloat16 at head dim 64 and 128), each case at both widths; segment ids of one
+# (B, S) tensor need Sq == Sk.
+WGMMA_CASES = {
+    "causal_pad_segment": (2, 4, 4, 384, 384, "pad", dict()),
+    "gqa_packed_segments": (2, 8, 2, 256, 256, "packed", dict()),
+    "non_causal_packed": (2, 4, 4, 256, 256, "packed", dict(causal=False)),
+    "window_200": (1, 4, 4, 384, 384, None, dict(window=200)),
+    "softcap_window": (1, 4, 4, 384, 384, None, dict(softcap=2.0, window=100)),
+    "ragged_q_offset_133": (2, 4, 2, 200, 333, None, dict(q_offset=133)),
+    "q_offset_minus_128": (2, 4, 4, 256, 384, None, dict(q_offset=-128)),
+    "all_rows_masked": (2, 4, 2, 128, 128, None, dict(q_offset=-128)),
+}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("name", sorted(WGMMA_CASES))
+def test_flash_fwd_wgmma_route_matches_ref_on_card(cuda, name, D):
+    """The wgmma forward on (B, H, S, D) views of (B, S, H, D) storage against the plain version, out in
+    q's layout, fully masked rows exact; one launch, on its route."""
+    B, H, Hk, Sq, Sk, seg, opts = WGMMA_CASES[name]
+    q, k, v, _, seg_ids, kw = _k4_inputs(name, torch.bfloat16, cuda, (B, H, Hk, Sq, Sk, D, seg, opts),
+                                         seed=sorted(WGMMA_CASES).index(name) + D)
+    assert q.stride()[1:3] == (D, H * D) and fa.fwd_route(q.dtype, D) == "wgmma"
+    before, fwd_before = dict(fa.flash_fwd.routes), fa.flash_attention.launches["fwd"]
+    out, lse = fa.flash_fwd(q, k, v, seg_ids, seg_ids, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.routes == dict(before, wgmma=before["wgmma"] + 1)
+    assert fa.flash_attention.launches["fwd"] == fwd_before + 1
+    assert out.stride() == q.stride() and out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg_ids, seg_ids, **kw)
+    tol_out, tol_lse, _ = K4_TOL[torch.bfloat16]
+    _k4_close(out, ro, tol_out)
+    _k4_close(lse, rl, tol_lse)
+    dead = rl <= -1e29
+    if name in ("q_offset_minus_128", "all_rows_masked"):
+        assert bool(dead.any())
+    assert bool((lse[dead] == -1e30).all()) and not bool(out[dead].any())
+
+
+def test_flash_fwd_routes_count_on_card(cuda):
+    """bf16 at D 64 / 128 launch the wgmma kernel; f32 and other head dims the mma.sync kernel; every
+    launch also counts in flash_attention.launches["fwd"]."""
+    calls = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
+             (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma")]
+    for dtype, D, route in calls:
+        q = torch.randn((1, 2, 256, D), device=cuda).to(dtype)
+        before, fwd_before = dict(fa.flash_fwd.routes), fa.flash_attention.launches["fwd"]
+        out, _ = fa.flash_fwd(q, q, q)
+        torch.cuda.synchronize()
+        assert fa.fwd_route(dtype, D) == route
+        assert fa.flash_fwd.routes == dict(before, **{route: before[route] + 1}), (dtype, D)
+        assert fa.flash_attention.launches["fwd"] == fwd_before + 1
+        _k4_close(out, fa.flash_fwd_ref(q, q, q)[0], K4_TOL[dtype][0])
+
+
+def test_decoder_flash_path_at_head_dim_128_takes_the_wgmma_route(cuda):
+    """A bf16 decoder with head dim 128: every layer's attention goes through the wgmma forward, and
+    its output agrees with the matmul path at real positions."""
+    import dataclasses
+
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+
+    cfg = dataclasses.replace(DecoderConfig.tiny(), hidden_size=256, num_heads=2, intermediate_size=512,
+                              dtype=torch.bfloat16, attention_impl="flash")
+    assert cfg.hidden_size // cfg.num_heads == 128
+    flash = Decoder(cfg, device=cuda)
+    flash.reset_parameters(torch.Generator(device=cuda).manual_seed(0))
+    plain = Decoder(dataclasses.replace(cfg, attention_impl="einsum"), device=cuda)
+    plain.load_state_dict(flash.state_dict())
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, 259, size=(2, 256))).to(cuda)
+    mask = (torch.arange(256, device=cuda)[None, :] < torch.tensor([[200], [256]], device=cuda)).long()
+    before = dict(fa.flash_fwd.routes)
+    a, b = flash(ids, mask), plain(ids, mask)
+    assert fa.flash_fwd.routes == dict(before, wgmma=before["wgmma"] + cfg.num_layers)
+    real = mask.bool()
+    a, b = a[real].float(), b[real].float()
+    assert float((a - b).abs().max()) <= 3e-2 * max(1.0, float(b.abs().max()))
+
+
+def test_flash_fwd_wgmma_raises_and_never_falls_back(cuda, monkeypatch):
+    """A bf16 D 128 call the wgmma kernel cannot take raises: a stride the TMA encoder refuses (2^40 bytes
+    between batches, which the mma.sync kernel would take at B = 1), and a launch that fails. The mma.sync
+    route is never tried."""
+    k = torch.randn((1, 2, 256, 128), device=cuda).to(torch.bfloat16)
+    q = k.as_strided(k.shape, (2 ** 39,) + k.stride()[1:])  # 2^39 values = 2^40 bytes
+    before, fwd_before = dict(fa.flash_fwd.routes), fa.flash_attention.launches["fwd"]
+    with pytest.raises(RuntimeError, match="tensor map was refused"):
+        fa.flash_fwd(q, k, k)
+    fa._lib("flash_fwd_wgmma")
+    monkeypatch.setitem(fa._libs, "flash_fwd_wgmma", type("Lib", (), {"dalm_fa_fwd_wgmma": staticmethod(lambda a, s: 1)}))
+    with pytest.raises(RuntimeError, match="dalm_fa_fwd_wgmma"):
+        fa.flash_fwd(k, k, k)
+    assert fa.flash_fwd.routes == before and fa.flash_attention.launches["fwd"] == fwd_before
 
 
 def test_flash_wrappers_reject_what_they_do_not_take(cuda):

@@ -246,3 +246,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         T._check("flash_fwd", q.half(), q.half(), q.half(), None, None, None, None)
     with pytest.raises(ValueError, match="kv heads"):
         T._check("flash_fwd", torch.zeros(1, 3, 8, 16), q, q, None, None, None, None)
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
+    (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
+    (torch.bfloat16, 80, "mma"), (torch.bfloat16, 112, "mma"),
+])
+def test_forward_route_rule(dtype, D, route):
+    """The forward's route on the card is a pure function of the type and the head dim: the wgmma kernel
+    for bf16 at D 64 / 128, the mma.sync kernel for the rest."""
+    assert T.fwd_route(dtype, D) == route
+    assert T.fwd_route(dtype, D) == T.fwd_route(dtype, D)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_cpu_bf16_forward_takes_the_plain_version(D):
+    """On CPU tensors the wrapper is the plain version, bit for bit, on a route the card would take with
+    the wgmma kernel; no launch is counted."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 200, h, D)).astype(np.float32)).to(torch.bfloat16)
+               .transpose(1, 2) for h in (4, 2, 2))
+    seg = torch.from_numpy(np.sort(rng.integers(0, 3, size=(2, 200)), axis=1).astype(np.int32))
+    routes, launches = dict(T.flash_fwd.routes), dict(T.flash_attention.launches)
+    kw = dict(causal=True, softcap=2.0, window=150)
+    out, lse = T.flash_fwd(q, k, v, seg, seg, **kw)
+    ro, rl = T.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    assert T.fwd_route(q.dtype, D) == "wgmma"
+    assert torch.equal(out, ro) and torch.equal(lse, rl) and out.dtype == torch.bfloat16
+    assert T.flash_fwd.routes == routes and T.flash_attention.launches == launches
