@@ -25,8 +25,9 @@ enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``,
 ``serve-q`` (the 4-bit tiers; reuses ``serve``'s bf16 pipeline when both
 run), ``k3``, ``k2``, ``k1`` (K1, its three launches one by one, and the two
 int8 GEMM entries), ``grad``,
-``k4`` (flash attention: the forward on both routes, the wgmma kernel for
-bf16 at head dim 64 / 128 and the mma.sync kernel for the rest; dq, dk/dv), ``k5`` (the five K5 instances;
+``k4`` (flash attention, the forward and the backward each on both routes: the
+wgmma kernels for bf16 at head dim 64 / 128 and the mma.sync kernels for the
+rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances;
 K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, against the
 fused kernel forced on the same operands, and the two routes' crossover by
 rows),
@@ -41,8 +42,9 @@ phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
 the card's name and power limit, one ``{"kernels": [...]}`` JSON line (one
 entry per K3 row storage mode, K2, K1 and each of its three launches (the
 quantise pre-pass, the weight pre-pass, the GEMM), each GEMM entry, each K4 kernel (the
-forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, each with its own
-launches, dq, dk/dv), each of the five K5 instances and the prefill route's pre-pass (base,
+forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, the backward's
+``k4_bwd_dq_wgmma`` / ``k4_bwd_dkv_wgmma`` and ``k4_bwd_dq`` / ``k4_bwd_dkv``, each with
+its own launches, and the dsum pre-pass ``k4_dsum``), each of the five K5 instances and the prefill route's pre-pass (base,
 nf4) and GEMM, each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
@@ -506,11 +508,20 @@ def grad_phase(gen, device):
 
 
 K4_AT = {"k4_fwd_wgmma": "dalm_tpu/kernels/flash_attention.py:221", "k4_fwd": "dalm_tpu/kernels/flash_attention.py:221",
-         "k4_bwd_dq": "dalm_tpu/kernels/flash_attention.py:443", "k4_bwd_dkv": "dalm_tpu/kernels/flash_attention.py:461"}
-# The forward's two routes (kernels/flash_attention.py:fwd_route) by their entry in the kernels line: C entry
-# point and source.
-K4_FWD = {"k4_fwd_wgmma": ("dalm_fa_fwd_wgmma", "dalm_tpu_torch/csrc/flash_fwd_wgmma.cu"),
-          "k4_fwd": ("dalm_fa_fwd", "dalm_tpu_torch/csrc/flash_attention.cu")}
+         "k4_bwd_dq_wgmma": "dalm_tpu/kernels/flash_attention.py:443",
+         "k4_bwd_dkv_wgmma": "dalm_tpu/kernels/flash_attention.py:461",
+         "k4_bwd_dq": "dalm_tpu/kernels/flash_attention.py:443", "k4_bwd_dkv": "dalm_tpu/kernels/flash_attention.py:461",
+         "k4_dsum": "dalm_tpu/kernels/flash_attention.py:390"}
+# Each K4 kernel by its entry in the kernels line: C entry point, source, and the counter it moves. The forward
+# and the backward each have two routes (kernels/flash_attention.py:fwd_route); the dsum pre-pass serves both.
+K4_ENTRY = {"k4_fwd_wgmma": ("dalm_fa_fwd_wgmma", "dalm_tpu_torch/csrc/flash_fwd_wgmma.cu", "fwd"),
+            "k4_fwd": ("dalm_fa_fwd", "dalm_tpu_torch/csrc/flash_attention.cu", "fwd"),
+            "k4_bwd_dq_wgmma": ("dalm_fa_bwd_dq_wgmma", "dalm_tpu_torch/csrc/flash_bwd_wgmma.cu", "dq"),
+            "k4_bwd_dkv_wgmma": ("dalm_fa_bwd_dkv_wgmma", "dalm_tpu_torch/csrc/flash_bwd_wgmma.cu", "dkv"),
+            "k4_bwd_dq": ("dalm_fa_bwd_dq", "dalm_tpu_torch/csrc/flash_attention.cu", "dq"),
+            "k4_bwd_dkv": ("dalm_fa_bwd_dkv", "dalm_tpu_torch/csrc/flash_attention.cu", "dkv"),
+            "k4_dsum": ("dalm_fa_dsum", "dalm_tpu_torch/csrc/flash_bwd_wgmma.cu", "dsum")}
+K4_FWD = ("k4_fwd_wgmma", "k4_fwd")
 # name, B, H, Hk, Sq, Sk, D, then keyword options of the kernel and "seg": None | "pad" | "packed"
 K4_CASES = (
     ("causal", 2, 4, 4, 256, 256, 64, dict()),
@@ -577,7 +588,8 @@ def k4_inputs(gen, device, dtype, B, H, Hk, Sq, Sk, D, seg):
 def k4_ops_bytes(B, H, Hk, Sq, Sk, D, esize, q_offset, causal):
     """The work the kernels NEED on these inputs: the visible share of the (Sq, Sk) scores times
     2 Sq Sk D per product (forward 2 products, either route; dq 3: s, dp, dq; dk/dv 4: s, dp, dv, dk),
-    and each input read and output written once."""
+    and each input read and output written once; dsum 2 D f32 operations a row (CUDA cores) against do
+    and out read and dsum written."""
     vis = 1.0
     if causal:
         rows = [min(max(q_offset + i + 1, 0), Sk) for i in range(Sq)]
@@ -585,17 +597,18 @@ def k4_ops_bytes(B, H, Hk, Sq, Sk, D, esize, q_offset, causal):
     prod = 2.0 * B * H * Sq * Sk * D * vis
     qb, kb, stat = B * H * Sq * D * esize, B * Hk * Sk * D * esize, B * H * Sq * 4
     fwd = (2 * prod, 2 * qb + 2 * kb + stat)
-    return {"k4_fwd_wgmma": fwd, "k4_fwd": fwd,
-            "k4_bwd_dq": (3 * prod, 3 * qb + 2 * kb + 2 * stat),
-            "k4_bwd_dkv": (4 * prod, 2 * qb + 4 * kb + 2 * stat)}
+    dq, dkv = (3 * prod, 3 * qb + 2 * kb + 2 * stat), (4 * prod, 2 * qb + 4 * kb + 2 * stat)
+    return {"k4_fwd_wgmma": fwd, "k4_fwd": fwd, "k4_bwd_dq_wgmma": dq, "k4_bwd_dq": dq,
+            "k4_bwd_dkv_wgmma": dkv, "k4_bwd_dkv": dkv, "k4_dsum": (2.0 * B * H * Sq * D, 2 * qb + stat)}
 
 
 def k4_time(gen, device, peaks, B, S, label, iters):
     """Times of the kernels at (B, H = 32, S, D = 128), bf16, causal, all tokens in one segment (what a
-    packed SFT block gives): the forward on both routes, each launched through its own C entry point on
-    one argument block and timed in turns (wgmma, mma.sync, mma.sync, wgmma), the dq and dk/dv kernels;
-    beside the plain versions, one library call (SDPA, is_causal) and the bound. Both forwards are held
-    against the plain version here."""
+    packed SFT block gives). The forward and the backward's dq and dk/dv each on both routes, launched
+    through their C entry points on one argument block per route and timed in turns (wgmma, mma.sync,
+    mma.sync, wgmma); the dsum pre-pass against the PyTorch expression it replaced; beside them the plain
+    versions, one library call (SDPA's forward, SDPA's backward for all three gradients) and the bound.
+    Every kernel is held against the plain version here."""
     import torch
     import torch.nn.functional as F
 
@@ -607,37 +620,60 @@ def k4_time(gen, device, peaks, B, S, label, iters):
     seg = torch.ones((B, S), dtype=torch.int32, device=device)
     kw = dict(causal=True, scale=1.0 / D ** 0.5)
     check(fa.fwd_route(q.dtype, D) == "wgmma", "k4: bf16 at D 128 must take the wgmma route")
+    dims = fa._check("time", q, k, v, seg, seg, None, None)
+
+    def block(**tensors):
+        return fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims, **tensors)
+
     out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
     ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
-    dims = fa._check("time", q, k, v, seg, seg, None, None)
     mma_out, mma_lse = torch.empty_like(out), torch.empty_like(lse)
-    a_mma = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims, out=mma_out, lse=mma_lse)
-    fa._launch("dalm_fa_fwd", "fwd", a_mma, q)
+    blocks = {"k4_fwd_wgmma": block(out=out, lse=lse), "k4_fwd": block(out=mma_out, lse=mma_lse)}
+    fa._launch("dalm_fa_fwd", "fwd", blocks["k4_fwd"], q)
+    before = dict(fa.flash_bwd.routes)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    check(fa.flash_bwd.routes == dict(before, wgmma=before["wgmma"] + 1), "k4: the backward did not take wgmma")
+    # the mma.sync pair on its own outputs, after its own dsum pre-pass
+    dsum = torch.empty_like(lse)
+    mq, mk, mv = torch.empty_like(dq), torch.empty_like(dk), torch.empty_like(dv)
+    wg = dict(out=out, dout=do, lse=lse, dsum=dsum)
+    mma_b = block(dq=mq, dk=mk, dv=mv, **wg)
+    for name in ("k4_dsum", "k4_bwd_dq", "k4_bwd_dkv"):
+        fa._launch(K4_ENTRY[name][0], K4_ENTRY[name][2], mma_b, q)
     rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+    rsum = fa.dsum_ref(do, out)
     torch.cuda.synchronize()
     tol = K4_TOL["bfloat16"]
     K4_SHARE[0] = 0.0
+    sum_err = (dsum - rsum).abs()
+    check(bool((sum_err <= 1e-5 * (do.float() * out.float()).abs().sum(dim=-1)).all()),
+          f"k4 {label}: the dsum pre-pass is more than 1e-5 of its row's sum of |do out| from the plain version")
     errs = {"k4_fwd_wgmma": max(k4_err(out, ro, tol["out"], f"{label} out"),
                                 k4_err(lse, rl, tol["lse"], f"{label} lse")),
             "k4_fwd": max(k4_err(mma_out, ro, tol["out"], f"{label} mma.sync out"),
                           k4_err(mma_lse, rl, tol["lse"], f"{label} mma.sync lse")),
-            "k4_bwd_dq": k4_err(dq, rq, tol["grad"], f"{label} dq"),
-            "k4_bwd_dkv": max(k4_err(dk, rk, tol["grad"], f"{label} dk"), k4_err(dv, rv, tol["grad"], f"{label} dv"))}
+            "k4_bwd_dq_wgmma": k4_err(dq, rq, tol["grad"], f"{label} dq"),
+            "k4_bwd_dkv_wgmma": max(k4_err(dk, rk, tol["grad"], f"{label} dk"),
+                                    k4_err(dv, rv, tol["grad"], f"{label} dv")),
+            "k4_bwd_dq": k4_err(mq, rq, tol["grad"], f"{label} mma.sync dq"),
+            "k4_bwd_dkv": max(k4_err(mk, rk, tol["grad"], f"{label} mma.sync dk"),
+                              k4_err(mv, rv, tol["grad"], f"{label} mma.sync dv")),
+            "k4_dsum": float(sum_err.max())}
     share = K4_SHARE[0]
-    del ro, rl, rq, rk, rv
+    del ro, rl, rq, rk, rv, rsum
 
-    a_wg = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims, out=out, lse=lse)
-    turns = {"k4_fwd_wgmma": [], "k4_fwd": []}
-    for name in ("k4_fwd_wgmma", "k4_fwd", "k4_fwd", "k4_fwd_wgmma"):
-        a, entry = a_wg if name == "k4_fwd_wgmma" else a_mma, K4_FWD[name][0]
-        turns[name].append(cuda_ms(lambda: fa._launch(entry, "fwd", a, q), iters))
+    blocks.update({"k4_bwd_dq_wgmma": block(dq=dq, dk=dk, dv=dv, **wg), "k4_bwd_dq": mma_b, "k4_bwd_dkv": mma_b})
+    blocks["k4_bwd_dkv_wgmma"] = blocks["k4_bwd_dq_wgmma"]
+    turns = {}
+    for pair in (("k4_fwd_wgmma", "k4_fwd"), ("k4_bwd_dq_wgmma", "k4_bwd_dq"), ("k4_bwd_dkv_wgmma", "k4_bwd_dkv")):
+        for name in (pair[0], pair[1], pair[1], pair[0]):
+            entry, _, counter = K4_ENTRY[name]
+            a = blocks[name]
+            turns.setdefault(name, []).append(cuda_ms(lambda: fa._launch(entry, counter, a, q), iters))
     ms = {name: sum(t) / len(t) for name, t in turns.items()}
-    a = fa._args(q, k, v, seg, seg, True, kw["scale"], 0, None, None, dims, dout=do, lse=lse,
-                 dsum=(do.float() * out.float()).sum(dim=-1).contiguous(), dq=dq, dk=dk, dv=dv)
-    ms["k4_bwd_dq"] = cuda_ms(lambda: fa._launch("dalm_fa_bwd_dq", "dq", a, q), iters)
-    ms["k4_bwd_dkv"] = cuda_ms(lambda: fa._launch("dalm_fa_bwd_dkv", "dkv", a, q), iters)
-    dsum_ms = cuda_ms(lambda: (do.float() * out.float()).sum(dim=-1), iters)
+    ms["k4_dsum"] = cuda_ms(lambda: fa._launch("dalm_fa_dsum", "dsum", mma_b, q), iters)
+    plain_dsum = cuda_ms(lambda: fa.dsum_ref(do, out), iters)
+    lib_dsum = cuda_ms(lambda: (do.float() * out.float()).sum(dim=-1), iters)
     plain_f = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, seg, seg, **kw), 2)
     plain_b = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw), 2)
 
@@ -649,37 +685,47 @@ def k4_time(gen, device, peaks, B, S, label, iters):
     del lib_out
     work = k4_ops_bytes(B, H, Hk, S, S, D, 2, 0, True)
     entries = {}
-    for name in ("k4_fwd_wgmma", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv"):
+    for name in K4_ENTRY:
         ops, nbytes = work[name]
-        t_ops, t_bytes = ops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
+        t_ops = ops / (peaks[1] if name == "k4_dsum" else peaks[2]) * 1e3
+        t_bytes = nbytes / peaks[0] * 1e3
         fwd = name in K4_FWD
         entries[name] = {
-            "name": name, "route": "cuda",
-            "source": K4_FWD[name][1] if fwd else "dalm_tpu_torch/csrc/flash_attention.cu",
-            "replaces": K4_AT[name], "case": label, "max_abs_err": errs[name],
-            "ms": ms[name], "plain_ms": plain_f if fwd else plain_b,
+            "name": name, "route": "cuda", "source": K4_ENTRY[name][1], "replaces": K4_AT[name], "case": label,
+            "max_abs_err": errs[name], "ms": ms[name],
+            "plain_ms": plain_f if fwd else plain_dsum if name == "k4_dsum" else plain_b,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_f if fwd else lib_b,
-            "library_is": "SDPA forward" if fwd else "SDPA backward: dq, dk and dv in one call, "
-                          "the work of k4_bwd_dq + k4_bwd_dkv + dsum together",
+            "library_ms": lib_f if fwd else lib_dsum if name == "k4_dsum" else lib_b,
+            "library_is": "SDPA forward" if fwd else (
+                "(do.float() * out.float()).sum(dim=-1), the expression the wrapper used before the pre-pass"
+                if name == "k4_dsum" else
+                "SDPA backward: dq, dk and dv in one call, the work of dq + dk/dv + dsum together"),
             "tflops": ops / ms[name] / 1e9,
         }
-    entries["k4_fwd_wgmma"]["turns_ms"] = turns["k4_fwd_wgmma"]
-    entries["k4_fwd"]["turns_ms"] = turns["k4_fwd"]
+        if name in turns:
+            entries[name]["turns_ms"] = turns[name]
     lib_tflops = work["k4_fwd"][0] / lib_f / 1e9
+
+    def turns_of(name):
+        e = entries[name]
+        return f"{e['ms']:.4f} ms ({e['tflops']:.1f} TFLOP/s; turns {', '.join(f'{t:.4f}' for t in turns[name])})"
+
     w, m = entries["k4_fwd_wgmma"], entries["k4_fwd"]
-    print(f"[k4] {label}: forward, wgmma route {w['ms']:.4f} ms ({w['tflops']:.1f} TFLOP/s; turns "
-          f"{', '.join(f'{t:.4f}' for t in turns['k4_fwd_wgmma'])}), mma.sync route {m['ms']:.4f} ms "
-          f"({m['tflops']:.1f} TFLOP/s; turns {', '.join(f'{t:.4f}' for t in turns['k4_fwd'])}): the wgmma route "
-          f"{m['ms'] / w['ms']:.2f}x faster; SDPA {lib_f:.4f} ms ({lib_tflops:.1f} TFLOP/s), wgmma / SDPA "
-          f"{w['ms'] / lib_f:.2f}; plain {plain_f:.3f} ms; bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
+    print(f"[k4] {label}: forward, wgmma route {turns_of('k4_fwd_wgmma')}, mma.sync route {turns_of('k4_fwd')}: "
+          f"the wgmma route {m['ms'] / w['ms']:.2f}x faster; SDPA {lib_f:.4f} ms ({lib_tflops:.1f} TFLOP/s), wgmma / "
+          f"SDPA {w['ms'] / lib_f:.2f}; plain {plain_f:.3f} ms; bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
           f"{work['k4_fwd'][0] / 1e9:.1f} GFLOP)", flush=True)
-    print(f"[k4] {label}: backward dq {ms['k4_bwd_dq']:.4f} ms ({entries['k4_bwd_dq']['tflops']:.1f} TFLOP/s) + "
-          f"dk/dv {ms['k4_bwd_dkv']:.4f} ms ({entries['k4_bwd_dkv']['tflops']:.1f} TFLOP/s) (+ dsum reduction "
-          f"{dsum_ms:.4f} ms), plain (all three gradients) {plain_b:.3f} ms, SDPA backward (all three gradients, "
-          f"one call, graph built outside the timing) {lib_b:.4f} ms, bounds {entries['k4_bwd_dq']['bound_ms']:.4f} "
-          f"/ {entries['k4_bwd_dkv']['bound_ms']:.4f} ms; max errors {errs}, the worst row at {share:.3f} of its "
-          f"bound ({tol['out']} x max(row max, {K4_FLOOR}))", flush=True)
+    bwd = {r: ms["k4_dsum"] + ms[f"k4_bwd_dq{r}"] + ms[f"k4_bwd_dkv{r}"] for r in ("_wgmma", "")}
+    print(f"[k4] {label}: backward, wgmma route dq {turns_of('k4_bwd_dq_wgmma')} + dk/dv "
+          f"{turns_of('k4_bwd_dkv_wgmma')}; mma.sync route dq {turns_of('k4_bwd_dq')} + dk/dv "
+          f"{turns_of('k4_bwd_dkv')}; bounds {entries['k4_bwd_dq']['bound_ms']:.4f} ({entries['k4_bwd_dq']['bound_by']}) / "
+          f"{entries['k4_bwd_dkv']['bound_ms']:.4f} ms ({entries['k4_bwd_dkv']['bound_by']})", flush=True)
+    print(f"[k4] {label}: dsum pre-pass {ms['k4_dsum']:.4f} ms against the PyTorch expression {lib_dsum:.4f} ms "
+          f"(plain {plain_dsum:.4f}), bound {entries['k4_dsum']['bound_ms']:.4f} ms ({entries['k4_dsum']['bound_by']}); "
+          f"the three gradients: wgmma route {bwd['_wgmma']:.4f} ms, mma.sync route {bwd['']:.4f} ms (each with the "
+          f"pre-pass), SDPA backward (one call, graph built outside the timing) {lib_b:.4f} ms: wgmma / SDPA "
+          f"{bwd['_wgmma'] / lib_b:.2f}; plain {plain_b:.3f} ms; max errors {errs}, the worst row at {share:.3f} of "
+          f"its bound ({tol['out']} x max(row max, {K4_FLOOR}))", flush=True)
     torch.cuda.empty_cache()
     return entries
 
@@ -701,14 +747,15 @@ def k4_err(got, want, tol, what) -> float:
 
 
 def k4_phase(gen, device, peaks, sft_batch):
-    """K4 (forward, dq, dk/dv) against its plain versions on the card, every
-    case in bf16 and f32 at ``K4_TOL``, each forward on its route (bf16 at D 64 /
-    128 on the wgmma kernel, the rest on the mma.sync kernel, counted by route);
-    fully masked rows must give out = 0, lse = -1e30 and zero gradients exactly;
-    two key halves must merge into the full result; a bf16 D 128 call whose
-    tensor map the driver refuses must raise without falling back. Then the
-    kernels' times at the SFT shape and at the RAG trainer's. Returns (all timed
-    records, the records at the SFT shape)."""
+    """K4 (forward, dq, dk/dv, the dsum pre-pass) against its plain versions on
+    the card, every case in bf16 and f32 at ``K4_TOL``, the forward and the
+    backward each on its route (bf16 at D 64 / 128 on the wgmma kernels, the rest
+    on the mma.sync kernels, counted by route); fully masked rows must give out =
+    0, lse = -1e30 and zero gradients exactly; two key halves must merge into the
+    full result; a bf16 D 128 forward or backward whose tensor map the driver
+    refuses must raise without falling back or launching. Then the kernels'
+    times at the SFT shape and at the RAG trainer's. Returns (all timed records,
+    the records at the SFT shape)."""
     import torch
 
     from dalm_tpu_torch.kernels import flash_attention as fa
@@ -729,7 +776,10 @@ def k4_phase(gen, device, peaks, sft_batch):
             check(fa.flash_fwd.routes == dict(before, **{route: before[route] + 1}),
                   f"k4 {name_t} {label}: the forward did not launch on its route {route}")
             ro, rl = fa.flash_fwd_ref(q, k, v, seg_q, seg_k, **kw)
+            before = dict(fa.flash_bwd.routes)
             dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg_q, seg_k, **kw)
+            check(fa.flash_bwd.routes == dict(before, **{route: before[route] + 1}),
+                  f"k4 {name_t} {label}: the backward did not launch on its route {route}")
             rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg_q, seg_k, **kw)
             torch.cuda.synchronize()
             what = f"{name_t} {label}"
@@ -745,7 +795,8 @@ def k4_phase(gen, device, peaks, sft_batch):
                 check(bool(dead.all()) and not bool(dk.any()) and not bool(dv.any()),
                       f"k4 {what}: every row is masked, so dk and dv must be 0")
             worst[name_t] = [max(a, b) for a, b in zip(worst.get(name_t, [0.0] * 5), errs)]
-            print(f"[k4] {what}: B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D}, forward on the {route} route; max errors "
+            print(f"[k4] {what}: B={B} H={H} Hk={Hk} Sq={Sq} Sk={Sk} D={D}, forward and backward on the {route} "
+                  f"route; max errors "
                   f"out {errs[0]:.2e} lse "
                   f"{errs[1]:.2e} dq {errs[2]:.2e} dk {errs[3]:.2e} dv {errs[4]:.2e}; fully masked rows "
                   f"{int(dead.sum())}", flush=True)
@@ -783,6 +834,16 @@ def k4_phase(gen, device, peaks, sft_batch):
     else:
         check(False, "k4: a bf16 D 128 call whose tensor map the driver refuses must raise")
     check(fa.flash_fwd.routes == before, "k4: a refused wgmma call fell back to another route")
+    out, lse = fa.flash_fwd(k, k, k)
+    before, launches = dict(fa.flash_bwd.routes), dict(fa.flash_attention.launches)
+    try:
+        fa.flash_bwd(huge, k, k, out, lse, k)
+    except RuntimeError:
+        pass
+    else:
+        check(False, "k4: a bf16 D 128 backward whose tensor map the driver refuses must raise")
+    check(fa.flash_bwd.routes == before and fa.flash_attention.launches == launches,
+          "k4: a refused wgmma backward launched a kernel or fell back to another route")
 
     main = k4_time(gen, device, peaks, sft_batch, 2560, f"SFT shape B={sft_batch} H=32 S=2560 D=128 bf16 causal", 20)
     rag = k4_time(gen, device, peaks, 18, 256, "RAG trainer's shape B=18 H=32 S=256 D=128 bf16 causal", 20)
@@ -1102,11 +1163,12 @@ def sft_small_phase(device, workdir):
     Adam's normalised update). A control run whose updates do nothing (learning
     rate 0) must miss that tolerance by far, so the tolerance does tell a
     sound trainer from a broken one. The counters must show 2 layers x (forward + recompute)
-    forward launches and 2 dq and 2 dk/dv launches a step."""
+    forward launches and 2 dsum, 2 dq and 2 dk/dv launches a step, every backward on the route
+    ``fwd_route`` gives the tiny preset (f32, head dim 32: the mma.sync pair)."""
     import numpy as np
     import torch
 
-    from dalm_tpu_torch.kernels.flash_attention import flash_attention
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention, flash_bwd, fwd_route
     from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
     from dalm_tpu_torch.models.registry import save_pretrained
     from dalm_tpu_torch.train import train_generator
@@ -1134,8 +1196,9 @@ def sft_small_phase(device, workdir):
     for steps in (1, 2, 3):
         cpu = train_generator(model_dir, data, max_train_blocks=4 * steps, device="cpu", setup_hook=keep, **kw)
         flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
+        flash_bwd.routes = dict.fromkeys(flash_bwd.routes, 0)
         card = train_generator(model_dir, data, max_train_blocks=4 * steps, device=device, setup_hook=give, **kw)
-        launches = dict(flash_attention.launches)
+        launches, routes = dict(flash_attention.launches), dict(flash_bwd.routes)
         check(card["steps"] == cpu["steps"] == steps, f"sft-small: took {card['steps']} steps, wanted {steps}")
         for key in ("final_loss", "eval_loss"):
             check(np.isfinite(card[key]), f"sft-small: {key} is not finite")
@@ -1143,10 +1206,13 @@ def sft_small_phase(device, workdir):
             check(abs(card[key] - cpu[key]) <= SFT_SMALL_TOL, f"sft-small step {steps}: {key} {card[key]} vs CPU {cpu[key]}")
         layers = base.cfg.num_layers
         evals = launches["fwd"] - 2 * layers * steps  # the validation pass at the end: one forward per layer and batch
-        check(launches["dq"] == launches["dkv"] == layers * steps and evals > 0 and evals % layers == 0,
-              f"sft-small step {steps}: K4 launches {launches}")
+        check(launches["dq"] == launches["dkv"] == launches["dsum"] == layers * steps and evals > 0
+              and evals % layers == 0, f"sft-small step {steps}: K4 launches {launches}")
+        route = fwd_route(base.cfg.dtype, base.cfg.head_dim)
+        check(routes == dict(dict.fromkeys(routes, 0), **{route: layers * steps}),
+              f"sft-small step {steps}: backward calls by route {routes}, every one should take {route}")
         print(f"[sft-small] {steps} step(s): card loss {card['final_loss']:.6f} / eval {card['eval_loss']:.6f}, CPU "
-              f"{cpu['final_loss']:.6f} / {cpu['eval_loss']:.6f}; K4 launches {launches} "
+              f"{cpu['final_loss']:.6f} / {cpu['eval_loss']:.6f}; K4 launches {launches}, backward calls by route {routes} "
               f"({evals // layers} validation batches)", flush=True)
     still = train_generator(model_dir, data, max_train_blocks=4 * 3, device=device, setup_hook=give,
                             **dict(kw, learning_rate=0.0))
@@ -1167,13 +1233,13 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
     Llama-2-7B at full width and depth, bf16, LoRA r = 256 on q_proj / v_proj in
     the merge runtime, packed blocks of 2560 tokens, per-layer recomputation,
     NEFTune noise, ``steps`` optimiser steps and one validation batch. Returns
-    the launches of the K4 kernels in that run: the forward by route, dq, dk/dv."""
+    the launches of the K4 kernels in that run: the forward, dq and dk/dv by route, the dsum pre-pass."""
     import gc
 
     import numpy as np
     import torch
 
-    from dalm_tpu_torch.kernels.flash_attention import flash_attention, flash_fwd
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention, flash_bwd, flash_fwd
     from dalm_tpu_torch.losses.causal import causal_lm_loss
     from dalm_tpu_torch.train import train_generator
 
@@ -1195,6 +1261,7 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
         # every count to 0 just before the first step
         flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
         flash_fwd.routes = dict.fromkeys(flash_fwd.routes, 0)
+        flash_bwd.routes = dict.fromkeys(flash_bwd.routes, 0)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1203,7 +1270,7 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
                           max_train_blocks=batch * steps, device=device, setup_hook=snapshot, **SFT_KW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, routes = dict(flash_attention.launches), dict(flash_fwd.routes)
+    launches, routes, bwd_routes = dict(flash_attention.launches), dict(flash_fwd.routes), dict(flash_bwd.routes)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     setup = held["setup"]
     cfg = setup.model.cfg
@@ -1217,12 +1284,15 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
           f"sft: the untrained loss {held['initial_loss']} is not near ln({cfg.vocab_size}) = {ln_v:.3f}")
     check(out["final_loss"] < held["initial_loss"] + 0.5, f"sft: the loss rose from {held['initial_loss']} to {out['final_loss']}")
     # Per step and layer: the forward kernel once in the forward and once more in the checkpointed
-    # recompute, one dq and one dk/dv launch in the backward; per validation batch one forward a layer.
+    # recompute, one dsum, one dq and one dk/dv launch in the backward; per validation batch one forward a layer.
     eval_batches = len(range(0, len(setup.valid_blocks) - batch + 1, batch))
-    want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps}
+    want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps,
+            "dsum": layers * n_steps}
     check(eval_batches >= 1 and launches == want, f"sft: K4 launches {launches}, {layers} layers predict {want}")
     check(routes == {"wgmma": want["fwd"], "mma": 0}, f"sft: forward launches by route {routes}: every one of the "
           f"{want['fwd']} bf16 D {cfg.hidden_size // cfg.num_heads} forwards must take the wgmma route")
+    check(bwd_routes == {"wgmma": want["dq"], "mma": 0}, f"sft: backward calls by route {bwd_routes}: every one of "
+          f"the {want['dq']} backwards must take the wgmma route")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(len(held["trainable"]) == 4 * layers and not unchanged,
           f"sft: {len(unchanged)} of {len(held['trainable'])} LoRA factors did not change, e.g. {unchanged[:3]}")
@@ -1236,12 +1306,13 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
           f"{wall:.1f} s (init included); step time after the first step {step_s:.3f} s = {tokens / step_s:.0f} "
           f"tokens/s; loss before training {held['initial_loss']:.4f} (ln vocab {ln_v:.3f}), at step {n_steps} "
           f"{out['final_loss']:.4f}, validation after it {out['eval_loss']:.4f}; "
-          f"peak memory {peak_gib:.2f} GiB; K4 launches per step fwd {2 * layers} dq {layers} dkv {layers} "
-          f"(+ {layers} fwd per validation batch), total {launches}, the forward's by route {routes}; "
+          f"peak memory {peak_gib:.2f} GiB; K4 launches per step fwd {2 * layers} dsum {layers} dq {layers} dkv {layers} "
+          f"(+ {layers} fwd per validation batch), total {launches}, the forward's by route {routes}, the "
+          f"backward's {bwd_routes}; "
           f"{len(held['trainable'])} LoRA factors all "
           f"changed, {len(held['frozen'])} base tensors unchanged", flush=True)
     if k4_ms:
-        k4 = (2 * k4_ms["k4_fwd_wgmma"] + k4_ms["k4_bwd_dq"] + k4_ms["k4_bwd_dkv"]) * layers
+        k4 = (2 * k4_ms["k4_fwd_wgmma"] + k4_ms["k4_dsum"] + k4_ms["k4_bwd_dq_wgmma"] + k4_ms["k4_bwd_dkv_wgmma"]) * layers
         print(f"[sft] one step = {step_s * 1e3:.0f} ms; K4 at its measured times x launches = {k4:.0f} ms "
               f"({100 * k4 / (step_s * 1e3):.1f}% of the step); the rest is the torch.matmul projections, the "
               f"LoRA merges, norms, rope, loss, optimiser and host (see --phases profile-sft)", flush=True)
@@ -1249,8 +1320,9 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
     del setup
     gc.collect()
     torch.cuda.empty_cache()
-    return {"k4_fwd_wgmma": routes["wgmma"], "k4_fwd": routes["mma"], "k4_bwd_dq": launches["dq"],
-            "k4_bwd_dkv": launches["dkv"]}
+    return {"k4_fwd_wgmma": routes["wgmma"], "k4_fwd": routes["mma"], "k4_bwd_dq_wgmma": bwd_routes["wgmma"],
+            "k4_bwd_dkv_wgmma": bwd_routes["wgmma"], "k4_bwd_dq": bwd_routes["mma"], "k4_bwd_dkv": bwd_routes["mma"],
+            "k4_dsum": launches["dsum"]}
 
 
 def profile_phase(device, workdir, which, batch, steps):
@@ -1940,7 +2012,8 @@ def serve_phase(device, rng, peaks, kernels):
     return pipe
 
 
-KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "int4_matmul", "int4_prefill")
+KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "int4_matmul",
+                  "int4_prefill")
 TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
@@ -2064,13 +2137,12 @@ def main() -> int:
     k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm"]
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", "k4_fwd_wgmma", "k4_fwd", "k4_bwd_dq", "k4_bwd_dkv",
-             *k5_names)
+             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *k5_names)
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
-    for name in ("fused_dot_topk[f32]", "rowquant", *k1_names, "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq",
-                 "k4_bwd_dkv", *k5_names):
+    for name in ("fused_dot_topk[f32]", "rowquant", *k1_names, "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq_wgmma",
+                 "k4_bwd_dkv_wgmma", "k4_dsum", *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(smi, flush=True)

@@ -6,6 +6,10 @@
 //                                                 csrc/flash_fwd_wgmma.cu (kernels/flash_attention.py:fwd_route)
 //   _flash_bwd / _bwd_dq_kernel                -> fa_bwd_kernel<.., false> (dalm_fa_bwd_dq)
 //   _flash_bwd / _bwd_dkv_kernel               -> fa_bwd_kernel<.., true>  (dalm_fa_bwd_dkv)
+//                                                 both for float32 inputs and head dims other than 64 / 128;
+//                                                 bfloat16 at 64 / 128 takes csrc/flash_bwd_wgmma.cu (the
+//                                                 same route rule), which also holds the dsum pre-pass
+//                                                 that both routes' dq and dk/dv read
 //
 // What they compute. out = softmax(q k^T * scale [softcap] [causal with
 // q_offset, window, segments]) v without ever holding the (Sq, Sk) scores in
@@ -15,7 +19,7 @@
 // and lse = -1e30 (a finite "minus infinity", so merges stay NaN-free).
 // Backward: ds = p * (do v^T - dsum) * [1 - (s/cap)^2] * scale, dq = ds k,
 // dk = ds^T q, dv = p^T do, with dsum = rowsum(do * out) supplied by the
-// caller. GQA: query head h reads kv head h / (H / Hk); dk and dv come back at
+// caller (the wrapper computes it with the dsum pre-pass). GQA: query head h reads kv head h / (H / Hk); dk and dv come back at
 // the kv head count.
 //
 // What bounds them on an H100. At the SFT shape (H = 32, S = 2560, D = 128,
@@ -57,9 +61,9 @@
 // while the current tile's softmax and p v run, the next V tile while the
 // next q k^T runs. The backward kernels need both of a tile's operands until
 // their last product, so they wait for each tile and lean on the other blocks
-// of the SM to cover the copy. The forward of bfloat16 at head dim 64 / 128 has
-// its own kernel on wgmma with a warp-specialised TMA ring
-// (csrc/flash_fwd_wgmma.cu); the backward on wgmma is left for a later change.
+// of the SM to cover the copy. At bfloat16 and head dim 64 / 128 the forward and
+// the backward have their own kernels on wgmma with warp-specialised TMA rings
+// (csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu); this file serves the rest.
 // The argument block, the mask and its tile classes live in flash_attention.cuh,
 // which both files include.
 //

@@ -2,8 +2,8 @@
 // kernels/flash_attention.py), the mask and its tile classes, and the 4-lane
 // row reductions of the accumulator layouts (mma.sync m16n8 and wgmma m64nN
 // both give a row to the 4 lanes of a quad). Included by csrc/flash_attention.cu
-// (the mma.sync forward and the backward) and csrc/flash_fwd_wgmma.cu (the
-// forward on wgmma).
+// (the mma.sync forward and backward), csrc/flash_fwd_wgmma.cu (the forward on
+// wgmma) and csrc/flash_bwd_wgmma.cu (the backward on wgmma, the dsum pre-pass).
 #pragma once
 
 #include <cuda_runtime.h>

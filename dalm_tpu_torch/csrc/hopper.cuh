@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks that csrc/int4_prefill.cu, csrc/int8_matmul.cu
-// and csrc/flash_fwd_wgmma.cu share: mbarriers, TMA loads of 2-D and 4-D tiles
+// Hopper (sm_90a) building blocks that csrc/int4_prefill.cu, csrc/int8_matmul.cu,
+// csrc/flash_fwd_wgmma.cu and csrc/flash_bwd_wgmma.cu share: mbarriers, TMA loads of 2-D and 4-D tiles
 // into 128-byte-swizzled shared memory, wgmma descriptors (K-major and MN-major)
 // and synchronisation, and the host-side tensor-map encoder for strided tensors
 // (fetched from the driver at run time, so nothing links -lcuda).

@@ -3,12 +3,15 @@
 Replaces ``dalm_tpu/kernels/flash_attention.py``: ``_flash_fwd`` (Pallas
 ``_fwd_kernel``), ``_flash_bwd`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``)
 and the ``flash_attention`` custom gradient. The kernels are hand-written
-CUDA for ``sm_90a``: the forward has two routes (:func:`fwd_route`, a pure
-function of the input type and the head dim), ``csrc/flash_fwd_wgmma.cu``
-(warp-specialised TMA ring and ``wgmma``) for bfloat16 at head dim 64 or 128,
-and the ``mma.sync`` forward of ``csrc/flash_attention.cu`` for the rest; the
-dq and dk/dv kernels are in ``csrc/flash_attention.cu``. Each file's header
-says what bounds its kernels on an H100 and what the design does about it.
+CUDA for ``sm_90a``. The forward and the backward each have two routes, by
+one rule (:func:`fwd_route`, a pure function of the input type and the head
+dim): for bfloat16 at head dim 64 or 128 the warp-specialised TMA ring and
+``wgmma`` kernels of ``csrc/flash_fwd_wgmma.cu`` (forward) and
+``csrc/flash_bwd_wgmma.cu`` (dq, dk/dv), and for the rest the ``mma.sync``
+kernels of ``csrc/flash_attention.cu``. ``dsum = rowsum(do * out)`` is a
+hand-written pre-pass of both backward routes (``csrc/flash_bwd_wgmma.cu``).
+Each file's header says what bounds its kernels on an H100 and what the
+design does about it.
 Beside every kernel stands its plain PyTorch version (``*_ref``: dense scores
 in f32), which a wrapper takes for CPU tensors only: on a CUDA tensor it
 launches the kernel of its route or raises (a route never falls back to the
@@ -59,7 +62,7 @@ _STRIDED = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
 
 
 class _Args(ctypes.Structure):
-    """Mirror of ``struct Args`` in ``csrc/flash_attention.cu`` (every field 8 bytes)."""
+    """Mirror of ``struct Args`` in ``csrc/flash_attention.cuh`` (every field 8 bytes)."""
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in ("q", "k", "v", "out", "dout", "dq", "dk", "dv",
@@ -71,12 +74,15 @@ class _Args(ctypes.Structure):
     )
 
 
-# C entry point -> the csrc/ source that holds it
+# C entry point (args, stream) -> the csrc/ source that holds it
 _ENTRIES = {"dalm_fa_fwd": "flash_attention", "dalm_fa_bwd_dq": "flash_attention",
-            "dalm_fa_bwd_dkv": "flash_attention", "dalm_fa_fwd_wgmma": "flash_fwd_wgmma"}
-# the values each library reports of its side of the contract: sizeof(Args) (both), the mma.sync tile rows
+            "dalm_fa_bwd_dkv": "flash_attention", "dalm_fa_fwd_wgmma": "flash_fwd_wgmma",
+            "dalm_fa_bwd_dq_wgmma": "flash_bwd_wgmma", "dalm_fa_bwd_dkv_wgmma": "flash_bwd_wgmma",
+            "dalm_fa_dsum": "flash_bwd_wgmma"}
+# the values each library reports of its side of the contract: sizeof(Args) (all), the mma.sync tile rows
 _CONTRACT = {"flash_attention": {"dalm_fa_args_bytes": ctypes.sizeof(_Args), "dalm_fa_tile_rows": TILE_ROWS},
-             "flash_fwd_wgmma": {"dalm_fa_wgmma_args_bytes": ctypes.sizeof(_Args)}}
+             "flash_fwd_wgmma": {"dalm_fa_wgmma_args_bytes": ctypes.sizeof(_Args)},
+             "flash_bwd_wgmma": {"dalm_fa_bwd_wgmma_args_bytes": ctypes.sizeof(_Args)}}
 _libs: dict = {}
 
 
@@ -89,6 +95,9 @@ def _lib(name: str):
         for fn in (e for e, n in _ENTRIES.items() if n == name):
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        if name == "flash_bwd_wgmma":  # encodes the backward's tensor maps, launches nothing
+            lib.dalm_fa_bwd_wgmma_maps.restype = ctypes.c_int
+            lib.dalm_fa_bwd_wgmma_maps.argtypes = [ctypes.c_void_p]
         for fn, want in _CONTRACT[name].items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = []
@@ -149,6 +158,11 @@ def flash_fwd_ref(q, k, v, seg_q=None, seg_k=None, *, causal=True, scale=None, q
     return out.reshape(B, H, Sq, D).to(q.dtype), lse.reshape(B, H, Sq)
 
 
+def dsum_ref(do, out):
+    """Plain PyTorch dsum pre-pass: ``rowsum(do * out)`` in f32, (B, H, Sq) from (B, H, Sq, D)."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
 def flash_bwd_ref(q, k, v, out, lse, do, seg_q=None, seg_k=None, *, causal=True, scale=None, q_offset=0,
                   window=None, softcap=None):
     """Plain PyTorch K4 backward by the formulas (no autograd): (dq, dk, dv) in the input types."""
@@ -161,7 +175,7 @@ def flash_bwd_ref(q, k, v, out, lse, do, seg_q=None, seg_k=None, *, causal=True,
     if keep is not None:
         p = torch.where(keep, p, torch.zeros_like(p))  # selects the overflow of masked rows away
     dog = do.reshape(B, Hk, G, Sq, D).float()
-    dsum = (dog * out.reshape(B, Hk, G, Sq, D).float()).sum(dim=-1, keepdim=True)
+    dsum = dsum_ref(do, out).reshape(B, Hk, G, Sq, 1)
     dv = (p.to(do.dtype).float().transpose(-1, -2) @ dog).sum(dim=2)
     dp = dog @ v.float()[:, :, None].transpose(-1, -2)
     ds = p * (dp - dsum)
@@ -239,23 +253,29 @@ def _args(q, k, v, seg_q, seg_k, causal, scale, q_offset, window, softcap, dims,
     return a
 
 
+def _error(err: int) -> str:
+    return f"a tensor map was refused (CUresult {err - 1000})" if err >= 1000 else (
+        "the driver has no tensor-map encoder" if err == 900 else f"CUDA error {err}")
+
+
 def _launch(fn_name: str, counter: str, a: _Args, like: torch.Tensor) -> None:
     err = getattr(_lib(_ENTRIES[fn_name]), fn_name)(ctypes.byref(a), torch.cuda.current_stream(like.device).cuda_stream)
     if err != 0:
-        what = f"a tensor map was refused (CUresult {err - 1000})" if err >= 1000 else (
-            "the driver has no tensor-map encoder" if err == 900 else f"CUDA error {err}")
-        raise RuntimeError(f"flash attention {counter} kernel launch failed ({fn_name}): {what}")
+        raise RuntimeError(f"flash attention {counter} kernel launch failed ({fn_name}): {_error(err)}")
     flash_attention.launches[counter] += 1
 
 
 def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel a CUDA call takes: ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``)
-    for bfloat16 at head dim 64 or 128, ``"mma"`` (the ``mma.sync`` forward of
+    """The route a CUDA call takes, forward and backward alike: ``"wgmma"``
+    (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``) for bfloat16 at
+    head dim 64 or 128, ``"mma"`` (the ``mma.sync`` kernels of
     ``csrc/flash_attention.cu``) for float32 and every other head dim."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "mma"
 
 
 _FWD_ENTRY = {"wgmma": "dalm_fa_fwd_wgmma", "mma": "dalm_fa_fwd"}
+_BWD_ENTRIES = {"wgmma": ("dalm_fa_bwd_dq_wgmma", "dalm_fa_bwd_dkv_wgmma"),
+                "mma": ("dalm_fa_bwd_dq", "dalm_fa_bwd_dkv")}
 
 
 def _empty_like(t: torch.Tensor) -> torch.Tensor:
@@ -292,9 +312,10 @@ def flash_fwd(q, k, v, seg_q=None, seg_k=None, *, causal=True, scale=None, q_off
 def flash_bwd(q, k, v, out, lse, do, seg_q=None, seg_k=None, *, causal=True, scale=None, q_offset=0, window=None,
               softcap=None):
     """Gradients (dq, dk, dv) of :func:`flash_fwd` for the output gradient ``do``;
-    ``dk``/``dv`` at the kv head count. One launch of the dq kernel and one of the
-    dk/dv kernel; ``dsum = rowsum(do * out)`` is a PyTorch reduction, as it lies
-    outside the kernel body in the reference."""
+    ``dk``/``dv`` at the kv head count. CPU tensors take the plain version; CUDA
+    tensors launch the dsum pre-pass, then the dq and dk/dv kernels of
+    :func:`fwd_route` (or raise: a ``wgmma`` call whose tensor maps the driver
+    refuses raises before its first launch)."""
     if not q.is_cuda:
         return flash_bwd_ref(q, k, v, out, lse, do, seg_q, seg_k, causal=causal, scale=scale, q_offset=q_offset,
                              window=window, softcap=softcap)
@@ -307,12 +328,20 @@ def flash_bwd(q, k, v, out, lse, do, seg_q=None, seg_k=None, *, causal=True, sca
         raise TypeError("flash_bwd: lse must be a float32 CUDA tensor")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     lse = lse.contiguous()
-    dsum = (do.float() * out.float()).sum(dim=-1).contiguous()
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(v)
     a = _args(q, k, v, seg_q, seg_k, causal, scale, q_offset, window, softcap, dims,
-              dout=do, lse=lse, dsum=dsum, dq=dq, dk=dk, dv=dv)
-    _launch("dalm_fa_bwd_dq", "dq", a, q)
-    _launch("dalm_fa_bwd_dkv", "dkv", a, q)
+              out=out, dout=do, lse=lse, dsum=dsum, dq=dq, dk=dk, dv=dv)
+    route = fwd_route(q.dtype, D)
+    if route == "wgmma":
+        err = _lib("flash_bwd_wgmma").dalm_fa_bwd_wgmma_maps(ctypes.byref(a))
+        if err != 0:
+            raise RuntimeError(f"flash attention backward: {_error(err)} (dalm_fa_bwd_wgmma_maps)")
+    _launch("dalm_fa_dsum", "dsum", a, q)
+    dq_entry, dkv_entry = _BWD_ENTRIES[route]
+    _launch(dq_entry, "dq", a, q)
+    _launch(dkv_entry, "dkv", a, q)
+    flash_bwd.routes[route] += 1
     return dq, dk, dv
 
 
@@ -359,7 +388,7 @@ def flash_attention(q, k, v, segment_ids_q: Optional[torch.Tensor] = None,
                     segment_ids_k: Optional[torch.Tensor] = None, *, causal: bool = True,
                     scale: Optional[float] = None, window: Optional[int] = None, softcap: Optional[float] = None):
     """Flash attention on (B, S, H, D) tensors; differentiable (the backward
-    launches the dq and dk/dv kernels).
+    launches the dsum pre-pass and the dq and dk/dv kernels).
 
     ``window``: sliding-window band, keys ``window`` or more positions behind
     a query are masked. ``softcap``: scores pass ``cap * tanh(s / cap)`` before
@@ -377,7 +406,8 @@ def flash_attention_ref(q, k, v, segment_ids_q=None, segment_ids_k=None, *, caus
                   softcap)
 
 
-# Kernel launches by kernel ("fwd" counts both forward routes), and the forward's by route; CPU calls (the
-# plain versions) do not count.
-flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+# Kernel launches by kernel ("fwd", "dq" and "dkv" count both routes; "dsum" the pre-pass), and the forward's
+# and the backward's calls by route; CPU calls (the plain versions) do not count.
+flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0, "dsum": 0}
 flash_fwd.routes = {"wgmma": 0, "mma": 0}
+flash_bwd.routes = {"wgmma": 0, "mma": 0}

@@ -445,6 +445,135 @@ def test_flash_fwd_wgmma_raises_and_never_falls_back(cuda, monkeypatch):
     assert fa.flash_fwd.routes == before and fa.flash_attention.launches["fwd"] == fwd_before
 
 
+# The backward's wgmma route (bfloat16 at head dim 64 and 128): every K4_CASES case at both widths, and GQA 32/8.
+BWD_CASES = {f"{name}-d{D}": K4_CASES[name][:5] + (D,) + K4_CASES[name][6:] for name in K4_CASES for D in (64, 128)}
+BWD_CASES["gqa_32_8-d128"] = (1, 32, 8, 256, 256, 128, None, dict())
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_flash_bwd_wgmma_route_matches_ref_on_card(cuda, name):
+    """The wgmma backward (the dsum pre-pass, dq, dk/dv) on (B, H, S, D) views of (B, S, H, D) storage against
+    the plain version at the bf16 gradient tolerance, gradients in their inputs' layouts, fully masked rows
+    exact; one call on its route, one launch of each kernel."""
+    case = BWD_CASES[name]
+    q, k, v, do, seg, kw = _k4_inputs(name, torch.bfloat16, cuda, case, seed=sorted(BWD_CASES).index(name))
+    assert fa.fwd_route(q.dtype, case[5]) == "wgmma"
+    out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+    before, launches = dict(fa.flash_bwd.routes), dict(fa.flash_attention.launches)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd.routes == dict(before, wgmma=before["wgmma"] + 1)
+    assert fa.flash_attention.launches == dict(launches, dq=launches["dq"] + 1, dkv=launches["dkv"] + 1,
+                                               dsum=launches["dsum"] + 1)
+    for got, t in ((dq, q), (dk, k), (dv, v)):
+        assert got.stride() == t.stride() and got.dtype == torch.bfloat16
+    for got, want in zip((dq, dk, dv), fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)):
+        _k4_close(got, want, K4_TOL[torch.bfloat16][2])
+    dead = lse <= -1e29
+    if "q_offset_minus_128" in name or "all_rows_masked" in name:
+        assert bool(dead.any())
+    assert not bool(dq[dead].any())
+    if "all_rows_masked" in name:
+        assert not bool(dk.any()) and not bool(dv.any())
+
+
+def test_flash_bwd_routes_count_on_card(cuda):
+    """bf16 at D 64 / 128 launch the wgmma backward; f32 and other head dims the mma.sync pair. Either way one
+    dsum, one dq and one dk/dv launch a call, counted in flash_attention.launches."""
+    calls = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
+             (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma")]
+    for dtype, D, route in calls:
+        q, do = (torch.randn((1, 2, 256, D), device=cuda).to(dtype) for _ in range(2))
+        out, lse = fa.flash_fwd(q, q, q)
+        before, launches = dict(fa.flash_bwd.routes), dict(fa.flash_attention.launches)
+        grads = fa.flash_bwd(q, q, q, out, lse, do)
+        torch.cuda.synchronize()
+        assert fa.fwd_route(dtype, D) == route
+        assert fa.flash_bwd.routes == dict(before, **{route: before[route] + 1}), (dtype, D)
+        assert fa.flash_attention.launches == dict(launches, dq=launches["dq"] + 1, dkv=launches["dkv"] + 1,
+                                                   dsum=launches["dsum"] + 1), (dtype, D)
+        for got, want in zip(grads, fa.flash_bwd_ref(q, q, q, out, lse, do)):
+            _k4_close(got, want, K4_TOL[dtype][2])
+
+
+def test_flash_bwd_wgmma_raises_and_never_falls_back(cuda, monkeypatch):
+    """A bf16 D 128 backward the wgmma kernels cannot take raises before its first launch (a stride the TMA
+    encoder refuses: 2^40 bytes between batches, which the mma.sync pair would take at B = 1), and no count
+    moves. A dq launch that fails raises too, after the dsum pre-pass it reads has run (and counted). The
+    mma.sync route is never tried."""
+    k, do = (torch.randn((1, 2, 256, 128), device=cuda).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_fwd(k, k, k)
+    q = k.as_strided(k.shape, (2 ** 39,) + k.stride()[1:])  # 2^39 values = 2^40 bytes
+    before, launches = dict(fa.flash_bwd.routes), dict(fa.flash_attention.launches)
+    with pytest.raises(RuntimeError, match="tensor map was refused"):
+        fa.flash_bwd(q, k, k, out, lse, do)
+    assert fa.flash_bwd.routes == before and fa.flash_attention.launches == launches
+    lib = fa._lib("flash_bwd_wgmma")
+    failing = {name: getattr(lib, name) for name in ("dalm_fa_bwd_wgmma_maps", "dalm_fa_dsum", "dalm_fa_bwd_dkv_wgmma")}
+    failing["dalm_fa_bwd_dq_wgmma"] = staticmethod(lambda a, s: 1)
+    monkeypatch.setitem(fa._libs, "flash_bwd_wgmma", type("Lib", (), failing))
+    with pytest.raises(RuntimeError, match="dalm_fa_bwd_dq_wgmma"):
+        fa.flash_bwd(k, k, k, out, lse, do)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd.routes == before
+    assert fa.flash_attention.launches == dict(launches, dsum=launches["dsum"] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 48, 64, 128])
+def test_dsum_kernel_equals_ref_on_card(cuda, dtype, D):
+    """The dsum pre-pass on strided (B, H, S, D) views against dsum_ref: both sum D f32 products in another
+    order, so within 1e-5 of each row's sum of |do out|."""
+    rng = np.random.default_rng(D)
+    do, out = (torch.from_numpy(rng.standard_normal((2, 333, 3, D)).astype(np.float32)).to(cuda, dtype)
+               .transpose(1, 2) for _ in range(2))
+    dsum = torch.full((2, 3, 333), float("nan"), device=cuda)
+    dims = (2, 3, 3, 333, 333, D)
+    a = fa._args(do, out, out, None, None, True, 1.0, 0, None, None, dims, out=out, dout=do, dsum=dsum)
+    before = fa.flash_attention.launches["dsum"]
+    fa._launch("dalm_fa_dsum", "dsum", a, do)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches["dsum"] == before + 1
+    want = fa.dsum_ref(do, out)
+    mag = (do.float() * out.float()).abs().sum(dim=-1)
+    assert bool(((dsum - want).abs() <= 1e-5 * mag).all())
+
+
+def test_decoder_flash_backward_at_head_dim_128_takes_the_wgmma_route(cuda):
+    """A bf16 decoder with head dim 128: every layer's attention backward goes through the wgmma kernels, and
+    the parameters' gradients agree with the matmul path's (two paths through two layers in bf16, each
+    gradient tensor within 5e-2 of its norm)."""
+    import dataclasses
+
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+
+    cfg = dataclasses.replace(DecoderConfig.tiny(), hidden_size=256, num_heads=2, intermediate_size=512,
+                              dtype=torch.bfloat16, attention_impl="flash")
+    flash = Decoder(cfg, device=cuda)
+    flash.reset_parameters(torch.Generator(device=cuda).manual_seed(0))
+    plain = Decoder(dataclasses.replace(cfg, attention_impl="einsum"), device=cuda)
+    plain.load_state_dict(flash.state_dict())
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, 259, size=(2, 256))).to(cuda)
+    mask = (torch.arange(256, device=cuda)[None, :] < torch.tensor([[200], [256]], device=cuda)).long()
+    real = mask.bool()
+    before = dict(fa.flash_bwd.routes)
+    grads = []
+    for model in (flash, plain):
+        params = [p.requires_grad_() for p in model.parameters()]  # the base is frozen by default
+        loss = (model.train_forward(ids, mask)[real].float() ** 2).mean()
+        grads.append(torch.autograd.grad(loss, params, allow_unused=True))
+    assert fa.flash_bwd.routes == dict(before, wgmma=before["wgmma"] + cfg.num_layers)
+    names = [n for n, _ in flash.named_parameters()]
+    assert any("q_proj" in n and g is not None for n, g in zip(names, grads[0]))
+    for a, b in zip(*grads):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert bool(torch.isfinite(a.float()).all())
+        assert float((a.float() - b.float()).norm()) <= 5e-2 * max(float(b.float().norm()), 1e-6)
+
+
 def test_flash_wrappers_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 2, 64, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):

@@ -231,7 +231,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="segment ids"):
         T.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), torch.zeros(1, 8, dtype=torch.int32), None)
-    assert sorted(T.flash_attention.launches) == ["dkv", "dq", "fwd"]
+    assert sorted(T.flash_attention.launches) == ["dkv", "dq", "dsum", "fwd"]
     # the argument block mirrors the C struct: 12 pointers, 24 strides, 10 integers, 2 doubles, 8 bytes each
     import ctypes
 
@@ -248,30 +248,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         T._check("flash_fwd", torch.zeros(1, 3, 8, 16), q, q, None, None, None, None)
 
 
-@pytest.mark.parametrize("dtype,D,route", [
+ROUTE_CASES = [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
     (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
     (torch.bfloat16, 80, "mma"), (torch.bfloat16, 112, "mma"),
-])
-def test_forward_route_rule(dtype, D, route):
-    """The forward's route on the card is a pure function of the type and the head dim: the wgmma kernel
-    for bf16 at D 64 / 128, the mma.sync kernel for the rest."""
+]
+# the C entry points of each (direction, route) live in this csrc/ source
+ROUTE_SOURCE = {("fwd", "wgmma"): "flash_fwd_wgmma", ("fwd", "mma"): "flash_attention",
+                ("bwd", "wgmma"): "flash_bwd_wgmma", ("bwd", "mma"): "flash_attention"}
+
+
+@pytest.mark.parametrize(
+    "direction,dtype,D,route",
+    [("fwd", *c) for c in ROUTE_CASES] + [("bwd", *c) for c in ROUTE_CASES],
+    ids=[f"dtype{i}-{D}-{r}" for i, (_, D, r) in enumerate(ROUTE_CASES)]
+    + [f"bwd-{str(t).split('.')[-1]}-{D}-{r}" for t, D, r in ROUTE_CASES])
+def test_forward_route_rule(direction, dtype, D, route):
+    """The route on the card is a pure function of the type and the head dim, one rule for the forward and
+    the backward: the wgmma kernels for bf16 at D 64 / 128, the mma.sync kernels for the rest. Each route's
+    entry points (the backward's dq and dk/dv) live in its own source."""
     assert T.fwd_route(dtype, D) == route
     assert T.fwd_route(dtype, D) == T.fwd_route(dtype, D)
+    entries = (T._FWD_ENTRY[route],) if direction == "fwd" else T._BWD_ENTRIES[route]
+    assert len(entries) == (1 if direction == "fwd" else 2)
+    assert {T._ENTRIES[e] for e in entries} == {ROUTE_SOURCE[direction, route]}
 
 
 @pytest.mark.parametrize("D", [64, 128])
 def test_cpu_bf16_forward_takes_the_plain_version(D):
-    """On CPU tensors the wrapper is the plain version, bit for bit, on a route the card would take with
-    the wgmma kernel; no launch is counted."""
+    """On CPU tensors the wrappers are the plain versions, bit for bit, forward and backward, on a route
+    the card would take with the wgmma kernels; no launch and no route is counted."""
     rng = np.random.default_rng(D)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, 200, h, D)).astype(np.float32)).to(torch.bfloat16)
-               .transpose(1, 2) for h in (4, 2, 2))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 200, h, D)).astype(np.float32)).to(torch.bfloat16)
+                   .transpose(1, 2) for h in (4, 2, 2, 4))
     seg = torch.from_numpy(np.sort(rng.integers(0, 3, size=(2, 200)), axis=1).astype(np.int32))
-    routes, launches = dict(T.flash_fwd.routes), dict(T.flash_attention.launches)
+    fwd_routes, bwd_routes = dict(T.flash_fwd.routes), dict(T.flash_bwd.routes)
+    launches = dict(T.flash_attention.launches)
     kw = dict(causal=True, softcap=2.0, window=150)
     out, lse = T.flash_fwd(q, k, v, seg, seg, **kw)
     ro, rl = T.flash_fwd_ref(q, k, v, seg, seg, **kw)
     assert T.fwd_route(q.dtype, D) == "wgmma"
     assert torch.equal(out, ro) and torch.equal(lse, rl) and out.dtype == torch.bfloat16
-    assert T.flash_fwd.routes == routes and T.flash_attention.launches == launches
+    grads = T.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    refs = T.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+    for g, r in zip(grads, refs):
+        assert torch.equal(g, r) and g.dtype == torch.bfloat16
+    assert T.flash_fwd.routes == fwd_routes and T.flash_bwd.routes == bwd_routes
+    assert T.flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dsum_ref_matches_the_jax_formula(dtype):
+    """The plain version of the dsum pre-pass against the JAX ``_flash_bwd``'s dsum
+    (``jnp.einsum("bhsd,bhsd->bhs", do f32, out f32)``, ``dalm_tpu/kernels/flash_attention.py:390``) on the
+    same seeded inputs, rounded to ``dtype`` on both sides and summed in f32: within 1e-5 of each row's
+    sum of |do out| (D f32 products summed in another order), shape (B, H, Sq), f32."""
+    rng = np.random.default_rng(7)
+    do, out = (rng.standard_normal((2, 3, 37, 128)).astype(np.float32) for _ in range(2))
+    jdo, jout = (jnp.asarray(x, getattr(jnp, dtype)) for x in (do, out))
+    want = np.asarray(jnp.einsum("bhsd,bhsd->bhs", jdo.astype(jnp.float32), jout.astype(jnp.float32)))
+    tdo, tout = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (do, out))
+    got = T.dsum_ref(tdo.transpose(1, 2).contiguous().transpose(1, 2), tout)  # strided do, as the op hands it over
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 3, 37)
+    mag = (tdo.float() * tout.float()).abs().sum(dim=-1).numpy()
+    assert (np.abs(got.numpy() - want) <= 1e-5 * mag).all()
