@@ -28,9 +28,11 @@ int8 GEMM entries), ``grad``,
 ``k4`` (flash attention, the forward and the backward each on both routes: the
 wgmma kernels for bf16 at head dim 64 / 128 and the mma.sync kernels for the
 rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances;
-K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, against the
-fused kernel forced on the same operands, and the two routes' crossover by
-rows),
+K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, and its fold
+route for groupmm and i8mxu, the nibble pre-pass, K2 writing bf16 and the fold
+GEMM, against the fused kernel forced on the same operands; i8mxu's exactness
+at the extremes of its operands; each route's crossover with the fused kernel
+by rows),
 ``train-small`` (tiny ``train_e2e``, card vs CPU),
 ``train``, ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
@@ -44,8 +46,8 @@ entry per K3 row storage mode, K2, K1 and each of its three launches (the
 quantise pre-pass, the weight pre-pass, the GEMM), each GEMM entry, each K4 kernel (the
 forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, the backward's
 ``k4_bwd_dq_wgmma`` / ``k4_bwd_dkv_wgmma`` and ``k4_bwd_dq`` / ``k4_bwd_dkv``, each with
-its own launches, and the dsum pre-pass ``k4_dsum``), each of the five K5 instances and the prefill route's pre-pass (base,
-nf4) and GEMM, each with its launches in its
+its own launches, and the dsum pre-pass ``k4_dsum``), each of the five K5 instances, the prefill route's pre-pass (base,
+nf4) and GEMM, the fold route's nibble pre-pass, fold GEMM (groupmm, i8mxu) and K2 in bf16, each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven), and as
@@ -269,7 +271,8 @@ DOT_AT = "dalm_tpu/kernels/int8_matmul.py:237"
 
 def k2_phase(gen, device, peaks):
     """K2 against ``rowquant_ref``: q and s must be EQUAL (tolerance 0; the
-    kernel divides and rounds as the plain version does). R = 4608 rows,
+    kernel divides and rounds as the plain version does), in both output types
+    (int8, and bf16 as K5's fold route takes it). R = 4608 rows,
     K in {4096, 11008, 32000}, bf16 and f32, with and without the column
     scale; row 0 all zero, row 1 made of exact .5 ties. Returns
     (all records, the record at the main path's commonest shape)."""
@@ -289,11 +292,14 @@ def k2_phase(gen, device, peaks):
             cs = torch.rand((1, K), generator=gen, device=device) * 0.01 + 1e-4
             for colscale in (None, cs):
                 q, s = rowquant(x, None if colscale is None else colscale.reshape(-1))
+                qb, sb = rowquant(x, None if colscale is None else colscale.reshape(-1), dtype=torch.bfloat16)
                 rq, rs = rowquant_ref(x, colscale)
                 torch.cuda.synchronize()
                 label = f"R={R} K={K} {str(dtype).split('.')[-1]}{' colscale' if colscale is not None else ''}"
-                check(torch.equal(s, rs), f"k2 {label}: scales differ from the plain version")
+                check(torch.equal(s, rs) and torch.equal(sb, rs), f"k2 {label}: scales differ from the plain version")
                 check(torch.equal(q, rq), f"k2 {label}: q differs from the plain version")
+                check(qb.dtype == torch.bfloat16 and torch.equal(qb, rq.to(torch.bfloat16)),
+                      f"k2 {label}: the bf16 output differs from the plain version's values")
                 if colscale is None:
                     check(float(s[0]) == 1.0 and not bool(q[0].any()), f"k2 {label}: zero row")
                     check(float(s[1]) == 1.0, f"k2 {label}: tie row scale")
@@ -1481,57 +1487,202 @@ def prefill_timing(k5, quant, x, d, fmt, inst, group, w_bf16, out, fused_ms, pea
     return extra, recs
 
 
+def fold_timing(k5, im, x, d, inst, group, w_bf16, out, fused_ms, peaks):
+    """K5's fold route at one shape (groupmm / i8mxu): the nibble pre-pass and, for i8mxu, K2's bf16 output (each
+    held equal to its plain version), the fold GEMM (i8mxu equal to its plain version, groupmm within K5_TOL) and
+    the route's launches together, each alone on operands prepared once, beside the plain versions, ``x @ W_bf16``
+    and the bounds. Returns (the keys it adds to the K5 record, the records of the kernels)."""
+    import torch
+
+    mem_bw, f32_rate, bf16_rate, _ = peaks
+    M, K = x.shape
+    N = w_bf16.shape[1]
+    q4, s4 = d["q4"], d["scale4"]
+    G = K // (2 * group)
+    wn = torch.empty((N, K), dtype=torch.bfloat16, device=x.device)
+    k5.launch_nibbles(q4, wn)
+    torch.cuda.synchronize()
+    check(torch.equal(wn, k5.prefill_nibbles_ref(q4)), f"k5 nibble pre-pass K={K} N={N}: not equal to its plain version")
+    nib_ms = cuda_ms(lambda: k5.launch_nibbles(q4, wn), 20)
+    nib_plain_ms = cuda_ms(lambda: k5.prefill_nibbles_ref(q4), 2)
+    recs = [{"name": "k5_prefill_nibbles", "route": "cuda", "source": K5_PREFILL_SOURCE, "replaces": K5_AT[inst],
+             "case": f"K={K} N={N} (int4, unscaled)", "max_abs_err": 0.0, "ms": nib_ms, "plain_ms": nib_plain_ms,
+             "bound_ms": (q4.numel() + N * K * 2) / mem_bw * 1e3, "bound_by": "bytes", "library_ms": None,
+             "library_is": "none: no one PyTorch call decodes the packed nibbles"}]
+    if inst == "i8mxu":
+        a = torch.empty((M, K), dtype=torch.bfloat16, device=x.device)
+        xs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+        im.launch_rowquant(x, None, a, xs)
+        rq, rs = im.rowquant_ref(x)
+        torch.cuda.synchronize()
+        check(torch.equal(a, rq.to(torch.bfloat16)) and torch.equal(xs, rs),
+              f"k2 bf16 output R={M} K={K}: not equal to its plain version")
+        rq_ms = cuda_ms(lambda: im.launch_rowquant(x, None, a, xs), 20)
+        rq_plain_ms = cuda_ms(lambda: im.rowquant_ref(x, dtype=torch.bfloat16), 3)
+        del rq, rs
+        recs.append({"name": "rowquant[bf16]", "route": "cuda", "source": "dalm_tpu_torch/csrc/int8_matmul.cu",
+                     "replaces": K2_AT, "case": f"R={M} K={K} bf16 in, bf16 out", "max_abs_err": 0.0, "ms": rq_ms,
+                     "plain_ms": rq_plain_ms, "bound_ms": (2 * M * K * 2 + M * 4) / mem_bw * 1e3, "bound_by": "bytes",
+                     "library_ms": None, "library_is": "none: no one PyTorch call quantises rows"})
+    else:
+        a, xs = x, None
+    k5.launch_fold(a, wn, s4, xs, out)
+    ry = k5.prefill_fold_ref(a, wn, s4, xs)
+    torch.cuda.synchronize()
+    if inst == "i8mxu":
+        check(torch.equal(out, ry), f"k5 fold GEMM i8mxu M={M} K={K} N={N}: not equal to its plain version")
+        err, share = 0.0, 0.0
+    else:
+        err, share = k5_err(out, ry, inst)
+    del ry
+    fold_ms = cuda_ms(lambda: k5.launch_fold(a, wn, s4, xs, out), 10)
+    fold_plain_ms = cuda_ms(lambda: k5.prefill_fold_ref(a, wn, s4, xs), 1)
+    lib_ms = cuda_ms(lambda: x @ w_bf16, 10)
+
+    def route():
+        if xs is not None:
+            im.launch_rowquant(x, None, a, xs)
+        k5.launch_nibbles(q4, wn)
+        k5.launch_fold(a, wn, s4, xs, out)
+
+    both_ms = cuda_ms(route, 10)
+    t_bytes = (M * K * 2 + N * K * 2 + s4.numel() * 4 + M * N * 2 + (M * 4 if xs is not None else 0)) / mem_bw * 1e3
+    t_ops, t_fold = 2.0 * M * K * N / bf16_rate * 1e3, 4.0 * G * M * N / f32_rate * 1e3
+    recs.append({"name": f"k5_fold_gemm[{inst}]", "route": "cuda", "source": K5_PREFILL_SOURCE, "replaces": K5_AT[inst],
+                 "case": f"M={M} K={K} N={N} group={group} bf16 ({'xq as bf16' if xs is not None else 'x'})",
+                 "max_abs_err": err, "ms": fold_ms, "plain_ms": fold_plain_ms,
+                 "bound_ms": max(t_bytes, t_ops, t_fold), "bound_by": "bytes" if t_bytes >= max(t_ops, t_fold)
+                 else "operations", "library_ms": None,
+                 "library_is": "none: no one PyTorch call folds the groups (x @ W_bf16, the bf16 tier's product, in "
+                               "x_at_w_bf16_ms)", "x_at_w_bf16_ms": lib_ms, "bf16_operations_ms": t_ops,
+                 "fold_operations_ms": t_fold, "worst_share_of_tolerance": share,
+                 "tflops": 2.0 * M * K * N / fold_ms * 1e-9})
+    print(f"[k5]   fold route {inst} M={M} K={K} N={N} group={group}: nibble pre-pass {nib_ms:.4f} ms (bound "
+          f"{recs[0]['bound_ms']:.4f}, plain {nib_plain_ms:.4f})"
+          + (f", K2 bf16 {recs[1]['ms']:.4f} ms (bound {recs[1]['bound_ms']:.4f})" if xs is not None else "")
+          + f", fold GEMM {fold_ms:.4f} ms = {recs[-1]['tflops']:.0f} TFLOP/s (bound {recs[-1]['bound_ms']:.4f}: bf16 "
+          f"{t_ops:.4f}, fold {t_fold:.4f}, bytes {t_bytes:.4f}; plain {fold_plain_ms:.4f}), the route {both_ms:.4f} ms; "
+          f"the fused route forced {fused_ms:.4f} ms: {fused_ms / both_ms:.2f}x faster; x @ W_bf16 {lib_ms:.4f} ms: "
+          f"{both_ms / lib_ms:.2f}x its time", flush=True)
+    del wn
+    extra = {"fold_route_ms": both_ms, "fold_nibbles_ms": nib_ms, "fold_gemm_ms": fold_ms,
+             "speedup_over_fused": fused_ms / both_ms}
+    return extra, recs
+
+
+def _extreme_int4(gen, device, K, N, group, cancel):
+    """A 4-bit weight of nibbles 0 and 15 only (nib - 8 = -8 or 7) with power-of-two scales. ``cancel``: in each
+    group and column the first half of the rows +7, the rest -8, so a group's running sums climb to group / 2 x
+    127 x 7 against rows of 127 and end at a small integer."""
+    import torch
+
+    if cancel:
+        bits = ((torch.arange(K, device=device) % group) < group // 2).to(torch.uint8)[:, None].expand(K, N) * 15
+    else:
+        bits = torch.randint(0, 2, (K, N), generator=gen, device=device, dtype=torch.uint8) * 15
+    half = K // 2
+    q4 = (bits[:half] | (bits[half:] << 4)).contiguous()
+    s4 = torch.exp2(torch.randint(-8, -4, (K // group, N), generator=gen, device=device).float())
+    return q4, s4
+
+
 def k5_prefill_phase(gen, device, peaks):
-    """The prefill route beyond the Llama shapes: base and nf4 on ragged shapes (M from M_PREFILL up, N no
-    multiple of 128, groups 16-128) against the plain version, counted per route; the two routes timed by rows
-    at two Llama shapes (the crossover that sets M_PREFILL). Returns the crossover records."""
+    """The prefill routes beyond the Llama shapes: base and nf4 (the prefill route), groupmm and i8mxu (the fold
+    route) on ragged shapes (M from M_PREFILL up, N no multiple of 128, groups 16-128) against the plain version,
+    counted per route, i8mxu equal to it; i8mxu's exactness at the extremes of its operands (+-127 x -8 / 7) at
+    groups 16 and 64; the fused kernel and each route timed by rows at two Llama shapes (the crossover that sets
+    M_PREFILL). Returns the crossover records."""
     import torch
 
     from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.kernels import int8_matmul as im
     from dalm_tpu_torch.models import quant
 
     worst = {}
+    qz = {"base": quant.quantize_tensor_int4, "nf4": quant.quantize_tensor_nf4, "groupmm": quant.quantize_tensor_int4,
+          "i8mxu": quant.quantize_tensor_int4}
     for M, K, N, group in ((k5.M_PREFILL, 1024, 136, 64), (300, 2048, 1000, 128), (1000, 11008, 264, 16),
-                           (8192, 4096, 136, 32), (8192, 11008, 11008, 16)):
+                           (640, 4096, 1000, 32), (8192, 4096, 136, 32), (8192, 11008, 11008, 16)):
         w = torch.randn((K, N), generator=gen, device=device) * 0.02
-        for inst, qz in (("base", quant.quantize_tensor_int4), ("nf4", quant.quantize_tensor_nf4)):
-            d = qz(w, group)
+        for inst in k5.PREFILL_INSTANCES:
+            d = qz[inst](w, group)
             check(K // d["scale4"].shape[0] == group, f"k5 prefill: group {group} at K={K}")
             x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
             x[0] = 0
-            before = k5.int4_matmul_fwd.route_launches[inst, "prefill"]
+            route = k5.PREFILL_ROUTE[inst]
+            before = k5.int4_matmul_fwd.route_launches[inst, route]
             y = k5.int4_matmul_fwd(x, d["q4"], d["scale4"], inst)
             ry = k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], inst)
             torch.cuda.synchronize()
-            check(k5.int4_matmul_fwd.route_launches[inst, "prefill"] == before + 1, f"k5 prefill {inst}: route not taken")
-            check(tuple(y.shape) == (M, N) and not bool(y[0].any()), f"k5 prefill {inst}: shape / zero row")
+            check(k5.int4_matmul_fwd.route_launches[inst, route] == before + 1, f"k5 {route} {inst}: route not taken")
+            check(tuple(y.shape) == (M, N) and not bool(y[0].any()), f"k5 {route} {inst}: shape / zero row")
+            check(inst != "i8mxu" or torch.equal(y, ry), f"k5 fold i8mxu M={M} K={K} N={N}: not equal to plain")
             worst[inst] = max(worst.get(inst, 0.0), k5_err(y, ry, inst)[1])
             del x, y, ry
         del w
-    print(f"[k5] prefill route on ragged shapes (M {k5.M_PREFILL}-8192, N 136-11008, groups 16-128, bf16): base and "
-          f"nf4 within their tolerance; worst share of the bound {worst}", flush=True)
+    print(f"[k5] prefill and fold routes on ragged shapes (M {k5.M_PREFILL}-8192, N 136-11008, groups 16-128, bf16): "
+          f"every instance within its tolerance, i8mxu equal to its plain version; worst share of the bound {worst}",
+          flush=True)
+    for K, group in ((11008, 16), (4096, 64)):
+        for cancel in (False, True):
+            q4, s4 = _extreme_int4(gen, device, K, 1000, group, cancel)
+            x = torch.ones((1024, K), device=device) if cancel else \
+                torch.randint(0, 2, (1024, K), generator=gen, device=device).float() * 2 - 1
+            x = x.to(torch.bfloat16)
+            y, ry = k5.int4_matmul_fwd(x, q4, s4, "i8mxu"), k5.int4_matmul_fwd_ref(x, q4, s4, "i8mxu")
+            xq, _ = im.rowquant(x, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            check(bool((xq.abs() == 127).all()), "k5 fold extremes: K2's values are not all +-127")
+            check(torch.equal(y, ry), f"k5 fold i8mxu at the extremes (group {group}, "
+                                      f"{'cancelling' if cancel else 'random'}): not equal to the plain version")
+            del q4, s4, x, y, ry, xq
+    print("[k5] fold route i8mxu at the extremes of its operands (K2's values +-127, nibbles -8 / 7; group 16 and 64, "
+          "random and cancelling signs): equal to the plain version", flush=True)
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     crossover = []
     for K, N in ((4096, 4096), (11008, 4096)):
         d = quant.quantize_tensor_int4(torch.randn((K, N), generator=gen, device=device) * 0.02)
-        group = K // d["scale4"].shape[0]
+        q4, s4 = d["q4"], d["scale4"]
+        group = K // s4.shape[0]
         wt = torch.empty((N, K), dtype=torch.bfloat16, device=device)
-        row = []
-        for M in (32, 64, 128, 192, 256, 384, 512, 1024, 2048):
-            x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
-            out = torch.empty((M, N), dtype=torch.bfloat16, device=device)
-            splits = k5._splits(M, N, K // 2, group, "base", sms)
-            ws = torch.empty((splits, M, N), dtype=torch.float32, device=device) if splits > 1 else None
-            fused = cuda_ms(lambda: k5.launch("base", x, None, d["q4"], d["scale4"], group, splits, ws, out), 20)
-            pre = cuda_ms(lambda: (k5.launch_dequant(d["q4"], d["scale4"], group, False, wt),
-                                   k5.launch_gemm(x, wt, out)), 20)
-            row.append({"M": M, "fused_ms": fused, "prefill_ms": pre})
-        first = next((r["M"] for r in row if r["prefill_ms"] < r["fused_ms"]), None)
-        crossover.append({"K": K, "N": N, "group": group, "rows": row, "prefill_faster_from_M": first})
-        print(f"[k5] crossover K={K} N={N} (base, bf16), ms fused / prefill by M: "
-              + ", ".join(f"{r['M']}: {r['fused_ms']:.4f} / {r['prefill_ms']:.4f}" for r in row)
-              + f"; prefill faster from M = {first}; M_PREFILL = {k5.M_PREFILL}", flush=True)
+        for inst in ("base", "groupmm", "i8mxu"):
+            row = []
+            for M in (32, 64, 128, 192, 256, 384, 512, 1024, 2048):
+                x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+                out = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+                splits = k5._splits(M, N, K // 2, group, inst, sms)
+                ws = torch.empty((splits, M, N), dtype=torch.float32, device=device) if splits > 1 else None
+                xs = torch.empty((M, 1), dtype=torch.float32, device=device)
+                xq8 = torch.empty((M, K), dtype=torch.int8, device=device)
+                xqb = torch.empty((M, K), dtype=torch.bfloat16, device=device)
+                i8 = inst == "i8mxu"
+
+                def fused():
+                    if i8:
+                        im.launch_rowquant(x, None, xq8, xs)
+                    k5.launch(inst, xq8 if i8 else x, xs if i8 else None, q4, s4, group, splits, ws, out)
+
+                def other():
+                    if inst == "base":
+                        k5.launch_dequant(q4, s4, group, False, wt)
+                        k5.launch_gemm(x, wt, out)
+                        return
+                    if i8:
+                        im.launch_rowquant(x, None, xqb, xs)
+                    k5.launch_nibbles(q4, wt)
+                    k5.launch_fold(xqb if i8 else x, wt, s4, xs if i8 else None, out)
+
+                row.append({"M": M, "fused_ms": cuda_ms(fused, 20), "route_ms": cuda_ms(other, 20)})
+                del x, out, ws, xs, xq8, xqb
+            route = k5.PREFILL_ROUTE[inst]
+            first = next((r["M"] for r in row if r["route_ms"] < r["fused_ms"]), None)
+            crossover.append({"instance": inst, "route": route, "K": K, "N": N, "group": group, "rows": row,
+                              "route_faster_from_M": first})
+            print(f"[k5] crossover K={K} N={N} ({inst}, bf16; the fused kernel{' after K2' if i8 else ''} against the "
+                  f"{route} route), ms fused / {route} by M: "
+                  + ", ".join(f"{r['M']}: {r['fused_ms']:.4f} / {r['route_ms']:.4f}" for r in row)
+                  + f"; {route} faster from M = {first}; M_PREFILL = {k5.M_PREFILL}", flush=True)
         del d, wt
 
     torch.cuda.empty_cache()
@@ -1547,6 +1698,7 @@ def k5_phase(gen, device, peaks):
     import torch
 
     from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.kernels import int8_matmul as im
     from dalm_tpu_torch.models import quant
 
     mem_bw, _, bf16_rate, int8_rate = peaks
@@ -1591,7 +1743,7 @@ def k5_phase(gen, device, peaks):
                 # the kernels alone on operands prepared once (K2's rowquant for i8mxu / pcol outside the timing),
                 # then the wrapper as the model calls it (checks, allocation, K2)
                 g_arg = K if inst == "pcol" else group
-                route = k5._route(x, inst)
+                route = k5._route(x, inst, g_arg)
                 splits = k5._splits(M, N, K // 2, g_arg, inst, sms)
                 a, xs = k5.rowquant(x) if inst in ("i8mxu", "pcol") else (x, None)
                 o = torch.empty((M, N), dtype=x.dtype, device=device)
@@ -1601,9 +1753,14 @@ def k5_phase(gen, device, peaks):
                 fused_err, fused_share = k5_err(o, ry, inst)
                 del ry
                 extra = {}
-                if route == "prefill":
-                    extra, prefill_records = prefill_timing(k5, quant, x, d, fmt, inst, group, w_bf16[fmt], o, ms,
-                                                            peaks)
+                if route != "fused":
+                    if route == "prefill":
+                        extra, prefill_records = prefill_timing(k5, quant, x, d, fmt, inst, group, w_bf16[fmt], o,
+                                                                ms, peaks)
+                    else:
+                        check(inst != "i8mxu" or max_err == 0.0, f"k5 i8mxu M={M} K={K} N={N}: the fold route "
+                                                                 f"differs from the plain version")
+                        extra, prefill_records = fold_timing(k5, im, x, d, inst, group, w_bf16[fmt], o, ms, peaks)
                     extra.update(prefill_max_abs_err=max_err, prefill_worst_share_of_tolerance=share)
                     entries.extend(prefill_records)
                     if (K, N) == (4096, 4096):
@@ -1766,7 +1923,8 @@ def serve_q_phase(device, rng, base_pipe):
     as in ``[main]``, K5 launches counted (225 a forward x 64 forwards; the prefill forward's 224 projections on
     the prefill route, the rest on the fused kernel), the prefill timed again with every projection on the fused
     kernel; then one ``answer()`` each for nf4,
-    int4pc, and int4 with ``DEFAULT_VARIANT`` i8mxu and groupmm; the last-position logits of each tier against
+    int4pc, and int4 with ``DEFAULT_VARIANT`` i8mxu and groupmm (their prefill forward's 224 projections on the
+    fold route, counted per kernel); the last-position logits of each tier against
     the bf16 generator's; a sampled ``answer()`` that repeats. Returns the K5 launches of each instance in its
     own ``answer()`` and the decode times."""
     import gc
@@ -1838,8 +1996,11 @@ def serve_q_phase(device, rng, base_pipe):
     def counted_answer(q):
         k5.int4_matmul_fwd.launches = dict.fromkeys(k5.INSTANCES, 0)
         k5.int4_matmul_fwd.route_launches = dict.fromkeys(k5.int4_matmul_fwd.route_launches, 0)
-        k5.prefill_dequant.launches = dict.fromkeys(k5.PREFILL_INSTANCES, 0)
+        k5.prefill_dequant.launches = dict.fromkeys(k5.SCALED_INSTANCES, 0)
         k5.prefill_gemm.launches = 0
+        k5.prefill_nibbles.launches = 0
+        k5.prefill_fold.launches = dict.fromkeys(k5.FOLD_INSTANCES, 0)
+        im.rowquant.bf16_launches = 0
         k2 = im.rowquant.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1853,15 +2014,22 @@ def serve_q_phase(device, rng, base_pipe):
 
     def check_routes(inst, label):
         """K5's routes in the last counted answer(): every projection of the prefill forward (8192 rows) on the
-        prefill route for base / nf4, the rest (lm_head at 32 rows, 63 decode forwards) on the fused kernel."""
+        prefill route for base / nf4 and on the fold route for groupmm / i8mxu, the rest (lm_head at 32 rows, 63
+        decode forwards) on the fused kernel."""
         routes = k5.int4_matmul_fwd.route_launches
-        pre = 7 * layers if inst in k5.PREFILL_INSTANCES else 0
+        route = k5.PREFILL_ROUTE.get(inst)
+        pre = 7 * layers if route else 0
         got = {r: routes[inst, r] for r in k5.ROUTES}
-        check(got == {"prefill": pre, "fused": want - pre} and sum(routes.values()) == want,
-              f"serve-q {label}: K5 routes {got}, want {pre} prefill and {want - pre} fused")
-        dq = k5.prefill_dequant.launches
-        check(dq == {i: pre if i == inst else 0 for i in k5.PREFILL_INSTANCES} and k5.prefill_gemm.launches == pre,
-              f"serve-q {label}: prefill kernels launched {dq}, {k5.prefill_gemm.launches} times, want {pre} each")
+        expect = dict(dict.fromkeys(k5.ROUTES, 0), fused=want - pre, **({route: pre} if route else {}))
+        check(got == expect and sum(routes.values()) == want, f"serve-q {label}: K5 routes {got}, want {expect}")
+        scaled, folded = (pre if route == "prefill" else 0), (pre if route == "fold" else 0)
+        dq, fold = k5.prefill_dequant.launches, k5.prefill_fold.launches
+        check(dq == {i: scaled if i == inst else 0 for i in k5.SCALED_INSTANCES} and k5.prefill_gemm.launches == scaled,
+              f"serve-q {label}: prefill kernels launched {dq}, {k5.prefill_gemm.launches} times, want {scaled} each")
+        check(fold == {i: folded if i == inst else 0 for i in k5.FOLD_INSTANCES} and
+              k5.prefill_nibbles.launches == folded and im.rowquant.bf16_launches == (folded if inst == "i8mxu" else 0),
+              f"serve-q {label}: fold kernels launched {fold}, nibble pre-pass {k5.prefill_nibbles.launches}, K2 in "
+              f"bf16 {im.rowquant.bf16_launches} times, want {folded} each")
         return got
 
     # int4 + int8 KV cache, K5 base: the slice's main path
@@ -1892,23 +2060,26 @@ def serve_q_phase(device, rng, base_pipe):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     first = build_greedy_generate(gen, 1, eos_token_id=q.g_tok.eos_token_id, pad_token_id=q.g_tok.pad_token_id or 0)
-    first(p_ids, p_mask)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    first(p_ids, p_mask)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    m_prefill = k5.M_PREFILL
-    k5.M_PREFILL = 1 << 30  # the same prefill with every projection on the fused kernel
-    try:
-        first(p_ids, p_mask)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        first(p_ids, p_mask)
-        torch.cuda.synchronize()
-        prefill_fused_s = time.perf_counter() - t0
-    finally:
-        k5.M_PREFILL = m_prefill
+
+    def prefill_times():
+        """The prefill (+ the first token) on its routes, then with every projection on the fused kernel; each
+        timed after a warm call."""
+        times = []
+        m_prefill = k5.M_PREFILL
+        for forced in (False, True):
+            k5.M_PREFILL = 1 << 30 if forced else m_prefill
+            try:
+                first(p_ids, p_mask)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first(p_ids, p_mask)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            finally:
+                k5.M_PREFILL = m_prefill
+        return times
+
+    prefill_s, prefill_fused_s = prefill_times()
     check(tuple(toks_out.shape) == (len(queries), 64) and bool(((toks_out >= 0) & (toks_out < 32000)).all()),
           "serve-q int4: generated ids")
     step_ms = (decode_s - prefill_s) / 63 * 1e3
@@ -1930,15 +2101,23 @@ def serve_q_phase(device, rng, base_pipe):
         k5.DEFAULT_VARIANT = variant
         try:
             _, dt, counts, k2 = counted_answer(q)
-            launches[variant] = check_routes(variant, variant)["fused"]
+            routes = check_routes(variant, variant)
+            launches[variant] = routes["fused"]
+            launches.setdefault("k5_prefill_nibbles", k5.prefill_nibbles.launches)
+            launches[f"k5_fold_gemm[{variant}]"] = k5.prefill_fold.launches[variant]
+            if variant == "i8mxu":
+                launches["rowquant[bf16]"] = im.rowquant.bf16_launches
             err, err_fb = logit_err(q, variant)
+            v_prefill_s, v_fused_s = prefill_times()
         finally:
             k5.DEFAULT_VARIANT = "base"
         check(counts[variant] == want and sum(counts.values()) == want, f"serve-q {variant}: K5 launches {counts}")
         check(k2 == (want if variant == "i8mxu" else 0), f"serve-q {variant}: {k2} K2 launches")
-        out[f"{variant}_answer_s"] = dt
-        print(f"[serve-q] int4 with DEFAULT_VARIANT={variant}: answer() {dt:.3f} s; K5 {variant} launches "
-              f"{counts[variant]}, K2 {k2}; logits relative error {err:.4f} against bf16, {err_fb:.4f} against "
+        out.update({f"{variant}_answer_s": dt, f"{variant}_prefill_s": v_prefill_s,
+                    f"{variant}_prefill_fused_s": v_fused_s})
+        print(f"[serve-q] int4 with DEFAULT_VARIANT={variant}: answer() {dt:.3f} s; prefill (+ first token) "
+              f"{v_prefill_s:.3f} s (every projection on the fused kernel instead: {v_fused_s:.3f} s); K5 {variant} "
+              f"launches {counts[variant]} (by route {routes}), K2 {k2}; logits relative error {err:.4f} against bf16, {err_fb:.4f} against "
               f"x @ dequant(W)", flush=True)
 
     # a sampled answer(): valid ids, the same ids again from the same seed
@@ -2134,7 +2313,8 @@ def main() -> int:
         print(f"chip_smoke: ran only {phases}; no result line", flush=True)
         return 0
     k5_names = [f"int4_matmul[{i}]" for i in ("base", "groupmm", "nf4", "i8mxu", "pcol")]
-    k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm"]
+    k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm", "k5_prefill_nibbles",
+                 "k5_fold_gemm[groupmm]", "k5_fold_gemm[i8mxu]", "rowquant[bf16]"]
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
              "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *k5_names)

@@ -1,5 +1,6 @@
 // K4's wgmma building blocks, shared by the forward (csrc/flash_fwd_wgmma.cu) and
-// the backward (csrc/flash_bwd_wgmma.cu): bf16 products with f32 accumulators in
+// the backward (csrc/flash_bwd_wgmma.cu), and the SS product by K5's fold GEMM
+// (csrc/int4_prefill.cu): bf16 products with f32 accumulators in
 // the m64nN register layout (register 4 i + e of a thread holds column
 // 8 i + 2 (lane % 4) + (e & 1) of row 16 warp + lane / 4 (+ 8 for e >= 2)), SS
 // with both operands K-major in shared memory, RS with A in registers (the

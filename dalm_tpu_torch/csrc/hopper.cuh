@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks that csrc/int4_prefill.cu, csrc/int8_matmul.cu,
 // csrc/flash_fwd_wgmma.cu and csrc/flash_bwd_wgmma.cu share: mbarriers, TMA loads of 2-D and 4-D tiles
-// into 128-byte-swizzled shared memory, wgmma descriptors (K-major and MN-major)
+// into 128-byte-swizzled shared memory (and of f32 rows without swizzle), wgmma descriptors (K-major and MN-major)
 // and synchronisation, and the host-side tensor-map encoder for strided tensors
 // (fetched from the driver at run time, so nothing links -lcuda).
 #pragma once
@@ -136,7 +136,8 @@ EncodeTiled encode_tiled() {
 // A strided tensor of `rank` (2..5) dimensions, innermost first: dims[i] values along dimension i, the
 // innermost contiguous, strides[i - 1] bytes from one index of dimension i >= 1 to the next (any order: a
 // (B, H, S, D) view of (B, S, H, D) storage is fine). Values of `elem` bytes (2: bf16, 1: int8), boxes of box[i]
-// values with box[0] * elem == 128 (one swizzle row), 128-byte swizzle, zeros beyond every edge, so a box that
+// values with box[0] * elem == 128 (one swizzle row), 128-byte swizzle; or 4: f32 without swizzle, box[0] * 4 a
+// multiple of 16 (rows of scales read as plain shared memory). Zeros beyond every edge, so a box that
 // overhangs dimension i never reads the next index of dimension i + 1. The base and every stride must be
 // multiples of 16 bytes, each stride below 2^40 (the driver refuses the rest: ERR_ENCODE + its CUresult).
 int make_map_nd(CUtensorMap* map, const void* base, int elem, int rank, const long long* dims,
@@ -151,10 +152,13 @@ int make_map_nd(CUtensorMap* map, const void* base, int elem, int rank, const lo
         step[i] = 1;
         if (i) st[i - 1] = (cuuint64_t)strides[i - 1];
     }
-    const CUresult r = fn(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                          (cuuint32_t)rank, const_cast<void*>(base), d, st, bx, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    const CUtensorMapDataType type = elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, st, bx, step,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          elem == 4 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 

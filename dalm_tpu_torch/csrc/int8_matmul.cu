@@ -2,7 +2,8 @@
 // quantiser, hand-written for Hopper (sm_90a).
 //
 // Replaces dalm_tpu/kernels/int8_matmul.py:
-//   K2  _rowquant_pallas / _rowquant_kernel      -> dalm_i8_rowquant
+//   K2  _rowquant_pallas / _rowquant_kernel      -> dalm_i8_rowquant (int8 out), dalm_i8_rowquant_bf16
+//                                                   (the same values as bf16: K5's i8mxu fold route)
 //   K1  _w8a8_fused_pallas / _w8a8_fused_kernel  -> dalm_i8_act_quant, dalm_i8_transpose, dalm_i8_gemm_fold
 // and carries the int8 x int8 -> int32 products that the TPU version left to
 // the compiler (_i8_dot_last): the dx product of the int8 backward
@@ -408,14 +409,30 @@ __device__ __forceinline__ void rq_values4(const T* __restrict__ x, const float*
     }
 }
 
-template <typename T>
+// Four quantised values of a row at qr + c: packed int8, or as bf16 (exact: |q| <= 127), which the fold
+// route of K5's i8mxu instance feeds to a bf16 GEMM without another pass over x.
+__device__ __forceinline__ void rq_store4(int8_t* qr, int c, const int (&v)[4]) {
+    uint32_t w = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w |= (uint32_t)(v[j] & 0xff) << (8 * j);
+    *reinterpret_cast<uint32_t*>(qr + c) = w;
+}
+__device__ __forceinline__ void rq_store4(__nv_bfloat16* qr, int c, const int (&v)[4]) {
+    __align__(8) __nv_bfloat162 p[2] = {__floats2bfloat162_rn((float)v[0], (float)v[1]),
+                                        __floats2bfloat162_rn((float)v[2], (float)v[3])};
+    *reinterpret_cast<uint2*>(qr + c) = *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ void rq_store1(int8_t* qr, int c, int v) { qr[c] = (int8_t)v; }
+__device__ __forceinline__ void rq_store1(__nv_bfloat16* qr, int c, int v) { qr[c] = __float2bfloat16_rn((float)v); }
+
+template <typename T, typename Q>
 __global__ void __launch_bounds__(RQ_THREADS)
-rowquant_kernel(const T* __restrict__ x, const float* __restrict__ cs, int K, int8_t* __restrict__ q,
+rowquant_kernel(const T* __restrict__ x, const float* __restrict__ cs, int K, Q* __restrict__ q,
                 float* __restrict__ s) {
     __shared__ float red[RQ_THREADS / 32];
     __shared__ float scale_sh;
     const T* xr = x + (size_t)blockIdx.x * K;
-    int8_t* qr = q + (size_t)blockIdx.x * K;
+    Q* qr = q + (size_t)blockIdx.x * K;
     const int tid = threadIdx.x;
     const bool vec = (K & 3) == 0;  // rows stay 4-element aligned
 
@@ -449,30 +466,40 @@ rowquant_kernel(const T* __restrict__ x, const float* __restrict__ cs, int K, in
         for (int c = tid * 4; c < K; c += RQ_THREADS * 4) {
             float v[4];
             rq_values4(xr, cs, c, v);
-            uint32_t w = 0u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) w |= (uint32_t)(quant1(v[j], sc) & 0xff) << (8 * j);
-            *reinterpret_cast<uint32_t*>(qr + c) = w;
+            const int r[4] = {quant1(v[0], sc), quant1(v[1], sc), quant1(v[2], sc), quant1(v[3], sc)};
+            rq_store4(qr, c, r);
         }
     } else {
-        for (int c = tid; c < K; c += RQ_THREADS) qr[c] = (int8_t)quant1(rq_value(xr, cs, c), sc);
+        for (int c = tid; c < K; c += RQ_THREADS) rq_store1(qr, c, quant1(rq_value(xr, cs, c), sc));
     }
+}
+
+template <typename Q>
+int rowquant_launch(const void* x, int is_bf16, const float* colscale, int R, int K, void* q, float* s,
+                    cudaStream_t stream) {
+    if (is_bf16)
+        rowquant_kernel<__nv_bfloat16, Q><<<R, RQ_THREADS, 0, stream>>>(
+            static_cast<const __nv_bfloat16*>(x), colscale, K, static_cast<Q*>(q), s);
+    else
+        rowquant_kernel<float, Q><<<R, RQ_THREADS, 0, stream>>>(static_cast<const float*>(x), colscale, K,
+                                                                static_cast<Q*>(q), s);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (R, K) float32 (is_bf16 = 0) or bfloat16 (1); colscale (K,) float32 or null.
+// x (R, K) float32 (is_bf16 = 0) or bfloat16 (1); colscale (K,) float32 or null; q (R, K) int8.
 int dalm_i8_rowquant(const void* x, int is_bf16, const float* colscale, int R, int K, void* q, float* s,
                      cudaStream_t stream) {
-    if (is_bf16)
-        rowquant_kernel<__nv_bfloat16><<<R, RQ_THREADS, 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(x), colscale, K, static_cast<int8_t*>(q), s);
-    else
-        rowquant_kernel<float><<<R, RQ_THREADS, 0, stream>>>(
-            static_cast<const float*>(x), colscale, K, static_cast<int8_t*>(q), s);
-    return (int)cudaGetLastError();
+    return rowquant_launch<int8_t>(x, is_bf16, colscale, R, K, q, s, stream);
+}
+
+// The same with q (R, K) bfloat16: the quantised values, exact, as K5's fold route takes them.
+int dalm_i8_rowquant_bf16(const void* x, int is_bf16, const float* colscale, int R, int K, void* q, float* s,
+                          cudaStream_t stream) {
+    return rowquant_launch<__nv_bfloat16>(x, is_bf16, colscale, R, K, q, s, stream);
 }
 
 // K1's quantise pre-pass: x (M, K) float32 (is_bf16 = 0) or bfloat16 (1) -> xq (M, K) int8 and

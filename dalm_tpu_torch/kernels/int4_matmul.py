@@ -33,13 +33,20 @@ multiple of 8 (the kernels' column pairs), takes ``x @ dequant(W)`` in
 ``DALM_INT4_VARIANT`` at import, looked up at every call). The JAX package
 runs the kernel only on a TPU and dequantises everywhere else.
 
-On the card ``int4_matmul_fwd`` has two routes (``_route``). ``"fused"``:
+On the card ``int4_matmul_fwd`` has three routes (``_route``). ``"fused"``:
 the one-launch kernel of ``csrc/int4_matmul.cu``, which dequantises inside its
-product loop (decode's few rows, float32 activations, groupmm / i8mxu / pcol).
-``"prefill"``: bfloat16 activations of base or nf4 with at least ``M_PREFILL``
-rows take ``csrc/int4_prefill.cu``, a pre-pass that writes the weight once as
-bf16 ``Wt (N, K)`` into a scratch (``prefill_dequant``) and a wgmma / TMA GEMM
-``x @ Wt^T`` (``prefill_gemm``); the same values up to the order of the f32 sums.
+product loop (decode's few rows, float32 activations, pcol). Bfloat16
+activations with at least ``M_PREFILL`` rows take ``csrc/int4_prefill.cu``:
+``"prefill"`` for base and nf4, a pre-pass that writes the weight once as bf16
+``Wt (N, K)`` into a scratch (``prefill_dequant``) and a wgmma / TMA GEMM
+``x @ Wt^T`` (``prefill_gemm``), the same values up to the order of the f32
+sums; ``"fold"`` for groupmm and i8mxu, a pre-pass that writes the bare
+nibbles ``Wn = nib - 8`` (``prefill_nibbles``; no scale, so one scratch serves
+both) and a wgmma / TMA GEMM that folds each group's two products with their
+scales in registers, in group order (``prefill_fold``). i8mxu's operand is
+K2's output written as bf16 (``rowquant(x, dtype=torch.bfloat16)``, exact),
+so its products are exact in f32 and the route equals the plain version bit
+for bit; groupmm's differ from it only in the order of each group's f32 sums.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import os
 
 import torch
 
-from dalm_tpu_torch.kernels.int8_matmul import _int_dot_ref, rowquant, rowquant_ref
+from dalm_tpu_torch.kernels.int8_matmul import _int_dot_ref, launch_rowquant, rowquant, rowquant_ref
 from dalm_tpu_torch.models.quant import dequantize_tensor_int4, nf4_codebook
 
 VARIANTS = ("base", "groupmm", "decomp", "floorsplit", "i8mxu", "nf4")
@@ -66,12 +73,20 @@ if DEFAULT_VARIANT not in VARIANTS:
 
 TILE_HALF = 32  # packed rows per k-step of the kernel (64 K values: 32 low, 32 high)
 
-ROUTES = ("fused", "prefill")
-PREFILL_INSTANCES = ("base", "nf4")  # the instances that scale the weight before the product
-# Rows from which bf16 base / nf4 take the prefill route: the crossover of the two routes measured on an
-# H100 80GB HBM3 at 700 W (chip_smoke.py's k5 phase, "[k5] crossover"; PERF.md section 6): the fused kernel is
-# faster at 128 rows, the prefill route from 192 on, at (K, N) = (4096, 4096) and (11008, 4096). Decode's 32
-# rows stay below it.
+ROUTES = ("fused", "prefill", "fold")
+# The route of each instance for bfloat16 activations from M_PREFILL rows on: base and nf4 scale the weight before
+# the product, groupmm and i8mxu after it. pcol keeps the fused kernel.
+PREFILL_ROUTE = {"base": "prefill", "nf4": "prefill", "groupmm": "fold", "i8mxu": "fold"}
+PREFILL_INSTANCES = tuple(PREFILL_ROUTE)
+SCALED_INSTANCES = tuple(i for i, r in PREFILL_ROUTE.items() if r == "prefill")  # prefill_dequant's decodes
+FOLD_INSTANCES = tuple(i for i, r in PREFILL_ROUTE.items() if r == "fold")
+FOLD_GROUPS = (16, 32, 64, 128)  # the fold GEMM's instances (a group of 16 k16 steps is 1, 2, 4 or 8 products)
+_DQ_MODE = {"base": 0, "nf4": 1, "nibbles": 2}  # dalm_i4_dequant_t's modes
+# Rows from which bf16 activations take the prefill route (base / nf4) or the fold route (groupmm / i8mxu): the
+# crossovers with the fused kernel measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's k5 phase, "[k5]
+# crossover"; PERF.md section 6). At (K, N) = (4096, 4096) and (11008, 4096) the prefill route is faster from 192
+# rows on (the fused kernel at 128); the fold route from 192 and from 128 (at 128 and (4096, 4096) within 3% of
+# the fused kernel), so one threshold serves all four. Decode's 32 rows stay below it.
 M_PREFILL = 192
 
 _lib_handle = None
@@ -102,6 +117,10 @@ def _prefill_lib():
         lib.dalm_i4_dequant_t.restype = i
         lib.dalm_bf16_gemm_nt.argtypes = [p, p, i, i, i, p, p]
         lib.dalm_bf16_gemm_nt.restype = i
+        lib.dalm_i4_fold_maps.argtypes = [p, p, p, i, i, i, i]
+        lib.dalm_i4_fold_maps.restype = i
+        lib.dalm_i4_fold_gemm.argtypes = [i, p, p, p, p, i, i, i, i, p, p]
+        lib.dalm_i4_fold_gemm.restype = i
         _prefill_handle = lib
     return _prefill_handle
 
@@ -155,17 +174,23 @@ def _ref_float(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, nf4: bo
     return (x2.to(torch.bfloat16).float() @ w.float()).to(x2.dtype)
 
 
-def _fold_groups(xl: torch.Tensor, xh: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:
+def _nibble_weights(q4: torch.Tensor) -> tuple:
+    """The unscaled ``nib - 8`` of both halves, (K/2, N) f32 each."""
+    lo, hi = _nibbles(q4)
+    return (lo - 8).float(), (hi - 8).float()
+
+
+def _fold_groups(xl: torch.Tensor, xh: torch.Tensor, wl: torch.Tensor, wh: torch.Tensor,
+                 scale4: torch.Tensor) -> torch.Tensor:
     """``acc += p_lo * s_lo[g] + p_hi * s_hi[g]`` over the groups in order, each
     ``p`` the f32 product of one group's columns of ``xl`` / ``xh`` (M, K/2) and
-    its ``nib - 8`` rows. The products are batched a few groups at a time."""
+    its rows of ``wl`` / ``wh`` (K/2, N), the unscaled ``nib - 8``. The products
+    are batched a few groups at a time."""
     M, half = xl.shape
     G = scale4.shape[0] // 2
     g = half // G
-    N = q4.shape[1]
-    lo, hi = _nibbles(q4)
-    wl = (lo - 8).float().reshape(G, g, N)
-    wh = (hi - 8).float().reshape(G, g, N)
+    N = wl.shape[1]
+    wl, wh = wl.reshape(G, g, N), wh.reshape(G, g, N)
     xl, xh = xl.reshape(M, G, g).transpose(0, 1), xh.reshape(M, G, g).transpose(0, 1)
     acc = torch.zeros((M, N), dtype=torch.float32, device=xl.device)
     step = max((1 << 27) // max(M * N, 1), 1)
@@ -179,7 +204,7 @@ def _fold_groups(xl: torch.Tensor, xh: torch.Tensor, q4: torch.Tensor, scale4: t
 def _ref_groupmm(x2, q4, scale4):
     half = q4.shape[0]
     xb = x2.to(torch.bfloat16).float()
-    return _fold_groups(xb[:, :half], xb[:, half:], q4, scale4).to(x2.dtype)
+    return _fold_groups(xb[:, :half], xb[:, half:], *_nibble_weights(q4), scale4).to(x2.dtype)
 
 
 def _ref_i8mxu(x2, q4, scale4):
@@ -187,7 +212,7 @@ def _ref_i8mxu(x2, q4, scale4):
     half = q4.shape[0]
     xq, xs = rowquant_ref(x2)
     xf = xq.float()
-    return (_fold_groups(xf[:, :half], xf[:, half:], q4, scale4) * xs).to(x2.dtype)
+    return (_fold_groups(xf[:, :half], xf[:, half:], *_nibble_weights(q4), scale4) * xs).to(x2.dtype)
 
 
 def _ref_pcol(x2, q4, scale4):
@@ -218,6 +243,22 @@ def prefill_dequant_ref(q4: torch.Tensor, scale4: torch.Tensor, nf4: bool = Fals
 def prefill_gemm_ref(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     """Plain GEMM: ``bf16(x2) @ Wt^T`` with f32 sums, in ``x2.dtype``."""
     return (x2.to(torch.bfloat16).float() @ wt.float().T).to(x2.dtype)
+
+
+def prefill_nibbles_ref(q4: torch.Tensor) -> torch.Tensor:
+    """Plain nibble pre-pass: ``Wn (N, K)`` bf16, ``Wn[n][k] = nib(k, n) - 8``, no scale."""
+    lo, hi = _nibbles(q4)
+    return torch.cat([lo - 8, hi - 8], dim=0).to(torch.bfloat16).T.contiguous()
+
+
+def prefill_fold_ref(a: torch.Tensor, wn: torch.Tensor, scale4: torch.Tensor, xs: torch.Tensor | None = None,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain fold GEMM: ``_fold_groups`` of ``bf16(a) (M, K)`` and ``wn (N, K)`` with ``scale4``, times the rows'
+    scales ``xs (M, 1)`` where given (i8mxu: ``a`` is K2's output), in ``dtype`` (the kernel writes bfloat16)."""
+    half = wn.shape[1] // 2
+    af, w = a.to(torch.bfloat16).float(), wn.float().T
+    acc = _fold_groups(af[:, :half], af[:, half:], w[:half], w[half:], scale4)
+    return (acc if xs is None else acc * xs).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -315,11 +356,45 @@ def fused(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: st
 def launch_dequant(q4: torch.Tensor, scale4: torch.Tensor, group: int, nf4: bool, wt: torch.Tensor) -> None:
     """One launch of the pre-pass on checked operands: writes ``wt (N, K)`` bf16."""
     half, N = q4.shape
-    err = _prefill_lib().dalm_i4_dequant_t(int(nf4), q4.data_ptr(), scale4.data_ptr(), half, N, group, wt.data_ptr(),
+    err = _prefill_lib().dalm_i4_dequant_t(_DQ_MODE["nf4" if nf4 else "base"], q4.data_ptr(), scale4.data_ptr(),
+                                           half, N, group, wt.data_ptr(),
                                            torch.cuda.current_stream(q4.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int4 prefill pre-pass launch failed: CUDA error {err}")
     prefill_dequant.launches["nf4" if nf4 else "base"] += 1
+
+
+def launch_nibbles(q4: torch.Tensor, wn: torch.Tensor) -> None:
+    """One launch of the pre-pass in its unscaled mode on checked operands: writes ``wn (N, K)`` = nib - 8."""
+    half, N = q4.shape
+    err = _prefill_lib().dalm_i4_dequant_t(_DQ_MODE["nibbles"], q4.data_ptr(), None, half, N, 16, wn.data_ptr(),
+                                           torch.cuda.current_stream(q4.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4 nibble pre-pass launch failed: CUDA error {err}")
+    prefill_nibbles.launches += 1
+
+
+def _fold_args(a: torch.Tensor, wn: torch.Tensor, scale4: torch.Tensor) -> tuple:
+    M, K = a.shape
+    return M, wn.shape[0], K // 2, K // scale4.shape[0]
+
+
+def check_fold_maps(a: torch.Tensor, wn: torch.Tensor, scale4: torch.Tensor) -> None:
+    """Encode the fold GEMM's tensor maps for these operands and launch nothing: raises where the launch would
+    be refused, so the route can refuse before its first kernel runs."""
+    err = _prefill_lib().dalm_i4_fold_maps(a.data_ptr(), wn.data_ptr(), scale4.data_ptr(), *_fold_args(a, wn, scale4))
+    if err != 0:  # >= 900: the tensor-map encoder is missing (900) or refused a map (1000 + CUresult)
+        raise RuntimeError(f"int4 fold GEMM: its tensor maps were refused: error {err}")
+
+
+def launch_fold(a: torch.Tensor, wn: torch.Tensor, scale4: torch.Tensor, xs, out: torch.Tensor) -> None:
+    """One launch of the fold GEMM on checked operands: groupmm without ``xs``, i8mxu with it; writes ``out``."""
+    err = _prefill_lib().dalm_i4_fold_gemm(
+        int(xs is not None), a.data_ptr(), wn.data_ptr(), scale4.data_ptr(), xs.data_ptr() if xs is not None else None,
+        *_fold_args(a, wn, scale4), out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4 fold GEMM launch failed: error {err}")
+    prefill_fold.launches["groupmm" if xs is None else "i8mxu"] += 1
 
 
 def launch_gemm(x2: torch.Tensor, wt: torch.Tensor, out: torch.Tensor) -> None:
@@ -364,26 +439,101 @@ def prefill_gemm(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     return out
 
 
-prefill_dequant.launches = dict.fromkeys(PREFILL_INSTANCES, 0)
+def prefill_nibbles(q4: torch.Tensor) -> torch.Tensor:
+    """The fold route's pre-pass: ``Wn (N, K)`` bf16 = nib - 8 from ``q4 (K/2, N)``, no scale; the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if not q4.is_cuda:
+        return prefill_nibbles_ref(q4)
+    if q4.dtype != torch.uint8 or q4.dim() != 2:
+        raise TypeError(f"prefill_nibbles takes a 2-D uint8 q4, not {q4.dtype} of {q4.dim()} dimensions")
+    half, N = q4.shape
+    if half % TILE_HALF or N % 8 or not half or not N:
+        raise ValueError(f"prefill_nibbles: needs K/2 a multiple of {TILE_HALF} and N a multiple of 8 "
+                         f"(K/2={half}, N={N})")
+    _check_cuda(q4.device, "prefill_nibbles", q4=q4)
+    wn = torch.empty((N, 2 * half), dtype=torch.bfloat16, device=q4.device)
+    launch_nibbles(q4, wn)
+    return wn
+
+
+def prefill_fold(a: torch.Tensor, wn: torch.Tensor, scale4: torch.Tensor, xs: torch.Tensor | None = None):
+    """The fold route's GEMM: ``a (M, K)`` bf16 (groupmm: x; i8mxu: K2's output as bf16, with its row scales
+    ``xs (M, 1)``), ``wn (N, K)`` from the nibble pre-pass, ``scale4 (K/group, N)``; bf16 out. The kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if not a.is_cuda:
+        return prefill_fold_ref(a, wn, scale4, xs)
+    if a.dtype != torch.bfloat16 or wn.dtype != torch.bfloat16 or scale4.dtype != torch.float32 or (
+            xs is not None and xs.dtype != torch.float32):
+        raise TypeError(f"prefill_fold takes bfloat16 a and wn, float32 scale4 and xs, not {a.dtype} / {wn.dtype} / "
+                        f"{scale4.dtype}" + (f" / {xs.dtype}" if xs is not None else ""))
+    if a.dim() != 2 or wn.dim() != 2 or scale4.dim() != 2 or a.shape[0] < 1 or wn.shape[1] != a.shape[1]:
+        raise ValueError(f"prefill_fold: needs a (M, K) and wn (N, K), not {tuple(a.shape)}, {tuple(wn.shape)}")
+    M, K = a.shape
+    N, half = wn.shape[0], K // 2
+    rows = scale4.shape[0]
+    group = K // rows if rows and K % rows == 0 else 0
+    if K % 64 or N % 8 or scale4.shape[1] != N or group not in FOLD_GROUPS or half % group:
+        raise ValueError(f"prefill_fold: needs K a multiple of 64, N of 8 and scale4 (K/group, N) with a group in "
+                         f"{FOLD_GROUPS} that divides K/2, not K={K}, N={N}, scale4 {tuple(scale4.shape)}")
+    if xs is not None and tuple(xs.shape) != (M, 1):
+        raise ValueError(f"prefill_fold: xs must be ({M}, 1), not {tuple(xs.shape)}")
+    _check_cuda(a.device, "prefill_fold", a=a, wn=wn, scale4=scale4, **({"xs": xs} if xs is not None else {}))
+    check_fold_maps(a, wn, scale4)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    launch_fold(a, wn, scale4, xs, out)
+    return out
+
+
+def fold(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str) -> torch.Tensor:
+    """The fold route on bf16 operands ``_check`` passed, groupmm or i8mxu: (K2's ``rowquant`` into bf16 for
+    i8mxu,) the nibble pre-pass and the fold GEMM, on one stream. Every scratch is allocated and the GEMM's tensor
+    maps encoded before the first launch, so a refused map raises before any kernel runs or any count moves."""
+    M, K = x2.shape
+    N = q4.shape[1]
+    wn = torch.empty((N, K), dtype=torch.bfloat16, device=x2.device)
+    if instance == "i8mxu":
+        a = torch.empty((M, K), dtype=torch.bfloat16, device=x2.device)
+        xs = torch.empty((M, 1), dtype=torch.float32, device=x2.device)
+    else:
+        a, xs = x2, None
+    check_fold_maps(a, wn, scale4)
+    if xs is not None:
+        launch_rowquant(x2, None, a, xs)
+    launch_nibbles(q4, wn)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
+    launch_fold(a, wn, scale4, xs, out)
+    return out
+
+
+prefill_dequant.launches = dict.fromkeys(SCALED_INSTANCES, 0)
 prefill_gemm.launches = 0
+prefill_nibbles.launches = 0
+prefill_fold.launches = dict.fromkeys(FOLD_INSTANCES, 0)
 
 
-def _route(x2: torch.Tensor, instance: str) -> str:
-    """The route a CUDA call takes: ``"prefill"`` for bf16 base / nf4 with at least ``M_PREFILL`` rows."""
-    if instance in PREFILL_INSTANCES and x2.dtype == torch.bfloat16 and x2.shape[0] >= M_PREFILL:
-        return "prefill"
+def _route(x2: torch.Tensor, instance: str, group: int) -> str:
+    """The route a CUDA call takes: bfloat16 activations of base / nf4 (``"prefill"``) and of groupmm / i8mxu
+    with a group in ``FOLD_GROUPS`` (``"fold"``) with at least ``M_PREFILL`` rows; the rest ``"fused"``."""
+    route = PREFILL_ROUTE.get(instance)
+    if route == "fold" and group not in FOLD_GROUPS:
+        return "fused"
+    if route and x2.dtype == torch.bfloat16 and x2.shape[0] >= M_PREFILL:
+        return route
     return "fused"
 
 
 def int4_matmul_fwd(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str) -> torch.Tensor:
     """One K5 instance on ``x2 (M, K)``: on CUDA tensors the route ``_route`` picks (the fused kernel, after
-    K2's ``rowquant`` for i8mxu and pcol, or the pre-pass and the GEMM), the plain version for CPU tensors."""
+    K2's ``rowquant`` for i8mxu and pcol; the pre-pass and the GEMM; or the fold route), the plain version for
+    CPU tensors."""
     if not x2.is_cuda:
         return int4_matmul_fwd_ref(x2, q4, scale4, instance)
     group = _check(x2, q4, scale4, instance)
-    route = _route(x2, instance)
+    route = _route(x2, instance, group)
     if route == "prefill":  # the scratch Wt is freed when prefill_gemm returns
         out = prefill_gemm(x2, prefill_dequant(q4, scale4, instance == "nf4"))
+    elif route == "fold":
+        out = fold(x2, q4, scale4, instance)
     else:
         out = fused(x2, q4, scale4, instance, group)
     int4_matmul_fwd.launches[instance] += 1

@@ -49,12 +49,13 @@ def _lib():
         lib = build.load("int8_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dalm_i8_rowquant.argtypes = [p, i, p, i, i, p, p, p]
+        lib.dalm_i8_rowquant_bf16.argtypes = [p, i, p, i, i, p, p, p]
         lib.dalm_i8_act_quant.argtypes = [p, i, i, i, i, p, p, p]
         lib.dalm_i8_transpose.argtypes = [p, i, i, p, p]
         lib.dalm_i8_gemm_fold.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.dalm_i8_gemm_nt.argtypes = [p, p, i, i, i, p, p]
-        for fn in ("dalm_i8_rowquant", "dalm_i8_act_quant", "dalm_i8_transpose", "dalm_i8_gemm_fold",
-                   "dalm_i8_gemm_nt"):
+        for fn in ("dalm_i8_rowquant", "dalm_i8_rowquant_bf16", "dalm_i8_act_quant", "dalm_i8_transpose",
+                   "dalm_i8_gemm_fold", "dalm_i8_gemm_nt"):
             getattr(lib, fn).restype = i
         _lib_handle = lib
     return _lib_handle
@@ -85,8 +86,9 @@ def _check_cuda(what: str, **tensors) -> None:
 # K2: per-row int8 quantiser
 # --------------------------------------------------------------------------
 
-def rowquant_ref(x: torch.Tensor, colscale: torch.Tensor | None = None):
-    """Plain PyTorch K2. Returns (q int8 ``x.shape``, s f32 ``x.shape[:-1] + (1,)``)."""
+def rowquant_ref(x: torch.Tensor, colscale: torch.Tensor | None = None, dtype: torch.dtype = torch.int8):
+    """Plain PyTorch K2. Returns (q ``dtype`` ``x.shape``, s f32 ``x.shape[:-1] + (1,)``); ``dtype`` int8, or
+    bfloat16 for the same values as K5's fold route takes them (exact: ``|q| <= 127``)."""
     xf = x.float()
     if colscale is not None:
         xf = xf * colscale.reshape(-1).float()
@@ -95,15 +97,32 @@ def rowquant_ref(x: torch.Tensor, colscale: torch.Tensor | None = None):
     # become a multiply by its reciprocal).
     scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0), torch.ones_like(absmax))
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    return q.to(dtype), scale
 
 
-def rowquant(x: torch.Tensor, colscale: torch.Tensor | None = None):
-    """Symmetric per-row (last axis) int8: ``x * colscale ~= q * s``."""
+_RQ_TYPES = (torch.int8, torch.bfloat16)
+
+
+def launch_rowquant(x: torch.Tensor, colscale: torch.Tensor | None, q: torch.Tensor, s: torch.Tensor) -> None:
+    """One launch of K2 on checked operands into ``q`` (int8 or bfloat16, ``x.shape``) and ``s``."""
+    K = x.shape[-1]
+    fn = _lib().dalm_i8_rowquant if q.dtype == torch.int8 else _lib().dalm_i8_rowquant_bf16
+    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), colscale.data_ptr() if colscale is not None else None,
+             x.numel() // K, K, q.data_ptr(), s.data_ptr(), _stream(x))
+    _launched(err, "rowquant")
+    rowquant.launches += 1
+    if q.dtype == torch.bfloat16:
+        rowquant.bf16_launches += 1
+
+
+def rowquant(x: torch.Tensor, colscale: torch.Tensor | None = None, dtype: torch.dtype = torch.int8):
+    """Symmetric per-row (last axis) int8: ``x * colscale ~= q * s``; ``q`` in ``dtype`` (int8 or bfloat16)."""
     if not x.is_cuda:
-        return rowquant_ref(x, colscale)
+        return rowquant_ref(x, colscale, dtype)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rowquant takes float32 or bfloat16, not {x.dtype}")
+    if dtype not in _RQ_TYPES:
+        raise TypeError(f"rowquant writes int8 or bfloat16, not {dtype}")
     K = x.shape[-1]
     R = x.numel() // K if K else 0
     if R < 1 or K < 1:
@@ -111,17 +130,14 @@ def rowquant(x: torch.Tensor, colscale: torch.Tensor | None = None):
     if colscale is not None and (colscale.dtype != torch.float32 or colscale.numel() != K):
         raise TypeError("colscale must be K float32 values")
     _check_cuda("rowquant", x=x, colscale=colscale)
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    q = torch.empty(x.shape, dtype=dtype, device=x.device)
     s = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
-    err = _lib().dalm_i8_rowquant(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), colscale.data_ptr() if colscale is not None else None,
-        R, K, q.data_ptr(), s.data_ptr(), _stream(x))
-    _launched(err, "rowquant")
-    rowquant.launches += 1
+    launch_rowquant(x, colscale, q, s)
     return q, s
 
 
-rowquant.launches = 0
+rowquant.launches = 0  # every launch
+rowquant.bf16_launches = 0  # those that wrote bfloat16
 
 
 # --------------------------------------------------------------------------

@@ -627,8 +627,8 @@ def _k5_close(y, ry, instance):
                                   (191, 1024, 264, 32)])
 def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
     """Each K5 instance against its plain version: decode rows (K split across blocks), ragged M and N, groups 16-128.
-    Where int4_matmul_fwd takes the prefill route (bf16 base / nf4 from M_PREFILL rows), the fused kernel is held to
-    the plain version on the same rows as well."""
+    Where int4_matmul_fwd takes another route (bf16 from M_PREFILL rows: the prefill route for base / nf4, the fold
+    route for groupmm / i8mxu), the fused kernel is held to the plain version on the same rows as well."""
     M, K, N, group = mkng
     rng = np.random.default_rng(4)
     q4, scale4 = _k5_weights(rng, K, N, instance, cuda, group)
@@ -640,7 +640,7 @@ def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
     assert y.dtype == dtype and y.shape == (M, N) and not y[0].any()
     _k5_close(y, ry, instance)
     assert k5.int4_matmul_fwd.launches[instance] == before + 1
-    if k5._route(x, instance) == "prefill":
+    if k5._route(x, instance, group) != "fused":
         _k5_close(k5.fused(x, q4, scale4, instance, k5._check(x, q4, scale4, instance)), ry, instance)
 
 
@@ -745,7 +745,7 @@ def test_int4_prefill_route_matches_ref_on_card(cuda, instance, mkng):
     x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, torch.bfloat16)
     x[0] = 0
     route = "prefill" if M >= k5.M_PREFILL else "fused"
-    assert k5._route(x, instance) == route
+    assert k5._route(x, instance, group) == route
     routes = dict(k5.int4_matmul_fwd.route_launches)
     dq, gemm = dict(k5.prefill_dequant.launches), k5.prefill_gemm.launches
     y, ry = k5.int4_matmul_fwd(x, q4, scale4, instance), k5.int4_matmul_fwd_ref(x, q4, scale4, instance)
@@ -776,6 +776,185 @@ def test_prefill_wrappers_reject_what_they_do_not_take(cuda):
         k5.prefill_dequant(q4, torch.ones((8, 100), device=cuda))
     with pytest.raises(ValueError, match="CUDA"):
         k5.prefill_dequant(q4[:, :96].contiguous(), torch.ones((8, 96)))
+
+
+# K5's fold route (groupmm and i8mxu at prefill, csrc/int4_prefill.cu): the nibble pre-pass equals its plain
+# version bit for bit (nib - 8 is exact in bf16); i8mxu equals its plain version bit for bit (K2's values as bf16
+# times nib - 8 are integers, a group's |sum| <= group * 127 * 8 < 2^24, so the f32 products are exact, and the
+# fold runs in the same order with the same roundings); groupmm within K5_TOL (bf16 outputs: one bf16 ulp of the
+# row's largest value, as each group's f32 sums run in another order).
+
+@pytest.mark.parametrize("kn", [(256, 8), (512, 136), (2048, 4096), (11008, 1000)])
+def test_prefill_nibbles_equals_ref_on_card(cuda, kn):
+    """The unscaled pre-pass against prefill_nibbles_ref: equal, ragged N and K/2."""
+    K, N = kn
+    q4, _ = _k5_weights(np.random.default_rng(11), K, N, "groupmm", cuda, 16)
+    before = k5.prefill_nibbles.launches
+    wn = k5.prefill_nibbles(q4)
+    torch.cuda.synchronize()
+    assert wn.shape == (N, K) and wn.dtype == torch.bfloat16 and wn.is_contiguous()
+    assert torch.equal(wn, k5.prefill_nibbles_ref(q4))
+    assert k5.prefill_nibbles.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(300, 4096), (3, 7, 100), (1, 30)])
+def test_rowquant_bf16_output_equals_ref_on_card(cuda, shape, dtype):
+    """K2 writing bf16: the values equal rowquant_ref's int8 ones as bf16, the scales equal."""
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+    before = im.rowquant.launches
+    q, s = im.rowquant(x, dtype=torch.bfloat16)
+    rq, rs = im.rowquant_ref(x)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.bfloat16 and torch.equal(q, rq.to(torch.bfloat16)) and torch.equal(s, rs)
+    assert torch.equal(q, im.rowquant_ref(x, dtype=torch.bfloat16)[0]) and im.rowquant.launches == before + 1
+
+
+@pytest.mark.parametrize("instance", ["groupmm", "i8mxu"])
+@pytest.mark.parametrize("mkng", [(192, 512, 136, 16), (300, 1024, 1000, 32), (1000, 2048, 136, 64),
+                                  (257, 4096, 1000, 128), (1000, 11008, 136, 16), (640, 11008, 1000, 16),
+                                  (8192, 4096, 136, 64)])
+def test_fold_route_matches_ref_on_card(cuda, instance, mkng):
+    """int4_matmul_fwd on bf16 rows takes the fold route from M_PREFILL rows on: i8mxu equal to its plain version,
+    groupmm within K5_TOL; counted per route and per launch; the route's kernels called one by one agree."""
+    M, K, N, group = mkng
+    rng = np.random.default_rng(13)
+    q4, scale4 = _k5_weights(rng, K, N, instance, cuda, group)
+    assert K // scale4.shape[0] == group
+    x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, torch.bfloat16)
+    x[0] = 0
+    assert M >= k5.M_PREFILL and k5._route(x, instance, group) == "fold"
+    routes, nib, fold = dict(k5.int4_matmul_fwd.route_launches), k5.prefill_nibbles.launches, dict(k5.prefill_fold.launches)
+    k2 = im.rowquant.launches
+    y, ry = k5.int4_matmul_fwd(x, q4, scale4, instance), k5.int4_matmul_fwd_ref(x, q4, scale4, instance)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N) and not y[0].any()
+    if instance == "i8mxu":
+        assert torch.equal(y, ry)
+    else:
+        _k5_close(y, ry, instance)
+    assert k5.int4_matmul_fwd.route_launches[instance, "fold"] == routes[instance, "fold"] + 1
+    assert sum(k5.int4_matmul_fwd.route_launches.values()) == sum(routes.values()) + 1
+    assert k5.prefill_nibbles.launches == nib + 1
+    assert k5.prefill_fold.launches == dict(fold, **{instance: fold[instance] + 1})
+    assert im.rowquant.launches == k2 + (instance == "i8mxu")
+    wn = k5.prefill_nibbles(q4)
+    xq, xs = im.rowquant(x, dtype=torch.bfloat16) if instance == "i8mxu" else (x, None)
+    y2 = k5.prefill_fold(xq, wn, scale4, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(y2, y)
+    if instance == "i8mxu":
+        assert torch.equal(y2, k5.prefill_fold_ref(xq, wn, scale4, xs))
+
+
+def _extreme_weights(rng, K, N, group, device, cancel):
+    """q4 of nibbles 0 and 15 only (nib - 8 = -8 or 7) with positive power-of-two scales. ``cancel``: in each group
+    and column the first half of the rows +7, the rest -8, so the running sums climb to group / 2 * 127 * 7 and end
+    at a small integer (exact in bf16)."""
+    half = K // 2
+    if cancel:
+        bits = np.zeros((K, N), dtype=np.uint8)
+        r = np.arange(K) % group
+        bits[r < group // 2] = 15
+    else:
+        bits = rng.choice(np.array([0, 15], dtype=np.uint8), size=(K, N))
+    q4 = torch.from_numpy(bits[:half] | (bits[half:] << 4)).to(device)
+    scale4 = torch.from_numpy((2.0 ** rng.integers(-8, -4, size=(K // group, N))).astype(np.float32)).to(device)
+    return q4, scale4
+
+
+@pytest.mark.parametrize("cancel", [False, True], ids=["random", "cancelling"])
+@pytest.mark.parametrize("group", [16, 64])
+def test_fold_route_i8mxu_exact_at_extremes_on_card(cuda, group, cancel):
+    """The exactness the fold route rests on: K2's values all +-127 (rows of +-1) against nibbles of -8 and 7, the
+    largest products a group can hold (|p| up to group * 127 * 8), equal to the plain version bit for bit; with
+    the cancelling weights every output is a small integer times a power of two, so a product that lost a low bit
+    inside the tensor cores would show."""
+    M, K, N = 256, 2048, 264
+    rng = np.random.default_rng(14)
+    q4, scale4 = _extreme_weights(rng, K, N, group, cuda, cancel)
+    signs = np.ones((M, K), np.float32) if cancel else rng.choice(np.array([-1.0, 1.0], np.float32), size=(M, K))
+    x = torch.from_numpy(signs).to(cuda, torch.bfloat16)
+    xq, xs = im.rowquant(x, dtype=torch.bfloat16)
+    assert bool((xq.abs() == 127).all())
+    y, ry = k5.int4_matmul_fwd(x, q4, scale4, "i8mxu"), k5.int4_matmul_fwd_ref(x, q4, scale4, "i8mxu")
+    fold = k5.prefill_fold(xq, k5.prefill_nibbles(q4), scale4)  # groupmm's kernel on the same operands: no xs
+    torch.cuda.synchronize()
+    assert torch.equal(y, ry)
+    assert torch.equal(fold, k5.prefill_fold_ref(xq, k5.prefill_nibbles_ref(q4), scale4))
+
+
+class _FailingLib:
+    """The built int4_prefill library with some of its entries replaced."""
+
+    def __init__(self, lib, **entries):
+        self._lib, self._entries = lib, entries
+
+    def __getattr__(self, name):
+        return self._entries.get(name) or getattr(self._lib, name)
+
+
+@pytest.mark.parametrize("instance", ["groupmm", "i8mxu"])
+def test_fold_route_raises_and_never_falls_back(cuda, monkeypatch, instance):
+    """A refused tensor map raises before the route's first launch: no count moves (route, K2, pre-pass, GEMM). A
+    fold GEMM launch that fails raises after the pre-pass has run. Neither the fused kernel nor a plain version is
+    tried."""
+    rng = np.random.default_rng(15)
+    q4, scale4 = _k5_weights(rng, 1024, 256, instance, cuda, 16)
+    x = torch.from_numpy(rng.standard_normal((256, 1024)).astype(np.float32)).to(cuda, torch.bfloat16)
+
+    def counts():
+        return (dict(k5.int4_matmul_fwd.route_launches), dict(k5.int4_matmul_fwd.launches), im.rowquant.launches,
+                k5.prefill_nibbles.launches, dict(k5.prefill_fold.launches))
+
+    lib = k5._prefill_lib()
+    before = counts()
+    monkeypatch.setattr(k5, "_prefill_handle", _FailingLib(lib, dalm_i4_fold_maps=lambda *a: 1001))
+    with pytest.raises(RuntimeError, match="tensor maps were refused"):
+        k5.int4_matmul_fwd(x, q4, scale4, instance)
+    with pytest.raises(RuntimeError, match="tensor maps were refused"):
+        k5.prefill_fold(x, k5.prefill_nibbles_ref(q4).to(cuda), scale4)
+    assert counts() == before
+    monkeypatch.setattr(k5, "_prefill_handle", _FailingLib(lib, dalm_i4_fold_gemm=lambda *a: 1))
+    with pytest.raises(RuntimeError, match="fold GEMM launch failed"):
+        k5.int4_matmul_fwd(x, q4, scale4, instance)
+    torch.cuda.synchronize()
+    after = counts()
+    assert after[:2] == before[:2] and after[2] == before[2] + (instance == "i8mxu")
+    assert after[3] == before[3] + 1 and after[4] == before[4]
+
+
+def test_fold_wrappers_reject_what_they_do_not_take(cuda):
+    q4 = torch.zeros((64, 96), dtype=torch.uint8, device=cuda)
+    s = torch.ones((8, 96), device=cuda)
+    a = torch.zeros((8, 128), dtype=torch.bfloat16, device=cuda)
+    wn = torch.zeros((96, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        k5.prefill_nibbles(q4.to(torch.int8))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k5.prefill_nibbles(q4[:, :92].contiguous())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k5.prefill_nibbles(q4[:48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.prefill_nibbles(torch.zeros((96, 64), dtype=torch.uint8, device=cuda).T)
+    with pytest.raises(TypeError):
+        k5.prefill_fold(a.float(), wn, s)
+    with pytest.raises(TypeError):
+        k5.prefill_fold(a, wn, s.double())
+    with pytest.raises(ValueError, match="group"):
+        k5.prefill_fold(a, wn, torch.ones((16, 96), device=cuda))  # group 8
+    with pytest.raises(ValueError, match="group"):
+        k5.prefill_fold(a, wn, torch.ones((3, 96), device=cuda))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        k5.prefill_fold(a[:, :96].contiguous(), wn[:, :96].contiguous(), s[:6].contiguous())
+    with pytest.raises(ValueError, match="xs"):
+        k5.prefill_fold(a, wn, s, torch.ones((8,), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.prefill_fold(torch.zeros((128, 8), dtype=torch.bfloat16, device=cuda).T, wn, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.prefill_fold(a, wn.cpu(), s)
+    with pytest.raises(TypeError):
+        im.rowquant(a, dtype=torch.float16)
 
 
 def test_int4_matmul_ragged_n_on_card(cuda):

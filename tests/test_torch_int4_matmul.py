@@ -20,9 +20,11 @@ import pytest
 import torch
 
 from dalm_tpu.kernels import int4_matmul as jk5
+from dalm_tpu.kernels import int8_matmul as jim
 from dalm_tpu.models import quant as jquant
 from dalm_tpu.models.layers import FlexLinear as JaxFlexLinear
 from dalm_tpu_torch.kernels import int4_matmul as k5
+from dalm_tpu_torch.kernels import int8_matmul as im
 from dalm_tpu_torch.models import quant
 from dalm_tpu_torch.models.layers import FlexLinear
 
@@ -216,22 +218,96 @@ def test_prefill_gemm_ref_matches_fused_ref(instance, dtype):
 
 
 def test_prefill_routing_rule():
-    """The card's route by rows, activation type and instance; on the CPU every route is the plain version."""
+    """The card's route by rows, activation type, instance and group; on the CPU every route is the plain version."""
     bf = torch.zeros((k5.M_PREFILL, 64), dtype=torch.bfloat16)
     assert 32 < k5.M_PREFILL <= 8192  # decode's 32 rows stay on the fused kernel, prefill's 8192 do not
-    assert k5.PREFILL_INSTANCES == ("base", "nf4")
+    assert k5.PREFILL_INSTANCES == ("base", "nf4", "groupmm", "i8mxu") and k5.ROUTES == ("fused", "prefill", "fold")
+    want = {"base": "prefill", "nf4": "prefill", "groupmm": "fold", "i8mxu": "fold", "pcol": "fused"}
     for inst in k5.INSTANCES:
-        assert k5._route(bf, inst) == ("prefill" if inst in ("base", "nf4") else "fused")
-        assert k5._route(bf[:-1], inst) == "fused"
-        assert k5._route(bf.float(), inst) == "fused"
+        for group in (16, 32, 64, 128):
+            assert k5._route(bf, inst, group) == want[inst]
+            assert k5._route(bf[:-1], inst, group) == "fused"
+            assert k5._route(bf.float(), inst, group) == "fused"
+    for variant in ("groupmm", "decomp", "i8mxu"):  # decomp runs groupmm's instance, and takes its route
+        inst = k5.INSTANCE[variant]
+        assert k5._route(bf, inst, 64) == "fold" and k5._route(bf[:32], inst, 64) == "fused"
+        assert k5._route(bf, inst, 48) == "fused" and k5._route(bf, inst, 256) == "fused"  # no fold GEMM instance
+    assert k5._route(bf, "base", 48) == "prefill"
     assert set(k5.int4_matmul_fwd.route_launches) == {(i, r) for i in k5.INSTANCES for r in k5.ROUTES}
     d = quant.quantize_tensor_int4(torch.from_numpy(_weights(14, 256, 64)))
     x = torch.from_numpy(np.random.default_rng(15).standard_normal((k5.M_PREFILL, 256)).astype(np.float32))
     x = x.to(torch.bfloat16)
     before = dict(k5.int4_matmul_fwd.route_launches)
-    assert torch.equal(k5.int4_matmul_fwd(x, d["q4"], d["scale4"], "base"),
-                       k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"))
+    for inst in ("base", "groupmm", "i8mxu"):
+        assert torch.equal(k5.int4_matmul_fwd(x, d["q4"], d["scale4"], inst),
+                           k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], inst))
     assert k5.int4_matmul_fwd.route_launches == before
+
+
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+def test_prefill_nibbles_ref_equals_jax_dequant_at_unit_scales(group):
+    """The fold route's plain pre-pass, Wn (N, K) bf16 = nib - 8, equals the JAX package's dequantize_tensor_int4
+    with every scale 1, transposed; the CPU wrapper is the plain version and counts no launch."""
+    K, N = 2048, 24
+    d = jquant.quantize_tensor_int4(jnp.asarray(_weights(17, K, N)), group)
+    assert K // d["scale4"].shape[0] == group
+    want = np.asarray(jquant.dequantize_tensor_int4({"q4": d["q4"], "scale4": jnp.ones_like(d["scale4"])})).T
+    got = k5.prefill_nibbles_ref(_t(d["q4"]))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (N, K) and got.is_contiguous()
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    before = k5.prefill_nibbles.launches
+    assert torch.equal(k5.prefill_nibbles(_t(d["q4"])), got) and k5.prefill_nibbles.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [16, 64])
+@pytest.mark.parametrize("instance", ["groupmm", "i8mxu"])
+def test_fold_route_plain_matches_pallas_interpret(instance, group, dtype):
+    """The fold route's plain versions (nibble pre-pass, K2 in bf16 for i8mxu, fold GEMM) against the reference's
+    Pallas kernel of the same variant, interpreted: float32 within 1e-5 of the row's largest value (the same f32
+    products and folds; groupmm's products summed in another order), bfloat16 within one bf16 ulp of it (2^-7).
+    i8mxu equals the port's own plain K5 bit for bit (integer products, the same fold)."""
+    M, K, N = 16, 1024, 256
+    x = (np.random.default_rng(18).standard_normal((M, K)) * 0.5).astype(np.float32)
+    x[0] = 0.0
+    d = jquant.quantize_tensor_int4(jnp.asarray(_weights(19, K, N)), group)
+    assert K // d["scale4"].shape[0] == group
+    want = jk5._int4_matmul_fwd_pallas(jnp.asarray(x, getattr(jnp, dtype)), d["q4"], d["scale4"], block_k=256,
+                                        block_n=128, interpret=True, variant=instance)
+    tx, q4, s4 = torch.from_numpy(x).to(getattr(torch, dtype)), _t(d["q4"]), _t(d["scale4"])
+    wn = k5.prefill_nibbles_ref(q4)
+    if instance == "i8mxu":
+        a, xs = im.rowquant_ref(tx, dtype=torch.bfloat16)
+    else:
+        a, xs = tx, None
+    got = k5.prefill_fold_ref(a, wn, s4, xs, dtype=tx.dtype)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (M, N) and not got[0].any()
+    _assert_rows_close(got.float().numpy(), np.asarray(want, np.float32), 1e-5 if dtype == "float32" else 2.0 ** -7)
+    if instance == "i8mxu":
+        assert torch.equal(got, k5.int4_matmul_fwd_ref(tx, q4, s4, "i8mxu"))
+    before = dict(k5.prefill_fold.launches)
+    assert torch.equal(k5.prefill_fold(a, wn, s4, xs), k5.prefill_fold_ref(a, wn, s4, xs))  # bf16 out, like the kernel
+    assert k5.prefill_fold.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rowquant_bf16_output_plain(dtype):
+    """K2's bf16 output type in its plain version: rowquant_ref's int8 values as bf16 (exact), the scales equal,
+    and both equal the JAX package's rowquant; the CPU wrapper is the plain version and counts no launch."""
+    x = (np.random.default_rng(20).standard_normal((7, 300)) * 3).astype(np.float32)
+    x[0] = 0.0
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    q, s = im.rowquant_ref(tx)
+    qb, sb = im.rowquant_ref(tx, dtype=torch.bfloat16)
+    assert qb.dtype == torch.bfloat16 and torch.equal(qb, q.to(torch.bfloat16)) and torch.equal(sb, s)
+    assert torch.equal(qb.to(torch.int8), q)  # |q| <= 127: exact in bf16
+    jq, js = jim.rowquant(jnp.asarray(x, getattr(jnp, dtype)))
+    np.testing.assert_array_equal(qb.float().numpy(), np.asarray(jq, np.float32))
+    np.testing.assert_array_equal(sb.numpy(), np.asarray(js))
+    before = (im.rowquant.launches, im.rowquant.bf16_launches)
+    got = im.rowquant(tx, dtype=torch.bfloat16)
+    assert torch.equal(got[0], qb) and torch.equal(got[1], sb)
+    assert (im.rowquant.launches, im.rowquant.bf16_launches) == before
 
 
 @pytest.mark.parametrize("pcol", [False, True])
