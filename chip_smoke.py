@@ -30,9 +30,11 @@ wgmma kernels for bf16 at head dim 64 / 128 and the mma.sync kernels for the
 rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances;
 K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, and its fold
 route for groupmm and i8mxu, the nibble pre-pass, K2 writing bf16 and the fold
-GEMM, against the fused kernel forced on the same operands; i8mxu's exactness
-at the extremes of its operands; each route's crossover with the fused kernel
-by rows),
+GEMM, and its int8 route for pcol, K2, the int8 nibble pre-pass and the scaled
+s8 GEMM (beside K1's fold instance on the same operands), against the fused
+kernel forced on the same operands; i8mxu's and pcol's exactness at the
+extremes of their operands; each route's crossover with the fused kernel by
+rows),
 ``train-small`` (tiny ``train_e2e``, card vs CPU),
 ``train``, ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
@@ -47,7 +49,8 @@ quantise pre-pass, the weight pre-pass, the GEMM), each GEMM entry, each K4 kern
 forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, the backward's
 ``k4_bwd_dq_wgmma`` / ``k4_bwd_dkv_wgmma`` and ``k4_bwd_dq`` / ``k4_bwd_dkv``, each with
 its own launches, and the dsum pre-pass ``k4_dsum``), each of the five K5 instances, the prefill route's pre-pass (base,
-nf4) and GEMM, the fold route's nibble pre-pass, fold GEMM (groupmm, i8mxu) and K2 in bf16, each with its launches in its
+nf4) and GEMM, the fold route's nibble pre-pass, fold GEMM (groupmm, i8mxu) and K2 in bf16, the int8 route's int8
+nibble pre-pass and scaled GEMM (pcol), each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven), and as
@@ -1570,6 +1573,82 @@ def fold_timing(k5, im, x, d, inst, group, w_bf16, out, fused_ms, peaks):
     return extra, recs
 
 
+K5_I8_SOURCE = "dalm_tpu_torch/csrc/int8_matmul.cu"
+
+
+def pcol_timing(k5, im, x, d, w_bf16, out, fused_ms, peaks):
+    """K5 pcol's int8 route at one shape: K2 writing int8, the int8 nibble pre-pass and the scaled s8 GEMM (each
+    held equal to its plain version) and the route's three launches together, each alone on operands prepared once,
+    beside the plain versions, ``x @ W_bf16``, ``torch._int_mm``, the fused kernel forced (with and without its K2),
+    K1's fold instance on the same operands (one k-block of all of K: the same function, held equal) and the
+    bounds. Returns (the keys it adds to the K5 record, the records of the two new kernels)."""
+    import torch
+
+    mem_bw, _, _, int8_rate = peaks
+    M, K = x.shape
+    N = w_bf16.shape[1]
+    q4, s4 = d["q4"], d["scale4"]
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    xs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    wn = torch.empty((N, K), dtype=torch.int8, device=x.device)
+    im.launch_rowquant(x, None, xq, xs)
+    k5.launch_nibbles(q4, wn)
+    torch.cuda.synchronize()
+    check(torch.equal(wn, k5.prefill_nibbles_ref(q4, torch.int8)),
+          f"k5 int8 nibble pre-pass K={K} N={N}: not equal to its plain version")
+    nib_ms = cuda_ms(lambda: k5.launch_nibbles(q4, wn), 20)
+    nib_plain_ms = cuda_ms(lambda: k5.prefill_nibbles_ref(q4, torch.int8), 2)
+    k2_ms = cuda_ms(lambda: im.launch_rowquant(x, None, xq, xs), 20)
+    im.launch_gemm_scaled(xq, wn, xs, s4, out)
+    ry = im.int8_gemm_scaled_ref(xq, wn, xs, s4)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ry), f"k5 pcol GEMM M={M} K={K} N={N}: not equal to its plain version")
+    del ry
+    gemm_ms = cuda_ms(lambda: im.launch_gemm_scaled(xq, wn, xs, s4, out), 10)
+    gemm_plain_ms = cuda_ms(lambda: im.int8_gemm_scaled_ref(xq, wn, xs, s4), 1)
+    # K1's GEMM (128 x 192 tile, the k-block fold) with one k-block of all of K computes the same function
+    ws, other = s4.reshape(-1), torch.empty_like(out)
+    im._launch_fold(xq, xs, wn, ws, other)
+    torch.cuda.synchronize()
+    check(torch.equal(other, out), f"k5 pcol M={M} K={K} N={N}: K1's fold instance at bk = K differs")
+    k1_fold_ms = cuda_ms(lambda: im._launch_fold(xq, xs, wn, ws, other), 10)
+    int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wn.T), 10)
+    lib_ms = cuda_ms(lambda: x @ w_bf16, 10)
+    fused_k2_ms = cuda_ms(lambda: (im.launch_rowquant(x, None, xq, xs),
+                                   k5.launch("pcol", xq, xs, q4, s4, K, 1, None, other)), 5)
+
+    def route():
+        im.launch_rowquant(x, None, xq, xs)
+        k5.launch_nibbles(q4, wn)
+        im.launch_gemm_scaled(xq, wn, xs, s4, out)
+
+    both_ms = cuda_ms(route, 10)
+    t_bytes = (M * K + N * K + M * 4 + N * 4 + M * N * 2) / mem_bw * 1e3
+    t_ops = 2.0 * M * K * N / int8_rate * 1e3
+    recs = [{"name": "k5_prefill_nibbles[int8]", "route": "cuda", "source": K5_PREFILL_SOURCE,
+             "replaces": K5_AT["pcol"], "case": f"K={K} N={N} (int4pc, int8 out)", "max_abs_err": 0.0, "ms": nib_ms,
+             "plain_ms": nib_plain_ms, "bound_ms": (q4.numel() + N * K) / mem_bw * 1e3, "bound_by": "bytes",
+             "library_ms": None, "library_is": "none: no one PyTorch call decodes the packed nibbles"},
+            {"name": "k5_pcol_gemm", "route": "cuda", "source": K5_I8_SOURCE, "replaces": K5_AT["pcol"],
+             "case": f"M={M} K={K} N={N} int8 x int8, row and column scales, bf16 out", "max_abs_err": 0.0,
+             "ms": gemm_ms, "plain_ms": gemm_plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+             "library_is": "none: torch._int_mm gives the int32 sums without the scales (int_mm_ms)",
+             "int_mm_ms": int_mm_ms, "k1_fold_instance_ms": k1_fold_ms, "x_at_w_bf16_ms": lib_ms,
+             "tops": 2.0 * M * K * N / gemm_ms * 1e-9}]
+    print(f"[k5]   int8 route pcol M={M} K={K} N={N}: K2 {k2_ms:.4f} ms, int8 nibble pre-pass {nib_ms:.4f} ms (bound "
+          f"{recs[0]['bound_ms']:.4f}, plain {nib_plain_ms:.4f}), scaled GEMM {gemm_ms:.4f} ms = "
+          f"{recs[1]['tops']:.0f} TOP/s = {100 * t_ops / gemm_ms:.0f}% of the int8 peak (bound {t_ops:.4f}; plain "
+          f"{gemm_plain_ms:.4f}; torch._int_mm {int_mm_ms:.4f}; K1's fold instance at bk = K {k1_fold_ms:.4f} = "
+          f"{100 * t_ops / k1_fold_ms:.0f}%), the route {both_ms:.4f} ms; the fused kernel forced {fused_ms:.4f} ms "
+          f"({fused_k2_ms:.4f} with its K2): {fused_k2_ms / both_ms:.2f}x faster; x @ W_bf16 {lib_ms:.4f} ms: "
+          f"{both_ms / lib_ms:.2f}x its time", flush=True)
+    del xq, xs, wn, other
+    extra = {"int8_route_ms": both_ms, "int8_route_k2_ms": k2_ms, "int8_nibbles_ms": nib_ms, "pcol_gemm_ms": gemm_ms,
+             "fused_with_k2_ms": fused_k2_ms, "speedup_over_fused": fused_k2_ms / both_ms}
+    return extra, recs
+
+
 def _extreme_int4(gen, device, K, N, group, cancel):
     """A 4-bit weight of nibbles 0 and 15 only (nib - 8 = -8 or 7) with power-of-two scales. ``cancel``: in each
     group and column the first half of the rows +7, the rest -8, so a group's running sums climb to group / 2 x
@@ -1586,12 +1665,29 @@ def _extreme_int4(gen, device, K, N, group, cancel):
     return q4, s4
 
 
+def _extreme_pcol(gen, device, K, N, case):
+    """An int4pc weight of nibbles 0 and 15 only (nib - 8 = -8 or 7) with power-of-two column scales, and rows that
+    K2 quantises to +-127. ``random``: random nibbles and signs; ``ones_neg`` / ``ones_pos``: rows of ones against
+    every nibble -8 / 7, so nothing cancels and every int32 sum is K * 127 * 8 (or 7)."""
+    import torch
+
+    if case == "random":
+        bits = torch.randint(0, 2, (K, N), generator=gen, device=device, dtype=torch.uint8) * 15
+        x = torch.randint(0, 2, (1024, K), generator=gen, device=device).float() * 2 - 1
+    else:
+        bits = torch.full((K, N), 0 if case == "ones_neg" else 15, dtype=torch.uint8, device=device)
+        x = torch.ones((1024, K), device=device)
+    q4 = (bits[:K // 2] | (bits[K // 2:] << 4)).contiguous()
+    s4 = torch.exp2(torch.randint(-8, -4, (1, N), generator=gen, device=device).float())
+    return q4, s4, x.to(torch.bfloat16)
+
+
 def k5_prefill_phase(gen, device, peaks):
     """The prefill routes beyond the Llama shapes: base and nf4 (the prefill route), groupmm and i8mxu (the fold
-    route) on ragged shapes (M from M_PREFILL up, N no multiple of 128, groups 16-128) against the plain version,
-    counted per route, i8mxu equal to it; i8mxu's exactness at the extremes of its operands (+-127 x -8 / 7) at
-    groups 16 and 64; the fused kernel and each route timed by rows at two Llama shapes (the crossover that sets
-    M_PREFILL). Returns the crossover records."""
+    route), pcol (the int8 route) on ragged shapes (M from M_PREFILL up, N no multiple of 128, groups 16-128)
+    against the plain version, counted per route, i8mxu and pcol equal to it; i8mxu's exactness at the extremes of
+    its operands (+-127 x -8 / 7) at groups 16 and 64, and pcol's at K 11008 and 4096; the fused kernel and each
+    route timed by rows at two Llama shapes (the crossover that sets M_PREFILL). Returns the crossover records."""
     import torch
 
     from dalm_tpu_torch.kernels import int4_matmul as k5
@@ -1600,13 +1696,14 @@ def k5_prefill_phase(gen, device, peaks):
 
     worst = {}
     qz = {"base": quant.quantize_tensor_int4, "nf4": quant.quantize_tensor_nf4, "groupmm": quant.quantize_tensor_int4,
-          "i8mxu": quant.quantize_tensor_int4}
+          "i8mxu": quant.quantize_tensor_int4, "pcol": lambda w, group: quant.quantize_tensor_int4pc(w)}
+    exact = ("i8mxu", "pcol")
     for M, K, N, group in ((k5.M_PREFILL, 1024, 136, 64), (300, 2048, 1000, 128), (1000, 11008, 264, 16),
                            (640, 4096, 1000, 32), (8192, 4096, 136, 32), (8192, 11008, 11008, 16)):
         w = torch.randn((K, N), generator=gen, device=device) * 0.02
         for inst in k5.PREFILL_INSTANCES:
             d = qz[inst](w, group)
-            check(K // d["scale4"].shape[0] == group, f"k5 prefill: group {group} at K={K}")
+            check(inst == "pcol" or K // d["scale4"].shape[0] == group, f"k5 prefill: group {group} at K={K}")
             x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
             x[0] = 0
             route = k5.PREFILL_ROUTE[inst]
@@ -1616,13 +1713,13 @@ def k5_prefill_phase(gen, device, peaks):
             torch.cuda.synchronize()
             check(k5.int4_matmul_fwd.route_launches[inst, route] == before + 1, f"k5 {route} {inst}: route not taken")
             check(tuple(y.shape) == (M, N) and not bool(y[0].any()), f"k5 {route} {inst}: shape / zero row")
-            check(inst != "i8mxu" or torch.equal(y, ry), f"k5 fold i8mxu M={M} K={K} N={N}: not equal to plain")
+            check(inst not in exact or torch.equal(y, ry), f"k5 {route} {inst} M={M} K={K} N={N}: not equal to plain")
             worst[inst] = max(worst.get(inst, 0.0), k5_err(y, ry, inst)[1])
             del x, y, ry
         del w
-    print(f"[k5] prefill and fold routes on ragged shapes (M {k5.M_PREFILL}-8192, N 136-11008, groups 16-128, bf16): "
-          f"every instance within its tolerance, i8mxu equal to its plain version; worst share of the bound {worst}",
-          flush=True)
+    print(f"[k5] prefill, fold and int8 routes on ragged shapes (M {k5.M_PREFILL}-8192, N 136-11008, groups 16-128, "
+          f"bf16): every instance within its tolerance, i8mxu and pcol equal to their plain versions; worst share of "
+          f"the bound {worst}", flush=True)
     for K, group in ((11008, 16), (4096, 64)):
         for cancel in (False, True):
             q4, s4 = _extreme_int4(gen, device, K, 1000, group, cancel)
@@ -1638,15 +1735,31 @@ def k5_prefill_phase(gen, device, peaks):
             del q4, s4, x, y, ry, xq
     print("[k5] fold route i8mxu at the extremes of its operands (K2's values +-127, nibbles -8 / 7; group 16 and 64, "
           "random and cancelling signs): equal to the plain version", flush=True)
+    for K, case in ((11008, "random"), (11008, "ones_neg"), (11008, "ones_pos"), (4096, "ones_neg")):
+        q4, s4, x = _extreme_pcol(gen, device, K, 1000, case)
+        before = k5.int4_matmul_fwd.route_launches["pcol", "int8"]
+        y, ry = k5.int4_matmul_fwd(x, q4, s4, "pcol"), k5.int4_matmul_fwd_ref(x, q4, s4, "pcol")
+        xq, _ = im.rowquant(x)
+        torch.cuda.synchronize()
+        check(bool((xq.abs() == 127).all()), "k5 int8 route extremes: K2's values are not all +-127")
+        check(k5.int4_matmul_fwd.route_launches["pcol", "int8"] == before + 1, "k5 int8 route extremes: route not taken")
+        check(torch.equal(y, ry), f"k5 int8 route pcol at the extremes (K {K}, {case}): not equal to the plain version")
+        del q4, s4, x, y, ry, xq
+    print("[k5] int8 route pcol at the extremes of its operands (K2's values +-127, nibbles -8 / 7; K 11008 random, "
+          "and rows of ones against every nibble -8 or 7, nothing cancelling, at K 11008 and 4096): equal to the plain "
+          "version", flush=True)
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     crossover = []
     for K, N in ((4096, 4096), (11008, 4096)):
-        d = quant.quantize_tensor_int4(torch.randn((K, N), generator=gen, device=device) * 0.02)
-        q4, s4 = d["q4"], d["scale4"]
-        group = K // s4.shape[0]
+        w = torch.randn((K, N), generator=gen, device=device) * 0.02
+        d4, dpc = quant.quantize_tensor_int4(w), quant.quantize_tensor_int4pc(w)
+        del w
         wt = torch.empty((N, K), dtype=torch.bfloat16, device=device)
-        for inst in ("base", "groupmm", "i8mxu"):
+        wn8 = torch.empty((N, K), dtype=torch.int8, device=device)
+        for inst in ("base", "groupmm", "i8mxu", "pcol"):
+            q4, s4 = (dpc if inst == "pcol" else d4)["q4"], (dpc if inst == "pcol" else d4)["scale4"]
+            group = K // s4.shape[0]
             row = []
             for M in (32, 64, 128, 192, 256, 384, 512, 1024, 2048):
                 x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
@@ -1656,7 +1769,7 @@ def k5_prefill_phase(gen, device, peaks):
                 xs = torch.empty((M, 1), dtype=torch.float32, device=device)
                 xq8 = torch.empty((M, K), dtype=torch.int8, device=device)
                 xqb = torch.empty((M, K), dtype=torch.bfloat16, device=device)
-                i8 = inst == "i8mxu"
+                i8 = inst in ("i8mxu", "pcol")
 
                 def fused():
                     if i8:
@@ -1667,6 +1780,11 @@ def k5_prefill_phase(gen, device, peaks):
                     if inst == "base":
                         k5.launch_dequant(q4, s4, group, False, wt)
                         k5.launch_gemm(x, wt, out)
+                        return
+                    if inst == "pcol":
+                        im.launch_rowquant(x, None, xq8, xs)
+                        k5.launch_nibbles(q4, wn8)
+                        im.launch_gemm_scaled(xq8, wn8, xs, s4, out)
                         return
                     if i8:
                         im.launch_rowquant(x, None, xqb, xs)
@@ -1683,7 +1801,7 @@ def k5_prefill_phase(gen, device, peaks):
                   f"{route} route), ms fused / {route} by M: "
                   + ", ".join(f"{r['M']}: {r['fused_ms']:.4f} / {r['route_ms']:.4f}" for r in row)
                   + f"; {route} faster from M = {first}; M_PREFILL = {k5.M_PREFILL}", flush=True)
-        del d, wt
+        del d4, dpc, wt, wn8
 
     torch.cuda.empty_cache()
     return {"crossover": crossover}
@@ -1757,6 +1875,10 @@ def k5_phase(gen, device, peaks):
                     if route == "prefill":
                         extra, prefill_records = prefill_timing(k5, quant, x, d, fmt, inst, group, w_bf16[fmt], o,
                                                                 ms, peaks)
+                    elif route == "int8":
+                        check(max_err == 0.0, f"k5 pcol M={M} K={K} N={N}: the int8 route differs from the plain "
+                                              f"version")
+                        extra, prefill_records = pcol_timing(k5, im, x, d, w_bf16[fmt], o, ms, peaks)
                     else:
                         check(inst != "i8mxu" or max_err == 0.0, f"k5 i8mxu M={M} K={K} N={N}: the fold route "
                                                                  f"differs from the plain version")
@@ -1923,8 +2045,10 @@ def serve_q_phase(device, rng, base_pipe):
     as in ``[main]``, K5 launches counted (225 a forward x 64 forwards; the prefill forward's 224 projections on
     the prefill route, the rest on the fused kernel), the prefill timed again with every projection on the fused
     kernel; then one ``answer()`` each for nf4,
-    int4pc, and int4 with ``DEFAULT_VARIANT`` i8mxu and groupmm (their prefill forward's 224 projections on the
-    fold route, counted per kernel); the last-position logits of each tier against
+    int4pc (its prefill forward's 224 projections on the int8 route, counted per kernel, and its prefill timed on
+    that route and with every projection on the fused kernel), and int4 with ``DEFAULT_VARIANT`` i8mxu and groupmm
+    (their prefill forward's 224 projections on the fold route, counted per kernel); the last-position logits of
+    each tier against
     the bf16 generator's; a sampled ``answer()`` that repeats. Returns the K5 launches of each instance in its
     own ``answer()`` and the decode times."""
     import gc
@@ -1999,7 +2123,9 @@ def serve_q_phase(device, rng, base_pipe):
         k5.prefill_dequant.launches = dict.fromkeys(k5.SCALED_INSTANCES, 0)
         k5.prefill_gemm.launches = 0
         k5.prefill_nibbles.launches = 0
+        k5.prefill_nibbles.int8_launches = 0
         k5.prefill_fold.launches = dict.fromkeys(k5.FOLD_INSTANCES, 0)
+        im.int8_gemm_scaled.launches = 0
         im.rowquant.bf16_launches = 0
         k2 = im.rowquant.launches
         torch.cuda.synchronize()
@@ -2014,8 +2140,8 @@ def serve_q_phase(device, rng, base_pipe):
 
     def check_routes(inst, label):
         """K5's routes in the last counted answer(): every projection of the prefill forward (8192 rows) on the
-        prefill route for base / nf4 and on the fold route for groupmm / i8mxu, the rest (lm_head at 32 rows, 63
-        decode forwards) on the fused kernel."""
+        prefill route for base / nf4, on the fold route for groupmm / i8mxu and on the int8 route for pcol, the rest
+        (lm_head at 32 rows, 63 decode forwards) on the fused kernel."""
         routes = k5.int4_matmul_fwd.route_launches
         route = k5.PREFILL_ROUTE.get(inst)
         pre = 7 * layers if route else 0
@@ -2030,6 +2156,10 @@ def serve_q_phase(device, rng, base_pipe):
               k5.prefill_nibbles.launches == folded and im.rowquant.bf16_launches == (folded if inst == "i8mxu" else 0),
               f"serve-q {label}: fold kernels launched {fold}, nibble pre-pass {k5.prefill_nibbles.launches}, K2 in "
               f"bf16 {im.rowquant.bf16_launches} times, want {folded} each")
+        int8 = pre if route == "int8" else 0
+        check(k5.prefill_nibbles.int8_launches == int8 and im.int8_gemm_scaled.launches == int8,
+              f"serve-q {label}: int8 route kernels launched {k5.prefill_nibbles.int8_launches} (int8 pre-pass), "
+              f"{im.int8_gemm_scaled.launches} (scaled GEMM) times, want {int8} each")
         return got
 
     # int4 + int8 KV cache, K5 base: the slice's main path
@@ -2059,11 +2189,12 @@ def serve_q_phase(device, rng, base_pipe):
     toks_out = q._generate(p_ids, p_mask)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    first = build_greedy_generate(gen, 1, eos_token_id=q.g_tok.eos_token_id, pad_token_id=q.g_tok.pad_token_id or 0)
 
-    def prefill_times():
-        """The prefill (+ the first token) on its routes, then with every projection on the fused kernel; each
-        timed after a warm call."""
+    def prefill_times(g):
+        """The prefill (+ the first token) of generator ``g`` on its routes, then with every projection on the fused
+        kernel; each timed after a warm call."""
+        first = build_greedy_generate(g, 1, eos_token_id=pipe.g_tok.eos_token_id,
+                                      pad_token_id=pipe.g_tok.pad_token_id or 0)
         times = []
         m_prefill = k5.M_PREFILL
         for forced in (False, True):
@@ -2079,7 +2210,7 @@ def serve_q_phase(device, rng, base_pipe):
                 k5.M_PREFILL = m_prefill
         return times
 
-    prefill_s, prefill_fused_s = prefill_times()
+    prefill_s, prefill_fused_s = prefill_times(gen)
     check(tuple(toks_out.shape) == (len(queries), 64) and bool(((toks_out >= 0) & (toks_out < 32000)).all()),
           "serve-q int4: generated ids")
     step_ms = (decode_s - prefill_s) / 63 * 1e3
@@ -2108,7 +2239,7 @@ def serve_q_phase(device, rng, base_pipe):
             if variant == "i8mxu":
                 launches["rowquant[bf16]"] = im.rowquant.bf16_launches
             err, err_fb = logit_err(q, variant)
-            v_prefill_s, v_fused_s = prefill_times()
+            v_prefill_s, v_fused_s = prefill_times(gen)
         finally:
             k5.DEFAULT_VARIANT = "base"
         check(counts[variant] == want and sum(counts.values()) == want, f"serve-q {variant}: K5 launches {counts}")
@@ -2133,7 +2264,7 @@ def serve_q_phase(device, rng, base_pipe):
     greedy_same = int((a1 == toks_out).all(dim=1).sum())
     print(f"[serve-q] sampled answer() (temperature 0.7, top-k 50, top-p 0.9, seed 0): ids in range, repeated "
           f"exactly; {greedy_same} of {len(queries)} rows equal the greedy ones", flush=True)
-    del s, q, gen, first
+    del s, q, gen
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2142,14 +2273,22 @@ def serve_q_phase(device, rng, base_pipe):
         _, dt, counts, k2 = counted_answer(q)
         check(counts[inst] == want and sum(counts.values()) == want, f"serve-q {fmt}: K5 launches {counts}")
         routes = check_routes(inst, fmt)
+        check(k2 == want if inst == "pcol" else k2 == 0, f"serve-q {fmt}: {k2} K2 launches")
+        pre = ""
         if inst == "nf4":
             launches["k5_prefill_dequant[nf4]"] = k5.prefill_dequant.launches["nf4"]
+        else:
+            launches["k5_prefill_nibbles[int8]"] = k5.prefill_nibbles.int8_launches
+            launches["k5_pcol_gemm"] = im.int8_gemm_scaled.launches
+            p_s, p_fused_s = prefill_times(q.generator)
+            out.update({f"{fmt}_prefill_s": p_s, f"{fmt}_prefill_fused_s": p_fused_s})
+            pre = f"prefill (+ first token) {p_s:.3f} s (every projection on the fused kernel instead: {p_fused_s:.3f} s); "
         err, err_fb = logit_err(q, inst)
         launches[inst] = routes["fused"]
         out[f"{fmt}_answer_s"] = dt
         print(f"[serve-q] {fmt} + int8 KV cache: built in {build_s:.2f} s; answer() {dt:.3f} s (first, not warmed); "
-              f"K5 {inst} launches {counts[inst]} (by route {routes}), K2 {k2}; logits relative error {err:.4f} against bf16, "
-              f"{err_fb:.4f} against x @ dequant(W)", flush=True)
+              f"{pre}K5 {inst} launches {counts[inst]} (by route {routes}), K2 {k2}; logits relative error {err:.4f} "
+              f"against bf16, {err_fb:.4f} against x @ dequant(W)", flush=True)
         del q
         gc.collect()
         torch.cuda.empty_cache()
@@ -2314,7 +2453,8 @@ def main() -> int:
         return 0
     k5_names = [f"int4_matmul[{i}]" for i in ("base", "groupmm", "nf4", "i8mxu", "pcol")]
     k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm", "k5_prefill_nibbles",
-                 "k5_fold_gemm[groupmm]", "k5_fold_gemm[i8mxu]", "rowquant[bf16]"]
+                 "k5_fold_gemm[groupmm]", "k5_fold_gemm[i8mxu]", "rowquant[bf16]", "k5_prefill_nibbles[int8]",
+                 "k5_pcol_gemm"]
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
              "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *k5_names)

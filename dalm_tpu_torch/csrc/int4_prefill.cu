@@ -4,6 +4,8 @@
 //   fold route (groupmm, i8mxu): the pre-pass in its unscaled mode writes the bare nibbles
 //     nib - 8 (exact in bf16), then a wgmma / TMA GEMM takes each scale group's two products
 //     and folds them with their scales in registers, in group order (the fold GEMM).
+// The pre-pass has a third unscaled mode that writes nib - 8 as int8: the int8 route of pcol
+// (kernels/int4_matmul.py:int8_route), whose s8 GEMM lives in csrc/int8_matmul.cu.
 //
 // Replaces dalm_tpu/kernels/int4_matmul.py:_int4_matmul_fwd_pallas
 // (pallas_call at :496) for its variants base / floorsplit (_int4_kernel :43,
@@ -17,7 +19,8 @@
 //             decode = nib - 8 (base) or the NormalFloat4 codebook (nf4), from q4 (K/2, N)
 //             uint8 in the half-split layout (packed row r holds K-row r in its low nibble
 //             and K-row K/2 + r in its high one) and scale4 (K/group, N) f32; unscaled
-//             (mode 2): Wn[n][k] = bf16(nib(k, n) - 8);
+//             (mode 2): Wn[n][k] = bf16(nib(k, n) - 8); (mode 3) the same as int8, Wn (N, K)
+//             int8, the reference pcol kernel's lo / hi pairing (low nibbles in [0, K/2));
 //   GEMM      y (M, N) = bf16(sum over k of f32(x[m][k] * Wt[n][k])), x (M, K) bf16;
 //   fold GEMM acc = sum over the G = K / (2 group) groups, in order, of
 //             (p_lo[g] * s_lo[g][n] + p_hi[g] * s_hi[g][n]), each product and sum rounded
@@ -37,7 +40,8 @@
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s f32).
 //   pre-pass: bytes. At (K, N) = (11008, 4096), group 16, it reads 22.5 MB of
-//   nibbles and 11.3 MB of scales and writes 90.2 MB: 0.037 ms (unscaled: 0.034 ms).
+//   nibbles and 11.3 MB of scales and writes 90.2 MB: 0.037 ms (unscaled: 0.034 ms;
+//   int8: 1.5 K N bytes, 0.020 ms).
 //   GEMM and fold GEMM: operations, at prefill's M = 8192: 2 M K N = 275 GFLOP at (4096, 4096),
 //   0.278 ms (0.747 ms at (4096, 11008) and (11008, 4096)); its bytes (x, Wt, y)
 //   take a third of that. csrc/int4_matmul.cu dequantises each weight again in
@@ -71,7 +75,8 @@
 //   reads 2 rows of 64 contiguous bytes of q4, and their scales), decodes into a
 //   shared tile held [n][k] (rows of 66 bf16, so a warp's column of stores spreads
 //   over the banks), then writes along K: 16 bytes a thread, 128 contiguous bytes
-//   per (n, half). nf4's 16-entry codebook sits in shared memory.
+//   per (n, half) (the int8 mode: 64, packed from the bf16 tile). nf4's 16-entry codebook
+//   sits in shared memory.
 //   GEMM: x (M, K) and Wt (N, K) are both K-major, the canonical operands of
 //   wgmma. A block owns a 128 x 256 output tile, 64 rows per consumer warpgroup
 //   (two consumers, 3 ring slots, 144 KB of shared memory: the fastest, or level
@@ -113,17 +118,19 @@ constexpr int DQ_THREADS = 256;
 constexpr int DQ_LD = DQ_ROWS + 2;   // bf16 per [n] row of the shared tile (33 words)
 
 // What a pre-pass writes: the weight scaled (base, nf4: the prefill route) or the bare
-// nibbles nib - 8, unscaled (groupmm / i8mxu: the fold route scales after the product).
-enum DequantMode { DQ_INT4 = 0, DQ_NF4 = 1, DQ_NIBBLES = 2 };
+// nibbles nib - 8, unscaled, as bf16 (groupmm / i8mxu: the fold route scales after the product)
+// or as int8 (pcol: the int8 route's s8 GEMM scales in its epilogue).
+enum DequantMode { DQ_INT4 = 0, DQ_NF4 = 1, DQ_NIBBLES = 2, DQ_NIBBLES_I8 = 3 };
 
-// q4 (half, N), scale4 (2 half / group, N; unread for DQ_NIBBLES) -> wt (N, 2 half). half % 32 == 0,
-// group divides half, N % 8 == 0; block (bx, by) covers columns [64 bx, +64)
+// q4 (half, N), scale4 (2 half / group, N; unread unscaled) -> wt (N, 2 half), bf16 or (DQ_NIBBLES_I8) int8.
+// half % 32 == 0, group divides half, N % 8 == 0; block (bx, by) covers columns [64 bx, +64)
 // and packed rows [64 by, +64).
 template <int MODE>
 __global__ void __launch_bounds__(DQ_THREADS)
 dequant_t_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ scale4, int half, int N, int group,
-                 __nv_bfloat16* __restrict__ wt) {
+                 void* __restrict__ wt) {
     constexpr bool NF4 = MODE == DQ_NF4;
+    constexpr bool UNSCALED = MODE == DQ_NIBBLES || MODE == DQ_NIBBLES_I8;
     __shared__ __align__(16) __nv_bfloat16 t[2][DQ_COLS][DQ_LD];
     __shared__ float cb[16];
     const int tid = threadIdx.x;
@@ -139,7 +146,7 @@ dequant_t_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ scale
             if (p >= half) break;
             const uint32_t q = __ldg(reinterpret_cast<const uint32_t*>(q4 + (size_t)p * N + n));
             float slo[4] = {1.f, 1.f, 1.f, 1.f}, shi[4] = {1.f, 1.f, 1.f, 1.f};
-            if constexpr (MODE != DQ_NIBBLES) {
+            if constexpr (!UNSCALED) {
                 const int hi_row = half / group;  // scale row of K-row half + p is half / group + p / group
                 const float4 sl = __ldg(reinterpret_cast<const float4*>(scale4 + (size_t)(p / group) * N + n));
                 const float4 sh = __ldg(reinterpret_cast<const float4*>(scale4 + (size_t)(hi_row + p / group) * N + n));
@@ -150,7 +157,7 @@ dequant_t_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ scale
             for (int j = 0; j < 4; ++j) {
                 float dlo, dhi;
                 decode_pair<NF4>(q >> (8 * j), cb, dlo, dhi);
-                if constexpr (MODE == DQ_NIBBLES) {  // nib - 8 is exact in bf16
+                if constexpr (UNSCALED) {  // nib - 8 is exact in bf16
                     t[0][4 * tx + j][r] = __float2bfloat16_rn(dlo);
                     t[1][4 * tx + j][r] = __float2bfloat16_rn(dhi);
                 } else {
@@ -161,15 +168,35 @@ dequant_t_kernel(const uint8_t* __restrict__ q4, const float* __restrict__ scale
         }
     }
     __syncthreads();
-    // 2 halves x 64 columns x 8 chunks of 8 K values; a warp writes 4 rows of 128 bytes
+    if constexpr (MODE == DQ_NIBBLES_I8) {
+        // 2 halves x 64 columns x 4 chunks of 16 K values, each read from the bf16 tile (exact integers) and
+        // packed to 16 int8; a warp writes 8 rows of 64 bytes
+        int8_t* w8 = static_cast<int8_t*>(wt);
 #pragma unroll
-    for (int i = 0; i < 2 * DQ_COLS * (DQ_ROWS / 8) / DQ_THREADS; ++i) {
-        const int id = tid + i * DQ_THREADS;
-        const int h = id / (DQ_COLS * 8), nn = (id / 8) % DQ_COLS, c = id % 8;
-        if (n0 + nn >= N || p0 + 8 * c >= half) continue;
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(&t[h][nn][8 * c]);
-        *reinterpret_cast<uint4*>(wt + (size_t)(n0 + nn) * (2 * half) + h * half + p0 + 8 * c) =
-            make_uint4(src[0], src[1], src[2], src[3]);
+        for (int i = 0; i < 2 * DQ_COLS * (DQ_ROWS / 16) / DQ_THREADS; ++i) {
+            const int id = tid + i * DQ_THREADS;
+            const int h = id / (DQ_COLS * 4), nn = (id / 4) % DQ_COLS, c = id % 4;
+            if (n0 + nn >= N || p0 + 16 * c >= half) continue;  // half % 32 == 0: a chunk lies inside or beyond
+            const __nv_bfloat16* src = &t[h][nn][16 * c];
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+                w[j >> 2] |= (uint32_t)((int)__bfloat162float(src[j]) & 0xff) << (8 * (j & 3));
+            *reinterpret_cast<uint4*>(w8 + (size_t)(n0 + nn) * (2 * half) + h * half + p0 + 16 * c) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+        }
+    } else {
+        // 2 halves x 64 columns x 8 chunks of 8 K values; a warp writes 4 rows of 128 bytes
+        __nv_bfloat16* wb = static_cast<__nv_bfloat16*>(wt);
+#pragma unroll
+        for (int i = 0; i < 2 * DQ_COLS * (DQ_ROWS / 8) / DQ_THREADS; ++i) {
+            const int id = tid + i * DQ_THREADS;
+            const int h = id / (DQ_COLS * 8), nn = (id / 8) % DQ_COLS, c = id % 8;
+            if (n0 + nn >= N || p0 + 8 * c >= half) continue;
+            const uint32_t* src = reinterpret_cast<const uint32_t*>(&t[h][nn][8 * c]);
+            *reinterpret_cast<uint4*>(wb + (size_t)(n0 + nn) * (2 * half) + h * half + p0 + 8 * c) =
+                make_uint4(src[0], src[1], src[2], src[3]);
+        }
     }
 }
 
@@ -574,20 +601,21 @@ int fold_launch(const CUtensorMap (&m)[5], const float* xs, void* out, int M, in
 extern "C" {
 
 // The pre-pass. mode 0 (base): bf16(f32(nib - 8) * scale); 1 (nf4): the codebook's value times the scale;
-// 2 (nibbles): bf16(nib - 8), no scale (scale4 unread, may be null). q4 (half, N) uint8, scale4
-// (2 half / group, N) f32, wt (N, 2 half) bf16. half % 32 == 0, group % 16 == 0 dividing half, N % 8 == 0,
-// every pointer 16-byte aligned.
+// 2 (nibbles): bf16(nib - 8), no scale (scale4 unread, may be null); 3 (int8 nibbles): int8(nib - 8), no scale.
+// q4 (half, N) uint8, scale4 (2 half / group, N) f32, wt (N, 2 half) bf16 (int8 in mode 3). half % 32 == 0,
+// group % 16 == 0 dividing half, N % 8 == 0, every pointer 16-byte aligned.
 int dalm_i4_dequant_t(int mode, const void* q4, const float* scale4, int half, int N, int group, void* wt,
                       cudaStream_t stream) {
     const dim3 grid((N + DQ_COLS - 1) / DQ_COLS, (half + DQ_ROWS - 1) / DQ_ROWS);
     const uint8_t* q = static_cast<const uint8_t*>(q4);
-    __nv_bfloat16* w = static_cast<__nv_bfloat16*>(wt);
     if (mode == DQ_NF4)
-        dequant_t_kernel<DQ_NF4><<<grid, DQ_THREADS, 0, stream>>>(q, scale4, half, N, group, w);
+        dequant_t_kernel<DQ_NF4><<<grid, DQ_THREADS, 0, stream>>>(q, scale4, half, N, group, wt);
     else if (mode == DQ_NIBBLES)
-        dequant_t_kernel<DQ_NIBBLES><<<grid, DQ_THREADS, 0, stream>>>(q, scale4, half, N, group, w);
+        dequant_t_kernel<DQ_NIBBLES><<<grid, DQ_THREADS, 0, stream>>>(q, scale4, half, N, group, wt);
+    else if (mode == DQ_NIBBLES_I8)
+        dequant_t_kernel<DQ_NIBBLES_I8><<<grid, DQ_THREADS, 0, stream>>>(q, scale4, half, N, group, wt);
     else if (mode == DQ_INT4)
-        dequant_t_kernel<DQ_INT4><<<grid, DQ_THREADS, 0, stream>>>(q, scale4, half, N, group, w);
+        dequant_t_kernel<DQ_INT4><<<grid, DQ_THREADS, 0, stream>>>(q, scale4, half, N, group, wt);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

@@ -7,14 +7,18 @@
 //   K1  _w8a8_fused_pallas / _w8a8_fused_kernel  -> dalm_i8_act_quant, dalm_i8_transpose, dalm_i8_gemm_fold
 // and carries the int8 x int8 -> int32 products that the TPU version left to
 // the compiler (_i8_dot_last): the dx product of the int8 backward
-// (dalm_i8_gemm_nt) and, after the weight pre-pass, the unfused forward.
+// (dalm_i8_gemm_nt) and, after the weight pre-pass, the unfused forward. Its
+// GEMM also serves K5's per-column instance at prefill
+// (dalm_tpu/kernels/int4_matmul.py:_int4pc_matmul_fwd_pallas, pallas_call at :299):
+// dalm_i8_gemm_scaled, after K2 and csrc/int4_prefill.cu's int8 nibble pre-pass.
 //
 // What bounds them on an H100 SXM (3.35 TB/s, 1,979 TOP/s int8). K2 and K1's
 // two pre-passes move each byte once and do a handful of operations per
 // element: bytes. K2 is one block per row: an absmax pass, then a quantise
 // pass that re-reads the row from L1/L2. The GEMM at the Llama shapes (M =
 // 4608, K and N in the thousands) does thousands of int8 operations per
-// byte: operations, 0.078 ms at 4608 x 4096 x 4096.
+// byte: operations, 0.078 ms at 4608 x 4096 x 4096 (K5 pcol at prefill, M = 8192:
+// 0.139 ms at K = N = 4096, 0.373 ms at 4096 x 11008 and 11008 x 4096).
 //
 // K1 is three launches on one stream (kernels/int8_matmul.py:w8a8_fused):
 //   quantise pre-pass  xq (M, K) int8 and xs (M, K / bk) f32 from x (M, K), one
@@ -32,7 +36,7 @@
 // acc = acc + f32(p) * s with two roundings (__fmul_rn, __fadd_rn) in k-block
 // order: bit-equal to w8a8_fused_ref.
 //
-// The GEMM (one template, two instances): TMA loads 128-deep int8 slices of A
+// The GEMM (one template, three epilogues): TMA loads 128-deep int8 slices of A
 // (M, K) and B (N, K), 128-byte swizzle, into a 4-slot ring of 1024-byte-aligned
 // slots, each gated by a full and an empty mbarrier; one producer thread issues
 // them. Two consumer warpgroups own 64 output rows each and run
@@ -44,14 +48,16 @@
 // products, folds the s32 sums into the f32 ones with the rows' scales, and
 // the next k-block's first wgmma starts from zero (scale-d = 0); the epilogue
 // multiplies by the column's weight scale and casts. The int32 instance
-// (128 x 256 tile) stores the s32 sums over all of K. TMA fills rows beyond M
+// (128 x 256 tile) stores the s32 sums over all of K. The scaled instance (K5
+// pcol: the same tile, s32 sums over all of K, no f32 accumulator) stores
+// bf16((f32(acc) * xs[m]) * wscale[n]), the plain version's two roundings, so it
+// equals _ref_pcol bit for bit (f32(acc) is even exact: |acc| <= K * 127 * 8 stays
+// below 2^24 up to K = 16,513). TMA fills rows beyond M
 // and N and columns beyond K with zeros; the epilogue masks the stores. Tiles
 // are walked in groups of 16 row tiles so that a wave's slices stay in L2.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -232,16 +238,25 @@ __device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
     *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
 }
 
+// What the GEMM's epilogue does with the s32 sums.
+enum Epilogue {
+    EPI_I32 = 0,    // store them (int8_gemm_nt / kn)
+    EPI_FOLD = 1,   // fold each k-block's into f32 with the rows' scales, then the columns' (K1)
+    EPI_SCALE = 2,  // one sum over all of K, times the row's scale, then the column's (K5 pcol)
+};
+
 // tm_a: A (M, K) int8, box 128 x BM; tm_b: B (N, K) int8, box 128 x BN. One block per output tile.
-// OutT int32_t: out (M, N) = A . B^T in int32 (K % 16 == 0; kb_slots, xs and wscale unused).
-// OutT float / bf16 (K1): K % (128 kb_slots) == 0, N % 4 == 0, xs (M, K / (128 kb_slots)) the rows'
-// scales per k-block of kb_slots slots, wscale (N,) the columns' scales.
-template <int BN, typename OutT>
+// EPI_I32, OutT int32_t: out (M, N) = A . B^T in int32 (K % 16 == 0; kb_slots, xs and wscale unused).
+// EPI_FOLD, OutT float / bf16 (K1): K % (128 kb_slots) == 0, N % 4 == 0, xs (M, K / (128 kb_slots)) the
+// rows' scales per k-block of kb_slots slots, wscale (N,) the columns' scales.
+// EPI_SCALE, OutT bf16 (K5 pcol): K % 16 == 0, N % 2 == 0, xs (M,) the rows' scales, wscale (N,) the
+// columns'; kb_slots unused.
+template <int BN, int EPI, typename OutT>
 __global__ void __launch_bounds__(THREADS, 1)
 i8_gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUtensorMap tm_b, int M, int N,
                int K, int kb_slots, const float* __restrict__ xs, const float* __restrict__ wscale,
                OutT* __restrict__ out) {
-    constexpr bool FOLD = !std::is_same_v<OutT, int32_t>;
+    constexpr bool FOLD = EPI == EPI_FOLD;
     using R = Ring<BN>;
     extern __shared__ uint8_t smem_raw[];
     __shared__ __align__(8) uint64_t full[STAGES];
@@ -331,6 +346,11 @@ i8_gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const
         }
     }
 
+    float r_lo = 0.f, r_hi = 0.f;  // EPI_SCALE: the rows' scales
+    if constexpr (EPI == EPI_SCALE) {
+        r_lo = row < M ? __ldg(xs + row) : 0.f;
+        r_hi = row + 8 < M ? __ldg(xs + row + 8) : 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
         const int col = n0 + 8 * i + 2 * (lane % 4);
@@ -342,6 +362,14 @@ i8_gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const
             if (row + 8 < M)
                 store2(out + (size_t)(row + 8) * N + col, __fmul_rn(facc[4 * i + 2], w0),
                        __fmul_rn(facc[4 * i + 3], w1));
+        } else if constexpr (EPI == EPI_SCALE) {  // N % 2 == 0 and col is even: col + 1 < N too
+            const float w0 = __ldg(wscale + col), w1 = __ldg(wscale + col + 1);
+            if (row < M)
+                store2(out + (size_t)row * N + col, __fmul_rn(__fmul_rn((float)acc[4 * i], r_lo), w0),
+                       __fmul_rn(__fmul_rn((float)acc[4 * i + 1], r_lo), w1));
+            if (row + 8 < M)
+                store2(out + (size_t)(row + 8) * N + col, __fmul_rn(__fmul_rn((float)acc[4 * i + 2], r_hi), w0),
+                       __fmul_rn(__fmul_rn((float)acc[4 * i + 3], r_hi), w1));
         } else {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -359,20 +387,24 @@ i8_gemm_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const
     }
 }
 
-template <int BN, typename OutT>
+// The two tensor maps of A (M, K) and B (N, K) at a BN-column tile: 0, or 900 / 1000 + CUresult.
+int gemm_maps(const void* a, const void* b, int M, int N, int K, int bn, CUtensorMap& ta, CUtensorMap& tb) {
+    const int err = make_map(&ta, a, 1, M, K, BM);
+    return err ? err : make_map(&tb, b, 1, N, K, bn);
+}
+
+template <int BN, int EPI, typename OutT>
 int launch_gemm(const void* a, const void* b, int M, int N, int K, int kb_slots, const float* xs,
                 const float* wscale, void* out, cudaStream_t stream) {
     CUtensorMap ta, tb;
-    int err = make_map(&ta, a, 1, M, K, BM);
+    const int err = gemm_maps(a, b, M, N, K, BN, ta, tb);
     if (err) return err;
-    err = make_map(&tb, b, 1, N, K, BN);
-    if (err) return err;
-    const cudaError_t e =
-        cudaFuncSetAttribute(i8_gemm_kernel<BN, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
+    const cudaError_t e = cudaFuncSetAttribute(i8_gemm_kernel<BN, EPI, OutT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
     if (e != cudaSuccess) return (int)e;
     const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-    i8_gemm_kernel<BN, OutT><<<tiles, THREADS, Ring<BN>::SMEM, stream>>>(ta, tb, M, N, K, kb_slots, xs, wscale,
-                                                                         static_cast<OutT*>(out));
+    i8_gemm_kernel<BN, EPI, OutT><<<tiles, THREADS, Ring<BN>::SMEM, stream>>>(ta, tb, M, N, K, kb_slots, xs, wscale,
+                                                                              static_cast<OutT*>(out));
     return (int)cudaGetLastError();
 }
 
@@ -529,13 +561,27 @@ int dalm_i8_transpose(const void* q, int K, int N, void* qt, cudaStream_t stream
 int dalm_i8_gemm_fold(const void* xq, const void* qt, const float* xs, const float* wscale, int M, int N, int K,
                       int bk, int is_bf16, void* out, cudaStream_t stream) {
     if (is_bf16)
-        return launch_gemm<FOLD_BN, __nv_bfloat16>(xq, qt, M, N, K, bk / SLOT_K, xs, wscale, out, stream);
-    return launch_gemm<FOLD_BN, float>(xq, qt, M, N, K, bk / SLOT_K, xs, wscale, out, stream);
+        return launch_gemm<FOLD_BN, EPI_FOLD, __nv_bfloat16>(xq, qt, M, N, K, bk / SLOT_K, xs, wscale, out, stream);
+    return launch_gemm<FOLD_BN, EPI_FOLD, float>(xq, qt, M, N, K, bk / SLOT_K, xs, wscale, out, stream);
 }
 
 // a (M, C) int8 . b (N, C)^T int8 -> (M, N) int32. C % 16 == 0. Returns as dalm_i8_gemm_fold.
 int dalm_i8_gemm_nt(const void* a, const void* b, int M, int C, int N, void* out, cudaStream_t stream) {
-    return launch_gemm<I32_BN, int32_t>(a, b, M, N, C, 0, nullptr, nullptr, out, stream);
+    return launch_gemm<I32_BN, EPI_I32, int32_t>(a, b, M, N, C, 0, nullptr, nullptr, out, stream);
+}
+
+// K5 pcol's GEMM: out (M, N) bf16 = bf16((f32(xq (M, K) . wn (N, K)^T) * xs[m]) * wscale[n]), xq and wn
+// int8, xs (M,) and wscale (N,) f32. K % 16 == 0, N % 2 == 0. Returns as dalm_i8_gemm_fold.
+int dalm_i8_gemm_scaled(const void* xq, const void* wn, const float* xs, const float* wscale, int M, int N, int K,
+                        void* out, cudaStream_t stream) {
+    return launch_gemm<I32_BN, EPI_SCALE, __nv_bfloat16>(xq, wn, M, N, K, 0, xs, wscale, out, stream);
+}
+
+// dalm_i8_gemm_scaled's tensor maps for these operands, encoded and dropped: 0, or what it would return
+// before it launches (900 / 1000 + CUresult), so a caller can refuse its route before the first launch.
+int dalm_i8_gemm_scaled_maps(const void* xq, const void* wn, int M, int N, int K) {
+    CUtensorMap ta, tb;
+    return gemm_maps(xq, wn, M, N, K, I32_BN, ta, tb);
 }
 
 }  // extern "C"

@@ -33,9 +33,9 @@ multiple of 8 (the kernels' column pairs), takes ``x @ dequant(W)`` in
 ``DALM_INT4_VARIANT`` at import, looked up at every call). The JAX package
 runs the kernel only on a TPU and dequantises everywhere else.
 
-On the card ``int4_matmul_fwd`` has three routes (``_route``). ``"fused"``:
+On the card ``int4_matmul_fwd`` has four routes (``_route``). ``"fused"``:
 the one-launch kernel of ``csrc/int4_matmul.cu``, which dequantises inside its
-product loop (decode's few rows, float32 activations, pcol). Bfloat16
+product loop (decode's few rows, float32 activations). Bfloat16
 activations with at least ``M_PREFILL`` rows take ``csrc/int4_prefill.cu``:
 ``"prefill"`` for base and nf4, a pre-pass that writes the weight once as bf16
 ``Wt (N, K)`` into a scratch (``prefill_dequant``) and a wgmma / TMA GEMM
@@ -47,6 +47,11 @@ scales in registers, in group order (``prefill_fold``). i8mxu's operand is
 K2's output written as bf16 (``rowquant(x, dtype=torch.bfloat16)``, exact),
 so its products are exact in f32 and the route equals the plain version bit
 for bit; groupmm's differ from it only in the order of each group's f32 sums.
+``"int8"`` for pcol: K2's ``rowquant`` (int8), the nibble pre-pass writing
+``nib - 8`` as int8 (``prefill_nibbles(q4, torch.int8)``) and the s8 ``wgmma``
+/ TMA GEMM of ``csrc/int8_matmul.cu`` whose epilogue applies the row's and the
+column's scale to one int32 sum over all of K (``int8_gemm_scaled``): the
+plain version's arithmetic, so the route equals it bit for bit.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ import os
 
 import torch
 
-from dalm_tpu_torch.kernels.int8_matmul import _int_dot_ref, launch_rowquant, rowquant, rowquant_ref
+from dalm_tpu_torch.kernels.int8_matmul import (_int_dot_ref, check_scaled_maps, launch_gemm_scaled,
+                                                 launch_rowquant, rowquant, rowquant_ref)
 from dalm_tpu_torch.models.quant import dequantize_tensor_int4, nf4_codebook
 
 VARIANTS = ("base", "groupmm", "decomp", "floorsplit", "i8mxu", "nf4")
@@ -73,20 +79,21 @@ if DEFAULT_VARIANT not in VARIANTS:
 
 TILE_HALF = 32  # packed rows per k-step of the kernel (64 K values: 32 low, 32 high)
 
-ROUTES = ("fused", "prefill", "fold")
+ROUTES = ("fused", "prefill", "fold", "int8")
 # The route of each instance for bfloat16 activations from M_PREFILL rows on: base and nf4 scale the weight before
-# the product, groupmm and i8mxu after it. pcol keeps the fused kernel.
-PREFILL_ROUTE = {"base": "prefill", "nf4": "prefill", "groupmm": "fold", "i8mxu": "fold"}
+# the product, groupmm and i8mxu after it, per group; pcol after one int8 product over all of K.
+PREFILL_ROUTE = {"base": "prefill", "nf4": "prefill", "groupmm": "fold", "i8mxu": "fold", "pcol": "int8"}
 PREFILL_INSTANCES = tuple(PREFILL_ROUTE)
 SCALED_INSTANCES = tuple(i for i, r in PREFILL_ROUTE.items() if r == "prefill")  # prefill_dequant's decodes
 FOLD_INSTANCES = tuple(i for i, r in PREFILL_ROUTE.items() if r == "fold")
 FOLD_GROUPS = (16, 32, 64, 128)  # the fold GEMM's instances (a group of 16 k16 steps is 1, 2, 4 or 8 products)
-_DQ_MODE = {"base": 0, "nf4": 1, "nibbles": 2}  # dalm_i4_dequant_t's modes
-# Rows from which bf16 activations take the prefill route (base / nf4) or the fold route (groupmm / i8mxu): the
-# crossovers with the fused kernel measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's k5 phase, "[k5]
-# crossover"; PERF.md section 6). At (K, N) = (4096, 4096) and (11008, 4096) the prefill route is faster from 192
-# rows on (the fused kernel at 128); the fold route from 192 and from 128 (at 128 and (4096, 4096) within 3% of
-# the fused kernel), so one threshold serves all four. Decode's 32 rows stay below it.
+_DQ_MODE = {"base": 0, "nf4": 1, "nibbles": 2, "nibbles_i8": 3}  # dalm_i4_dequant_t's modes
+# Rows from which bf16 activations take the prefill route (base / nf4), the fold route (groupmm / i8mxu) or the
+# int8 route (pcol): the crossovers with the fused kernel measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's
+# k5 phase, "[k5] crossover"; PERF.md section 6). At (K, N) = (4096, 4096) and (11008, 4096) the prefill route is
+# faster from 192 rows on (the fused kernel at 128); the fold route from 192 and from 128 (at 128 and (4096, 4096)
+# within 3% of the fused kernel); the int8 route from 192 at both (the fused kernel after its K2 at 128), so one
+# threshold serves all five. Decode's 32 rows stay below it.
 M_PREFILL = 192
 
 _lib_handle = None
@@ -245,10 +252,11 @@ def prefill_gemm_ref(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     return (x2.to(torch.bfloat16).float() @ wt.float().T).to(x2.dtype)
 
 
-def prefill_nibbles_ref(q4: torch.Tensor) -> torch.Tensor:
-    """Plain nibble pre-pass: ``Wn (N, K)`` bf16, ``Wn[n][k] = nib(k, n) - 8``, no scale."""
+def prefill_nibbles_ref(q4: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain nibble pre-pass: ``Wn (N, K)`` in ``dtype`` (bfloat16 or int8), ``Wn[n][k] = nib(k, n) - 8``, no
+    scale."""
     lo, hi = _nibbles(q4)
-    return torch.cat([lo - 8, hi - 8], dim=0).to(torch.bfloat16).T.contiguous()
+    return torch.cat([lo - 8, hi - 8], dim=0).to(dtype).T.contiguous()
 
 
 def prefill_fold_ref(a: torch.Tensor, wn: torch.Tensor, scale4: torch.Tensor, xs: torch.Tensor | None = None,
@@ -365,13 +373,18 @@ def launch_dequant(q4: torch.Tensor, scale4: torch.Tensor, group: int, nf4: bool
 
 
 def launch_nibbles(q4: torch.Tensor, wn: torch.Tensor) -> None:
-    """One launch of the pre-pass in its unscaled mode on checked operands: writes ``wn (N, K)`` = nib - 8."""
+    """One launch of the pre-pass in an unscaled mode on checked operands: writes ``wn (N, K)`` = nib - 8 in
+    ``wn``'s type, bfloat16 (counted in ``prefill_nibbles.launches``) or int8 (in ``.int8_launches``)."""
     half, N = q4.shape
-    err = _prefill_lib().dalm_i4_dequant_t(_DQ_MODE["nibbles"], q4.data_ptr(), None, half, N, 16, wn.data_ptr(),
-                                           torch.cuda.current_stream(q4.device).cuda_stream)
+    i8 = wn.dtype == torch.int8
+    err = _prefill_lib().dalm_i4_dequant_t(_DQ_MODE["nibbles_i8" if i8 else "nibbles"], q4.data_ptr(), None, half, N,
+                                           16, wn.data_ptr(), torch.cuda.current_stream(q4.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int4 nibble pre-pass launch failed: CUDA error {err}")
-    prefill_nibbles.launches += 1
+    if i8:
+        prefill_nibbles.int8_launches += 1
+    else:
+        prefill_nibbles.launches += 1
 
 
 def _fold_args(a: torch.Tensor, wn: torch.Tensor, scale4: torch.Tensor) -> tuple:
@@ -439,19 +452,20 @@ def prefill_gemm(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def prefill_nibbles(q4: torch.Tensor) -> torch.Tensor:
-    """The fold route's pre-pass: ``Wn (N, K)`` bf16 = nib - 8 from ``q4 (K/2, N)``, no scale; the kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+def prefill_nibbles(q4: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The unscaled pre-pass: ``Wn (N, K)`` = nib - 8 from ``q4 (K/2, N)``, no scale, in bfloat16 (the fold route)
+    or int8 (the int8 route); the kernel for CUDA tensors, the plain version for CPU tensors."""
     if not q4.is_cuda:
-        return prefill_nibbles_ref(q4)
-    if q4.dtype != torch.uint8 or q4.dim() != 2:
-        raise TypeError(f"prefill_nibbles takes a 2-D uint8 q4, not {q4.dtype} of {q4.dim()} dimensions")
+        return prefill_nibbles_ref(q4, dtype)
+    if q4.dtype != torch.uint8 or q4.dim() != 2 or dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"prefill_nibbles takes a 2-D uint8 q4 and writes bfloat16 or int8, not {q4.dtype} of "
+                        f"{q4.dim()} dimensions into {dtype}")
     half, N = q4.shape
     if half % TILE_HALF or N % 8 or not half or not N:
         raise ValueError(f"prefill_nibbles: needs K/2 a multiple of {TILE_HALF} and N a multiple of 8 "
                          f"(K/2={half}, N={N})")
     _check_cuda(q4.device, "prefill_nibbles", q4=q4)
-    wn = torch.empty((N, 2 * half), dtype=torch.bfloat16, device=q4.device)
+    wn = torch.empty((N, 2 * half), dtype=dtype, device=q4.device)
     launch_nibbles(q4, wn)
     return wn
 
@@ -505,15 +519,35 @@ def fold(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str
     return out
 
 
+def int8_route(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:
+    """The int8 route on bf16 operands ``_check`` passed (pcol): K2's ``rowquant`` (int8), the nibble pre-pass in
+    int8 and the scaled s8 GEMM, on one stream. Every scratch is allocated and the GEMM's tensor maps encoded before
+    the first launch, so a refused map raises before any kernel runs or any count moves; the scratch ``wn`` is
+    freed on return."""
+    M, K = x2.shape
+    N = q4.shape[1]
+    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    xs = torch.empty((M, 1), dtype=torch.float32, device=x2.device)
+    wn = torch.empty((N, K), dtype=torch.int8, device=x2.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
+    check_scaled_maps(xq, wn)
+    launch_rowquant(x2, None, xq, xs)
+    launch_nibbles(q4, wn)
+    launch_gemm_scaled(xq, wn, xs, scale4, out)
+    return out
+
+
 prefill_dequant.launches = dict.fromkeys(SCALED_INSTANCES, 0)
 prefill_gemm.launches = 0
-prefill_nibbles.launches = 0
+prefill_nibbles.launches = 0  # the bfloat16 mode's launches (the fold route)
+prefill_nibbles.int8_launches = 0  # the int8 mode's (the int8 route)
 prefill_fold.launches = dict.fromkeys(FOLD_INSTANCES, 0)
 
 
 def _route(x2: torch.Tensor, instance: str, group: int) -> str:
-    """The route a CUDA call takes: bfloat16 activations of base / nf4 (``"prefill"``) and of groupmm / i8mxu
-    with a group in ``FOLD_GROUPS`` (``"fold"``) with at least ``M_PREFILL`` rows; the rest ``"fused"``."""
+    """The route a CUDA call takes: bfloat16 activations with at least ``M_PREFILL`` rows of base / nf4
+    (``"prefill"``), of groupmm / i8mxu with a group in ``FOLD_GROUPS`` (``"fold"``) and of pcol (``"int8"``); the
+    rest ``"fused"``."""
     route = PREFILL_ROUTE.get(instance)
     if route == "fold" and group not in FOLD_GROUPS:
         return "fused"
@@ -524,8 +558,8 @@ def _route(x2: torch.Tensor, instance: str, group: int) -> str:
 
 def int4_matmul_fwd(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str) -> torch.Tensor:
     """One K5 instance on ``x2 (M, K)``: on CUDA tensors the route ``_route`` picks (the fused kernel, after
-    K2's ``rowquant`` for i8mxu and pcol; the pre-pass and the GEMM; or the fold route), the plain version for
-    CPU tensors."""
+    K2's ``rowquant`` for i8mxu and pcol; the pre-pass and the GEMM; the fold route; or the int8 route), the plain
+    version for CPU tensors."""
     if not x2.is_cuda:
         return int4_matmul_fwd_ref(x2, q4, scale4, instance)
     group = _check(x2, q4, scale4, instance)
@@ -534,6 +568,8 @@ def int4_matmul_fwd(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, in
         out = prefill_gemm(x2, prefill_dequant(q4, scale4, instance == "nf4"))
     elif route == "fold":
         out = fold(x2, q4, scale4, instance)
+    elif route == "int8":
+        out = int8_route(x2, q4, scale4)
     else:
         out = fused(x2, q4, scale4, instance, group)
     int4_matmul_fwd.launches[instance] += 1

@@ -9,7 +9,9 @@ H100 and what the design does about it. On the card K1 is three launches:
 the quantise pre-pass (``quant_prepass``), the weight pre-pass into a
 K-major scratch (``weight_prepass``) and an s8 ``wgmma`` GEMM that folds the
 k-blocks in registers (``fold_gemm``); the int8 products run the same GEMM's
-int32 instance (``int8_gemm_kn`` after the weight pre-pass). Beside every
+int32 instance (``int8_gemm_kn`` after the weight pre-pass), and K5's
+per-column instance at prefill its scaled instance (``int8_gemm_scaled``: one
+int32 sum over all of K, then the row's and the column's scale). Beside every
 kernel stands its plain PyTorch version (``*_ref``), which a wrapper takes
 for CPU tensors only: on a CUDA tensor it launches the kernel or raises.
 
@@ -54,8 +56,10 @@ def _lib():
         lib.dalm_i8_transpose.argtypes = [p, i, i, p, p]
         lib.dalm_i8_gemm_fold.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.dalm_i8_gemm_nt.argtypes = [p, p, i, i, i, p, p]
+        lib.dalm_i8_gemm_scaled.argtypes = [p, p, p, p, i, i, i, p, p]
+        lib.dalm_i8_gemm_scaled_maps.argtypes = [p, p, i, i, i]
         for fn in ("dalm_i8_rowquant", "dalm_i8_rowquant_bf16", "dalm_i8_act_quant", "dalm_i8_transpose",
-                   "dalm_i8_gemm_fold", "dalm_i8_gemm_nt"):
+                   "dalm_i8_gemm_fold", "dalm_i8_gemm_nt", "dalm_i8_gemm_scaled", "dalm_i8_gemm_scaled_maps"):
             getattr(lib, fn).restype = i
         _lib_handle = lib
     return _lib_handle
@@ -227,6 +231,53 @@ def int8_gemm_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 int8_gemm_kn.launches = 0
 int8_gemm_nt.launches = 0
+
+
+def int8_gemm_scaled_ref(xq: torch.Tensor, wn: torch.Tensor, xs: torch.Tensor, wscale: torch.Tensor,
+                         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain scaled GEMM: ``(f32(xq (M, K) . wn (N, K)^T) * xs (M, 1)) * wscale (N)``, each product rounded in
+    f32, cast to ``dtype`` (the kernel writes bfloat16): K5 pcol's arithmetic (``int4_matmul._ref_pcol``)."""
+    return ((_int_dot_ref(xq, wn.T).float() * xs) * wscale.reshape(1, -1)).to(dtype)
+
+
+def check_scaled_maps(xq: torch.Tensor, wn: torch.Tensor) -> None:
+    """Encode the scaled GEMM's tensor maps for these operands and launch nothing: raises where its launch would
+    be refused, so a route can refuse before its first kernel runs."""
+    M, K = xq.shape
+    err = _lib().dalm_i8_gemm_scaled_maps(xq.data_ptr(), wn.data_ptr(), M, wn.shape[0], K)
+    if err != 0:  # >= 900: the tensor-map encoder is missing (900) or refused a map (1000 + CUresult)
+        raise RuntimeError(f"int8 scaled GEMM: its tensor maps were refused: error {err}")
+
+
+def launch_gemm_scaled(xq: torch.Tensor, wn: torch.Tensor, xs: torch.Tensor, wscale: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    """One launch of the scaled GEMM on checked operands into ``out (M, N)`` bfloat16."""
+    M, K = xq.shape
+    _launched(_lib().dalm_i8_gemm_scaled(xq.data_ptr(), wn.data_ptr(), xs.data_ptr(), wscale.data_ptr(), M,
+                                         wn.shape[0], K, out.data_ptr(), _stream(xq)), "int8 scaled GEMM")
+    int8_gemm_scaled.launches += 1
+
+
+def int8_gemm_scaled(xq: torch.Tensor, wn: torch.Tensor, xs: torch.Tensor, wscale: torch.Tensor) -> torch.Tensor:
+    """``bf16((f32(xq (M, K) . wn (N, K)^T) * xs (M, 1)) * wscale (N))``, int8 operands, f32 scales: the GEMM's
+    scaled instance (K a multiple of 16, N of 2) for CUDA tensors, the plain version for CPU tensors."""
+    if not xq.is_cuda:
+        return int8_gemm_scaled_ref(xq, wn, xs, wscale)
+    _check_gemm("int8_gemm_scaled", xq, wn, 1)
+    if xs.dtype != torch.float32 or wscale.dtype != torch.float32:
+        raise TypeError(f"int8_gemm_scaled takes float32 scales, not {xs.dtype} / {wscale.dtype}")
+    M, N = xq.shape[0], wn.shape[0]
+    if tuple(xs.shape) != (M, 1) or wscale.numel() != N or N % 2:
+        raise ValueError(f"int8_gemm_scaled: xs must be ({M}, 1) and wscale hold N={N} values, N a multiple of 2; "
+                         f"not {tuple(xs.shape)}, {tuple(wscale.shape)}")
+    _check_cuda("int8_gemm_scaled", xq=xq, wn=wn, xs=xs, wscale=wscale)
+    check_scaled_maps(xq, wn)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
+    launch_gemm_scaled(xq, wn, xs, wscale, out)
+    return out
+
+
+int8_gemm_scaled.launches = 0
 
 
 # --------------------------------------------------------------------------

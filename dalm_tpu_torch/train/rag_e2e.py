@@ -16,16 +16,20 @@ Differences from the reference that a caller sees:
   tests); ``local_negatives`` is therefore inert;
 - datasets are CSV / JSON / JSON-lines files or columns (``data/loading.py``);
 - checkpoints and artifacts are ``torch.save`` files;
-- ``a8_calibrate_every`` defaults to 0 (dynamic per-row activation quant):
-  the calibrated scales are not ported yet;
+- calibrated activation scales are not ported yet: ``a8_calibrate_every``
+  keeps the reference's default of 16, and a call that would calibrate with
+  it (a non-zero value, ``lora_runtime="fused"``, ``int8_compute`` not
+  "none", a quantised sub-model with LoRA) raises; pass 0 for the dynamic
+  per-row activation quant that the port runs. Elsewhere the value is inert,
+  as in the reference;
 - ``setup_hook``, called with the :class:`E2ESetup` after the models, the
   optimiser and the data are ready and before the first step, lets a caller
   set initial weights or factors.
 
 Knobs of paths that are not ported yet raise ``NotImplementedError`` naming
 the knob: ``lora_runtime="merge"`` (with ``use_peft``), ``live_index``,
-``live_negatives_k``, ``marginalize_k``, ``a8_calibrate_every > 0``,
-``a8_dy_calibrate``, ``export_peft``, ``mesh``, ``model_parallel > 1``,
+``live_negatives_k``, ``marginalize_k``, ``a8_calibrate_every`` (where the
+reference would calibrate), ``a8_dy_calibrate``, ``export_peft``, ``mesh``, ``model_parallel > 1``,
 ``retriever_is_autoregressive``, ``profile_dir``, ``use_dropout``.
 """
 
@@ -137,7 +141,7 @@ def train_e2e(
     contrastive_weight: float = 1.0,
     lora_runtime: str = "merge",  # "fused" is the ported runtime; "merge" raises with use_peft
     int8_compute: str = "none",  # "fwd" | "all": int8 kernels for the int8 frozen bases
-    a8_calibrate_every: int = 0,
+    a8_calibrate_every: int = 16,
     a8_dy_calibrate: bool = False,
     export_peft: bool = False,
     profile_dir: Optional[str] = None,
@@ -154,9 +158,8 @@ def train_e2e(
 
     for name, value, inert in (
         ("live_index", live_index, False), ("live_negatives_k", live_negatives_k, 0),
-        ("marginalize_k", marginalize_k, 0), ("a8_calibrate_every", a8_calibrate_every, 0),
-        ("a8_dy_calibrate", a8_dy_calibrate, False), ("export_peft", export_peft, False),
-        ("mesh", mesh, None), ("model_parallel", model_parallel, 1),
+        ("marginalize_k", marginalize_k, 0), ("a8_dy_calibrate", a8_dy_calibrate, False),
+        ("export_peft", export_peft, False), ("mesh", mesh, None), ("model_parallel", model_parallel, 1),
         ("retriever_is_autoregressive", retriever_is_autoregressive, False),
         ("profile_dir", profile_dir, None), ("use_dropout", use_dropout, False),
     ):
@@ -168,6 +171,13 @@ def train_e2e(
         raise ValueError(f"marginalize_mode must be 'token' or 'sequence', got {marginalize_mode!r}")
     if int8_compute not in ("none", "fwd", "all"):
         raise ValueError(f"int8_compute must be 'none', 'fwd' or 'all', got {int8_compute!r}")
+    # The reference calibrates the activation scales of every quantised sub-model with LoRA under the fused
+    # runtime and int8 compute (dalm_tpu/train/rag_e2e.py:741-743); elsewhere the value is inert.
+    calibrated = [s for s in SUBS if peft_mode in (Mode.BOTH, Mode(s)) and quant_mode in (Mode.BOTH, Mode(s))]
+    if a8_calibrate_every and lora_runtime == "fused" and int8_compute != "none" and calibrated:
+        raise NotImplementedError(
+            f"a8_calibrate_every={a8_calibrate_every!r} is not ported yet: the reference would calibrate the "
+            f"activation scales of {calibrated}; pass a8_calibrate_every=0 for dynamic per-row activation quant")
 
     dev = resolve_device(device)
     global_batch = per_device_train_batch_size

@@ -957,6 +957,152 @@ def test_fold_wrappers_reject_what_they_do_not_take(cuda):
         im.rowquant(a, dtype=torch.float16)
 
 
+# K5 pcol's int8 route (K2 writing int8, csrc/int4_prefill.cu's int8 nibble pre-pass, csrc/int8_matmul.cu's scaled
+# GEMM): every launch equals its plain version bit for bit (integer sums, then the plain version's two f32 products),
+# and so does the route.
+
+@pytest.mark.parametrize("kn", [(256, 8), (512, 136), (2048, 4096), (11008, 1000)])
+def test_prefill_nibbles_int8_equals_ref_on_card(cuda, kn):
+    """The int8 mode of the unscaled pre-pass against prefill_nibbles_ref(q4, int8): equal, ragged N and K/2."""
+    K, N = kn
+    q4, _ = _k5_weights(np.random.default_rng(16), K, N, "pcol", cuda)
+    before = (k5.prefill_nibbles.launches, k5.prefill_nibbles.int8_launches)
+    wn = k5.prefill_nibbles(q4, torch.int8)
+    torch.cuda.synchronize()
+    assert wn.shape == (N, K) and wn.dtype == torch.int8 and wn.is_contiguous()
+    assert torch.equal(wn, k5.prefill_nibbles_ref(q4, torch.int8))
+    assert torch.equal(wn.to(torch.bfloat16), k5.prefill_nibbles(q4))  # the bf16 mode's values
+    assert (k5.prefill_nibbles.launches, k5.prefill_nibbles.int8_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("mnk", [(64, 128, 64), (1, 8, 16), (129, 266, 192), (300, 136, 1024), (1000, 4096, 512),
+                                 (8192, 4096, 4096), (200, 1000, 11008)])
+def test_int8_gemm_scaled_equals_ref_on_card(cuda, mnk):
+    """The scaled instance of the s8 GEMM against int8_gemm_scaled_ref: equal; ragged M, N (even, no multiple of 8
+    at 266) and K (16, and 192: a multiple of 16, not of the ring's 128-deep slot)."""
+    M, N, K = mnk
+    rng = np.random.default_rng(17)
+    xq = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8)).to(cuda)
+    wn = torch.from_numpy(rng.integers(-8, 8, (N, K)).astype(np.int8)).to(cuda)
+    xs = torch.from_numpy((rng.random((M, 1)) * 0.01 + 1e-4).astype(np.float32)).to(cuda)
+    ws = torch.from_numpy((rng.random((1, N)) * 0.01 + 1e-4).astype(np.float32)).to(cuda)
+    before = im.int8_gemm_scaled.launches
+    y = im.int8_gemm_scaled(xq, wn, xs, ws)
+    torch.cuda.synchronize()
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16
+    assert torch.equal(y, im.int8_gemm_scaled_ref(xq, wn, xs, ws))
+    assert im.int8_gemm_scaled.launches == before + 1
+
+
+@pytest.mark.parametrize("mkn", [(192, 512, 136), (300, 1024, 1000), (1000, 2048, 264), (257, 4096, 1000),
+                                 (1000, 11008, 136), (640, 11008, 1000), (8192, 4096, 136)])
+def test_pcol_int8_route_equals_ref_on_card(cuda, mkn):
+    """int4_matmul_fwd on bf16 rows takes pcol's int8 route from M_PREFILL rows on: equal to its plain version,
+    counted per route and per launch (K2, the int8 pre-pass, the scaled GEMM); the route's kernels called one by
+    one give the same output."""
+    M, K, N = mkn
+    rng = np.random.default_rng(18)
+    q4, scale4 = _k5_weights(rng, K, N, "pcol", cuda)
+    x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, torch.bfloat16)
+    x[0] = 0
+    assert M >= k5.M_PREFILL and k5._route(x, "pcol", K) == "int8"
+
+    def counts():
+        return (dict(k5.int4_matmul_fwd.route_launches), im.rowquant.launches, k5.prefill_nibbles.int8_launches,
+                im.int8_gemm_scaled.launches, k5.prefill_nibbles.launches)
+
+    before = counts()
+    y, ry = k5.int4_matmul_fwd(x, q4, scale4, "pcol"), k5.int4_matmul_fwd_ref(x, q4, scale4, "pcol")
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N) and not y[0].any()
+    assert torch.equal(y, ry)
+    after = counts()
+    assert after[0]["pcol", "int8"] == before[0]["pcol", "int8"] + 1
+    assert sum(after[0].values()) == sum(before[0].values()) + 1
+    assert after[1:] == (before[1] + 1, before[2] + 1, before[3] + 1, before[4])
+    xq, xs = im.rowquant(x)
+    y2 = im.int8_gemm_scaled(xq, k5.prefill_nibbles(q4, torch.int8), xs, scale4)
+    torch.cuda.synchronize()
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("case", ["random", "ones_neg", "ones_pos"])
+def test_pcol_int8_route_exact_at_extremes_on_card(cuda, case):
+    """The route at the extremes of its operands, K = 11008: K2's values all +-127 (rows of +-1) against nibbles of
+    -8 and 7; with rows of ones and every nibble -8 (or 7) nothing cancels and every int32 sum is 11008 * 127 * 8
+    (or * 7). Equal to the plain version bit for bit."""
+    M, K, N = 256, 11008, 264
+    rng = np.random.default_rng(19)
+    if case == "random":
+        bits = rng.choice(np.array([0, 15], dtype=np.uint8), size=(K, N))
+        signs = rng.choice(np.array([-1.0, 1.0], np.float32), size=(M, K))
+    else:
+        bits = np.full((K, N), 0 if case == "ones_neg" else 15, dtype=np.uint8)
+        signs = np.ones((M, K), np.float32)
+    q4 = torch.from_numpy(bits[:K // 2] | (bits[K // 2:] << 4)).to(cuda)
+    scale4 = torch.from_numpy((2.0 ** rng.integers(-8, -4, size=(1, N))).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(signs).to(cuda, torch.bfloat16)
+    xq, _ = im.rowquant(x)
+    assert bool((xq.abs() == 127).all())
+    y, ry = k5.int4_matmul_fwd(x, q4, scale4, "pcol"), k5.int4_matmul_fwd_ref(x, q4, scale4, "pcol")
+    torch.cuda.synchronize()
+    assert torch.equal(y, ry)
+
+
+def test_pcol_int8_route_raises_and_never_falls_back(cuda, monkeypatch):
+    """A refused tensor map raises before the route's first launch: no count moves (route, K2, pre-pass, GEMM). A
+    GEMM launch that fails raises after K2 and the pre-pass have run. Neither the fused kernel nor a plain version
+    is tried."""
+    rng = np.random.default_rng(20)
+    q4, scale4 = _k5_weights(rng, 1024, 256, "pcol", cuda)
+    x = torch.from_numpy(rng.standard_normal((256, 1024)).astype(np.float32)).to(cuda, torch.bfloat16)
+
+    def counts():
+        return (dict(k5.int4_matmul_fwd.route_launches), dict(k5.int4_matmul_fwd.launches), im.rowquant.launches,
+                k5.prefill_nibbles.int8_launches, im.int8_gemm_scaled.launches)
+
+    lib = im._lib()
+    before = counts()
+    monkeypatch.setattr(im, "_lib_handle", _FailingLib(lib, dalm_i8_gemm_scaled_maps=lambda *a: 1001))
+    with pytest.raises(RuntimeError, match="tensor maps were refused"):
+        k5.int4_matmul_fwd(x, q4, scale4, "pcol")
+    xq, xs = im.rowquant_ref(x)
+    with pytest.raises(RuntimeError, match="tensor maps were refused"):
+        im.int8_gemm_scaled(xq, k5.prefill_nibbles_ref(q4, torch.int8), xs, scale4)
+    assert counts() == before
+    monkeypatch.setattr(im, "_lib_handle", _FailingLib(lib, dalm_i8_gemm_scaled=lambda *a: 1))
+    with pytest.raises(RuntimeError, match="scaled GEMM kernel launch failed"):
+        k5.int4_matmul_fwd(x, q4, scale4, "pcol")
+    torch.cuda.synchronize()
+    after = counts()
+    assert after[:2] == before[:2] and after[2:] == (before[2] + 1, before[3] + 1, before[4])
+
+
+def test_scaled_wrappers_reject_what_they_do_not_take(cuda):
+    xq = torch.zeros((8, 128), dtype=torch.int8, device=cuda)
+    wn = torch.zeros((96, 128), dtype=torch.int8, device=cuda)
+    xs = torch.ones((8, 1), device=cuda)
+    ws = torch.ones((1, 96), device=cuda)
+    with pytest.raises(TypeError):
+        k5.prefill_nibbles(torch.zeros((64, 96), dtype=torch.uint8, device=cuda), torch.float16)
+    with pytest.raises(TypeError):
+        im.int8_gemm_scaled(xq.float(), wn, xs, ws)
+    with pytest.raises(TypeError):
+        im.int8_gemm_scaled(xq, wn, xs.double(), ws)
+    with pytest.raises(ValueError, match="contraction"):
+        im.int8_gemm_scaled(xq, wn[:, :64].contiguous(), xs, ws)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        im.int8_gemm_scaled(xq[:, :120].contiguous(), wn[:, :120].contiguous(), xs, ws)
+    with pytest.raises(ValueError, match="xs"):
+        im.int8_gemm_scaled(xq, wn, torch.ones((8,), device=cuda), ws)
+    with pytest.raises(ValueError, match="multiple of 2"):
+        im.int8_gemm_scaled(xq, wn[:95].contiguous(), xs, ws[:, :95].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_gemm_scaled(torch.zeros((128, 8), dtype=torch.int8, device=cuda).T, wn, xs, ws)
+    with pytest.raises(ValueError, match="CUDA"):
+        im.int8_gemm_scaled(xq, wn.cpu(), xs, ws)
+
+
 def test_int4_matmul_ragged_n_on_card(cuda):
     """N = 100 is no multiple of 8: the routing sends it to x @ dequant(W) on the card as on the CPU, within
     K5_TOL of the CPU route (bf16), and K5 is not launched."""

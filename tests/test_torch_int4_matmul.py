@@ -221,8 +221,9 @@ def test_prefill_routing_rule():
     """The card's route by rows, activation type, instance and group; on the CPU every route is the plain version."""
     bf = torch.zeros((k5.M_PREFILL, 64), dtype=torch.bfloat16)
     assert 32 < k5.M_PREFILL <= 8192  # decode's 32 rows stay on the fused kernel, prefill's 8192 do not
-    assert k5.PREFILL_INSTANCES == ("base", "nf4", "groupmm", "i8mxu") and k5.ROUTES == ("fused", "prefill", "fold")
-    want = {"base": "prefill", "nf4": "prefill", "groupmm": "fold", "i8mxu": "fold", "pcol": "fused"}
+    assert k5.PREFILL_INSTANCES == ("base", "nf4", "groupmm", "i8mxu", "pcol")
+    assert k5.ROUTES == ("fused", "prefill", "fold", "int8")
+    want = {"base": "prefill", "nf4": "prefill", "groupmm": "fold", "i8mxu": "fold", "pcol": "int8"}
     for inst in k5.INSTANCES:
         for group in (16, 32, 64, 128):
             assert k5._route(bf, inst, group) == want[inst]
@@ -232,15 +233,16 @@ def test_prefill_routing_rule():
         inst = k5.INSTANCE[variant]
         assert k5._route(bf, inst, 64) == "fold" and k5._route(bf[:32], inst, 64) == "fused"
         assert k5._route(bf, inst, 48) == "fused" and k5._route(bf, inst, 256) == "fused"  # no fold GEMM instance
-    assert k5._route(bf, "base", 48) == "prefill"
+    assert k5._route(bf, "base", 48) == "prefill" and k5._route(bf, "pcol", 256) == "int8"
     assert set(k5.int4_matmul_fwd.route_launches) == {(i, r) for i in k5.INSTANCES for r in k5.ROUTES}
     d = quant.quantize_tensor_int4(torch.from_numpy(_weights(14, 256, 64)))
     x = torch.from_numpy(np.random.default_rng(15).standard_normal((k5.M_PREFILL, 256)).astype(np.float32))
     x = x.to(torch.bfloat16)
+    dp = quant.quantize_tensor_int4pc(torch.from_numpy(_weights(14, 256, 64)))
     before = dict(k5.int4_matmul_fwd.route_launches)
-    for inst in ("base", "groupmm", "i8mxu"):
-        assert torch.equal(k5.int4_matmul_fwd(x, d["q4"], d["scale4"], inst),
-                           k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], inst))
+    for inst, w in (("base", d), ("groupmm", d), ("i8mxu", d), ("pcol", dp)):
+        assert torch.equal(k5.int4_matmul_fwd(x, w["q4"], w["scale4"], inst),
+                           k5.int4_matmul_fwd_ref(x, w["q4"], w["scale4"], inst))
     assert k5.int4_matmul_fwd.route_launches == before
 
 
@@ -257,6 +259,53 @@ def test_prefill_nibbles_ref_equals_jax_dequant_at_unit_scales(group):
     np.testing.assert_array_equal(got.float().numpy(), want)
     before = k5.prefill_nibbles.launches
     assert torch.equal(k5.prefill_nibbles(_t(d["q4"])), got) and k5.prefill_nibbles.launches == before
+
+
+@pytest.mark.parametrize("kn", [(2048, 24), (256, 8), (11008, 16)])
+def test_prefill_nibbles_int8_ref_equals_jax_pcol_nibbles(kn):
+    """The int8 route's plain pre-pass, Wn (N, K) int8 = nib - 8, equals the JAX package's dequantize_tensor_int4 of
+    an int4pc weight with its scales set to 1, transposed: the low nibbles in columns [0, K/2), the high ones in
+    [K/2, K), as the reference pcol kernel pairs them with x's two halves; the CPU wrapper is the plain version and
+    counts no launch."""
+    K, N = kn
+    d = jquant.quantize_tensor_int4pc(jnp.asarray(_weights(21, K, N)))
+    want = np.asarray(jquant.dequantize_tensor_int4({"q4": d["q4"], "scale4": jnp.ones_like(d["scale4"])})).T
+    q4 = _t(d["q4"])
+    got = k5.prefill_nibbles_ref(q4, torch.int8)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (N, K) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int8))
+    half = K // 2
+    assert torch.equal(got[:, :half], ((q4 & 0xF).to(torch.int8) - 8).T)
+    assert torch.equal(got[:, half:], ((q4 >> 4).to(torch.int8) - 8).T)
+    before = (k5.prefill_nibbles.launches, k5.prefill_nibbles.int8_launches)
+    assert torch.equal(k5.prefill_nibbles(q4, torch.int8), got)
+    assert (k5.prefill_nibbles.launches, k5.prefill_nibbles.int8_launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", [(16, 1024, 256), (37, 512, 136), (5, 2048, 264)])
+def test_int8_route_plain_matches_pallas_interpret(mkn, dtype):
+    """pcol's int8 route in its plain versions (K2 writing int8, the nibble pre-pass writing int8, the scaled GEMM)
+    against the reference's pcol Pallas kernel, interpreted: float32 within 1e-5 of the row's largest value,
+    bfloat16 within one bf16 ulp of it (2^-7), as the plain K5 is held; and equal to the port's own plain pcol
+    (``_ref_pcol``) bit for bit. Ragged M and N (136 and 264: no multiple of 128)."""
+    M, K, N = mkn
+    x = (np.random.default_rng(22).standard_normal((M, K)) * 0.5).astype(np.float32)
+    x[0] = 0.0
+    d = jquant.quantize_tensor_int4pc(jnp.asarray(_weights(23, K, N)))
+    want = jk5._int4pc_matmul_fwd_pallas(jnp.asarray(x, getattr(jnp, dtype)), d["q4"], d["scale4"], block_k=256,
+                                          block_n=128, interpret=True)
+    tx, q4, s4 = torch.from_numpy(x).to(getattr(torch, dtype)), _t(d["q4"]), _t(d["scale4"])
+    xq, xs = im.rowquant_ref(tx)
+    got = im.int8_gemm_scaled_ref(xq, k5.prefill_nibbles_ref(q4, torch.int8), xs, s4, dtype=tx.dtype)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (M, N) and not got[0].any()
+    _assert_rows_close(got.float().numpy(), np.asarray(want, np.float32), 1e-5 if dtype == "float32" else 2.0 ** -7)
+    assert torch.equal(got, k5._ref_pcol(tx, q4, s4))
+    if dtype == "bfloat16":  # the CPU wrappers are the plain versions, and count nothing
+        before = (im.rowquant.launches, k5.prefill_nibbles.int8_launches, im.int8_gemm_scaled.launches)
+        xq2, xs2 = im.rowquant(tx)
+        assert torch.equal(im.int8_gemm_scaled(xq2, k5.prefill_nibbles(q4, torch.int8), xs2, s4), got)
+        assert (im.rowquant.launches, k5.prefill_nibbles.int8_launches, im.int8_gemm_scaled.launches) == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -287,6 +287,58 @@ def test_int8_matmul_pads_ragged_widths_like_jax(bwd_int8):
     assert torch.equal(ty, T.int8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(ws), bwd_int8))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mkn", [(5, 48, 12), (33, 256, 136), (8, 1024, 30)])
+def test_int8_gemm_scaled_ref_equals_jax_int8_form(mkn, dtype):
+    """The scaled GEMM's plain version against the JAX package's int8 product (``_i8_dot_last``) and the same two
+    f32 products, row scale then column scale: equal (tolerance 0; the int32 sums are exact, then two roundings in
+    the same order). The CPU wrapper is the plain version and counts no launch."""
+    M, K, N = mkn
+    rng = np.random.default_rng(sum(mkn))
+    xq = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    wn = rng.integers(-8, 8, (N, K)).astype(np.int8)
+    xs = (rng.random((M, 1)) * 0.01 + 1e-4).astype(np.float32)
+    ws = (rng.random((1, N)) * 0.01 + 1e-4).astype(np.float32)
+    jacc = J._i8_dot_last(jnp.asarray(xq), jnp.asarray(np.ascontiguousarray(wn.T)), 0)
+    want = np.asarray(((jacc.astype(jnp.float32) * jnp.asarray(xs)) * jnp.asarray(ws)).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32), np.float32)
+    args = (torch.from_numpy(xq), torch.from_numpy(wn), torch.from_numpy(xs), torch.from_numpy(ws))
+    got = T.int8_gemm_scaled_ref(*args, dtype=dtype)
+    assert got.dtype == dtype and tuple(got.shape) == (M, N)
+    np.testing.assert_array_equal(_np(got), want)
+    before = T.int8_gemm_scaled.launches
+    assert torch.equal(T.int8_gemm_scaled(*args), T.int8_gemm_scaled_ref(*args))
+    assert T.int8_gemm_scaled.launches == before
+
+
+@pytest.mark.parametrize("case", ["random", "extreme_neg", "extreme_pos"])
+def test_int8_gemm_scaled_ref_equals_k5_pcol_plain(case):
+    """K2 -> the int8 nibble pre-pass -> the scaled GEMM, in their plain versions, equal K5's plain pcol
+    (``int4_matmul._ref_pcol``) bit for bit, at K = 11008 (the down-projection): random operands, and the extremes,
+    K2's values all +-127 against nibbles of -8 (or 7) everywhere, signs that do not cancel, so the int32 sums reach
+    11008 * 127 * 8 = 11,184,128."""
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models import quant
+
+    M, K, N = 6, 11008, 24
+    rng = np.random.default_rng(31)
+    if case == "random":
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+        d = quant.quantize_tensor_int4pc(torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32) * 0.02))
+        q4, s4 = d["q4"], d["scale4"]
+    else:
+        x = torch.ones((M, K), dtype=torch.bfloat16)
+        nib = 0 if case == "extreme_neg" else 15
+        q4 = torch.full((K // 2, N), nib | (nib << 4), dtype=torch.uint8)
+        s4 = torch.from_numpy((2.0 ** rng.integers(-8, -4, size=(1, N))).astype(np.float32))
+    xq, xs = T.rowquant_ref(x)
+    got = T.int8_gemm_scaled_ref(xq, k5.prefill_nibbles_ref(q4, torch.int8), xs, s4)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, k5._ref_pcol(x, q4, s4))
+    if case != "random":
+        acc = T._int_dot_ref(xq, k5.prefill_nibbles_ref(q4, torch.int8).T)
+        assert bool((xq == 127).all()) and int(acc.abs().max()) == K * 127 * (8 if case == "extreme_neg" else 7)
+
+
 # K1's route on the card is three launches: the quantise pre-pass, the weight pre-pass and the GEMM with the
 # k-block fold. Their plain versions are checked here: composed, they must be K1.
 

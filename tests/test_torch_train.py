@@ -218,10 +218,13 @@ def test_metrics_logger_and_timers(tmp_path):
     assert t.stop() >= 0 and t.samples_per_sec(4) > 0
 
 
+# The arguments under which the reference calibrates its activation scales (dalm_tpu/train/rag_e2e.py:741-743).
+CALIBRATED = dict(use_peft="both", use_bnb="both", lora_runtime="fused", int8_compute="all")
+
 UNPORTED = [
     ("lora_runtime", dict(use_peft="both", lora_runtime="merge")), ("live_index", dict(live_index=True)),
     ("live_negatives_k", dict(live_negatives_k=4)), ("marginalize_k", dict(marginalize_k=2)),
-    ("a8_calibrate_every", dict(a8_calibrate_every=16)), ("a8_dy_calibrate", dict(a8_dy_calibrate=True)),
+    ("a8_calibrate_every", dict(CALIBRATED, a8_calibrate_every=16)), ("a8_dy_calibrate", dict(a8_dy_calibrate=True)),
     ("export_peft", dict(export_peft=True)), ("mesh", dict(mesh=object())), ("model_parallel", dict(model_parallel=2)),
     ("retriever_is_autoregressive", dict(retriever_is_autoregressive=True)), ("profile_dir", dict(profile_dir="/tmp/p")),
     ("use_dropout", dict(use_dropout=True)),
@@ -232,6 +235,31 @@ UNPORTED = [
 def test_unported_knobs_raise_naming_the_knob(toy_csv, knob, kw):
     with pytest.raises(NotImplementedError, match=knob):
         train_e2e(toy_csv, "tiny", "tiny", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("use_bnb", ["both", "retriever", "generator"])
+def test_a8_calibrate_every_defaults_to_the_references_and_raises_where_it_would_calibrate(toy_csv, use_bnb):
+    """Left out, a8_calibrate_every is the reference's 16: with a quantised sub-model that has LoRA, the fused
+    runtime and int8 compute, the reference calibrates, so the port raises naming the knob."""
+    import inspect
+
+    from dalm_tpu.train.rag_e2e import train_e2e as jax_train_e2e
+
+    assert inspect.signature(train_e2e).parameters["a8_calibrate_every"].default == 16
+    assert inspect.signature(jax_train_e2e).parameters["a8_calibrate_every"].default == 16
+    with pytest.raises(NotImplementedError, match="a8_calibrate_every"):
+        train_e2e(toy_csv, "tiny", "tiny", device="cpu", **dict(CALIBRATED, use_bnb=use_bnb))
+
+
+def test_a8_calibrate_every_left_out_is_inert_without_int8_compute(toy_csv):
+    """With int8_compute="none" the reference does not calibrate: a call that leaves a8_calibrate_every out
+    trains, and exactly as with an explicit 0."""
+    kw = {**SMALL, **CALIBRATED, "int8_compute": "none", "per_device_train_batch_size": 8, "max_train_steps": 1,
+          "seed": 3, "device": "cpu"}
+    left_out = train_e2e(toy_csv, "tiny", "tiny", **kw)
+    zero = train_e2e(toy_csv, "tiny", "tiny", a8_calibrate_every=0, **kw)
+    assert left_out["steps"] == zero["steps"] == 1 and np.isfinite(left_out["final_loss"])
+    assert left_out["final_loss"] == zero["final_loss"]
 
 
 def test_bad_arguments_and_no_card(toy_csv):
@@ -350,7 +378,7 @@ def test_train_e2e_int8_generator_only_launches_nothing_on_cpu(tmp_path, toy_csv
 
     out = train_e2e(toy_csv, "tiny", "tiny", per_device_train_batch_size=8, num_train_epochs=2, device="cpu",
                     use_peft="both", use_bnb="generator", lora_runtime="fused", int8_compute="all",
-                    setup_hook=hook, output_dir=str(tmp_path / "o"), **SMALL)
+                    a8_calibrate_every=0, setup_hook=hook, output_dir=str(tmp_path / "o"), **SMALL)
     assert out["steps"] == 4 and np.isfinite(out["final_loss"]) and out["samples_per_sec"] > 0
     assert seen == {"q": torch.int8, "w": torch.bfloat16, "subs": {"generator"}}
     assert counts == (T.rowquant.launches, T.w8a8_fused.launches, T.int8_gemm_kn.launches, T.int8_gemm_nt.launches)
