@@ -27,7 +27,11 @@ run), ``k3``, ``k2``, ``k1`` (K1, its three launches one by one, and the two
 int8 GEMM entries), ``grad``,
 ``k4`` (flash attention, the forward and the backward each on both routes: the
 wgmma kernels for bf16 at head dim 64 / 128 and the mma.sync kernels for the
-rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances;
+rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances, the
+fused decode kernel held to its plain version, counted once per call and
+repeated bit for bit, and at M = 32 timed by CUDA graph over copies of the
+weight in turns with ``x @ W_bf16``; K2 alone and the wrapper's host time per
+call at decode rows;
 K5's prefill route for base and nf4, its pre-pass and wgmma GEMM, and its fold
 route for groupmm and i8mxu, the nibble pre-pass, K2 writing bf16 and the fold
 GEMM, and its int8 route for pcol, K2, the int8 nibble pre-pass and the scaled
@@ -118,6 +122,36 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, reps: int = 3) -> float:
+    """Device ms per call of short kernels, free of the host's launch time: ``reps`` rounds over ``fns`` (each a
+    call on its own operands; a rotation larger than the 50 MB L2 reads from device memory, as a decode step reads
+    each layer's weights) captured once into a CUDA graph, replayed once to warm, then timed over 5 replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            for f in fns:
+                f()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (5 * reps * len(fns))
 
 
 def compare_topk(s, i, rs, ri, q, rows_f32, scales):
@@ -1614,8 +1648,7 @@ def pcol_timing(k5, im, x, d, w_bf16, out, fused_ms, peaks):
     k1_fold_ms = cuda_ms(lambda: im._launch_fold(xq, xs, wn, ws, other), 10)
     int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wn.T), 10)
     lib_ms = cuda_ms(lambda: x @ w_bf16, 10)
-    fused_k2_ms = cuda_ms(lambda: (im.launch_rowquant(x, None, xq, xs),
-                                   k5.launch("pcol", xq, xs, q4, s4, K, 1, None, other)), 5)
+    fused_k2_ms = cuda_ms(lambda: (im.launch_rowquant(x, None, xq, xs), k5.launch("pcol", xq, xs, q4, s4, K, other)), 5)
 
     def route():
         im.launch_rowquant(x, None, xq, xs)
@@ -1749,7 +1782,6 @@ def k5_prefill_phase(gen, device, peaks):
           "and rows of ones against every nibble -8 or 7, nothing cancelling, at K 11008 and 4096): equal to the plain "
           "version", flush=True)
 
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     crossover = []
     for K, N in ((4096, 4096), (11008, 4096)):
         w = torch.randn((K, N), generator=gen, device=device) * 0.02
@@ -1764,8 +1796,6 @@ def k5_prefill_phase(gen, device, peaks):
             for M in (32, 64, 128, 192, 256, 384, 512, 1024, 2048):
                 x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
                 out = torch.empty((M, N), dtype=torch.bfloat16, device=device)
-                splits = k5._splits(M, N, K // 2, group, inst, sms)
-                ws = torch.empty((splits, M, N), dtype=torch.float32, device=device) if splits > 1 else None
                 xs = torch.empty((M, 1), dtype=torch.float32, device=device)
                 xq8 = torch.empty((M, K), dtype=torch.int8, device=device)
                 xqb = torch.empty((M, K), dtype=torch.bfloat16, device=device)
@@ -1774,7 +1804,7 @@ def k5_prefill_phase(gen, device, peaks):
                 def fused():
                     if i8:
                         im.launch_rowquant(x, None, xq8, xs)
-                    k5.launch(inst, xq8 if i8 else x, xs if i8 else None, q4, s4, group, splits, ws, out)
+                    k5.launch(inst, xq8 if i8 else x, xs if i8 else None, q4, s4, group, out)
 
                 def other():
                     if inst == "base":
@@ -1791,8 +1821,8 @@ def k5_prefill_phase(gen, device, peaks):
                     k5.launch_nibbles(q4, wt)
                     k5.launch_fold(xqb if i8 else x, wt, s4, xs if i8 else None, out)
 
-                row.append({"M": M, "fused_ms": cuda_ms(fused, 20), "route_ms": cuda_ms(other, 20)})
-                del x, out, ws, xs, xq8, xqb
+                row.append({"M": M, "fused_ms": graph_ms([fused], 10), "route_ms": graph_ms([other], 10)})
+                del x, out, xs, xq8, xqb
             route = k5.PREFILL_ROUTE[inst]
             first = next((r["M"] for r in row if r["route_ms"] < r["fused_ms"]), None)
             crossover.append({"instance": inst, "route": route, "K": K, "N": N, "group": group, "rows": row,
@@ -1858,18 +1888,41 @@ def k5_phase(gen, device, peaks):
                 if xf is not None:
                     k5_err(k5.int4_matmul_fwd(xf, q4, s4, inst), k5.int4_matmul_fwd_ref(xf, q4, s4, inst), inst)
                 del y
-                # the kernels alone on operands prepared once (K2's rowquant for i8mxu / pcol outside the timing),
+                # the kernel alone on operands prepared once (K2's rowquant for i8mxu / pcol outside the timing),
                 # then the wrapper as the model calls it (checks, allocation, K2)
                 g_arg = K if inst == "pcol" else group
                 route = k5._route(x, inst, g_arg)
-                splits = k5._splits(M, N, K // 2, g_arg, inst, sms)
+                geo = k5._splits(M, N, K // 2, g_arg, inst, sms)
                 a, xs = k5.rowquant(x) if inst in ("i8mxu", "pcol") else (x, None)
-                o = torch.empty((M, N), dtype=x.dtype, device=device)
-                ws = torch.empty((splits, M, N), dtype=torch.float32, device=device) if splits > 1 else None
-                ms = cuda_ms(lambda: k5.launch(inst, a, xs, q4, s4, g_arg, splits, ws, o), iters)
-                # the fused kernel's own output, also where int4_matmul_fwd took the prefill route above
+                o, o2 = torch.empty((M, N), dtype=x.dtype, device=device), torch.empty((M, N), dtype=x.dtype, device=device)
+                before = k5.fused.launches[inst]
+                k5.launch(inst, a, xs, q4, s4, g_arg, o)
+                check(k5.fused.launches[inst] == before + 1, f"k5 {inst}: the fused kernel's counter did not move by one")
+                k5.launch(inst, a, xs, q4, s4, g_arg, o2)
+                torch.cuda.synchronize()
+                check(torch.equal(o, o2), f"k5 {inst} M={M} K={K} N={N}: two runs of the fused kernel differ")
+                # the fused kernel's own output, also where int4_matmul_fwd took another route above
                 fused_err, fused_share = k5_err(o, ry, inst)
                 del ry
+                wb = w_bf16[fmt]
+                turns = {}
+                if M == 32:
+                    # decode: device time by CUDA graph, each call on its own copy of the weight (together > 2 x
+                    # the L2), the kernel and x @ W_bf16 in turns (kernel, library, library, kernel)
+                    copies = [(q4, s4)] + [(q4.clone(), s4.clone()) for _ in range(max(1, -(-100_000_000 // q4.numel())))]
+                    wbs = [wb] + [wb.clone() for _ in range(max(1, -(-100_000_000 // (2 * wb.numel()))))]
+                    ob = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+                    kfns = [lambda qc=qc, sc=sc: k5.launch(inst, a, xs, qc, sc, g_arg, o) for qc, sc in copies]
+                    lfns = [lambda w=w: torch.matmul(x, w, out=ob) for w in wbs]
+                    turns = {"ms_turns": [graph_ms(kfns)], "library_turns": [graph_ms(lfns)]}
+                    turns["library_turns"].append(graph_ms(lfns))
+                    turns["ms_turns"].append(graph_ms(kfns))
+                    ms = sum(turns["ms_turns"]) / 2
+                    lib_ms = sum(turns["library_turns"]) / 2
+                    del copies, wbs, kfns, lfns, ob
+                else:
+                    ms = cuda_ms(lambda: k5.launch(inst, a, xs, q4, s4, g_arg, o), iters)
+                    lib_ms = cuda_ms(lambda: x @ wb, iters)
                 extra = {}
                 if route != "fused":
                     if route == "prefill":
@@ -1890,8 +1943,6 @@ def k5_phase(gen, device, peaks):
                             mains.setdefault(r["name"], r)
                 wrapper_ms = cuda_ms(lambda: k5.int4_matmul_fwd(x, q4, s4, inst), iters)
                 plain_ms = cuda_ms(lambda: k5.int4_matmul_fwd_ref(x, q4, s4, inst), 2)
-                wb = w_bf16[fmt]
-                lib_ms = cuda_ms(lambda: x @ wb, iters)
                 deq_ms = cuda_ms(lambda: x @ quant.dequantize_tensor_int4(d, torch.bfloat16), max(iters // 5, 2))
                 nbytes = a.numel() * a.element_size() + (M * 4 if xs is not None else 0) + q4.numel() + s4.numel() * 4 + M * N * 2
                 ops = 2.0 * M * K * N
@@ -1901,14 +1952,17 @@ def k5_phase(gen, device, peaks):
                      "max_abs_err": fused_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
                      "library_is": "x @ W_bf16 (torch.matmul on the weight dequantised beforehand: the bf16 tier)",
-                     "dequant_matmul_ms": deq_ms, "wrapper_ms": wrapper_ms, "splits": splits,
-                     "worst_share_of_tolerance": fused_share, "k5_route": route, **extra}
+                     "dequant_matmul_ms": deq_ms, "wrapper_ms": wrapper_ms, "splits": geo.splits,
+                     "worst_share_of_tolerance": fused_share, "k5_route": route, **turns, **extra}
                 show("k5", e)
                 print(f"[k5]   route {route}; through int4_matmul_fwd (checks, allocation{', K2' if xs is not None else ''}): "
-                      f"{wrapper_ms:.4f} ms; K split in {splits}", flush=True)
+                      f"{wrapper_ms:.4f} ms; K split in {geo.splits} (a cluster of {geo.splits}, grid {geo.grid}); "
+                      f"{100 * e['bound_ms'] / ms:.0f}% of the bound, {ms / lib_ms:.2f}x x @ W_bf16's time"
+                      + (f" (device time by CUDA graph over copies of the weight, in turns: kernel {turns['ms_turns']}, "
+                         f"x @ W_bf16 {turns['library_turns']})" if turns else ""), flush=True)
                 entries.append(e)
                 ms_at[inst, K, N, M] = ms
-                del a, xs, o, ws
+                del a, xs, o, o2
                 if (K, N, M) == (4096, 4096, 32):
                     mains[inst] = e
             print(f"[k5]   M={M} K={K} N={N}: x @ dequantize_tensor_int4(...) (dequant + cuBLAS) "
@@ -1916,7 +1970,41 @@ def k5_phase(gen, device, peaks):
             del x, xf
         del fmts, w_bf16
         torch.cuda.empty_cache()
+    decode_host_phase(k5, im, gen, device)
     return entries, mains, ms_at
+
+
+def decode_host_phase(k5, im, gen, device):
+    """What one decode call costs beside the kernel: K2 alone at decode's 32 rows (device time by CUDA graph, K
+    4096 and 11008), and the wrapper's host time per call of int4_matmul_fwd (host clock over 2000 enqueues, base
+    and pcol at (4096, 4096): the checks, the allocation, K2's and the kernel's launches)."""
+    import torch
+
+    from dalm_tpu_torch.models import quant
+
+    k2 = {}
+    for K in (4096, 11008):
+        x = (torch.randn((32, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+        xq = torch.empty((32, K), dtype=torch.int8, device=device)
+        xs = torch.empty((32, 1), dtype=torch.float32, device=device)
+        k2[K] = graph_ms([lambda: im.launch_rowquant(x, None, xq, xs)], 20)
+    w = torch.randn((4096, 4096), generator=gen, device=device) * 0.02
+    x = (torch.randn((32, 4096), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+    host = {}
+    for inst, d in (("base", quant.quantize_tensor_int4(w)), ("pcol", quant.quantize_tensor_int4pc(w))):
+        for _ in range(20):
+            k5.int4_matmul_fwd(x, d["q4"], d["scale4"], inst)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            k5.int4_matmul_fwd(x, d["q4"], d["scale4"], inst)
+        host[inst] = (time.perf_counter() - t0) / 2000 * 1e3
+        torch.cuda.synchronize()
+    print(f"[k5] decode beside the kernel: K2 alone at M=32 {k2[4096]:.4f} ms (K 4096), {k2[11008]:.4f} ms (K 11008) "
+          f"device time; int4_matmul_fwd's host time per call at M=32 (4096, 4096), host clock over 2000 enqueues: "
+          f"base {host['base']:.4f} ms, pcol {host['pcol']:.4f} ms (with K2's launch)", flush=True)
+    print(json.dumps({"k5_decode_host": {"k2_ms": k2, "host_ms_per_call": host}}), flush=True)
+    return k2, host
 
 
 def forced_logits(decoder, ids, mask, forced):
@@ -2120,6 +2208,7 @@ def serve_q_phase(device, rng, base_pipe):
     def counted_answer(q):
         k5.int4_matmul_fwd.launches = dict.fromkeys(k5.INSTANCES, 0)
         k5.int4_matmul_fwd.route_launches = dict.fromkeys(k5.int4_matmul_fwd.route_launches, 0)
+        k5.fused.launches = dict.fromkeys(k5.INSTANCES, 0)
         k5.prefill_dequant.launches = dict.fromkeys(k5.SCALED_INSTANCES, 0)
         k5.prefill_gemm.launches = 0
         k5.prefill_nibbles.launches = 0
@@ -2148,6 +2237,9 @@ def serve_q_phase(device, rng, base_pipe):
         got = {r: routes[inst, r] for r in k5.ROUTES}
         expect = dict(dict.fromkeys(k5.ROUTES, 0), fused=want - pre, **({route: pre} if route else {}))
         check(got == expect and sum(routes.values()) == want, f"serve-q {label}: K5 routes {got}, want {expect}")
+        kernel = {i: got["fused"] if i == inst else 0 for i in k5.INSTANCES}
+        check(k5.fused.launches == kernel, f"serve-q {label}: the fused kernel launched {k5.fused.launches} times, "
+                                           f"want one launch per fused call, {kernel}")
         scaled, folded = (pre if route == "prefill" else 0), (pre if route == "fold" else 0)
         dq, fold = k5.prefill_dequant.launches, k5.prefill_fold.launches
         check(dq == {i: scaled if i == inst else 0 for i in k5.SCALED_INSTANCES} and k5.prefill_gemm.launches == scaled,
@@ -2173,7 +2265,7 @@ def serve_q_phase(device, rng, base_pipe):
     check(counts["base"] == want and sum(counts.values()) == want,
           f"serve-q int4: K5 launches {counts}, {layers} layers x 64 forwards predict {want} base")
     routes = check_routes("base", "int4")
-    launches["base"] = routes["fused"]  # the fused kernel's own launches; the prefill route's are the new kernels
+    launches["base"] = k5.fused.launches["base"]  # the fused kernel's own count; the prefill route's kernels count apart
     launches["k5_prefill_dequant[base]"] = k5.prefill_dequant.launches["base"]
     launches["k5_prefill_gemm"] = k5.prefill_gemm.launches
     torch.cuda.synchronize()
@@ -2233,7 +2325,7 @@ def serve_q_phase(device, rng, base_pipe):
         try:
             _, dt, counts, k2 = counted_answer(q)
             routes = check_routes(variant, variant)
-            launches[variant] = routes["fused"]
+            launches[variant] = k5.fused.launches[variant]
             launches.setdefault("k5_prefill_nibbles", k5.prefill_nibbles.launches)
             launches[f"k5_fold_gemm[{variant}]"] = k5.prefill_fold.launches[variant]
             if variant == "i8mxu":
@@ -2284,7 +2376,7 @@ def serve_q_phase(device, rng, base_pipe):
             out.update({f"{fmt}_prefill_s": p_s, f"{fmt}_prefill_fused_s": p_fused_s})
             pre = f"prefill (+ first token) {p_s:.3f} s (every projection on the fused kernel instead: {p_fused_s:.3f} s); "
         err, err_fb = logit_err(q, inst)
-        launches[inst] = routes["fused"]
+        launches[inst] = routes["fused"]  # the fused kernel's own count at the end of the answer() (check_routes)
         out[f"{fmt}_answer_s"] = dt
         print(f"[serve-q] {fmt} + int8 KV cache: built in {build_s:.2f} s; answer() {dt:.3f} s (first, not warmed); "
               f"{pre}K5 {inst} launches {counts[inst]} (by route {routes}), K2 {k2}; logits relative error {err:.4f} "
@@ -2421,7 +2513,15 @@ def main() -> int:
         print(json.dumps({"k4_cases": cases}), flush=True)
         kernels.update(mains)
     if "k5" in phases:
-        cases, mains, _ = k5_phase(gen, device, peaks)
+        cases, mains, k5_ms = k5_phase(gen, device, peaks)
+        # K5 per decode step of Llama-2-7B: 32 layers x (q, k, v, o at (4096, 4096), gate and up at (4096, 11008),
+        # down at (11008, 4096)) + lm_head at (4096, 32000), each at the kernel's own time at M = 32
+        per_step = {inst: 32 * (4 * k5_ms[inst, 4096, 4096, 32] + 2 * k5_ms[inst, 4096, 11008, 32]
+                                + k5_ms[inst, 11008, 4096, 32]) + k5_ms[inst, 4096, 32000, 32]
+                    for inst in ("base", "groupmm", "nf4", "i8mxu", "pcol")}
+        print(f"[serve-q] K5's device time per decode step (225 fused launches: 32 x (4 x (4096, 4096) + 2 x (4096, "
+              f"11008) + (11008, 4096)) + (4096, 32000), each at its [k5] time at M=32), ms by instance: "
+              + ", ".join(f"{i} {v:.3f}" for i, v in per_step.items()), flush=True)
         print(json.dumps({"k5_cases": cases}), flush=True)
         print(json.dumps({"k5_prefill": k5_prefill_phase(gen, device, peaks)}), flush=True)
         for key, e in mains.items():

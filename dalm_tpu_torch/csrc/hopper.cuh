@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks that csrc/int4_prefill.cu, csrc/int8_matmul.cu,
+// Hopper (sm_90a) building blocks that csrc/int4_matmul.cu, csrc/int4_prefill.cu, csrc/int8_matmul.cu,
 // csrc/flash_fwd_wgmma.cu and csrc/flash_bwd_wgmma.cu share: mbarriers, TMA loads of 2-D and 4-D tiles
 // into 128-byte-swizzled shared memory (and of f32 rows without swizzle), wgmma descriptors (K-major and MN-major)
 // and synchronisation, and the host-side tensor-map encoder for strided tensors

@@ -1,490 +1,643 @@
-// K5: int4 weight-dequant matmul of the 4-bit serving tiers, hand-written for
-// Hopper (sm_90a). One template, five instances.
+// K5's fused route: the int4 weight-dequant matmul at decode, hand-written for
+// Hopper (sm_90a). One template, five instances, one launch per call.
 //
 // Replaces dalm_tpu/kernels/int4_matmul.py:
-//   _int4_matmul_fwd_pallas, variants base / floorsplit   -> i4_kernel<LINEAR, BEFORE, false>   (mode 0)
-//   _int4_matmul_fwd_pallas, variants groupmm / decomp    -> i4_kernel<LINEAR, AFTER_GROUP, false> (mode 1)
-//   _int4_matmul_fwd_pallas, variant nf4                  -> i4_kernel<NF4, BEFORE, false>      (mode 2)
-//   _int4_matmul_fwd_pallas, variant i8mxu                -> i4_kernel<LINEAR, AFTER_GROUP, true> (mode 3)
-//   _int4pc_matmul_fwd_pallas (_int4_kernel_pcol)         -> i4_kernel<LINEAR, AT_WRITE, true>  (mode 4)
-// each for float32 and bfloat16 activations / outputs.
+//   _int4_matmul_fwd_pallas, variants base / floorsplit   -> i4_kernel<BASE, T>    (mode 0)
+//   _int4_matmul_fwd_pallas, variants groupmm / decomp    -> i4_kernel<GROUPMM, T> (mode 1)
+//   _int4_matmul_fwd_pallas, variant nf4                  -> i4_kernel<NF4, T>     (mode 2)
+//   _int4_matmul_fwd_pallas, variant i8mxu                -> i4_kernel<I8MXU, T>   (mode 3)
+//   _int4pc_matmul_fwd_pallas (_int4_kernel_pcol)         -> i4_kernel<PCOL, T>    (mode 4)
+// each for float32 and bfloat16 activations / outputs. The wrapper sends here
+// every call of the fused route: decode's few rows, bf16 calls below M_PREFILL
+// rows and f32 calls at any M (kernels/int4_matmul.py:_route).
 //
 // What they compute. y (M, N) = x (M, K) . W with W held as q4 (K/2, N) uint8
 // in the half-split layout (packed row r: K-row r in the low nibble, K-row
 // K/2 + r in the high one) and f32 scales scale4 (K/group, N), or (1, N) per
-// column. The template's three parameters:
-//   Decode   LINEAR: nib - 8;  NF4: the NormalFloat4 codebook, a 16-entry table
-//            copied into shared memory (divergent reads from __constant__ would
-//            serialise);
-//   ScaleAt  BEFORE: w = bf16(f32(decode(nib)) * scale[g]) is formed before the
-//            product (base, nf4); AFTER_GROUP: each group's product
-//            p = x . decode(nib) is folded in as acc += p_lo * s_lo[g] + p_hi *
-//            s_hi[g] after the product (groupmm, i8mxu); AT_WRITE: one int32
-//            sum over all of K, (f32(acc) * xs[row]) * s[col] at the write (pcol);
-//   operand  bf16 x bf16 -> f32 on mma.sync m16n8k16 (x is rounded to bf16 on
-//            its way into shared memory), or int8 x int8 -> int32 on
-//            mma.sync m16n8k16 (.s8): x arrives row-quantised by K2 (xq, xs), and
-//            a 16-deep step never spans two scale groups, whose smallest size
-//            on the Llama shapes is 16 (the down-projection, K/2 = 5504).
-// The arithmetic follows the plain PyTorch versions in kernels/int4_matmul.py:
-// the weight is rounded once, as there; the folds use __fmul_rn / __fadd_rn so
-// that no fused multiply-add changes a rounding; the int8 products are exact.
+// column, with the plain versions' arithmetic (kernels/int4_matmul.py):
+//   base / nf4   w = bf16(f32(decode(nib)) * scale[g]) before the product
+//                (decode: nib - 8, or the NormalFloat4 codebook); bf16 products,
+//                f32 sums;
+//   groupmm      per group p = bf16(x) . (nib - 8) in f32, then acc += p_lo *
+//                s_lo[g] + p_hi * s_hi[g] with __fmul_rn / __fadd_rn, in group
+//                order;
+//   i8mxu        the same fold on exact int8 x int8 -> int32 products of K2's
+//                xq, then acc * xs[row];
+//   pcol         one int32 sum over all of K, then (f32(acc) * xs[row]) * s[col].
+// f32 x is rounded to bf16 on its way into the products.
 //
-// What bounds it on an H100. Decode (M = 32 rows) reads 0.5 byte a weight
-// plus the scales and does 64 operations a weight pair: bound by bytes (9.4 MB
-// = 0.0028 ms at 4096 x 4096). The output tiles alone (N / 128 of them) leave
-// most of the 132 SMs idle there, so the wrapper splits K/2 into slices of
-// whole groups run by separate blocks (gridDim.z), each writing an f32 (int32
-// for pcol) partial that a second kernel sums in slice order: no atomics, the
-// same result every run. Prefill (M = 8192) does 2 M K N operations on the
-// same bytes: bound by operations (0.278 ms at 4096 x 4096 in bf16).
+// What bounds it on an H100. At decode (M = 32) the weight is read once at 0.5
+// byte a weight plus its scales, and each weight pair costs 128 operations on
+// the tensor cores: bound by bytes (10.0 MB = 0.0030 ms at (K, N) = (4096,
+// 4096)). At 3.35 TB/s an SM receives about 13 bytes a cycle, 26 weights, so
+// the decode of a weight must stay within about 4-5 thread-instructions.
+//
+// The design, for those two limits:
+//   - Swapped product (yT = W^T xT). The dequantised weight is the 16-row A
+//     operand of mma.sync, built in registers from the nibbles (it never goes
+//     through shared memory as bf16), and the x rows are the n of the product,
+//     8 at a time: n8 tiles wholly beyond M run no product, so decode's 32
+//     rows fill 4 n8 tiles and nothing idles. A thread's A rows are 4 adjacent
+//     columns, so one 32-bit shared load gives 4 columns of a packed row, 8
+//     weights, and its accumulators are 4 adjacent outputs of an x row.
+//   - A ring of STAGES stages in shared memory, fed by one producer warp and
+//     released by 4 consumer warps through two mbarriers a stage. A stage is
+//     64 packed rows of nibbles (128 columns), the two 64-wide K slices of x
+//     they meet (all 32 rows of the block) and, for the scaled instances, the
+//     group scale rows they touch: 20 KB in bf16. The producer fills it with
+//     five 2-D TMA boxes (128-byte swizzle for the nibbles and bf16 x, 64-byte
+//     for int8 x; the tensor maps are encoded by the host per call), and falls
+//     back to cp.async into the same layout where a q4 row is not 16-byte
+//     aligned (N % 16 != 0) or x is f32. (cp.async throughout, or one bulk copy
+//     a row, moved the bytes 1.5-3x slower on an H100.)
+//   - The decode within the instruction budget: a prmt picks one column's two packed
+//     rows, one lop3 makes bf16 128 + nib of both, one bf16x2 subtraction gives
+//     nib - 8 exactly (groupmm's operand); base multiplies each by its f32
+//     scale and packs to bf16 (about 4 instructions a weight); nf4 reads the
+//     codebook from a 16-entry shared table (conflict-free). The int8
+//     instances transpose 4 x 4 bytes with prmt and map a nibble to the int8
+//     nib - 8 with an add and an xor on 4 bytes at once. A stage's k-steps run
+//     as straight-line code when the stage and the n8 tiles are full.
+//   - Split-K in one launch: the wrapper splits K/2 into 1-8 slices of whole
+//     k-steps (of whole groups for groupmm / i8mxu) when the N/128 x M/32 tiles
+//     alone leave SMs idle. The slices of one output tile form a thread-block
+//     cluster along z; after a cluster barrier each block stores its partial
+//     of every output into the shared memory of the block that owns it (each
+//     owns 1/slices of the tile), and after a second one each owner sums its
+//     share over the slices in slice order, applies the epilogue and writes
+//     out. No scratch, no atomics, no second pass: the same bits every run.
+//     With one slice the outputs leave straight from the registers.
 //
 // How it differs from the TPU kernels. Those carry an f32 accumulator in VMEM
 // across a sequential grid dimension over K and dequantise a (block_k, 512)
-// tile at a time. Here one block owns a 64 x 128 output tile and loops over K/2
-// (or its slice of it) in steps of 32 packed rows itself. A step stages the
-// packed bytes, the 32 low- and 32 high-half columns of x and, for the float
-// instances, the scales in registers one step ahead (the loads of step i + 1
-// fly while step i runs on the tensor cores), then dequantises into shared
-// memory: bf16 W as [k][n] rows read through ldmatrix.trans, int8 W as [n][k]
-// (4 x 4 byte blocks transposed in registers with __byte_perm) read as
-// 32-bit fragments. 8 warps, 2 along M x 4 along N, each 32 x 32; a warp whose
-// rows all lie beyond M skips its products (decode has 32 rows). wgmma, TMA
-// and a deeper pipeline are left for a later change.
+// tile at a time. Here the K loop runs inside each block over its slice, and
+// the slices of a tile meet in a cluster.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "int4_decode.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 64;           // output tile rows
-constexpr int BN = 128;          // output tile columns
-constexpr int BH = 32;           // packed rows per k-step: 32 low-half and 32 high-half K values
-constexpr int THREADS = 256;     // 8 warps: 2 along M x 4 along N, each 32 x 32
-constexpr int LDA = 2 * BH + 8;  // bf16 x tile row: 64 values + 8 pad (144 bytes: ldmatrix without conflicts)
-constexpr int LDB = BN + 8;      // bf16 W tile row [k][n]: 128 + 8 (272 bytes)
-constexpr int LD8 = 2 * BH + 16; // int8 tile rows, [m][k] and [n][k]: 64 bytes + 16 pad (80 bytes)
+constexpr int TN = 128;       // output columns per block: 4 consumer warps x 32
+constexpr int TM = 32;        // x rows per block: 4 n8 tiles of the swapped product
+constexpr int KS = 16;        // packed rows per k-step: one 16-deep product of each half
+constexpr int BP = 64;        // packed rows per ring stage (4 k-steps)
+constexpr int SG = BP / KS;   // scale rows of each half a stage can touch (groups >= 16, stages on k-steps)
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 4;  // consumer warps; warp 4 is the producer
+constexpr int THREADS = 32 * (CONSUMERS + 1);
+constexpr int MAX_SPLITS = 8; // the portable cluster size
 
-enum Decode { LINEAR = 0, NF4 = 1 };
-enum ScaleAt { BEFORE = 0, AFTER_GROUP = 1, AT_WRITE = 2 };
+enum Mode { BASE = 0, GROUPMM = 1, NF4 = 2, I8MXU = 3, PCOL = 4 };
+
+template <int MODE, typename T>
+struct Cfg {
+    static constexpr bool I8 = MODE == I8MXU || MODE == PCOL;
+    static constexpr bool FOLD = MODE == GROUPMM || MODE == I8MXU;
+    static constexpr bool SCALES = MODE != PCOL;  // group scale rows ride in the ring
+    static constexpr bool F32X = !I8 && sizeof(T) == 4;  // f32 x: copied as it is, rounded to bf16 when read
+    using In = typename std::conditional<I8, int8_t, T>::type;
+    using Acc = typename std::conditional<I8, int, float>::type;
+    static constexpr int XE = (int)sizeof(In);
+    // A stage: the nibble tile (64 packed rows of 128 bytes, the TMA's 128-byte swizzle), x (bf16 / int8: one
+    // tile of TM rows x 64 values for each half, 128- / 64-byte swizzle; f32: TM padded rows of both halves) and
+    // the scale rows (SG rows of each half). Every part 1024-byte aligned.
+    static constexpr int NIB = BP * TN;
+    static constexpr int XH = F32X ? 0 : TM * BP * XE;
+    static constexpr int XLD = 2 * BP * 4 + 16;
+    static constexpr int XB = F32X ? (TM * XLD + 1023) / 1024 * 1024 : 2 * XH;
+    static constexpr int SB = SCALES ? 2 * SG * TN * 4 : 0;
+    static constexpr int STAGE = NIB + XB + SB;
+    static constexpr int SMEM = STAGES * STAGE + 1024;  // + slack to align the ring to 1024 bytes
+    static_assert(TM * TN * 4 + MAX_SPLITS * 16 <= STAGES * STAGE, "the slices' partial tiles must fit in the ring");
+};
+
+// Byte offsets in the swizzled tiles: the nibble tile's and bf16 x's rows of 128 bytes (16-byte chunk c of row r
+// at chunk c ^ (r % 8)), int8 x's rows of 64 bytes (chunk c ^ (r / 2 % 4)).
+__device__ __forceinline__ int swz128(int r, int byte) { return r * 128 + ((((byte >> 4) ^ (r & 7))) << 4) + (byte & 15); }
+__device__ __forceinline__ int swz64(int r, int byte) { return r * 64 + ((((byte >> 4) ^ ((r >> 1) & 3))) << 4) + (byte & 15); }
+
+struct Args {
+    CUtensorMap tq, tx, ts; // q4, x and scale4 as TMA sees them (tma only)
+    const void* a;         // x (M, K) of T, or K2's xq (M, K) int8
+    const float* xs;       // K2's row scales (M), int8 instances
+    const uint8_t* q4;     // (K/2, N)
+    const float* scale4;   // (K/group, N), (1, N) for pcol
+    void* out;             // (M, N) of T
+    int M, K, N, group, rows_per_split, tma;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// The barrier's phase counts this arrival once every cp.async the thread started before it has landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
+    asm(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
-    asm volatile(
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[2], uint32_t b0) {
+    asm(
         "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
         : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a0), "r"(a1), "r"(b0));
+        : "r"(a[0]), "r"(a[1]), "r"(b0));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_ptr) {
-    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
+                 : "r"(smem_u32(smem_ptr))
                  : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_ptr) {
-    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_ptr);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr)
-                 : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // a in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void store2(float* o, float a, float b) { *reinterpret_cast<float2*>(o) = make_float2(a, b); }
-__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+// bf16x2 (128 + u) -> u - 8, exact.
+__device__ __forceinline__ uint32_t minus136(uint32_t v) {
+    const uint32_t k = 0x43084308u;  // bf16x2 (136, 136)
+    __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), *reinterpret_cast<const __nv_bfloat162*>(&k));
+    return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// bf16(f32(v) * s) of both halves of a bf16x2 v, the f32 product rounded once to bf16.
+__device__ __forceinline__ uint32_t scale2(uint32_t v, float s) {
+    return pack2(__fmul_rn(__uint_as_float(v << 16), s), __fmul_rn(__uint_as_float(v & 0xFFFF0000u), s));
+}
+
+// int8 nib - 8 of the four low nibbles of v (bytes u: (u + 0x78) ^ 0x80 = u - 8, no carry between bytes).
+__device__ __forceinline__ uint32_t signed_nibbles(uint32_t v) {
+    return ((v & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
 }
 
 // ---------------------------------------------------------------------------
-// Registers that carry one k-step's inputs from global memory to the dequant.
+// The producer warp: stage i holds packed rows [p, p + rows) of the block's
+// slice, the x values they meet and their scale rows.
 // ---------------------------------------------------------------------------
-template <bool I8, typename T>
-struct Stage;
-
-// Float instances: two 8-value chunks of x, two 8-column runs of packed bytes
-// and, for ScaleAt BEFORE, their 8 low-half and 8 high-half scales.
-template <typename T>
-struct Stage<false, T> {
-    uint4 x[2][2];      // [chunk][16-byte part]; a bf16 chunk uses part 0 only
-    uint2 q[2];         // packed bytes of rows r and r + 16
-    float4 s[2][2][2];  // [row][lo, hi][4 columns]
-};
-
-// int8 instances: 16 bytes of xq, a 4 x 4 block of packed bytes.
-template <typename T>
-struct Stage<true, T> {
-    uint4 x;
-    uint32_t q[4];
-};
-
-template <int DEC, int SC, bool I8, typename T>
-struct Tile {
-    // Where each thread's share of the step lies.
-    __device__ static void load(Stage<false, T>& st, const T* __restrict__ x, const uint8_t* __restrict__ q4,
-                                const float* __restrict__ scale4, int M, int K, int N, int group, int row0,
-                                int n0, int p0, int tid) {
-        const int half = K / 2;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int id = tid + i * THREADS;
-            const int row = id >> 3, ch = id & 7;
-            const int h = ch >> 2, c = (ch & 3) * 8;
-            st.x[i][0] = st.x[i][1] = make_uint4(0, 0, 0, 0);
-            if (row0 + row < M) {
-                const T* p = x + (size_t)(row0 + row) * K + h * half + p0 + c;
-                st.x[i][0] = __ldg(reinterpret_cast<const uint4*>(p));
-                if (sizeof(T) == 4) st.x[i][1] = __ldg(reinterpret_cast<const uint4*>(p) + 1);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int id = tid + i * THREADS;
-            const int r = id >> 4, c = (id & 15) * 8;
-            const int n = n0 + c;
-            st.q[i] = make_uint2(0, 0);
-            if (n < N) {
-                const int p = p0 + r;
-                st.q[i] = __ldg(reinterpret_cast<const uint2*>(q4 + (size_t)p * N + n));
-                if (SC == BEFORE) {
-                    const float* slo = scale4 + (size_t)(p / group) * N + n;
-                    const float* shi = scale4 + (size_t)(half / group + p / group) * N + n;
-                    st.s[i][0][0] = __ldg(reinterpret_cast<const float4*>(slo));
-                    st.s[i][0][1] = __ldg(reinterpret_cast<const float4*>(slo) + 1);
-                    st.s[i][1][0] = __ldg(reinterpret_cast<const float4*>(shi));
-                    st.s[i][1][1] = __ldg(reinterpret_cast<const float4*>(shi) + 1);
+template <int MODE, typename T>
+__device__ void produce(const Args& g, char* ring, uint64_t* full, uint64_t* empty, int row0, int n0, int p_begin,
+                        int nst, int lane) {
+    using C = Cfg<MODE, T>;
+    constexpr int XC = BP * C::XE / 16;                 // 16-byte chunks of x per row and half in a full stage
+    const int half = g.K / 2;
+    const int ncols = min(TN, g.N - n0);                // the tile's columns (a multiple of 8)
+    const int xrows = min(TM, g.M - row0);              // the block's x rows
+    const int hrow = C::SCALES ? half / g.group : 0;    // the high half's first scale row
+    const char* xg = static_cast<const char*>(g.a) + (size_t)row0 * g.K * C::XE;
+    const uint8_t* qg = g.q4 + (size_t)p_begin * g.N + n0;
+    for (int i = 0; i < nst; ++i) {
+        const int slot = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[slot], ((i / STAGES) - 1) & 1);
+        char* st = ring + slot * C::STAGE;
+        const int p = p_begin + i * BP;
+        const int rows = min(BP, g.rows_per_split - i * BP);
+        const int g0 = C::SCALES ? p / g.group : 0;
+        if (g.tma) {  // five boxes (three for pcol); rows past the slice are loaded and not read
+            if (lane == 0) {
+                uint64_t* bar = &full[slot];
+                mbar_expect_tx(bar, C::STAGE);
+                tma_load_2d(st, &g.tq, bar, n0, p);
+                tma_load_2d(st + C::NIB, &g.tx, bar, p, row0);
+                tma_load_2d(st + C::NIB + C::XH, &g.tx, bar, half + p, row0);
+                if constexpr (C::SCALES) {
+                    tma_load_2d(st + C::NIB + C::XB, &g.ts, bar, n0, g0);
+                    tma_load_2d(st + C::NIB + C::XB + SG * TN * 4, &g.ts, bar, n0, hrow + g0);
                 }
             }
+            continue;
         }
-    }
-
-    __device__ static void load(Stage<true, T>& st, const int8_t* __restrict__ xq, const uint8_t* __restrict__ q4,
-                                const float* __restrict__, int M, int K, int N, int, int row0, int n0, int p0,
-                                int tid) {
-        const int half = K / 2;
-        {
-            const int row = tid >> 2, part = tid & 3;
-            const int h = part >> 1, c = (part & 1) * 16;
-            st.x = make_uint4(0, 0, 0, 0);
-            if (row0 + row < M)
-                st.x = __ldg(reinterpret_cast<const uint4*>(xq + (size_t)(row0 + row) * K + h * half + p0 + c));
-        }
-        int nq, kq;
-        coords8(tid, nq, kq);
-        const int n = n0 + nq * 4;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            st.q[j] = n < N ? __ldg(reinterpret_cast<const uint32_t*>(q4 + (size_t)(p0 + kq * 4 + j) * N + n)) : 0u;
-    }
-
-    // The thread's 4 x 4 block of packed bytes in the int8 instances: the
-    // column quad nq (of 32) and the row quad kq (of 8).
-    __device__ static void coords8(int tid, int& nq, int& kq) {
-        const int lane = tid & 31, warp = tid >> 5;
-        nq = (warp & 3) * 8 + (lane & 7);
-        kq = (warp >> 2) * 4 + (lane >> 3);
-    }
-
-    // Registers -> shared memory: x as bf16 [m][k]; W as bf16 [k][n].
-    __device__ static void store(const Stage<false, T>& st, __nv_bfloat16* As, __nv_bfloat16* Bs, const float* cb,
-                                 int tid) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int id = tid + i * THREADS;
-            const int row = id >> 3, ch = id & 7;
-            const int h = ch >> 2, c = (ch & 3) * 8;
-            uint4 v;
-            if (sizeof(T) == 2) {
-                v = st.x[i][0];
-            } else {
-                const float* f0 = reinterpret_cast<const float*>(&st.x[i][0]);
-                const float* f1 = reinterpret_cast<const float*>(&st.x[i][1]);
-                v = make_uint4(pack_bf16(f0[0], f0[1]), pack_bf16(f0[2], f0[3]), pack_bf16(f1[0], f1[1]),
-                               pack_bf16(f1[2], f1[3]));
+        // cp.async into the same layout: nibbles in 16-byte chunks (8 where rows are not 16-byte aligned)
+        const uint8_t* qs = qg + (size_t)i * BP * g.N;
+        if (g.N % 16 == 0) {
+            for (int c = lane; c < rows * 8; c += 32) {
+                const int r = c >> 3, b = (c & 7) << 4;
+                if (b < ncols) cp_async16(st + swz128(r, b), qs + (size_t)r * g.N + b);
             }
-            *reinterpret_cast<uint4*>(As + row * LDA + h * BH + c) = v;
+        } else {
+            for (int c = lane; c < rows * 16; c += 32) {
+                const int r = c >> 4, b = (c & 15) << 3;
+                if (b < ncols) cp_async8(st + swz128(r, b), qs + (size_t)r * g.N + b);
+            }
         }
+        // x: the block's rows, k in [p, p + rows) and [half + p, half + p + rows)
+        const int xc = rows * C::XE / 16;
+        for (int c = lane; c < xrows * 2 * XC; c += 32) {
+            const int xr = c / (2 * XC), h = (c / XC) & 1, kc = c % XC;
+            if (kc >= xc) continue;
+            const char* src = xg + ((size_t)xr * g.K + h * half + p) * C::XE + kc * 16;
+            if constexpr (C::F32X) cp_async16(st + C::NIB + xr * C::XLD + h * BP * 4 + kc * 16, src);
+            else if constexpr (C::I8) cp_async16(st + C::NIB + h * C::XH + swz64(xr, kc * 16), src);
+            else cp_async16(st + C::NIB + h * C::XH + swz128(xr, kc * 16), src);
+        }
+        // the scale rows of the groups the stage touches, both halves: 32 chunks of 4 columns a row
+        if constexpr (C::SCALES) {
+            const int ng = (p + rows - 1) / g.group - g0 + 1;
+            for (int c = lane; c < ng * 64; c += 32) {
+                const int j = c >> 6, h = (c >> 5) & 1, cc = (c & 31) << 2;
+                if (cc < ncols)
+                    cp_async16(st + C::NIB + C::XB + ((h * SG + j) * TN + cc) * 4,
+                               g.scale4 + (size_t)(h * hrow + g0 + j) * g.N + n0 + cc);
+            }
+        }
+        cp_async_arrive(&full[slot]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// One k-step of a consumer warp: the 32 columns [32 warp, +32) of the tile,
+// packed rows [kr, kr + 16) of the stage, both halves, n8 tiles [0, nact).
+// A thread (g = lane / 4, t = lane % 4) owns columns 4g .. 4g + 3 of the warp's
+// 32: A tile 0 rows g, g + 8 are columns 4g, 4g + 1, A tile 1 rows g, g + 8 are
+// columns 4g + 2, 4g + 3.
+// ---------------------------------------------------------------------------
+template <int MODE, typename T>
+struct Step {
+    using C = Cfg<MODE, T>;
+
+    // B fragments of both halves: x rows 8 nt .. 8 nt + 7, k [kr, kr + 16) of the low and the high slice.
+    __device__ static void load_b(uint32_t (&b)[2][4][2], const char* xa, int kr, int nact, int lane) {
+        const int g = lane >> 2, t = lane & 3, mi = lane >> 3;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int id = tid + i * THREADS;
-            const int r = id >> 4, c = (id & 15) * 8;
-            const uint8_t* b = reinterpret_cast<const uint8_t*>(&st.q[i]);
-            float lo[8], hi[8];
+        for (int h = 0; h < 2; ++h) {
+            if constexpr (C::I8) {
+                const int row = 8 * mi + (lane & 7);
+                uint32_t r[4];
+                ldmatrix_x4(r, xa + h * C::XH + swz64(row, kr));
 #pragma unroll
-            for (int j = 0; j < 8; ++j) decode_pair<DEC == NF4>(b[j], cb, lo[j], hi[j]);
-            if (SC == BEFORE) {
-                const float* sl = reinterpret_cast<const float*>(&st.s[i][0][0]);
-                const float* sh = reinterpret_cast<const float*>(&st.s[i][1][0]);
+                for (int nt = 0; nt < 4; ++nt) b[h][nt][0] = r[nt];
+            } else if constexpr (!C::F32X) {
 #pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    lo[j] = __fmul_rn(lo[j], sl[j]);
-                    hi[j] = __fmul_rn(hi[j], sh[j]);
+                for (int np = 0; np < 4; np += 2) {
+                    if (np >= nact) continue;
+                    const int row = 8 * (np + (mi >> 1)) + (lane & 7);
+                    uint32_t r[4];
+                    ldmatrix_x4(r, xa + h * C::XH + swz128(row, 2 * kr + 16 * (mi & 1)));
+                    b[h][np][0] = r[0];
+                    b[h][np][1] = r[1];
+                    b[h][np + 1][0] = r[2];
+                    b[h][np + 1][1] = r[3];
                 }
-            }
-            *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-                make_uint4(pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]), pack_bf16(lo[4], lo[5]), pack_bf16(lo[6], lo[7]));
-            *reinterpret_cast<uint4*>(Bs + (BH + r) * LDB + c) =
-                make_uint4(pack_bf16(hi[0], hi[1]), pack_bf16(hi[2], hi[3]), pack_bf16(hi[4], hi[5]), pack_bf16(hi[6], hi[7]));
-        }
-    }
-
-    // Registers -> shared memory: xq as int8 [m][k]; W = nib - 8 as int8 [n][k].
-    __device__ static void store(const Stage<true, T>& st, int8_t* As, int8_t* Bs, const float*, int tid) {
-        {
-            const int row = tid >> 2, part = tid & 3;
-            const int h = part >> 1, c = (part & 1) * 16;
-            *reinterpret_cast<uint4*>(As + row * LD8 + h * BH + c) = st.x;
-        }
-        int nq, kq;
-        coords8(tid, nq, kq);
-        uint32_t lo[4], hi[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            lo[j] = st.q[j] & 0x0F0F0F0Fu;
-            hi[j] = (st.q[j] >> 4) & 0x0F0F0F0Fu;
-        }
-#pragma unroll
-        for (int part = 0; part < 2; ++part) {
-            const uint32_t* v = part ? hi : lo;
-            // rows j = 0..3 hold 4 columns each; transpose to 4 columns of 4 rows
-            const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140), t1 = __byte_perm(v[2], v[3], 0x5140);
-            const uint32_t t2 = __byte_perm(v[0], v[1], 0x7362), t3 = __byte_perm(v[2], v[3], 0x7362);
-            const uint32_t col[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                                     __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-                *reinterpret_cast<uint32_t*>(Bs + (nq * 4 + c) * LD8 + part * BH + kq * 4) = __vsub4(col[c], 0x08080808u);
-        }
-    }
-};
-
-// One 16-deep step of the warp's 32 x 32 tile at tile column koff.
-__device__ __forceinline__ void warp_step(float (&c)[2][4][4], const __nv_bfloat16* As, const __nv_bfloat16* Bs,
-                                          int koff, int wm, int wn, int lane) {
-    const int r8 = lane & 7, hi8 = (lane >> 3) & 1, top = lane >> 4;
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(a[mt], As + (wm * 32 + mt * 16 + r8 + hi8 * 8) * LDA + koff + top * 8);
-#pragma unroll
-    for (int np = 0; np < 4; np += 2) {
-        uint32_t b[4];  // b0, b1 of n-tile np, then of n-tile np + 1
-        ldmatrix_x4_trans(b, Bs + (koff + r8 + hi8 * 8) * LDB + wn * 32 + (np + top) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16(c[mt][np], a[mt], b[0], b[1]);
-            mma_bf16(c[mt][np + 1], a[mt], b[2], b[3]);
-        }
-    }
-}
-
-__device__ __forceinline__ void warp_step(int (&c)[2][4][4], const int8_t* As, const int8_t* Bs, int koff, int wm,
-                                          int wn, int lane) {
-    const int g = lane >> 2, tig = lane & 3;
-    uint32_t a0[2], a1[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-        const int8_t* p = As + (wm * 32 + mt * 16 + g) * LD8 + koff + tig * 4;
-        a0[mt] = *reinterpret_cast<const uint32_t*>(p);
-        a1[mt] = *reinterpret_cast<const uint32_t*>(p + 8 * LD8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(Bs + (wn * 32 + nt * 8 + g) * LD8 + koff + tig * 4);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_s8(c[mt][nt], a0[mt], a1[mt], b0);
-    }
-}
-
-template <typename A>
-__device__ __forceinline__ void zero(A (&c)[2][4][4]) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) c[i][j][e] = 0;
-}
-
-template <bool I8> struct Smem;
-template <> struct Smem<false> { __nv_bfloat16 a[BM * LDA]; __nv_bfloat16 b[2 * BH * LDB]; };
-template <> struct Smem<true> { int8_t a[BM * LD8]; int8_t b[BN * LD8]; };
-
-// The value that leaves the kernel for one accumulator entry (or for one
-// slice-ordered sum of them): the group folds are done; the int8 instances
-// multiply in their activation (and, for pcol, column) scales.
-template <int SC, bool I8>
-__device__ __forceinline__ float finish(float facc, int iacc, const float* __restrict__ xs,
-                                        const float* __restrict__ scale4, int row, int col) {
-    if (SC == AT_WRITE) return __fmul_rn(__fmul_rn((float)iacc, __ldg(xs + row)), __ldg(scale4 + col));
-    if (I8) return __fmul_rn(facc, __ldg(xs + row));
-    return facc;
-}
-
-// a: x (M, K) of type T (float instances) or xq (M, K) int8; xs (M) f32 row
-// scales (int8 instances); block (bx, by, bz) owns output rows [64 bx, +64),
-// columns [128 by, +128) and packed rows [rows_per_split bz, +rows_per_split).
-// With ws == nullptr it writes out (M, N) in T, else its partial into
-// ws[bz] (M, N): f32 accumulators, or the int32 sums' bits for AT_WRITE.
-template <int DEC, int SC, bool I8, typename T>
-__global__ void __launch_bounds__(THREADS)
-i4_kernel(const void* __restrict__ a, const float* __restrict__ xs, const uint8_t* __restrict__ q4,
-          const float* __restrict__ scale4, int M, int K, int N, int group, int rows_per_split,
-          float* __restrict__ ws, T* __restrict__ out) {
-    using Op = typename std::conditional<I8, int8_t, __nv_bfloat16>::type;
-    using Acc = typename std::conditional<I8, int, float>::type;
-    using TileT = Tile<DEC, SC, I8, T>;
-    using In = typename std::conditional<I8, int8_t, T>::type;
-    __shared__ __align__(16) Smem<I8> sm;
-    __shared__ float cb[16];
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, tig = lane & 3;
-    const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-    const int p_begin = blockIdx.z * rows_per_split, p_end = p_begin + rows_per_split;
-    const int half = K / 2;
-    const bool active = row0 + wm * 32 < M;  // warp-uniform
-    if (DEC == NF4 && tid < 16) cb[tid] = kNF4[tid];
-
-    constexpr bool FOLD = SC == AFTER_GROUP;
-    Acc c[2][4][4];   // the products: the accumulator itself, or one group's low-half part
-    Acc ch[2][4][4];  // one group's high-half part (FOLD only)
-    float acc[2][4][4];
-    zero(c);
-    zero(ch);
-    zero(acc);
-
-    const In* x = static_cast<const In*>(a);
-    Stage<I8, T> st;
-    TileT::load(st, x, q4, scale4, M, K, N, group, row0, n0, p_begin, tid);
-    for (int p0 = p_begin; p0 < p_end; p0 += BH) {
-        __syncthreads();
-        TileT::store(st, reinterpret_cast<Op*>(sm.a), reinterpret_cast<Op*>(sm.b), cb, tid);
-        __syncthreads();
-        if (p0 + BH < p_end) TileT::load(st, x, q4, scale4, M, K, N, group, row0, n0, p0 + BH, tid);
-        if (!active) continue;
-#pragma unroll
-        for (int kk = 0; kk < BH / 16; ++kk) {
-            const Op* As = reinterpret_cast<const Op*>(sm.a);
-            const Op* Bs = reinterpret_cast<const Op*>(sm.b);
-            warp_step(c, As, Bs, kk * 16, wm, wn, lane);
-            if (FOLD) warp_step(ch, As, Bs, BH + kk * 16, wm, wn, lane);
-            else warp_step(c, As, Bs, BH + kk * 16, wm, wn, lane);
-            if (FOLD && (p0 + (kk + 1) * 16) % group == 0) {
-                // End of a group: acc += p_lo * s_lo + p_hi * s_hi, two products and
-                // two sums rounded as the plain version rounds them.
-                const int j = (p0 + kk * 16) / group;
+            } else {  // f32 x, rounded to bf16 here
 #pragma unroll
                 for (int nt = 0; nt < 4; ++nt) {
-                    const int col = n0 + wn * 32 + nt * 8 + tig * 2;
-                    float2 sl = make_float2(0.f, 0.f), sh = make_float2(0.f, 0.f);
-                    if (col < N) {
-                        sl = __ldg(reinterpret_cast<const float2*>(scale4 + (size_t)j * N + col));
-                        sh = __ldg(reinterpret_cast<const float2*>(scale4 + (size_t)(half / group + j) * N + col));
-                    }
-#pragma unroll
-                    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            const float s_lo = (e & 1) ? sl.y : sl.x, s_hi = (e & 1) ? sh.y : sh.x;
-                            const float t = __fadd_rn(__fmul_rn((float)c[mt][nt][e], s_lo),
-                                                      __fmul_rn((float)ch[mt][nt][e], s_hi));
-                            acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], t);
-                            c[mt][nt][e] = 0;
-                            ch[mt][nt][e] = 0;
-                        }
+                    if (nt >= nact) continue;
+                    const float* row = reinterpret_cast<const float*>(xa + (8 * nt + g) * C::XLD) + h * BP + kr + 2 * t;
+                    const float2 v0 = *reinterpret_cast<const float2*>(row);
+                    const float2 v1 = *reinterpret_cast<const float2*>(row + 8);
+                    b[h][nt][0] = pack2(v0.x, v0.y);
+                    b[h][nt][1] = pack2(v1.x, v1.y);
                 }
             }
         }
     }
-    if (!active) return;
 
+    // The thread's nibble words: 4 columns at each of its 4 packed rows.
+    __device__ static void load_w(uint32_t (&w)[4], const char* nib, int kr, int warp, int lane) {
+        const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+        for (int q = 0; q < 4; ++q) {
+            const int r = kr + (C::I8 ? 4 * t + q : 2 * t + (q & 1) + 8 * (q >> 1));
+            w[q] = *reinterpret_cast<const uint32_t*>(nib + swz128(r, 32 * warp + 4 * g));
+        }
+    }
+
+    // bf16 A fragments of both halves from the words (rows 2t, 2t + 1, 2t + 8, 2t + 9).
+    __device__ static void make_a(uint32_t (&alo)[2][4], uint32_t (&ahi)[2][4], const uint32_t (&w)[4],
+                                  const float4& slo, const float4& shi, const float* cb) {
+        const float sl[4] = {slo.x, slo.y, slo.z, slo.w}, sh[4] = {shi.x, shi.y, shi.z, shi.w};
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int row = row0 + wm * 32 + mt * 16 + g + h * 8;
-                const int col = n0 + wn * 32 + nt * 8 + tig * 2;
-                if (row >= M || col >= N) continue;  // N % 8 == 0 and col is even: col + 1 < N too
-                float v[2];
+            for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int i = h * 2 + e;
-                    if (ws) {
-                        v[e] = SC == AT_WRITE ? __int_as_float((int)c[mt][nt][i]) : (FOLD ? acc[mt][nt][i] : (float)c[mt][nt][i]);
+                for (int kp = 0; kp < 2; ++kp) {
+                    const int c = 2 * tile + rr, idx = rr + 2 * kp;
+                    const uint32_t w0 = w[2 * kp], w1 = w[2 * kp + 1];
+                    if constexpr (MODE == NF4) {
+                        const int s0 = 8 * c;
+                        alo[tile][idx] = pack2(__fmul_rn(cb[(w0 >> s0) & 15], sl[c]), __fmul_rn(cb[(w1 >> s0) & 15], sl[c]));
+                        ahi[tile][idx] = pack2(__fmul_rn(cb[(w0 >> (s0 + 4)) & 15], sh[c]),
+                                               __fmul_rn(cb[(w1 >> (s0 + 4)) & 15], sh[c]));
                     } else {
-                        const float f = FOLD ? acc[mt][nt][i] : (float)c[mt][nt][i];
-                        v[e] = finish<SC, I8>(f, (int)c[mt][nt][i], xs, scale4, row, col + e);
+                        // [w0.byte c, -, w1.byte c, -]: the column's two packed rows in the two bf16 halves
+                        const uint32_t x = __byte_perm(w0, w1, c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12));
+                        const uint32_t lo = minus136((x & 0x000F000Fu) | 0x43004300u);
+                        const uint32_t hi = minus136(((x >> 4) & 0x000F000Fu) | 0x43004300u);
+                        if constexpr (MODE == BASE) {
+                            alo[tile][idx] = scale2(lo, sl[c]);
+                            ahi[tile][idx] = scale2(hi, sh[c]);
+                        } else {
+                            alo[tile][idx] = lo;
+                            ahi[tile][idx] = hi;
+                        }
                     }
                 }
-                if (ws) store2(ws + ((size_t)blockIdx.z * M + row) * N + col, v[0], v[1]);
-                else store2(out + (size_t)row * N + col, v[0], v[1]);
-            }
-}
-
-// out[m][n] = finish(sum over slices z = 0, 1, ... of ws[z][m][n]), in that order.
-template <int SC, bool I8, typename T>
-__global__ void __launch_bounds__(256)
-i4_reduce_kernel(const float* __restrict__ ws, int splits, int M, int N, const float* __restrict__ xs,
-                 const float* __restrict__ scale4, T* __restrict__ out) {
-    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const size_t total = (size_t)M * N;
-    if (idx >= total) return;
-    float f = ws[idx];
-    int i = __float_as_int(ws[idx]);
-    for (int z = 1; z < splits; ++z) {
-        const float w = ws[(size_t)z * total + idx];
-        if (SC == AT_WRITE) i += __float_as_int(w);
-        else f = __fadd_rn(f, w);
     }
-    const int row = (int)(idx / N), col = (int)(idx % N);
-    const float v = finish<SC, I8>(f, i, xs, scale4, row, col);
-    if (sizeof(T) == 4) reinterpret_cast<float*>(out)[idx] = v;
-    else reinterpret_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(v);
+
+    // int8 A fragments of both halves from the words (rows 4t .. 4t + 3): a 4 x 4 byte transpose gives each
+    // column's 4 packed rows in one register.
+    __device__ static void make_a8(uint32_t (&alo)[2][2], uint32_t (&ahi)[2][2], const uint32_t (&w)[4]) {
+        const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
+        const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
+        const uint32_t col[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632), __byte_perm(t2, t3, 0x5410),
+                                 __byte_perm(t2, t3, 0x7632)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            alo[c >> 1][c & 1] = signed_nibbles(col[c]);
+            ahi[c >> 1][c & 1] = signed_nibbles(col[c] >> 4);
+        }
+    }
+};
+
+// The value that leaves the kernel for one output (the slices' sum): the group folds are done; the int8
+// instances multiply in their activation (and, for pcol, column) scales.
+template <int MODE>
+__device__ __forceinline__ float finish(float f, int i, const float* __restrict__ xs, const float* __restrict__ scale4,
+                                        int row, int col) {
+    if (MODE == PCOL) return __fmul_rn(__fmul_rn((float)i, __ldg(xs + row)), __ldg(scale4 + col));
+    if (MODE == I8MXU) return __fmul_rn(f, __ldg(xs + row));
+    return f;
 }
 
-template <int DEC, int SC, bool I8, typename T>
-int launch(const void* a, const float* xs, const void* q4, const float* scale4, int M, int K, int N, int group,
-           int splits, float* ws, void* out, cudaStream_t stream) {
-    const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
-    i4_kernel<DEC, SC, I8, T><<<grid, THREADS, 0, stream>>>(
-        a, xs, static_cast<const uint8_t*>(q4), scale4, M, K, N, group, (K / 2) / splits,
-        splits > 1 ? ws : nullptr, static_cast<T*>(out));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return (int)err;
-    const size_t total = (size_t)M * N;
-    i4_reduce_kernel<SC, I8, T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        ws, splits, M, N, xs, scale4, static_cast<T*>(out));
-    return (int)cudaGetLastError();
+__device__ __forceinline__ void store4(float* o, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, const float (&v)[4]) {
+    *reinterpret_cast<uint2*>(o) = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+}
+
+// Block (bx, by, bz) owns output columns [128 bx, +128), x rows [32 by, +32) and packed rows
+// [rows_per_split bz, +rows_per_split); the gridDim.z blocks of a tile form one cluster.
+template <int MODE, typename T>
+__global__ void __launch_bounds__(THREADS, 3) i4_kernel(const __grid_constant__ Args g) {
+    using C = Cfg<MODE, T>;
+    using Acc = typename C::Acc;
+    using S = Step<MODE, T>;
+    extern __shared__ char smem_raw[];
+    __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+    __shared__ float cb[16];
+
+    char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int n0 = blockIdx.x * TN, row0 = blockIdx.y * TM;
+    const int p_begin = blockIdx.z * g.rows_per_split;
+    const int nst = (g.rows_per_split + BP - 1) / BP;
+    if (tid < 16) cb[tid] = kNF4[tid];
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], g.tma ? 1 : 32);  // the TMA's one arrival, or every producer lane's cp.async
+            mbar_init(&empty[s], CONSUMERS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    Acc c[2][4][4] = {};   // the products: the sum itself, or one group's low-half part
+    Acc ch[2][4][4] = {};  // one group's high-half part (FOLD)
+    float acc[2][4][4] = {};
+    const int nact = min(4, (g.M - row0 + 7) / 8);  // n8 tiles that hold rows below M
+
+    if (warp == CONSUMERS) {
+        if (g.tma && lane == 0) {
+            tma_prefetch_map(&g.tq);
+            tma_prefetch_map(&g.tx);
+            if (C::SCALES) tma_prefetch_map(&g.ts);
+        }
+        produce<MODE, T>(g, ring, full, empty, row0, n0, p_begin, nst, lane);
+    } else {
+        const int gq = lane >> 2;
+        int gpos = C::SCALES ? p_begin % g.group : 0;  // packed rows into the current group
+        // One stage: its k-steps [0, nks) over the n8 tiles [0, nact); FULL (every k-step, every n8 tile, as at
+        // decode's 32 rows) is straight-line code the compiler can schedule across k-steps.
+        auto run_stage = [&](auto full_tag, const char* st, int nks) {
+            constexpr bool FULL = decltype(full_tag)::value;
+            const char* xa = st + C::NIB;
+            const float* sa = reinterpret_cast<const float*>(st + C::NIB + C::XB) + 32 * warp + 4 * gq;
+            const int na = FULL ? 4 : nact;
+            int gl = 0;  // the stage's scale row of the current group
+#pragma unroll
+            for (int j = 0; j < BP / KS; ++j) {
+                if (!FULL && j >= nks) break;
+                uint32_t w[4], b[2][4][2];
+                S::load_w(w, st, j * KS, warp, lane);
+                S::load_b(b, xa, j * KS, na, lane);
+                float4 slo = make_float4(0.f, 0.f, 0.f, 0.f), shi = slo;
+                if constexpr (C::SCALES) {
+                    slo = *reinterpret_cast<const float4*>(sa + gl * TN);
+                    shi = *reinterpret_cast<const float4*>(sa + (SG + gl) * TN);
+                }
+                if constexpr (C::I8) {
+                    uint32_t alo[2][2], ahi[2][2];
+                    S::make_a8(alo, ahi, w);
+#pragma unroll
+                    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+                        for (int nt = 0; nt < 4; ++nt) {
+                            if (nt >= na) continue;
+                            mma_s8(c[tile][nt], alo[tile], b[0][nt][0]);
+                            if constexpr (C::FOLD) mma_s8(ch[tile][nt], ahi[tile], b[1][nt][0]);
+                            else mma_s8(c[tile][nt], ahi[tile], b[1][nt][0]);
+                        }
+                } else {
+                    uint32_t alo[2][4], ahi[2][4];
+                    S::make_a(alo, ahi, w, slo, shi, cb);
+#pragma unroll
+                    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+                        for (int nt = 0; nt < 4; ++nt) {
+                            if (nt >= na) continue;
+                            mma_bf16(c[tile][nt], alo[tile], b[0][nt][0], b[0][nt][1]);
+                            if constexpr (C::FOLD) mma_bf16(ch[tile][nt], ahi[tile], b[1][nt][0], b[1][nt][1]);
+                            else mma_bf16(c[tile][nt], ahi[tile], b[1][nt][0], b[1][nt][1]);
+                        }
+                }
+                if constexpr (C::SCALES) {
+                    gpos += KS;
+                    const bool end = gpos == g.group;
+                    if constexpr (C::FOLD) {
+                        if (end) {  // end of a group: acc += p_lo * s_lo + p_hi * s_hi, as the plain version
+                            const float sl[4] = {slo.x, slo.y, slo.z, slo.w}, sh[4] = {shi.x, shi.y, shi.z, shi.w};
+#pragma unroll
+                            for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+                                for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                                    for (int e = 0; e < 4; ++e) {
+                                        const int col = 2 * tile + (e >> 1);
+                                        const float u = __fadd_rn(__fmul_rn((float)c[tile][nt][e], sl[col]),
+                                                                  __fmul_rn((float)ch[tile][nt][e], sh[col]));
+                                        acc[tile][nt][e] = __fadd_rn(acc[tile][nt][e], u);
+                                        c[tile][nt][e] = 0;
+                                        ch[tile][nt][e] = 0;
+                                    }
+                        }
+                    }
+                    gl += end;
+                    gpos = end ? 0 : gpos;
+                }
+            }
+        };
+        for (int i = 0; i < nst; ++i) {
+            const int slot = i % STAGES;
+            mbar_wait(&full[slot], (i / STAGES) & 1);
+            const char* st = ring + slot * C::STAGE;
+            const int nks = min(BP, g.rows_per_split - i * BP) / KS;
+            if (nks == BP / KS && nact == 4) run_stage(std::true_type{}, st, nks);
+            else run_stage(std::false_type{}, st, nks);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[slot]);
+        }
+    }
+
+    // The epilogue. The tile's 32 x 32 quads of 4 outputs (x row r, columns 4 c4 .. 4 c4 + 3): quad r * 32 + c4.
+    // A thread holds the quads of x rows 8 nt + 2 t + h at c4 = 8 warp + gq.
+    T* out = static_cast<T*>(g.out);
+    const int splits = (int)cluster.num_blocks();
+    auto quad = [&](int nt, int h, float (&v)[4]) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // column 4 gq + q: tile q / 2, accumulator entry h + 2 (q % 2)
+            const int tile = q >> 1, e = h + 2 * (q & 1);
+            if constexpr (C::FOLD) v[q] = acc[tile][nt][e];
+            else if constexpr (C::I8) v[q] = __int_as_float(c[tile][nt][e]);
+            else v[q] = c[tile][nt][e];
+        }
+    };
+    auto finish4 = [&](const float (&f)[4], const int (&iv)[4], int grow, int gcol) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = finish<MODE>(f[e], iv[e], g.xs, g.scale4, grow, gcol + e);
+        store4(out + (size_t)grow * g.N + gcol, v);
+    };
+    if (splits == 1) {  // one slice: straight from the registers
+        if (warp < CONSUMERS) {
+            const int gq = lane >> 2, t = lane & 3, gcol = n0 + 32 * warp + 4 * gq;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int grow = row0 + 8 * nt + 2 * t + h;
+                    if (nt >= nact || grow >= g.M || gcol >= g.N) continue;
+                    float f[4];
+                    quad(nt, h, f);
+                    const int iv[4] = {__float_as_int(f[0]), __float_as_int(f[1]), __float_as_int(f[2]),
+                                       __float_as_int(f[3])};
+                    finish4(f, iv, grow, gcol);
+                }
+        }
+        return;
+    }
+    // Split K: block `rank` owns quads [rank * per, +per). Once every block of the cluster is done with its ring,
+    // each stores its partial of every quad into the owner's ring ([slice][quad of the share]); after a second
+    // cluster barrier no block touches another's memory, and each owner sums its share over the slices in slice
+    // order.
+    const int rank = (int)cluster.block_rank();
+    const int per = (TM * TN / 4 + splits - 1) / splits;
+    float4* share = reinterpret_cast<float4*>(ring);
+    cluster.sync();
+    if (warp < CONSUMERS) {
+        const int gq = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+            if (nt >= nact) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int qd = (8 * nt + 2 * t + h) * (TN / 4) + 8 * warp + gq, owner = qd / per;
+                float v[4];
+                quad(nt, h, v);
+                *cluster.map_shared_rank(share + rank * per + (qd - owner * per), owner) =
+                    make_float4(v[0], v[1], v[2], v[3]);
+            }
+        }
+    }
+    cluster.sync();
+    for (int j = tid; j < per; j += THREADS) {
+        const int qd = rank * per + j, r = qd / (TN / 4), col = 4 * (qd % (TN / 4));
+        const int grow = row0 + r, gcol = n0 + col;
+        if (qd >= TM * TN / 4 || grow >= g.M || gcol >= g.N) continue;
+        const float4 p0 = share[j];
+        float f[4] = {p0.x, p0.y, p0.z, p0.w};
+        int iv[4] = {__float_as_int(f[0]), __float_as_int(f[1]), __float_as_int(f[2]), __float_as_int(f[3])};
+        for (int sl = 1; sl < splits; ++sl) {
+            const float4 p = share[sl * per + j];
+            const float q[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                f[e] = __fadd_rn(f[e], q[e]);
+                iv[e] += __float_as_int(q[e]);
+            }
+        }
+        finish4(f, iv, grow, gcol);
+    }
+}
+
+template <int MODE, typename T>
+int launch(const Args& args, int splits, cudaStream_t stream) {
+    using C = Cfg<MODE, T>;
+    static bool configured = false;
+    if (!configured) {
+        const cudaError_t e =
+            cudaFuncSetAttribute(i4_kernel<MODE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        if (e != cudaSuccess) return (int)e;
+        configured = true;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((args.N + TN - 1) / TN, (args.M + TM - 1) / TM, splits);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = C::SMEM;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = splits;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, i4_kernel<MODE, T>, args);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// K2's xq (M, K) int8 as boxes of 64 values x TM rows with the 64-byte swizzle.
+int make_map_x8(CUtensorMap* map, const void* base, int rows, int cols) {
+    const EncodeTiled fn = encode_tiled();
+    if (!fn) return ERR_NO_ENCODER;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)cols};
+    const cuuint32_t box[2] = {BP, TM}, step[2] = {1, 1};
+    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, step,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
 template <typename T>
-int dispatch(int mode, const void* a, const float* xs, const void* q4, const float* scale4, int M, int K, int N,
-             int group, int splits, float* ws, void* out, cudaStream_t stream) {
+int dispatch(int mode, const Args& args, int splits, cudaStream_t stream) {
     switch (mode) {
-        case 0: return launch<LINEAR, BEFORE, false, T>(a, xs, q4, scale4, M, K, N, group, splits, ws, out, stream);
-        case 1: return launch<LINEAR, AFTER_GROUP, false, T>(a, xs, q4, scale4, M, K, N, group, splits, ws, out, stream);
-        case 2: return launch<NF4, BEFORE, false, T>(a, xs, q4, scale4, M, K, N, group, splits, ws, out, stream);
-        case 3: return launch<LINEAR, AFTER_GROUP, true, T>(a, xs, q4, scale4, M, K, N, group, splits, ws, out, stream);
-        case 4: return launch<LINEAR, AT_WRITE, true, T>(a, xs, q4, scale4, M, K, N, group, splits, ws, out, stream);
+        case BASE: return launch<BASE, T>(args, splits, stream);
+        case GROUPMM: return launch<GROUPMM, T>(args, splits, stream);
+        case NF4: return launch<NF4, T>(args, splits, stream);
+        case I8MXU: return launch<I8MXU, T>(args, splits, stream);
+        case PCOL: return launch<PCOL, T>(args, splits, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -493,16 +646,45 @@ int dispatch(int mode, const void* a, const float* xs, const void* q4, const flo
 
 extern "C" {
 
-// mode: 0 base, 1 groupmm, 2 nf4, 3 i8mxu, 4 pcol. is_bf16: the output type
-// (and, for modes 0-2, the type of x). a: x (M, K), or xq (M, K) int8 for
-// modes 3-4 with xs (M) f32. q4 (K/2, N) uint8, scale4 (K/group, N) f32
-// ((1, N) for mode 4). K/2 % 32 == 0, group % 16 == 0 dividing K/2 (modes
-// 0-3), N % 8 == 0, (K/2) / splits a multiple of 32 (and of group for modes
-// 1, 3). ws: (splits, M, N) f32 scratch when splits > 1.
+// mode: 0 base, 1 groupmm, 2 nf4, 3 i8mxu, 4 pcol. is_bf16: the output type (and, for modes 0-2, the type of
+// x). a: x (M, K), or xq (M, K) int8 for modes 3-4 with xs (M) f32. q4 (K/2, N) uint8, scale4 (K/group, N) f32
+// ((1, N) for mode 4). K/2 % 16 == 0, group % 16 == 0 dividing K/2 (modes 0-3), N % 8 == 0; splits (1-8) slices
+// of K/2 run as one cluster, each (K/2) / splits packed rows, a multiple of 16 (and of group for modes 1, 3).
+// Every pointer 16-byte aligned. One launch; returns its CUDA error.
 int dalm_i4_matmul(int mode, int is_bf16, const void* a, const float* xs, const void* q4, const float* scale4, int M,
-                   int K, int N, int group, int splits, float* ws, void* out, cudaStream_t stream) {
-    if (is_bf16) return dispatch<__nv_bfloat16>(mode, a, xs, q4, scale4, M, K, N, group, splits, ws, out, stream);
-    return dispatch<float>(mode, a, xs, q4, scale4, M, K, N, group, splits, ws, out, stream);
+                   int K, int N, int group, int splits, void* out, cudaStream_t stream) {
+    const int half = K / 2;
+    if (M < 1 || N < 8 || N % 8 || half < KS || half % KS || splits < 1 || splits > MAX_SPLITS || half % splits)
+        return (int)cudaErrorInvalidValue;
+    const int rows = half / splits;
+    const bool fold = mode == GROUPMM || mode == I8MXU;
+    if (rows % KS || (mode != PCOL && (group < KS || group % KS || half % group)) || (fold && rows % group))
+        return (int)cudaErrorInvalidValue;
+    Args args{};
+    args.a = a;
+    args.xs = xs;
+    args.q4 = static_cast<const uint8_t*>(q4);
+    args.scale4 = scale4;
+    args.out = out;
+    args.M = M;
+    args.K = K;
+    args.N = N;
+    args.group = mode == PCOL ? K : group;
+    args.rows_per_split = rows;
+    // TMA where every row is 16-byte aligned and x needs no rounding on the way; cp.async otherwise
+    args.tma = N % 16 == 0 && (is_bf16 || mode == I8MXU || mode == PCOL);
+    if (args.tma) {
+        int err = make_map(&args.tq, q4, 1, half, N, BP);
+        if (!err) err = mode >= I8MXU ? make_map_x8(&args.tx, a, M, K) : make_map(&args.tx, a, 2, M, K, TM);
+        if (!err && mode != PCOL) {
+            const long long dims[2] = {N, K / group}, strides[1] = {(long long)N * 4};
+            const int box[2] = {TN, SG};
+            err = make_map_nd(&args.ts, scale4, 4, 2, dims, strides, box);
+        }
+        if (err) return err;
+    }
+    if (is_bf16) return dispatch<__nv_bfloat16>(mode, args, splits, stream);
+    return dispatch<float>(mode, args, splits, stream);
 }
 
 }  // extern "C"

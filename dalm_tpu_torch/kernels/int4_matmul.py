@@ -34,8 +34,12 @@ multiple of 8 (the kernels' column pairs), takes ``x @ dequant(W)`` in
 runs the kernel only on a TPU and dequantises everywhere else.
 
 On the card ``int4_matmul_fwd`` has four routes (``_route``). ``"fused"``:
-the one-launch kernel of ``csrc/int4_matmul.cu``, which dequantises inside its
-product loop (decode's few rows, float32 activations). Bfloat16
+the decode kernel of ``csrc/int4_matmul.cu`` (decode's few rows, float32
+activations), one launch a call: it dequantises the nibbles in registers into a
+swapped product (the weight is the 16-row operand, the x rows the narrow one),
+reads them through a TMA ring fed by a producer warp (cp.async where TMA cannot
+take the rows), and sums the slices of a split K in a thread-block cluster
+(``_splits`` picks the geometry). Bfloat16
 activations with at least ``M_PREFILL`` rows take ``csrc/int4_prefill.cu``:
 ``"prefill"`` for base and nf4, a pre-pass that writes the weight once as bf16
 ``Wt (N, K)`` into a scratch (``prefill_dequant``) and a wgmma / TMA GEMM
@@ -59,6 +63,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -77,7 +82,13 @@ DEFAULT_VARIANT = os.environ.get("DALM_INT4_VARIANT", "base")
 if DEFAULT_VARIANT not in VARIANTS:
     raise ValueError(f"DALM_INT4_VARIANT={DEFAULT_VARIANT!r} not in {sorted(VARIANTS)}")
 
-TILE_HALF = 32  # packed rows per k-step of the kernel (64 K values: 32 low, 32 high)
+TILE_HALF = 32  # K/2 must be a multiple of this (the reference's blocks; every route's kernels take it)
+# The fused kernel's geometry (csrc/int4_matmul.cu): a k-step is 16 packed rows (16 K values of each half), a
+# block's output tile TILE_M rows by TILE_N columns, at most MAX_CLUSTER slices of K/2 in one cluster.
+K_STEP = 16
+TILE_M = 32
+TILE_N = 128
+MAX_CLUSTER = 8
 
 ROUTES = ("fused", "prefill", "fold", "int8")
 # The route of each instance for bfloat16 activations from M_PREFILL rows on: base and nf4 scale the weight before
@@ -89,11 +100,11 @@ FOLD_INSTANCES = tuple(i for i, r in PREFILL_ROUTE.items() if r == "fold")
 FOLD_GROUPS = (16, 32, 64, 128)  # the fold GEMM's instances (a group of 16 k16 steps is 1, 2, 4 or 8 products)
 _DQ_MODE = {"base": 0, "nf4": 1, "nibbles": 2, "nibbles_i8": 3}  # dalm_i4_dequant_t's modes
 # Rows from which bf16 activations take the prefill route (base / nf4), the fold route (groupmm / i8mxu) or the
-# int8 route (pcol): the crossovers with the fused kernel measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's
-# k5 phase, "[k5] crossover"; PERF.md section 6). At (K, N) = (4096, 4096) and (11008, 4096) the prefill route is
-# faster from 192 rows on (the fused kernel at 128); the fold route from 192 and from 128 (at 128 and (4096, 4096)
-# within 3% of the fused kernel); the int8 route from 192 at both (the fused kernel after its K2 at 128), so one
-# threshold serves all five. Decode's 32 rows stay below it.
+# int8 route (pcol). Set at 192 from the crossovers with the first, mma.sync fused kernel; re-measured against the
+# rebuilt decode kernel (chip_smoke.py's k5 phase, "[k5] crossover", device time by CUDA graph, H100 80GB HBM3 at
+# 700 W; PERF.md section 7): at (K, N) = (4096, 4096) and (11008, 4096) the prefill route is now faster from 384
+# rows, the fold route from 384-512 and the int8 route from 512-1024. Kept at 192: prefill's 8192 rows and decode's
+# 32 take the same routes either way; between 192 and 512 rows the routes cost up to 1.64x the fused kernel.
 M_PREFILL = 192
 
 _lib_handle = None
@@ -107,7 +118,7 @@ def _lib():
 
         lib = build.load("int4_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dalm_i4_matmul.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p, p]
+        lib.dalm_i4_matmul.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p]
         lib.dalm_i4_matmul.restype = i
         _lib_handle = lib
     return _lib_handle
@@ -319,46 +330,69 @@ def _check(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: s
     return group
 
 
-def _splits(M: int, N: int, half: int, group: int, instance: str, sms: int) -> int:
-    """How many slices of K/2 the launch runs side by side (1 unless the output
-    tiles alone leave the SMs idle, as at decode's M = 32). Where the scales
-    fold per group (groupmm, i8mxu) a slice holds whole groups."""
-    tiles = -(-M // 64) * -(-N // 128)
-    want = -(-2 * sms // tiles)
-    if want <= 1:
-        return 1
-    unit = TILE_HALF
+class Geometry(NamedTuple):
+    """The fused kernel's launch: ``splits`` slices of K/2 of ``slice_rows`` packed rows each, run as one
+    thread-block cluster per output tile, over a grid of (N / TILE_N, M / TILE_M, splits) blocks."""
+    splits: int
+    slice_rows: int
+    grid: tuple
+
+
+def _splits(M: int, N: int, half: int, group: int, instance: str, sms: int) -> Geometry:
+    """The fused kernel's cluster and slice geometry. Each block owns a TILE_M x TILE_N output tile and one slice
+    of K/2; a slice is a whole number of k-steps (of whole groups where the scales fold per group: groupmm,
+    i8mxu), at most MAX_CLUSTER slices (the portable cluster size). Where the tiles alone give every SM a block,
+    one slice; else the fewest slices that give every SM two blocks (``N / TILE_N x M / TILE_M x splits >= 2
+    sms``), or the most if none does. (Chosen by timing every split on an H100 at the Llama-2-7B shapes: fewer,
+    longer blocks wait on their ring's latency; more slices pay for more epilogues.)"""
+    tiles = (-(-N // TILE_N), -(-M // TILE_M))
+    if tiles[0] * tiles[1] >= sms:
+        return Geometry(1, half, (*tiles, 1))
+    unit = K_STEP
     if instance in ("groupmm", "i8mxu"):
-        unit = TILE_HALF * group // math.gcd(TILE_HALF, group)
-    units = half // unit
-    return max(d for d in range(1, min(want, units) + 1) if units % d == 0)
+        unit = K_STEP * group // math.gcd(K_STEP, group)
+    fits = [d for d in range(1, MAX_CLUSTER + 1) if (half // unit) % d == 0]
+    splits = next((d for d in fits if tiles[0] * tiles[1] * d >= 2 * sms), fits[-1])
+    return Geometry(splits, half // splits, (*tiles, splits))
 
 
-def launch(instance: str, a: torch.Tensor, xs, q4: torch.Tensor, scale4: torch.Tensor, group: int, splits: int,
-           ws, out: torch.Tensor) -> None:
-    """One launch of the kernel on checked operands: ``a`` is x (M, K), or xq (M, K) int8 with its row scales
-    ``xs`` for i8mxu / pcol; ``ws`` the (splits, M, N) f32 scratch when ``splits > 1``; writes ``out``."""
+_sms: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The device's SM count, looked up once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+def launch(instance: str, a: torch.Tensor, xs, q4: torch.Tensor, scale4: torch.Tensor, group: int,
+           out: torch.Tensor) -> None:
+    """One launch of the fused kernel on checked operands (counted in ``fused.launches[instance]``): ``a`` is x
+    (M, K), or xq (M, K) int8 with its row scales ``xs`` for i8mxu / pcol; writes ``out``."""
     M, K = a.shape
     N = q4.shape[1]
+    geo = _splits(M, N, K // 2, group, instance, _sm_count(a.device))
     err = _lib().dalm_i4_matmul(
         _MODE[instance], int(out.dtype == torch.bfloat16), a.data_ptr(), xs.data_ptr() if xs is not None else None,
-        q4.data_ptr(), scale4.data_ptr(), M, K, N, group, splits, ws.data_ptr() if ws is not None else None,
-        out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+        q4.data_ptr(), scale4.data_ptr(), M, K, N, group, geo.splits, out.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int4_matmul[{instance}] kernel launch failed: CUDA error {err}")
+    fused.launches[instance] += 1
 
 
 def fused(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str, group: int) -> torch.Tensor:
     """The fused route on operands ``_check`` passed (``group`` is what it returned), whatever ``_route`` says:
     K2's ``rowquant`` for i8mxu and pcol, then one launch of ``csrc/int4_matmul.cu``."""
-    M = x2.shape[0]
-    half, N = q4.shape
-    splits = _splits(M, N, half, group, instance, torch.cuda.get_device_properties(x2.device).multi_processor_count)
     a, xs = (rowquant(x2) if instance in ("i8mxu", "pcol") else (x2, None))
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x2.device) if splits > 1 else None
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    launch(instance, a, xs, q4, scale4, group, splits, ws, out)
+    out = torch.empty((x2.shape[0], q4.shape[1]), dtype=x2.dtype, device=x2.device)
+    launch(instance, a, xs, q4, scale4, group, out)
     return out
+
+
+fused.launches = dict.fromkeys(INSTANCES, 0)
 
 
 def launch_dequant(q4: torch.Tensor, scale4: torch.Tensor, group: int, nf4: bool, wt: torch.Tensor) -> None:

@@ -620,18 +620,44 @@ def _k5_close(y, ry, instance):
     assert torch.isfinite(y.float()).all() and bool((err <= bound).all()), float((err - bound).max())
 
 
+_LLAMA_WEIGHTS = {}
+
+
+def _k5_llama_weights(K, N, instance, group, device):
+    """A Llama-2-7B-sized weight in the instance's format, made on the card from a seed once per shape and kept:
+    numpy would take seconds for each of the 50 cases of a shape."""
+    fmt = {"pcol": "int4pc", "nf4": "nf4"}.get(instance, "int4")
+    key = (K, N, fmt, group)
+    if key not in _LLAMA_WEIGHTS:
+        gen = torch.Generator(device=device).manual_seed(K * 7 + N)
+        w = torch.randn((K, N), generator=gen, device=device) * 0.02
+        d = (quant.quantize_tensor_int4pc(w) if fmt == "int4pc" else
+             getattr(quant, f"quantize_tensor_{fmt}")(w, group))
+        _LLAMA_WEIGHTS[key] = (d["q4"], d["scale4"])
+    return _LLAMA_WEIGHTS[key]
+
+
+# Decode rows at Llama-2-7B's four shapes (the packer's groups: 64, and 16 at the down-projection).
+_K5_LLAMA_ROWS = [(M, K, N, 16 if K == 11008 else 64) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
+                                                                   (4096, 32000)) for M in (1, 8, 32, 64, 191)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("instance", ["base", "groupmm", "nf4", "i8mxu", "pcol"])
 @pytest.mark.parametrize("mkng", [(32, 4096, 4096, 64), (32, 11008, 512, 16), (300, 512, 1000, 32),
                                   (5, 2048, 136, 128), (1, 1024, 256, 16), (200, 4096, 384, 64),
-                                  (191, 1024, 264, 32)])
+                                  (191, 1024, 264, 32)] + _K5_LLAMA_ROWS)
 def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
-    """Each K5 instance against its plain version: decode rows (K split across blocks), ragged M and N, groups 16-128.
-    Where int4_matmul_fwd takes another route (bf16 from M_PREFILL rows: the prefill route for base / nf4, the fold
-    route for groupmm / i8mxu), the fused kernel is held to the plain version on the same rows as well."""
+    """Each K5 instance against its plain version: decode rows (K split across a cluster), ragged M and N, groups
+    16-128, and Llama-2-7B's four shapes at M 1-191. Where int4_matmul_fwd takes another route (bf16 from M_PREFILL
+    rows: the prefill route for base / nf4, the fold route for groupmm / i8mxu), the fused kernel is held to the
+    plain version on the same rows as well."""
     M, K, N, group = mkng
     rng = np.random.default_rng(4)
-    q4, scale4 = _k5_weights(rng, K, N, instance, cuda, group)
+    if (M, K, N, group) in _K5_LLAMA_ROWS:
+        q4, scale4 = _k5_llama_weights(K, N, instance, group, cuda)
+    else:
+        q4, scale4 = _k5_weights(rng, K, N, instance, cuda, group)
     x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, dtype)
     x[0] = 0
     before = k5.int4_matmul_fwd.launches[instance]
@@ -642,6 +668,76 @@ def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
     assert k5.int4_matmul_fwd.launches[instance] == before + 1
     if k5._route(x, instance, group) != "fused":
         _k5_close(k5.fused(x, q4, scale4, instance, k5._check(x, q4, scale4, instance)), ry, instance)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("instance", ["base", "groupmm", "nf4", "i8mxu", "pcol"])
+@pytest.mark.parametrize("kn", [(4096, 4096), (11008, 4096)], ids=["4096x4096", "11008x4096"])
+def test_int4_fused_is_one_launch_and_repeats_on_card(cuda, instance, kn, dtype):
+    """A fused-route call at decode's 32 rows launches the kernel once (its own counter moves by one, beside the
+    route's; K2 once more for i8mxu / pcol) with its K split across a cluster, and two calls on the same inputs give
+    the same bits (the slices are summed in slice order, no atomics)."""
+    K, N = kn
+    group = 16 if K == 11008 else 64
+    q4, scale4 = _k5_llama_weights(K, N, instance, group, cuda)
+    x = torch.from_numpy((np.random.default_rng(21).standard_normal((32, K)) * 0.5).astype(np.float32)).to(cuda, dtype)
+    assert k5._route(x, instance, group) == "fused"
+    assert k5._splits(32, N, K // 2, K if instance == "pcol" else group, instance, k5._sm_count(cuda)).splits > 1
+    before = (dict(k5.fused.launches), dict(k5.int4_matmul_fwd.route_launches), im.rowquant.launches)
+    y = k5.int4_matmul_fwd(x, q4, scale4, instance)
+    after = (dict(k5.fused.launches), dict(k5.int4_matmul_fwd.route_launches), im.rowquant.launches)
+    y2 = k5.int4_matmul_fwd(x, q4, scale4, instance)
+    torch.cuda.synchronize()
+    assert after[0] == dict(before[0], **{instance: before[0][instance] + 1})
+    assert after[1] == {**before[1], (instance, "fused"): before[1][instance, "fused"] + 1}
+    assert after[2] == before[2] + (instance in ("i8mxu", "pcol"))
+    assert torch.equal(y, y2)
+    _k5_close(y, k5.int4_matmul_fwd_ref(x, q4, scale4, instance), instance)
+
+
+@pytest.mark.parametrize("instance,case", [("i8mxu", "random"), ("i8mxu", "cancelling"), ("pcol", "random"),
+                                           ("pcol", "ones_neg"), ("pcol", "ones_pos")])
+def test_int4_fused_int8_exact_at_extremes_on_card(cuda, instance, case):
+    """The fused kernel at decode's 32 rows, K = 11008 (eight slices of 688 packed rows), at the extremes of its
+    operands: K2's values all +-127 (rows of +-1) against nibbles of -8 and 7 with power-of-two scales. pcol's int32
+    sums are exact; i8mxu's folds add multiples of the scales that f32 holds exactly, so both equal their plain
+    versions bit for bit. ``cancelling`` (i8mxu, group 16): each group's sums climb to 8 x 127 x 7 and end at a
+    small integer; ``ones_neg`` / ``ones_pos`` (pcol): rows of ones against every nibble -8 / 7, nothing
+    cancelling: every int32 sum is 11008 x 127 x 8 (or 7)."""
+    M, K, N = 32, 11008, 264
+    rng = np.random.default_rng(22)
+    if instance == "i8mxu":
+        q4, scale4 = _extreme_weights(rng, K, N, 16, cuda, case == "cancelling")
+    else:
+        bits = rng.choice(np.array([0, 15], dtype=np.uint8), size=(K, N)) if case == "random" else \
+            np.full((K, N), 0 if case == "ones_neg" else 15, dtype=np.uint8)
+        q4 = torch.from_numpy(bits[:K // 2] | (bits[K // 2:] << 4)).to(cuda)
+        scale4 = torch.from_numpy((2.0 ** rng.integers(-8, -4, size=(1, N))).astype(np.float32)).to(cuda)
+    signs = rng.choice(np.array([-1.0, 1.0], np.float32), size=(M, K)) if case == "random" else \
+        np.ones((M, K), np.float32)
+    x = torch.from_numpy(signs).to(cuda, torch.bfloat16)
+    assert bool((im.rowquant(x)[0].abs() == 127).all())
+    assert k5._route(x, instance, 16 if instance == "i8mxu" else K) == "fused"
+    y, ry = k5.int4_matmul_fwd(x, q4, scale4, instance), k5.int4_matmul_fwd_ref(x, q4, scale4, instance)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ry)
+
+
+def test_int4_fused_raises_and_never_falls_back(cuda, monkeypatch):
+    """A refused launch raises, and no count of the fused kernel or its route moves: no plain version runs."""
+    q4, scale4 = _k5_weights(np.random.default_rng(23), 1024, 256, "base", cuda)
+    x = torch.zeros((32, 1024), dtype=torch.bfloat16, device=cuda)
+
+    class _Refusing:
+        def dalm_i4_matmul(self, *args):
+            return 1
+
+    k5._lib()
+    before = (dict(k5.fused.launches), dict(k5.int4_matmul_fwd.route_launches))
+    monkeypatch.setattr(k5, "_lib_handle", _Refusing())
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        k5.int4_matmul_fwd(x, q4, scale4, "base")
+    assert (dict(k5.fused.launches), dict(k5.int4_matmul_fwd.route_launches)) == before
 
 
 @pytest.mark.parametrize("fmt", ["int4", "nf4", "int4pc"])

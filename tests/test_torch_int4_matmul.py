@@ -246,6 +246,36 @@ def test_prefill_routing_rule():
     assert k5.int4_matmul_fwd.route_launches == before
 
 
+LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))  # q/k/v/o, gate/up, down, lm_head
+
+
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 191])
+@pytest.mark.parametrize("kn", LLAMA_KN, ids=lambda kn: f"{kn[0]}x{kn[1]}")
+def test_fused_geometry_rule(kn, M):
+    """The fused kernel's cluster and slice geometry at Llama-2-7B's shapes (the group the packer gives each, 16 at
+    the down-projection): the slices divide K/2 into whole k-steps, into whole groups where the scales fold per
+    group (groupmm, i8mxu), at most 8 of them (one portable cluster); the grid covers the tiles; at decode's 32
+    rows it gives each of 132 SMs a block. A pure function: the same answer every call, on any device."""
+    K, N = kn
+    half = K // 2
+    group = quant._int4_group(half)
+    assert group == (16 if K == 11008 else 64)
+    for inst in k5.INSTANCES:
+        g = K if inst == "pcol" else group
+        for sms in (132, 114):
+            geo = k5._splits(M, N, half, g, inst, sms)
+            assert geo == k5._splits(M, N, half, g, inst, sms)
+            assert 1 <= geo.splits <= k5.MAX_CLUSTER == 8
+            assert geo.splits * geo.slice_rows == half and geo.slice_rows % k5.K_STEP == 0
+            if inst in ("groupmm", "i8mxu"):
+                assert geo.slice_rows % group == 0
+            assert geo.grid == (-(-N // k5.TILE_N), -(-M // k5.TILE_M), geo.splits)
+            if M == 32:
+                assert geo.grid[0] * geo.grid[1] * geo.grid[2] >= sms
+    # the fewest slices that cover the SMs: one more tile row (M 33) never asks for more slices
+    assert k5._splits(33, N, half, group, "base", 132).splits <= k5._splits(32, N, half, group, "base", 132).splits
+
+
 @pytest.mark.parametrize("group", [16, 32, 64, 128])
 def test_prefill_nibbles_ref_equals_jax_dequant_at_unit_scales(group):
     """The fold route's plain pre-pass, Wn (N, K) bf16 = nib - 8, equals the JAX package's dequantize_tensor_int4
