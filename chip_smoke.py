@@ -21,10 +21,14 @@ without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
 
 Phases: ``small`` (tiny pipeline, card vs CPU; and a tiny pipeline wide
-enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``,
-``serve-q`` (the 4-bit tiers; reuses ``serve``'s bf16 pipeline when both
-run), ``k3``, ``k2``, ``k1`` (K1, its three launches one by one, and the two
-int8 GEMM entries), ``grad``,
+enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``
+(and K3 at its own shape, by CUDA graph over copies of the index in turns
+with ``torch.topk(q @ e.T)``), ``serve-q`` (the 4-bit tiers; reuses
+``serve``'s bf16 pipeline when both run), ``k3`` (every row storage mode at
+1M rows, each with its share of the bound), ``k2`` (timed by CUDA graph over
+copies larger than the L2 at the train shapes and again at decode's 32
+rows), ``k1`` (K1, its three launches one by one, and the two int8 GEMM
+entries), ``grad``,
 ``k4`` (flash attention, the forward and the backward each on both routes: the
 wgmma kernels for bf16 at head dim 64 / 128 and the mma.sync kernels for the
 rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances, the
@@ -179,7 +183,7 @@ def compare_topk(s, i, rs, ri, q, rows_f32, scales):
     return max_err, swaps
 
 
-def k3_record(mode, case, ms, plain_ms, lib_ms, max_err, nbytes, ops, mem_bw, op_rate):
+def k3_record(mode, case, ms, plain_ms, lib_ms, max_err, nbytes, ops, mem_bw, op_rate, **extra):
     """One measured K3 case, in the kernels line's keys (without ``launches``).
     ``mode`` is the row storage: f32, bf16, int8 or int4."""
     t_bytes = nbytes / mem_bw * 1e3
@@ -189,7 +193,7 @@ def k3_record(mode, case, ms, plain_ms, lib_ms, max_err, nbytes, ops, mem_bw, op
         "replaces": "dalm_tpu/kernels/topk.py:130", "case": case,
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, **extra,
     }
 
 
@@ -232,7 +236,8 @@ def k3_phase(gen, device, peaks):
                           f32_rate if e.dtype == torch.float32 else bf16_rate)
         print(f"[k3] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']}), max_abs_err {max_err}, near-tie swaps {swaps}", flush=True)
+              f"({entry['bound_by']}, {entry['bound_ms'] / ms:.1%} of it), max_abs_err {max_err}, "
+              f"near-tie swaps {swaps}", flush=True)
         entries.append(entry)
         return entry
 
@@ -293,10 +298,11 @@ def i8_record(name, replaces, case, ms, plain_ms, lib_ms, max_err, nbytes, ops, 
     }
 
 
-def show(tag, e):
+def show(tag, e, share=False):
     lib = "n/a" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+    more = f", {e['bound_ms'] / e['ms']:.1%} of it" if share else ""
     print(f"[{tag}] {e['name']} {e['case']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library {lib}, "
-          f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), max_abs_err {e['max_abs_err']}", flush=True)
+          f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}{more}), max_abs_err {e['max_abs_err']}", flush=True)
 
 
 M_TRAIN = 4608  # generator rows of one train step: batch 18 x 256 tokens
@@ -311,8 +317,10 @@ def k2_phase(gen, device, peaks):
     kernel divides and rounds as the plain version does), in both output types
     (int8, and bf16 as K5's fold route takes it). R = 4608 rows,
     K in {4096, 11008, 32000}, bf16 and f32, with and without the column
-    scale; row 0 all zero, row 1 made of exact .5 ties. Returns
-    (all records, the record at the main path's commonest shape)."""
+    scale; row 0 all zero, row 1 made of exact .5 ties. Timed (bf16, column
+    scale) by CUDA graph over copies larger than the L2, and again at decode's
+    32 rows. Returns (all records, the record at the main path's commonest
+    shape)."""
     import torch
 
     from dalm_tpu_torch.kernels.int8_matmul import rowquant, rowquant_ref
@@ -345,7 +353,7 @@ def k2_phase(gen, device, peaks):
             if dtype != torch.bfloat16:
                 continue
             csf = cs.reshape(-1).contiguous()
-            ms = cuda_ms(lambda: rowquant(x, csf), 20)
+            ms, turns = k2_graph_ms(x, csf)
             plain_ms = cuda_ms(lambda: rowquant_ref(x, cs), 5)
 
             def library():
@@ -356,14 +364,44 @@ def k2_phase(gen, device, peaks):
             lib_ms = cuda_ms(library, 5)
             nbytes = R * K * 2 + K * 4 + R * K + R * 4
             e = i8_record("rowquant", K2_AT, f"R={R} K={K} bf16 colscale", ms, plain_ms, lib_ms, 0.0,
-                          nbytes, 4.0 * R * K, peaks, K=K)
-            show("k2", e)
+                          nbytes, 4.0 * R * K, peaks, K=K, ms_turns=turns,
+                          wrapper_ms=cuda_ms(lambda: rowquant(x, csf), 20))
+            show("k2", e, share=True)
             entries.append(e)
             if K == 4096:
                 main_entry = e
             del x
+    # decode's shape: K2 before K5's i8mxu / pcol instances, 32 rows, no column scale (the launch floor)
+    for K in (4096, 11008):
+        x = torch.randn((32, K), generator=gen, device=device).to(torch.bfloat16)
+        q, s = rowquant(x)
+        rq, rs = rowquant_ref(x)
+        torch.cuda.synchronize()
+        check(torch.equal(q, rq) and torch.equal(s, rs), f"k2 R=32 K={K}: differs from the plain version")
+        ms, turns = k2_graph_ms(x, None)
+        e = i8_record("rowquant", K2_AT, f"R=32 K={K} bf16", ms, cuda_ms(lambda: rowquant_ref(x), 20), None, 0.0,
+                      32 * K * 3 + 32 * 4, 4.0 * 32 * K, peaks, K=K, ms_turns=turns,
+                      wrapper_ms=cuda_ms(lambda: rowquant(x), 50))
+        show("k2", e, share=True)
+        entries.append(e)
     torch.cuda.empty_cache()
     return entries, main_entry
+
+
+def k2_graph_ms(x, colscale):
+    """K2's device time, by CUDA graph over copies of x (and of its outputs) that together exceed the L2 twice:
+    each launch reads its x from device memory, as the train step's does. Two turns; returns (mean, turns)."""
+    import torch
+
+    from dalm_tpu_torch.kernels.int8_matmul import launch_rowquant
+
+    per_call = x.numel() * (x.element_size() + 1)
+    copies = [x] + [x.clone() for _ in range(-(-100_000_000 // per_call))]
+    outs = [(torch.empty(c.shape, dtype=torch.int8, device=c.device),
+             torch.empty(c.shape[:-1] + (1,), dtype=torch.float32, device=c.device)) for c in copies]
+    fns = [lambda c=c, o=o: launch_rowquant(c, colscale, *o) for c, o in zip(copies, outs)]
+    turns = [graph_ms(fns), graph_ms(fns)]
+    return sum(turns) / 2, turns
 
 
 def _weights(gen, device, K, N):
@@ -1004,12 +1042,21 @@ def serve_path(device, rng):
           flush=True)
     print(f"[main] sample answer: {answers[0].answer[:60]!r}", flush=True)
 
-    # K3 at the main path's own shapes.
+    # K3 at the main path's own shapes: device time by CUDA graph, each call on its own copy of the index (together
+    # over twice the L2), the kernel and torch.topk(q @ e.T) in turns (kernel, library, library, kernel); then the
+    # wrapper as search() calls it, host work included.
     q, e = q_embs, pipe.index.embeddings
-    ms = cuda_ms(lambda: fused_dot_topk(q, e, 4), 50)
+    copies = [e] + [e.clone() for _ in range(-(-100_000_000 // (e.numel() * e.element_size())))]
+    kfns = [lambda c=c: fused_dot_topk(q, c, 4) for c in copies]
+    lfns = [lambda c=c: torch.topk(q @ c.T, 4) for c in copies]
+    turns = {"ms_turns": [graph_ms(kfns)], "library_turns": [graph_ms(lfns)]}
+    turns["library_turns"].append(graph_ms(lfns))
+    turns["ms_turns"].append(graph_ms(kfns))
+    turns["wrapper_ms"] = cuda_ms(lambda: fused_dot_topk(q, e, 4), 50)
+    del copies, kfns, lfns
+    ms, lib_ms = sum(turns["ms_turns"]) / 2, sum(turns["library_turns"]) / 2
     plain_ms = cuda_ms(lambda: fused_dot_topk_ref(q, e, 4), 20)
-    lib_ms = cuda_ms(lambda: torch.topk(q @ e.T, 4), 50)
-    return pipe, launches, (q, e, ms, plain_ms, lib_ms)
+    return pipe, launches, (q, e, ms, plain_ms, lib_ms, turns)
 
 
 TRAIN_KW = dict(use_peft="both", lora_runtime="fused", int8_compute="all", a8_calibrate_every=0,
@@ -2403,7 +2450,7 @@ def serve_phase(device, rng, peaks, kernels):
 
     from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
 
-    pipe, launches, (q, e, ms, plain_ms, lib_ms) = serve_path(device, rng)
+    pipe, launches, (q, e, ms, plain_ms, lib_ms, turns) = serve_path(device, rng)
     Q, D = q.shape
     N = e.shape[0]
     ks, ki = fused_dot_topk(q, e, 4)
@@ -2411,9 +2458,11 @@ def serve_phase(device, rng, peaks, kernels):
     max_err, _ = compare_topk(ks, ki, rs, ri, q, e, None)
     nbytes = N * D * 4 + Q * D * 4 + Q * 4 * 8
     entry = k3_record("f32", f"main path Q={Q} N={N} D={D} k=4", ms, plain_ms, lib_ms, max_err,
-                      nbytes, 2.0 * Q * N * D, peaks[0], peaks[1])
-    print(f"[k3] main-path shape f32 Q={Q} N={N} D={D} k=4: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {lib_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})", flush=True)
+                      nbytes, 2.0 * Q * N * D, peaks[0], peaks[1], **turns)
+    print(f"[k3] main-path shape f32 Q={Q} N={N} D={D} k=4 (CUDA graph over {len(turns['ms_turns'])} turns): kernel "
+          f"{ms:.4f} ms {turns['ms_turns']}, library {lib_ms:.4f} ms {turns['library_turns']}, through the wrapper "
+          f"{turns['wrapper_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}, {entry['bound_ms'] / ms:.1%} of it)", flush=True)
     kernels["fused_dot_topk[f32]"] = dict(entry, launches=launches["f32"])
     kernels["_k3_launches"] = launches
     del q, e, ks, ki, rs, ri
@@ -2500,7 +2549,7 @@ def main() -> int:
         cases, main_entry = k2_phase(gen, device, peaks)
         print(json.dumps({"k2_cases": cases}), flush=True)
         kernels["rowquant"] = main_entry
-        kernel_ms.update({("rowquant", e["K"]): e["ms"] for e in cases})
+        kernel_ms.update({("rowquant", e["K"]): e["ms"] for e in cases if e["case"].startswith(f"R={M_TRAIN} ")})
     if "k1" in phases:
         cases, mains = k1_phase(gen, device, peaks)
         print(json.dumps({"k1_cases": cases}), flush=True)

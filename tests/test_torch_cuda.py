@@ -83,6 +83,104 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda):
         fused_dot_topk(q.to(torch.bfloat16), e, 4)
 
 
+def _grid_inputs(mode, rows, d, q, device, seed=0):
+    """Exact-arithmetic K3 inputs: float values are integers in [-8, 8] / 16 (every sum exact in f32 in any
+    order, and with many ties), quantised rows random codes with positive scales."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qs = torch.randint(-8, 9, (q, d), generator=g, device=device).float() / 16
+    if mode in ("f32", "bf16"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        e = torch.randint(-8, 9, (rows, d), generator=g, device=device).float() / 16
+        return qs.to(dt), e.to(dt), {}
+    scales = torch.rand((rows, 1), generator=g, device=device) + 0.5
+    if mode == "int8":
+        e = torch.randint(-127, 128, (rows, d), generator=g, device=device, dtype=torch.int8)
+    else:
+        e = torch.randint(0, 256, (rows, d // 2), generator=g, device=device, dtype=torch.uint8)
+    return qs.to(torch.bfloat16), e, {"scales": scales, "int4": mode == "int4"}
+
+
+def _assert_topk_near_ties(s, i, rs, ri, q, e, kw):
+    """Scores within 1e-5 of the plain version's; ids equal except where the two rows' f64 scores lie within 1e-5
+    of each other (a near tie that f32 sums in another order may resolve either way)."""
+    assert torch.equal(s.isinf(), rs.isinf())
+    fin = torch.isfinite(rs)
+    assert float((s - rs).abs()[fin].max()) <= 1e-5
+    bad = (i != ri) & fin
+    if bool(bad.any()):
+        from dalm_tpu_torch.kernels.topk import _dequantized_rows
+
+        rows = _dequantized_rows(e, kw.get("int4", False)).double()
+        qi, kj = bad.nonzero(as_tuple=True)
+        sg = (rows[i[qi, kj].long()] * q.double()[qi]).sum(1)
+        sw = (rows[ri[qi, kj].long()] * q.double()[qi]).sum(1)
+        if kw.get("scales") is not None:
+            sc = kw["scales"].reshape(-1).double()
+            sg, sw = sg * sc[i[qi, kj].long()], sw * sc[ri[qi, kj].long()]
+        assert bool(((sg - sw).abs() <= 1e-5).all())
+
+
+@pytest.mark.parametrize("q", [32, 40])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "int4"])
+def test_topk_persistent_blocks_match_ref_on_card(cuda, mode, q):
+    """K3 at N 50,000, D 1024: several tiles a block and one or two query tiles. Unit-norm rows (the plain version
+    within 1e-5, near-tie swaps only) and grid rows (equal, ids and scores), k 1 / 4 / 10 / 32, with num_valid in
+    the middle of a tile; one launch a call."""
+    n, d = 50_000, 1024
+    before = fused_dot_topk.launches[mode]
+    calls = 0
+    for make in (_inputs, _grid_inputs):
+        qs, e, kw = make(mode, n, d, q, cuda)
+        for k in (1, 4, 10, 32):
+            for nv in (None, n - 77):
+                s, i = fused_dot_topk(qs, e, k, num_valid=nv, **kw)
+                rs, ri = fused_dot_topk_ref(qs, e, k, num_valid=nv, **kw)
+                torch.cuda.synchronize()
+                calls += 1
+                if make is _grid_inputs:
+                    assert torch.equal(i, ri) and torch.equal(s, rs)
+                else:
+                    _assert_topk_near_ties(s, i, rs, ri, qs.float(), e, kw)
+    assert fused_dot_topk.launches[mode] == before + calls
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "int4"])
+def test_topk_small_and_empty_index_on_card(cuda, mode):
+    """Fewer rows than a tile, one row, and num_valid 0: unfilled slots are (-inf, 0), as in the plain version."""
+    for n, nv, k in ((77, None, 10), (77, 50, 32), (1, None, 4), (300, 0, 5), (1, 0, 1)):
+        qs, e, kw = _grid_inputs(mode, n, 64, 5, cuda, seed=n)
+        s, i = fused_dot_topk(qs, e, k, num_valid=nv, **kw)
+        rs, ri = fused_dot_topk_ref(qs, e, k, num_valid=nv, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert bool((s == float("-inf")).all()) and not bool(i.any())
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_topk_duplicates_across_blocks_go_to_the_smaller_id_on_card(cuda, mode):
+    """1,000 rows repeated 50 times: every row's copies lie in many blocks, and the smaller ids win the ties."""
+    qs, base, kw = _grid_inputs(mode, 1000, 256, 33, cuda, seed=3)
+    e = base.repeat(50, 1).contiguous()
+    if kw:
+        kw = dict(kw, scales=kw["scales"].repeat(50, 1).contiguous())
+    for k in (4, 32):
+        s, i = fused_dot_topk(qs, e, k, **kw)
+        rs, ri = fused_dot_topk_ref(qs, e, k, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
+def test_topk_f32_ragged_depth_and_int4_half_stage_on_card(cuda):
+    """D 64 and 192: int4's packed rows (32, 96 bytes) end inside a 64-byte stage, whose zero bytes must count 0."""
+    for d in (64, 192):
+        for mode in ("f32", "int4"):
+            qs, e, kw = _grid_inputs(mode, 3000, d, 7, cuda, seed=d)
+            s, i = fused_dot_topk(qs, e, 10, **kw)
+            rs, ri = fused_dot_topk_ref(qs, e, 10, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(i, ri) and torch.equal(s, rs)
+
+
 def _int8_weights(rng, k, n, device):
     q = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(device)
     scale = torch.from_numpy((rng.random((1, n)) * 1e-3 + 1e-4).astype(np.float32)).to(device)
@@ -104,6 +202,56 @@ def test_rowquant_kernel_equals_ref_on_card(cuda, shape, dtype):
         torch.cuda.synchronize()
         assert torch.equal(q, rq) and torch.equal(s, rs)
     assert im.rowquant.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [64, 100, 4096, 11008, 32000])
+@pytest.mark.parametrize("R", [1, 32, 4608])
+def test_rowquant_shape_grid_equals_ref_on_card(cuda, R, K, dtype):
+    """K2 at the train, decode and wider shapes, ragged K included: q and s equal to the plain
+    version in int8 and bf16 out, with and without the column scale, with a zero row and a row of .5 ties."""
+    g = torch.Generator(device=cuda).manual_seed(R + K)
+    x = torch.randn((R, K), generator=g, device=cuda)
+    ties = torch.randint(-126, 127, (K,), generator=g, device=cuda).float() + 0.5
+    ties[0] = 127.0  # absmax 127 -> s = 1 -> every other value / s ends in .5
+    x[-1] = ties
+    if R > 1:
+        x[0] = 0
+    x = x.to(dtype)
+    cs = torch.rand(K, generator=g, device=cuda) * 0.01 + 1e-4
+    before = im.rowquant.launches
+    for colscale in (None, cs):
+        rq, rs = im.rowquant_ref(x, colscale)
+        for out in (torch.int8, torch.bfloat16):
+            q, s = im.rowquant(x, colscale, dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(s, rs) and torch.equal(q, rq.to(out))
+    want = torch.round(ties).clamp(-127, 127).to(torch.int8)
+    assert torch.equal(im.rowquant(x)[0][-1], want)
+    if R > 1:
+        assert float(im.rowquant(x)[1][0]) == 1.0
+    assert im.rowquant.launches == before + 4 + 1 + (R > 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rowquant_tiny_and_tie_rows_equal_ref_on_card(cuda, dtype):
+    """K2 on rows whose scale is subnormal or tiny, and on rows of quotients within a hair of a half-integer:
+    equal to the plain version's division and rounding."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    K = 4096
+    base = torch.randn((8, K), generator=g, device=cuda)
+    rows = [base[0] * 1e-38, base[1] * 1e-40, base[2] * 1e-41, base[3] * 3e-36]  # scales subnormal, not 0
+    ties = torch.randint(-126, 127, (4, K), generator=g, device=cuda).float() + 0.5
+    ties[:, 0] = 127.0
+    nudge = torch.tensor([1.0, 1.0 + 2 ** -20, 1.0 - 2 ** -20, 1.0 + 2 ** -23], device=cuda)
+    x = torch.cat([torch.stack(rows), ties * nudge[:, None]]).to(dtype).contiguous()
+    cs = torch.rand(K, generator=g, device=cuda) + 0.5
+    for colscale in (None, cs):
+        rq, rs = im.rowquant_ref(x, colscale)
+        for out in (torch.int8, torch.bfloat16):
+            q, s = im.rowquant(x, colscale, dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(s, rs) and torch.equal(q, rq.to(out))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -14,7 +14,8 @@ from dalm_tpu.core.mesh import MeshConfig, make_mesh
 from dalm_tpu.index.dense import ShardedDenseIndex
 from dalm_tpu.kernels.topk import fused_dot_topk as jax_fused_dot_topk
 from dalm_tpu_torch.index.dense import DenseIndex, quantize_int4, quantize_int8
-from dalm_tpu_torch.kernels.topk import fused_dot_topk_ref
+from dalm_tpu_torch.kernels.topk import (BLOCKS_PER_SM, MAX_K, QUERIES_PER_TILE, ROWS_PER_TILE, _geometry,
+                                         block_tiles, fused_dot_topk_ref)
 
 ATOL = 1e-5
 
@@ -97,3 +98,64 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DenseIndex.build(np.ones((4, 64), np.float32))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n", [1, 127, 128, 16384, (1 << 20) - 12345])
+@pytest.mark.parametrize("q", [1, 32, 40])
+def test_kernel_geometry_covers_every_row_once(q, n, sms):
+    """K3's launch geometry: every row of every query tile lies in exactly one block's range of whole 128-row tiles,
+    every block has work, the blocks fill the card where there are rows enough, and each query's candidates (a list
+    of k from each block) stay bounded."""
+    q_tiles, nb = _geometry(q, n, sms)
+    assert q_tiles == -(-q // QUERIES_PER_TILE)
+    tiles = -(-n // ROWS_PER_TILE)
+    ranges = [block_tiles(b, nb, tiles) for b in range(nb)]
+    assert all(len(r) >= 1 for r in ranges)
+    assert [t for r in ranges for t in r] == list(range(tiles))  # contiguous, in block order, each tile once
+    rows = [row for r in ranges for t in r for row in range(t * ROWS_PER_TILE, min((t + 1) * ROWS_PER_TILE, n))]
+    assert rows == list(range(n))
+    assert nb <= tiles and nb * q_tiles <= BLOCKS_PER_SM * sms + q_tiles - 1
+    assert nb * MAX_K <= -(-BLOCKS_PER_SM * sms // q_tiles) * MAX_K
+    if tiles >= BLOCKS_PER_SM * sms:
+        assert nb * q_tiles >= BLOCKS_PER_SM * sms
+
+
+def test_kernel_geometry_without_rows():
+    """num_valid = 0: one block a query tile, with no tile to scan, still writes (and merges) empty lists."""
+    assert _geometry(40, 0, 132) == (2, 1)
+    assert list(block_tiles(0, 1, 0)) == []
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x's top 11 significant bits (sign, exponent, 10 mantissa bits), as the tensor core reads an f32 operand."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _scores_3xtf32(q: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The f32 mode's arithmetic: hi = tf32(x), lo = x - hi (exact) for both operands, of which the products read
+    tf32(lo); lo.hi' + hi.lo' + hi.hi' (lo.lo' dropped). Each product of two TF32 values is exact in f32; the sums
+    here are taken in f64."""
+    qh, eh = _tf32(q), _tf32(e)
+    ql, el = _tf32(q - qh), _tf32(e - eh)
+    d = torch.float64
+    return (ql.to(d) @ eh.to(d).T + qh.to(d) @ el.to(d).T + qh.to(d) @ eh.to(d).T).float()
+
+
+def test_3xtf32_is_exact_on_grid_and_within_tolerance_on_unit_rows():
+    """K3's f32 rows run 3xTF32 on the card. On values of at most 11 significant bits (the card checks' grid data)
+    lo is 0 and the score equals the exact one; on unit-norm rows at D 1024 the top-k equals the plain version's
+    ids, with scores within 1e-5."""
+    rng = np.random.default_rng(5)
+    gq = torch.from_numpy(rng.integers(-8, 9, (6, 1024)).astype(np.float32) / 16)
+    ge = torch.from_numpy(rng.integers(-8, 9, (500, 1024)).astype(np.float32) / 16)
+    assert torch.equal(_tf32(ge), ge) and torch.equal(_tf32(gq), gq)
+    assert torch.equal(_scores_3xtf32(gq, ge), (gq.double() @ ge.double().T).float())
+    q, e = torch.from_numpy(_unit(rng, 8, 1024)), torch.from_numpy(_unit(rng, 4000, 1024))
+    scores = _scores_3xtf32(q, e)
+    assert float((scores.double() - q.double() @ e.double().T).abs().max()) < 1e-6
+    for k in (1, 10, 32):
+        s, i = torch.sort(scores, dim=1, descending=True, stable=True)
+        rs, ri = fused_dot_topk_ref(q, e, k)
+        np.testing.assert_array_equal(i[:, :k].numpy(), ri.numpy())
+        np.testing.assert_allclose(s[:, :k].numpy(), rs.numpy(), rtol=0, atol=ATOL)
