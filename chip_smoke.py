@@ -16,7 +16,10 @@ batch 2, 3 optimiser steps and a validation pass, every attention call
 through the flash-attention kernels); and serves again with the generator
 packed to 4 bits (``RagPipeline(quantize_generator="int4", kv_quant=True)``,
 every projection through the int4 kernel K5, then nf4, int4pc and the
-i8mxu / groupmm variants). Fails (non-zero exit, no result line)
+i8mxu / groupmm variants); and serves that int4 pipeline through the
+continuous-batching engine (``answer_continuous``, 32 slots: one wave of 32
+queries, then 64 requests with per-request budgets recycling the slots, each
+held token for token to the lockstep ``answer()``). Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
 
@@ -24,7 +27,8 @@ Phases: ``small`` (tiny pipeline, card vs CPU; and a tiny pipeline wide
 enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``
 (and K3 at its own shape, by CUDA graph over copies of the index in turns
 with ``torch.topk(q @ e.T)``), ``serve-q`` (the 4-bit tiers; reuses
-``serve``'s bf16 pipeline when both run), ``k3`` (every row storage mode at
+``serve``'s bf16 pipeline when both run), ``serve-cb`` (continuous batching on
+serve-q's int4 pipeline; ``--seed`` draws its budgets), ``k3`` (every row storage mode at
 1M rows, each with its share of the bound), ``k2`` (timed by CUDA graph over
 copies larger than the L2 at the train shapes and again at decode's 32
 rows), ``k1`` (K1, its three launches one by one, and the two int8 GEMM
@@ -47,7 +51,8 @@ rows),
 ``train``, ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
 trace of the RAG / SFT training steps: device busy share and the top kernels
-by device time).
+by device time) and ``profile-serve`` (the same over 8 decode iterations of
+the engine at serve-cb's shape, with launches per iteration).
 
 Output: per-phase lines, one JSON line of every measured case per kernel
 phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
@@ -61,7 +66,10 @@ nf4) and GEMM, the fold route's nibble pre-pass, fold GEMM (groupmm, i8mxu) and 
 nibble pre-pass and scaled GEMM (pcol), each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
-K5 instance, every count set to 0 just before that path is driven), and as
+K5 instance, every count set to 0 just before that path is driven; K3's f32
+entry and K5 base's fused kernel, pre-pass and GEMM also carry
+``launches_serve_cb``, their counts in serve-cb's counted
+``answer_continuous()``), and as
 the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances: K3 on exact-arithmetic inputs (small integers times powers of
@@ -2185,7 +2193,7 @@ def serve_q_phase(device, rng, base_pipe):
     (their prefill forward's 224 projections on the fold route, counted per kernel); the last-position logits of
     each tier against
     the bf16 generator's; a sampled ``answer()`` that repeats. Returns the K5 launches of each instance in its
-    own ``answer()`` and the decode times."""
+    own ``answer()``, the decode times and the int4 pipeline."""
     import gc
 
     import numpy as np
@@ -2403,7 +2411,8 @@ def serve_q_phase(device, rng, base_pipe):
     greedy_same = int((a1 == toks_out).all(dim=1).sum())
     print(f"[serve-q] sampled answer() (temperature 0.7, top-k 50, top-p 0.9, seed 0): ids in range, repeated "
           f"exactly; {greedy_same} of {len(queries)} rows equal the greedy ones", flush=True)
-    del s, q, gen
+    int4_pipe = q  # kept for serve-cb
+    del s, gen
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2437,7 +2446,283 @@ def serve_q_phase(device, rng, base_pipe):
         check(err <= K5_LOGIT_BOUND_BF16, f"serve-q {inst}: logits relative error {err} against bf16")
         check(inst == "int8" or err_fb <= K5_LOGIT_BOUND[inst],
               f"serve-q {inst}: logits relative error {err_fb} against x @ dequant(W)")
+    return launches, out, int4_pipe
+
+
+def int4_pipeline(device, base_pipe):
+    """The serve-q tier's int4 + int8 KV cache pipeline on ``base_pipe``'s retriever, corpus and 7B weights."""
+    from dalm_tpu_torch.serve import RagPipeline
+
+    pipe = base_pipe
+    return RagPipeline(pipe.retriever, pipe.r_tok, packed_copy(pipe.generator, device), pipe.g_tok, pipe.passages,
+                       device=device, quantize_generator="int4", kv_quant=True, max_passage_len=pipe.max_passage_len,
+                       max_prompt_len=pipe.max_prompt_len, max_new_tokens=64, embed_batch=pipe.embed_batch)
+
+
+def zero_serving_counts():
+    """Every launch count of the 4-bit serving path set to 0: K5 by call, route and kernel, K3 by mode."""
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk
+
+    k5.int4_matmul_fwd.launches = dict.fromkeys(k5.INSTANCES, 0)
+    k5.int4_matmul_fwd.route_launches = dict.fromkeys(k5.int4_matmul_fwd.route_launches, 0)
+    k5.fused.launches = dict.fromkeys(k5.INSTANCES, 0)
+    k5.prefill_dequant.launches = dict.fromkeys(k5.SCALED_INSTANCES, 0)
+    k5.prefill_gemm.launches = 0
+    fused_dot_topk.launches = dict.fromkeys(fused_dot_topk.launches, 0)
+
+
+def serving_counts():
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk
+
+    return {"int4_matmul[base]": k5.fused.launches["base"],
+            "k5_prefill_dequant[base]": k5.prefill_dequant.launches["base"],
+            "k5_prefill_gemm": k5.prefill_gemm.launches,
+            "fused_dot_topk[f32]": fused_dot_topk.launches["f32"],
+            "routes": {r: k5.int4_matmul_fwd.route_launches["base", r] for r in k5.ROUTES}}
+
+
+class EngineProbe:
+    """Counts what the continuous-batching engine does inside one call, from outside it: admission waves and
+    their wall time (synchronised), decode iterations, active slot-steps (summed on the device), and the value
+    ``generate_fused`` returned. Installed on the engine's instance, removed by ``close``."""
+
+    def __init__(self, eng):
+        import torch
+
+        self.eng = eng
+        self.waves, self.admit_s, self.iters, self.results = 0, 0.0, 0, None
+        self.active = torch.zeros((), dtype=torch.long, device=eng.device)
+        admit, step, advance, fused = eng._admit, eng._step, eng._advance, eng.generate_fused
+
+        def _admit(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = admit(*a)
+            torch.cuda.synchronize()
+            self.waves += 1
+            self.admit_s += time.perf_counter() - t0
+            return out
+
+        def _step(*a):
+            self.iters += 1
+            return step(*a)
+
+        def _advance(active, tok):
+            self.active += active.sum()
+            return advance(active, tok)
+
+        def _fused(*a, **k):
+            self.results = fused(*a, **k)
+            return self.results
+
+        eng._admit, eng._step, eng._advance, eng.generate_fused = _admit, _step, _advance, _fused
+
+    def close(self):
+        for name in ("_admit", "_step", "_advance", "generate_fused"):
+            delattr(self.eng, name)
+
+    def stats(self, wall_s, tokens):
+        """(occupancy, decode ms per iteration, tokens/s) of the call that took ``wall_s``."""
+        iters = max(self.iters, 1)
+        occupancy = int(self.active) / (iters * self.eng.num_slots)
+        return occupancy, (wall_s - self.admit_s) / iters * 1e3, tokens / wall_s
+
+
+def lockstep_tokens(q, queries):
+    """``q.answer(queries)``: its answers, the token rows its lockstep generate returned, the prompt ids and mask
+    it was given (numpy), and its wall time."""
+    import torch
+
+    calls, gen = [], q._generate
+
+    def generate(ids, mask):
+        calls.append((gen(ids, mask), ids, mask))
+        return calls[-1][0]
+
+    q._generate = generate
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = q.answer(queries, top_k=4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        q._generate = gen
+    rows, ids, mask = (t.cpu().numpy() for t in calls[0])
+    return answers, rows, ids, mask, dt
+
+
+def trim(row, eos, cap):
+    """A lockstep row cut at its first EOS (excluded) and at ``cap`` tokens."""
+    out = []
+    for t in row:
+        if len(out) >= cap or t == eos:
+            break
+        out.append(int(t))
+    return out
+
+
+def serve_cb_phase(device, q, seed):
+    """Continuous batching at full width: ``RagPipeline.answer_continuous`` on the int4 + int8 KV cache
+    pipeline (bge-large + Llama-2-7B, 16,384 passages, 256-token prompts, 64 new tokens, 32 slots, the fused
+    schedule). (a) One wave of 32 queries: a warm call, then a counted and timed one; every answer's text equals
+    ``answer()``'s on the same queries and the engine's tokens equal the lockstep generate's up to EOS. (b)
+    Recycling: 64 queries through the engine with budgets drawn from ``seed`` in [8, 64]; each request's tokens
+    equal the first ``budget`` tokens (up to EOS) of a lockstep ``answer()`` over the same 64 queries in two
+    batches of 32, which have the engine's shapes (32 rows at decode, 32 x 256 at admission; every kernel on the
+    path computes an output row from its own input row). (c) K5's launches in the counted ``answer_continuous()``:
+    the prefill route at admission (224 a wave), the fused kernel at decode (225 an iteration, and the first
+    token's lm_head at 32 rows a wave); K3's. Returns the launches of (c) and the numbers printed."""
+    import numpy as np
+    import torch
+
+    B, max_new = 32, 64
+    eos = q.g_tok.eos_token_id
+    layers = q.generator.cfg.num_layers
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]  # 32 queries
+
+    # (a) one wave
+    t0 = time.perf_counter()
+    warm = q.answer_continuous(queries, top_k=4, num_slots=B)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    eng = q._engine
+    lock, lock_rows, _, _, lock_s = lockstep_tokens(q, queries)
+    probe = EngineProbe(eng)
+    zero_serving_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cont = q.answer_continuous(queries, top_k=4, num_slots=B)
+        torch.cuda.synchronize()
+        cont_s = time.perf_counter() - t0
+    finally:
+        probe.close()
+    launches = serving_counts()
+    check(q._engine is eng, "serve-cb: answer_continuous() did not keep its engine")
+    check([a.answer for a in cont] == [a.answer for a in lock] == [a.answer for a in warm],
+          "serve-cb (a): answer_continuous() text differs from answer()'s")
+    check([a.passages for a in cont] == [a.passages for a in lock], "serve-cb (a): passages differ from answer()'s")
+    want = [trim(r, eos, max_new) for r in lock_rows]
+    got = probe.results
+    diff = [i for i in range(B) if got[i] != want[i]]
+    check(not diff, f"serve-cb (a): engine tokens differ from the lockstep generate's for requests {diff}")
+    waves, iters = probe.waves, probe.iters
+    routes = launches["routes"]
+    check(routes["prefill"] == 7 * layers * waves and launches["k5_prefill_gemm"] == routes["prefill"]
+          and launches["k5_prefill_dequant[base]"] == routes["prefill"],
+          f"serve-cb (c): K5's prefill route {routes}, {launches} for {waves} admission waves")
+    check(routes["fused"] == launches["int4_matmul[base]"] == waves + (7 * layers + 1) * iters
+          and routes["fold"] == routes["int8"] == 0, f"serve-cb (c): K5's fused kernel {launches} for {iters} iterations")
+    check(launches["fused_dot_topk[f32]"] > 0 and min(routes["fused"], routes["prefill"]) > 0,
+          f"serve-cb (c): a kernel of the path was never launched: {launches}")
+    tokens = sum(len(r) for r in got)
+    occ, step_ms, tok_s = probe.stats(cont_s, tokens)
+    out = dict(one_wave_s=cont_s, one_wave_warm_s=warm_s, one_wave_lockstep_s=lock_s, one_wave_waves=waves,
+               one_wave_iterations=iters, one_wave_occupancy=occ, one_wave_decode_ms=step_ms,
+               one_wave_admit_s=probe.admit_s, one_wave_tokens_per_s=tok_s)
+    print(f"[serve-cb] (a) answer_continuous() of {B} queries on {B} slots: {cont_s:.3f} s (first call, engine "
+          f"built: {warm_s:.3f} s); answer() of the same queries {lock_s:.3f} s; {waves} admission wave(s) "
+          f"({probe.admit_s:.3f} s), {iters} decode iterations, slot occupancy {occ:.3f}; decode "
+          f"{step_ms:.2f} ms an iteration (host clock, admission excluded) against a weight-read bound of 1.19 ms; "
+          f"{tokens} tokens = {tok_s:.1f} tokens/s; {B} answers and token lists equal answer()'s; launches {launches}",
+          flush=True)
+
+    # (b) recycling: 64 queries on 32 slots with budgets
+    queries = [f"what about topic {i}" for i in range(0, 16384, 256)]  # 64 queries
+    budgets = np.random.default_rng(seed).integers(8, max_new + 1, size=len(queries))
+    halves = [lockstep_tokens(q, queries[h:h + B]) for h in (0, B)]  # the prompts of the same retrieval calls
+    lock_rows, p_ids, p_mask = (np.concatenate([h[j] for h in halves]) for j in (1, 2, 3))
+    lock2_s = sum(h[4] for h in halves)
+    probe = EngineProbe(eng)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.generate_fused(p_ids, p_mask, budgets=budgets)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+    finally:
+        probe.close()
+    want = [trim(lock_rows[i], eos, int(budgets[i])) for i in range(len(queries))]
+    diff = [i for i in range(len(queries)) if got[i] != want[i]]
+    check(not diff, f"serve-cb (b): engine tokens differ from the lockstep batches' for requests {diff}")
+    tokens = sum(len(r) for r in got)
+    occ, step_ms, tok_s = probe.stats(rec_s, tokens)
+    out.update(recycle_s=rec_s, recycle_lockstep_s=lock2_s, recycle_waves=probe.waves, recycle_iterations=probe.iters,
+               recycle_occupancy=occ, recycle_decode_ms=step_ms, recycle_admit_s=probe.admit_s,
+               recycle_tokens_per_s=tok_s, recycle_tokens=tokens)
+    print(f"[serve-cb] (b) generate_fused() of {len(queries)} requests on {B} slots, budgets from seed {seed} in "
+          f"[8, {max_new}] (sum {int(budgets.sum())}): {rec_s:.3f} s; {probe.waves} admission waves "
+          f"({probe.admit_s:.3f} s), {probe.iters} decode iterations, slot occupancy {occ:.3f}; decode {step_ms:.2f} "
+          f"ms an iteration against 1.19 ms; {tokens} tokens = {tok_s:.1f} tokens/s; lockstep answer() in two "
+          f"batches of {B}: {lock2_s:.3f} s ({halves[0][4]:.3f} + {halves[1][4]:.3f}); every request's tokens equal "
+          f"its lockstep tokens up to its budget", flush=True)
+    print(json.dumps({"serve_cb": out}), flush=True)
     return launches, out
+
+
+def profile_serve_phase(device, q, start=4, iters=8):
+    """Not part of the default run: ``--phases profile-serve`` traces ``iters`` decode iterations of the engine's
+    fused schedule at the serve-cb shape (32 queries on 32 slots, int4 + int8 KV cache, 7B), from the start of
+    iteration ``start`` to the start of iteration ``start + iters``, with ``torch.profiler``: kernel launches per
+    iteration, device-busy time against wall time, the kernels that take most of the device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]
+    if q._engine_key != (32, 64, 8):
+        q.answer_continuous(queries, top_k=4, num_slots=32)  # builds the engine and its pool
+    eng = q._engine
+    _, ids = q.retrieve(queries, 4)
+    toks = q._prompt_tokens(queries, ids)
+    p_ids, p_mask = np.asarray(toks["input_ids"], np.int64), np.asarray(toks["attention_mask"], np.int64)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {"i": 0, "open": False}
+    step = eng._step
+
+    def traced(*a):
+        if clock["i"] in (start, start + iters):
+            torch.cuda.synchronize()
+            if clock["i"] == start:
+                prof.__enter__()
+                clock["open"], clock["t0"] = True, time.perf_counter()
+            else:
+                clock["wall_ms"] = (time.perf_counter() - clock["t0"]) * 1e3
+                prof.__exit__(None, None, None)
+                clock["open"] = False
+        clock["i"] += 1
+        return step(*a)
+
+    eng._step = traced
+    try:
+        eng.generate_fused(p_ids, p_mask)
+    finally:
+        del eng._step
+        if clock["open"]:
+            prof.__exit__(None, None, None)
+    check("wall_ms" in clock, f"profile-serve: only {clock['i']} decode iterations ran")
+    wall = clock["wall_ms"]
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    check(rows, "profile-serve: the profiler recorded no device time")
+    busy = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
+    print(f"[profile-serve] {iters} decode iterations of the fused schedule (32 slots, int4 + int8 KV cache) under "
+          f"the profiler: wall {wall / iters:.2f} ms an iteration, device busy {busy / iters:.2f} ms = "
+          f"{100 * busy / wall:.1f}% (idle {100 - 100 * busy / wall:.1f}%), {launches / iters:.0f} device launches "
+          f"an iteration", flush=True)
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:25]:
+        print(f"[profile-serve] {ms / iters:9.3f} ms/iteration {count / iters:7.1f} launches/iteration  {key[:110]}",
+              flush=True)
+    print(json.dumps({"profile_serve": {"iterations": iters, "wall_ms": wall, "busy_ms": busy,
+                                        "launches": launches, "top": [
+                                            {"kernel": k[:200], "ms": ms, "count": c}
+                                            for k, ms, c in sorted(rows, key=lambda r: -r[1])[:25]]}}), flush=True)
+    del prof
+    torch.cuda.empty_cache()
 
 
 def serve_phase(device, rng, peaks, kernels):
@@ -2477,7 +2762,9 @@ TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
 SFT_STEPS = 3
-PHASES = ("small", "serve", "serve-q", "k3", "k2", "k1", "grad", "k4", "k5", "train-small", "train", "sft-small", "sft")
+PHASES = ("small", "serve", "serve-q", "serve-cb", "k3", "k2", "k1", "grad", "k4", "k5", "train-small", "train",
+          "sft-small", "sft")
+EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
 
 
 def main() -> int:
@@ -2488,9 +2775,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of the phases to run (default: all, which the result line needs)")
+    ap.add_argument("--seed", type=int, default=0, help="seed of serve-cb's per-request budgets")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    unknown = sorted(set(phases) - set(PHASES) - {"profile", "profile-sft"})
+    unknown = sorted(set(phases) - set(PHASES) - set(EXTRA_PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}")
 
@@ -2527,16 +2815,22 @@ def main() -> int:
     base_pipe = None
     if "serve" in phases:
         base_pipe = serve_phase(device, np.random.default_rng(0), peaks, kernels)
-    k5_launches = {}
-    if "serve-q" in phases:
-        if base_pipe is None:
-            from dalm_tpu_torch.serve import RagPipeline
+    k5_launches, cb_launches, int4_pipe = {}, {}, None
+    if base_pipe is None and {"serve-q", "serve-cb", "profile-serve"} & set(phases):
+        from dalm_tpu_torch.serve import RagPipeline
 
-            base_pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", corpus(16384, np.random.default_rng(0)),
-                                                    dtype="bfloat16", device=device, max_passage_len=128,
-                                                    max_prompt_len=256, max_new_tokens=64, embed_batch=256)
-        k5_launches, _ = serve_q_phase(device, np.random.default_rng(0), base_pipe)
-    del base_pipe
+        base_pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", corpus(16384, np.random.default_rng(0)),
+                                                dtype="bfloat16", device=device, max_passage_len=128,
+                                                max_prompt_len=256, max_new_tokens=64, embed_batch=256)
+    if "serve-q" in phases:
+        k5_launches, _, int4_pipe = serve_q_phase(device, np.random.default_rng(0), base_pipe)
+    if int4_pipe is None and {"serve-cb", "profile-serve"} & set(phases):
+        int4_pipe = int4_pipeline(device, base_pipe)
+    if "serve-cb" in phases:
+        cb_launches, _ = serve_cb_phase(device, int4_pipe, args.seed)
+    if "profile-serve" in phases:
+        profile_serve_phase(device, int4_pipe)
+    del base_pipe, int4_pipe
     gc.collect()
     torch.cuda.empty_cache()
     if "k3" in phases:
@@ -2607,6 +2901,9 @@ def main() -> int:
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
              "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *k5_names)
+    for name, n in cb_launches.items():  # this slice's main path: answer_continuous() (serve-cb (c))
+        if name in kernels:
+            kernels[name]["launches_serve_cb"] = n
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")

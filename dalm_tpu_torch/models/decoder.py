@@ -17,9 +17,11 @@ pad rows, which feed no real token and carry no loss. The reference's modes:
   forward kernel then runs twice per layer and step), optionally with NEFTune
   noise on the embeddings;
 - cached: ``forward(ids, slot_mask, positions, kv_cache, cache_index)``
-  with a scalar ``cache_index``; the new keys/values are written into the
-  cache buffers IN PLACE (the JAX version returns an updated copy) and
-  attention runs over the whole buffer under a slot-causal mask
+  with an ``int`` ``cache_index`` (every row writes slots from it) or a (B,)
+  tensor (row ``b`` writes from ``cache_index[b]``: the continuous-batching
+  engine's slots, ``decoder.py:596-625,907,967``); the new keys/values are
+  written into the cache buffers IN PLACE (the JAX version returns an updated
+  copy) and attention runs over the whole buffer under a slot-causal mask
   (``decoder.py:961-977``). Returns ``(logits, kv_cache)``. With
   ``cfg.kv_quant`` the cache holds int8 keys and values with one f32 scale per
   (token, kv head) (``decoder.py:555-571,856-870``): the new entries are
@@ -207,6 +209,44 @@ def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q * scale[..., None]).to(dtype)
 
 
+def _cache_write(cache: dict, new_vals: dict, cache_index, S: int) -> None:
+    """Write (B, S, ...) entries into the cache buffers (B, L, H, D) / (B, L, H)
+    in place (the reference's ``_cache_write``, ``decoder.py:574-630``, returns
+    an updated copy). Two modes:
+
+    - an ``int`` index: every row's slots ``[cache_index, cache_index + S)``,
+      one slice write (the reference's ``dynamic_update_slice``);
+    - a (B,) tensor: row ``b``'s slots from ``cache_index[b]``, written by
+      advanced indexing where the reference selects with one-hot masks. A slot
+      at or past the end ``L`` is dropped, as there (a one-hot over ``L`` has
+      no such column): the engine's host loop lets a finished slot run to the
+      end of its chunk, past ``L``. With ``S == 1`` the row's slot is clamped
+      and its old entry written back instead, so nothing waits on the host;
+      with ``S > 1`` the slots in range are selected, which reads the mask.
+    """
+    if not torch.is_tensor(cache_index):
+        at = slice(cache_index, cache_index + S)
+        for name, val in new_vals.items():
+            cache[name][:, at] = val.to(cache[name].dtype)
+        return
+    first = cache[next(iter(new_vals))]
+    B, L = first.shape[:2]
+    rows = torch.arange(B, device=first.device)
+    if S == 1:
+        slot = cache_index.clamp(max=L - 1)
+        keep = cache_index < L
+        for name, val in new_vals.items():
+            buf = cache[name]
+            new = val[:, 0].to(buf.dtype)
+            buf[rows, slot] = torch.where(keep.view((B,) + (1,) * (new.dim() - 1)), new, buf[rows, slot])
+        return
+    slots = cache_index[:, None] + torch.arange(S, device=first.device)
+    keep = slots < L
+    rows, slots = rows[:, None].expand(B, S)[keep], slots[keep]
+    for name, val in new_vals.items():
+        cache[name][rows, slots] = val[keep].to(cache[name].dtype)
+
+
 class DecoderAttention(nn.Module):
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
@@ -231,17 +271,13 @@ class DecoderAttention(nn.Module):
             ctx = flash_attention(q, k, v, segment_mask, segment_mask, causal=True, scale=1.0 / math.sqrt(hd))
             return self.o_proj(ctx.reshape(B, S, nh * hd).to(cfg.dtype))
         if kv_cache is not None:
-            # Scalar-index write, in place (the reference's
-            # dynamic_update_slice mode, decoder.py:624-628).
-            at = slice(cache_index, cache_index + S)
             if "k_scale" in kv_cache:  # int8 cache: quantise on write, read dequantised
-                (kv_cache["k"][:, at], kv_cache["k_scale"][:, at]) = _kv_quantize(k)
-                (kv_cache["v"][:, at], kv_cache["v_scale"][:, at]) = _kv_quantize(v)
+                (qk, ks), (qv, vs) = _kv_quantize(k), _kv_quantize(v)
+                _cache_write(kv_cache, {"k": qk, "k_scale": ks, "v": qv, "v_scale": vs}, cache_index, S)
                 k = _kv_dequantize(kv_cache["k"], kv_cache["k_scale"], cfg.dtype)
                 v = _kv_dequantize(kv_cache["v"], kv_cache["v_scale"], cfg.dtype)
             else:
-                kv_cache["k"][:, at] = k.to(kv_cache["k"].dtype)
-                kv_cache["v"][:, at] = v.to(kv_cache["v"].dtype)
+                _cache_write(kv_cache, {"k": k, "v": v}, cache_index, S)
                 k, v = kv_cache["k"], kv_cache["v"]
         rep = nh // kvh
         # Grouped attention without repeating K/V: query head j·rep+g reads
@@ -321,7 +357,7 @@ class Decoder(nn.Module):
 
     @torch.no_grad()
     def forward(self, input_ids, attention_mask=None, positions=None, kv_cache=None,
-                cache_index: Optional[int] = None, return_hidden: bool = False,
+                cache_index: "int | torch.Tensor | None" = None, return_hidden: bool = False,
                 logits_last_only: bool = False):
         """Inference (no gradient). Full-sequence: logits (B, S, V). With
         ``kv_cache``: (logits, kv_cache).
@@ -360,11 +396,21 @@ class Decoder(nn.Module):
         cfg = self.cfg
         B, S = input_ids.shape
         dev = input_ids.device
-        if kv_cache is not None and not isinstance(cache_index, int):
-            raise NotImplementedError("only a scalar (int) cache_index is ported")
+        if kv_cache is not None:
+            # An int, or a (B,) tensor: each row's own first slot.
+            if torch.is_tensor(cache_index):
+                if cache_index.shape != (B,) or cache_index.device != dev or cache_index.is_floating_point():
+                    raise ValueError(f"a per-row cache_index must be a ({B},) integer tensor on {dev}; got "
+                                     f"{tuple(cache_index.shape)} {cache_index.dtype} on {cache_index.device}")
+                q_slot = cache_index.long()[:, None] + torch.arange(S, device=dev)  # (B, S)
+                cache_index = q_slot[:, 0]
+            elif isinstance(cache_index, int):
+                q_slot = (cache_index + torch.arange(S, device=dev))[None, :]  # (1, S)
+            else:
+                raise TypeError(f"cache_index must be an int or a ({B},) tensor; got {type(cache_index).__name__}")
         if positions is None:
             if kv_cache is not None:
-                positions = (cache_index + torch.arange(S, device=dev))[None, :].expand(B, S)
+                positions = q_slot.expand(B, S)
             elif attention_mask is not None:
                 positions = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
             else:
@@ -386,8 +432,7 @@ class Decoder(nn.Module):
             # position lags the slot index by a per-row constant.
             key_len = kv_cache["layer_0"]["k"].shape[1]
             key_slot = torch.arange(key_len, device=dev)[None, None, None, :]
-            q_slot = (cache_index + torch.arange(S, device=dev))[None, None, :, None]
-            mask = key_slot <= q_slot
+            mask = key_slot <= q_slot[:, None, :, None]
         else:
             mask = positions[:, None, None, :] <= positions[:, None, :, None]
         if mask is not None and attention_mask is not None:

@@ -1,4 +1,4 @@
-"""RAG serving: retrieve → prompt → generate (counterpart of ``dalm_tpu/serve.py:48-241``).
+"""RAG serving: retrieve → prompt → generate (counterpart of ``dalm_tpu/serve.py:48-300``).
 
 The passage corpus is embedded once into a :class:`DenseIndex` on the
 device; ``answer`` embeds the queries, retrieves with K3 (the CUDA top-k
@@ -9,14 +9,18 @@ reference (``dalm_tpu/serve.py:65-114``): ``quantize_generator`` packs the
 generator's big kernels IN PLACE into int8 (True / "int8"), or 4-bit
 ("int4", "nf4", "int4pc": every projection then runs on K5,
 ``kernels/int4_matmul.py``); ``kv_quant`` switches the generator's config to
-the int8 KV cache, also in place. Continuous batching, streaming and
-speculative decoding wait for later slices and raise.
+the int8 KV cache, also in place. ``answer_continuous`` decodes through the
+continuous-batching engine (``models/decode_engine.py``): a pool of slots,
+each given to the next waiting query as soon as its answer ends, on the
+fused schedule (``dalm_tpu/serve.py:243-300``). Streaming and speculative
+decoding wait for a later slice and raise.
 
 Usage::
 
     pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", passages, dtype="bfloat16",
                                        quantize_generator="int4", kv_quant=True)
     answers = pipe.answer(["what is ..?"], top_k=4)
+    many = pipe.answer_continuous(queries, top_k=4, num_slots=32)
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from dalm_tpu_torch.data.tokenizer import resolve_tokenizer
 from dalm_tpu_torch.device import resolve_device
 from dalm_tpu_torch.eval.retriever import build_embed_fn, load_retriever_for_eval
 from dalm_tpu_torch.index.dense import DenseIndex
+from dalm_tpu_torch.models.decode_engine import DecodeEngine
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.generate import build_greedy_generate
 from dalm_tpu_torch.models.qlora import pack_module
@@ -63,11 +68,16 @@ class RagPipeline:
         kv_quant: bool = False,  # int8 KV cache (per-token/head scales)
         sampler=None,  # models.sampling.SamplerConfig; None = greedy
         speculative: bool = False,
+        speculative_gamma: int = 8,
+        prefill_chunk: Optional[int] = None,  # blocked admission prefill (answer_continuous)
+        admit_width: Optional[int] = None,  # compact admission waves (answer_continuous)
         device=None,
     ):
         """``retriever`` (a SentenceEmbedder) and ``generator`` hold their
         weights and must already be on ``device`` (default ``cuda``).
-        ``quantize_generator`` and ``kv_quant`` change ``generator`` in place."""
+        ``quantize_generator`` and ``kv_quant`` change ``generator`` in place.
+        ``speculative_gamma`` takes effect only with ``speculative``, which
+        raises until speculative decoding is ported."""
         if speculative:
             raise NotImplementedError("speculative decoding is not ported yet")
         self.device = resolve_device(device)
@@ -87,6 +97,12 @@ class RagPipeline:
         self.max_passage_len = max_passage_len
         self.max_prompt_len = max_prompt_len
         self.embed_batch = embed_batch
+        self._max_new_tokens = max_new_tokens
+        self.sampler = sampler
+        self._spec_gamma = speculative_gamma if speculative else 0
+        self._prefill_chunk = prefill_chunk
+        self._admit_width = admit_width
+        self._engine, self._engine_key = None, None
         self._embed = build_embed_fn(self.retriever)
         self._generate = build_greedy_generate(
             self.generator, max_new_tokens,
@@ -147,20 +163,18 @@ class RagPipeline:
         q_embs = self._embed_texts([f"#query# {q}" for q in queries], self.max_passage_len)
         return self.index.search(q_embs, top_k)
 
-    def answer(self, queries: Sequence[str], top_k: int = 4) -> List[RagAnswer]:
-        scores, ids = self.retrieve(queries, top_k)
+    def _prompt_tokens(self, queries: Sequence[str], ids) -> dict:
+        """Left-padded generator prompts from each query's best passage."""
         prompts = [
             f"#query# {q} #passage# {self.passages[int(ids[i, 0])]} #answer# "
             for i, q in enumerate(queries)
         ]
-        toks = self.g_tok(prompts, padding="max_length", max_length=self.max_prompt_len, truncation=True)
-        gen = self._generate(
-            torch.as_tensor(toks["input_ids"], dtype=torch.long, device=self.device),
-            torch.as_tensor(toks["attention_mask"], dtype=torch.long, device=self.device),
-        ).cpu().numpy()
+        return self.g_tok(prompts, padding="max_length", max_length=self.max_prompt_len, truncation=True)
+
+    def _answers(self, queries: Sequence[str], scores, ids, token_rows) -> List[RagAnswer]:
         results = []
         for i, q in enumerate(queries):
-            text = self.g_tok.decode(gen[i], skip_special_tokens=True)
+            text = self.g_tok.decode(token_rows[i], skip_special_tokens=True)
             results.append(
                 RagAnswer(
                     query=q,
@@ -170,3 +184,47 @@ class RagPipeline:
                 )
             )
         return results
+
+    def answer(self, queries: Sequence[str], top_k: int = 4) -> List[RagAnswer]:
+        scores, ids = self.retrieve(queries, top_k)
+        toks = self._prompt_tokens(queries, ids)
+        gen = self._generate(
+            torch.as_tensor(toks["input_ids"], dtype=torch.long, device=self.device),
+            torch.as_tensor(toks["attention_mask"], dtype=torch.long, device=self.device),
+        ).cpu().numpy()
+        return self._answers(queries, scores, ids, gen)
+
+    def answer_continuous(
+        self,
+        queries: Sequence[str],
+        top_k: int = 4,
+        num_slots: int = 32,
+        max_new_tokens: Optional[int] = None,
+        decode_chunk: int = 8,
+    ) -> List[RagAnswer]:
+        """``answer`` with continuous batching: ``num_slots`` decode slots, each
+        recycled to a waiting query as soon as its answer ends (EOS), so short
+        answers never pay for long ones. All queries are known up front, so the
+        engine's fused schedule runs. The engine is kept for the next call with
+        the same ``(num_slots, max_new_tokens, decode_chunk)``."""
+        max_new = max_new_tokens or self._max_new_tokens
+        key = (num_slots, max_new, decode_chunk)
+        if self._engine_key != key:  # the engine allocates its pool on first use
+            self._engine = DecodeEngine(
+                self.generator, num_slots=num_slots, max_prompt_len=self.max_prompt_len,
+                max_new_tokens=max_new,
+                eos_token_id=self.g_tok.eos_token_id,
+                pad_token_id=self.g_tok.pad_token_id or 0,
+                decode_chunk=decode_chunk,
+                sampler=self.sampler,
+                speculative_gamma=self._spec_gamma,
+                prefill_chunk=self._prefill_chunk,
+                admit_width=self._admit_width,
+            )
+            self._engine_key = key
+        scores, ids = self.retrieve(queries, top_k)
+        toks = self._prompt_tokens(queries, ids)
+        token_lists = self._engine.generate_fused(
+            np.asarray(toks["input_ids"], np.int64), np.asarray(toks["attention_mask"], np.int64)
+        )
+        return self._answers(queries, scores, ids, token_lists)

@@ -1383,3 +1383,78 @@ def test_int8_matmul_padded_shapes_on_card(cuda, bwd_int8):
         assert torch.equal(outs[0][1], outs[1][1])
     else:
         assert (outs[0][1] - outs[1][1]).abs().max() <= 1e-6 * outs[1][1].abs().max()
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+def test_per_row_cache_write_on_card(cuda, storage, S):
+    """The decoder's per-row cache write on CUDA tensors equals the same write on the CPU bit for bit, slots at
+    or past the end of the buffer dropped (no out-of-range index reaches the card)."""
+    from dalm_tpu_torch.models.decoder import _cache_write
+
+    g = torch.Generator().manual_seed(S)
+    B, L, H, D = 4, 10, 2, 8
+    if storage == "bf16":
+        cache = {n: torch.randn((B, L, H, D), generator=g).to(torch.bfloat16) for n in ("k", "v")}
+        new = {n: torch.randn((B, S, H, D), generator=g) for n in ("k", "v")}
+    else:
+        cache = {"k": torch.randint(-127, 128, (B, L, H, D), generator=g, dtype=torch.int8),
+                 "k_scale": torch.rand((B, L, H), generator=g)}
+        new = {"k": torch.randint(-127, 128, (B, S, H, D), generator=g, dtype=torch.int8),
+               "k_scale": torch.rand((B, S, H), generator=g)}
+    index = torch.tensor([0, 5, L - 1, L + 3])
+    want = {n: t.clone() for n, t in cache.items()}
+    _cache_write(want, new, index, S)
+    got = {n: t.to(cuda) for n, t in cache.items()}
+    _cache_write(got, {n: t.to(cuda) for n, t in new.items()}, index.to(cuda), S)
+    torch.cuda.synchronize()
+    for n in cache:
+        assert torch.equal(got[n].cpu(), want[n]), n
+
+
+def _engine_decoder(device):
+    """A 4-bit generator with the int8 KV cache, wide enough for K5 (hidden 256, intermediate 512), bf16."""
+    import dataclasses
+
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+    from dalm_tpu_torch.models.qlora import pack_module
+
+    cfg = dataclasses.replace(DecoderConfig.tiny(), hidden_size=256, num_heads=4, intermediate_size=512,
+                              dtype=torch.bfloat16, kv_quant=True)
+    dec = Decoder(cfg, device="cpu")
+    dec.reset_parameters(torch.Generator().manual_seed(1))
+    dec = dec.to(device)
+    pack_module(dec, "int4")
+    return dec.eval()
+
+
+@pytest.mark.parametrize("method", ["generate", "generate_fused"])
+def test_engine_matches_lockstep_on_card(cuda, method):
+    """The continuous-batching engine on the card, K5 at admission (4 x 64 rows: the prefill route) and at
+    decode (4 rows: the fused kernel): one wave of 4 prompts equals the lockstep generate token for token, and
+    12 prompts with budgets recycling the 4 slots equal the lockstep generate in batches of 4 (the same shapes),
+    each cut at its budget."""
+    from dalm_tpu_torch.models.decode_engine import DecodeEngine
+    from dalm_tpu_torch.models.generate import build_greedy_generate
+
+    dec = _engine_decoder(cuda)
+    B, P, N, max_new = 4, 64, 12, 12
+    rng = np.random.default_rng(3)
+    ids = np.zeros((N, P), np.int64)
+    mask = np.zeros((N, P), np.int64)
+    for i in range(N):
+        real = int(rng.integers(8, P + 1))
+        ids[i, P - real:] = rng.integers(0, 256, size=real)
+        mask[i, P - real:] = 1
+    lockstep = build_greedy_generate(dec, max_new)
+    lock = np.concatenate([lockstep(torch.as_tensor(ids[i:i + B], device=cuda),
+                                    torch.as_tensor(mask[i:i + B], device=cuda)).cpu().numpy()
+                           for i in range(0, N, B)])
+    eng = DecodeEngine(dec, num_slots=B, max_prompt_len=P, max_new_tokens=max_new, decode_chunk=4)
+    before = dict(k5.int4_matmul_fwd.route_launches)
+    assert getattr(eng, method)(ids[:B], mask[:B]) == [[int(t) for t in row] for row in lock[:B]]
+    budgets = rng.integers(2, max_new + 1, size=N)
+    got = getattr(eng, method)(ids, mask, budgets=budgets)
+    assert got == [[int(t) for t in lock[i, :budgets[i]]] for i in range(N)]
+    moved = {r: k5.int4_matmul_fwd.route_launches["base", r] - before["base", r] for r in ("fused", "prefill")}
+    assert moved["fused"] > 0 and moved["prefill"] > 0, moved

@@ -41,7 +41,7 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "dalm_tpu_torch.serve" in loaded and "dalm_tpu_torch.train.rag_e2e" in loaded
     for new in ("kernels.flash_attention", "train.generator_only", "data.sft", "losses.causal",
-                "kernels.int4_matmul", "models.sampling", "models.quant"):
+                "kernels.int4_matmul", "models.sampling", "models.quant", "models.decode_engine"):
         assert f"dalm_tpu_torch.{new}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
