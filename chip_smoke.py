@@ -19,7 +19,11 @@ every projection through the int4 kernel K5, then nf4, int4pc and the
 i8mxu / groupmm variants); and serves that int4 pipeline through the
 continuous-batching engine (``answer_continuous``, 32 slots: one wave of 32
 queries, then 64 requests with per-request budgets recycling the slots, each
-held token for token to the lockstep ``answer()``). Fails (non-zero exit, no result line)
+held token for token to the lockstep ``answer()``); and serves it with
+prompt-lookup speculative decoding (``speculative=True``, gamma 8: lockstep,
+the engine's two schedules) and through streaming sessions (``stream()``,
+with and without speculation), each held to the plain path, tie-aware where
+speculation rounds otherwise. Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
 
@@ -28,7 +32,10 @@ enough for K5 in int4, nf4 and int4pc with the int8 KV cache), ``serve``
 (and K3 at its own shape, by CUDA graph over copies of the index in turns
 with ``torch.topk(q @ e.T)``), ``serve-q`` (the 4-bit tiers; reuses
 ``serve``'s bf16 pipeline when both run), ``serve-cb`` (continuous batching on
-serve-q's int4 pipeline; ``--seed`` draws its budgets), ``k3`` (every row storage mode at
+serve-q's int4 pipeline; ``--seed`` draws its budgets), ``serve-stream`` (speculative decoding and
+streaming on that pipeline: ``answer()`` with ``speculative=True``, one verify pass fed the plain path's own
+tokens, the speculative engine's fused schedule and host loop, 64 streamed queries in two bursts, a speculative
+stream; K3 at one query and K5's routes at the verify pass's rows against their plain versions), ``k3`` (every row storage mode at
 1M rows, each with its share of the bound), ``k2`` (timed by CUDA graph over
 copies larger than the L2 at the train shapes and again at decode's 32
 rows), ``k1`` (K1, its three launches one by one, and the two int8 GEMM
@@ -69,7 +76,8 @@ the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven; K3's f32
 entry and K5 base's fused kernel, pre-pass and GEMM also carry
 ``launches_serve_cb``, their counts in serve-cb's counted
-``answer_continuous()``), and as
+``answer_continuous()``, and ``launches_serve_stream``, their counts in
+serve-stream's speculative and streaming runs), and as
 the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances: K3 on exact-arithmetic inputs (small integers times powers of
@@ -83,7 +91,8 @@ entries equal, K1 and each of its launches equal on integer-valued and
 real-valued inputs, gradients equal, tiny training losses within 2e-3. K4's
 stand beside ``K4_TOL``, the tiny SFT run's beside ``SFT_SMALL_TOL``, K5's
 beside ``K5_TOL``, the 4-bit tiers' logits beside ``K5_LOGIT_BOUND`` and the
-tiny K5 pipeline's beside ``SMALL_Q_TOL``.
+tiny K5 pipeline's beside ``SMALL_Q_TOL``, serve-stream's near ties beside
+``TIE_TOL``.
 """
 
 from __future__ import annotations
@@ -2485,8 +2494,9 @@ def serving_counts():
 
 class EngineProbe:
     """Counts what the continuous-batching engine does inside one call, from outside it: admission waves and
-    their wall time (synchronised), decode iterations, active slot-steps (summed on the device), and the value
-    ``generate_fused`` returned. Installed on the engine's instance, removed by ``close``."""
+    their wall time (synchronised), decode iterations (single-token steps or verify passes), active slot-steps
+    of the single-token steps (summed on the device), and the value ``generate_fused`` returned. Installed on the
+    engine's instance, removed by ``close``."""
 
     def __init__(self, eng):
         import torch
@@ -2494,7 +2504,7 @@ class EngineProbe:
         self.eng = eng
         self.waves, self.admit_s, self.iters, self.results = 0, 0.0, 0, None
         self.active = torch.zeros((), dtype=torch.long, device=eng.device)
-        admit, step, advance, fused = eng._admit, eng._step, eng._advance, eng.generate_fused
+        admit, step, advance, verify, fused = eng._admit, eng._step, eng._advance, eng._verify, eng.generate_fused
 
         def _admit(*a):
             torch.cuda.synchronize()
@@ -2509,6 +2519,10 @@ class EngineProbe:
             self.iters += 1
             return step(*a)
 
+        def _verify(*a):
+            self.iters += 1
+            return verify(*a)
+
         def _advance(active, tok):
             self.active += active.sum()
             return advance(active, tok)
@@ -2517,10 +2531,10 @@ class EngineProbe:
             self.results = fused(*a, **k)
             return self.results
 
-        eng._admit, eng._step, eng._advance, eng.generate_fused = _admit, _step, _advance, _fused
+        eng._admit, eng._step, eng._advance, eng._verify, eng.generate_fused = _admit, _step, _advance, _verify, _fused
 
     def close(self):
-        for name in ("_admit", "_step", "_advance", "generate_fused"):
+        for name in ("_admit", "_step", "_advance", "_verify", "generate_fused"):
             delattr(self.eng, name)
 
     def stats(self, wall_s, tokens):
@@ -2725,6 +2739,364 @@ def profile_serve_phase(device, q, start=4, iters=8):
     torch.cuda.empty_cache()
 
 
+# serve-stream's tie-aware checks. A verify pass runs the 7B's projections at M = 32 x 9 = 288 rows on K5's prefill
+# route (bf16 wgmma GEMM), the plain step at M = 32 on the fused kernel (f32 sums), and its attention over a cache
+# 9 slots longer: the sums round otherwise, and a random 7B carries that to its logits, so where its top two logits
+# nearly tie the argmax may flip. Two token lists are held equal up to their first difference; there, the plain
+# path's logits recomputed by one teacher-forced forward (the prefill route) must put both tokens within TIE_TOL of
+# the top logit; after it, nothing is compared. The bound is the rounding noise between the two routes, printed
+# by every run as "route noise": the plain path's cached logits against one teacher-forced forward's differed by
+# up to 0.72 (0.50 at the chosen token; logit std 1.29; 418 of 2048 argmaxes flipped) on an NVIDIA H100 80GB
+# HBM3 at 700 W. A wrong token lies several logit standard deviations below the top.
+TIE_TOL = 1.0
+GAMMA = 8
+
+
+def first_diff(a, b, eos):
+    """The first position where token lists ``a`` and ``b`` differ (a list that ended reads as ``eos`` there),
+    or None."""
+    for t in range(max(len(a), len(b))):
+        x = a[t] if t < len(a) else eos
+        y = b[t] if t < len(b) else eos
+        if x != y:
+            return t, x, y
+    return None
+
+
+def tie_aware(label, gen, p_ids, p_mask, plain, other, eos):
+    """Hold ``other`` to ``plain`` (token lists per request) tie-aware, with one teacher-forced forward of the
+    diverging requests over their prompt and plain tokens. Returns (requests equal, diverging, the largest
+    distance of a flipped token from the top logit)."""
+    import numpy as np
+    import torch
+
+    diffs = {i: d for i, (a, b) in enumerate(zip(plain, other)) if (d := first_diff(a, b, eos)) is not None}
+    worst = 0.0
+    if diffs:
+        rows = sorted(diffs)
+        T = max(len(plain[i]) for i in rows)
+        seq = np.zeros((len(rows), p_ids.shape[1] + T), np.int64)
+        seq_mask = np.zeros_like(seq)
+        for j, i in enumerate(rows):
+            n = len(plain[i])
+            seq[j, : p_ids.shape[1]], seq[j, p_ids.shape[1]: p_ids.shape[1] + n] = p_ids[i], plain[i]
+            seq_mask[j, : p_ids.shape[1]], seq_mask[j, p_ids.shape[1]: p_ids.shape[1] + n] = p_mask[i], 1
+        logits = gen(torch.as_tensor(seq, device=gen.final_norm.scale.device),
+                     torch.as_tensor(seq_mask, device=gen.final_norm.scale.device))
+        where = []
+        for j, i in enumerate(rows):
+            t, a, b = diffs[i]
+            lg = logits[j, p_ids.shape[1] + t - 1].float().cpu()
+            top = float(lg.max())
+            far = max(top - float(lg[a]), top - float(lg[b]))
+            where.append((i, t, round(far, 4)))
+            worst = max(worst, far)
+            check(far <= TIE_TOL, f"serve-stream {label}: request {i} differs at token {t} ({a} against {b}) where "
+                                  f"the plain path's logits do not nearly tie ({far:.4f} > {TIE_TOL})")
+        del logits
+        print(f"[serve-stream] {label}: (request, first differing token, the farther token's distance below the "
+              f"recomputed top logit): {where}", flush=True)
+    return len(plain) - len(diffs), len(diffs), worst
+
+
+def route_noise(gen, p_ids, p_mask, rows):
+    """The rounding noise between two routes to the same logits: the plain path's cached decode fed its own
+    tokens ``rows`` (the fused kernel at 32 rows a step) against one teacher-forced forward over them (the
+    prefill route). Prints and returns the largest difference, the largest at the chosen token, the logits'
+    standard deviation, the median top-two gap and how many argmaxes flip between the two."""
+    import torch
+
+    dev = gen.final_norm.scale.device
+    ids, mask = torch.as_tensor(p_ids, device=dev), torch.as_tensor(p_mask, device=dev)
+    forced = torch.as_tensor(rows, device=dev).long()
+    cached = forced_logits(gen, ids, mask, forced)  # (B, T, V) f32 on the CPU
+    full = gen(torch.cat([ids, forced[:, :-1]], dim=1), torch.cat([mask, torch.ones_like(forced[:, :-1])], dim=1))
+    tf = full[:, ids.shape[1] - 1:].float().cpu()
+    del full
+    chosen = forced.cpu()[..., None]
+    top2 = torch.topk(cached, 2, dim=-1).values
+    out = dict(max=float((tf - cached).abs().max()), chosen=float((tf.gather(-1, chosen) - cached.gather(-1, chosen))
+                                                                  .abs().max()),
+               std=float(cached.std()), median_gap=float((top2[..., 0] - top2[..., 1]).median()),
+               flips=int((tf.argmax(-1) != cached.argmax(-1)).sum()), positions=int(chosen.numel()))
+    print(f"[serve-stream] route noise: the plain path's cached logits against one teacher-forced forward's differ "
+          f"by up to {out['max']:.4f} ({out['chosen']:.4f} at the chosen token; logit std {out['std']:.4f}, median "
+          f"top-two gap {out['median_gap']:.4f}); argmax flips at {out['flips']} of {out['positions']} positions; "
+          f"TIE_TOL {TIE_TOL}", flush=True)
+    return out
+
+
+class K5Capture:
+    """Keeps the operands of the K5 calls numbered ``keep`` (from 0), passing every call through."""
+
+    def __init__(self, keep):
+        from dalm_tpu_torch.kernels import int4_matmul as k5
+
+        self.k5, self.fwd, self.calls, self.n = k5, k5.int4_matmul_fwd, [], 0
+
+        def capture(x2, q4, scale4, instance):
+            if self.n in keep:
+                self.calls.append((x2.clone(), q4, scale4, instance))
+            self.n += 1
+            return self.fwd(x2, q4, scale4, instance)
+
+        capture.launches, capture.route_launches = self.fwd.launches, self.fwd.route_launches
+        k5.int4_matmul_fwd = capture
+
+    def close(self):
+        self.k5.int4_matmul_fwd = self.fwd
+
+
+def serve_stream_phase(device, q, seed):
+    """Streaming and speculative decoding at full width: the int4 + int8 KV cache pipeline of serve-q (bge-large
+    + Llama-2-7B, 16,384 passages, 256-token prompts, 64 new tokens, 32 slots, gamma 8) and the 32 queries of
+    serve-cb (a). (a) ``answer()`` of a ``RagPipeline(speculative=True)`` on the same generator against the plain
+    ``answer()``, tie-aware (``TIE_TOL``); passes a request and accepted drafts a pass. (b) One ``verify_step``
+    of the pool at full width, each slot's draft the plain path's own next 8 tokens: every draft is accepted
+    up to the first near tie. (c) ``answer_continuous()`` with speculation (the fused schedule) and the engine's
+    host loop, tie-aware against (a). (d) ``stream()`` without speculation: 64 queries in two bursts of 32 (the
+    second sent once every request of the first has its first token) with serve-cb (b)'s budgets from ``seed``,
+    equal token for token to the engine's ``generate`` on the prompts the session built; time to first token
+    and tokens/s a request; the first token of each request before its end. (e) ``stream()`` with speculation on
+    the 32 queries, tie-aware against (c). K3 at Q = 1 and each K5 route the phase launches (the fused kernel at
+    M = 32 and 36, the prefill route at M = 288) against their plain versions on the phase's own operands. Every
+    handle must succeed and the scheduler thread end cleanly. Returns the launches of K3 and K5 on the phase's
+    main paths (counted from 0 before each) and the numbers printed."""
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
+    from dalm_tpu_torch.models.speculative import build_speculative_generate
+    from dalm_tpu_torch.serve import RagPipeline
+
+    B, max_new, G = 32, 64, GAMMA
+    eos, pad = q.g_tok.eos_token_id, q.g_tok.pad_token_id or 0
+    gen = q.generator
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]  # serve-cb (a)'s 32 queries
+    out, totals = {"launches": {}}, {}
+
+    def counted(case, fn):
+        """Run one main-path piece with every serving count from 0; keep its counts under ``case`` and add them
+        to ``totals``."""
+        zero_serving_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["launches"][case] = counts = serving_counts()
+        for name, n in counts.items():
+            if name == "routes":
+                for r, c in n.items():
+                    totals.setdefault("routes", {}).setdefault(r, 0)
+                    totals["routes"][r] += c
+            else:
+                totals[name] = totals.get(name, 0) + n
+        return res, dt
+
+    # (a) lockstep speculative answer() against the plain answer()
+    plain, plain_rows, p_ids, p_mask, plain_s = lockstep_tokens(q, queries)
+    plain_lists = [trim(r, eos, max_new) for r in plain_rows]
+    spec = RagPipeline(q.retriever, q.r_tok, gen, q.g_tok, q.passages, device=device, kv_quant=True,
+                       speculative=True, speculative_gamma=G, max_passage_len=q.max_passage_len,
+                       max_prompt_len=q.max_prompt_len, max_new_tokens=max_new, embed_batch=q.embed_batch)
+    # the pipeline's own generator, with return_stats: the passes each request took
+    stats = build_speculative_generate(gen, max_new, eos_token_id=eos, pad_token_id=pad, gamma=G, return_stats=True)
+    seen = {}
+
+    def with_stats(ids, mask):
+        seen["toks"], seen["passes"] = stats(ids, mask)
+        return seen["toks"]
+
+    spec._generate = with_stats
+    spec.answer(queries[:2], top_k=4)  # warm
+    spec_answers, spec_s = counted("a", lambda: spec.answer(queries, top_k=4))
+    routes = out["launches"]["a"]["routes"]
+    passes = seen["passes"].cpu().numpy()
+    check([a.passages for a in spec_answers] == [a.passages for a in plain], "serve-stream (a): retrieval differs")
+    spec_lists = [trim(r, eos, max_new) for r in seen["toks"].cpu().numpy()]
+    eq, dv, worst = tie_aware("(a)", gen, p_ids, p_mask, plain_lists, spec_lists, eos)
+    noise = route_noise(gen, p_ids, p_mask, plain_rows)
+    # the first token comes from the prefill; the passes commit the other max_new - 1
+    per_pass = (max_new - 1) / passes.clip(min=1)
+    layers = gen.cfg.num_layers
+    n_pass = int(passes.max())
+    check(routes["prefill"] == 7 * layers + (7 * layers + 1) * n_pass and routes["fold"] == routes["int8"] == 0,
+          f"serve-stream (a): K5 routes {routes} for {n_pass} verify passes (each 225 projections at M = "
+          f"{B * (G + 1)} on the prefill route) and one prefill")
+    out.update(route_noise=noise, a_spec_s=spec_s, a_plain_s=plain_s, a_passes_mean=float(passes.mean()),
+               a_passes_max=n_pass,
+               a_accepted_per_pass=float((per_pass - 1).mean()), a_equal=eq, a_diverged=dv, a_worst_tie=worst,
+               a_routes=routes)
+    print(f"[serve-stream] (a) answer() with speculative=True, gamma {G}, {B} queries: {spec_s:.3f} s against the "
+          f"plain answer()'s {plain_s:.3f} s ({spec_s / plain_s:.2f}x); verify passes a request mean "
+          f"{passes.mean():.2f} (max {n_pass}, min {int(passes.min())}), accepted drafts a pass mean "
+          f"{(per_pass - 1).mean():.3f}; {eq} requests equal to the plain tokens, {dv} first differ at a near tie "
+          f"(largest {worst:.4f}, tolerance {TIE_TOL}); K5 by route {routes} (the verify pass at M = {B * (G + 1)} on the "
+          f"prefill route, the first token's lm_head at M = {B} fused)", flush=True)
+
+    # (b) one verify_step on the pool at full width, drafts = the plain path's own next G tokens
+    eng = spec._new_engine(B, max_new, 8)
+    reqs = np.arange(B)
+    first = eng._admit_rows(p_ids, p_mask, reqs, reqs).cpu().numpy()
+    check(first.tolist() == [r[0] for r in plain_lists], "serve-stream (b): admission's first tokens differ")
+    drafts = np.array([r[1:1 + G] for r in plain_lists], np.int64)
+    held = {}
+
+    def verify_captured():  # installed after counted() zeroes the counts, so the capture shares them
+        held["cap"] = cap = K5Capture(set(range(7)) | {7 * layers})  # layer 0's seven projections, the lm_head
+        try:
+            return eng._verify(np.ones(B, bool), drafts, np.full(B, max_new - 1), reqs, np.ones(B, np.int64))
+        finally:
+            cap.close()
+
+    (emit, m), verify_s = counted("b", verify_captured)
+    cap, b_routes = held["cap"], out["launches"]["b"]["routes"]
+    emit, m = emit.cpu().numpy(), m.cpu().numpy()
+    lists_b = [r[:1] + [int(t) for t in emit[i, :m[i]]] for i, r in enumerate(plain_lists)]
+    short = [r[:1 + G + 1] for r in plain_lists]
+    eq_b, dv_b, worst_b = tie_aware("(b)", gen, p_ids, p_mask, short, lists_b, eos)
+    check(b_routes["prefill"] == 7 * layers + 1 and b_routes["fused"] == 0,
+          f"serve-stream (b): the verify pass's K5 routes {b_routes}, want 225 at M = {B * (G + 1)} on the prefill "
+          f"route")
+    out.update(b_committed=m.tolist(), b_equal=eq_b, b_diverged=dv_b, b_verify_s=verify_s)
+    print(f"[serve-stream] (b) one verify pass of {B} slots at gamma {G} ({verify_s * 1e3:.1f} ms) with each slot's "
+          f"plain next {G} tokens as its draft: committed a slot {sorted(m.tolist())}; {eq_b} slots all {G} drafts "
+          f"accepted and the bonus equal to the plain token, {dv_b} cut at a near tie (largest {worst_b:.4f})",
+          flush=True)
+
+    # K5 held against its plain version on this phase's operands: M = 288 (prefill route), 36 and 32 (fused)
+    worst_k5 = {}
+    for x2, q4, scale4, inst in cap.calls:
+        for rows, route in ((B * (G + 1), "prefill"), (4 * (G + 1), "fused"), (B, "fused")):
+            x = x2[:rows].contiguous()
+            group = k5._check(x, q4, scale4, inst)
+            check(k5._route(x, inst, group) == route, f"serve-stream: K5 at M = {rows} is not on the {route} route")
+            err, share = k5_err(k5.int4_matmul_fwd(x, q4, scale4, inst), k5.int4_matmul_fwd_ref(x, q4, scale4, inst),
+                                inst)
+            worst_k5[rows] = max(worst_k5.get(rows, 0.0), share)
+    print(f"[serve-stream] K5 on the verify pass's own operands (layer 0's seven projections and the lm_head) "
+          f"against the plain version, worst share of the K5_TOL bound by M: {worst_k5}", flush=True)
+    del cap, eng
+    torch.cuda.empty_cache()
+
+    # (c) the speculative engine: the fused schedule (answer_continuous) and the host loop
+    spec.answer_continuous(queries[:2], top_k=4, num_slots=B)  # builds the engine (its pool on first use)
+    probe = EngineProbe(spec._engine)
+    try:
+        cont, fused_s = counted("c_fused", lambda: spec.answer_continuous(queries, top_k=4, num_slots=B))
+    finally:
+        probe.close()
+    fused_passes, res_fused = probe.iters, probe.results
+    check([a.passages for a in cont] == [a.passages for a in plain], "serve-stream (c): retrieval differs")
+    eq_c, dv_c, worst_c = tie_aware("(c) fused", gen, p_ids, p_mask, spec_lists, res_fused, eos)
+    probe = EngineProbe(spec._engine)
+    try:
+        res_host, host_s = counted("c_host", lambda: spec._engine.generate(p_ids, p_mask))
+    finally:
+        probe.close()
+    eq_h, dv_h, worst_h = tie_aware("(c) host loop", gen, p_ids, p_mask, spec_lists, res_host, eos)
+    out.update(c_fused_s=fused_s, c_host_s=host_s, c_fused_passes=fused_passes, c_host_passes=probe.iters,
+               c_equal=[eq_c, eq_h], c_diverged=[dv_c, dv_h])
+    print(f"[serve-stream] (c) answer_continuous() with speculation (fused schedule): {fused_s:.3f} s, "
+          f"{fused_passes} verify passes; the host loop generate(): {host_s:.3f} s, {probe.iters} passes "
+          f"({probe.admit_s:.3f} s admitting); against (a): fused {eq_c} equal / {dv_c} near ties, host loop "
+          f"{eq_h} / {dv_h}", flush=True)
+
+    # (d) streaming without speculation: 64 queries in two bursts of 32
+    queries64 = [f"what about topic {i}" for i in range(0, 16384, 256)]
+    budgets = np.random.default_rng(seed).integers(8, max_new + 1, size=len(queries64))
+    session = q.stream(num_slots=B)
+    calls = {"_admit": 0, "_decode_chunk": 0}  # admission waves and decode chunks of the session's engine
+
+    def counting(name):
+        fn = getattr(session._server.engine, name)
+
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        setattr(session._server.engine, name, wrapped)
+
+    for name in calls:
+        counting(name)
+
+    def stream_two_bursts():  # the engine's methods are counted only while the session runs
+        with session:
+            handles = [session.submit(x, top_k=4, budget=int(b)) for x, b in zip(queries64[:B], budgets[:B])]
+            t_end = time.monotonic() + 300
+            while not all(h._handle.t_first_token is not None or h.done for h in handles):
+                check(time.monotonic() < t_end and session._server._crashed is None,
+                      "serve-stream (d): the first burst's first tokens did not arrive")
+                time.sleep(0.005)
+            handles += [session.submit(x, top_k=4, budget=int(b)) for x, b in zip(queries64[B:], budgets[B:])]
+            results = [h._handle.result(timeout=600) for h in handles]
+        for name in calls:
+            delattr(session._server.engine, name)
+        return handles, results
+
+    (handles, results), stream_s = counted("d", stream_two_bursts)
+    server = session._server
+    check(server._crashed is None and not server._thread.is_alive(), "serve-stream (d): the scheduler failed")
+    prompts = q.g_tok([f"#query# {x} #passage# {h.passages[0]} #answer# " for x, h in zip(queries64, handles)],
+                      padding="max_length", max_length=q.max_prompt_len, truncation=True)
+    s_ids, s_mask = np.asarray(prompts["input_ids"], np.int64), np.asarray(prompts["attention_mask"], np.int64)
+    want = server.engine.generate(s_ids, s_mask, budgets=budgets)
+    diff = [i for i in range(len(queries64)) if results[i] != want[i]]
+    check(not diff, f"serve-stream (d): streamed tokens differ from the engine's generate for requests {diff}")
+    ttft = np.array([h._handle.t_first_token - h._handle.t_submit for h in handles])
+    per_req = np.array([len(r) / (h._handle.t_done - h._handle.t_submit) for h, r in zip(handles, results)])
+    check(all(h._handle.t_first_token < h._handle.t_done for h, r in zip(handles, results) if len(r) > 1),
+          "serve-stream (d): a request's first token did not arrive before its end")
+    tokens = sum(len(r) for r in results)
+    out.update(d_s=stream_s, d_tokens=tokens, d_ttft_s=[float(np.median(ttft[:B])), float(np.median(ttft[B:]))],
+               d_tokens_per_s_request=float(np.median(per_req)), d_waves=calls["_admit"],
+               d_chunks=calls["_decode_chunk"])
+    print(f"[serve-stream] (d) stream() of {len(queries64)} queries in two bursts of {B} on {B} slots, budgets from "
+          f"seed {seed} (sum {int(budgets.sum())}): {stream_s:.3f} s, {tokens} tokens = {tokens / stream_s:.1f} "
+          f"tokens/s; time to first token median {np.median(ttft[:B]):.3f} s (first burst), "
+          f"{np.median(ttft[B:]):.3f} s (second, max {ttft.max():.3f} s); tokens/s a request median "
+          f"{np.median(per_req):.2f}; {calls['_admit']} admission waves (a prefill of {B} rows each), "
+          f"{calls['_decode_chunk']} decode chunks of 8 steps; every request equal to the engine's generate(); "
+          f"every first token before its request's end", flush=True)
+    del session, server
+    torch.cuda.empty_cache()
+
+    # (e) streaming with speculation: the 32 queries, tie-aware against (c)
+    session = spec.stream(num_slots=B)
+
+    def stream_spec():
+        with session:
+            hs = [session.submit(x, top_k=4) for x in queries]
+            return hs, [h._handle.result(timeout=600) for h in hs]
+
+    (handles, results), spec_stream_s = counted("e", stream_spec)
+    server = session._server
+    check(server._crashed is None and not server._thread.is_alive(), "serve-stream (e): the scheduler failed")
+    check([h.passages for h in handles] == [a.passages for a in plain], "serve-stream (e): retrieval differs")
+    eq_e, dv_e, worst_e = tie_aware("(e)", gen, p_ids, p_mask, res_fused, results, eos)
+    rounds = np.array([h._handle.spec_rounds for h in handles])
+    out.update(e_s=spec_stream_s, e_rounds_mean=float(rounds.mean()), e_equal=eq_e, e_diverged=dv_e)
+    print(f"[serve-stream] (e) stream() with speculation, {B} queries: {spec_stream_s:.3f} s, verify rounds a "
+          f"request mean {rounds.mean():.2f}; against (c): {eq_e} equal, {dv_e} near ties", flush=True)
+    del session, server
+
+    # K3 at Q = 1 (a session's retrieval) against its plain version
+    q1 = q._embed_texts([f"#query# {queries[0]}"], q.max_passage_len)
+    e = q.index.embeddings
+    ks, ki = fused_dot_topk(q1, e, 4)
+    rs, ri = fused_dot_topk_ref(q1, e, 4)
+    k3_err, swaps = compare_topk(ks, ki, rs, ri, q1, e, None)
+    print(f"[serve-stream] K3 at Q = 1 x N {e.shape[0]} x D {e.shape[1]}, k 4: max score error {k3_err:.2e}, "
+          f"{swaps} near-tie swaps", flush=True)
+    check(totals["fused_dot_topk[f32]"] > 0 and totals["routes"]["prefill"] > 0 and totals["routes"]["fused"] > 0,
+          f"serve-stream: a kernel of the path was never launched: {totals}")
+    print(f"[serve-stream] launches on the phase's main paths, each counted from 0: {out['launches']}; in all "
+          f"{totals}", flush=True)
+    print(json.dumps({"serve_stream": out}), flush=True)
+    return totals, out
+
+
 def serve_phase(device, rng, peaks, kernels):
     """The serving main path, then K3 against its plain version at that path's
     own shapes. Fills ``kernels`` with the f32 record and the launch counts
@@ -2762,7 +3134,7 @@ TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
 SFT_STEPS = 3
-PHASES = ("small", "serve", "serve-q", "serve-cb", "k3", "k2", "k1", "grad", "k4", "k5", "train-small", "train",
+PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "k3", "k2", "k1", "grad", "k4", "k5", "train-small", "train",
           "sft-small", "sft")
 EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
 
@@ -2775,7 +3147,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of the phases to run (default: all, which the result line needs)")
-    ap.add_argument("--seed", type=int, default=0, help="seed of serve-cb's per-request budgets")
+    ap.add_argument("--seed", type=int, default=0, help="seed of serve-cb's and serve-stream's per-request budgets")
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES) - set(EXTRA_PHASES))
@@ -2815,8 +3187,8 @@ def main() -> int:
     base_pipe = None
     if "serve" in phases:
         base_pipe = serve_phase(device, np.random.default_rng(0), peaks, kernels)
-    k5_launches, cb_launches, int4_pipe = {}, {}, None
-    if base_pipe is None and {"serve-q", "serve-cb", "profile-serve"} & set(phases):
+    k5_launches, cb_launches, stream_launches, int4_pipe = {}, {}, {}, None
+    if base_pipe is None and {"serve-q", "serve-cb", "serve-stream", "profile-serve"} & set(phases):
         from dalm_tpu_torch.serve import RagPipeline
 
         base_pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", corpus(16384, np.random.default_rng(0)),
@@ -2824,10 +3196,12 @@ def main() -> int:
                                                 max_prompt_len=256, max_new_tokens=64, embed_batch=256)
     if "serve-q" in phases:
         k5_launches, _, int4_pipe = serve_q_phase(device, np.random.default_rng(0), base_pipe)
-    if int4_pipe is None and {"serve-cb", "profile-serve"} & set(phases):
+    if int4_pipe is None and {"serve-cb", "serve-stream", "profile-serve"} & set(phases):
         int4_pipe = int4_pipeline(device, base_pipe)
     if "serve-cb" in phases:
         cb_launches, _ = serve_cb_phase(device, int4_pipe, args.seed)
+    if "serve-stream" in phases:
+        stream_launches, _ = serve_stream_phase(device, int4_pipe, args.seed)
     if "profile-serve" in phases:
         profile_serve_phase(device, int4_pipe)
     del base_pipe, int4_pipe
@@ -2901,15 +3275,20 @@ def main() -> int:
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
              "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *k5_names)
-    for name, n in cb_launches.items():  # this slice's main path: answer_continuous() (serve-cb (c))
+    for name, n in cb_launches.items():  # PR 15's main path: answer_continuous() (serve-cb (c))
         if name in kernels:
             kernels[name]["launches_serve_cb"] = n
+    for name, n in stream_launches.items():  # this slice's: speculative decoding and streaming (serve-stream)
+        if name in kernels:
+            kernels[name]["launches_serve_stream"] = n
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
     for name in ("fused_dot_topk[f32]", "rowquant", *k1_names, "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq_wgmma",
                  "k4_bwd_dkv_wgmma", "k4_dsum", *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
+    for name in ("fused_dot_topk[f32]", "int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm"):
+        check(kernels[name]["launches_serve_stream"] > 0, f"{name} was never launched by serve-stream")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -27,11 +27,19 @@ at the pool's full width or in ``admit_width`` rows. The pool (cache, tok,
 pos, write_pos, slot_mask) is allocated on first use and changed in place,
 which is what the reference's buffer donation buys.
 
+With ``speculative_gamma`` G > 0 every schedule verifies G prompt-lookup
+drafts a slot per forward (``models/speculative.py``) and commits 1 to G + 1
+tokens a slot: ``generate`` in synchronous rounds whose drafts the host makes
+from its own record of each request (``host_draft``, the reference's
+``_generate_speculative``, ``:767-866``), ``generate_fused`` with
+``prompt_lookup`` over each slot's [prompt | tokens] (``speculative_step``,
+``:466-533``), EOS inside an accepted span cutting the commit there. The pool
+is G + 1 slots longer, so the last window never writes past its end.
+
 Differences from the reference: the decoder holds its own weights, so the
 engine takes no ``params`` or ``extra_collections``; an admission copies only
 its valid rows into the pool where the reference scatters invalid ones to slot
-B with ``mode="drop"`` (torch raises on that index); speculative decoding
-(``speculative_gamma > 0``) is not ported yet.
+B with ``mode="drop"`` (torch raises on that index).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.sampling import SamplerConfig, resolve, select_token
+from dalm_tpu_torch.models.speculative import commit, prompt_lookup
 
 
 class DecodeEngine:
@@ -64,13 +73,12 @@ class DecodeEngine:
         """``decoder`` runs on its own device, with its own (possibly packed)
         weights. ``sampler``: None / temperature 0 is greedy; a draw is keyed
         by (request index, token index), so the lockstep, host-loop and fused
-        schedules give the same tokens. ``prefill_chunk``: admission in
+        schedules give the same tokens. ``speculative_gamma``: G > 0 verifies G
+        prompt-lookup drafts a slot per forward (rejection sampling with a
+        sampler). ``prefill_chunk``: admission in
         cached column blocks of C tokens, C rounded down to the largest
         divisor of P. ``admit_width``: admission waves of W rows (W < B; W ==
         B is the full-width default)."""
-        if speculative_gamma:
-            raise NotImplementedError("speculative decoding (speculative_gamma > 0) is not ported yet: "
-                                      "ROADMAP.md, modules queue item 2")
         self.decoder = decoder
         self.samp = resolve(sampler)
         self.num_slots = B = num_slots
@@ -79,7 +87,9 @@ class DecodeEngine:
         self.eos = eos_token_id
         self.pad = pad_token_id
         self.chunk = min(decode_chunk, max_new_tokens)
-        self.L = max_prompt_len + max_new_tokens
+        self.spec_gamma = G = int(speculative_gamma)
+        # + G + 1 slack: the last verify window may run past max_new_tokens
+        self.L = max_prompt_len + max_new_tokens + (G + 1 if G else 0)
         if prefill_chunk is None or prefill_chunk >= P:
             self.prefill_C = P  # one-shot prefill
         else:
@@ -176,6 +186,37 @@ class DecodeEngine:
             toks.append(nxt)
         return torch.stack(toks, dim=1)
 
+    def _verify(self, active: np.ndarray, draft, budget, req_ids, g0) -> tuple:
+        """One verify pass of every slot: slot b runs [tok, draft[b]] (G + 1 tokens) from its write head and
+        commits ``m[b]`` tokens, at most ``budget[b]`` and none on an inactive slot; its tok, pos and write head
+        advance by ``m[b]``. ``req_ids`` / ``g0`` (B,): the request and its tokens so far (the sampling keys).
+        Returns ``emit`` (B, G + 1) and ``m`` (B,) on the device; ``emit[b, :m[b]]`` are the committed tokens."""
+        st, dev = self.state, self.device
+        draft = torch.as_tensor(draft, dtype=torch.long, device=dev)
+        G = draft.shape[1]
+        logits, _ = self.decoder(torch.cat([st["tok"][:, None], draft], dim=1), st["slot_mask"],
+                                 positions=st["pos"][:, None] + torch.arange(G + 1, device=dev)[None, :],
+                                 kv_cache=st["cache"], cache_index=st["write_pos"])
+        emit, m = commit(logits, draft, self.samp, req_ids, g0, torch.as_tensor(active, device=dev),
+                         torch.as_tensor(budget, dtype=torch.long, device=dev))
+        last = emit.gather(1, (m - 1).clamp(0, G)[:, None])[:, 0]
+        st["tok"].copy_(torch.where(m > 0, last, st["tok"]))
+        st["pos"].add_(m)
+        st["write_pos"].add_(m)
+        return emit, m
+
+    def host_draft(self, history: np.ndarray, ngram: int = 2) -> np.ndarray:
+        """Prompt-lookup draft for one request from its 1-D [prompt tokens | emitted tokens] (no pads): the
+        (G,) tokens after the most recent earlier occurrence of its last ``ngram`` tokens, padded with the last
+        token where the history ends; the last token repeated where there is no such occurrence."""
+        G, n = self.spec_gamma, len(history)
+        cur = history[n - ngram:]
+        for start in range(n - 2 * ngram, -1, -1):  # the most recent earlier occurrence first
+            if (history[start:start + ngram] == cur).all():
+                d = history[start + ngram:start + ngram + G]
+                return np.concatenate([d, np.full(G - len(d), history[-1])]).astype(np.int64)
+        return np.full(G, history[-1], np.int64)
+
     def _prompts(self, input_ids, attention_mask) -> tuple:
         input_ids, attention_mask = np.asarray(input_ids), np.asarray(attention_mask)
         if input_ids.shape != attention_mask.shape or input_ids.ndim != 2 or input_ids.shape[1] != self.P:
@@ -200,7 +241,9 @@ class DecodeEngine:
         input_ids, attention_mask = self._prompts(input_ids, attention_mask)
         N = input_ids.shape[0]
         caps = self._caps(N, budgets)
-        B, P = self.num_slots, self.P
+        if self.spec_gamma:
+            return self._generate_speculative(input_ids, attention_mask, caps)
+        B = self.num_slots
         results: List[Optional[List[int]]] = [None] * N
         pending = deque()
         for req in range(N):
@@ -217,30 +260,14 @@ class DecodeEngine:
             slot_toks[slot] = []
 
         def admit():
-            """Fill the free slots from the queue (at most ``admit_width``) in one
-            prefill of ``admit_width`` or ``num_slots`` rows; the first tokens stay
-            on the device until ``settle``."""
+            """Fill the free slots from the queue (at most ``admit_width``) in one prefill; the first tokens
+            stay on the device until ``settle``."""
             free = np.flatnonzero(slot_req == -1)
-            m = min(len(free), len(pending))
-            if self.admit_W:
-                m = min(m, self.admit_W)
+            m = self._wave(len(free), len(pending))
             if m == 0:
                 return None
-            reqs = [pending.popleft() for _ in range(m)]
-            slots = free[:m]
-            m_pad = self.admit_W or B
-            ids = np.zeros((m_pad, P), np.int64)
-            mask = np.zeros((m_pad, P), np.int64)
-            mask[:, -1] = 1  # padding rows: one valid token (a finite forward)
-            slot_ids = np.full((m_pad,), B, np.int64)
-            valid = np.zeros((m_pad,), bool)
-            req_arr = np.zeros((m_pad,), np.int64)
-            ids[:m] = input_ids[reqs]
-            mask[:m] = attention_mask[reqs]
-            slot_ids[:m] = slots
-            valid[:m] = True
-            req_arr[:m] = reqs
-            first_tok = self._admit(ids, mask, slot_ids, valid, req_arr)
+            reqs, slots = [pending.popleft() for _ in range(m)], free[:m]
+            first_tok = self._admit_rows(input_ids[reqs], attention_mask[reqs], slots, reqs)
             for req, slot in zip(reqs, slots):
                 slot_req[slot] = req  # active from the next decode chunk on
             return reqs, slots, first_tok
@@ -299,6 +326,78 @@ class DecodeEngine:
                 break
         return results  # type: ignore[return-value]
 
+    def _wave(self, n_free: int, n_pending: int) -> int:
+        """The size of the next admission wave: every free slot a pending request can take, at most
+        ``admit_width``."""
+        m = min(n_free, n_pending)
+        return min(m, self.admit_W) if self.admit_W else m
+
+    def _admit_rows(self, ids: np.ndarray, mask: np.ndarray, slots: np.ndarray, req_ids) -> torch.Tensor:
+        """Admit m left-padded (m, P) prompts into pool ``slots`` in one prefill of ``admit_width`` or
+        ``num_slots`` rows, request ``req_ids[j]`` at row j: its first tokens (m,) on the device."""
+        m, m_pad = len(slots), self.admit_W or self.num_slots
+        pad_ids = np.zeros((m_pad, self.P), np.int64)
+        pad_mask = np.zeros((m_pad, self.P), np.int64)
+        pad_mask[:, -1] = 1  # padding rows: one valid token (a finite forward)
+        slot_ids = np.full((m_pad,), self.num_slots, np.int64)
+        valid = np.zeros((m_pad,), bool)
+        req_arr = np.zeros((m_pad,), np.int64)
+        pad_ids[:m], pad_mask[:m], slot_ids[:m], valid[:m], req_arr[:m] = ids, mask, slots, True, req_ids
+        return self._admit(pad_ids, pad_mask, slot_ids, valid, req_arr)[:m]
+
+    def _generate_speculative(self, input_ids, attention_mask, caps) -> List[List[int]]:
+        """The host loop with verify passes: synchronous rounds (each round's drafts and budgets must see the
+        device's true position; a read-back now brings up to G + 1 tokens a slot)."""
+        N, B = input_ids.shape[0], self.num_slots
+        results: List[Optional[List[int]]] = [[] if caps[r] <= 0 else None for r in range(N)]
+        pending = deque(r for r in range(N) if caps[r] > 0)
+        slot_req = np.full(B, -1, np.int64)
+        slot_toks: List[List[int]] = [[] for _ in range(B)]
+        prompts = [input_ids[r][attention_mask[r] > 0] for r in range(N)]
+
+        def finish(slot):
+            results[slot_req[slot]] = slot_toks[slot][: caps[slot_req[slot]]]
+            slot_req[slot] = -1
+            slot_toks[slot] = []
+
+        def bank(slot, toks) -> None:
+            """Append committed tokens to a slot's request, up to EOS (excluded) or its budget."""
+            for t in toks:
+                t = int(t)
+                if self.eos is not None and t == self.eos:
+                    return finish(slot)
+                slot_toks[slot].append(t)
+                if len(slot_toks[slot]) >= caps[slot_req[slot]]:
+                    return finish(slot)
+
+        while True:
+            free = np.flatnonzero(slot_req == -1)
+            m = self._wave(len(free), len(pending))
+            if m:
+                reqs, slots = [pending.popleft() for _ in range(m)], free[:m]
+                first = self._admit_rows(input_ids[reqs], attention_mask[reqs], slots, reqs).cpu().numpy()
+                for j, (req, slot) in enumerate(zip(reqs, slots)):
+                    slot_req[slot] = req
+                    bank(slot, first[j:j + 1])
+            active = slot_req >= 0
+            if not active.any():
+                if not pending:
+                    break
+                continue
+            drafts = np.zeros((B, self.spec_gamma), np.int64)
+            rem, g0 = np.zeros(B, np.int64), np.zeros(B, np.int64)
+            for slot in np.flatnonzero(active):
+                req = slot_req[slot]
+                history = np.concatenate([prompts[req], np.asarray(slot_toks[slot], np.int64)])
+                drafts[slot] = self.host_draft(history)
+                rem[slot] = caps[req] - len(slot_toks[slot])
+                g0[slot] = len(slot_toks[slot])
+            emit, m = self._verify(active, drafts, rem, np.maximum(slot_req, 0), g0)
+            emit, m = emit.cpu().numpy(), m.cpu().numpy()
+            for slot in np.flatnonzero(active):
+                bank(slot, emit[slot, : m[slot]])
+        return results  # type: ignore[return-value]
+
     # ---- the fused schedule ------------------------------------------------
     @torch.no_grad()
     def generate_fused(self, input_ids: np.ndarray, attention_mask: np.ndarray,
@@ -319,10 +418,11 @@ class DecodeEngine:
         return results
 
     def _fused(self, input_ids: np.ndarray, attention_mask: np.ndarray, caps: np.ndarray, req_ids: np.ndarray):
-        """The reference's ``fused_schedule`` (``:271-553``) without speculation.
-        ``caps`` (N,) budgets, all >= 1; ``req_ids`` (N,) the ORIGINAL request
-        indices (the sampling keys). Returns ``out`` (N, max_new) and ``out_len`` (N,)."""
-        N, B, P, MN, W = input_ids.shape[0], self.num_slots, self.P, self.max_new, self.admit_W
+        """The reference's ``fused_schedule`` (``:271-553``): one token a slot an
+        iteration, or a verify pass with ``speculative_gamma``. ``caps`` (N,)
+        budgets, all >= 1; ``req_ids`` (N,) the ORIGINAL request indices (the
+        sampling keys). Returns ``out`` (N, max_new) and ``out_len`` (N,)."""
+        N, B, P, MN, W, G = input_ids.shape[0], self.num_slots, self.P, self.max_new, self.admit_W, self.spec_gamma
         has_eos = self.eos is not None
         eos = self.eos if has_eos else -1
         st = self.state
@@ -367,6 +467,25 @@ class DecodeEngine:
             gen_count[slots[take]] = 1
             next_req += int(take.sum())
 
+        def speculative_step(active, safe, g0):
+            """Verify G prompt-lookup drafts a slot over its [prompt | tokens] history and commit 1 to G + 1
+            tokens, cut before an EOS among them. Returns the slots' new token counts."""
+            hist = torch.as_tensor(np.concatenate([input_ids[safe], out[safe]], axis=1))
+            draft = prompt_lookup(hist, torch.as_tensor(P + g0 - 1), torch.as_tensor(P - attention_mask[safe].sum(1)),
+                                  G, 2)
+            cap = caps[safe]
+            emit, m = self._verify(active, draft, cap - g0, req_ids[safe], g0)
+            emit, m = emit.cpu().numpy(), m.cpu().numpy()
+            eos_at = (emit == eos) & (np.arange(G + 1)[None, :] < m[:, None]) & has_eos
+            eos_any = eos_at.any(axis=1)
+            m = np.where(eos_any, eos_at.argmax(axis=1), m)
+            finished = active & (eos_any | (g0 + m >= cap))
+            for b in np.flatnonzero(active):
+                out[safe[b], g0[b]:g0[b] + m[b]] = emit[b, :m[b]]
+            out_len[safe[finished]] = (g0 + m)[finished]
+            slot_req[finished] = -1
+            return g0 + m
+
         while (slot_req >= 0).any() or next_req < N:
             remaining = N - next_req
             if remaining > 0 and (slot_req < 0).sum() >= min(max(B // 2, 1), remaining):
@@ -376,6 +495,9 @@ class DecodeEngine:
                 continue  # every admitted request ended on its first token
             safe = np.clip(slot_req, 0, N - 1)
             g0 = gen_count.copy()
+            if G:
+                gen_count = speculative_step(active, safe, g0)
+                continue
             nxt_t = self._step(req_t[safe], torch.as_tensor(g0))
             nxt = nxt_t.cpu().numpy()
             eos_hit = (nxt == eos) & active & has_eos

@@ -8,7 +8,11 @@ uniform number. That number comes from a ``torch.Generator`` seeded from
 ``(seed, request_idx, token_idx)`` alone, so a request draws the same token
 at the same position whatever batch or device it runs in. The reference keys
 ``jax.random.categorical`` with ``fold_in(fold_in(key(seed), request), token)``:
-the same distribution, other numbers.
+the same distribution, other numbers. Speculative verification
+(``models/speculative.py:rejection_verify``) draws two more numbers per
+(request, token), keyed with a third coordinate ``use`` as the reference
+folds it in (``dalm_tpu/models/speculative.py:142-147``): 0 for the
+acceptance test, 1 for the residual or bonus draw.
 """
 
 from __future__ import annotations
@@ -50,12 +54,14 @@ def _filter_logits(logits: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
     return logits
 
 
-def token_uniforms(seed: int, request_idx, token_idx) -> torch.Tensor:
+def token_uniforms(seed: int, request_idx, token_idx, use: Optional[int] = None) -> torch.Tensor:
     """One uniform number in [0, 1) per (request, token) pair, f64 on the CPU,
-    each from a ``torch.Generator`` seeded with a hash of ``(seed, request, token)``."""
+    each from a ``torch.Generator`` seeded with a hash of ``(seed, request, token)``,
+    or of ``(seed, request, token, use)`` when ``use`` is given."""
     out = []
+    suffix = "" if use is None else f"/{use}"
     for r, t in zip(torch.as_tensor(request_idx).reshape(-1).tolist(), torch.as_tensor(token_idx).reshape(-1).tolist()):
-        key = hashlib.blake2b(f"{seed}/{r}/{t}".encode(), digest_size=8).digest()
+        key = hashlib.blake2b(f"{seed}/{r}/{t}{suffix}".encode(), digest_size=8).digest()
         gen = torch.Generator().manual_seed(int.from_bytes(key, "little") >> 1)
         out.append(torch.rand((), generator=gen, dtype=torch.float64))
     return torch.stack(out)
@@ -68,13 +74,21 @@ def select_token(logits: torch.Tensor, cfg: SamplerConfig, request_idx=None, tok
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if request_idx is None or token_idx is None:
         raise ValueError("sampling needs request_idx and token_idx for every row")
+    return draw(filtered(logits, cfg), token_uniforms(cfg.seed, request_idx, token_idx)).to(torch.int32)
+
+
+def filtered(logits: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
+    """(..., V) logits -> f32, divided by the temperature, top-k / top-p masked."""
     lf = logits.float()
-    lf = _filter_logits(lf / torch.full_like(lf, cfg.temperature), cfg)
+    return _filter_logits(lf / torch.full_like(lf, cfg.temperature), cfg)
+
+
+def draw(lf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One token per row of filtered logits ``lf`` (R, V) by inverse CDF from ``u`` (R,): the first token whose
+    cumulative probability exceeds ``u`` times the total, never one of probability 0. Returns (R,) int64."""
     cdf = torch.cumsum(torch.softmax(lf, dim=-1).double(), dim=-1)
-    u = token_uniforms(cfg.seed, request_idx, token_idx).to(cdf.device)
-    # the first token whose cumulative probability exceeds u * total: never one of probability 0
-    tok = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)[:, 0]
-    return torch.clamp(tok, max=logits.shape[-1] - 1).to(torch.int32)
+    tok = torch.searchsorted(cdf, (u.to(cdf.device) * cdf[:, -1])[:, None], right=True)[:, 0]
+    return torch.clamp(tok, max=lf.shape[-1] - 1)
 
 
 def resolve(sampler: Optional[SamplerConfig]) -> SamplerConfig:

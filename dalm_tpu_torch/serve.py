@@ -12,15 +12,24 @@ generator's big kernels IN PLACE into int8 (True / "int8"), or 4-bit
 the int8 KV cache, also in place. ``answer_continuous`` decodes through the
 continuous-batching engine (``models/decode_engine.py``): a pool of slots,
 each given to the next waiting query as soon as its answer ends, on the
-fused schedule (``dalm_tpu/serve.py:243-300``). Streaming and speculative
-decoding wait for a later slice and raise.
+fused schedule (``dalm_tpu/serve.py:243-300``). ``stream`` serves queries as
+they arrive (``models/streaming.py``): a session whose ``submit`` retrieves
+one query and returns a handle that streams its answer's tokens.
+``speculative=True`` decodes with prompt-lookup speculation
+(``models/speculative.py``) in ``answer``, ``answer_continuous`` and
+``stream``: greedy answers are the plain ones, sampled ones follow the same
+distribution. ``refresh`` and generator PEFT adapters are not ported yet and
+raise.
 
 Usage::
 
     pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", passages, dtype="bfloat16",
-                                       quantize_generator="int4", kv_quant=True)
+                                       quantize_generator="int4", kv_quant=True, speculative=True)
     answers = pipe.answer(["what is ..?"], top_k=4)
     many = pipe.answer_continuous(queries, top_k=4, num_slots=32)
+    with pipe.stream(num_slots=32) as session:
+        h = session.submit("what is ..?")
+        for tok in h.tokens(): ...               # or h.answer(timeout=60)
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.generate import build_greedy_generate
 from dalm_tpu_torch.models.qlora import pack_module
 from dalm_tpu_torch.models.registry import resolve_decoder
+from dalm_tpu_torch.models.speculative import build_speculative_generate
+from dalm_tpu_torch.models.streaming import StreamHandle, StreamingEngine
 
 
 @dataclasses.dataclass
@@ -76,10 +87,8 @@ class RagPipeline:
         """``retriever`` (a SentenceEmbedder) and ``generator`` hold their
         weights and must already be on ``device`` (default ``cuda``).
         ``quantize_generator`` and ``kv_quant`` change ``generator`` in place.
-        ``speculative_gamma`` takes effect only with ``speculative``, which
-        raises until speculative decoding is ported."""
-        if speculative:
-            raise NotImplementedError("speculative decoding is not ported yet")
+        ``speculative``: prompt-lookup speculative decoding, ``speculative_gamma``
+        drafts a verify pass, in every decode path."""
         self.device = resolve_device(device)
         for name, m in (("retriever", retriever), ("generator", generator)):
             if next(m.parameters()).device != self.device:
@@ -104,12 +113,13 @@ class RagPipeline:
         self._admit_width = admit_width
         self._engine, self._engine_key = None, None
         self._embed = build_embed_fn(self.retriever)
-        self._generate = build_greedy_generate(
-            self.generator, max_new_tokens,
-            eos_token_id=self.g_tok.eos_token_id,
-            pad_token_id=self.g_tok.pad_token_id or 0,
-            sampler=sampler,
-        )
+        gen_kw = dict(eos_token_id=self.g_tok.eos_token_id, pad_token_id=self.g_tok.pad_token_id or 0,
+                      sampler=sampler)
+        if speculative:
+            self._generate = build_speculative_generate(self.generator, max_new_tokens, gamma=speculative_gamma,
+                                                        **gen_kw)
+        else:
+            self._generate = build_greedy_generate(self.generator, max_new_tokens, **gen_kw)
         embs = self._embed_texts([f"#passage# {p}" for p in self.passages], max_passage_len)
         self.index = DenseIndex.build(embs, quantize=index_quantize, device=self.device)
 
@@ -131,7 +141,8 @@ class RagPipeline:
         """Presets are random-initialised from fixed seeds (0 for the
         retriever, 1 for the generator); ``dtype`` sets both towers' compute dtype."""
         if generator_peft_path:
-            raise NotImplementedError("PEFT adapters are not ported yet")
+            raise NotImplementedError("generator PEFT adapters are not ported yet: ROADMAP.md, modules queue "
+                                      "item 2.4")
         dev = resolve_device(device)
         retriever, r_tok = load_retriever_for_eval(
             retriever_path, retriever_peft_path, retriever_is_autoregressive,
@@ -207,20 +218,9 @@ class RagPipeline:
         answers never pay for long ones. All queries are known up front, so the
         engine's fused schedule runs. The engine is kept for the next call with
         the same ``(num_slots, max_new_tokens, decode_chunk)``."""
-        max_new = max_new_tokens or self._max_new_tokens
-        key = (num_slots, max_new, decode_chunk)
+        key = (num_slots, max_new_tokens or self._max_new_tokens, decode_chunk)
         if self._engine_key != key:  # the engine allocates its pool on first use
-            self._engine = DecodeEngine(
-                self.generator, num_slots=num_slots, max_prompt_len=self.max_prompt_len,
-                max_new_tokens=max_new,
-                eos_token_id=self.g_tok.eos_token_id,
-                pad_token_id=self.g_tok.pad_token_id or 0,
-                decode_chunk=decode_chunk,
-                sampler=self.sampler,
-                speculative_gamma=self._spec_gamma,
-                prefill_chunk=self._prefill_chunk,
-                admit_width=self._admit_width,
-            )
+            self._engine = self._new_engine(*key, admit_width=self._admit_width)
             self._engine_key = key
         scores, ids = self.retrieve(queries, top_k)
         toks = self._prompt_tokens(queries, ids)
@@ -228,3 +228,86 @@ class RagPipeline:
             np.asarray(toks["input_ids"], np.int64), np.asarray(toks["attention_mask"], np.int64)
         )
         return self._answers(queries, scores, ids, token_lists)
+
+    def _new_engine(self, num_slots: int, max_new: int, decode_chunk: int, admit_width=None) -> DecodeEngine:
+        return DecodeEngine(
+            self.generator, num_slots=num_slots, max_prompt_len=self.max_prompt_len, max_new_tokens=max_new,
+            eos_token_id=self.g_tok.eos_token_id, pad_token_id=self.g_tok.pad_token_id or 0,
+            decode_chunk=decode_chunk, sampler=self.sampler, speculative_gamma=self._spec_gamma,
+            prefill_chunk=self._prefill_chunk, admit_width=admit_width,
+        )
+
+    def stream(self, num_slots: int = 32, max_new_tokens: Optional[int] = None,
+               decode_chunk: int = 8) -> "RagStreamSession":
+        """Online serving: a context-managed session whose ``submit(query)`` returns at once with a handle that
+        streams the answer's tokens as they decode; queries arriving mid-flight join the slot pool. The session
+        has an engine of its own (``prefill_chunk`` and the sampler as the pipeline's); with ``speculative=True``
+        it streams through verify rounds::
+
+            with pipe.stream(num_slots=32) as session:
+                h = session.submit("what is ..?")
+                print(h.answer(timeout=60))        # or: for tok in h.tokens(): ...
+        """
+        return RagStreamSession(self, self._new_engine(num_slots, max_new_tokens or self._max_new_tokens,
+                                                       decode_chunk))
+
+    def refresh(self, new_retriever_params, slice_size: int = 256) -> None:
+        """Re-embedding the corpus for new retriever weights is not ported yet."""
+        raise NotImplementedError("RagPipeline.refresh is not ported yet: ROADMAP.md, modules queue item 2.3")
+
+
+class RagStreamHandle:
+    """One streaming RAG request: its retrieval context and its token stream."""
+
+    def __init__(self, query: str, passages: List[str], scores: List[float], handle: StreamHandle, tokenizer):
+        self.query = query
+        self.passages = passages
+        self.scores = scores
+        self._handle = handle
+        self._tok = tokenizer
+
+    def tokens(self):
+        """Yield generator token ids as they decode (a blocking iterator)."""
+        return self._handle.tokens()
+
+    def answer(self, timeout: Optional[float] = None) -> str:
+        """Wait for the decode to finish; the answer text, parsed as ``answer()`` parses it."""
+        text = self._tok.decode(self._handle.result(timeout), skip_special_tokens=True)
+        return text.split("#answer#")[0].strip()
+
+    def cancel(self) -> None:
+        self._handle.cancel()
+
+    @property
+    def done(self) -> bool:
+        return self._handle.done
+
+
+class RagStreamSession:
+    """Context-managed online RAG serving (:meth:`RagPipeline.stream`). ``submit`` is thread-safe and returns
+    at once; the scheduler thread owns the decode engine and admits requests mid-flight."""
+
+    def __init__(self, pipe: RagPipeline, engine: DecodeEngine):
+        self._pipe = pipe
+        self._server = StreamingEngine(engine)
+        self._started = False
+
+    def __enter__(self) -> "RagStreamSession":
+        self._server.start()
+        self._started = True
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._server.stop(drain=True)
+
+    def submit(self, query: str, top_k: int = 4, budget: Optional[int] = None) -> RagStreamHandle:
+        """Retrieve ``query``'s passages (one query: K3 at Q = 1), build the prompt from the best one and queue
+        it; ``budget`` caps its new tokens."""
+        if not self._started:
+            raise RuntimeError("use `with pipe.stream(...) as session:`")
+        pipe = self._pipe
+        scores, ids = pipe.retrieve([query], top_k)
+        toks = pipe._prompt_tokens([query], ids)
+        handle = self._server.submit(np.asarray(toks["input_ids"]), np.asarray(toks["attention_mask"]), budget=budget)
+        return RagStreamHandle(query, [pipe.passages[int(j)] for j in ids[0]], [float(s) for s in scores[0]],
+                               handle, pipe.g_tok)

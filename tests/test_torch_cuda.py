@@ -1458,3 +1458,90 @@ def test_engine_matches_lockstep_on_card(cuda, method):
     assert got == [[int(t) for t in lock[i, :budgets[i]]] for i in range(N)]
     moved = {r: k5.int4_matmul_fwd.route_launches["base", r] - before["base", r] for r in ("fused", "prefill")}
     assert moved["fused"] > 0 and moved["prefill"] > 0, moved
+
+
+@pytest.mark.parametrize("rows,route", [(4, "fused"), (32, "prefill")])
+def test_verify_forward_k5_routes_on_card(cuda, rows, route):
+    """A speculative verify pass (gamma 8: S = 9 tokens a row) through the decoder's per-row cache index on a
+    4-bit generator: M = rows x 9 = 36 takes K5's fused kernel and M = 288 the prefill route, as in a serving run
+    (M_PREFILL = 192). Every projection's K5 output within K5_TOL (bf16) of its plain version on the same
+    operands; the logits are finite."""
+    from dalm_tpu_torch.models.speculative import prompt_lookup
+
+    dec = _engine_decoder(cuda)
+    G, P = 8, 32
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    ids = torch.randint(3, 256, (rows, P), generator=g, device=cuda)
+    mask = torch.ones_like(ids)
+    cache = dec.init_kv_cache(rows, P + 4 + G + 1)
+    slot_mask = torch.ones((rows, P + 4 + G + 1), dtype=torch.long, device=cuda)
+    dec(ids, slot_mask, kv_cache=cache, cache_index=0, logits_last_only=True)
+    q_end = torch.full((rows,), P - 1, dtype=torch.long, device=cuda)
+    draft = prompt_lookup(ids, q_end, torch.zeros_like(q_end), G, 2)
+    calls, fwd = [], k5.int4_matmul_fwd
+
+    def recording(x2, q4, scale4, instance):
+        calls.append((x2.clone(), q4, scale4, instance, k5._route(x2, instance, x2.shape[1] // scale4.shape[0])))
+        return fwd(x2, q4, scale4, instance)
+
+    recording.launches, recording.route_launches = fwd.launches, fwd.route_launches
+    k5.int4_matmul_fwd = recording
+    try:
+        logits, _ = dec(torch.cat([ids[:, -1:], draft], dim=1), slot_mask,
+                        positions=q_end[:, None] + torch.arange(G + 1, device=cuda), kv_cache=cache,
+                        cache_index=q_end)
+    finally:
+        k5.int4_matmul_fwd = fwd
+    assert torch.isfinite(logits.float()).all()
+    assert len(calls) == 7 * dec.cfg.num_layers + 1
+    for x2, q4, scale4, instance, got_route in calls:
+        assert x2.shape[0] == rows * (G + 1) and got_route == route
+        _k5_close(fwd(x2, q4, scale4, instance), k5.int4_matmul_fwd_ref(x2, q4, scale4, instance), instance)
+
+
+def test_speculative_writes_stay_below_the_cache_end_on_card(cuda, monkeypatch):
+    """The lockstep speculative generate and the engine's two schedules on the card (4-bit generator, int8 KV
+    cache): no verify window writes at or past L, so the per-row write never clamps, and the schedules give
+    the lockstep's tokens (every one at M = 4 x 9 rows on the fused kernel)."""
+    from dalm_tpu_torch.models import decoder as decoder_module
+    from dalm_tpu_torch.models.decode_engine import DecodeEngine
+    from dalm_tpu_torch.models.speculative import build_speculative_generate
+
+    dec = _engine_decoder(cuda)
+    B, P, G, max_new = 4, 48, 8, 20
+    rng = np.random.default_rng(5)
+    ids = np.zeros((B, P), np.int64)
+    mask = np.zeros((B, P), np.int64)
+    for i in range(B):
+        real = int(rng.integers(16, P + 1))
+        ids[i, P - real:] = np.tile(rng.integers(3, 256, size=3), P)[:real]
+        mask[i, P - real:] = 1
+    seen, write = [], decoder_module._cache_write
+
+    def recording(cache, new_vals, cache_index, S):
+        if torch.is_tensor(cache_index) and S > 1:
+            seen.append((int(cache_index.max()) + S, cache[next(iter(new_vals))].shape[1]))
+        return write(cache, new_vals, cache_index, S)
+
+    monkeypatch.setattr(decoder_module, "_cache_write", recording)
+    want, passes = build_speculative_generate(dec, max_new, gamma=G, return_stats=True)(
+        torch.as_tensor(ids, device=cuda), torch.as_tensor(mask, device=cuda))
+    want = [[int(t) for t in row] for row in want.cpu().numpy()]
+    eng = DecodeEngine(dec, num_slots=B, max_prompt_len=P, max_new_tokens=max_new, speculative_gamma=G)
+    assert eng.generate(ids, mask) == want
+    assert eng.generate_fused(ids, mask) == want
+    assert seen and all(end <= L for end, L in seen), max(end - L for end, L in seen)
+    assert int(passes.min()) < max_new - 1  # the repetitive prompts had drafts accepted
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "int4"])
+def test_topk_one_query_on_card(cuda, mode):
+    """K3 at Q = 1 (a streaming session retrieves one query at a time) over N 16,384 x D 1024, k 4: the plain
+    version's ids and scores (near-tie swaps only); one launch a call."""
+    before = fused_dot_topk.launches[mode]
+    qs, e, kw = _inputs(mode, 16384, 1024, 1, cuda)
+    s, i = fused_dot_topk(qs, e, 4, **kw)
+    rs, ri = fused_dot_topk_ref(qs, e, 4, **kw)
+    torch.cuda.synchronize()
+    _assert_topk_near_ties(s, i, rs, ri, qs.float(), e, kw)
+    assert fused_dot_topk.launches[mode] == before + 1

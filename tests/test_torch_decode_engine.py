@@ -374,14 +374,23 @@ def test_sampled_engine_matches_sampled_lockstep(admit_width):
 
 
 def test_speculation_raises():
+    """Speculation no longer raises: DecodeEngine(speculative_gamma=3) and RagPipeline(speculative=True)
+    run and give the plain greedy tokens and answers (tests/test_torch_speculative.py holds them against the
+    JAX package)."""
     from dalm_tpu_torch.data.tokenizer import ByteTokenizer
     from dalm_tpu_torch.models.embedder import SentenceEmbedder
     from dalm_tpu_torch.models.encoder import EncoderConfig
     from dalm_tpu_torch.serve import RagPipeline
 
-    with pytest.raises(NotImplementedError, match="queue item 2"):
-        DecodeEngine(_models("mha")[2], num_slots=2, max_prompt_len=P, max_new_tokens=4, speculative_gamma=3)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        RagPipeline(SentenceEmbedder(EncoderConfig.tiny(), device="cpu"), ByteTokenizer(),
-                    Decoder(DecoderConfig.tiny(), device="cpu"), ByteTokenizer(), ["a"], device="cpu",
-                    speculative=True, speculative_gamma=4)
+    ids, mask = _prompts(5, 31)
+    eng = DecodeEngine(_models("mha")[2], num_slots=2, max_prompt_len=P, max_new_tokens=4, speculative_gamma=3)
+    want = [[int(t) for t in row] for row in _lockstep("mha", 5, 31, 4)]
+    assert eng.generate(ids, mask) == want
+    assert eng.generate_fused(ids, mask) == want
+    kw = dict(max_passage_len=32, max_prompt_len=64, max_new_tokens=4, embed_batch=8, device="cpu")
+    parts = (SentenceEmbedder(EncoderConfig.tiny(), device="cpu").eval(), ByteTokenizer(),
+             Decoder(DecoderConfig.tiny(), device="cpu").eval(), ByteTokenizer(), ["a b", "c d", "e f"])
+    spec = RagPipeline(*parts, speculative=True, speculative_gamma=4, **kw)
+    plain = RagPipeline(*parts, **kw)
+    assert [a.answer for a in spec.answer(["a?", "c?"], top_k=2)] == [a.answer for a in plain.answer(["a?", "c?"],
+                                                                                                       top_k=2)]
