@@ -23,7 +23,13 @@ held token for token to the lockstep ``answer()``); and serves it with
 prompt-lookup speculative decoding (``speculative=True``, gamma 8: lockstep,
 the engine's two schedules) and through streaming sessions (``stream()``,
 with and without speculation), each held to the plain path, tie-aware where
-speculation rounds otherwise. Fails (non-zero exit, no result line)
+speculation rounds otherwise; serves it over HTTP (``RagHTTPServer``: 64
+requests from 32 client threads over the plain and the OpenAI routes, and a
+client that hangs up); refreshes the bf16 pipeline's index for new retriever
+weights (``RagPipeline.refresh``: a float index swept by the incremental
+refresher, int8 and int4 indexes rebuilt) and searches a tiered index whose
+second half spills to host RAM; and builds a 4-bit pipeline with PEFT
+adapters merged into both towers. Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
 
@@ -35,7 +41,10 @@ with ``torch.topk(q @ e.T)``), ``serve-q`` (the 4-bit tiers; reuses
 serve-q's int4 pipeline; ``--seed`` draws its budgets), ``serve-stream`` (speculative decoding and
 streaming on that pipeline: ``answer()`` with ``speculative=True``, one verify pass fed the plain path's own
 tokens, the speculative engine's fused schedule and host loop, 64 streamed queries in two bursts, a speculative
-stream; K3 at one query and K5's routes at the verify pass's rows against their plain versions), ``k3`` (every row storage mode at
+stream; K3 at one query and K5's routes at the verify pass's rows against their plain versions), ``serve-http``
+(the HTTP front end on that pipeline), ``serve-refresh`` (``refresh`` on ``serve``'s pipeline: a sweep, the int8 /
+int4 rebuilds; then ``TieredIndex`` over 262,144 rows, half of them on the host), ``serve-adapter`` (a 4-bit
+Llama-2-7B pipeline of its own with both towers' adapters merged), ``k3`` (every row storage mode at
 1M rows, each with its share of the bound), ``k2`` (timed by CUDA graph over
 copies larger than the L2 at the train shapes and again at decode's 32
 rows), ``k1`` (K1, its three launches one by one, and the two int8 GEMM
@@ -77,7 +86,9 @@ K5 instance, every count set to 0 just before that path is driven; K3's f32
 entry and K5 base's fused kernel, pre-pass and GEMM also carry
 ``launches_serve_cb``, their counts in serve-cb's counted
 ``answer_continuous()``, and ``launches_serve_stream``, their counts in
-serve-stream's speculative and streaming runs), and as
+serve-stream's speculative and streaming runs; ``launches_serve_http``,
+``launches_serve_refresh`` and ``launches_serve_adapter`` likewise; K3's int8
+and int4 entries count the searches of serve-refresh's rebuilt indexes), and as
 the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances: K3 on exact-arithmetic inputs (small integers times powers of
@@ -91,14 +102,15 @@ entries equal, K1 and each of its launches equal on integer-valued and
 real-valued inputs, gradients equal, tiny training losses within 2e-3. K4's
 stand beside ``K4_TOL``, the tiny SFT run's beside ``SFT_SMALL_TOL``, K5's
 beside ``K5_TOL``, the 4-bit tiers' logits beside ``K5_LOGIT_BOUND`` and the
-tiny K5 pipeline's beside ``SMALL_Q_TOL``, serve-stream's near ties beside
-``TIE_TOL``.
+tiny K5 pipeline's beside ``SMALL_Q_TOL``, serve-stream's and serve-http's near ties beside
+``TIE_TOL``, the refreshed rows beside ``REFRESH_TOL``.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import re
 import string
 import subprocess
 import sys
@@ -2763,7 +2775,7 @@ def first_diff(a, b, eos):
     return None
 
 
-def tie_aware(label, gen, p_ids, p_mask, plain, other, eos):
+def tie_aware(label, gen, p_ids, p_mask, plain, other, eos, phase="serve-stream"):
     """Hold ``other`` to ``plain`` (token lists per request) tie-aware, with one teacher-forced forward of the
     diverging requests over their prompt and plain tokens. Returns (requests equal, diverging, the largest
     distance of a flipped token from the top logit)."""
@@ -2791,10 +2803,10 @@ def tie_aware(label, gen, p_ids, p_mask, plain, other, eos):
             far = max(top - float(lg[a]), top - float(lg[b]))
             where.append((i, t, round(far, 4)))
             worst = max(worst, far)
-            check(far <= TIE_TOL, f"serve-stream {label}: request {i} differs at token {t} ({a} against {b}) where "
+            check(far <= TIE_TOL, f"{phase} {label}: request {i} differs at token {t} ({a} against {b}) where "
                                   f"the plain path's logits do not nearly tie ({far:.4f} > {TIE_TOL})")
         del logits
-        print(f"[serve-stream] {label}: (request, first differing token, the farther token's distance below the "
+        print(f"[{phase}] {label}: (request, first differing token, the farther token's distance below the "
               f"recomputed top logit): {where}", flush=True)
     return len(plain) - len(diffs), len(diffs), worst
 
@@ -3097,6 +3109,456 @@ def serve_stream_phase(device, q, seed):
     return totals, out
 
 
+# serve-refresh: new retriever weights are the serve cell's own, each floating tensor moved by seeded Gaussian noise
+# of REFRESH_NOISE times its own standard deviation: enough to change retrieval (the run prints the share of the
+# 32 queries' top-4 ids that change). A swept row is held to a fresh ``_embed_texts`` of its passage under the new
+# weights within REFRESH_TOL: both embed in batches of 256 through the same bf16 encoder, so they differ only if the
+# batch composition changes the sums; one bf16 ulp of a unit-norm row's largest entries is 2^-9.
+REFRESH_NOISE = 0.1
+REFRESH_TOL = 2.0 ** -9
+SPILL_ROWS, SPILL_DEVICE_ROWS = 262144, 131072
+
+
+def serve_refresh_phase(device, pipe):
+    """``RagPipeline.refresh`` and the spill tier at full width: the serve cell's pipeline (bge-large, 16,384
+    passages, passages of 128 tokens, batches of 256, the 32 serve queries). (a) A sweep: new retriever weights,
+    an ``AsyncIndexRefresher`` at slice 256 (64 ticks); after half the ticks the queries' search equals the search
+    before the refresh bit for bit; after the swap the active rows equal a fresh ``_embed_texts`` of the corpus
+    within ``REFRESH_TOL`` and K3 on them equals its plain version. (b) The rebuild: ``refresh`` on int8 and int4
+    indexes of the corpus; each search runs K3 in that mode and equals its plain version. (c) A ``TieredIndex`` over
+    a seeded 262,144 x 1024 f32 corpus (1 GiB of host RAM), 131,072 rows on the device, 32 queries, k 10, against
+    an exact f64 search of the whole corpus on the card: ids equal but at near ties, scores within 1e-5. The
+    pipeline's weights and rows are restored at the end. Returns K3's launches by mode on the phase's main paths
+    (the searches of (a) and (b), the device tier of (c)) and the numbers printed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.index.dense import DenseIndex
+    from dalm_tpu_torch.index.host_index import TieredIndex, scan_threads
+    from dalm_tpu_torch.index.refresh import AsyncIndexRefresher
+    from dalm_tpu_torch.kernels.topk import _dequantized_rows, fused_dot_topk, fused_dot_topk_ref
+
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]
+    texts = [f"#passage# {p}" for p in pipe.passages]
+    qtexts = [f"#query# {x}" for x in queries]
+    launches, out = dict.fromkeys(("f32", "int8", "int4"), 0), {}
+
+    def counted(fn):
+        before = dict(fused_dot_topk.launches)
+        res = fn()
+        for mode in launches:
+            launches[mode] += fused_dot_topk.launches[mode] - before[mode]
+        return res
+
+    old_state = {k: v.clone() for k, v in pipe.retriever.state_dict().items()}
+    g = torch.Generator(device=device).manual_seed(17)
+    new_state = {}
+    for k, v in old_state.items():
+        if v.is_floating_point() and v.numel() > 1:
+            noise = torch.randn(v.shape, generator=g, device=device, dtype=torch.float32)
+            new_state[k] = (v.float() + REFRESH_NOISE * v.float().std() * noise).to(v.dtype)
+        else:
+            new_state[k] = v
+    old_rows = pipe.index.embeddings
+
+    # (a) the sweep
+    q_old = pipe._embed_texts(qtexts, pipe.max_passage_len)
+    s0, i0 = counted(lambda: pipe.index.search(q_old, 4))
+    pipe.retriever.load_state_dict(new_state)
+    toks = pipe.r_tok(texts, padding="max_length", max_length=pipe.max_passage_len, truncation=True)
+    refresher = AsyncIndexRefresher(pipe.index, pipe._embed, toks["input_ids"], toks["attention_mask"],
+                                    slice_size=256)
+    ticks = -(-len(texts) // 256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks // 2):
+        stats = refresher.tick()
+    torch.cuda.synchronize()
+    half_s = time.perf_counter() - t0
+    check(not stats["swapped"] and stats["cursor"] == 256 * (ticks // 2) and pipe.index.embeddings is old_rows,
+          f"serve-refresh (a): after {ticks // 2} ticks {stats}")
+    s_mid, i_mid = counted(lambda: pipe.index.search(q_old, 4))
+    check(np.array_equal(i_mid, i0) and np.array_equal(s_mid, s0),
+          "serve-refresh (a): a search in the middle of the sweep differs from the search before it")
+    t0 = time.perf_counter()
+    n_ticks = ticks // 2
+    while True:
+        n_ticks += 1
+        if refresher.tick()["swapped"]:
+            break
+    torch.cuda.synchronize()
+    sweep_s = half_s + time.perf_counter() - t0
+    check(n_ticks == ticks and refresher.version == 1 and pipe.index.embeddings is not old_rows,
+          f"serve-refresh (a): {n_ticks} ticks, version {refresher.version}")
+    fresh = pipe._embed_texts(texts, pipe.max_passage_len)
+    row_err = float((pipe.index.embeddings - fresh).abs().max())
+    check(row_err <= REFRESH_TOL, f"serve-refresh (a): swept rows differ from a fresh embedding by {row_err}")
+    del fresh
+    q_new = pipe._embed_texts(qtexts, pipe.max_passage_len)
+    s1, i1 = counted(lambda: pipe.index.search(q_new, 4))
+    changed = float(np.mean([len(set(a) - set(b)) / 4 for a, b in zip(i1.tolist(), i0.tolist())]))
+    check(changed > 0, "serve-refresh (a): the new weights changed no top-4 id")
+    e = pipe.index.embeddings
+    ks, ki = fused_dot_topk(q_new, e, 4)
+    rs, ri = fused_dot_topk_ref(q_new, e, 4)
+    err_a, swaps_a = compare_topk(ks, ki, rs, ri, q_new, e, None)
+    check(np.array_equal(ki.cpu().numpy(), i1), "serve-refresh (a): search() ids differ from K3's on the same rows")
+    out.update(sweep_s=sweep_s, sweep_passages_per_s=len(texts) / sweep_s, tick_ms=sweep_s / ticks * 1e3,
+               row_err=row_err, top4_changed=changed, k3_err=err_a)
+    print(f"[serve-refresh] (a) AsyncIndexRefresher over {len(texts)} passages at slice 256: {ticks} ticks in "
+          f"{sweep_s:.3f} s = {len(texts) / sweep_s:.0f} passages/s, {sweep_s / ticks * 1e3:.2f} ms a tick; after "
+          f"{ticks // 2} ticks the {len(queries)} queries' search equals the search before the refresh bit for bit; "
+          f"swept rows against a fresh _embed_texts max abs err {row_err} (tolerance {REFRESH_TOL}); the new weights "
+          f"(noise {REFRESH_NOISE} x each tensor's std) change {changed:.1%} of the top-4 ids; K3 f32 on the new "
+          f"rows against its plain version: max score error {err_a:.2e}, {swaps_a} near-tie swaps", flush=True)
+
+    # (b) the rebuild of quantised indexes
+    q_bf16 = q_new.to(torch.bfloat16)
+    for mode, quantize in (("int8", True), ("int4", "int4")):
+        qp = copy.copy(pipe)  # shares the retriever; refresh() rebinds only this copy's index
+        qp.index = DenseIndex.build(old_rows, quantize=quantize, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp.refresh(new_state)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        check(qp.index.int4 == (mode == "int4") and qp.index.scales is not None and pipe.index.scales is None,
+              f"serve-refresh (b): the {mode} rebuild gave another index")
+        sq, iq = counted(lambda: qp.retrieve(queries, 4))
+        rows, scales, int4 = qp.index.embeddings, qp.index.scales, qp.index.int4
+        ks, ki = fused_dot_topk(q_bf16, rows, 4, scales=scales, int4=int4)
+        rs, ri = fused_dot_topk_ref(q_bf16, rows, 4, scales=scales, int4=int4)
+        err, swaps = compare_topk(ks, ki, rs, ri, q_bf16.float(), _dequantized_rows(rows, int4), scales)
+        check(np.array_equal(ki.cpu().numpy(), iq), f"serve-refresh (b): {mode} retrieve() ids differ from K3's")
+        out[f"rebuild_{mode}_s"] = rebuild_s
+        print(f"[serve-refresh] (b) refresh() of an {mode} index: re-embedded and rebuilt in {rebuild_s:.3f} s; "
+              f"K3 {mode} on the rebuilt rows against its plain version: max score error {err:.2e}, {swaps} "
+              f"near-tie swaps; top-4 ids shared with the f32 index {float((iq == i1).mean()):.1%}", flush=True)
+        del qp
+    check(launches["int8"] > 0 and launches["int4"] > 0, f"serve-refresh (b): K3 launches {launches}")
+    pipe.retriever.load_state_dict(old_state)  # the serve cell as it was: its weights and its rows
+    pipe.index.embeddings = old_rows
+    del refresher, old_state, new_state, e, q_old, q_new, q_bf16
+    torch.cuda.empty_cache()
+
+    # (c) the spill tier
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    corpus_rows = rng.standard_normal((SPILL_ROWS, 1024), dtype=np.float32)
+    corpus_rows /= np.linalg.norm(corpus_rows, axis=1, keepdims=True)
+    qs = rng.standard_normal((32, 1024), dtype=np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    make_s = time.perf_counter() - t0
+    tiered = TieredIndex.build(corpus_rows, hbm_budget_rows=SPILL_DEVICE_ROWS, device=device)
+    check(tiered.host_index is not None and tiered.host_index.use_native
+          and tiered.host_index.embeddings.shape[0] == SPILL_ROWS - SPILL_DEVICE_ROWS, "serve-refresh (c): tiers")
+    tiered.search(qs, 10)  # warm both tiers
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        return res, time.perf_counter() - t
+
+    _, dev_s = counted(lambda: timed(lambda: tiered.device_index.search(qs, 10)))
+    _, host_s = timed(lambda: tiered.host_index.search(qs, 10))
+    (ts, ti), all_s = counted(lambda: timed(lambda: tiered.search(qs, 10)))
+    full = torch.from_numpy(corpus_rows).to(device)
+    exact = torch.from_numpy(qs).to(device).double() @ full.double().T
+    es, ei = (x.cpu().numpy() for x in torch.topk(exact, 10))
+    exact = exact.cpu().numpy()
+    del full
+    torch.cuda.empty_cache()
+    ties = 0
+    for r, c in zip(*np.nonzero(ti != ei)):
+        ties += 1
+        check(abs(exact[r, ti[r, c]] - exact[r, ei[r, c]]) <= NEAR_TIE,
+              f"serve-refresh (c): query {r} rank {c}: id {ti[r, c]} against the exact {ei[r, c]}, not a near tie")
+    spill_err = float(np.abs(ts - es).max())
+    check(spill_err <= NEAR_TIE, f"serve-refresh (c): scores differ from the exact search by {spill_err}")
+    threads = scan_threads()
+    out.update(spill_device_ms=dev_s * 1e3, spill_host_ms=host_s * 1e3, spill_ms=all_s * 1e3,
+               spill_threads=threads, spill_err=spill_err, spill_ties=ties)
+    print(f"[serve-refresh] (c) TieredIndex over {SPILL_ROWS} x 1024 f32 rows ({corpus_rows.nbytes / 2**30:.2f} GiB "
+          f"made from seed 0 in {make_s:.2f} s), {SPILL_DEVICE_ROWS} on the device, 32 queries, k 10 (host clock): "
+          f"device tier (K3 f32) {dev_s * 1e3:.3f} ms, host tier (the C++ scan, {threads} OpenMP threads; torch "
+          f"{torch.get_num_threads()} threads) {host_s * 1e3:.3f} ms, both and the merge {all_s * 1e3:.3f} ms; "
+          f"against an exact f64 search of the whole corpus on the card: max score error {spill_err:.2e}, {ties} "
+          f"near-tie id swaps", flush=True)
+    del tiered, corpus_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {f"fused_dot_topk[{m}]": n for m, n in launches.items()}
+    print(f"[serve-refresh] K3 launches on the phase's main paths: {counts}", flush=True)
+    print(json.dumps({"serve_refresh": out}), flush=True)
+    return counts, out
+
+
+def serve_adapter_phase(device, passages, retriever="bge-large", generator="llama2-7b"):
+    """PEFT adapters at full width: both towers' adapters written by the port's ``save_adapter`` with seeded
+    nonzero factors at r 8, alpha 16 and ``LoraSpec``'s targets (query / key / value; q_proj / v_proj), then
+    ``RagPipeline.from_pretrained("bge-large", "llama2-7b", ..., quantize_generator="int4", kv_quant=True,
+    generator_peft_path=..., retriever_peft_path=...)``. No ``FlexLinear`` keeps a factor; q_proj and v_proj of the
+    first and last layer hold exactly ``pack(W + scaling * A @ B)`` (computed here in plain PyTorch from the kernel
+    ``W`` the merge was given) and differ from ``pack(W)``; the encoder's layer-0 query kernel equals ``W +
+    scaling * A @ B``. One ``answer()`` of the 32 serve queries on K5, its launches counted by route. The pipeline
+    is freed at the end. Returns its K3 / K5 launches and the numbers printed."""
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch import serve as serve_mod
+    from dalm_tpu_torch.eval import retriever as retriever_mod
+    from dalm_tpu_torch.models.decoder import Decoder
+    from dalm_tpu_torch.models.embedder import SentenceEmbedder
+    from dalm_tpu_torch.models.layers import FlexLinear
+    from dalm_tpu_torch.models.lora import LoraSpec, save_adapter
+    from dalm_tpu_torch.models.qlora import _pack_leaf
+    from dalm_tpu_torch.models.registry import resolve_decoder, resolve_encoder
+    from dalm_tpu_torch.serve import RagPipeline
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    r_spec, g_spec = LoraSpec.for_encoder(), LoraSpec.for_causal_lm()
+
+    def factors(module, spec):
+        """Seeded nonzero factors for every target of ``module`` (built on the meta device: shapes only)."""
+        out = {}
+        for name, m in module.named_modules():
+            if isinstance(m, FlexLinear) and name.rsplit(".", 1)[-1] in spec.target_modules:
+                out[name.replace(".", "/") + "/kernel"] = {
+                    "lora_a": torch.randn((m.in_features, spec.rank), generator=gen, device=device) * 0.02,
+                    "lora_b": torch.randn((spec.rank, m.out_features), generator=gen, device=device) * 0.02}
+        return out
+
+    r_lora = factors(SentenceEmbedder(resolve_encoder(retriever)[0], device="meta").module, r_spec)
+    g_cfg = resolve_decoder(generator)[0]
+    g_lora = factors(Decoder(g_cfg, device="meta"), g_spec)
+    layers = g_cfg.num_layers
+    watch = [f"layer_{i}/attention/{p}/kernel" for i in (0, layers - 1) for p in ("q_proj", "v_proj")]
+    watch_r = "layer_0/attention/query/kernel"
+    seen, merge = {}, serve_mod.merge_lora_inplace
+
+    def capturing(module, lora_params, spec):  # keeps the kernels W the merge is given
+        for path in lora_params:
+            if path in watch or path == watch_r:
+                seen[path] = module.get_submodule(".".join(path.split("/")[:-1])).kernel.detach().clone()
+        return merge(module, lora_params, spec)
+
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_adapter(f"{tmp}/retriever", r_lora, r_spec)
+        save_adapter(f"{tmp}/generator", g_lora, g_spec)
+        serve_mod.merge_lora_inplace = retriever_mod.merge_lora_inplace = capturing
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe = RagPipeline.from_pretrained(
+                retriever, generator, passages, dtype="bfloat16", device=device, quantize_generator="int4",
+                kv_quant=True, generator_peft_path=f"{tmp}/generator", retriever_peft_path=f"{tmp}/retriever",
+                max_passage_len=128, max_prompt_len=256, max_new_tokens=64, embed_batch=256)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        finally:
+            serve_mod.merge_lora_inplace = retriever_mod.merge_lora_inplace = merge
+    left = [n for m in (pipe.retriever, pipe.generator) for n, x in m.named_modules()
+            if isinstance(x, FlexLinear) and any(getattr(x, f) is not None for f in ("lora_a", "lora_b", "a", "b"))]
+    check(not left and len(seen) == len(watch) + 1, f"serve-adapter: layers keep factors {left[:4]}, or the merge "
+                                                     f"never saw {set(watch) - set(seen)}")
+    moved = {}
+    for path in watch:
+        w, ab = seen[path], g_lora[path]
+        want = _pack_leaf(w + ((ab["lora_a"] @ ab["lora_b"]) * g_spec.scaling).to(w.dtype), "int4")
+        plain = _pack_leaf(w, "int4")
+        site = pipe.generator.get_submodule(".".join(path.split("/")[:-1]))
+        check(site.kernel is None and torch.equal(site.q4, want["q4"]) and torch.equal(site.scale4, want["scale4"]),
+              f"serve-adapter: {path} is not pack(W + scaling * A @ B)")
+        moved[path] = float((site.q4 != plain["q4"]).float().mean())
+        check(moved[path] > 0, f"serve-adapter: {path} equals pack(W): the adapter changed nothing")
+    w, ab = seen[watch_r], r_lora[watch_r]
+    want = w + ((ab["lora_a"] @ ab["lora_b"]) * r_spec.scaling).to(w.dtype)
+    got = pipe.retriever.module.get_submodule("layer_0.attention.query").kernel
+    r_moved = float((want - w).abs().max())
+    check(torch.equal(got, want) and r_moved > 0, "serve-adapter: the encoder's query kernel is not W + scaling*A@B")
+    pipe.answer(queries[:2], top_k=4)  # warm
+    zero_serving_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = pipe.answer(queries, top_k=4)
+    torch.cuda.synchronize()
+    answer_s = time.perf_counter() - t0
+    counts = serving_counts()
+    routes = counts["routes"]
+    per_forward = 7 * layers + 1
+    check(routes["prefill"] == 7 * layers and routes["fused"] == per_forward * 64 - 7 * layers
+          and routes["fold"] == routes["int8"] == 0 and counts["fused_dot_topk[f32]"] == 1,
+          f"serve-adapter: launches {counts} for one answer() of 64 forwards")
+    check(len(answers) == len(queries) and all(len(a.passages) == 4 and np.all(np.isfinite(a.scores))
+                                               for a in answers), "serve-adapter: answers")
+    out = dict(build_s=build_s, answer_s=answer_s, q4_bytes_changed=moved, encoder_delta_max=r_moved)
+    print(f"[serve-adapter] from_pretrained with both adapters (r {g_spec.rank}, alpha {g_spec.alpha}; {len(r_lora)} "
+          f"encoder and {len(g_lora)} generator kernels merged, then packed to int4): {build_s:.2f} s; no layer "
+          f"keeps a factor; q_proj / v_proj of layers 0 and {layers - 1} equal pack(W + scaling A B) bit for bit, "
+          f"their share of packed bytes that differ from pack(W): "
+          + ", ".join(f"{k.split('/')[0]}.{k.split('/')[2]} {v:.1%}" for k, v in moved.items())
+          + f"; the encoder's layer-0 query kernel equals W + scaling A B (largest delta {r_moved:.2e}); answer() of "
+          f"{len(queries)} queries {answer_s:.3f} s; launches {counts}", flush=True)
+    del pipe, seen, r_lora, g_lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"serve_adapter": out}), flush=True)
+    return counts, out
+
+
+HTTP_ROUTES = ("answer", "stream", "chat", "chat-stream")
+
+
+def serve_http_phase(device, q, seed, stream_s=None):
+    """The HTTP / OpenAI front end at full width: a ``RagHTTPServer`` on port 0 over serve-q's int4 + int8 KV cache
+    pipeline with 32 slots. 32 client threads send serve-cb (b)'s 64 queries with its budgets from ``seed``
+    (``budget`` / ``max_tokens``), in turn to ``/answer``, ``/stream``, ``/v1/chat/completions`` and the same with
+    ``stream: true``. Each response's text equals the decode of the tokens its request streamed, and those equal
+    ``DecodeEngine.generate()``'s for the same prompt and budget, tie-aware (``TIE_TOL``); SSE ends with
+    ``[DONE]`` and ``usage.completion_tokens`` counts the tokens. Then one client hangs up on ``/stream`` after its
+    first chunk (or its headers, when its text has not grown), and the pool's free slots come back to 32. K3's
+    launches equal the requests, counted from request threads under the counter's lock. ``shutdown()`` raises if
+    the scheduler crashed. Returns the launches and the numbers printed."""
+    import concurrent.futures
+    import http.client
+    import socket
+    import struct
+
+    import numpy as np
+
+    from dalm_tpu_torch.server_http import RagHTTPServer
+
+    B, max_new = 32, 64
+    eos = q.g_tok.eos_token_id
+    queries = [f"what about topic {i}" for i in range(0, 16384, 256)]  # serve-cb (b)'s 64 queries
+    budgets = np.random.default_rng(seed).integers(8, max_new + 1, size=len(queries))
+    srv = RagHTTPServer(q, port=0, num_slots=B)
+    session, handles = srv.session, {}
+    submit = session.submit
+
+    def recording(query, top_k=4, budget=None):  # the handle of each request, by its query
+        handles[query] = submit(query, top_k=top_k, budget=budget)
+        return handles[query]
+
+    session.submit = recording
+    zero_serving_counts()
+    srv.start_background()
+
+    def request(i):
+        query, budget, route = queries[i], int(budgets[i]), HTTP_ROUTES[i % len(HTTP_ROUTES)]
+        if route in ("answer", "stream"):
+            path, body = f"/{route}", {"query": query, "top_k": 4, "budget": budget}
+        else:
+            path, body = "/v1/chat/completions", {"messages": [{"role": "user", "content": query}], "top_k": 4,
+                                                  "max_tokens": budget, "stream": route == "chat-stream"}
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", path, body=json.dumps(body), headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            ttfb = time.perf_counter() - t0
+            data = resp.read()  # de-chunked
+            return dict(i=i, route=route, status=resp.status, data=data, ttfb=ttfb, wall=time.perf_counter() - t0)
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(32) as pool:
+        responses = list(pool.map(request, range(len(queries))))
+    wall_s = time.perf_counter() - t0
+    results = {x: handles[x]._handle.result(timeout=600) for x in queries}
+
+    # one client hangs up on /stream after its first chunk (after its headers if no text comes first)
+    gone = "what about topic 100"
+    body = json.dumps({"query": gone, "top_k": 4}).encode()
+    with socket.create_connection((srv.host, srv.port), timeout=600) as s:
+        s.sendall(b"POST /stream HTTP/1.1\r\nHost: x\r\nConnection: close\r\nContent-Type: application/json\r\n"
+                  b"Content-Length: " + str(len(body)).encode() + b"\r\n\r\n" + body)
+        got = b""
+        while b"\r\n\r\n" not in got:
+            got += s.recv(4096)
+        s.settimeout(0.01)
+        while not re.search(rb"\r\n\r\n[0-9A-F]+\r\n.", got, re.S) and not handles[gone].done:
+            try:
+                got += s.recv(4096)
+            except socket.timeout:
+                pass
+        first_chunk = bool(re.search(rb"\r\n\r\n[0-9A-F]+\r\n.", got, re.S))
+        done_at_hangup = handles[gone].done
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))  # reset the connection on close
+    gone_tokens = handles[gone]._handle.result(timeout=600)
+    deadline = time.monotonic() + 120
+    while session._server.free_slots != B and time.monotonic() < deadline:
+        time.sleep(0.01)
+    free = session._server.free_slots
+    srv.shutdown()  # raises if the scheduler crashed
+    check(free == B, f"serve-http: {free} of {B} slots free after the client went away")
+    counts = serving_counts()
+    check(counts["fused_dot_topk[f32]"] == len(queries) + 1,
+          f"serve-http: K3 counted {counts['fused_dot_topk[f32]']} launches for {len(queries) + 1} requests")
+    check(counts["routes"]["fused"] > 0 and counts["routes"]["prefill"] > 0, f"serve-http: K5 launches {counts}")
+
+    # every response against its request's tokens; the tokens against the engine's generate(), tie-aware
+    for r in responses:
+        x = queries[r["i"]]
+        toks, h = results[x], handles[x]
+        text = q.g_tok.decode(toks, skip_special_tokens=True).split("#answer#")[0]
+        check(r["status"] == 200, f"serve-http: request {r['i']} ({r['route']}) got status {r['status']}")
+        if r["route"] == "answer":
+            obj = json.loads(r["data"])
+            check(obj["answer"] == text.strip() and obj["passages"] == h.passages, f"serve-http: /answer {r['i']}")
+        elif r["route"] == "stream":
+            check(r["data"].decode("utf-8") == text, f"serve-http: /stream {r['i']}")
+        else:
+            cap = min(int(budgets[r["i"]]), max_new)
+            finish = "length" if len(toks) >= cap else "stop"
+            if r["route"] == "chat":
+                obj = json.loads(r["data"])
+                choice = obj["choices"][0]
+                check(choice["message"]["content"] == text.strip() and choice["finish_reason"] == finish
+                      and obj["usage"]["completion_tokens"] == len(toks) and obj["dalm"]["passages"] == h.passages,
+                      f"serve-http: chat {r['i']}")
+            else:
+                events = [e[len(b"data: "):] for e in r["data"].split(b"\n\n") if e]
+                check(events[-1] == b"[DONE]", f"serve-http: SSE {r['i']} does not end with [DONE]")
+                chunks = [json.loads(e) for e in events[:-1]]
+                content = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+                check(chunks[0]["choices"][0]["delta"] == {"role": "assistant"} and content == text
+                      and chunks[-1]["choices"][0]["finish_reason"] == finish
+                      and chunks[-1]["usage"]["completion_tokens"] == len(toks), f"serve-http: SSE {r['i']}")
+    prompts = q.g_tok([f"#query# {x} #passage# {handles[x].passages[0]} #answer# " for x in queries],
+                      padding="max_length", max_length=q.max_prompt_len, truncation=True)
+    s_ids, s_mask = np.asarray(prompts["input_ids"], np.int64), np.asarray(prompts["attention_mask"], np.int64)
+    want = session._server.engine.generate(s_ids, s_mask, budgets=budgets)
+    got = [results[x] for x in queries]
+    eq, dv, worst = tie_aware("(HTTP against generate())", q.generator, s_ids, s_mask, want, got, eos,
+                              phase="serve-http")
+    tokens = sum(len(t) for t in got)
+    streamed = [r["ttfb"] for r in responses if r["route"] in ("stream", "chat-stream")]
+    ttft = [handles[x]._handle.t_first_token - handles[x]._handle.t_submit for x in queries]
+    out = dict(wall_s=wall_s, requests_per_s=len(queries) / wall_s, tokens=tokens, tokens_per_s=tokens / wall_s,
+               ttfb_median_s=float(np.median(streamed)), ttfb_p90_s=float(np.percentile(streamed, 90)),
+               ttft_median_s=float(np.median(ttft)), equal=eq, near_ties=dv, worst_tie=worst,
+               hangup_after_first_chunk=first_chunk, hangup_done_already=done_at_hangup, hangup_tokens=len(gone_tokens),
+               stream_d_s=stream_s)
+    vs = "" if stream_s is None else f" (serve-stream (d)'s 64 requests through stream(): {stream_s:.3f} s)"
+    print(f"[serve-http] RagHTTPServer, {B} slots, {len(queries)} requests from 32 client threads ({', '.join(HTTP_ROUTES)} "
+          f"in turn), budgets from seed {seed} (sum {int(budgets.sum())}): {wall_s:.3f} s{vs} = "
+          f"{len(queries) / wall_s:.2f} requests/s, {tokens} tokens = {tokens / wall_s:.1f} tokens/s; time to first "
+          f"byte on the streamed routes median {np.median(streamed):.3f} s, p90 {np.percentile(streamed, 90):.3f} s; "
+          f"time to first token median {np.median(ttft):.3f} s; every response equals its request's tokens; {eq} "
+          f"requests equal to generate(), {dv} first differ at a near tie (largest {worst:.4f}); the client that hung "
+          f"up after {'its first chunk' if first_chunk else 'its headers'} "
+          f"({'its request had ended: no text before its end' if done_at_hangup else 'mid-answer'}) had "
+          f"{len(gone_tokens)} of {max_new} tokens and its slot came back ({free} free); launches {counts}",
+          flush=True)
+    print(json.dumps({"serve_http": out}), flush=True)
+    return counts, out
+
+
 def serve_phase(device, rng, peaks, kernels):
     """The serving main path, then K3 against its plain version at that path's
     own shapes. Fills ``kernels`` with the f32 record and the launch counts
@@ -3134,8 +3596,8 @@ TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
 SFT_STEPS = 3
-PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "k3", "k2", "k1", "grad", "k4", "k5", "train-small", "train",
-          "sft-small", "sft")
+PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh", "serve-adapter", "k3",
+          "k2", "k1", "grad", "k4", "k5", "train-small", "train", "sft-small", "sft")
 EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
 
 
@@ -3188,7 +3650,9 @@ def main() -> int:
     if "serve" in phases:
         base_pipe = serve_phase(device, np.random.default_rng(0), peaks, kernels)
     k5_launches, cb_launches, stream_launches, int4_pipe = {}, {}, {}, None
-    if base_pipe is None and {"serve-q", "serve-cb", "serve-stream", "profile-serve"} & set(phases):
+    http_launches, refresh_launches, adapter_launches, stream_s = {}, {}, {}, None
+    if base_pipe is None and {"serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh",
+                              "profile-serve"} & set(phases):
         from dalm_tpu_torch.serve import RagPipeline
 
         base_pipe = RagPipeline.from_pretrained("bge-large", "llama2-7b", corpus(16384, np.random.default_rng(0)),
@@ -3196,17 +3660,27 @@ def main() -> int:
                                                 max_prompt_len=256, max_new_tokens=64, embed_batch=256)
     if "serve-q" in phases:
         k5_launches, _, int4_pipe = serve_q_phase(device, np.random.default_rng(0), base_pipe)
-    if int4_pipe is None and {"serve-cb", "serve-stream", "profile-serve"} & set(phases):
+    if int4_pipe is None and {"serve-cb", "serve-stream", "serve-http", "profile-serve"} & set(phases):
         int4_pipe = int4_pipeline(device, base_pipe)
     if "serve-cb" in phases:
         cb_launches, _ = serve_cb_phase(device, int4_pipe, args.seed)
     if "serve-stream" in phases:
-        stream_launches, _ = serve_stream_phase(device, int4_pipe, args.seed)
+        stream_launches, stream_out = serve_stream_phase(device, int4_pipe, args.seed)
+        stream_s = stream_out["d_s"]
+    if "serve-http" in phases:
+        http_launches, _ = serve_http_phase(device, int4_pipe, args.seed, stream_s)
     if "profile-serve" in phases:
         profile_serve_phase(device, int4_pipe)
+    if "serve-refresh" in phases:
+        refresh_launches, _ = serve_refresh_phase(device, base_pipe)
+    passages = base_pipe.passages if base_pipe is not None else None
     del base_pipe, int4_pipe
     gc.collect()
     torch.cuda.empty_cache()
+    if "serve-adapter" in phases:  # a 7B of its own: after the serve cell's pipelines are freed
+        adapter_launches, _ = serve_adapter_phase(device, passages or corpus(16384, np.random.default_rng(0)))
+        gc.collect()
+        torch.cuda.empty_cache()
     if "k3" in phases:
         cases, reps = k3_phase(gen, device, peaks)
         print(json.dumps({"k3_cases": cases}), flush=True)
@@ -3278,17 +3752,28 @@ def main() -> int:
     for name, n in cb_launches.items():  # PR 15's main path: answer_continuous() (serve-cb (c))
         if name in kernels:
             kernels[name]["launches_serve_cb"] = n
-    for name, n in stream_launches.items():  # this slice's: speculative decoding and streaming (serve-stream)
+    for name, n in stream_launches.items():  # speculative decoding and streaming (serve-stream)
         if name in kernels:
             kernels[name]["launches_serve_stream"] = n
+    for key, counts in (("launches_serve_http", http_launches), ("launches_serve_refresh", refresh_launches),
+                        ("launches_serve_adapter", adapter_launches)):  # the rest of serving
+        for name, n in counts.items():
+            if name in kernels:
+                kernels[name][key] = n
+    for mode in ("int8", "int4"):  # their main path: the search of a rebuilt quantised index (serve-refresh (b))
+        kernels[f"fused_dot_topk[{mode}]"]["launches"] = refresh_launches[f"fused_dot_topk[{mode}]"]
     line = [kernels[name] for name in order]
     for e in line:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
-    for name in ("fused_dot_topk[f32]", "rowquant", *k1_names, "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq_wgmma",
+    for name in ("fused_dot_topk[f32]", "fused_dot_topk[int8]", "fused_dot_topk[int4]", "rowquant", *k1_names,
+                 "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq_wgmma",
                  "k4_bwd_dkv_wgmma", "k4_dsum", *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     for name in ("fused_dot_topk[f32]", "int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm"):
         check(kernels[name]["launches_serve_stream"] > 0, f"{name} was never launched by serve-stream")
+        check(kernels[name]["launches_serve_http"] > 0, f"{name} was never launched by serve-http")
+        check(kernels[name]["launches_serve_adapter"] > 0, f"{name} was never launched by serve-adapter")
+    check(kernels["fused_dot_topk[f32]"]["launches_serve_refresh"] > 0, "K3 f32 was never launched by serve-refresh")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,6 +1,7 @@
 """Retriever loading for serving and eval (counterpart of
-``dalm_tpu/eval/retriever.py:40-80``): a non-autoregressive retriever
-without PEFT adapters. The eval loop itself waits for a later slice.
+``dalm_tpu/eval/retriever.py:40-80``): a non-autoregressive retriever,
+with a PEFT adapter merged into its weights when one is given. The eval
+loop itself waits for a later slice.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from dalm_tpu_torch.core.dtypes import parse_dtype
 from dalm_tpu_torch.data.tokenizer import resolve_tokenizer
 from dalm_tpu_torch.device import resolve_device
 from dalm_tpu_torch.models.embedder import SentenceEmbedder
+from dalm_tpu_torch.models.lora import load_adapter, merge_lora_inplace
 from dalm_tpu_torch.models.registry import resolve_encoder
 
 
@@ -37,9 +39,10 @@ def load_retriever_for_eval(
     device=None,
 ):
     """→ (SentenceEmbedder on ``device``, tokenizer). A preset name is
-    random-initialised from seed 0; a saved directory loads its weights."""
-    if retriever_peft_model_path:
-        raise NotImplementedError("PEFT adapters are not ported yet")
+    random-initialised from seed 0; a saved directory loads its weights. An
+    adapter saved by ``models.lora.save_adapter`` at
+    ``retriever_peft_model_path`` is merged into the encoder's kernels
+    (``dalm_tpu/eval/retriever.py:71-75``)."""
     if is_autoregressive:
         raise NotImplementedError("autoregressive retrievers are not ported yet")
     dev = resolve_device(device)
@@ -50,5 +53,7 @@ def load_retriever_for_eval(
         model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
     else:
         model.module.load_state_dict(state)
+    if retriever_peft_model_path:
+        merge_lora_inplace(model.module, *load_adapter(retriever_peft_model_path))
     model.eval()
     return model, resolve_tokenizer(tokenizer)

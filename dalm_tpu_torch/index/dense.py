@@ -72,6 +72,23 @@ class DenseIndex:
             return cls(torch.from_numpy(q8).to(dev), torch.from_numpy(scale).to(dev))
         raise ValueError(f"unknown quantize mode {quantize!r}")
 
+    def refresh(self, embeddings) -> None:
+        """Swap in re-embedded passages of the same shape (``dense.py:126-160``): float rows are copied in the
+        index's dtype into storage of its own, int8 rows are quantised again; int4 indexes are rebuilt."""
+        if self.int4:
+            raise NotImplementedError("int4 indexes are rebuilt, not refreshed in place "
+                                      "(DenseIndex.build(quantize='int4'))")
+        if embeddings.shape[0] != self.num_real:
+            raise ValueError(f"refresh takes {self.num_real} rows, not {embeddings.shape[0]}")
+        if self.scales is not None:
+            e = embeddings.detach().cpu().numpy() if isinstance(embeddings, torch.Tensor) else embeddings
+            q8, scale = quantize_int8(e)
+            self.embeddings = torch.from_numpy(q8).to(self.device)
+            self.scales = torch.from_numpy(scale).to(self.device)
+            return
+        e = torch.as_tensor(embeddings)
+        self.embeddings = e.to(device=self.device, dtype=self.embeddings.dtype, copy=True)
+
     def search(self, queries, k: int) -> tuple:
         """Exact top-k: (scores (Q, k) float32, ids (Q, k) int32) numpy arrays.
         ``k > N`` pads with score -inf and id 0."""

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # threads of one process share a build's temporary file name
 
 
 def _nvcc() -> str:
@@ -88,8 +90,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
-    if name not in _loaded:
-        lib = build(name)
-        _loaded[name] = ctypes.CDLL(str(lib))
-    return _loaded[name]
+    """Build (if needed) and load ``csrc/<name>.cu`` once per process, from any thread."""
+    with _load_lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build(name)))
+        return _loaded[name]

@@ -20,6 +20,7 @@ to the smaller row id; slots never filled hold score ``-inf`` and id 0.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -175,9 +176,11 @@ def fused_dot_topk(queries, embeddings, k: int, num_valid=None, scales=None, int
     )
     if err != 0:
         raise RuntimeError(f"topk kernel launch failed: error {err}")
-    fused_dot_topk.launches[mode_name] += 1
+    with _count_lock:  # request threads of a server search at once
+        fused_dot_topk.launches[mode_name] += 1
     return out_s, out_i
 
 
 # Kernel launches per row storage mode; CPU calls (the plain version) do not count.
 fused_dot_topk.launches = {name: 0 for _, name in _MODES.values()}
+_count_lock = threading.Lock()

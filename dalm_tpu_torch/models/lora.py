@@ -9,7 +9,9 @@ the reference's schema plus a ``torch.save`` file.
 The merge runtime (generator SFT): ``init_lora_params`` draws such a flat
 dict for a parameter tree, ``merge_lora`` folds one into a tree
 (``W + (A @ B * scaling).to(W.dtype)``, the reference's ``dropout_rng=None``
-form; its dropout on ``A`` is not ported), and ``attach_merge_lora`` /
+form; its dropout on ``A`` is not ported), ``merge_lora_inplace`` folds one
+into a module's ``FlexLinear`` kernels (a PEFT adapter loaded for serving or
+eval, before any packing), and ``attach_merge_lora`` /
 ``merge_lora_params`` put the factors onto a module's ``FlexLinear`` layers
 (``add_merge_lora``) and read them back, so that autograd gives dA and dB.
 """
@@ -121,6 +123,23 @@ def _merge_site(module, path_str: str):
     if path[-1] != "kernel" or not isinstance(site, FlexLinear):
         raise KeyError(f"{path_str!r} does not name a FlexLinear kernel")
     return site
+
+
+@torch.no_grad()
+def merge_lora_inplace(module, lora_params: dict, spec: LoraSpec):
+    """``W + scaling * A @ B`` written into each adapted ``FlexLinear``'s ``kernel`` (the delta computed in f32 on
+    the kernel's device and cast to its type first, as ``merge_lora`` does), leaving no factor on the module.
+    Packing (``qlora.pack_module``) comes after. Returns ``module``."""
+    for path_str, ab in lora_params.items():
+        site = _merge_site(module, path_str)
+        if site.kernel is None:
+            raise ValueError(f"{path_str!r} is packed: merge an adapter before packing")
+        if site.lora_a is not None or site.a is not None:
+            raise ValueError(f"{path_str!r} carries LoRA factors: merge into a plain layer")
+        dev = site.kernel.device
+        delta = (ab["lora_a"].to(dev, torch.float32) @ ab["lora_b"].to(dev, torch.float32)) * spec.scaling
+        site.kernel.add_(delta.to(site.kernel.dtype))
+    return module
 
 
 def attach_merge_lora(module, lora_params: dict, spec: LoraSpec):

@@ -119,6 +119,12 @@ class StreamingEngine:
         self._live_handles: List[StreamHandle] = []  # the scheduler thread's
         self._n_submitted = 0  # request ids (the sampling keys)
         self._submit_lock = threading.Lock()
+        self._slot_req: List[Optional[StreamHandle]] = [None] * engine.num_slots  # the scheduler thread's
+
+    @property
+    def free_slots(self) -> int:
+        """Decode slots that hold no request (read from any thread; the scheduler may change it at once)."""
+        return sum(h is None for h in self._slot_req)
 
     # ---- lifecycle ---------------------------------------------------------
     def start(self) -> "StreamingEngine":
@@ -264,7 +270,7 @@ class StreamingEngine:
         eng = self.engine
         B = eng.num_slots
         pending: deque = deque()  # (handle, ids, mask)
-        slot_req: List[Optional[StreamHandle]] = [None] * B
+        slot_req = self._slot_req
 
         def finish(slot: int) -> None:
             h, slot_req[slot] = slot_req[slot], None
@@ -330,7 +336,7 @@ class StreamingEngine:
         eng = self.engine
         B, G = eng.num_slots, eng.spec_gamma
         pending: deque = deque()
-        slot_req: List[Optional[StreamHandle]] = [None] * B
+        slot_req = self._slot_req
         slot_prompt: List[Optional[np.ndarray]] = [None] * B  # the unpadded prompt
 
         def finish(slot: int) -> None:

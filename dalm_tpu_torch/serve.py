@@ -18,8 +18,12 @@ one query and returns a handle that streams its answer's tokens.
 ``speculative=True`` decodes with prompt-lookup speculation
 (``models/speculative.py``) in ``answer``, ``answer_continuous`` and
 ``stream``: greedy answers are the plain ones, sampled ones follow the same
-distribution. ``refresh`` and generator PEFT adapters are not ported yet and
-raise.
+distribution. ``refresh`` loads new retriever weights and re-embeds the
+corpus: a float index through the incremental refresher
+(``index/refresh.py``), answering from the old rows until its swap; an int8
+or int4 index is rebuilt in one pass. ``from_pretrained`` merges PEFT
+adapters of either tower into its weights before the generator is packed.
+``server_http.py`` serves a pipeline over HTTP.
 
 Usage::
 
@@ -30,10 +34,12 @@ Usage::
     with pipe.stream(num_slots=32) as session:
         h = session.submit("what is ..?")
         for tok in h.tokens(): ...               # or h.answer(timeout=60)
+    pipe.refresh(new_retriever.state_dict())     # re-embed the corpus with new retriever weights
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence
 
@@ -45,9 +51,11 @@ from dalm_tpu_torch.data.tokenizer import resolve_tokenizer
 from dalm_tpu_torch.device import resolve_device
 from dalm_tpu_torch.eval.retriever import build_embed_fn, load_retriever_for_eval
 from dalm_tpu_torch.index.dense import DenseIndex
+from dalm_tpu_torch.index.refresh import AsyncIndexRefresher
 from dalm_tpu_torch.models.decode_engine import DecodeEngine
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.generate import build_greedy_generate
+from dalm_tpu_torch.models.lora import load_adapter, merge_lora_inplace
 from dalm_tpu_torch.models.qlora import pack_module
 from dalm_tpu_torch.models.registry import resolve_decoder
 from dalm_tpu_torch.models.speculative import build_speculative_generate
@@ -139,10 +147,10 @@ class RagPipeline:
         **kw,
     ) -> "RagPipeline":
         """Presets are random-initialised from fixed seeds (0 for the
-        retriever, 1 for the generator); ``dtype`` sets both towers' compute dtype."""
-        if generator_peft_path:
-            raise NotImplementedError("generator PEFT adapters are not ported yet: ROADMAP.md, modules queue "
-                                      "item 2.4")
+        retriever, 1 for the generator); ``dtype`` sets both towers' compute dtype.
+        ``retriever_peft_path`` / ``generator_peft_path``: adapters saved by
+        ``models.lora.save_adapter``, each merged into its tower's kernels
+        (``W + scaling * A @ B``) before ``quantize_generator`` packs them."""
         dev = resolve_device(device)
         retriever, r_tok = load_retriever_for_eval(
             retriever_path, retriever_peft_path, retriever_is_autoregressive,
@@ -154,6 +162,8 @@ class RagPipeline:
             generator.reset_parameters(torch.Generator(device=dev).manual_seed(1))
         else:
             generator.load_state_dict(g_state)
+        if generator_peft_path:
+            merge_lora_inplace(generator, *load_adapter(generator_peft_path))
         generator.eval()
         g_tok = resolve_tokenizer(generator_tokenizer)
         return cls(retriever, r_tok, generator, g_tok, passages, device=dev, **kw)
@@ -251,9 +261,22 @@ class RagPipeline:
         return RagStreamSession(self, self._new_engine(num_slots, max_new_tokens or self._max_new_tokens,
                                                        decode_chunk))
 
-    def refresh(self, new_retriever_params, slice_size: int = 256) -> None:
-        """Re-embedding the corpus for new retriever weights is not ported yet."""
-        raise NotImplementedError("RagPipeline.refresh is not ported yet: ROADMAP.md, modules queue item 2.3")
+    def refresh(self, new_retriever_state: dict, slice_size: int = 256) -> None:
+        """Load ``new_retriever_state`` (a state dict of ``self.retriever``) into the retriever and re-embed the
+        corpus (``dalm_tpu/serve.py:338-363``). Queries embed with the new weights at once. A float index is
+        swept by an :class:`AsyncIndexRefresher` in slices of ``slice_size`` passages and serves its old rows
+        until the swap; an int8 or int4 index cannot be patched row by row, so it is re-embedded and rebuilt in
+        one pass."""
+        self.retriever.load_state_dict(new_retriever_state)
+        texts = [f"#passage# {p}" for p in self.passages]
+        if self.index.scales is not None or self.index.int4:
+            embs = self._embed_texts(texts, self.max_passage_len)
+            quantize = "int4" if self.index.int4 else True
+            self.index = DenseIndex.build(embs, quantize=quantize, device=self.device)
+            return
+        toks = self.r_tok(texts, padding="max_length", max_length=self.max_passage_len, truncation=True)
+        AsyncIndexRefresher(self.index, self._embed, toks["input_ids"], toks["attention_mask"],
+                            slice_size=slice_size).refresh_fully()
 
 
 class RagStreamHandle:
@@ -306,7 +329,10 @@ class RagStreamSession:
         if not self._started:
             raise RuntimeError("use `with pipe.stream(...) as session:`")
         pipe = self._pipe
-        scores, ids = pipe.retrieve([query], top_k)
+        # any thread may submit: grad mode and the current device are per thread
+        on_device = torch.cuda.device(pipe.device) if pipe.device.type == "cuda" else contextlib.nullcontext()
+        with torch.no_grad(), on_device:
+            scores, ids = pipe.retrieve([query], top_k)
         toks = pipe._prompt_tokens([query], ids)
         handle = self._server.submit(np.asarray(toks["input_ids"]), np.asarray(toks["attention_mask"]), budget=budget)
         return RagStreamHandle(query, [pipe.passages[int(j)] for j in ids[0]], [float(s) for s in scores[0]],

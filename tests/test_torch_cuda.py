@@ -1545,3 +1545,137 @@ def test_topk_one_query_on_card(cuda, mode):
     torch.cuda.synchronize()
     _assert_topk_near_ties(s, i, rs, ri, qs.float(), e, kw)
     assert fused_dot_topk.launches[mode] == before + 1
+
+
+def _card_pipeline(cuda, **kw):
+    from dalm_tpu_torch.serve import RagPipeline
+
+    passages = [f"passage about topic {i} with unique content {i}" for i in range(300)]
+    return RagPipeline.from_pretrained("tiny", "tiny", passages, device=cuda, **dict(
+        dict(max_passage_len=48, max_prompt_len=96, max_new_tokens=8, embed_batch=64), **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, "int8", "int4"])
+def test_topk_after_refresh_on_card(cuda, quantize):
+    """A card pipeline refreshed with new retriever weights (every tensor moved by seeded noise): a float index swept
+    by the refresher at slice 64 (a ragged last slice), an int8 / int4 index rebuilt. The rows equal a fresh
+    embedding of the corpus; K3 in the index's mode on them equals its plain version (near ties aside), and each
+    search is one counted call."""
+    pipe = _card_pipeline(cuda, index_quantize=quantize)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    new = {k: v + 0.1 * v.float().std() * torch.randn(v.shape, generator=g, device=cuda) if v.numel() > 1 else v
+           for k, v in pipe.retriever.state_dict().items()}
+    old_rows = pipe.index.embeddings
+    pipe.refresh(new, slice_size=64)
+    assert pipe.index.embeddings is not old_rows
+    texts = [f"#passage# {p}" for p in pipe.passages]
+    fresh = pipe._embed_texts(texts, pipe.max_passage_len)
+    if not quantize:
+        assert float((pipe.index.embeddings - fresh).abs().max()) <= 1e-6
+    queries = pipe._embed_texts([f"#query# what is topic {i}" for i in range(12)], pipe.max_passage_len)
+    mode = {False: "f32", "int8": "int8", "int4": "int4"}[quantize]
+    kw = {} if not quantize else {"scales": pipe.index.scales, "int4": pipe.index.int4}
+    q = queries if not quantize else queries.to(torch.bfloat16)
+    e = pipe.index.embeddings
+    before = fused_dot_topk.launches[mode]
+    s, i = fused_dot_topk(q, e, 5, **kw)
+    rs, ri = fused_dot_topk_ref(q, e, 5, **kw)
+    torch.cuda.synchronize()
+    _assert_topk_near_ties(s, i, rs, ri, q.float(), e, kw)
+    _, ids = pipe.index.search(queries, 5)
+    assert fused_dot_topk.launches[mode] == before + 2
+    np.testing.assert_array_equal(ids, i.cpu().numpy())
+
+
+def test_host_scan_matches_numpy_at_spill_size(cuda):
+    """The native host scan over 262,144 x 1024 f32 rows (1 GiB), 8 queries, k 10: ids equal to numpy's stable
+    sort, near ties aside; scores within 1e-5 on unit-norm rows."""
+    from dalm_tpu_torch.index.host_index import HostDenseIndex, host_topk_ref, scan_threads
+
+    rng = np.random.default_rng(11)
+    e = rng.standard_normal((262144, 1024), dtype=np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    qs = rng.standard_normal((8, 1024), dtype=np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    s, i = HostDenseIndex(e).search(qs, 10)
+    rs, ri = host_topk_ref(e, qs, 10)
+    assert scan_threads() >= 1
+    np.testing.assert_allclose(s, rs, rtol=0, atol=1e-5)
+    for r, c in zip(*np.nonzero(i != ri)):
+        assert abs(float(e[i[r, c]].astype(np.float64) @ qs[r]) - float(e[ri[r, c]].astype(np.float64) @ qs[r])) <= 1e-5
+
+
+def test_http_server_counts_every_search_on_card(cuda):
+    """The HTTP server over a card pipeline, 4 slots, 8 client threads with two requests each to /answer and /stream
+    under a short switch interval: every response equals the decode of its own request's tokens, and K3's count
+    moves by exactly one a request (its counter is read and written under a lock by the request threads). Then a
+    client hangs up on /stream after its first chunk, with each decode chunk slowed to 0.1 s: its request stops
+    before its budget and its slot comes back."""
+    import json
+    import re
+    import socket
+    import struct
+    import sys
+    import threading
+    import time
+    import urllib.request
+
+    from dalm_tpu_torch.server_http import RagHTTPServer
+
+    pipe = _card_pipeline(cuda, max_new_tokens=48)
+    srv = RagHTTPServer(pipe, port=0, num_slots=4, decode_chunk=4)
+    handles, submit = {}, srv.session.submit
+
+    def recording(query, top_k=4, budget=None):
+        handles[query] = submit(query, top_k=top_k, budget=budget)
+        return handles[query]
+
+    srv.session.submit = recording
+    srv.start_background()
+    results, errors = {}, []
+
+    def client(c):
+        for j, route in enumerate(("answer", "stream")):
+            query = f"what is topic {c * 2 + j}"
+            req = urllib.request.Request(f"http://{srv.host}:{srv.port}/{route}", method="POST",
+                                         data=json.dumps({"query": query, "top_k": 3}).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    body = r.read()
+                results[query] = json.loads(body)["answer"] if route == "answer" else body.decode("utf-8")
+            except Exception as exc:  # noqa: BLE001 - reported by the assertion below
+                errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    before = fused_dot_topk.launches["f32"]
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        sys.setswitchinterval(interval)
+        eng, chunk = srv.session._server.engine, srv.session._server.engine._decode_chunk
+        eng._decode_chunk = lambda *a: (time.sleep(0.1), chunk(*a))[1]
+        body = json.dumps({"query": "what is topic 99"}).encode()
+        with socket.create_connection((srv.host, srv.port), timeout=120) as s:
+            s.sendall(f"POST /stream HTTP/1.1\r\nHost: x\r\nConnection: close\r\nContent-Length: {len(body)}\r\n\r\n"
+                      .encode() + body)
+            got = b""
+            while not re.search(rb"\r\n\r\n[0-9A-F]+\r\n.", got, re.S):
+                got += s.recv(1)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+        gone = handles["what is topic 99"]._handle.result(timeout=120)
+        deadline = time.monotonic() + 60
+        while srv.session._server.free_slots != 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert srv.session._server.free_slots == 4 and 0 < len(gone) < 48
+    finally:
+        sys.setswitchinterval(interval)
+        srv.shutdown()
+    assert not errors and not any(t.is_alive() for t in threads) and len(results) == 16
+    assert fused_dot_topk.launches["f32"] == before + 17
+    for query, got in results.items():
+        text = pipe.g_tok.decode(handles[query]._handle.result(), skip_special_tokens=True).split("#answer#")[0]
+        assert got == (text.strip() if int(query.split()[-1]) % 2 == 0 else text)

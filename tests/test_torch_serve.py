@@ -4,7 +4,8 @@ queries through ``RagPipeline.answer`` on both sides. Retrieved ids are
 equal, scores within 1e-5 (unit-norm embeddings, f32) and answer strings
 equal, with the float generator and with each serving tier (an int8 or 4-bit
 generator packed by the pipeline, the int8 KV cache). Also round-trips the
-port's ``save_pretrained`` / ``from_pretrained``.
+port's ``save_pretrained`` / ``from_pretrained``, and loads PEFT adapters of
+both towers through it against the JAX pipeline built from JAX-merged trees.
 """
 
 import jax
@@ -120,13 +121,114 @@ def test_from_pretrained_presets_random_init_on_cpu():
     assert [a.answer for a in spec.answer(QUERIES, top_k=3)] == [a.answer for a in answers]
 
 
-def test_refresh_and_generator_adapters_still_raise():
-    """The two serving pieces not ported yet raise and name their ROADMAP.md items."""
-    pipe = RagPipeline.from_pretrained("tiny", "tiny", PASSAGES, device="cpu", **OPTS)
-    with pytest.raises(NotImplementedError, match="queue item 2.3"):
-        pipe.refresh(None)
-    with pytest.raises(NotImplementedError, match="queue item 2.4"):
-        RagPipeline.from_pretrained("tiny", "tiny", PASSAGES, device="cpu", generator_peft_path="adapter", **OPTS)
+def _adapter(params, spec, seed):
+    """Seeded nonzero factors for every target kernel of ``params`` (B is drawn too: a fresh adapter's zero B would
+    merge to nothing): numpy, and the same as torch tensors."""
+    from dalm_tpu_torch.models.lora import _get_path, _target_kernel_paths
+
+    rng = np.random.default_rng(seed)
+    factors = {}
+    for path in _target_kernel_paths(params, spec):
+        d_in, d_out = _get_path(params, path).shape
+        factors["/".join(path)] = {"lora_a": rng.normal(0, 0.05, (d_in, spec.rank)).astype(np.float32),
+                                   "lora_b": rng.normal(0, 0.05, (spec.rank, d_out)).astype(np.float32)}
+    return factors, {p: {k: torch.from_numpy(v) for k, v in ab.items()} for p, ab in factors.items()}
+
+
+def _jax_merge(params, factors, spec):
+    from dalm_tpu.models.lora import LoraSpec as JaxLoraSpec
+    from dalm_tpu.models.lora import merge_lora as jax_merge_lora
+
+    jspec = JaxLoraSpec(rank=spec.rank, alpha=spec.alpha, target_modules=spec.target_modules)
+    merged = jax_merge_lora(params, {p: {k: jnp.asarray(v) for k, v in ab.items()} for p, ab in factors.items()},
+                            jspec)
+    return jax.tree.map(np.asarray, merged)
+
+
+@pytest.mark.parametrize("quantize_generator", [False, "int4"])
+def test_from_pretrained_with_adapters_matches_jax(jax_weights, tmp_path, quantize_generator):
+    """Both towers' adapters, written by the port's ``save_adapter`` with seeded nonzero factors, merged by
+    ``from_pretrained`` before the pipeline packs the generator: the JAX pipeline built from the JAX-merged
+    trees retrieves the same ids (scores within 1e-5) and answers the same; no layer keeps a factor."""
+    from dalm_tpu_torch.models.layers import FlexLinear
+    from dalm_tpu_torch.models.lora import LoraSpec, save_adapter
+
+    retriever, r_params, generator, g_params = jax_weights
+    r_spec, g_spec = LoraSpec.for_encoder(), LoraSpec.for_causal_lm()
+    r_np, r_lora = _adapter(r_params, r_spec, 3)
+    g_np, g_lora = _adapter(g_params, g_spec, 4)
+    save_adapter(str(tmp_path / "r_adapter"), r_lora, r_spec)
+    save_adapter(str(tmp_path / "g_adapter"), g_lora, g_spec)
+    base = _port_pipeline(r_params, g_params)
+    save_pretrained(str(tmp_path / "retriever"), base.retriever.config, base.retriever.module.state_dict())
+    save_pretrained(str(tmp_path / "generator"), base.generator.cfg, base.generator.state_dict())
+    pipe = RagPipeline.from_pretrained(str(tmp_path / "retriever"), str(tmp_path / "generator"), PASSAGES,
+                                       retriever_peft_path=str(tmp_path / "r_adapter"),
+                                       generator_peft_path=str(tmp_path / "g_adapter"), device="cpu",
+                                       quantize_generator=quantize_generator, **OPTS)
+    j_r, j_g = _jax_merge(r_params, r_np, r_spec), _jax_merge(g_params, g_np, g_spec)
+    ref = JaxRagPipeline(retriever, j_r, JaxByteTokenizer(), generator, j_g, JaxByteTokenizer(), PASSAGES,
+                         quantize_generator=quantize_generator, **OPTS)
+    for m in (*pipe.retriever.modules(), *pipe.generator.modules()):
+        if isinstance(m, FlexLinear):
+            assert m.lora_a is None and m.lora_b is None and m.a is None and m.b is None
+    q_kernel = pipe.retriever.module.get_submodule("layer_0.attention.query").kernel.detach().numpy()
+    np.testing.assert_allclose(q_kernel, j_r["layer_0"]["attention"]["query"]["kernel"], rtol=0, atol=1e-6)
+    assert not np.allclose(q_kernel, r_params["layer_0"]["attention"]["query"]["kernel"], rtol=0, atol=1e-3)
+    if not quantize_generator:
+        v_kernel = pipe.generator.get_submodule("layer_1.attention.v_proj").kernel.detach().numpy()
+        np.testing.assert_allclose(v_kernel, j_g["layer_1"]["attention"]["v_proj"]["kernel"], rtol=0, atol=1e-6)
+    js, ji = ref.retrieve(QUERIES, top_k=4)
+    ts, ti = pipe.retrieve(QUERIES, top_k=4)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=0, atol=1e-5)
+    assert [a.answer for a in pipe.answer(QUERIES, top_k=4)] == [a.answer for a in ref.answer(QUERIES, top_k=4)]
+
+
+def test_adapter_merge_in_bf16_matches_jax(jax_weights):
+    """A bf16 decoder: the delta is cast to the kernel's type before the add, as the reference merges; the merged
+    kernels equal the JAX merge within one bf16 rounding."""
+    import dataclasses
+
+    import ml_dtypes
+
+    from dalm_tpu_torch.models.lora import LoraSpec, merge_lora_inplace
+
+    _, _, _, g_params = jax_weights
+    spec = LoraSpec.for_causal_lm()
+    bf16_params = jax.tree.map(lambda a: a.astype(ml_dtypes.bfloat16), g_params)
+    g_np, g_lora = _adapter(g_params, spec, 5)
+    cfg = dataclasses.replace(DecoderConfig.tiny(), param_dtype=torch.bfloat16, dtype=torch.bfloat16)
+    dec = merge_lora_inplace(load_params(Decoder(cfg), bf16_params), g_lora, spec)
+    want = _jax_merge(bf16_params, g_np, spec)
+    for path in g_np:
+        site = dec.get_submodule(".".join(path.split("/")[:-1]))
+        got = site.kernel.detach().float().numpy()
+        ref = _get(want, path).astype(np.float32)
+        assert site.kernel.dtype == torch.bfloat16
+        np.testing.assert_allclose(got, ref, rtol=2 ** -8, atol=0)
+        assert not np.array_equal(got, _get(bf16_params, path).astype(np.float32))
+
+
+def _get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def test_merge_lora_inplace_refuses_packed_or_factored_layers(jax_weights):
+    from dalm_tpu_torch.models.lora import LoraSpec, attach_merge_lora, merge_lora_inplace
+    from dalm_tpu_torch.models.qlora import pack_module
+
+    _, _, _, g_params = jax_weights
+    spec = LoraSpec.for_causal_lm()
+    _, g_lora = _adapter(g_params, spec, 6)
+    packed = pack_module(load_params(Decoder(DecoderConfig.tiny()), g_params), quantize="int4")
+    with pytest.raises(ValueError, match="before packing"):
+        merge_lora_inplace(packed, g_lora, spec)
+    factored = attach_merge_lora(load_params(Decoder(DecoderConfig.tiny()), g_params), g_lora, spec)
+    with pytest.raises(ValueError, match="carries LoRA factors"):
+        merge_lora_inplace(factored, g_lora, spec)
 
 
 @pytest.mark.parametrize("sampled", [False, True])
