@@ -10,7 +10,8 @@ depth, bf16, random-initialised from a seed: serving (``RagPipeline`` with a
 bge-large retriever and a Llama-2-7B generator over a 16,384-passage
 synthetic corpus), RAG training (``train_e2e`` on a synthetic CSV, fused
 QLoRA, int8 generator base, ``int8_compute="all"``, batch 18, 4 optimiser
-steps) and generator SFT (``train_generator`` on a synthetic chat dataset,
+steps; the flagship of ``bench.py`` with ``a8_calibrate_every`` at its default
+of 16, beside a run with 0) and generator SFT (``train_generator`` on a synthetic chat dataset,
 Llama-2-7B, LoRA r = 256 in the merge runtime, packed blocks of 2560 tokens,
 batch 2, 3 optimiser steps and a validation pass, every attention call
 through the flash-attention kernels); and serves again with the generator
@@ -29,7 +30,11 @@ client that hangs up); refreshes the bf16 pipeline's index for new retriever
 weights (``RagPipeline.refresh``: a float index swept by the incremental
 refresher, int8 and int4 indexes rebuilt) and searches a tiered index whose
 second half spills to host RAM; and builds a 4-bit pipeline with PEFT
-adapters merged into both towers. Fails (non-zero exit, no result line)
+adapters merged into both towers; and trains the rest of the training
+paths at full width: dy-calibrated (``a8_dy_calibrate``), the live index with
+hard negatives and the top-k marginal over 4,608 passages, the merge runtime
+with dropout, PEFT export and a profiler window, and ``train_retriever``.
+Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
 
@@ -63,8 +68,15 @@ s8 GEMM (beside K1's fold instance on the same operands), against the fused
 kernel forced on the same operands; i8mxu's and pcol's exactness at the
 extremes of their operands; each route's crossover with the fused kernel by
 rows),
-``train-small`` (tiny ``train_e2e``, card vs CPU),
-``train``, ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``;
+``train-small`` (tiny ``train_e2e``, card vs CPU; and a 2-step tiny run of each of these training paths:
+calibrated, dy-calibrated, the merge runtime over int8 bases, the live index with both marginal modes,
+``train_retriever``), ``train`` (the flagship with ``a8_calibrate_every`` 0, then 16), ``train-dycal``
+(``a8_calibrate_every=2, a8_dy_calibrate=True``: every site's dy scale finite and > 0), ``train-live`` (the live
+index, ``live_negatives_k=8``, ``marginalize_k`` = ``LIVE_K``, token mode, 1 warm-up step), ``train-merge``
+(``lora_runtime="merge"``, int8 retriever base, dropout, PEFT export, a trace of step 1), ``train-retriever``
+(``train_retriever("bge-large", ...)``, LoRA on an int8 base, dropout, batch 32),
+``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``; ``k1`` also holds the calibrated-scale
+quantiser (both modes) to its plain version and times it and the calibrated forward route;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
 trace of the RAG / SFT training steps: device busy share and the top kernels
 by device time) and ``profile-serve`` (the same over 8 decode iterations of
@@ -74,12 +86,13 @@ Output: per-phase lines, one JSON line of every measured case per kernel
 phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
 the card's name and power limit, one ``{"kernels": [...]}`` JSON line (one
 entry per K3 row storage mode, K2, K1 and each of its three launches (the
-quantise pre-pass, the weight pre-pass, the GEMM), each GEMM entry, each K4 kernel (the
+quantise pre-pass, the weight pre-pass, the GEMM), the calibrated-scale quantiser in its two modes
+(``k1_cal_quant``, its launches from ``train``; ``k1_cal_quant[dy]``, from ``train-dycal``), each GEMM entry, each K4 kernel (the
 forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, the backward's
 ``k4_bwd_dq_wgmma`` / ``k4_bwd_dkv_wgmma`` and ``k4_bwd_dq`` / ``k4_bwd_dkv``, each with
 its own launches, and the dsum pre-pass ``k4_dsum``), each of the five K5 instances, the prefill route's pre-pass (base,
 nf4) and GEMM, the fold route's nibble pre-pass, fold GEMM (groupmm, i8mxu) and K2 in bf16, the int8 route's int8
-nibble pre-pass and scaled GEMM (pcol), each with its launches in its
+nibble pre-pass and scaled GEMM (pcol; ``launches_train``: its calls on the calibrated route of ``train``), each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven; K3's f32
@@ -588,6 +601,110 @@ def k1_phase(gen, device, peaks):
     return entries, mains
 
 
+CAL_AT = "dalm_tpu/kernels/int8_matmul.py:326"  # xq = clip(round(x / a_scale)) in _int8_matmul_cal_fwd
+CAL_DY_AT = "dalm_tpu/kernels/int8_matmul.py:389"  # dq = clip(round(dy * scale / dy_scale)), + max |dy * scale|
+
+
+def cal_graph_ms(x, s, colscale, plain=False):
+    """The calibrated quantiser's device time (or, with ``plain``, the plain expression's), by CUDA graph over
+    copies of x (and of its outputs) that together exceed the L2 twice. Two turns; returns (mean, turns)."""
+    import torch
+
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    per_call = x.numel() * (x.element_size() + 1)
+    copies = [x] + [x.clone() for _ in range(-(-100_000_000 // per_call))]
+    outs = [torch.empty(c.shape, dtype=torch.int8, device=c.device) for c in copies]
+    amax = torch.zeros((), dtype=torch.float32, device=x.device) if colscale is not None else None
+    if plain:
+        fns = [lambda c=c: im.cal_quant_ref(c, s, colscale, colscale is not None) for c in copies]
+    else:
+        fns = [lambda c=c, o=o: im.launch_cal_quant(c, s, colscale, o, amax) for c, o in zip(copies, outs)]
+    turns = [graph_ms(fns), graph_ms(fns)]
+    return sum(turns) / 2, turns
+
+
+def k1_cal_phase(gen, device, peaks):
+    """The calibrated-scale quantiser against its plain version at the train shapes, M = 4608 bf16 rows of K =
+    4096 and 11008, in both modes (the forward's x / a_scale; the backward's dy * scale / dy_scale with max |dy *
+    scale|): EQUAL (tolerance 0: true division, round half to even, the clip), with values that clip (a scale
+    at 0.6 of the absmax), in f32 too, and on a zero tensor. Timed by CUDA graph over copies larger than the L2
+    beside its byte bound and the plain expression. Then the calibrated forward route (quantiser, weight
+    pre-pass, scaled GEMM) at the Llama shapes, equal to ``int8_matmul_cal_ref``'s forward, timed beside K1's
+    three launches and ``x @ dequant(W)``. Returns (cases, the kernels-line entries by name)."""
+    import torch
+
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    M = M_TRAIN
+    cases, mains = [], {}
+    for K in (4096, 11008):
+        x = (torch.randn((M, K), generator=gen, device=device) * 2).to(torch.bfloat16)
+        cs = torch.rand(K, generator=gen, device=device) * 1e-3 + 1e-4
+        s = (x.float().abs().amax() / 127 * 0.6).reshape(1)
+        s_dy = (x.float().abs().amax() * cs.max() / 127 * 0.6).reshape(1)
+        for mode, scale, col in (("x", s, None), ("dy", s_dy, cs)):
+            q, a = im.cal_quant(x, scale, col, want_amax=col is not None)
+            rq, ra = im.cal_quant_ref(x, scale, col, want_amax=col is not None)
+            torch.cuda.synchronize()
+            clipped = int((rq.abs() == 127).sum())
+            check(torch.equal(q, rq) and (a is None or torch.equal(a, ra)) and clipped > 0,
+                  f"k1_cal_quant[{mode}] K={K}: kernel != plain version (or nothing clipped)")
+            xf = x.float()
+            q32, a32 = im.cal_quant(xf, scale, col, want_amax=col is not None)
+            r32, ra32 = im.cal_quant_ref(xf, scale, col, want_amax=col is not None)
+            check(torch.equal(q32, r32) and (a32 is None or torch.equal(a32, ra32)),
+                  f"k1_cal_quant[{mode}] K={K} f32: kernel != plain version")
+            z, za = im.cal_quant(torch.zeros_like(x), scale, col, want_amax=col is not None)
+            check(not z.any() and (za is None or float(za) == 0.0), f"k1_cal_quant[{mode}]: zero tensor")
+            del xf, q32, r32, z
+            ms, turns = cal_graph_ms(x, scale, col)
+            lib_ms, _ = cal_graph_ms(x, scale, col, plain=True)
+            plain_ms = cuda_ms(lambda: im.cal_quant_ref(x, scale, col, col is not None), 5)
+            nbytes = M * K * 2 + M * K + 4 + (K * 4 + 4 if col is not None else 0)
+            ops = (4.0 if col is not None else 3.0) * M * K
+            t_bytes, t_ops = nbytes / peaks[0] * 1e3, ops / peaks[1] * 1e3
+            name = "k1_cal_quant" if mode == "x" else "k1_cal_quant[dy]"
+            e = {"name": name, "route": "cuda", "source": "dalm_tpu_torch/csrc/int8_matmul.cu",
+                 "replaces": CAL_AT if mode == "x" else CAL_DY_AT,
+                 "case": f"M={M} K={K} bf16" + (" colscale amax" if col is not None else ""),
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+                 "library_is": "the plain expression, by CUDA graph over the same copies", "turns": turns,
+                 "clipped": clipped}
+            show("k1", e, share=True)
+            cases.append(e)
+            if K == 4096:
+                mains[name] = e
+        del x, cs
+    # The calibrated forward route against K1 and x @ dequant(W).
+    for K, N in LLAMA_KN[:3]:
+        q, scale = _weights(gen, device, K, N)
+        x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+        a = (x.float().abs().amax() / 127).reshape(())
+        with torch.no_grad():
+            y = im.int8_matmul_cal(x, q, scale, a)
+            check(torch.equal(y, im.int8_matmul_cal_ref(x, q, scale, a)), f"calibrated route ({K},{N}) != plain")
+            route_ms = cuda_ms(lambda: im.int8_matmul_cal(x, q, scale, a), 20)
+            k1_ms = cuda_ms(lambda: im.w8a8_fused(x, q, scale), 20)
+            xq, _ = im.cal_quant(x, a.reshape(1))
+            qt = im.weight_prepass(q)
+            xs = a.reshape(1, 1).expand(M, 1).contiguous()
+            out = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+            gemm_ms = cuda_ms(lambda: im.launch_gemm_scaled(xq, qt, xs, scale.reshape(-1), out), 20)
+            wd = (q.float() * scale).to(torch.bfloat16)
+            deq_ms = cuda_ms(lambda: x @ wd, 20)
+        ops = 2.0 * M * K * N
+        print(f"[k1] calibrated route M={M} K={K} N={N} bf16: {route_ms:.4f} ms (scaled GEMM alone {gemm_ms:.4f} ms "
+              f"= {ops / gemm_ms * 1e-9:.1f} TOP/s), K1's three launches {k1_ms:.4f} ms, x @ dequant(W) {deq_ms:.4f} ms; "
+              f"equal to int8_matmul_cal_ref", flush=True)
+        cases.append({"name": "int8_matmul_cal", "case": f"M={M} K={K} N={N} bf16", "ms": route_ms,
+                      "scaled_gemm_ms": gemm_ms, "w8a8_fused_ms": k1_ms, "bf16_dequant_matmul_ms": deq_ms})
+        del q, scale, x, y, xq, qt, xs, out, wd
+    torch.cuda.empty_cache()
+    return cases, mains
+
+
 def grad_phase(gen, device):
     """``int8_matmul`` forward and backward on the card against the plain
     version's autograd, ``bwd_int8`` both ways: equal (tolerance 0; the int8
@@ -1088,8 +1205,7 @@ def serve_path(device, rng):
     return pipe, launches, (q, e, ms, plain_ms, lib_ms, turns)
 
 
-TRAIN_KW = dict(use_peft="both", lora_runtime="fused", int8_compute="all", a8_calibrate_every=0,
-                num_warmup_steps=0, with_tracking=False)
+TRAIN_KW = dict(use_peft="both", lora_runtime="fused", int8_compute="all", num_warmup_steps=0, with_tracking=False)
 
 
 def write_csv(path, n, rng):
@@ -1125,7 +1241,8 @@ def train_small_phase(device, workdir):
     csv_path = str(Path(workdir) / "small.csv")
     write_csv(csv_path, 12, np.random.default_rng(1))
     kw = dict(TRAIN_KW, use_bnb="both", query_max_len=48, passage_max_len=112, generator_max_len=256,
-              per_device_train_batch_size=4, learning_rate=1e-3, lr_scheduler_type="constant", seed=3)
+              per_device_train_batch_size=4, learning_rate=1e-3, lr_scheduler_type="constant", seed=3,
+              a8_calibrate_every=0)
     initial = {}
 
     def keep(setup):
@@ -1151,23 +1268,123 @@ def train_small_phase(device, workdir):
     print(f"[train-small] tiny train_e2e, card vs CPU, 3-step loss trajectories: max difference {worst:.2e}; "
           f"launches K2 {after[0] - before[0]}, int8_gemm_kn {after[1] - before[1]}, "
           f"int8_gemm_nt {after[2] - before[2]}", flush=True)
+
+    # The calibrated, merge and live-index paths, each a 2-step tiny run on the card against the CPU from the same
+    # initial weights (the merge runtime's factors included), losses within the same 2e-3; dropout off (its masks
+    # are drawn per device).
+    rows = str(Path(workdir) / "small_live.csv")
+    write_csv(rows, 16, np.random.default_rng(4))
+    paths = {
+        "calibrated": dict(kw, a8_calibrate_every=1),
+        "dy-calibrated": dict(kw, a8_calibrate_every=1, a8_dy_calibrate=True),
+        "merge int8": dict(kw, lora_runtime="merge"),
+        "live + marginal (token)": dict(kw, live_index=True, index_refresh_slice=5, live_negatives_k=3,
+                                        marginalize_k=3, marginalize_mode="token"),
+        "live + marginal (sequence), merge": dict(kw, lora_runtime="merge", live_index=True, index_refresh_slice=5,
+                                                  marginalize_k=2, marginalize_mode="sequence"),
+    }
+    before = dict(im.cal_quant.launches)
+    for label, pkw in paths.items():
+        data = rows if "live" in label else csv_path
+        cpu = train_e2e(data, "tiny", "tiny", max_train_steps=2, device="cpu", setup_hook=keep, **pkw)
+        card = train_e2e(data, "tiny", "tiny", max_train_steps=2, device=device, setup_hook=give, **pkw)
+        diff = max(abs(card[key] - cpu[key]) for key in ("final_loss", "final_retriever_loss", "final_generator_loss"))
+        check(np.isfinite(card["final_loss"]) and diff <= 2e-3, f"train-small {label}: card {card} vs CPU {cpu}")
+        if "live" in label:
+            rdiff = float((card["live_index"].embeddings.cpu() - cpu["live_index"].embeddings).abs().max())
+            check(rdiff <= 1e-4, f"train-small {label}: live index rows differ by {rdiff}")
+        print(f"[train-small] {label}: card loss {card['final_loss']:.6f}, CPU {cpu['final_loss']:.6f} "
+              f"(max difference {diff:.2e})", flush=True)
+    check(im.cal_quant.launches["x"] > before["x"] and im.cal_quant.launches["dy"] > before["dy"],
+          "train-small: the calibrated quantiser did not run in both modes")
+
+    from dalm_tpu_torch.train import train_retriever
+
+    rkw = dict(use_peft=True, use_bnb=True, use_dropout=False, query_max_len=48, passage_max_len=112,
+               per_device_train_batch_size=4, learning_rate=1e-3, max_train_steps=2, seed=3, with_tracking=False)
+    held = {}
+    cpu = train_retriever("tiny", csv_path, device="cpu",
+                          setup_hook=lambda st: held.update(w={k: v.detach().clone() for k, v in st.model.state_dict().items()}),
+                          **rkw)
+    card = train_retriever("tiny", csv_path, device=device,
+                           setup_hook=lambda st: st.model.load_state_dict(held["w"]), **rkw)
+    check(abs(card["final_loss"] - cpu["final_loss"]) <= 2e-3, f"train-small retriever: card {card} vs CPU {cpu}")
+    print(f"[train-small] train_retriever (LoRA, int8 base): card loss {card['final_loss']:.6f}, CPU "
+          f"{cpu['final_loss']:.6f}", flush=True)
     torch.cuda.empty_cache()
 
 
-def train_phase(device, workdir, batch, steps, kernel_ms):
+def _train_counters():
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    return {"rowquant": lambda: im.rowquant.launches, "w8a8_fused": lambda: im.w8a8_fused.launches,
+            "k1_quant_prepass": lambda: im.quant_prepass.launches, "k1_weight_prepass": lambda: im.weight_prepass.launches,
+            "k1_gemm": lambda: im.fold_gemm.launches, "int8_gemm_kn": lambda: im.int8_gemm_kn.launches,
+            "int8_gemm_nt": lambda: im.int8_gemm_nt.launches, "k1_cal_quant": lambda: im.cal_quant.launches["x"],
+            "k1_cal_quant[dy]": lambda: im.cal_quant.launches["dy"],
+            "k5_pcol_gemm": lambda: im.int8_gemm_scaled.launches}
+
+
+def _zero_train_counters():
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    for fn in (im.rowquant, im.w8a8_fused, im.quant_prepass, im.weight_prepass, im.fold_gemm, im.int8_gemm_kn,
+               im.int8_gemm_nt, im.int8_gemm_scaled):
+        fn.launches = 0
+    im.cal_quant.launches = {"x": 0, "dy": 0}
+
+
+def _flagship(device, csv_path, batch, **kw):
+    """``train_e2e`` as ``bench.py``'s flagship runs it at full width (bge-large + Llama-2-7B, bf16, fused QLoRA,
+    int8 generator base, int8_compute="all", Q/P/G 50/128/256), with ``kw`` on top."""
+    from dalm_tpu_torch.train import train_e2e
+
+    args = dict(dtype="bfloat16", use_bnb="generator", query_max_len=50, passage_max_len=128, generator_max_len=256,
+                per_device_train_batch_size=batch, seed=0, retriever_tokenizer="byte@30522",
+                generator_tokenizer="byte@32000", device=device, **TRAIN_KW)
+    args.update(kw)
+    return train_e2e(csv_path, "bge-large", "llama2-7b", **args)
+
+
+def time_calibration(rag, into):
+    """Wrap ``rag``'s two forwards so that each call made inside the trainer's calibration pass (while a layer
+    records its amax) is timed on the card's clock, in ms, into ``into``; every other call passes straight on."""
+    import torch
+
+    sites = [m for sub in (rag.retriever, rag.generator) for m in sub.modules()
+             if getattr(m, "record_amax", None) is not None]
+    for name in ("embed_with", "logits_with"):
+        real = getattr(rag, name)
+
+        def timed(*a, _real=real, **k):
+            if not any(m.record_amax for m in sites):
+                return _real(*a, **k)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = _real(*a, **k)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return r
+
+        setattr(rag, name, timed)
+
+
+def train_phase(device, workdir, batch, steps, kernel_ms, a8_calibrate_every=16):
     """The training main path: ``train_e2e`` on a synthetic CSV, bge-large +
     Llama-2-7B at full width and depth, bf16, fused QLoRA, int8 generator
-    base, ``int8_compute="all"``, dynamic per-row activation quant,
-    Q/P/G = 50/128/256. Two epochs of ``steps / 2`` batches: the trainer's
-    throughput meter leaves the first epoch (warm-up) out of its average.
-    Returns the launches of each int8 kernel in that run."""
+    base, ``int8_compute="all"``, Q/P/G = 50/128/256, with ``a8_calibrate_every``
+    at the reference's default of 16 (calibrated per-tensor activation scales:
+    one calibration forward at micro step 0, then the quantiser + weight
+    pre-pass + scaled GEMM), or 0 (dynamic per-row activation quant: K1). Two
+    epochs of ``steps / 2`` batches: the trainer's throughput meter leaves the
+    first epoch (warm-up) out of its average, and so the calibration forward:
+    that is timed on its own and its share of 16 steps added to give the
+    amortised step time. Returns (the launches of each int8 kernel in that run,
+    the trainer's result)."""
     import gc
 
     import numpy as np
     import torch
-
-    from dalm_tpu_torch.kernels import int8_matmul as im
-    from dalm_tpu_torch.train import train_e2e
 
     per_epoch = max(steps // 2, 1)
     csv_path = str(Path(workdir) / "train.csv")
@@ -1180,25 +1397,25 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
         held["frozen"] = {
             f"{sub}.{k}": v.double().sum().item()
             for sub in ("retriever", "generator")
-            for k, v in getattr(setup.rag, sub).state_dict().items() if f"{sub}.{k}" not in setup.state.params
+            for k, v in getattr(setup.rag, sub).state_dict().items()
+            if f"{sub}.{k}" not in setup.state.params and k.rpartition(".")[2] not in ("a_scale", "dy_scale")
         }
 
+    def hook(setup):
+        snapshot(setup)
+        time_calibration(setup.rag, cal_ms)
+
+    cal_ms = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counted = {"rowquant": im.rowquant, "w8a8_fused": im.w8a8_fused, "k1_quant_prepass": im.quant_prepass,
-               "k1_weight_prepass": im.weight_prepass, "k1_gemm": im.fold_gemm, "int8_gemm_kn": im.int8_gemm_kn,
-               "int8_gemm_nt": im.int8_gemm_nt}
-    for fn in counted.values():
-        fn.launches = 0
+    counters = _train_counters()
+    _zero_train_counters()
     t0 = time.perf_counter()
-    out = train_e2e(csv_path, "bge-large", "llama2-7b", dtype="bfloat16", use_bnb="generator",
-                    query_max_len=50, passage_max_len=128, generator_max_len=256,
-                    per_device_train_batch_size=batch, num_train_epochs=2, seed=0,
-                    retriever_tokenizer="byte@30522", generator_tokenizer="byte@32000",
-                    device=device, setup_hook=snapshot, **TRAIN_KW)
+    out = _flagship(device, csv_path, batch, num_train_epochs=2, setup_hook=hook,
+                    a8_calibrate_every=a8_calibrate_every)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = {name: read() for name, read in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = out["steps"]
     check(n_steps == 2 * per_epoch and n_steps >= 3, f"took {n_steps} optimiser steps")
@@ -1208,14 +1425,33 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
     setup = held["setup"]
     layers = setup.rag.generator_config.num_layers
     # Per step: every packed linear (7 per layer + lm_head) once forward and
-    # the layers' once more in the checkpointed recompute, each call K1's
-    # three launches; in the backward one K2 + one dx GEMM per linear whose
-    # input needs a gradient (all but layer 0's q/k/v, which read the frozen
-    # embeddings).
-    k1 = (14 * layers + 1) * n_steps
-    want = {"rowquant": (7 * layers - 2) * n_steps, "w8a8_fused": k1, "k1_quant_prepass": k1,
-            "k1_weight_prepass": k1, "k1_gemm": k1, "int8_gemm_kn": 0, "int8_gemm_nt": (7 * layers - 2) * n_steps}
-    check(launches == want, f"train: launches {launches}, the layer count predicts {want}")
+    # the layers' once more in the checkpointed recompute; in the backward one
+    # K2 + one dx GEMM per linear whose input needs a gradient (all but layer
+    # 0's q/k/v, which read the frozen embeddings). Dynamic (every=0): each
+    # forward call is K1's three launches. Calibrated: one calibration forward
+    # at micro step 0 (K1, no recompute: no gradient), then each forward call
+    # is the quantiser, the weight pre-pass and the scaled GEMM.
+    fwd = (14 * layers + 1) * n_steps
+    bwd = (7 * layers - 2) * n_steps
+    if a8_calibrate_every:
+        passes = len(range(0, n_steps, a8_calibrate_every))
+        k1 = (7 * layers + 1) * passes
+        want = {"rowquant": bwd, "w8a8_fused": k1, "k1_quant_prepass": k1, "k1_weight_prepass": k1 + fwd,
+                "k1_gemm": k1, "int8_gemm_kn": 0, "int8_gemm_nt": bwd, "k1_cal_quant": fwd, "k1_cal_quant[dy]": 0,
+                "k5_pcol_gemm": fwd}
+        sites = [m for m in setup.rag.generator.modules() if getattr(m, "q", None) is not None]
+        check(all(m.a_scale is not None and float(m.a_scale) > 0 for m in sites), "train: a site has no a_scale")
+        a_range = (min(float(m.a_scale) for m in sites), max(float(m.a_scale) for m in sites))
+        check(len(cal_ms) == passes, f"train: {len(cal_ms)} calibration forwards timed, {passes} expected")
+        # The calibration forward runs at micro step 0, in the first epoch, which the step time leaves out; a run
+        # pays one every a8_calibrate_every steps, so the amortised step adds its share.
+        out = dict(out, calibration_s=sum(cal_ms) / len(cal_ms) / 1e3)
+        out["amortised_step_time"] = out["avg_step_time"] + out["calibration_s"] / a8_calibrate_every
+    else:
+        want = {"rowquant": bwd, "w8a8_fused": fwd, "k1_quant_prepass": fwd, "k1_weight_prepass": fwd, "k1_gemm": fwd,
+                "int8_gemm_kn": 0, "int8_gemm_nt": bwd, "k1_cal_quant": 0, "k1_cal_quant[dy]": 0, "k5_pcol_gemm": 0}
+    check(launches == want, f"train (a8_calibrate_every={a8_calibrate_every}): launches {launches}, "
+                            f"the layer count predicts {want}")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(not unchanged, f"train: {len(unchanged)} trainable tensors did not change, e.g. {unchanged[:3]}")
     for sub in ("retriever", "generator"):
@@ -1223,14 +1459,18 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
             name = f"{sub}.{k}"
             if name in held["frozen"]:
                 check(v.double().sum().item() == held["frozen"][name], f"train: frozen {name} changed")
-    per_step = {k: v // n_steps for k, v in launches.items()}
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    cal = (f"a8_calibrate_every={a8_calibrate_every} (a_scale {a_range[0]:.3e}..{a_range[1]:.3e} over "
+           f"{len(sites)} sites; one calibration forward {out['calibration_s'] * 1e3:.1f} ms, outside the timed "
+           f"epoch; step + calibration / {a8_calibrate_every} = {out['amortised_step_time']:.3f} s)"
+           if a8_calibrate_every else "a8_calibrate_every=0 (dynamic per-row)")
     print(f"[train] bge-large + llama2-7b ({layers} layers), batch {batch}, Q/P/G 50/128/256, bf16, fused QLoRA, "
-          f"int8 generator base, int8_compute=all: {n_steps} optimiser steps in {wall:.1f} s (init included); "
+          f"int8 generator base, int8_compute=all, {cal}: {n_steps} optimiser steps in {wall:.1f} s (init included); "
           f"step time {out['avg_step_time']:.3f} s = {out['samples_per_sec']:.2f} samples/s (second epoch); "
           f"losses total/retriever/generator {out['final_loss']:.4f}/{out['final_retriever_loss']:.4f}/"
           f"{out['final_generator_loss']:.4f}; peak memory {peak_gib:.2f} GiB; launches per step {per_step}; "
           f"{len(held['trainable'])} trainable tensors all changed, {len(held['frozen'])} frozen unchanged", flush=True)
-    if kernel_ms:
+    if kernel_ms and not a8_calibrate_every:
         # Where one step's time goes, from each kernel's time at each shape
         # (this run's k1/k2 phases) times its launches at that shape.
         shapes = {(4096, 4096): 4 * layers, (4096, 11008): 2 * layers, (11008, 4096): layers, (4096, 32000): 1}
@@ -1253,8 +1493,247 @@ def train_phase(device, workdir, batch, steps, kernel_ms):
     del setup
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, out
+
+
+def train_dycal_phase(device, workdir, batch, steps):
+    """The flagship with calibrated backward dy scales: ``a8_calibrate_every=2, a8_dy_calibrate=True``. Every step
+    is a probe (its activation scales' out-of-band gradient becomes the next step's dy scales), the first with the
+    dynamic dy backward; calibration passes at micro steps 0, 1 and 2. Reads the out-of-band channel before its
+    1e-8 floor (each probe backward's ``max |dy * scale|``, by site): one reading a site and step, all finite,
+    non-zero at every site in the first probe and at every o_proj, down_proj and lm_head in all; checks every
+    site's dy scale is finite and > 0, and prints both ranges and the zero readings by projection. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    per_epoch = max(steps // 2, 1)
+    csv_path = str(Path(workdir) / "train.csv")
+    write_csv(csv_path, batch * per_epoch, np.random.default_rng(2))
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    held, raw, current = {}, [], []
+    fn = im._Int8MatmulCal
+    clamp, forward, backward = im._dy_scale_grad, fn.forward, fn.backward
+
+    # The out-of-band channel read before its 1e-8 floor: each probe backward's max |dy * scale|, on the device,
+    # under the name of its site (the forward tags its context by the site's int8 weight).
+    def tagged_forward(ctx, x, q, *rest):
+        ctx.site = held["names"][q.data_ptr()]
+        return forward(ctx, x, q, *rest)
+
+    def tagged_backward(ctx, dy):
+        current.append(ctx.site)
+        return backward(ctx, dy)
+
+    def reading(amax):
+        raw.append((current[-1], amax.detach().float().reshape(())))
+        return clamp(amax)
+
+    def hook(setup):
+        held["rag"] = setup.rag
+        held["names"] = {m.q.data_ptr(): name for name, m in setup.rag.generator.named_modules()
+                         if getattr(m, "q", None) is not None}
+
+    counters = _train_counters()
+    _zero_train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    im._dy_scale_grad, fn.forward, fn.backward = reading, staticmethod(tagged_forward), staticmethod(tagged_backward)
+    t0 = time.perf_counter()
+    try:
+        out = _flagship(device, csv_path, batch, num_train_epochs=2, a8_calibrate_every=2, a8_dy_calibrate=True,
+                        setup_hook=hook)
+        torch.cuda.synchronize()
+    finally:
+        im._dy_scale_grad, fn.forward, fn.backward = clamp, staticmethod(forward), staticmethod(backward)
+    wall = time.perf_counter() - t0
+    launches = {name: read() for name, read in counters.items()}
+    for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+        check(np.isfinite(out[key]), f"train-dycal: {key} is not finite")
+    sites = [m for m in held["rag"].generator.modules() if getattr(m, "q", None) is not None]
+    dys = torch.stack([m.dy_scale for m in sites]).float()
+    check(bool(torch.isfinite(dys).all()) and bool((dys > 0).all()), "train-dycal: a dy scale is not finite and > 0")
+    # Every step is a probe and every site is used once a step, so the channel carries one amax a site and step.
+    per_site = {}
+    for name, amax in raw:
+        per_site.setdefault(name, []).append(amax)
+    counts = {len(v) for v in per_site.values()}
+    check(len(per_site) == len(sites) and counts == {out["steps"]},
+          f"train-dycal: amax readings at {len(per_site)} of {len(sites)} sites, {counts} a site, {out['steps']} steps")
+    names = list(per_site)
+    unclamped = torch.stack([torch.stack(per_site[n]) for n in names]) / 127.0  # (sites, steps): dy scale asked for
+    check(bool(torch.isfinite(unclamped).all()), "train-dycal: a non-finite amax on the out-of-band channel")
+    # The first probe's backward is unquantised: every site's dy is non-zero. Later probes quantise each dx with
+    # the dy scale of the step before, so a site whose max |dy * scale| is under half its scale passes a zero dx
+    # upstream; o_proj, down_proj and lm_head take their dy along the residual stream from the loss, and stay
+    # non-zero.
+    residual = torch.tensor([n.endswith(("o_proj", "down_proj", "lm_head")) for n in names])
+    check(bool((unclamped[:, 0] > 0).all()), f"train-dycal: the first probe read {int((unclamped[:, 0] == 0).sum())} "
+                                             f"zero amaxes")
+    check(bool((unclamped[residual] > 0).all()), "train-dycal: a zero amax at an o_proj, down_proj or lm_head")
+    zero_by_kind, max_by_kind = {}, {}
+    for n, row in zip(names, unclamped):
+        kind = n.rpartition(".")[2]
+        zero_by_kind[kind] = zero_by_kind.get(kind, 0) + int((row == 0).sum())
+        max_by_kind[kind] = max(max_by_kind.get(kind, 0.0), float(row.max()))
+    nonzero = unclamped[unclamped > 0]
+    floored = int((nonzero < 1e-8).sum())
+    check(launches["k1_cal_quant[dy]"] > 0 and launches["k1_cal_quant"] > 0, f"train-dycal: launches {launches}")
+    per_step = {k: v / out["steps"] for k, v in launches.items()}
+    print(f"[train-dycal] flagship with a8_calibrate_every=2, a8_dy_calibrate=True: {out['steps']} steps in {wall:.1f} s "
+          f"(init included); step time {out['avg_step_time']:.3f} s = {out['samples_per_sec']:.2f} samples/s (second "
+          f"epoch); losses total/retriever/generator {out['final_loss']:.4f}/{out['final_retriever_loss']:.4f}/"
+          f"{out['final_generator_loss']:.4f}; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; generator "
+          f"dy_scale over {len(sites)} sites min {float(dys.min()):.3e} median {float(dys.median()):.3e} max "
+          f"{float(dys.max()):.3e}; before the 1e-8 floor, max |dy * scale| / 127 over {len(raw)} readings: "
+          f"{nonzero.numel()} non-zero, min {float(nonzero.min()):.3e} median {float(nonzero.median()):.3e} max "
+          f"{float(nonzero.max()):.3e}, {floored} of them under the floor; zero readings by projection "
+          f"{zero_by_kind}, the largest by projection {{{', '.join(f'{k}: {v:.3e}' for k, v in max_by_kind.items())}}}"
+          f"; the retriever (bf16 base) has none; launches per step {per_step}", flush=True)
+    held.clear()
+    torch.cuda.empty_cache()
     return launches
 
+
+def train_live_phase(device, workdir, batch, steps, k=4):
+    """The flagship with the live index, hard negatives and the true top-k marginal: ``live_index=True,
+    index_refresh_slice=256, live_negatives_k=8, marginalize_k=k, marginalize_mode="token",
+    marginalize_warmup_steps=1`` over a synthetic CSV of 4,608 rows with unique passages, ``steps`` steps. Each
+    step ends with one refresher tick (256 passages through bge-large); after training a full sweep. Prints step
+    s (host clock, tick to tick, after the first step), peak GiB, ms a tick and the index version; checks the
+    index's rows are finite unit vectors. Returns the launches."""
+    import numpy as np
+    import torch
+
+    csv_path = str(Path(workdir) / "live.csv")
+    write_csv(csv_path, 4608, np.random.default_rng(6))  # each passage carries its row number: all distinct
+    held, ticks = {}, []
+
+    def hook(setup):
+        held["refresher"] = setup.refresher
+        real = setup.refresher.tick
+
+        def timed():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = real()
+            torch.cuda.synchronize()
+            ticks.append((t, time.perf_counter() - t))
+            return r
+
+        setup.refresher.tick = timed
+
+    counters = _train_counters()
+    _zero_train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _flagship(device, csv_path, batch, max_train_steps=steps, live_index=True, index_refresh_slice=256,
+                    live_negatives_k=8, marginalize_k=k, marginalize_mode="token", marginalize_warmup_steps=1,
+                    setup_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: read() for name, read in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+        check(np.isfinite(out[key]), f"train-live: {key} is not finite")
+    rows = out["live_index"].embeddings
+    norm_err = float((rows.float().norm(dim=1) - 1).abs().max())
+    # bf16 embeddings, normalised in bf16: a norm within about one bf16 ulp (2^-8 = 3.9e-3) of 1
+    check(rows.shape[0] == 4608 and bool(torch.isfinite(rows).all()) and norm_err < 5e-3,
+          f"train-live: the index's rows are not finite unit vectors (norms off by {norm_err:.3e})")
+    check(out["index_version"] >= 1 and launches["k1_cal_quant"] > 0, f"train-live: version {out['index_version']}")
+    train_ticks = ticks[:steps]
+    step_s = [b[0] - a[0] for a, b in zip(train_ticks, train_ticks[1:])]
+    sweep = ticks[steps:]
+    print(f"[train-live] flagship + live index (4608 unique passages, slice 256), live_negatives_k=8, "
+          f"marginalize_k={k} (token), warm-up 1 step: {out['steps']} steps in {wall:.1f} s (init, preprocessing and "
+          f"the final sweep included); step s after the first {', '.join(f'{x:.3f}' for x in step_s)}; peak "
+          f"{peak:.2f} GiB; a tick {np.mean([t for _, t in ticks]) * 1e3:.1f} ms ({len(ticks)} ticks, {len(sweep)} of "
+          f"them the final sweep); index version {out['index_version']}, rows' norms within {norm_err:.1e} of 1; "
+          f"losses total/retriever/generator "
+          f"{out['final_loss']:.4f}/{out['final_retriever_loss']:.4f}/{out['final_generator_loss']:.4f}", flush=True)
+    held.clear()
+    del out, rows
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_merge_phase(device, workdir, batch, steps):
+    """The reference's default runtime at full width: ``use_peft="both", use_bnb="retriever",
+    lora_runtime="merge", use_dropout=True, export_peft=True``, a profiler window over step 1, ``steps`` steps;
+    the split save into a temporary directory. Checks the PEFT files of both sub-models and the trace exist."""
+    import numpy as np
+    import torch
+
+    per_epoch = max(steps // 2, 1)
+    csv_path = str(Path(workdir) / "train.csv")
+    write_csv(csv_path, batch * per_epoch, np.random.default_rng(2))
+    out_dir, prof_dir = Path(workdir) / "merge_out", Path(workdir) / "merge_trace"
+    import shutil
+
+    free_gib = shutil.disk_usage(workdir).free / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _flagship(device, csv_path, batch, num_train_epochs=2, use_bnb="retriever", lora_runtime="merge",
+                    use_dropout=True, export_peft=True, profile_dir=str(prof_dir), profile_start_step=1,
+                    profile_num_steps=1, output_dir=str(out_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+        check(np.isfinite(out[key]), f"train-merge: {key} is not finite")
+    for sub in ("retriever", "generator"):
+        for f in ("adapter_model.bin", "adapter_config.json", "adapter_params.pt", "state_dict.pt"):
+            check((out_dir / sub / f).is_file(), f"train-merge: {sub}/{f} missing")
+    traces = sorted(prof_dir.glob("trace_*.json"))
+    check(len(traces) == 1, f"train-merge: traces {traces}")
+    peft = torch.load(out_dir / "generator" / "adapter_model.bin", weights_only=True)
+    check(len(peft) == 2 * 2 * 32, f"train-merge: {len(peft)} PEFT tensors in the generator's file")
+    saved = torch.load(out_dir / "retriever" / "state_dict.pt", weights_only=True)
+    check(saved["layer_0.attention.query.q"].dtype == torch.int8, "train-merge: the retriever's base is not int8")
+    sizes = {sub: (out_dir / sub / "state_dict.pt").stat().st_size / 2 ** 30 for sub in ("retriever", "generator")}
+    print(f"[train-merge] bge-large + llama2-7b, merge runtime, LoRA on both, int8 retriever base, dropout on: "
+          f"{out['steps']} steps in {wall:.1f} s (init, the trace and the {sizes['generator']:.2f} + "
+          f"{sizes['retriever']:.2f} GiB save included; {free_gib:.0f} GiB free before); step time "
+          f"{out['avg_step_time']:.3f} s = {out['samples_per_sec']:.2f} samples/s (second epoch); losses "
+          f"total/retriever/generator {out['final_loss']:.4f}/{out['final_retriever_loss']:.4f}/"
+          f"{out['final_generator_loss']:.4f}; peak {peak:.2f} GiB; trace {traces[0].name} "
+          f"{traces[0].stat().st_size / 2 ** 20:.1f} MiB; PEFT files of both sub-models written", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    del saved, peft
+    torch.cuda.empty_cache()
+
+
+def train_retriever_phase(device, workdir, steps):
+    """``train_retriever("bge-large", csv, use_peft=True, use_bnb=True, use_dropout=True, export_peft=True,
+    per_device_train_batch_size=32)`` for ``steps`` steps in two epochs, bf16, the byte tokenizer at 30522."""
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.train import train_retriever
+
+    csv_path = str(Path(workdir) / "retr.csv")
+    write_csv(csv_path, 32 * max(steps // 2, 1), np.random.default_rng(7))  # two epochs: the second is timed
+    out_dir = Path(workdir) / "retr_out"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_retriever("bge-large", csv_path, use_peft=True, use_bnb=True, use_dropout=True, export_peft=True,
+                          per_device_train_batch_size=32, num_train_epochs=2, tokenizer="byte@30522",
+                          dtype="bfloat16", device=device, output_dir=str(out_dir), with_tracking=False, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(np.isfinite(out["final_loss"]) and out["steps"] == 2 * max(steps // 2, 1), f"train-retriever: {out}")
+    for f in ("adapter_model.bin", "adapter_config.json", "state_dict.pt"):
+        check((out_dir / "retriever" / f).is_file(), f"train-retriever: retriever/{f} missing")
+    print(f"[train-retriever] train_retriever(bge-large, LoRA, int8 base, dropout on, batch 32, Q/P 50/128, bf16): "
+          f"{out['steps']} steps in {wall:.1f} s (init included); step time {out['avg_step_time']:.3f} s (second epoch); "
+          f"final loss {out['final_loss']:.4f}; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; PEFT "
+          f"files written", flush=True)
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def write_chat_jsonl(path, n, chars, rng):
@@ -3597,7 +4076,9 @@ TRAIN_STEPS = 4
 SFT_BATCH = 2
 SFT_STEPS = 3
 PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh", "serve-adapter", "k3",
-          "k2", "k1", "grad", "k4", "k5", "train-small", "train", "sft-small", "sft")
+          "k2", "k1", "grad", "k4", "k5", "train-small", "train", "train-dycal", "train-live", "train-merge",
+          "train-retriever", "sft-small", "sft")
+LIVE_K = 4  # marginalize_k of the train-live cell
 EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
 
 
@@ -3694,8 +4175,10 @@ def main() -> int:
         kernel_ms.update({("rowquant", e["K"]): e["ms"] for e in cases if e["case"].startswith(f"R={M_TRAIN} ")})
     if "k1" in phases:
         cases, mains = k1_phase(gen, device, peaks)
-        print(json.dumps({"k1_cases": cases}), flush=True)
+        cal_cases, cal_mains = k1_cal_phase(gen, device, peaks)
+        print(json.dumps({"k1_cases": cases + cal_cases}), flush=True)
         kernels.update(mains)
+        kernels.update(cal_mains)
         kernel_ms.update({(e["name"], tuple(e["KN"])): e["ms"] for e in cases})
     if "grad" in phases:
         grad_phase(gen, device)
@@ -3722,10 +4205,30 @@ def main() -> int:
             train_small_phase(device, workdir)
         if "train" in phases:
             full = "k1" in phases and "k2" in phases
-            launches = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, kernel_ms if full else None)
+            _, dynamic = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, kernel_ms if full else None,
+                                     a8_calibrate_every=0)
+            launches, flagship = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, None)
+            print(f"[train] step time, flagship (a8_calibrate_every=16) {flagship['avg_step_time']:.3f} s against "
+                  f"a8_calibrate_every=0 {dynamic['avg_step_time']:.3f} s in the same run "
+                  f"({flagship['avg_step_time'] / dynamic['avg_step_time'] - 1:+.1%}); with one calibration forward "
+                  f"({flagship['calibration_s'] * 1e3:.1f} ms) every 16 steps, {flagship['amortised_step_time']:.3f} s "
+                  f"({flagship['amortised_step_time'] / dynamic['avg_step_time'] - 1:+.1%})", flush=True)
             for name, n in launches.items():
-                if name in kernels:
+                if name == "k5_pcol_gemm":  # the scaled GEMM: its main path is serving; here the calibrated route
+                    if name in kernels:
+                        kernels[name]["launches_train"] = n
+                elif name in kernels and name != "k1_cal_quant[dy]":
                     kernels[name]["launches"] = n
+        if "train-dycal" in phases:
+            launches = train_dycal_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
+            if "k1_cal_quant[dy]" in kernels:
+                kernels["k1_cal_quant[dy]"]["launches"] = launches["k1_cal_quant[dy]"]
+        if "train-live" in phases:
+            train_live_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, k=LIVE_K)
+        if "train-merge" in phases:
+            train_merge_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
+        if "train-retriever" in phases:
+            train_retriever_phase(device, workdir, TRAIN_STEPS)
         if "sft-small" in phases:
             sft_small_phase(device, workdir)
         if "sft" in phases:
@@ -3746,7 +4249,7 @@ def main() -> int:
     k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm", "k5_prefill_nibbles",
                  "k5_fold_gemm[groupmm]", "k5_fold_gemm[i8mxu]", "rowquant[bf16]", "k5_prefill_nibbles[int8]",
                  "k5_pcol_gemm"]
-    k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm"]
+    k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm", "k1_cal_quant", "k1_cal_quant[dy]"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
              "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *k5_names)
     for name, n in cb_launches.items():  # PR 15's main path: answer_continuous() (serve-cb (c))
@@ -3774,6 +4277,7 @@ def main() -> int:
         check(kernels[name]["launches_serve_http"] > 0, f"{name} was never launched by serve-http")
         check(kernels[name]["launches_serve_adapter"] > 0, f"{name} was never launched by serve-adapter")
     check(kernels["fused_dot_topk[f32]"]["launches_serve_refresh"] > 0, "K3 f32 was never launched by serve-refresh")
+    check(kernels["k5_pcol_gemm"].get("launches_train", 0) > 0, "the scaled GEMM was never launched by train")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -10,11 +10,14 @@
 // (dalm_i8_gemm_nt) and, after the weight pre-pass, the unfused forward. Its
 // GEMM also serves K5's per-column instance at prefill
 // (dalm_tpu/kernels/int4_matmul.py:_int4pc_matmul_fwd_pallas, pallas_call at :299):
-// dalm_i8_gemm_scaled, after K2 and csrc/int4_prefill.cu's int8 nibble pre-pass.
+// dalm_i8_gemm_scaled, after K2 and csrc/int4_prefill.cu's int8 nibble pre-pass. The same scaled GEMM runs
+// the calibrated forward (int8_matmul_cal, dalm_tpu/kernels/int8_matmul.py:310-406), after the calibrated-scale
+// quantiser (dalm_i8_cal_quant: the XLA expressions clip(round(x / a_scale)) at :326 and
+// clip(round(dy * scale / dy_scale)) + max |dy * scale| at :389) and the weight pre-pass.
 //
-// What bounds them on an H100 SXM (3.35 TB/s, 1,979 TOP/s int8). K2 and K1's
-// two pre-passes move each byte once and do a handful of operations per
-// element: bytes. K2 is one block per row: an absmax pass, then a quantise
+// What bounds them on an H100 SXM (3.35 TB/s, 1,979 TOP/s int8). K2, K1's
+// two pre-passes and the calibrated quantiser move each byte once and do a
+// handful of operations per element: bytes. K2 is one block per row: an absmax pass, then a quantise
 // pass that re-reads the row from L1/L2. The GEMM at the Llama shapes (M =
 // 4608, K and N in the thousands) does thousands of int8 operations per
 // byte: operations, 0.078 ms at 4608 x 4096 x 4096 (K5 pcol at prefill, M = 8192:
@@ -518,6 +521,102 @@ int rowquant_launch(const void* x, int is_bf16, const float* colscale, int R, in
     return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The calibrated-scale quantiser: q = clip(rint(v / s), +-127) with ONE scale s for the whole tensor, read
+// from device memory (the calibrated a_scale of the forward, or the dy_scale of the backward), so there is no
+// absmax pass: one read of x, one write of q. The backward's mode multiplies each value by its column's weight
+// scale first (v = dy * scale[c], as K2 does) and also takes max |v| on the same read (the next dy_scale),
+// max-reduced per block and folded into *amax with one atomic: non-negative floats order as their bits.
+// Each thread moves CQ_UNROLL vectors of 16 bytes per step of a grid-stride loop, loads first.
+// ---------------------------------------------------------------------------
+constexpr int CQ_THREADS = 256;
+constexpr int CQ_UNROLL = 4;
+
+template <typename T, bool COLS, bool AMAX>
+__global__ void __launch_bounds__(CQ_THREADS)
+cal_quant_kernel(const T* __restrict__ x, const float* __restrict__ sp, const float* __restrict__ cs, long long n,
+                 int K, int8_t* __restrict__ q, unsigned int* __restrict__ amax) {
+    constexpr int PER = 16 / (int)sizeof(T);
+    const float s = __ldg(sp);
+    const long long nvec = n / PER;
+    const long long stride = (long long)gridDim.x * CQ_THREADS;
+    float m = 0.f;
+    for (long long v0 = (long long)blockIdx.x * CQ_THREADS + threadIdx.x; v0 < nvec; v0 += stride * CQ_UNROLL) {
+        uint4 raw[CQ_UNROLL];
+#pragma unroll
+        for (int u = 0; u < CQ_UNROLL; ++u) {
+            const long long v = v0 + u * stride;
+            if (v < nvec) raw[u] = __ldg(reinterpret_cast<const uint4*>(x) + v);
+        }
+#pragma unroll
+        for (int u = 0; u < CQ_UNROLL; ++u) {
+            const long long v = v0 + u * stride;
+            if (v >= nvec) break;
+            const T* e = reinterpret_cast<const T*>(&raw[u]);
+            const long long first = v * PER;
+            int c = COLS ? (int)((unsigned)first % (unsigned)K) : 0;  // n < 2^31
+            uint32_t w[2] = {0u, 0u};
+#pragma unroll
+            for (int j = 0; j < PER; ++j) {
+                float val = to_float(e[j]);
+                if constexpr (COLS) {
+                    val = __fmul_rn(val, __ldg(cs + c));
+                    c = c + 1 == K ? 0 : c + 1;
+                }
+                if constexpr (AMAX) m = fmaxf(m, fabsf(val));
+                w[j >> 2] |= (uint32_t)(quant1(val, s) & 0xff) << (8 * (j & 3));
+            }
+            store_packed(q + first, w, T());
+        }
+    }
+    // the tail beyond the last whole vector (n % PER values), by the first threads of block 0
+    if (blockIdx.x == 0 && threadIdx.x < n - nvec * PER) {
+        const long long i = nvec * PER + threadIdx.x;
+        float val = to_float(x[i]);
+        if constexpr (COLS) val = __fmul_rn(val, __ldg(cs + (int)((unsigned)i % (unsigned)K)));
+        if constexpr (AMAX) m = fmaxf(m, fabsf(val));
+        q[i] = (int8_t)quant1(val, s);
+    }
+    if constexpr (AMAX) {
+        __shared__ float red[CQ_THREADS / 32];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            float t = red[0];
+#pragma unroll
+            for (int i = 1; i < CQ_THREADS / 32; ++i) t = fmaxf(t, red[i]);
+            atomicMax(amax, __float_as_uint(t));
+        }
+    }
+}
+
+template <typename T, bool COLS, bool AMAX>
+int cal_quant_launch(const void* x, const float* s, const float* cs, long long n, int K, void* q, float* amax,
+                     int blocks, cudaStream_t stream) {
+    cal_quant_kernel<T, COLS, AMAX><<<blocks, CQ_THREADS, 0, stream>>>(
+        static_cast<const T*>(x), s, cs, n, K, static_cast<int8_t*>(q), reinterpret_cast<unsigned int*>(amax));
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int cal_quant_dispatch(const void* x, const float* s, const float* cs, long long n, int K, void* q, float* amax,
+                       cudaStream_t stream) {
+    constexpr int PER = 16 / (int)sizeof(T);
+    const long long nvec = n / PER;
+    int sms = 0, dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    // enough blocks for every thread to hold CQ_UNROLL loads in flight, at most 8 blocks an SM
+    long long want = (nvec + (long long)CQ_THREADS * CQ_UNROLL - 1) / ((long long)CQ_THREADS * CQ_UNROLL);
+    const int blocks = (int)(want < 1 ? 1 : (want > 8LL * sms ? 8LL * sms : want));
+    if (cs && amax) return cal_quant_launch<T, true, true>(x, s, cs, n, K, q, amax, blocks, stream);
+    if (cs) return cal_quant_launch<T, true, false>(x, s, cs, n, K, q, amax, blocks, stream);
+    if (amax) return cal_quant_launch<T, false, true>(x, s, cs, n, K, q, amax, blocks, stream);
+    return cal_quant_launch<T, false, false>(x, s, cs, n, K, q, amax, blocks, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -575,6 +674,15 @@ int dalm_i8_gemm_nt(const void* a, const void* b, int M, int C, int N, void* out
 int dalm_i8_gemm_scaled(const void* xq, const void* wn, const float* xs, const float* wscale, int M, int N, int K,
                         void* out, cudaStream_t stream) {
     return launch_gemm<I32_BN, EPI_SCALE, __nv_bfloat16>(xq, wn, M, N, K, 0, xs, wscale, out, stream);
+}
+
+// The calibrated-scale quantiser: q (n,) int8 = clip(rint(v / *s), +-127), v = x (n,) float32 (is_bf16 = 0) or
+// bfloat16 (1) as a row-major (n / K, K) tensor, times colscale[column] when colscale is not null; when amax is
+// not null, max |v| is folded into *amax (a float >= 0 the caller zeroed). x and q 16-byte aligned, n < 2^31.
+int dalm_i8_cal_quant(const void* x, int is_bf16, const float* s, const float* colscale, long long n, int K,
+                      void* q, float* amax, cudaStream_t stream) {
+    if (is_bf16) return cal_quant_dispatch<__nv_bfloat16>(x, s, colscale, n, K, q, amax, stream);
+    return cal_quant_dispatch<float>(x, s, colscale, n, K, q, amax, stream);
 }
 
 // dalm_i8_gemm_scaled's tensor maps for these operands, encoded and dropped: 0, or what it would return

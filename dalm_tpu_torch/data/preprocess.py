@@ -12,6 +12,25 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Sequence
 
 
+def preprocess_retriever_dataset(
+    examples: Mapping[str, Sequence[str]],
+    tokenizer: Any,
+    query_column_name: str,
+    passage_column_name: str,
+    query_max_len: int,
+    passage_max_len: int,
+) -> Dict[str, Any]:
+    """``query_*`` and ``passage_*`` token columns of marked queries and passages, each padded to its length."""
+    queries = [f"#query# {q}" for q in examples[query_column_name]]
+    passages = [f"#passage# {p}" for p in examples[passage_column_name]]
+    out: Dict[str, Any] = {}
+    for k, v in tokenizer(queries, padding="max_length", max_length=query_max_len, truncation=True).items():
+        out[f"query_{k}"] = v
+    for k, v in tokenizer(passages, padding="max_length", max_length=passage_max_len, truncation=True).items():
+        out[f"passage_{k}"] = v
+    return out
+
+
 def preprocess_rag_e2e_dataset(
     examples: Mapping[str, Sequence[str]],
     retriever_tokenizer: Any,

@@ -30,6 +30,16 @@ Semantics (both versions):
   GEMM + rescale (the only form the JAX package runs off the TPU). Backward is straight-through:
   ``dx = (dy * scale) @ q^T``, in int8 (``rowquant`` + int8 GEMM) with
   ``bwd_int8`` or as a bf16 product without; ``q`` and ``scale`` get none.
+- ``cal_quant(x, s[, colscale, want_amax])``: the calibrated-scale quantiser,
+  ``clip(round_half_even(v / s), -127, 127)`` with one f32 scale ``s`` for the
+  tensor, ``v = x`` or ``x * colscale``, and ``max |v|`` when asked (one read
+  of x: ``csrc/int8_matmul.cu`` ``cal_quant_kernel``).
+- ``int8_matmul_cal`` / ``int8_matmul_dycal``: ``x @ (q * scale)`` with a
+  calibrated activation scale ``a_scale``: ``(f32(cal_quant(x) . q) * a_scale)
+  * scale``, on the card the quantiser, the weight pre-pass and the scaled
+  GEMM; the backward is the dynamic one, or (``_dycal``) ``dy * scale``
+  quantised with the calibrated ``dy_scale``; ``a_scale``'s gradient is the
+  out-of-band ``max(max |dy * scale| / 127, 1e-8)``.
 """
 
 from __future__ import annotations
@@ -58,8 +68,10 @@ def _lib():
         lib.dalm_i8_gemm_nt.argtypes = [p, p, i, i, i, p, p]
         lib.dalm_i8_gemm_scaled.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.dalm_i8_gemm_scaled_maps.argtypes = [p, p, i, i, i]
+        lib.dalm_i8_cal_quant.argtypes = [p, i, p, p, ctypes.c_longlong, i, p, p, p]
         for fn in ("dalm_i8_rowquant", "dalm_i8_rowquant_bf16", "dalm_i8_act_quant", "dalm_i8_transpose",
-                   "dalm_i8_gemm_fold", "dalm_i8_gemm_nt", "dalm_i8_gemm_scaled", "dalm_i8_gemm_scaled_maps"):
+                   "dalm_i8_gemm_fold", "dalm_i8_gemm_nt", "dalm_i8_gemm_scaled", "dalm_i8_gemm_scaled_maps",
+                   "dalm_i8_cal_quant"):
             getattr(lib, fn).restype = i
         _lib_handle = lib
     return _lib_handle
@@ -142,6 +154,59 @@ def rowquant(x: torch.Tensor, colscale: torch.Tensor | None = None, dtype: torch
 
 rowquant.launches = 0  # every launch
 rowquant.bf16_launches = 0  # those that wrote bfloat16
+
+
+# --------------------------------------------------------------------------
+# The calibrated-scale quantiser (XLA in the JAX package)
+# --------------------------------------------------------------------------
+
+def cal_quant_ref(x: torch.Tensor, s: torch.Tensor, colscale: torch.Tensor | None = None, want_amax: bool = False):
+    """Plain calibrated-scale quantiser: ``v = x`` (times ``colscale`` per column, in f32), ``q = clip(round(v / s),
+    -127, 127)`` int8 with ``s`` a 0-d f32 tensor; returns (q, ``max |v|`` as a 0-d f32 tensor or None)."""
+    v = x.float()
+    if colscale is not None:
+        v = v * colscale.reshape(-1).float()
+    q = torch.clamp(torch.round(v / s.float().reshape((1,) * v.dim())), -127, 127).to(torch.int8)
+    return q, (v.abs().amax() if want_amax else None)
+
+
+def cal_quant(x: torch.Tensor, s: torch.Tensor, colscale: torch.Tensor | None = None, want_amax: bool = False):
+    """The calibrated-scale quantiser: one launch for CUDA tensors (mode "x": the forward's ``x / a_scale``;
+    mode "dy": the backward's ``dy * scale / dy_scale``, ``colscale`` given), the plain version for CPU
+    tensors. ``s`` stays on the device: no host read-back."""
+    if not x.is_cuda:
+        return cal_quant_ref(x, s, colscale, want_amax)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"cal_quant takes float32 or bfloat16, not {x.dtype}")
+    if s.dtype != torch.float32 or s.numel() != 1:
+        raise TypeError("cal_quant takes one float32 scale")
+    K = x.shape[-1]
+    n = x.numel()
+    if n < 1 or n >= 2 ** 31:
+        raise ValueError(f"cal_quant takes 1 to 2^31 - 1 values, not {n}")
+    if colscale is not None and (colscale.dtype != torch.float32 or colscale.numel() != K):
+        raise TypeError("colscale must be K float32 values")
+    _check_cuda("cal_quant", x=x, colscale=colscale)
+    if s.device != x.device:
+        raise ValueError("cal_quant: the scale must be on the device of x")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    amax = torch.zeros((), dtype=torch.float32, device=x.device) if want_amax else None
+    launch_cal_quant(x, s.reshape(1).contiguous(), colscale, q, amax)
+    return q, amax
+
+
+def launch_cal_quant(x: torch.Tensor, s: torch.Tensor, colscale: torch.Tensor | None, q: torch.Tensor,
+                     amax: torch.Tensor | None) -> None:
+    """One launch of the calibrated quantiser on checked operands into ``q`` (and the max into ``amax``, which
+    the caller zeroed)."""
+    err = _lib().dalm_i8_cal_quant(x.data_ptr(), int(x.dtype == torch.bfloat16), s.data_ptr(),
+                                   colscale.data_ptr() if colscale is not None else None, x.numel(), x.shape[-1],
+                                   q.data_ptr(), amax.data_ptr() if amax is not None else None, _stream(x))
+    _launched(err, "calibrated quantiser")
+    cal_quant.launches["dy" if colscale is not None else "x"] += 1
+
+
+cal_quant.launches = {"x": 0, "dy": 0}
 
 
 # --------------------------------------------------------------------------
@@ -532,3 +597,115 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bwd_int8:
 def int8_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bwd_int8: bool = False) -> torch.Tensor:
     """The same function and gradient through the plain versions only, on any device."""
     return _Int8Matmul.apply(x, q, scale, bool(bwd_int8), _PLAIN)
+
+
+# --------------------------------------------------------------------------
+# Calibrated activation scale (int8_matmul_cal) and calibrated dy scale (int8_matmul_dycal)
+# --------------------------------------------------------------------------
+#
+# The counterparts of the reference's two custom_vjp functions (dalm_tpu/kernels/int8_matmul.py:310-406). The
+# forward quantises x with ONE calibrated scale ``a_scale`` (a 0-d f32 tensor), so there is no absmax pass:
+# ``y = (f32(xq . q) * a_scale) * scale``. ``a_scale``'s gradient is an out-of-band channel: the backward
+# returns ``max(max |dy * scale| / 127, 1e-8)`` for it, the dy scale the next backward would need; it is
+# computed only when ``a_scale`` requires a gradient (the trainer's probe step).
+
+def _scaled_route(x: torch.Tensor, K: int, N: int, fns) -> bool:
+    """The calibrated forward takes the weight pre-pass and the scaled GEMM (bf16 out; K a multiple of 16, N of
+    4) on the card; elsewhere the int32 GEMM on padded operands and the rescale."""
+    return fns[0] is cal_quant and x.is_cuda and x.dtype == torch.bfloat16 and K % 16 == 0 and N % 4 == 0
+
+
+def _cal_forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, a_scale: torch.Tensor, fns) -> torch.Tensor:
+    cq, gemm_kn, _, prepass, scaled, _ = fns
+    lead, K = x.shape[:-1], x.shape[-1]
+    M = math.prod(lead)
+    N = q.shape[1]
+    xq, _ = cq(x.reshape(M, K).contiguous(), a_scale)
+    a32 = a_scale.float().reshape(1, 1)
+    if _scaled_route(x, K, N, fns):
+        xs = a32.expand(M, 1).contiguous()
+        y = scaled(xq, prepass(q), xs, scale.reshape(-1).contiguous())
+    else:
+        Kp, Np = _round_up(K, 16), _round_up(N, 4)
+        acc = gemm_kn(_pad_to(xq, M, Kp), _pad_to(q, Kp, Np))[:, :N]
+        y = ((acc.float() * a32) * scale.reshape(1, N)).to(x.dtype)
+    return y.reshape(*lead, N)
+
+
+def _dy_scale_grad(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax / 127, 1e-8)`` as the reference writes it (a true division by 127)."""
+    return torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+
+
+def _dycal_backward(dy: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, dy_scale: torch.Tensor, bwd_int8: bool,
+                    want_amax: bool, fns):
+    """dx of the calibrated dy scale: ``q8 = clip(round(dy * scale / dy_scale))``, ``dx = f32(q8 . q^T) *
+    dy_scale``, with ``max |dy * scale|`` on the same read. Returns (dx, amax or None)."""
+    cq, _, gemm_nt, _, _, _ = fns
+    lead, N = dy.shape[:-1], dy.shape[-1]
+    K = q.shape[0]
+    dy2 = dy.reshape(math.prod(lead), N).contiguous()
+    if bwd_int8:
+        dq, amax = cq(dy2, dy_scale, scale.reshape(-1).contiguous(), want_amax)
+        Np = _round_up(N, 16)
+        dx = gemm_nt(_pad_to(dq, dq.shape[0], Np), _pad_to(q, K, Np)).float() * dy_scale.float().reshape(1, 1)
+    else:
+        dyf = dy2.float() * scale.reshape(1, N)
+        amax = dyf.abs().amax() if want_amax else None
+        dyb = dyf.to(torch.bfloat16)
+        dx = dyb @ q.to(torch.bfloat16).T if dy.dtype == torch.bfloat16 else dyb.float() @ q.float().T
+    return dx.to(dy.dtype).reshape(*lead, K), amax
+
+
+class _Int8MatmulCal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q, scale, a_scale, dy_scale, bwd_int8, fns):
+        ctx.save_for_backward(q, scale, dy_scale if dy_scale is not None else scale)
+        ctx.bwd_int8, ctx.fns, ctx.dycal = bwd_int8, fns, dy_scale is not None
+        return _cal_forward(x, q, scale, a_scale, fns)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale, dy_scale = ctx.saved_tensors
+        want = ctx.needs_input_grad[3]
+        if not ctx.needs_input_grad[0]:  # only the channel is asked for (a layer whose input is frozen)
+            amax = (dy.float() * scale.reshape(-1).float()).abs().amax()
+            return None, None, None, _dy_scale_grad(amax), None, None, None
+        if ctx.dycal:
+            dx, amax = _dycal_backward(dy, q, scale, dy_scale, ctx.bwd_int8, want, ctx.fns)
+        else:
+            rq, gemm_nt = ctx.fns[5], ctx.fns[2]
+            dx = _backward(dy, q, scale, ctx.bwd_int8, (rq, None, None, gemm_nt))
+            # the bootstrap probe's channel (no dy_scale yet): one plain reduction, only when it is asked for
+            amax = (dy.float() * scale.reshape(-1).float()).abs().amax() if want else None
+        return dx, None, None, (_dy_scale_grad(amax) if want else None), None, None, None
+
+
+_CAL_KERNELS = (cal_quant, int8_gemm_kn, int8_gemm_nt, weight_prepass, int8_gemm_scaled, rowquant)
+_CAL_PLAIN = (cal_quant_ref, int8_gemm_kn_ref, int8_gemm_nt_ref, weight_prepass_ref, int8_gemm_scaled_ref,
+              rowquant_ref)
+
+
+def int8_matmul_cal(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, a_scale: torch.Tensor,
+                    bwd_int8: bool = False) -> torch.Tensor:
+    """``x (..., K) @ (q (K, N) int8 * scale (1, N))`` with the calibrated per-tensor activation scale ``a_scale``
+    (0-d f32); the backward is ``int8_matmul``'s (dynamic per-row dy quant with ``bwd_int8``), and ``a_scale``
+    gets the out-of-band dy scale."""
+    return _Int8MatmulCal.apply(x, q, scale, a_scale, None, bool(bwd_int8), _CAL_KERNELS)
+
+
+def int8_matmul_dycal(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, a_scale: torch.Tensor,
+                      dy_scale: torch.Tensor, bwd_int8: bool = True) -> torch.Tensor:
+    """As :func:`int8_matmul_cal`, with the backward's ``dy * scale`` quantised by the calibrated ``dy_scale``
+    (0-d f32, frozen) instead of per row."""
+    return _Int8MatmulCal.apply(x, q, scale, a_scale, dy_scale, bool(bwd_int8), _CAL_KERNELS)
+
+
+def int8_matmul_cal_ref(x, q, scale, a_scale, bwd_int8: bool = False):
+    """:func:`int8_matmul_cal` through the plain versions only, on any device."""
+    return _Int8MatmulCal.apply(x, q, scale, a_scale, None, bool(bwd_int8), _CAL_PLAIN)
+
+
+def int8_matmul_dycal_ref(x, q, scale, a_scale, dy_scale, bwd_int8: bool = True):
+    """:func:`int8_matmul_dycal` through the plain versions only, on any device."""
+    return _Int8MatmulCal.apply(x, q, scale, a_scale, dy_scale, bool(bwd_int8), _CAL_PLAIN)

@@ -3,9 +3,12 @@
 
 ``S = (Q @ P^T) * logit_scale`` on L2-normalised embeddings, in f32;
 ``loss = (CE(S, arange(B)) + CE(S^T, arange(B))) / 2``: positives on the
-diagonal, every other in-batch passage a negative. The reference's
-``local_negatives_block`` (needs a device mesh) and
-``extra_negative_logits`` (needs the live index) are not ported yet.
+diagonal, every other in-batch passage a negative. ``extra_negative_logits``
+(B, K), hard-negative scores from the live index (logit-scaled already),
+extend each row's query->passage softmax and the returned (B, B+K) matrix,
+whose positives stay at column i; the passage->query direction stays
+square. The reference's ``local_negatives_block`` (needs a device mesh) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,11 +30,12 @@ def nt_xent_loss(sim_scores: torch.Tensor) -> torch.Tensor:
 
 def contrastive_loss(query_embs: torch.Tensor, passage_embs: torch.Tensor, logit_scale: float = 100.0,
                      local_negatives_block=None, extra_negative_logits=None) -> tuple:
-    """Symmetric NT-Xent over the batch; returns (loss, sim_logits (B, B))."""
+    """Symmetric NT-Xent over the batch; returns (loss, sim_logits (B, B) or (B, B + K))."""
     if local_negatives_block:
         raise NotImplementedError("local_negatives_block is not ported yet")
-    if extra_negative_logits is not None:
-        raise NotImplementedError("extra_negative_logits is not ported yet")
     logits = cosine_sim_logits(query_embs, passage_embs, logit_scale)
-    loss = (nt_xent_loss(logits) + nt_xent_loss(logits.T)) / 2.0
-    return loss, logits
+    aug = logits
+    if extra_negative_logits is not None:
+        aug = torch.cat([logits, extra_negative_logits.to(logits.dtype)], dim=1)
+    loss = (nt_xent_loss(aug) + nt_xent_loss(logits.T)) / 2.0
+    return loss, aug

@@ -6,8 +6,14 @@ exact-GELU MLP, each followed by a residual LayerNorm. Parameter names
 mirror the flax tree (``layer_0.attention.query.kernel`` …) so the JAX
 weights carry across through ``dalm_tpu_torch/interop.py`` leaf for leaf.
 
-Dropout is the identity here, as in the reference's deterministic
-``embed`` and in its trainers' default (``use_dropout=False``).
+Dropout (``hidden_dropout`` after the embeddings' norm, the attention
+output and the MLP; ``attention_dropout`` on the attention probabilities,
+as ``dalm_tpu/models/encoder.py:113-114,129-140,191-192`` place it) runs
+only when ``forward`` is handed a ``dropout_generator``: each value is kept
+with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, flax's
+``nn.Dropout``. Without one the encoder is deterministic, as the reference's
+``embed`` is. The draws come from the port's generator, not JAX's keys: the
+masks differ between the packages, their rates and scaling do not.
 """
 
 from __future__ import annotations
@@ -66,6 +72,15 @@ class EncoderConfig:
         )
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep each value with probability ``1 - rate``, scaled by ``1 / (1 - rate)``; the identity without a
+    generator or at rate 0. The mask is drawn from ``generator`` (on ``x``'s device)."""
+    if generator is None or rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Embed(nn.Module):
     """Lookup table with the flax parameter name ``embedding``."""
 
@@ -116,7 +131,8 @@ class EncoderSelfAttention(nn.Module):
         self.value = _dense(cfg, h, h, device)
         self.output = _dense(cfg, h, h, device)
 
-    def forward(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """hidden (B, S, H); bias (B, 1, 1, S) f32 additive mask."""
         cfg = self.cfg
         B, S, _ = hidden.shape
@@ -127,6 +143,7 @@ class EncoderSelfAttention(nn.Module):
         v = self.value(hidden).view(B, S, nh, hd).transpose(1, 2)
         scores = (q @ k.transpose(-1, -2)) / torch.tensor(math.sqrt(hd), dtype=cfg.dtype)
         probs = torch.softmax(scores.float() + bias, dim=-1).to(cfg.dtype)
+        probs = dropout(probs, cfg.attention_dropout, dropout_generator)
         ctx = (probs @ v).transpose(1, 2).reshape(B, S, nh * hd)
         return self.output(ctx)
 
@@ -142,10 +159,13 @@ class EncoderLayer(nn.Module):
         self.mlp_output = _dense(cfg, cfg.intermediate_size, cfg.hidden_size, device)
         self.mlp_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
 
-    def forward(self, hidden: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        hidden = self.attention_norm(hidden + self.attention(hidden, bias))
+    def forward(self, hidden: torch.Tensor, bias: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.attention.cfg.hidden_dropout
+        attn = dropout(self.attention(hidden, bias, dropout_generator), rate, dropout_generator)
+        hidden = self.attention_norm(hidden + attn)
         mlp = self.mlp_output(F.gelu(self.intermediate(hidden), approximate="none"))
-        return self.mlp_norm(hidden + mlp)
+        return self.mlp_norm(hidden + dropout(mlp, rate, dropout_generator))
 
 
 class Encoder(nn.Module):
@@ -168,7 +188,8 @@ class Encoder(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -178,6 +199,7 @@ class Encoder(nn.Module):
             + self.position_embeddings(pos_ids)
             + self.token_type_embeddings(token_type_ids)
         )
+        hidden = dropout(hidden, cfg.hidden_dropout, dropout_generator)
         # Additive mask bias in f32: 0 where attended, finfo(f32).min elsewhere.
         bias = torch.where(
             attention_mask[:, None, None, :] > 0,
@@ -185,5 +207,5 @@ class Encoder(nn.Module):
             torch.tensor(torch.finfo(torch.float32).min, device=hidden.device),
         )
         for i in range(cfg.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, bias)
+            hidden = getattr(self, f"layer_{i}")(hidden, bias, dropout_generator)
         return hidden

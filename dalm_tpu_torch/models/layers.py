@@ -25,9 +25,23 @@ reference does. Three storages, named after the reference's collections:
   effective weight ``kernel + (lora_a @ lora_b * scaling).to(kernel.dtype)``
   and autograd carries the weight's gradient back to the two factors.
 
-So ``y = x @ dequant(W) + (x @ a) @ b [+ bias]``. The calibrated-scale
-branches of the reference (``a_scale``, ``dy_scale``, ``:84-108``) are not
-ported yet and raise.
+  A merge-runtime layer may hold an int8 base (``q`` + ``scale``) instead of
+  ``kernel`` (the reference's ``use_bnb`` merge: ``dequantize_params`` then
+  ``merge_lora``): its effective weight is
+  ``(q * scale + (lora_a @ lora_b * scaling)).to(dtype)``, the sum in f32.
+  ``lora_a_keep``, when set (a bool mask of ``lora_a``'s shape), is the
+  reference's scale-preserving dropout on ``A`` for one step;
+- ``a_scale`` and ``dy_scale`` (0-d f32 buffers beside an int8 base, the
+  reference's calibrated branches, ``:84-108``): with ``int8_compute`` "fwd"
+  or "all" and ``a_scale`` set, x is quantised with that one scale
+  (``int8_matmul_cal``); with "all" and ``dy_scale`` set too, so is the
+  backward's ``dy * scale`` (``int8_matmul_dycal``). ``a_scale``'s gradient
+  carries the out-of-band dy scale when it requires one.
+
+So ``y = x @ dequant(W) + (x @ a) @ b [+ bias]``. ``record_amax = True``
+(the calibration pass) makes an int8-compute layer keep ``amax``, the
+largest ``|x|`` over its calls since ``amax`` was last cleared, as the
+reference's ``sow(..., reduce_fn=jnp.maximum)`` does.
 """
 
 from __future__ import annotations
@@ -36,13 +50,13 @@ import torch
 from torch import nn
 
 from dalm_tpu_torch.kernels.int4_matmul import int4_matmul
-from dalm_tpu_torch.kernels.int8_matmul import int8_matmul
+from dalm_tpu_torch.kernels.int8_matmul import int8_matmul, int8_matmul_cal, int8_matmul_dycal
 from dalm_tpu_torch.models.quant import _int4_group
 
 INT8_COMPUTE = ("none", "fwd", "all")
-UNPORTED_QUANT_LEAVES = ("a_scale", "dy_scale")
+CAL_LEAVES = ("a_scale", "dy_scale")
 STORAGES = ("int8", "bf16", "int4", "nf4", "int4pc")
-PACKED_LEAVES = ("q", "scale", "w", "q4", "scale4", "nf4", "pcol")
+PACKED_LEAVES = ("q", "scale", "w", "q4", "scale4", "nf4", "pcol") + CAL_LEAVES
 
 
 class FlexLinear(nn.Module):
@@ -65,6 +79,10 @@ class FlexLinear(nn.Module):
         for name in ("a", "b", "lora_a", "lora_b"):
             self.register_parameter(name, None)
         self.merge_scaling = 1.0
+        self.lora_a_keep = None  # merge-runtime dropout mask on lora_a for the current step
+        self.lora_dropout = 0.0
+        self.record_amax = False  # the calibration pass
+        self.amax = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """normal(0.02) kernel and zero bias, as the JAX layer initialises."""
@@ -111,10 +129,12 @@ class FlexLinear(nn.Module):
 
     def add_merge_lora(self, rank: int, scaling: float, device=None) -> None:
         """Trainable f32 factors ``lora_a (in, rank)`` and ``lora_b (rank, out)``
-        (zero until filled) merged into ``kernel`` in every forward, times ``scaling``."""
-        if self.kernel is None:
-            raise ValueError("the merge runtime needs a dense kernel; a packed base takes add_lora")
-        device = device if device is not None else self.kernel.device
+        (zero until filled) merged into ``kernel`` (or the int8 base ``q * scale``)
+        in every forward, times ``scaling``."""
+        base = self.kernel if self.kernel is not None else self.q
+        if base is None:
+            raise ValueError("the merge runtime needs a dense kernel or an int8 base; other storages take add_lora")
+        device = device if device is not None else base.device
         self.lora_a = nn.Parameter(torch.zeros(self.in_features, rank, dtype=torch.float32, device=device))
         self.lora_b = nn.Parameter(torch.zeros(rank, self.out_features, dtype=torch.float32, device=device))
         self.merge_scaling = float(scaling)
@@ -122,16 +142,28 @@ class FlexLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.q4 is not None:
             y = int4_matmul(x, self.q4, self.scale4, self.nf4 is not None, self.pcol is not None)
+        elif self.lora_a is not None:
+            base = self.kernel if self.kernel is not None else self.q.float() * self.scale.float()
+            a = self.lora_a
+            if self.lora_a_keep is not None:
+                a = torch.where(self.lora_a_keep, a / (1.0 - self.lora_dropout), torch.zeros_like(a))
+            delta = (a @ self.lora_b) * self.merge_scaling
+            y = x @ (base + delta.to(base.dtype)).to(self.dtype)
         elif self.q is not None and self.int8_compute != "none":
-            y = int8_matmul(x, self.q, self.scale, self.int8_compute == "all")
+            if self.record_amax:
+                m = x.detach().float().abs().amax()
+                self.amax = m if self.amax is None else torch.maximum(self.amax, m)
+            if self.a_scale is None:
+                y = int8_matmul(x, self.q, self.scale, self.int8_compute == "all")
+            elif self.int8_compute == "all" and self.dy_scale is not None:
+                y = int8_matmul_dycal(x, self.q, self.scale, self.a_scale, self.dy_scale, True)
+            else:
+                y = int8_matmul_cal(x, self.q, self.scale, self.a_scale, self.int8_compute == "all")
         else:
             if self.q is not None:
                 kernel = (self.q.float() * self.scale.float()).to(self.dtype)
             elif self.w is not None:
                 kernel = self.w.to(self.dtype)
-            elif self.lora_a is not None:
-                delta = (self.lora_a @ self.lora_b) * self.merge_scaling
-                kernel = (self.kernel + delta.to(self.kernel.dtype)).to(self.dtype)
             else:
                 kernel = self.kernel.to(self.dtype)
             y = x @ kernel

@@ -9,11 +9,16 @@ the reference's schema plus a ``torch.save`` file.
 The merge runtime (generator SFT): ``init_lora_params`` draws such a flat
 dict for a parameter tree, ``merge_lora`` folds one into a tree
 (``W + (A @ B * scaling).to(W.dtype)``, the reference's ``dropout_rng=None``
-form; its dropout on ``A`` is not ported), ``merge_lora_inplace`` folds one
+form), ``merge_lora_inplace`` folds one
 into a module's ``FlexLinear`` kernels (a PEFT adapter loaded for serving or
 eval, before any packing), and ``attach_merge_lora`` /
 ``merge_lora_params`` put the factors onto a module's ``FlexLinear`` layers
-(``add_merge_lora``) and read them back, so that autograd gives dA and dB.
+(``add_merge_lora``) and read them back, so that autograd gives dA and dB;
+``set_merge_dropout`` draws one step's masks onto those layers: the
+reference's scale-preserving dropout on ``A`` (``:98-121``), one mask a site
+keyed by ``crc32(path)``, applied in the layer's forward. The masks come from
+the port's generators, not JAX's keys: they differ between the packages, their
+rate and scaling do not.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Tuple
+import zlib
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -99,6 +105,14 @@ def init_lora_params(generator: torch.Generator, params: Any, spec: LoraSpec) ->
     return lora
 
 
+def dropout_keep(path_str: str, shape, rate: float, seed: int, device) -> torch.Tensor:
+    """The keep mask (probability ``1 - rate``) of one site's ``A`` for one step: drawn from a generator seeded
+    by ``seed`` and ``crc32(path)``, so each site has a stream of its own, as the reference folds its key."""
+    g = torch.Generator(device=device).manual_seed((int(seed) * 2_147_483_647 + zlib.crc32(path_str.encode()))
+                                                   % (2 ** 63))
+    return torch.rand(tuple(shape), generator=g, device=device) < 1.0 - rate
+
+
 def merge_lora(params: Any, lora_params: dict, spec: LoraSpec) -> dict:
     """``W + scaling * A @ B`` on every adapted kernel of the nested tree
     ``params`` (the delta cast to the kernel's type first). Returns a new
@@ -155,6 +169,20 @@ def attach_merge_lora(module, lora_params: dict, spec: LoraSpec):
             site.lora_a.copy_(ab["lora_a"])
             site.lora_b.copy_(ab["lora_b"])
     return module
+
+
+def set_merge_dropout(module, spec: LoraSpec, seed: Optional[int]) -> None:
+    """Draw one step's dropout masks on ``A`` onto every merge-runtime layer of ``module`` (``dropout_keep`` of
+    the site's kernel path and ``seed``); ``seed=None`` or a rate of 0 turns them off."""
+    for name, site in module.named_modules():
+        if not isinstance(site, FlexLinear) or site.lora_a is None:
+            continue
+        if seed is None or spec.dropout <= 0:
+            site.lora_a_keep = None
+            continue
+        site.lora_dropout = float(spec.dropout)
+        site.lora_a_keep = dropout_keep(name.replace(".", "/") + "/kernel", site.lora_a.shape, spec.dropout, seed,
+                                        site.lora_a.device)
 
 
 def merge_lora_params(module) -> dict:

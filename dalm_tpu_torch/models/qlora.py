@@ -27,12 +27,13 @@ import torch
 from torch import nn
 
 from dalm_tpu_torch.core.tree import flatten, set_path, unflatten
-from dalm_tpu_torch.models.layers import PACKED_LEAVES, UNPORTED_QUANT_LEAVES, FlexLinear
+from dalm_tpu_torch.models.layers import CAL_LEAVES, PACKED_LEAVES, FlexLinear
 from dalm_tpu_torch.models.lora import LoraSpec, _target_kernel_paths
 from dalm_tpu_torch.models.quant import (dequantize_tensor_int4, quantize_tensor, quantize_tensor_int4,
                                          quantize_tensor_int4pc, quantize_tensor_nf4)
 
 MIN_SIZE = 4096
+MERGE_MIN_SIZE = 1024  # the merge runtime's int8 base: the reference's quantize_params packs 2-D kernels this big
 _QUANTISERS = {"int4": quantize_tensor_int4, "nf4": quantize_tensor_nf4, "int4pc": quantize_tensor_int4pc}
 
 
@@ -185,15 +186,16 @@ def load_packed(module: nn.Module, residual: dict, quant: dict, lora: Optional[d
     and copy all three trees in. Tensors land on the device the module's
     parameters are on."""
     device = next(module.parameters()).device
-    for path, node in _sites(quant, ("q", "w", "q4") + UNPORTED_QUANT_LEAVES):
-        bad = [k for k in UNPORTED_QUANT_LEAVES if k in node]
-        if bad:
-            raise NotImplementedError(f"quant leaves {bad} at {'.'.join(path)} are not ported yet")
+    for path, node in _sites(quant, ("q", "w", "q4")):
         storage = _storage_of_node(node)
         group = None
         if storage in ("int4", "nf4"):
             group = 2 * node["q4"].shape[0] // node["scale4"].shape[0]
-        _flex(module, path).to_packed(storage, device=device, group=group)
+        site = _flex(module, path)
+        site.to_packed(storage, device=device, group=group)
+        for leaf in CAL_LEAVES:  # calibrated scales beside an int8 base
+            if leaf in node:
+                setattr(site, leaf, torch.empty((), dtype=torch.float32, device=device))
     for path, node in _sites(lora or {}, ("a",)):
         _flex(module, path).add_lora(node["a"].shape[1], device=device)
     state = {**flatten(residual), **flatten(quant), **flatten(lora or {})}

@@ -13,6 +13,7 @@ retriever is not ported yet.
 from __future__ import annotations
 
 import enum
+from typing import Optional
 
 import torch
 
@@ -45,9 +46,11 @@ class RagE2EModel:
         self.retriever = Encoder(retriever_config, device=devices["retriever"])
         self.generator = Decoder(generator_config, device=devices["generator"])
 
-    def embed_with(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """"retrieval" task: pooled, L2-normalised embeddings (B, H)."""
-        hidden = self.retriever(input_ids, attention_mask)
+    def embed_with(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                   dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """"retrieval" task: pooled, L2-normalised embeddings (B, H); the encoder's dropout draws from
+        ``dropout_generator`` when one is given (the reference's ``deterministic=False``)."""
+        hidden = self.retriever(input_ids, attention_mask, dropout_generator=dropout_generator)
         return mean_pool_l2(hidden, attention_mask, normalize=self.normalize)
 
     def logits_with(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,10 @@
 A model spec is a preset name (random init by the caller) or a directory
 written by :func:`save_pretrained`: ``config.json`` in the reference's
 schema (``__class__`` + dataclass fields, ``registry.py:74-100``) plus a
-``torch.save`` state dict, ``state_dict.pt``. Reading the reference's
+``torch.save`` state dict, ``state_dict.pt``. A saved int8 base (a layer's
+``q`` + ``scale`` leaves, what the merge runtime with ``use_bnb`` saves)
+resolves to the dequantised ``kernel = q * scale`` in f32, as the
+reference's ``dequantize_params`` forms it. Reading the reference's
 ``params.msgpack`` and HF checkpoints waits for a later slice.
 """
 
@@ -77,6 +80,17 @@ def load_pretrained(path: str) -> Tuple[object, dict]:
     return cfg, state
 
 
+def dequantize_state(state: dict) -> dict:
+    """``state`` with every int8 layer (``<layer>.q`` + ``<layer>.scale``, and any calibrated scales beside
+    them) replaced by its f32 ``<layer>.kernel = q * scale``; other leaves as they are."""
+    layers = {k[:-2] for k in state if k.endswith(".q") and f"{k[:-2]}.scale" in state}
+    out = {k: v for k, v in state.items()
+           if not (k.rpartition(".")[0] in layers and k.rpartition(".")[2] in ("q", "scale", "a_scale", "dy_scale"))}
+    for layer in layers:
+        out[f"{layer}.kernel"] = state[f"{layer}.q"].float() * state[f"{layer}.scale"].float()
+    return out
+
+
 def _resolve(spec: str, presets: dict, kind: str, dtype, vocab_size):
     if spec in presets:
         cfg, state = presets[spec](), None
@@ -84,6 +98,7 @@ def _resolve(spec: str, presets: dict, kind: str, dtype, vocab_size):
             cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
     elif os.path.isdir(spec) and os.path.exists(os.path.join(spec, STATE_FILE)):
         cfg, state = load_pretrained(spec)
+        state = dequantize_state(state)
     elif os.path.isdir(spec):
         raise NotImplementedError(
             f"{spec!r}: only state_dict.pt artifacts are read; params.msgpack and HF checkpoints wait"

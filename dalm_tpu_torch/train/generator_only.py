@@ -27,7 +27,10 @@ config and, as in the reference's trainer, not applied; ``setup_hook`` gets the
 yet raise ``NotImplementedError`` naming the knob: ``context_parallel``,
 ``cp_layout != "contiguous"``, ``pipeline_stages > 1``, ``pp_microbatches``,
 ``pp_model_parallel``, ``moe_aux_weight > 0``, ``mesh``, ``streaming``,
-``export_peft``, ``local_dataset=False``.
+``local_dataset=False``. ``export_peft`` also writes the adapter in PEFT
+layout (``models/hf_loader.py``) beside each save; ``profile_dir`` (the
+port's addition) writes a ``torch.profiler`` trace of steps
+``[profile_start_step, profile_start_step + profile_num_steps)``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from dalm_tpu_torch.core.dtypes import parse_dtype
+from dalm_tpu_torch.core.profiling import Profiler
 from dalm_tpu_torch.core.tree import unflatten
 from dalm_tpu_torch.data.sft import chars_token_ratio, create_datasets, pack_dataset, pad_dataset
 from dalm_tpu_torch.data.tokenizer import resolve_tokenizer
@@ -49,6 +53,7 @@ from dalm_tpu_torch.device import resolve_device
 from dalm_tpu_torch.losses.causal import causal_lm_loss
 from dalm_tpu_torch.models import lora as lora_mod
 from dalm_tpu_torch.models.decoder import Decoder
+from dalm_tpu_torch.models.hf_loader import export_peft_if_supported
 from dalm_tpu_torch.models.registry import resolve_decoder, save_pretrained
 from dalm_tpu_torch.train.metrics import MetricsLogger, WindowedThroughput
 from dalm_tpu_torch.train.optim import make_optimizer
@@ -118,6 +123,9 @@ def train_generator(
     pipeline_stages: int = 0,
     pp_microbatches: int = 0,
     pp_model_parallel: int = 1,
+    profile_dir: Optional[str] = None,
+    profile_start_step: int = 10,
+    profile_num_steps: int = 5,
     device=None,
     setup_hook: Optional[Callable[[SFTSetup], None]] = None,
 ) -> dict:
@@ -133,7 +141,6 @@ def train_generator(
         ("moe_aux_weight", moe_aux_weight, float(moe_aux_weight) > 0),
         ("mesh", mesh, mesh is not None),
         ("streaming", streaming, bool(streaming)),
-        ("export_peft", export_peft, bool(export_peft)),
         ("local_dataset", local_dataset, not local_dataset),
     ):
         if waits:
@@ -234,6 +241,7 @@ def train_generator(
     tracker = MetricsLogger(output_dir, project_name=run_name, config=args, report_to=log_with or "all",
                             enabled=log_with is not None or output_dir is not None)
     timer = WindowedThroughput()
+    profiler = Profiler(profile_dir, profile_start_step, profile_num_steps)
 
     completed = 0
     # The loss stays on the device between logging points: a read-back every
@@ -248,6 +256,7 @@ def train_generator(
             idx = order[s:s + global_batch]
             ids, mask = put(train_blocks[idx], train_masks[idx])
             noise_gen.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | completed)  # keyed per step
+            profiler.maybe_start(completed)
             logits = model.train_forward(ids, mask, neftune_alpha=alpha, noise_generator=noise_gen)
             loss = causal_lm_loss(logits, ids, mask)
             del logits
@@ -255,6 +264,7 @@ def train_generator(
             state.apply_gradients()
             last = loss.detach()
             completed += 1
+            profiler.maybe_stop(completed)
             if completed % logging_steps == 0:
                 final_loss = float(last)  # the synchronisation point
                 timer.mark(completed)
@@ -265,14 +275,15 @@ def train_generator(
                 logger.info("step %d eval loss %.4f", completed, val)
                 timer.mark(completed)  # keep validation out of the throughput windows
         if output_dir:
-            _save(output_dir, cfg, model, lora_spec, tokenizer)
+            _save(output_dir, cfg, model, lora_spec, tokenizer, export_peft, model_name)
             timer.mark(completed)  # keep the save out of the throughput windows
 
     if last is not None:
         final_loss = float(last)
         timer.mark(completed)
     if output_dir:
-        _save(os.path.join(output_dir, "final_checkpoint"), cfg, model, lora_spec, tokenizer)
+        _save(os.path.join(output_dir, "final_checkpoint"), cfg, model, lora_spec, tokenizer, export_peft, model_name)
+    profiler.close()
     tracker.close()
     val = run_validation()
     return {
@@ -285,10 +296,14 @@ def train_generator(
     }
 
 
-def _save(out_dir: str, cfg, model: Decoder, lora_spec, tokenizer_name: str) -> None:
+def _save(out_dir: str, cfg, model: Decoder, lora_spec, tokenizer_name: str, export_peft: bool = False,
+          base_name: str = "") -> None:
     """The (base) model as ``config.json`` + ``state_dict.pt``; with LoRA, the
-    adapter files beside the untouched base."""
+    adapter files beside the untouched base (and in PEFT layout with ``export_peft``)."""
     base = {k: v for k, v in model.state_dict().items() if k.rpartition(".")[2] not in LORA_LEAVES}
     save_pretrained(out_dir, cfg, base, extra={"tokenizer": tokenizer_name})
     if lora_spec is not None:
-        lora_mod.save_adapter(out_dir, lora_mod.merge_lora_params(model), lora_spec)
+        flat = lora_mod.merge_lora_params(model)
+        lora_mod.save_adapter(out_dir, flat, lora_spec)
+        if export_peft:
+            export_peft_if_supported(out_dir, flat, lora_spec, cfg, base_name)

@@ -1,5 +1,8 @@
-"""Metrics stream and step timers (own copy of ``dalm_tpu/train/metrics.py``;
-JSON lines only, TensorBoard is not ported)."""
+"""Metrics stream and step timers (own copy of ``dalm_tpu/train/metrics.py``):
+JSON lines always (with an output directory), and TensorBoard event files
+through ``tensorboardX`` when ``report_to`` is "all" or "tensorboard" and the
+package imports (else JSON lines only). ``torch.utils.tensorboard`` is not
+used: it imports TensorFlow where that is installed."""
 
 from __future__ import annotations
 
@@ -11,18 +14,27 @@ from typing import Any, Mapping, Optional
 
 class MetricsLogger:
     """Appends ``{"event": "metrics", "step", "time", ...}`` records (and one
-    ``config`` record) to ``{output_dir}/{project_name}_metrics.jsonl``."""
+    ``config`` record) to ``{output_dir}/{project_name}_metrics.jsonl``, and each
+    number as a scalar to ``{output_dir}/tb/{project_name}`` when TensorBoard is on."""
 
     def __init__(self, output_dir: Optional[str] = None, project_name: str = "dalm",
                  config: Optional[Mapping[str, Any]] = None, report_to: str = "all", enabled: bool = True):
         self.enabled = enabled and output_dir is not None
         self._jsonl = None
+        self._tb = None
         if not self.enabled:
             return
         os.makedirs(output_dir, exist_ok=True)
         self._jsonl = open(os.path.join(output_dir, f"{project_name}_metrics.jsonl"), "a")
         if config:
             self._write({"event": "config", **_jsonable(config)})
+        if report_to in ("all", "tensorboard"):
+            try:
+                from tensorboardX import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(output_dir, "tb", project_name))
+            except Exception:
+                self._tb = None
 
     def _write(self, record: dict) -> None:
         if self._jsonl:
@@ -34,13 +46,19 @@ class MetricsLogger:
             return
         record = {"event": "metrics", "step": int(step), "time": time.time()}
         for k, v in metrics.items():
-            record[k] = v.item() if hasattr(v, "item") else v
+            v = v.item() if hasattr(v, "item") else v
+            record[k] = v
+            if self._tb is not None and isinstance(v, (int, float)):
+                self._tb.add_scalar(k, v, step)
         self._write(record)
 
     def close(self) -> None:
         if self._jsonl:
             self._jsonl.close()
             self._jsonl = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 def _jsonable(d: Mapping[str, Any]) -> dict:

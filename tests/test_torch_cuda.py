@@ -1679,3 +1679,94 @@ def test_http_server_counts_every_search_on_card(cuda):
     for query, got in results.items():
         text = pipe.g_tok.decode(handles[query]._handle.result(), skip_special_tokens=True).split("#answer#")[0]
         assert got == (text.strip() if int(query.split()[-1]) % 2 == 0 else text)
+
+
+# --------------------------------------------------------------------------
+# The calibrated-scale quantiser and the calibrated int8 matmuls
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4608, 4096), (37, 11008), (7, 13), (1, 5)])
+def test_cal_quant_kernel_equals_plain_in_both_modes(cuda, shape, dtype):
+    """Bit for bit: the forward's x / a_scale and the backward's dy * scale / dy_scale with max |dy * scale|,
+    with values that clip (a scale below the absmax), a ragged tail (n not a multiple of the 16-byte vector) and
+    a zero tensor; one count a launch, by mode."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    M, K = shape
+    x = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    cs = torch.rand(K, generator=g, device=cuda) * 0.02 + 1e-4
+    s = (x.float().abs().amax() / 127 * 0.6).reshape(())
+    before = dict(im.cal_quant.launches)
+    q, a = im.cal_quant(x, s)
+    rq, _ = im.cal_quant_ref(x, s)
+    assert a is None and torch.equal(q, rq) and int((q.abs() == 127).sum()) > 0
+    dq, da = im.cal_quant(x, s * 0.01, cs, want_amax=True)
+    rdq, rda = im.cal_quant_ref(x, s * 0.01, cs, want_amax=True)
+    assert torch.equal(dq, rdq) and torch.equal(da, rda)
+    zq, za = im.cal_quant(torch.zeros(shape, device=cuda, dtype=dtype), s, cs, want_amax=True)
+    assert not zq.any() and float(za) == 0.0
+    assert im.cal_quant.launches == {"x": before["x"] + 1, "dy": before["dy"] + 2}
+
+
+@pytest.mark.parametrize("kn", [(4096, 4096), (4096, 11008), (11008, 4096), (40, 24), (48, 30)])
+@pytest.mark.parametrize("kind", ["cal", "dycal"])
+def test_calibrated_int8_matmul_route_matches_plain(cuda, kind, kn):
+    """The calibrated route (quantiser, weight pre-pass, scaled GEMM; the int32 GEMM on padded operands where
+    the scaled GEMM does not take the shape) and its backward against ``int8_matmul_*_ref`` on the same
+    operands: output, dx and the a_scale channel EQUAL (the GEMMs' int32 sums are exact, the rest is the plain
+    version's arithmetic)."""
+    K, N = kn
+    M = 4608 if K > 100 else 12
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand((1, N), generator=g, device=cuda) * 0.01
+    a0 = (x.float().abs().amax() / 127 * 0.8).reshape(())
+    dys = torch.tensor(0.05, device=cuda)
+    dy = torch.randn((M, N), generator=g, device=cuda).to(torch.bfloat16)
+    outs = []
+    for fn in ((im.int8_matmul_cal, im.int8_matmul_cal_ref) if kind == "cal"
+               else (im.int8_matmul_dycal, im.int8_matmul_dycal_ref)):
+        xx, aa = x.clone().requires_grad_(True), a0.clone().requires_grad_(True)
+        y = fn(xx, q, scale, aa, dys, True) if kind == "dycal" else fn(xx, q, scale, aa, True)
+        y.backward(dy)
+        outs.append((y.detach(), xx.grad, aa.grad))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+def test_tiny_train_e2e_dy_calibrated_card_matches_cpu(cuda, tmp_path):
+    """A tiny ``train_e2e(a8_dy_calibrate=True)`` (fused QLoRA, int8 bases on both sub-models, int8_compute="all",
+    a8_calibrate_every=2) on the card against the same run on the CPU: losses after 3 steps within 2e-3 (f32
+    models; the int8 kernels equal their plain versions, the other matmuls sum in another order), and the
+    quantiser launched in both modes."""
+    import csv
+
+    from dalm_tpu_torch.train import train_e2e
+
+    path = tmp_path / "rows.csv"
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Question", "Abstract", "Answer"])
+        for i in range(12):
+            w.writerow([f"question {i} about a thing", f"passage {i} says the value is {i * 7}", f"answer {i}"])
+    kw = dict(use_peft="both", use_bnb="both", lora_runtime="fused", int8_compute="all", a8_calibrate_every=2,
+              a8_dy_calibrate=True, query_max_len=48, passage_max_len=112, generator_max_len=256,
+              per_device_train_batch_size=4, learning_rate=1e-3, lr_scheduler_type="constant", seed=3,
+              max_train_steps=3, num_warmup_steps=0, with_tracking=False)
+    initial = {}
+
+    def keep(setup):
+        for sub in ("retriever", "generator"):
+            initial[sub] = {k: v.detach().clone() for k, v in getattr(setup.rag, sub).state_dict().items()}
+
+    def give(setup):
+        for sub in ("retriever", "generator"):
+            getattr(setup.rag, sub).load_state_dict(initial[sub])
+
+    cpu = train_e2e(str(path), "tiny", "tiny", device="cpu", setup_hook=keep, **kw)
+    before = dict(im.cal_quant.launches)
+    card = train_e2e(str(path), "tiny", "tiny", device=cuda, setup_hook=give, **kw)
+    for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+        assert np.isfinite(card[key]) and abs(card[key] - cpu[key]) <= 2e-3, (key, card[key], cpu[key])
+    assert im.cal_quant.launches["x"] > before["x"] and im.cal_quant.launches["dy"] > before["dy"]

@@ -57,8 +57,31 @@ def test_contrastive_loss_rejects_unported_arguments():
     q = torch.zeros(4, 8)
     with pytest.raises(NotImplementedError, match="local_negatives_block"):
         tcon.contrastive_loss(q, q, local_negatives_block=2)
-    with pytest.raises(NotImplementedError, match="extra_negative_logits"):
-        tcon.contrastive_loss(q, q, extra_negative_logits=torch.zeros(4, 2))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_contrastive_loss_with_extra_negatives_matches_jax(k):
+    """Hard negatives (B, K) extend the query->passage softmax: the (B, B + K) matrix keeps the positives at
+    column i, the passage->query direction stays square; values and gradients in q, p and the extra logits."""
+    rng = np.random.default_rng(4)
+    B, D = 6, 16
+    q, p = _unit(rng, B, D), _unit(rng, B, D)
+    extra = rng.standard_normal((B, k)).astype(np.float32) * 30
+    extra[0, -1] = np.finfo(np.float32).min  # a masked index row, as the live index's padding gives
+
+    def jloss(q_, p_, e_):
+        return jcon.contrastive_loss(q_, p_, 100.0, extra_negative_logits=e_)
+
+    (jl, jsim), jvjp = jax.vjp(jloss, jnp.asarray(q), jnp.asarray(p), jnp.asarray(extra))
+    jg = jvjp((jnp.ones(()), jnp.zeros_like(jsim)))
+    tq, tp, te = (torch.tensor(a, requires_grad=True) for a in (q, p, extra))
+    tl, tsim = tcon.contrastive_loss(tq, tp, 100.0, extra_negative_logits=te)
+    tl.backward()
+    assert tuple(tsim.shape) == (B, B + k)
+    _close(tl, jl, scale=1.0)
+    _close(tsim, jsim)
+    for t, g in zip((tq, tp, te), jg):
+        _close(t.grad, g)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -119,3 +142,78 @@ def test_rag_e2e_loss_matches_jax():
     assert sorted(t_parts) == sorted(j_parts)
     for k in t_parts:
         _close(t_parts[k], j_parts[k], 10.0)
+
+
+# ---- losses/marginal_topk.py -----------------------------------------------------------------------------------
+
+from dalm_tpu.losses import marginal_topk as jmtk  # noqa: E402
+from dalm_tpu_torch.losses import marginal_topk as tmtk  # noqa: E402
+
+
+def _segments(rng, B, K, Lq=6, Lp=9, La=7, V=30):
+    q_ids = rng.integers(1, V, (B, Lq)).astype(np.int32)
+    p_ids = rng.integers(1, V, (B, K, Lp)).astype(np.int32)
+    a_ids = rng.integers(1, V, (B, La)).astype(np.int32)
+    q_len = rng.integers(2, Lq + 1, B).astype(np.int32)
+    p_len = rng.integers(1, Lp + 1, (B, K)).astype(np.int32)
+    a_len = rng.integers(3, La + 1, B).astype(np.int32)
+    return q_ids, q_len, p_ids, p_len, a_ids, a_len
+
+
+def test_assemble_generator_inputs_equal_jax():
+    rng = np.random.default_rng(7)
+    args = _segments(rng, 3, 4)
+    j = jmtk.assemble_generator_inputs(*map(jnp.asarray, args), pad_id=0)
+    t = tmtk.assemble_generator_inputs(*(torch.from_numpy(a).long() for a in args), pad_id=0)
+    for a, b in zip(t, j):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert tuple(t[0].shape) == (3, 4, 6 + 9 + 7)
+
+
+@pytest.mark.parametrize("mode", ["sequence", "token"])
+def test_topk_marginal_losses_and_grads_match_jax(mode):
+    """Every function of the module on one assembled batch: the per-token and per-candidate log-likelihoods,
+    the answer mask, the aligned gather, and both marginal losses with their gradients in the scores and the
+    logits (tolerance as the module's other losses)."""
+    rng = np.random.default_rng(8)
+    B, K, V, marker = 3, 4, 30, 2
+    q_ids, q_len, p_ids, p_len, a_ids, a_len = _segments(rng, B, K, V=V)
+    ids, mask, boundary = (np.asarray(x) for x in jmtk.assemble_generator_inputs(
+        *map(jnp.asarray, (q_ids, q_len, p_ids, p_len, a_ids, a_len))))
+    L, A = ids.shape[2], a_ids.shape[1]
+    logits = rng.standard_normal((B, K, L, V)).astype(np.float32) * 2
+    scores = rng.standard_normal((B, K)).astype(np.float32) * 5
+    ti, tm, tb = (torch.from_numpy(x).long() for x in (ids, mask, boundary))
+
+    jll, jn = jmtk.answer_loglik(jnp.asarray(logits), ids, mask, boundary, marker)
+    tll, tn = tmtk.answer_loglik(torch.from_numpy(logits), ti, tm, tb, marker)
+    _close(tll, jll)
+    assert np.array_equal(tn.numpy(), np.asarray(jn))
+    jtok, jans = jmtk.answer_token_loglik(jnp.asarray(logits), ids, mask, boundary, marker)
+    ttok, tans = tmtk.answer_token_loglik(torch.from_numpy(logits), ti, tm, tb, marker)
+    _close(ttok, jtok)
+    assert np.array_equal(tans.numpy(), np.asarray(jans))
+    jvalid = jmtk.answer_token_mask(jnp.asarray(a_len), marker, A)
+    tvalid = tmtk.answer_token_mask(torch.from_numpy(a_len).long(), marker, A)
+    assert np.array_equal(tvalid.numpy(), np.asarray(jvalid))
+    _close(tmtk.aligned_answer_token_loglik(torch.from_numpy(logits), ti, tm, tb, marker, A),
+           jmtk.aligned_answer_token_loglik(jnp.asarray(logits), ids, mask, boundary, marker, A))
+
+    def jloss(s, lg):
+        if mode == "token":
+            return jmtk.topk_marginal_token_loss(s, jmtk.aligned_answer_token_loglik(lg, ids, mask, boundary, marker, A),
+                                                 jvalid)
+        ll, n = jmtk.answer_loglik(lg, ids, mask, boundary, marker)
+        return jmtk.topk_marginal_loss(s, ll, n)
+
+    jl, (jgs, jgl) = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(scores), jnp.asarray(logits))
+    ts, tl = torch.tensor(scores, requires_grad=True), torch.tensor(logits, requires_grad=True)
+    if mode == "token":
+        loss = tmtk.topk_marginal_token_loss(ts, tmtk.aligned_answer_token_loglik(tl, ti, tm, tb, marker, A), tvalid)
+    else:
+        ll, n = tmtk.answer_loglik(tl, ti, tm, tb, marker)
+        loss = tmtk.topk_marginal_loss(ts, ll, n)
+    loss.backward()
+    _close(loss, jl, scale=1.0)
+    _close(ts.grad, jgs)
+    _close(tl.grad, jgl)

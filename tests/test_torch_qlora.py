@@ -218,8 +218,15 @@ def test_interop_rejects_unported_leaves_and_mismatched_factors():
     _, params = _decoder_params()
     residual, quant_tree = jqlora.pack_qlora_frozen(params, quantize=True)
     quant_tree = jax.tree.map(np.asarray, quant_tree)
+    # calibrated scales beside an int8 base load as buffers; a leaf the layer does not know is refused
     quant_tree["layer_0"]["attention"]["q_proj"]["a_scale"] = np.float32(0.1)
-    with pytest.raises(NotImplementedError, match="a_scale"):
+    quant_tree["layer_0"]["attention"]["q_proj"]["dy_scale"] = np.float32(0.25)
+    dec = interop.load_packed(Decoder(DecoderConfig.tiny()), jax.tree.map(np.asarray, residual), quant_tree)
+    site = dec.layer_0.attention.q_proj
+    assert float(site.a_scale) == np.float32(0.1) and float(site.dy_scale) == 0.25 and site.a_scale.dim() == 0
+    assert dec.layer_0.attention.k_proj.a_scale is None
+    quant_tree["layer_0"]["attention"]["q_proj"]["x_scale"] = np.float32(0.5)
+    with pytest.raises(RuntimeError, match="x_scale"):
         interop.load_packed(Decoder(DecoderConfig.tiny()), jax.tree.map(np.asarray, residual), quant_tree)
     tmod = Decoder(DecoderConfig.tiny())
     tmod.reset_parameters(torch.Generator().manual_seed(0))

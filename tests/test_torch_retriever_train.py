@@ -1,0 +1,128 @@
+"""``train_retriever`` against the JAX package's on the CPU, with
+``use_dropout=False`` (dropout masks come from different generators), from
+the same saved tiny encoder and LoRA factors over the same batches.
+
+Tolerances: the final loss within 1e-4 after 3 steps (observed 2e-6 to
+8e-6); the trained factors within 3e-4 of the reference's; the saved base
+EQUAL to the reference's (int8 where quantised); the PEFT files' keys, shapes
+and JSON equal.
+"""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dalm_tpu.data import preprocess as jpre
+from dalm_tpu.data.tokenizer import resolve_tokenizer as jtok
+from dalm_tpu.models import lora as jlora
+from dalm_tpu.models import registry as jreg
+from dalm_tpu_torch import interop
+from dalm_tpu_torch.data import preprocess as tpre
+from dalm_tpu_torch.data.tokenizer import resolve_tokenizer
+from dalm_tpu_torch.models import lora as tlora
+from dalm_tpu_torch.models import registry as treg
+from dalm_tpu_torch.train import train_retriever
+from dalm_tpu_torch.train.retriever_only import RetrieverSetup
+from test_torch_train import _save_tiny_bases
+
+KW = dict(query_max_len=24, passage_max_len=48, learning_rate=1e-3, with_tracking=False, use_dropout=False)
+
+
+@pytest.mark.parametrize("peft,bnb", [(True, True), (True, False), (False, False)], ids=["lora-int8", "lora", "dense"])
+def test_train_retriever_matches_jax(tmp_path, toy_csv, peft, bnb):
+    from dalm_tpu.train.retriever_only import train_retriever as jax_train_retriever
+
+    bases = _save_tiny_bases(str(tmp_path))
+    seed = 5
+    common = dict(KW, max_train_steps=3, seed=seed, use_peft=peft, use_bnb=bnb, export_peft=peft)
+    jout, tout = str(tmp_path / "jax_out"), str(tmp_path / "out")
+    j = jax_train_retriever(bases["retriever"][0], toy_csv, per_device_train_batch_size=1, local_negatives=False,
+                            output_dir=jout, **common)
+    init_rng, _ = jax.random.split(jax.random.PRNGKey(seed))
+    seen = {}
+
+    def hook(setup):
+        assert isinstance(setup, RetrieverSetup)
+        if peft:
+            f = jlora.init_lora_params(jax.random.fold_in(init_rng, 7), bases["retriever"][2], jlora.LoraSpec.for_encoder())
+            interop.load_merge_lora(setup.model, jax.tree.map(np.asarray, f), setup.lora_spec)
+        seen["trainable"] = sorted(setup.state.params)
+        seen["all"] = sorted(n for n, _ in setup.model.named_parameters())
+
+    t = train_retriever(bases["retriever"][1], toy_csv, per_device_train_batch_size=8, device="cpu", setup_hook=hook,
+                        output_dir=tout, **common)
+    assert t["steps"] == j["steps"] == 3 and set(j) <= set(t)
+    assert abs(t["final_loss"] - j["final_loss"]) <= 1e-4, (t["final_loss"], j["final_loss"])
+    if peft:  # A and B of query / key / value in both layers
+        assert seen["trainable"] == sorted(f"layer_{i}.attention.{m}.{leaf}" for i in range(2)
+                                           for m in ("query", "key", "value") for leaf in ("lora_a", "lora_b"))
+    else:
+        assert seen["trainable"] == seen["all"]
+    td, jd = os.path.join(tout, "retriever"), os.path.join(jout, "retriever")
+    cfg, state = treg.load_pretrained(td)
+    with open(os.path.join(td, "config.json")) as f:
+        meta = json.load(f)
+    assert meta["tokenizer"] == "byte" and meta["is_autoregressive"] is False
+    assert any(k.endswith(".q") for k in state) == (peft and bnb)
+    if not peft:
+        return
+    _, jparams = jreg.load_pretrained(jd)
+    for k, v in state.items():  # the frozen base, as the reference saves it
+        path = k.split(".")
+        leaf = path[-1]
+        node = jparams
+        for p in path[:-1]:
+            node = node[p]
+        want = node["kernel"]["__int8__" if leaf == "q" else "scale"] if leaf in ("q", "scale") and "kernel" in node \
+            else node[leaf]
+        assert np.array_equal(v.float().numpy(), np.asarray(want, np.float32)), k
+    tflat, spec = tlora.load_adapter(td)
+    jfl, _ = jlora.load_adapter(jd)
+    assert sorted(tflat) == sorted(jfl) and spec.rank == 8
+    for path, ab in tflat.items():
+        for leaf in ("lora_a", "lora_b"):
+            np.testing.assert_allclose(ab[leaf].numpy(), np.asarray(jfl[path][leaf]), rtol=0, atol=3e-4)
+    tp = torch.load(os.path.join(td, "adapter_model.bin"), weights_only=True)
+    jp = torch.load(os.path.join(jd, "adapter_model.bin"), weights_only=True)
+    assert sorted(tp) == sorted(jp) and all(tp[k].shape == jp[k].shape for k in jp)
+    with open(os.path.join(td, "adapter_config.json")) as f1, open(os.path.join(jd, "adapter_config.json")) as f2:
+        tc, jc = json.load(f1), json.load(f2)
+    assert tc.pop("base_model_name_or_path") == bases["retriever"][1]
+    assert jc.pop("base_model_name_or_path") == bases["retriever"][0] and tc == jc
+
+
+def test_preprocess_retriever_dataset_equals_jax(toy_csv):
+    import csv
+
+    with open(toy_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    cols = {k: [r[k] for r in rows] for k in rows[0]}
+    t = tpre.preprocess_retriever_dataset(cols, resolve_tokenizer("byte"), "Question", "Abstract", 24, 48)
+    j = jpre.preprocess_retriever_dataset(cols, jtok("byte"), "Question", "Abstract", 24, 48)
+    assert sorted(t) == sorted(j) and all(np.array_equal(np.asarray(t[k]), np.asarray(j[k])) for k in j)
+
+
+def test_train_retriever_dropout_resume_and_raises(tmp_path, toy_csv):
+    """Dropout (the default) trains, differs from use_dropout=False and repeats itself per seed; a run resumed
+    from its epoch-0 checkpoint ends where the uninterrupted run ends; is_autoregressive raises naming the knob."""
+    kw = dict(KW, use_dropout=True, per_device_train_batch_size=4, device="cpu", seed=3, use_peft=True,
+              lr_scheduler_type="constant")
+    a = train_retriever("tiny", toy_csv, max_train_steps=2, **kw)
+    b = train_retriever("tiny", toy_csv, max_train_steps=2, **kw)
+    c = train_retriever("tiny", toy_csv, max_train_steps=2, **dict(kw, use_dropout=False))
+    assert a["final_loss"] == b["final_loss"] != c["final_loss"] and np.isfinite(a["final_loss"])
+    out = str(tmp_path / "o")
+    first = train_retriever("tiny", toy_csv, num_train_epochs=1, output_dir=out, checkpointing_steps="epoch", **kw)
+    assert first["steps"] == 4 and os.path.isdir(os.path.join(out, "epoch_0"))
+    resumed = train_retriever("tiny", toy_csv, num_train_epochs=2, output_dir=out,
+                              resume_from_checkpoint=os.path.join(out, "epoch_0"), **kw)
+    straight = train_retriever("tiny", toy_csv, num_train_epochs=2, output_dir=str(tmp_path / "s"), **kw)
+    assert resumed["steps"] == straight["steps"] == 8
+    assert abs(resumed["final_loss"] - straight["final_loss"]) < 1e-5
+    for name, value in (("is_autoregressive", True), ("mesh", object()), ("model_parallel", 2)):
+        with pytest.raises(NotImplementedError, match=name):
+            train_retriever("tiny", toy_csv, device="cpu", **{name: value})

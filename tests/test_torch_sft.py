@@ -479,7 +479,7 @@ SFT_UNPORTED = [
     ("context_parallel", dict(context_parallel=True)), ("cp_layout", dict(cp_layout="zigzag")),
     ("pipeline_stages", dict(pipeline_stages=2, use_peft=False)), ("pp_microbatches", dict(pp_microbatches=2)),
     ("pp_model_parallel", dict(pp_model_parallel=2)), ("moe_aux_weight", dict(moe_aux_weight=0.01)),
-    ("mesh", dict(mesh=object())), ("streaming", dict(streaming=True)), ("export_peft", dict(export_peft=True)),
+    ("mesh", dict(mesh=object())), ("streaming", dict(streaming=True)),
     ("local_dataset", dict(local_dataset=False)),
 ]
 

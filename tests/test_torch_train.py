@@ -222,12 +222,8 @@ def test_metrics_logger_and_timers(tmp_path):
 CALIBRATED = dict(use_peft="both", use_bnb="both", lora_runtime="fused", int8_compute="all")
 
 UNPORTED = [
-    ("lora_runtime", dict(use_peft="both", lora_runtime="merge")), ("live_index", dict(live_index=True)),
-    ("live_negatives_k", dict(live_negatives_k=4)), ("marginalize_k", dict(marginalize_k=2)),
-    ("a8_calibrate_every", dict(CALIBRATED, a8_calibrate_every=16)), ("a8_dy_calibrate", dict(a8_dy_calibrate=True)),
-    ("export_peft", dict(export_peft=True)), ("mesh", dict(mesh=object())), ("model_parallel", dict(model_parallel=2)),
-    ("retriever_is_autoregressive", dict(retriever_is_autoregressive=True)), ("profile_dir", dict(profile_dir="/tmp/p")),
-    ("use_dropout", dict(use_dropout=True)),
+    ("mesh", dict(mesh=object())), ("model_parallel", dict(model_parallel=2)),
+    ("retriever_is_autoregressive", dict(retriever_is_autoregressive=True)),
 ]
 
 
@@ -240,15 +236,25 @@ def test_unported_knobs_raise_naming_the_knob(toy_csv, knob, kw):
 @pytest.mark.parametrize("use_bnb", ["both", "retriever", "generator"])
 def test_a8_calibrate_every_defaults_to_the_references_and_raises_where_it_would_calibrate(toy_csv, use_bnb):
     """Left out, a8_calibrate_every is the reference's 16: with a quantised sub-model that has LoRA, the fused
-    runtime and int8 compute, the reference calibrates, so the port raises naming the knob."""
+    runtime and int8 compute, the reference calibrates, and so does the port now (it raised before the
+    calibrated path was ported): after one step every int8 layer of the quantised sub-models holds an
+    activation scale, max(amax / 127, 1e-8), and no dy scale; the others hold none."""
     import inspect
 
     from dalm_tpu.train.rag_e2e import train_e2e as jax_train_e2e
 
     assert inspect.signature(train_e2e).parameters["a8_calibrate_every"].default == 16
     assert inspect.signature(jax_train_e2e).parameters["a8_calibrate_every"].default == 16
-    with pytest.raises(NotImplementedError, match="a8_calibrate_every"):
-        train_e2e(toy_csv, "tiny", "tiny", device="cpu", **dict(CALIBRATED, use_bnb=use_bnb))
+    seen = {}
+    out = train_e2e(toy_csv, "tiny", "tiny", device="cpu", max_train_steps=1, per_device_train_batch_size=8,
+                    setup_hook=lambda s: seen.update(rag=s.rag), **{**SMALL, **CALIBRATED, "use_bnb": use_bnb})
+    assert out["steps"] == 1 and np.isfinite(out["final_loss"])
+    for sub in ("retriever", "generator"):
+        layers = [m for m in getattr(seen["rag"], sub).modules() if getattr(m, "q", None) is not None]
+        calibrated = use_bnb in ("both", sub)
+        assert bool(layers) == calibrated
+        for m in layers:
+            assert m.a_scale is not None and m.a_scale.dim() == 0 and float(m.a_scale) >= 1e-8 and m.dy_scale is None
 
 
 def test_a8_calibrate_every_left_out_is_inert_without_int8_compute(toy_csv):
