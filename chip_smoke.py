@@ -33,7 +33,13 @@ second half spills to host RAM; and builds a 4-bit pipeline with PEFT
 adapters merged into both towers; and trains the rest of the training
 paths at full width: dy-calibrated (``a8_dy_calibrate``), the live index with
 hard negatives and the top-k marginal over 4,608 passages, the merge runtime
-with dropout, PEFT export and a profiler window, and ``train_retriever``.
+with dropout, PEFT export and a profiler window, and ``train_retriever``; and
+evaluates: ``evaluate_retriever`` (bge-large over 65,536 rows into an f32 index,
+then int8 and int4 indexes over 16,384), ``evaluate_rag`` (bge-large +
+Llama-2-7B, exact match planted at 0.5), the autoregressive EOS-pooled
+retriever at Llama-2-7B width through the eval, ``train_retriever``,
+``train_e2e`` (two 7B towers on the W8A8 route) and ``RagPipeline``, and the
+``dalm-torch`` CLI in subprocesses.
 Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
@@ -77,6 +83,14 @@ index, ``live_negatives_k=8``, ``marginalize_k`` = ``LIVE_K``, token mode, 1 war
 (``train_retriever("bge-large", ...)``, LoRA on an int8 base, dropout, batch 32),
 ``sft-small`` (tiny ``train_generator``, card vs CPU), ``sft``; ``k1`` also holds the calibrated-scale
 quantiser (both modes) to its plain version and times it and the calibrated forward route;
+``eval-retriever`` (``evaluate_retriever`` at bge-large, top-10, batch 256: ``EVAL_ROWS`` rows into an f32 index,
+then ``EVAL_Q_ROWS`` into int8 and int4 indexes; every search held against the plain top-k and the metrics
+recomputed from both, ``hold_eval``), ``eval-rag`` (``evaluate_rag`` at bge-large + Llama-2-7B, ``RAG_ROWS`` rows,
+half the answers planted from the same generator's greedy output: exact match 0.5), ``eval-ar`` (the EOS-pooled
+Llama-2-7B retriever: ``evaluate_retriever`` over ``AR_ROWS`` rows with K3 at D 4096, ``train_retriever``,
+``train_e2e`` with both towers on the W8A8 route and its int8 launches split by tower, a ``RagPipeline`` with an
+int4 generator), ``cli`` (``python3 -m dalm_tpu_torch.cli``: ``version``, every ``--help``, ``eval-retriever``
+equal to the in-process call);
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
 trace of the RAG / SFT training steps: device busy share and the top kernels
 by device time) and ``profile-serve`` (the same over 8 decode iterations of
@@ -101,8 +115,14 @@ entry and K5 base's fused kernel, pre-pass and GEMM also carry
 ``answer_continuous()``, and ``launches_serve_stream``, their counts in
 serve-stream's speculative and streaming runs; ``launches_serve_http``,
 ``launches_serve_refresh`` and ``launches_serve_adapter`` likewise; K3's int8
-and int4 entries count the searches of serve-refresh's rebuilt indexes), and as
-the last line ``{"ok": true, "device": {...}}``.
+and int4 entries count the searches of serve-refresh's rebuilt indexes;
+``launches_eval_retriever`` (K3 by mode), ``launches_eval_rag``, ``launches_eval_ar``
+(K3 at D 4096, K5 in the AR pipeline's ``answer()``, the int8 kernels of the
+two-7B ``train_e2e``; ``launches_eval_ar_retriever`` their retriever tower's
+share) and ``launches_cli`` (read from the CLI's own process) count the evaluation phases' launches), one
+``k3_eval_cases`` line
+(K3 timed at each eval's shape), and as the last line
+``{"ok": true, "device": {...}}``.
 
 Tolerances: K3 on exact-arithmetic inputs (small integers times powers of
 two, so every partial sum is exact in f32 whatever the order) must match
@@ -3786,7 +3806,7 @@ def serve_adapter_phase(device, passages, retriever="bge-large", generator="llam
     import numpy as np
     import torch
 
-    from dalm_tpu_torch import serve as serve_mod
+    from dalm_tpu_torch.eval import rag as rag_mod
     from dalm_tpu_torch.eval import retriever as retriever_mod
     from dalm_tpu_torch.models.decoder import Decoder
     from dalm_tpu_torch.models.embedder import SentenceEmbedder
@@ -3815,7 +3835,7 @@ def serve_adapter_phase(device, passages, retriever="bge-large", generator="llam
     layers = g_cfg.num_layers
     watch = [f"layer_{i}/attention/{p}/kernel" for i in (0, layers - 1) for p in ("q_proj", "v_proj")]
     watch_r = "layer_0/attention/query/kernel"
-    seen, merge = {}, serve_mod.merge_lora_inplace
+    seen, merge = {}, rag_mod.merge_lora_inplace
 
     def capturing(module, lora_params, spec):  # keeps the kernels W the merge is given
         for path in lora_params:
@@ -3827,7 +3847,7 @@ def serve_adapter_phase(device, passages, retriever="bge-large", generator="llam
     with tempfile.TemporaryDirectory() as tmp:
         save_adapter(f"{tmp}/retriever", r_lora, r_spec)
         save_adapter(f"{tmp}/generator", g_lora, g_spec)
-        serve_mod.merge_lora_inplace = retriever_mod.merge_lora_inplace = capturing
+        rag_mod.merge_lora_inplace = retriever_mod.merge_lora_inplace = capturing
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3838,7 +3858,7 @@ def serve_adapter_phase(device, passages, retriever="bge-large", generator="llam
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
         finally:
-            serve_mod.merge_lora_inplace = retriever_mod.merge_lora_inplace = merge
+            rag_mod.merge_lora_inplace = retriever_mod.merge_lora_inplace = merge
     left = [n for m in (pipe.retriever, pipe.generator) for n, x in m.named_modules()
             if isinstance(x, FlexLinear) and any(getattr(x, f) is not None for f in ("lora_a", "lora_b", "a", "b"))]
     check(not left and len(seen) == len(watch) + 1, f"serve-adapter: layers keep factors {left[:4]}, or the merge "
@@ -4069,6 +4089,586 @@ def serve_phase(device, rng, peaks, kernels):
     return pipe
 
 
+EVAL_ROWS = 65536  # eval-retriever's f32 run: its rows are its queries, their unique passages its index
+EVAL_Q_ROWS = 16384  # the int8 / int4 runs' and the CLI's rows
+EVAL_DUPS = 64  # rows that repeat an earlier passage
+RAG_ROWS = 64  # eval-rag
+AR_ROWS = 4096  # eval-ar (a)
+
+
+def eval_columns(n, rng, dups=EVAL_DUPS):
+    """Question / Abstract / Answer columns of ``n`` rows: ``n - dups`` unique synthetic passages (90 random
+    lower-case characters and an id), each asked by a 40-character span of itself, then ``dups`` rows that repeat
+    earlier passages, each asked by another span."""
+    import numpy as np
+
+    letters = np.array(list(string.ascii_lowercase + " "))
+    u = n - dups
+    chars = letters[rng.integers(0, len(letters), (u, 90))]
+    passages = ["".join(row) + f" topic {i}" for i, row in enumerate(chars)]
+    questions = [p[s:s + 40] for p, s in zip(passages, rng.integers(0, 50, u))]
+    for j in rng.choice(u, dups, replace=False):
+        passages.append(passages[j])
+        questions.append(passages[j][50:90])
+    return {"Question": questions, "Abstract": passages, "Answer": [f"answer {i}" for i in range(n)]}
+
+
+class SearchLog:
+    """While installed, ``DenseIndex.search`` keeps each call's index, queries (as passed), K3's (scores, ids) and
+    host-clock seconds (synchronised before and after; it returns host arrays)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from dalm_tpu_torch.index.dense import DenseIndex
+
+        self._real = real = DenseIndex.search
+
+        def search(index, queries, k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, i = real(index, queries, k)
+            self.calls.append(dict(index=index, q=queries, k=k, s=s, i=i, t=time.perf_counter() - t0))
+            return s, i
+
+        DenseIndex.search = search
+        return self
+
+    def __exit__(self, *exc):
+        from dalm_tpu_torch.index.dense import DenseIndex
+
+        DenseIndex.search = self._real
+
+    @property
+    def seconds(self):
+        return sum(c["t"] for c in self.calls)
+
+
+class Timed:
+    """While installed, ``module.name`` (a function) is timed on the host clock, synchronised; calls and seconds
+    add up in ``n`` and ``seconds``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.n, self.seconds = module, name, 0, 0.0
+
+    def __enter__(self):
+        import torch
+
+        self._real = real = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.n += 1
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._real)
+
+
+def hold_eval(label, log, gold, result, threshold=0.0):
+    """Every search of an eval held against ``fused_dot_topk_ref`` on the same queries and rows (``compare_topk``:
+    scores within NEAR_TIE, ids equal but at near ties), and the four metrics recomputed from both results: the
+    kernel's must give the eval's ``EvalResults`` exactly; a query whose metrics differ between the two must be one
+    whose top-k differs at a near tie; with no such query the plain result gives the eval's numbers too. Returns
+    (max score error, queries with a near-tie id swap, queries whose metrics differ)."""
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.eval.common import aggregate_results, score_batch, threshold_hits
+    from dalm_tpu_torch.kernels.topk import _dequantized_rows, fused_dot_topk_ref
+
+    id_to_passage = dict(enumerate(dict.fromkeys(gold)))
+    sums = {"kernel": ([], [], [], 0), "plain": ([], [], [], 0)}
+    start, max_err, tie_queries, differing = 0, 0.0, 0, 0
+    for c in log.calls:
+        idx = c["index"]
+        q = c["q"].to(device=idx.device, dtype=torch.bfloat16 if idx.scales is not None else idx.embeddings.dtype)
+        rs, ri = fused_dot_topk_ref(q, idx.embeddings, c["k"], num_valid=idx.num_real, scales=idx.scales,
+                                    int4=idx.int4)
+        s, i = (torch.from_numpy(x).to(idx.device) for x in (c["s"], c["i"]))
+        err, _ = compare_topk(s, i, rs, ri, q.float(), _dequantized_rows(idx.embeddings, idx.int4), idx.scales)
+        max_err = max(max_err, err)
+        ties = (i != ri).any(dim=1).cpu().numpy()
+        g = gold[start:start + len(ties)]
+        start += len(ties)
+        per = {}
+        for name, (sc, ids) in (("kernel", (c["s"], c["i"])), ("plain", (rs.cpu().numpy(), ri.cpu().numpy()))):
+            p, r, h, _, rr = score_batch(threshold_hits(sc, ids, id_to_passage, threshold), g)
+            ps, rs_, rrs, hs = sums[name]
+            sums[name] = (ps + p, rs_ + r, rrs + rr, hs + h)
+            per[name] = list(zip(p, r, rr))
+        diff = np.array([a != b for a, b in zip(per["kernel"], per["plain"])])
+        check(not (diff & ~ties).any(), f"{label}: metrics differ at a query whose top-k has no near tie")
+        tie_queries += int(ties.sum())
+        differing += int(diff.sum())
+    check(start == len(gold), f"{label}: searched {start} queries of {len(gold)}")
+    kernel_res = aggregate_results(len(gold), *sums["kernel"][:2], sums["kernel"][3], sums["kernel"][2])
+    plain_res = aggregate_results(len(gold), *sums["plain"][:2], sums["plain"][3], sums["plain"][2])
+    check(kernel_res == result, f"{label}: the eval's results {result} are not its searches' {kernel_res}")
+    check(differing > 0 or plain_res == result, f"{label}: the plain top-k gives {plain_res}, the eval {result}")
+    return max_err, tie_queries, differing
+
+
+def k3_eval_record(mode, label, idx, q, k, peaks):
+    """K3 timed at an eval's own shape: one search's queries against the eval's index, by CUDA events, beside its
+    plain version and (float rows) ``torch.topk(q @ e.T)``."""
+    import torch
+
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk, fused_dot_topk_ref
+
+    q = q.to(device=idx.device, dtype=torch.bfloat16 if idx.scales is not None else idx.embeddings.dtype).contiguous()
+    kw = dict(num_valid=idx.num_real, scales=idx.scales, int4=idx.int4)
+    e = idx.embeddings
+    ms = cuda_ms(lambda: fused_dot_topk(q, e, k, **kw), 20)
+    plain_ms = cuda_ms(lambda: fused_dot_topk_ref(q, e, k, **kw), 5)
+    lib_ms = cuda_ms(lambda: torch.topk(q @ e.T, k), 20) if idx.scales is None else None
+    Q, D = q.shape  # the full width (int4 rows hold D / 2 bytes)
+    N = e.shape[0]
+    nbytes = e.numel() * e.element_size() + (4 * N if idx.scales is not None else 0) + q.numel() * q.element_size() \
+        + Q * k * 8
+    rec = k3_record(mode, f"{label} Q={Q} N={N} D={D} k={k}", ms, plain_ms, lib_ms, 0.0, nbytes, 2.0 * Q * N * D,
+                    peaks[0], peaks[1] if e.dtype == torch.float32 else peaks[2])
+    print(f"[{label}] K3 at this eval's shape ({rec['case']}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+          f"{rec['bound_ms'] / ms:.1%} of it)", flush=True)
+    return rec
+
+
+def _k3_zero():
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk
+
+    fused_dot_topk.launches = dict.fromkeys(fused_dot_topk.launches, 0)
+
+
+def _k3_counts():
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk
+
+    return dict(fused_dot_topk.launches)
+
+
+def eval_retriever_phase(device, peaks, smi, f32_rows=EVAL_ROWS):
+    """``evaluate_retriever("bge-large", top_k=10, max_length=128, test_batch_size=256)`` (random from seed 0,
+    bf16) over ``f32_rows`` synthetic rows into an f32 index, then with ``index_quantize="int8"`` and ``"int4"``
+    over ``EVAL_Q_ROWS``. Every K3 search held against the plain version and the metrics recomputed
+    (``hold_eval``); K3 timed at each run's shape. Returns ({mode: K3 launches}, {mode: its record}, numbers)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.eval import retriever as retriever_mod
+    from dalm_tpu_torch.eval.retriever import evaluate_retriever
+
+    launches, records, out = {}, {}, {}
+    for mode, rows in (("f32", f32_rows), ("int8", EVAL_Q_ROWS), ("int4", EVAL_Q_ROWS)):
+        cols = eval_columns(rows, np.random.default_rng(11))
+        n_unique = len(dict.fromkeys(cols["Abstract"]))
+        _k3_zero()
+        with SearchLog() as log, Timed(retriever_mod, "embed_dataset") as embed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = evaluate_retriever(cols, "bge-large", top_k=10, max_length=128, test_batch_size=256, device=device,
+                                     index_quantize=False if mode == "f32" else mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches[mode] = _k3_counts()
+        check(launches[mode][mode] == len(log.calls) == -(-rows // 256) and sum(launches[mode].values()) == len(
+            log.calls), f"eval-retriever {mode}: K3 launches {launches[mode]} for {len(log.calls)} searches")
+        check(res.total_examples == rows and 0.0 <= res.hit_rate <= 1.0 and res.recall == res.hit_rate
+              and all(np.isfinite([res.precision, res.mrr])), f"eval-retriever {mode}: {res}")
+        max_err, ties, differing = hold_eval(f"eval-retriever {mode}", log, cols["Abstract"], res)
+        records[mode] = k3_eval_record(mode, "eval-retriever", log.calls[0]["index"], log.calls[0]["q"], 10, peaks)
+        out[mode] = dict(rows=rows, passages=n_unique, wall_s=wall, embed_s=embed.seconds,
+                         passages_per_s=n_unique / embed.seconds, search_s=log.seconds, searches=len(log.calls),
+                         results=json.loads(res.model_dump_json()), near_tie_queries=ties,
+                         metric_differing_queries=differing, max_abs_err=max_err, launches=launches[mode])
+        print(f"[eval-retriever] {mode} index, {rows} queries over {n_unique} unique passages (bge-large bf16, "
+              f"top-10, max_length 128, batch 256; {smi}): wall {wall:.2f} s; passage embedding {embed.seconds:.2f} s "
+              f"= {n_unique / embed.seconds:.0f} passages/s; {len(log.calls)} searches {log.seconds:.3f} s (host "
+              f"clock, copies included); queries' embedding and metrics the rest; {res.model_dump_json()}; K3 vs "
+              f"plain: max score err {max_err:.2e}, {ties} queries with a near-tie id swap, {differing} whose "
+              f"metrics differ; K3 launches by mode {launches[mode]}", flush=True)
+        del log, res, cols
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"eval_retriever": out}), flush=True)
+    return launches, records, out
+
+
+def eval_rag_phase(device, smi):
+    """``evaluate_rag(cols, "bge-large", "llama2-7b")`` at the JAX package's defaults (bf16, max_length 128,
+    query_batch_size 16, max_new_tokens 64, top-10) over ``RAG_ROWS`` rows. The answers are planted first: the
+    same retrieval (the eval's own helpers, batch sizes and K3) gives each query's top-1 passage, the same
+    generator (llama2-7b from seed 0) answers its prompt greedily in the same 16-prompt batches, and every second
+    row's answer is set to that text; ``exact_match`` must then read 0.5, and the prompts the eval generates from
+    must be those. Returns (K3 launches, numbers)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.data.loading import ColumnDataset
+    from dalm_tpu_torch.data.tokenizer import resolve_tokenizer
+    from dalm_tpu_torch.eval import rag as rag_mod
+    from dalm_tpu_torch.eval import retriever as retriever_mod
+    from dalm_tpu_torch.eval.common import preprocess_eval_dataset
+    from dalm_tpu_torch.models.generate import build_greedy_generate
+
+    cols = eval_columns(RAG_ROWS, np.random.default_rng(12), dups=4)
+    qbs, max_len, new = 16, 128, 64
+    t0 = time.perf_counter()
+    model, tok = retriever_mod.load_retriever_for_eval("bge-large", None, False, "bfloat16", "byte", device=device)
+    processed = preprocess_eval_dataset(ColumnDataset(cols), tok, "Question", "Abstract", max_len)
+    index, id_to_passage = retriever_mod.embed_and_index(model, processed, "Abstract", 8, None, False)
+    top1 = []
+    retriever_mod.search_and_score(model, processed, index, id_to_passage, "Abstract", 8, 10,
+                                   on_batch=lambda start, end, top: top1.extend(top))
+    prompts = [rag_mod.rag_prompt(q, p) for q, p in zip(cols["Question"], top1)]
+    del model, index
+    generator = rag_mod.load_generator_for_eval("llama2-7b", None, "bfloat16", device)
+    g_tok = resolve_tokenizer("byte")
+    g_tok.padding_side = "left"
+    generate = build_greedy_generate(generator, new, eos_token_id=g_tok.eos_token_id, pad_token_id=g_tok.pad_token_id)
+    planted, want_ids = [], []
+    for s in range(0, RAG_ROWS, qbs):
+        batch = prompts[s:s + qbs]
+        real = len(batch)
+        batch += [batch[-1]] * (qbs - real)
+        t = g_tok(batch, padding="max_length", max_length=max_len, truncation=True)
+        want_ids.append(np.asarray(t["input_ids"]))
+        out = generate(torch.as_tensor(t["input_ids"], device=device), torch.as_tensor(t["attention_mask"],
+                                                                                          device=device)).cpu().numpy()
+        planted += [(batch[r] + g_tok.decode(out[r])).split("#answer#")[1].strip() for r in range(real)]
+    del generator, generate
+    gc.collect()
+    torch.cuda.empty_cache()
+    plant_s = time.perf_counter() - t0
+    cols["Answer"] = [a if r % 2 == 0 else f"not {a}" for r, a in enumerate(planted)]
+
+    seen_ids, gen_t = [], {"s": 0.0, "tokens": 0}
+    real_build = rag_mod.build_greedy_generate
+
+    def recording_build(*a, **kw):
+        fn = real_build(*a, **kw)
+
+        def gen(ids, mask):
+            seen_ids.append(ids.cpu().numpy())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(ids, mask)
+            torch.cuda.synchronize()
+            gen_t["s"] += time.perf_counter() - t1
+            gen_t["tokens"] += out.numel()
+            return out
+
+        return gen
+
+    _k3_zero()
+    rag_mod.build_greedy_generate = recording_build
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rag_mod.evaluate_rag(cols, "bge-large", "llama2-7b", device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rag_mod.build_greedy_generate = real_build
+    launches = _k3_counts()
+    check(len(seen_ids) == len(want_ids) and all(np.array_equal(a, b) for a, b in zip(seen_ids, want_ids)),
+          "eval-rag: the eval's prompts are not those built from K3's top-1 ids")
+    check(res.exact_match == 0.5, f"eval-rag: exact_match {res.exact_match}, planted 0.5")
+    check(res.total_examples == RAG_ROWS and launches["f32"] == -(-RAG_ROWS // 8), f"eval-rag: {res}, K3 {launches}")
+    out = dict(wall_s=wall, generate_s=gen_t["s"], tokens_per_s=gen_t["tokens"] / gen_t["s"], plant_s=plant_s,
+               results=json.loads(res.model_dump_json()), launches=launches)
+    print(f"[eval-rag] evaluate_rag(bge-large, llama2-7b, bf16, {RAG_ROWS} queries over "
+          f"{len(dict.fromkeys(cols['Abstract']))} passages, batches of {qbs}, {new} new tokens; {smi}): wall "
+          f"{wall:.2f} s, generation {gen_t['s']:.2f} s = {gen_t['tokens'] / gen_t['s']:.1f} tokens/s "
+          f"({len(seen_ids)} batches); {res.model_dump_json()} (exact match planted at 0.5; planting took "
+          f"{plant_s:.1f} s); the prompts are those from K3's top-1 ids; K3 launches {launches}", flush=True)
+    print(json.dumps({"eval_rag": out}), flush=True)
+    return launches, out
+
+
+def _tower_counts(tower_of):
+    """Wrap the int8 autograd functions so that every launch counted inside their forward (the calibration pass
+    and remat's recompute included) and backward is added to the tower that owns the weight (``tower_of(weight
+    data_ptr)``). Returns (per-tower counts, restore)."""
+    from dalm_tpu_torch.kernels import int8_matmul as im
+
+    counters = _train_counters()
+    per, depth = {}, [0]
+    saved = [(fn, fn.forward, fn.backward) for fn in (im._Int8Matmul, im._Int8MatmulCal)]
+
+    def counted(tower, call):
+        # A backward that unpacks a checkpointed layer's saved tensors recomputes that layer's forwards inside it:
+        # the outermost call counts them (a layer's sites are all of one tower).
+        if depth[0]:
+            return call()
+        depth[0] += 1
+        before = {k: read() for k, read in counters.items()}
+        try:
+            out = call()
+        finally:
+            depth[0] -= 1
+        d = per.setdefault(tower, dict.fromkeys(counters, 0))
+        for k, read in counters.items():
+            d[k] += read() - before[k]
+        return out
+
+    for fn, fwd, bwd in saved:
+        def forward(ctx, x, q, *rest, fwd=fwd):
+            ctx.tower = tower_of(q.data_ptr())  # tagged in the forward: saved tensors unpack once under remat
+            return counted(ctx.tower, lambda: fwd(ctx, x, q, *rest))
+
+        def backward(ctx, dy, bwd=bwd):
+            return counted(ctx.tower, lambda: bwd(ctx, dy))
+
+        fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
+
+    def restore():
+        for fn, fwd, bwd in saved:
+            fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+
+    return per, restore
+
+
+def eval_ar_phase(device, workdir, peaks, smi):
+    """The autoregressive (EOS-pooled) retriever at Llama-2-7B width, bf16, random from seed 0:
+    (a) ``evaluate_retriever("llama2-7b", is_autoregressive=True)`` over ``AR_ROWS`` rows, batch 64: K3 on f32 rows
+    at D 4096, held against the plain version and timed at its shape;
+    (b) ``train_retriever("llama2-7b", csv, is_autoregressive=True, use_peft=True, use_bnb=True)``, batch 32, Q/P
+    50/128, 2 epochs = 4 steps (the merge runtime: no hand-written kernel);
+    (c) ``train_e2e(csv, "llama2-7b", "llama2-7b", retriever_is_autoregressive=True, use_peft="both",
+    use_bnb="both", lora_runtime="fused", int8_compute="all")``, batch 18, Q/P/G 50/128/256, 2 epochs = 4 steps,
+    K1 / the calibrated route's launches split by tower;
+    (d) ``RagPipeline.from_pretrained("llama2-7b", "llama2-7b", 4,096 passages, retriever_is_autoregressive=True,
+    quantize_generator="int4")``: one ``answer()`` of 32 queries, its retrieval held against the plain top-k.
+    Returns ({phase part: launches}, K3's record at D 4096, numbers)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.eval.retriever import evaluate_retriever
+    from dalm_tpu_torch.kernels.topk import fused_dot_topk_ref
+    from dalm_tpu_torch.serve import RagPipeline
+    from dalm_tpu_torch.train import train_e2e, train_retriever
+
+    launches, out = {}, {}
+    # (a)
+    cols = eval_columns(AR_ROWS, np.random.default_rng(13))
+    _k3_zero()
+    with SearchLog() as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_retriever(cols, "llama2-7b", is_autoregressive=True, top_k=10, max_length=128,
+                                 test_batch_size=64, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches["eval"] = _k3_counts()
+    idx = log.calls[0]["index"]
+    check(idx.embeddings.shape[1] == 4096 and launches["eval"]["f32"] == len(log.calls) == AR_ROWS // 64,
+          f"eval-ar (a): index {tuple(idx.embeddings.shape)}, K3 {launches['eval']}")
+    max_err, ties, differing = hold_eval("eval-ar (a)", log, cols["Abstract"], res)
+    record = k3_eval_record("f32", "eval-ar", idx, log.calls[0]["q"], 10, peaks)
+    out["eval"] = dict(wall_s=wall, search_s=log.seconds, results=json.loads(res.model_dump_json()),
+                       near_tie_queries=ties, metric_differing_queries=differing, max_abs_err=max_err)
+    print(f"[eval-ar] (a) evaluate_retriever(llama2-7b, is_autoregressive=True, bf16, EOS-pooled, {AR_ROWS} queries "
+          f"over {idx.num_real} passages, batch 64; {smi}): wall {wall:.2f} s = {2 * AR_ROWS / wall:.0f} texts/s "
+          f"embedded; {res.model_dump_json()}; K3 on f32 rows at D 4096 vs plain: max score err {max_err:.2e}, "
+          f"{ties} queries with a near-tie swap, {differing} whose metrics differ; K3 launches {launches['eval']}",
+          flush=True)
+    del log, idx, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b)
+    csv_path = str(Path(workdir) / "ar_retr.csv")
+    write_csv(csv_path, 64, np.random.default_rng(14))
+    _zero_train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = train_retriever("llama2-7b", csv_path, is_autoregressive=True, use_peft=True, use_bnb=True,
+                        per_device_train_batch_size=32, num_train_epochs=2, tokenizer="byte@32000", dtype="bfloat16",
+                        device=device, with_tracking=False, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: read() for k, read in _train_counters().items()}
+    check(np.isfinite(r["final_loss"]) and r["steps"] == 4, f"eval-ar (b): {r}")
+    check(not any(counts.values()), f"eval-ar (b): the merge runtime launched int8 kernels {counts}")
+    out["train_retriever"] = dict(wall_s=wall, step_s=r["avg_step_time"], peak_gib=peak, final_loss=r["final_loss"])
+    print(f"[eval-ar] (b) train_retriever(llama2-7b, is_autoregressive=True, LoRA q/v on an int8 base, merge runtime, "
+          f"batch 32, Q/P 50/128, bf16): {r['steps']} steps in {wall:.1f} s (init included); step time "
+          f"{r['avg_step_time']:.3f} s (second epoch); final loss {r['final_loss']:.4f}; peak {peak:.2f} GiB; int8 "
+          f"kernels launched: none (the merge runtime dequantises)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c)
+    csv_path = str(Path(workdir) / "ar_e2e.csv")
+    write_csv(csv_path, TRAIN_BATCH * 2, np.random.default_rng(15))
+    held = {}
+
+    def hook(setup):
+        held["sites"] = {m.q.data_ptr(): sub for sub in ("retriever", "generator")
+                         for m in getattr(setup.rag, sub).modules() if getattr(m, "q", None) is not None}
+        check(setup.quantized_subs == {"retriever", "generator"}, "eval-ar (c): both towers are int8")
+
+    per, restore = _tower_counts(lambda ptr: held["sites"][ptr])
+    _zero_train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        e = train_e2e(csv_path, "llama2-7b", "llama2-7b", retriever_is_autoregressive=True, use_peft="both",
+                      use_bnb="both", lora_runtime="fused", int8_compute="all", per_device_train_batch_size=TRAIN_BATCH,
+                      num_train_epochs=2, query_max_len=50, passage_max_len=128, generator_max_len=256,
+                      dtype="bfloat16", retriever_tokenizer="byte@32000", generator_tokenizer="byte@32000",
+                      num_warmup_steps=0, with_tracking=False, seed=0, device=device, setup_hook=hook)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches["train_e2e"] = {k: read() for k, read in _train_counters().items()}
+    held.clear()
+    for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+        check(np.isfinite(e[key]), f"eval-ar (c): {key} is not finite")
+    check(e["steps"] == 4, f"eval-ar (c): {e}")
+    for tower in ("retriever", "generator"):
+        t = per.get(tower, {})
+        check(t.get("w8a8_fused", 0) + t.get("k1_cal_quant", 0) > 0, f"eval-ar (c): no K1 / calibrated launch in the "
+                                                                      f"{tower}: {t}")
+    total = {k: sum(p.get(k, 0) for p in per.values()) for k in launches["train_e2e"]}
+    check(total == launches["train_e2e"], f"eval-ar (c): the towers' counts {per} do not add to {launches['train_e2e']}")
+    out["train_e2e"] = dict(wall_s=wall, step_s=e["avg_step_time"], samples_per_s=e["samples_per_sec"],
+                            peak_gib=peak, final_retriever_loss=e["final_retriever_loss"], by_tower=per)
+    print(f"[eval-ar] (c) train_e2e(llama2-7b retriever EOS-pooled + llama2-7b generator, fused QLoRA, int8 bases on "
+          f"both, int8_compute=all, a8_calibrate_every 16, batch {TRAIN_BATCH}, Q/P/G 50/128/256, bf16; {smi}): "
+          f"{e['steps']} steps in {wall:.1f} s (init included); step time {e['avg_step_time']:.3f} s = "
+          f"{e['samples_per_sec']:.2f} samples/s (second epoch); losses total/retriever/generator "
+          f"{e['final_loss']:.4f}/{e['final_retriever_loss']:.4f}/{e['final_generator_loss']:.4f}; peak {peak:.2f} "
+          f"GiB; int8 launches by tower {per}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d)
+    passages = corpus(4096, np.random.default_rng(16))
+    queries = [f"what about topic {i}" for i in range(0, 4096, 128)]  # 32 queries
+    t0 = time.perf_counter()
+    pipe = RagPipeline.from_pretrained("llama2-7b", "llama2-7b", passages, retriever_is_autoregressive=True,
+                                       quantize_generator="int4", dtype="bfloat16", device=device, max_passage_len=128,
+                                       max_prompt_len=256, max_new_tokens=64, embed_batch=64)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(pipe.index.embeddings.shape == (4096, 4096), f"eval-ar (d): index {tuple(pipe.index.embeddings.shape)}")
+    pipe.answer(queries[:2], top_k=4)  # warm
+    zero_serving_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = pipe.answer(queries, top_k=4)
+    torch.cuda.synchronize()
+    answer_s = time.perf_counter() - t0
+    launches["pipeline"] = serving_counts()
+    check(launches["pipeline"]["fused_dot_topk[f32]"] == 1 and launches["pipeline"]["int4_matmul[base]"] > 0,
+          f"eval-ar (d): launches {launches['pipeline']}")
+    q_embs = pipe._embed_texts([f"#query# {q}" for q in queries], pipe.max_passage_len)
+    scores, ids = pipe.index.search(q_embs, 4)
+    rs, ri = fused_dot_topk_ref(q_embs, pipe.index.embeddings, 4)
+    _, swaps = compare_topk(torch.from_numpy(scores).to(device), torch.from_numpy(ids).to(device), rs, ri, q_embs,
+                            pipe.index.embeddings, None)
+    check([a.passages for a in answers] == [[passages[int(j)] for j in row] for row in ids],
+          "eval-ar (d): answer() passages differ from a separate retrieve")
+    check(all(np.all(np.isfinite(a.scores)) for a in answers), "eval-ar (d): a non-finite retrieval score")
+    out["pipeline"] = dict(build_s=build_s, answer_s=answer_s, near_tie_swaps=swaps)
+    print(f"[eval-ar] (d) RagPipeline.from_pretrained(llama2-7b EOS-pooled retriever, llama2-7b int4, 4096 passages): "
+          f"built in {build_s:.2f} s; answer() of {len(queries)} queries {answer_s:.3f} s; retrieval vs the plain "
+          f"top-k: {swaps} near-tie swaps; launches {launches['pipeline']}", flush=True)
+    del pipe, answers, q_embs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"eval_ar": out}), flush=True)
+    return launches, record, out
+
+
+def cli_phase(device, workdir, smi):
+    """``python3 -m dalm_tpu_torch.cli`` in subprocesses on the card: ``version``; ``--help`` of the program and of
+    every command (one process, the module run as ``__main__`` for each); ``eval-retriever <csv> bge-large --top-k
+    10 --test-batch-size 256`` over ``EVAL_Q_ROWS`` rows, the module run as ``__main__`` in a process that then
+    writes K3's launch counts to its stderr as JSON. That count must be one launch a query batch, on f32 rows; the
+    last stdout line must parse as ``EvalResults`` and equal the in-process ``evaluate_retriever`` on the same file.
+    Returns (K3 launches in the CLI's process, numbers)."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.eval.results import EvalResults
+    from dalm_tpu_torch.eval.retriever import evaluate_retriever
+
+    root = Path(__file__).resolve().parent
+    cols = eval_columns(EVAL_Q_ROWS, np.random.default_rng(17))
+    path = str(Path(workdir) / "cli_eval.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(list(cols))
+        w.writerows(zip(*cols.values()))
+
+    def run(args, timeout):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, *args], cwd=str(root), capture_output=True, text=True, timeout=timeout)
+        check(p.returncode == 0, f"cli: {args[:4]} exited {p.returncode}: {p.stderr[-2000:]}")
+        return p.stdout, p.stderr, time.perf_counter() - t0
+
+    def as_main(argv, after=""):
+        """Code that runs the CLI as ``python3 -m dalm_tpu_torch.cli`` would with ``argv``, then ``after``."""
+        return ("import json, runpy, sys\n"
+                f"sys.argv = ['dalm-torch'] + {list(argv)!r}\n"
+                "try:\n"
+                "    runpy.run_module('dalm_tpu_torch.cli', run_name='__main__', alter_sys=True)\n"
+                "except SystemExit as e:\n"
+                "    assert e.code in (0, None), (sys.argv, e.code)\n" + after)
+
+    stdout, _, version_s = run(["-m", "dalm_tpu_torch.cli", "version"], 120)
+    check("version: 0.1.0" in stdout, f"cli: version printed {stdout!r}")
+    commands = ("version", "train-rag-e2e", "train-retriever-only", "train-generator", "qa-gen", "eval-retriever",
+                "eval-rag", "serve")
+    code = "".join(as_main(argv) for argv in [["--help"]] + [[c, "--help"] for c in commands])
+    stdout, _, help_s = run(["-c", code], 120)
+    for c in commands:
+        check(f"usage: dalm-torch {c}" in stdout, f"cli: no --help for {c}")
+    counted = ("from dalm_tpu_torch.kernels.topk import fused_dot_topk\n"
+               "print('K3 ' + json.dumps(fused_dot_topk.launches), file=sys.stderr)\n")
+    stdout, stderr, eval_s = run(["-c", as_main(["eval-retriever", path, "bge-large", "--top-k", "10",
+                                                 "--test-batch-size", "256"], counted)], 600)
+    line = stdout.strip().splitlines()[-1]
+    got = EvalResults(**json.loads(line))
+    launches = json.loads([x for x in stderr.splitlines() if x.startswith("K3 ")][-1][3:])
+    batches = -(-EVAL_Q_ROWS // 256)
+    check(launches["f32"] == sum(launches.values()) == batches,
+          f"cli: the CLI's process launched K3 {launches}, not once on f32 rows for each of {batches} query batches")
+    want = evaluate_retriever(path, "bge-large", top_k=10, test_batch_size=256, device=device)
+    torch.cuda.synchronize()
+    check(got == want and line == want.model_dump_json(), f"cli: eval-retriever printed {line}, in process {want}")
+    out = dict(version_s=version_s, help_s=help_s, eval_s=eval_s, results=json.loads(line), launches=launches)
+    print(f"[cli] python3 -m dalm_tpu_torch.cli ({smi}): version {version_s:.2f} s; --help of the program and its "
+          f"{len(commands)} commands {help_s:.2f} s; eval-retriever over {EVAL_Q_ROWS} rows {eval_s:.2f} s (process "
+          f"start included), K3 launches in its process {launches}; last line {line} = the in-process "
+          f"evaluate_retriever on the same file", flush=True)
+    print(json.dumps({"cli": out}), flush=True)
+    return launches, out
+
+
 KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "int4_matmul",
                   "int4_prefill")
 TRAIN_BATCH = 18
@@ -4077,7 +4677,7 @@ SFT_BATCH = 2
 SFT_STEPS = 3
 PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh", "serve-adapter", "k3",
           "k2", "k1", "grad", "k4", "k5", "train-small", "train", "train-dycal", "train-live", "train-merge",
-          "train-retriever", "sft-small", "sft")
+          "train-retriever", "sft-small", "sft", "eval-retriever", "eval-rag", "eval-ar", "cli")
 LIVE_K = 4  # marginalize_k of the train-live cell
 EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
 
@@ -4091,6 +4691,8 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of the phases to run (default: all, which the result line needs)")
     ap.add_argument("--seed", type=int, default=0, help="seed of serve-cb's and serve-stream's per-request budgets")
+    ap.add_argument("--eval-rows", type=int, default=EVAL_ROWS,
+                    help="rows of eval-retriever's f32 run (the published test set has 200,000)")
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES) - set(EXTRA_PHASES))
@@ -4167,7 +4769,7 @@ def main() -> int:
         print(json.dumps({"k3_cases": cases}), flush=True)
         for mode, entry in reps.items():  # the modes the serving path does not run, at N = 1M, k = 4
             kernels[entry["name"]] = dict(entry, launches=kernels.get("_k3_launches", {}).get(mode, 0))
-    kernel_ms = {}
+    kernel_ms, eval_cases, eval_launches = {}, [], {}
     if "k2" in phases:
         cases, main_entry = k2_phase(gen, device, peaks)
         print(json.dumps({"k2_cases": cases}), flush=True)
@@ -4237,6 +4839,27 @@ def main() -> int:
             for name, n in launches.items():
                 if name in kernels:
                     kernels[name]["launches"] = n
+        if "eval-retriever" in phases:
+            by_mode, recs, _ = eval_retriever_phase(device, peaks, smi, args.eval_rows)
+            eval_cases += list(recs.values())
+            eval_launches["launches_eval_retriever"] = {f"fused_dot_topk[{m}]": n[m] for m, n in by_mode.items()}
+        if "eval-rag" in phases:
+            k3, _ = eval_rag_phase(device, smi)
+            eval_launches["launches_eval_rag"] = {"fused_dot_topk[f32]": k3["f32"]}
+        if "eval-ar" in phases:
+            parts, rec, ar = eval_ar_phase(device, workdir, peaks, smi)
+            eval_cases.append(rec)
+            pipe = parts["pipeline"]
+            eval_launches["launches_eval_ar"] = {
+                "fused_dot_topk[f32]": parts["eval"]["f32"] + pipe["fused_dot_topk[f32]"],
+                **{k: pipe[k] for k in ("int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm")},
+                **parts["train_e2e"]}
+            eval_launches["launches_eval_ar_retriever"] = dict(ar["train_e2e"]["by_tower"]["retriever"])
+        if "cli" in phases:
+            k3, _ = cli_phase(device, workdir, smi)
+            eval_launches["launches_cli"] = {"fused_dot_topk[f32]": k3["f32"]}
+        if eval_cases:
+            print(json.dumps({"k3_eval_cases": eval_cases}), flush=True)
         if "profile" in phases:
             profile_phase(device, workdir, "profile", TRAIN_BATCH, TRAIN_STEPS)
         if "profile-sft" in phases:
@@ -4263,6 +4886,10 @@ def main() -> int:
         for name, n in counts.items():
             if name in kernels:
                 kernels[name][key] = n
+    for key, counts in eval_launches.items():  # the evals, the autoregressive retriever, the CLI
+        for name, n in counts.items():
+            if name in kernels:
+                kernels[name][key] = n
     for mode in ("int8", "int4"):  # their main path: the search of a rebuilt quantised index (serve-refresh (b))
         kernels[f"fused_dot_topk[{mode}]"]["launches"] = refresh_launches[f"fused_dot_topk[{mode}]"]
     line = [kernels[name] for name in order]
@@ -4278,6 +4905,12 @@ def main() -> int:
         check(kernels[name]["launches_serve_adapter"] > 0, f"{name} was never launched by serve-adapter")
     check(kernels["fused_dot_topk[f32]"]["launches_serve_refresh"] > 0, "K3 f32 was never launched by serve-refresh")
     check(kernels["k5_pcol_gemm"].get("launches_train", 0) > 0, "the scaled GEMM was never launched by train")
+    for mode in ("f32", "int8", "int4"):
+        check(kernels[f"fused_dot_topk[{mode}]"]["launches_eval_retriever"] > 0, f"K3 {mode} never ran in eval-retriever")
+    check(kernels["fused_dot_topk[f32]"]["launches_eval_rag"] > 0, "K3 never ran in eval-rag")
+    check(kernels["fused_dot_topk[f32]"]["launches_eval_ar"] > 0, "K3 never ran at D 4096 in eval-ar")
+    check(kernels["k1_cal_quant"]["launches_eval_ar_retriever"] > 0, "the retriever tower never took the calibrated "
+                                                                    "route in eval-ar")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -9,4 +9,6 @@ built with ``nvcc`` at first use (``kernels/build.py``).
 
 from dalm_tpu_torch.device import resolve_device
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]

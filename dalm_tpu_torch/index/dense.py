@@ -61,9 +61,11 @@ class DenseIndex:
         """``quantize``: False/None/"none" float rows in ``dtype``;
         True/"int8" int8 rows; "int4" nibble rows."""
         dev = resolve_device(device)
-        e = embeddings.detach().cpu().numpy() if isinstance(embeddings, torch.Tensor) else np.asarray(embeddings)
         if quantize in (None, "none", False):
-            return cls(torch.as_tensor(np.asarray(e, np.float32)).to(device=dev, dtype=dtype))
+            if isinstance(embeddings, torch.Tensor):  # float rows stay on the device: a copy in ``dtype``
+                return cls(embeddings.detach().float().to(device=dev, dtype=dtype, copy=True))
+            return cls(torch.as_tensor(np.asarray(embeddings, np.float32)).to(device=dev, dtype=dtype))
+        e = embeddings.detach().cpu().numpy() if isinstance(embeddings, torch.Tensor) else np.asarray(embeddings)
         if quantize == "int4":
             packed, scale = quantize_int4(e)
             return cls(torch.from_numpy(packed).to(dev), torch.from_numpy(scale).to(dev), int4=True)

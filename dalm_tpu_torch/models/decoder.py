@@ -368,10 +368,13 @@ class Decoder(nn.Module):
                          logits_last_only, remat=False)
 
     def train_forward(self, input_ids, attention_mask=None, neftune_alpha: float = 0.0,
-                      noise_generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None):
+                      noise_generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None,
+                      return_hidden: bool = False):
         """Training: full-sequence logits (B, S, V) with gradients and no
-        cache. With ``cfg.remat`` every layer is checkpointed: its
-        activations are recomputed in the backward instead of kept.
+        cache, or with ``return_hidden`` the final-normed hidden states
+        (B, S, hidden) (the autoregressive retriever's). With ``cfg.remat``
+        every layer is checkpointed: its activations are recomputed in the
+        backward instead of kept.
 
         NEFTune (``decoder.py:927-937`` of the reference): with
         ``neftune_alpha > 0``, uniform(-1, 1) noise times
@@ -384,7 +387,7 @@ class Decoder(nn.Module):
                                dtype=torch.float32) * 2.0 - 1.0
         if not neftune_alpha > 0.0:
             noise = None
-        return self._run(input_ids, attention_mask, None, None, None, False, False, remat=self.cfg.remat,
+        return self._run(input_ids, attention_mask, None, None, None, return_hidden, False, remat=self.cfg.remat,
                          neftune_alpha=neftune_alpha, noise=noise)
 
     def uses_flash(self, seq_len: int, cached: bool = False) -> bool:

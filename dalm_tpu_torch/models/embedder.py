@@ -1,29 +1,30 @@
 """Sentence embedder (counterpart of ``dalm_tpu/models/embedder.py``).
 
-Non-autoregressive only in this slice: an Encoder whose hidden states
-are mean-pooled and L2-normalised. The autoregressive (EOS-pooled
-decoder) retriever waits for a later slice.
+An Encoder (bge / BERT class) whose hidden states are mean-pooled and
+L2-normalised, or, with ``is_autoregressive``, a Decoder whose final hidden
+state at the EOS position is the embedding (``dalm_tpu/models/embedder.py:28-64``).
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 from torch import nn
 
+from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
 from dalm_tpu_torch.models.encoder import Encoder, EncoderConfig
-from dalm_tpu_torch.models.pooling import mean_pool_l2
+from dalm_tpu_torch.models.pooling import eos_pool, mean_pool_l2
 
 
 class SentenceEmbedder(nn.Module):
-    def __init__(self, config: EncoderConfig, is_autoregressive: bool = False,
+    def __init__(self, config: Union[EncoderConfig, DecoderConfig], is_autoregressive: bool = False,
                  normalize: bool = True, device=None):
         super().__init__()
-        if is_autoregressive:
-            raise NotImplementedError("autoregressive retrievers are not ported yet")
         self.config = config
         self.is_autoregressive = is_autoregressive
         self.normalize = normalize
-        self.module = Encoder(config, device=device)
+        self.module = Decoder(config, device=device) if is_autoregressive else Encoder(config, device=device)
 
     @property
     def embedding_dim(self) -> int:
@@ -35,5 +36,8 @@ class SentenceEmbedder(nn.Module):
     @torch.no_grad()
     def embed(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) ids and mask → (B, H) pooled embeddings."""
+        if self.is_autoregressive:
+            hidden = self.module(input_ids, attention_mask, return_hidden=True)
+            return eos_pool(hidden, attention_mask, normalize=self.normalize)
         hidden = self.module(input_ids, attention_mask)
         return mean_pool_l2(hidden, attention_mask, normalize=self.normalize)

@@ -46,18 +46,16 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from dalm_tpu_torch.core.dtypes import parse_dtype
 from dalm_tpu_torch.data.tokenizer import resolve_tokenizer
 from dalm_tpu_torch.device import resolve_device
+from dalm_tpu_torch.eval.rag import load_generator_for_eval
 from dalm_tpu_torch.eval.retriever import build_embed_fn, load_retriever_for_eval
 from dalm_tpu_torch.index.dense import DenseIndex
 from dalm_tpu_torch.index.refresh import AsyncIndexRefresher
 from dalm_tpu_torch.models.decode_engine import DecodeEngine
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.generate import build_greedy_generate
-from dalm_tpu_torch.models.lora import load_adapter, merge_lora_inplace
 from dalm_tpu_torch.models.qlora import pack_module
-from dalm_tpu_torch.models.registry import resolve_decoder
 from dalm_tpu_torch.models.speculative import build_speculative_generate
 from dalm_tpu_torch.models.streaming import StreamHandle, StreamingEngine
 
@@ -156,15 +154,7 @@ class RagPipeline:
             retriever_path, retriever_peft_path, retriever_is_autoregressive,
             dtype, retriever_tokenizer, device=dev,
         )
-        g_cfg, g_state = resolve_decoder(generator_path, dtype=parse_dtype(dtype) if dtype else None)
-        generator = Decoder(g_cfg, device=dev)
-        if g_state is None:
-            generator.reset_parameters(torch.Generator(device=dev).manual_seed(1))
-        else:
-            generator.load_state_dict(g_state)
-        if generator_peft_path:
-            merge_lora_inplace(generator, *load_adapter(generator_peft_path))
-        generator.eval()
+        generator = load_generator_for_eval(generator_path, generator_peft_path, dtype, dev, seed=1)
         g_tok = resolve_tokenizer(generator_tokenizer)
         return cls(retriever, r_tok, generator, g_tok, passages, device=dev, **kw)
 

@@ -44,8 +44,11 @@ Differences from the reference that a caller sees:
   optimiser and the data are ready and before the first step, lets a caller
   set initial weights or factors.
 
-Knobs of paths that are not ported yet raise ``NotImplementedError`` naming
-the knob: ``mesh``, ``model_parallel > 1``, ``retriever_is_autoregressive``.
+With ``retriever_is_autoregressive`` the retriever is a decoder, EOS-pooled,
+whose tokenizer adds EOS and pads on the left; it takes the causal-LM LoRA
+spec (q_proj / v_proj) and, in the fused runtime, is packed as the generator
+is. Knobs of paths that are not ported yet raise ``NotImplementedError``
+naming the knob: ``mesh``, ``model_parallel > 1``.
 """
 
 from __future__ import annotations
@@ -241,10 +244,7 @@ def train_e2e(
     peft_mode = Mode(use_peft) if use_peft is not None else None
     quant_mode = Mode(use_bnb) if use_bnb is not None else None
 
-    for name, value, inert in (
-        ("mesh", mesh, None), ("model_parallel", model_parallel, 1),
-        ("retriever_is_autoregressive", retriever_is_autoregressive, False),
-    ):
+    for name, value, inert in (("mesh", mesh, None), ("model_parallel", model_parallel, 1)):
         if value != inert:
             _unported(name, value)
     if marginalize_mode not in ("token", "sequence"):
@@ -260,12 +260,15 @@ def train_e2e(
     dev = resolve_device(device)
     global_batch = per_device_train_batch_size
 
-    r_tok = resolve_tokenizer(retriever_tokenizer)
+    r_tok = resolve_tokenizer(retriever_tokenizer, add_eos_token=retriever_is_autoregressive)
+    if retriever_is_autoregressive:
+        r_tok.padding_side = "left"
     g_tok = resolve_tokenizer(generator_tokenizer)
     compute_dtype = parse_dtype(dtype) if dtype else None
     vocab_r = -(-r_tok.vocab_size // 128) * 128
     vocab_g = -(-g_tok.vocab_size // 128) * 128
-    r_cfg, r_state = resolve_encoder(retriever_name_or_path, dtype=compute_dtype, vocab_size=vocab_r)
+    resolve_r = resolve_decoder if retriever_is_autoregressive else resolve_encoder
+    r_cfg, r_state = resolve_r(retriever_name_or_path, dtype=compute_dtype, vocab_size=vocab_r)
     g_cfg, g_state = resolve_decoder(generator_name_or_path, dtype=compute_dtype, vocab_size=vocab_g)
     if int8_compute != "none":
         # Layers without int8 storage ignore the flag, so both configs may carry it.
@@ -294,7 +297,7 @@ def train_e2e(
     peft_subs = [s for s in SUBS if peft_mode in (Mode.BOTH, Mode(s))]
     fused_subs = peft_subs if fused else []
     lazy = {s: (dev if not (s in fused_subs and resolved[s] is None) else torch.device("meta")) for s in SUBS}
-    rag = RagE2EModel(r_cfg, g_cfg, device=lazy)
+    rag = RagE2EModel(r_cfg, g_cfg, retriever_is_autoregressive=retriever_is_autoregressive, device=lazy)
     lora_specs: Dict[str, lora_mod.LoraSpec] = {}
     quantized_subs: set = set()
     full_state: Dict[str, dict] = {}
@@ -303,7 +306,8 @@ def train_e2e(
         quant_on = quant_mode in (Mode.BOTH, Mode(sub))
         init_gen = torch.Generator(device=dev).manual_seed(seed + i)
         if sub in peft_subs:
-            spec = lora_mod.LoraSpec.for_causal_lm() if sub == "generator" else lora_mod.LoraSpec.for_encoder()
+            is_clm = sub == "generator" or retriever_is_autoregressive
+            spec = lora_mod.LoraSpec.for_causal_lm() if is_clm else lora_mod.LoraSpec.for_encoder()
             lora_specs[sub] = spec
             if sub in fused_subs and resolved[sub] is None:
                 # Random init straight into packed storage: no full-precision tree.
@@ -393,7 +397,7 @@ def train_e2e(
     # ---- the loss ----
     fused_branch = fused and bool(lora_specs)
     # The reference's dropout: the encoder's, in its merge / dense branch only, where the retriever has a rate.
-    dropout_on = use_dropout and r_cfg.hidden_dropout > 0 and not fused_branch
+    dropout_on = use_dropout and getattr(r_cfg, "hidden_dropout", 0.0) > 0 and not fused_branch
     drop_gen = torch.Generator(device=dev)
     marg_scale = float(logit_scale if marginalize_scale is None else marginalize_scale)
 

@@ -2,13 +2,14 @@
 ``dalm_tpu/train/retriever_only.py:55-374 train_retriever``).
 
 Queries and passages go through one encoder (bge / BERT class), mean-pooled
-and L2-normalised; the loss is the symmetric NT-Xent over the batch,
+and L2-normalised, or with ``is_autoregressive`` one decoder, EOS-pooled (its
+tokenizer adds EOS and pads on the left); the loss is the symmetric NT-Xent over the batch,
 ``(CE(S) + CE(S^T)) / 2`` with ``S = Q @ P^T * logit_scale``. ``use_peft``
-trains LoRA factors only (r 8, alpha 16 on query / key / value) in the merge
-runtime: every forward forms ``W + (A @ B) * alpha / r`` over the frozen base,
+trains LoRA factors only (r 8, alpha 16 on query / key / value; on q_proj /
+v_proj for a decoder) in the merge runtime: every forward forms ``W + (A @ B) * alpha / r`` over the frozen base,
 int8 where ``use_bnb`` says so (``quant.quantize_params``' rule: 2-D kernels of
 at least 1024 values). ``use_dropout`` (default True, as in the reference)
-turns on the encoder's dropout, one stream for the queries and another for
+turns on the encoder's dropout (a decoder has none), one stream for the queries and another for
 the passages, and the scale-preserving dropout on ``A``; all are drawn from
 generators seeded per micro step. Resume and ``step_k`` / ``epoch_e``
 checkpoints as ``train_e2e``; the final artifacts go to
@@ -20,8 +21,8 @@ Differences from the reference that a caller sees: one process, one device
 ``local_negatives`` is inert; datasets are CSV / JSON / JSON-lines files or
 columns; ``torch.save`` checkpoints; dropout masks from the port's
 generators; ``setup_hook`` gets the :class:`RetrieverSetup` before the first
-step. ``is_autoregressive``, ``mesh`` and ``model_parallel > 1`` are not
-ported yet and raise ``NotImplementedError`` naming the knob.
+step. ``mesh`` and ``model_parallel > 1`` are not ported yet and raise
+``NotImplementedError`` naming the knob.
 """
 
 from __future__ import annotations
@@ -45,10 +46,11 @@ from dalm_tpu_torch.device import resolve_device
 from dalm_tpu_torch.losses.contrastive import contrastive_loss
 from dalm_tpu_torch.models import lora as lora_mod
 from dalm_tpu_torch.models import qlora as qlora_mod
+from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.encoder import Encoder
 from dalm_tpu_torch.models.hf_loader import export_peft_if_supported
-from dalm_tpu_torch.models.pooling import mean_pool_l2
-from dalm_tpu_torch.models.registry import resolve_encoder, save_pretrained
+from dalm_tpu_torch.models.pooling import eos_pool, mean_pool_l2
+from dalm_tpu_torch.models.registry import resolve_decoder, resolve_encoder, save_pretrained
 from dalm_tpu_torch.train import checkpoints as ckpt
 from dalm_tpu_torch.train.data_iter import epoch_batches, num_batches_per_epoch
 from dalm_tpu_torch.train.metrics import MetricsLogger, WindowedThroughput
@@ -65,7 +67,7 @@ LORA_LEAVES = ("lora_a", "lora_b")
 class RetrieverSetup:
     """Everything ``train_retriever`` builds before its first step."""
 
-    model: Encoder
+    model: Union[Encoder, Decoder]
     state: TrainState
     lora_spec: Optional[lora_mod.LoraSpec]
     processed: ColumnDataset
@@ -120,17 +122,18 @@ def train_retriever(
 ) -> dict:
     """Returns {"final_loss", "steps", "samples_per_sec", "avg_step_time"}."""
     args = {k: v for k, v in locals().items() if v is None or isinstance(v, (float, int, str, bool))}
-    for name, value, inert in (("is_autoregressive", is_autoregressive, False), ("mesh", mesh, None),
-                               ("model_parallel", model_parallel, 1)):
+    for name, value, inert in (("mesh", mesh, None), ("model_parallel", model_parallel, 1)):
         if value != inert:
             raise NotImplementedError(f"{name}={value!r} is not ported yet")
 
     dev = resolve_device(device)
     global_batch = per_device_train_batch_size
-    tok = resolve_tokenizer(tokenizer)
+    tok = resolve_tokenizer(tokenizer, add_eos_token=is_autoregressive)
+    if is_autoregressive:
+        tok.padding_side = "left"
     compute_dtype = parse_dtype(dtype) if dtype else None
-    cfg, init_state = resolve_encoder(retriever_name_or_path, dtype=compute_dtype,
-                                      vocab_size=-(-tok.vocab_size // 128) * 128)
+    resolve = resolve_decoder if is_autoregressive else resolve_encoder
+    cfg, init_state = resolve(retriever_name_or_path, dtype=compute_dtype, vocab_size=-(-tok.vocab_size // 128) * 128)
 
     dataset = load_dataset(dataset_or_path)
     processed = dataset.map(lambda ex: preprocess_retriever_dataset(
@@ -146,14 +149,14 @@ def train_retriever(
     else:
         num_train_epochs = math.ceil(max_train_steps / steps_per_epoch)
 
-    model = Encoder(cfg, device=dev)
+    model = (Decoder if is_autoregressive else Encoder)(cfg, device=dev)
     if init_state is None:
         model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     else:
         model.load_state_dict(init_state)
     lora_spec = None
     if use_peft:
-        lora_spec = lora_mod.LoraSpec.for_encoder()
+        lora_spec = lora_mod.LoraSpec.for_causal_lm() if is_autoregressive else lora_mod.LoraSpec.for_encoder()
         factors = lora_mod.init_lora_params(torch.Generator(device=dev).manual_seed(seed + 7),
                                             unflatten(dict(model.state_dict())), lora_spec)
         if use_bnb:
@@ -174,8 +177,13 @@ def train_retriever(
     if setup_hook is not None:
         setup_hook(RetrieverSetup(model, state, lora_spec, processed, dev))
 
-    dropout = use_dropout and cfg.hidden_dropout > 0
+    dropout = use_dropout and getattr(cfg, "hidden_dropout", 0.0) > 0
     q_gen, p_gen = torch.Generator(device=dev), torch.Generator(device=dev)
+
+    def embed(ids, mask, gen):
+        if is_autoregressive:
+            return eos_pool(model.train_forward(ids, mask, return_hidden=True), mask)
+        return mean_pool_l2(model(ids, mask, dropout_generator=gen), mask)
 
     def loss_fn(batch, micro_step):
         if dropout:
@@ -183,10 +191,8 @@ def train_retriever(
             p_gen.manual_seed(_stream_seed(seed, micro_step, 1))
         if lora_spec is not None:
             lora_mod.set_merge_dropout(model, lora_spec, _stream_seed(seed, micro_step, 99) if dropout else None)
-        q = mean_pool_l2(model(batch["query_input_ids"], batch["query_attention_mask"],
-                               dropout_generator=q_gen if dropout else None), batch["query_attention_mask"])
-        p = mean_pool_l2(model(batch["passage_input_ids"], batch["passage_attention_mask"],
-                               dropout_generator=p_gen if dropout else None), batch["passage_attention_mask"])
+        q = embed(batch["query_input_ids"], batch["query_attention_mask"], q_gen if dropout else None)
+        p = embed(batch["passage_input_ids"], batch["passage_attention_mask"], p_gen if dropout else None)
         return contrastive_loss(q.float(), p.float(), float(logit_scale))[0]
 
     tracker = MetricsLogger(output_dir, project_name="peft_contrastive_training", config=args,

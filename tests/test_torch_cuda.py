@@ -1770,3 +1770,150 @@ def test_tiny_train_e2e_dy_calibrated_card_matches_cpu(cuda, tmp_path):
     for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
         assert np.isfinite(card[key]) and abs(card[key] - cpu[key]) <= 2e-3, (key, card[key], cpu[key])
     assert im.cal_quant.launches["x"] > before["x"] and im.cal_quant.launches["dy"] > before["dy"]
+
+
+def test_tiny_ar_train_e2e_calibrated_card_matches_cpu(cuda, tmp_path):
+    """The EOS-pooled retriever's tower on the W8A8 route: a tiny ``train_e2e(retriever_is_autoregressive=True)``
+    (fused QLoRA, int8 bases on both decoders, int8_compute="all", a8_calibrate_every=2: calibration before micro
+    steps 0 and 2) on the card against the same run on the CPU. Each tower's loss after 3 steps within 2e-3 (as the
+    encoder retriever's test above), every calibrated site's ``a_scale`` (the retriever's lm_head has none: the
+    tower embeds its hidden states) within 2e-3 relative of the CPU's, and the quantiser launched on the card."""
+    import csv
+
+    from dalm_tpu_torch.train import train_e2e
+
+    path = tmp_path / "rows.csv"
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Question", "Abstract", "Answer"])
+        for i in range(12):
+            w.writerow([f"question {i} about a thing", f"passage {i} says the value is {i * 7}", f"answer {i}"])
+    kw = dict(retriever_is_autoregressive=True, use_peft="both", use_bnb="both", lora_runtime="fused",
+              int8_compute="all", a8_calibrate_every=2, query_max_len=48, passage_max_len=112,
+              generator_max_len=256, per_device_train_batch_size=4, learning_rate=1e-3, lr_scheduler_type="constant",
+              seed=3, max_train_steps=3, num_warmup_steps=0, with_tracking=False)
+    initial, rags = {}, {}
+
+    def keep(setup):
+        rags["cpu"] = setup.rag
+        for sub in ("retriever", "generator"):
+            initial[sub] = {k: v.detach().clone() for k, v in getattr(setup.rag, sub).state_dict().items()}
+
+    def give(setup):
+        rags["card"] = setup.rag
+        for sub in ("retriever", "generator"):
+            getattr(setup.rag, sub).load_state_dict(initial[sub])
+
+    cpu = train_e2e(str(path), "tiny", "tiny", device="cpu", setup_hook=keep, **kw)
+    before = im.cal_quant.launches["x"]
+    card = train_e2e(str(path), "tiny", "tiny", device=cuda, setup_hook=give, **kw)
+    for key in ("final_loss", "final_retriever_loss", "final_generator_loss"):
+        assert np.isfinite(card[key]) and abs(card[key] - cpu[key]) <= 2e-3, (key, card[key], cpu[key])
+    assert im.cal_quant.launches["x"] > before
+    for sub in ("retriever", "generator"):
+        sites = {name: m for name, m in getattr(rags["cpu"], sub).named_modules() if getattr(m, "q", None) is not None}
+        on_card = dict(getattr(rags["card"], sub).named_modules())
+        for name, m in sites.items():
+            if sub == "retriever" and name == "lm_head":
+                assert m.a_scale is None and on_card[name].a_scale is None
+                continue
+            want, got = float(m.a_scale), float(on_card[name].a_scale)
+            assert want > 0 and abs(got - want) <= 2e-3 * want, (sub, name, got, want)
+
+
+# ---- K3 at the EOS-pooled Llama-2-7B retriever's width, the autoregressive embedder and the eval -------------------
+
+
+def _grid(shape, gen, device, dtype):
+    """Exact-arithmetic values: integers in [-8, 8] / 16 (every partial sum of a 4096-deep dot is exact in f32)."""
+    x = torch.randint(-8, 9, shape, generator=gen, device=device, dtype=torch.int16)
+    return (x.float() / 16).to(dtype)
+
+
+@pytest.mark.parametrize("n", [4096, 200000])
+@pytest.mark.parametrize("q", [1, 32, 40])
+@pytest.mark.parametrize("mode", ["f32", "int8", "int4"])
+def test_topk_at_d4096_matches_ref_on_card(cuda, mode, q, n):
+    """K3 at D 4096 (the autoregressive retriever's rows) on exact-arithmetic inputs: ids and scores equal to the
+    plain version, one count a call."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * q + n)
+    D = 4096
+    if mode == "f32":
+        qs, e, kw = _grid((q, D), gen, cuda, torch.float32), _grid((n, D), gen, cuda, torch.float32), {}
+    else:
+        qs = _grid((q, D), gen, cuda, torch.bfloat16)
+        kw = {"scales": torch.rand((n, 1), generator=gen, device=cuda) + 0.5, "int4": mode == "int4"}
+        e = (torch.randint(-127, 128, (n, D), generator=gen, device=cuda, dtype=torch.int8) if mode == "int8" else
+             torch.randint(0, 256, (n, D // 2), generator=gen, device=cuda, dtype=torch.uint8))
+    before = fused_dot_topk.launches[mode]
+    for k in (1, 10):
+        s, i = fused_dot_topk(qs, e, k, num_valid=n - 3, **kw)
+        rs, ri = fused_dot_topk_ref(qs, e, k, num_valid=n - 3, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert fused_dot_topk.launches[mode] == before + 2
+
+
+def test_ar_embedder_on_card_matches_cpu(cuda):
+    """The EOS-pooled tiny decoder on the card against the same module on the CPU: within 1e-5 (f32, TF32 off)."""
+    from dalm_tpu_torch.models.decoder import DecoderConfig
+    from dalm_tpu_torch.models.embedder import SentenceEmbedder
+
+    cpu = SentenceEmbedder(DecoderConfig.tiny(), is_autoregressive=True)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = SentenceEmbedder(DecoderConfig.tiny(), is_autoregressive=True, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 259, (6, 24), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[1, :5] = 0  # left padding
+    mask[4, :20] = 0
+    want = cpu.embed(ids, mask)
+    got = card.embed(ids.to(cuda), mask.to(cuda)).cpu()
+    assert torch.allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _eval_rows(n_unique=14, n_dup=4, seed=4):
+    """Passages of random characters from a set of 8 of their own, each asked by its first half, then ``n_dup``
+    repeated passages asked by their second half (``tests/test_torch_eval.py:eval_columns``)."""
+    import string
+
+    rng = np.random.default_rng(seed)
+    letters = list(string.ascii_letters + string.digits + " .,;:!?-")
+    passages = ["".join(rng.choice(rng.choice(letters, size=8, replace=False), size=int(rng.integers(6, 30))))
+                for _ in range(n_unique)]
+    rows = [(p[: max(3, len(p) // 2)], p) for p in passages]
+    rows += [(passages[j][len(passages[j]) // 2:], passages[j]) for j in rng.choice(n_unique, n_dup)]
+    return {"Question": [q for q, _ in rows], "Abstract": [p for _, p in rows],
+            "Answer": [f"answer {i}" for i in range(len(rows))]}
+
+
+@pytest.mark.parametrize("autoregressive", [False, True], ids=["encoder", "eos-pooled-decoder"])
+def test_evaluate_retriever_on_card_equals_cpu(cuda, tmp_path, autoregressive):
+    """``evaluate_retriever(device="cuda")`` (K3 searching) equal to ``device="cpu"`` (its plain version) on the
+    same saved tiny weights, after asserting on the CPU that no query has a near tie at the 4th / 5th place or a
+    top-4 score within 1e-4 of the threshold."""
+    from dalm_tpu_torch.eval.retriever import build_embed_fn, evaluate_retriever, load_retriever_for_eval
+    from dalm_tpu_torch.models.decoder import DecoderConfig
+    from dalm_tpu_torch.models.embedder import SentenceEmbedder
+    from dalm_tpu_torch.models.encoder import EncoderConfig
+    from dalm_tpu_torch.models.registry import save_pretrained
+
+    cfg = DecoderConfig.tiny() if autoregressive else EncoderConfig.tiny()
+    model = SentenceEmbedder(cfg, is_autoregressive=autoregressive)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    save_pretrained(str(tmp_path), cfg, model.module.state_dict())
+    cols = _eval_rows()
+    m, tok = load_retriever_for_eval(str(tmp_path), None, autoregressive, "float32", device="cpu")
+
+    def embed(texts):
+        t = tok(texts, padding="max_length", max_length=32, truncation=True)
+        return build_embed_fn(m)(t["input_ids"], t["attention_mask"]).numpy()
+
+    scores = np.sort(embed(cols["Question"]) @ embed(list(dict.fromkeys(cols["Abstract"]))).T, axis=1)[:, ::-1]
+    assert (scores[:, 3] - scores[:, 4] > 1e-4).all() and (np.abs(scores[:, :4]) > 1e-4).all()
+    kw = dict(max_length=32, test_batch_size=8, torch_dtype="float32", top_k=4, is_autoregressive=autoregressive)
+    want = evaluate_retriever(cols, str(tmp_path), device="cpu", **kw)
+    before = fused_dot_topk.launches["f32"]
+    got = evaluate_retriever(cols, str(tmp_path), device="cuda", **kw)
+    assert got.model_dump_json() == want.model_dump_json()
+    assert fused_dot_topk.launches["f32"] == before + 3  # 18 queries in batches of 8

@@ -1,6 +1,6 @@
 """The port stands alone: importing ``dalm_tpu_torch`` and every module of
-it loads no JAX, flax, optax, orbax, ``datasets`` or ``dalm_tpu`` module, and
-no source file under ``dalm_tpu_torch/`` imports them."""
+it loads no JAX, flax, optax, orbax, ``datasets``, ``click``, ``pydantic`` or
+``dalm_tpu`` module, and no source file under ``dalm_tpu_torch/`` imports them."""
 
 import ast
 import json
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parent.parent / "dalm_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "datasets", "pandas", "dalm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "datasets", "pandas", "click", "pydantic", "dalm_tpu")
 
 
 def _modules():
@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "dalm_tpu_torch.serve" in loaded and "dalm_tpu_torch.train.rag_e2e" in loaded
     for new in ("kernels.flash_attention", "train.generator_only", "data.sft", "losses.causal",
-                "kernels.int4_matmul", "models.sampling", "models.quant", "models.decode_engine"):
+                "kernels.int4_matmul", "models.sampling", "models.quant", "models.decode_engine",
+                "eval.common", "eval.results", "eval.retriever", "eval.rag", "cli"):
         assert f"dalm_tpu_torch.{new}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

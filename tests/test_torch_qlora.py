@@ -209,8 +209,9 @@ def test_packed_encoder_embeddings_match_jax():
     assert trag.forward("retrieval", torch.from_numpy(ids).long(), torch.from_numpy(mask).long()).shape == (4, 64)
     with pytest.raises(ValueError, match="unknown task"):
         trag.forward("rank", None, None)
-    with pytest.raises(NotImplementedError, match="retriever_is_autoregressive"):
-        RagE2EModel(EncoderConfig.tiny(), DecoderConfig.tiny(), retriever_is_autoregressive=True)
+    # an autoregressive retriever is a decoder (EOS-pooled; tests/test_torch_ar_retriever.py holds it to JAX)
+    assert isinstance(RagE2EModel(DecoderConfig.tiny(), DecoderConfig.tiny(), retriever_is_autoregressive=True).retriever,
+                      Decoder)
     assert Mode("both") is Mode.BOTH
 
 

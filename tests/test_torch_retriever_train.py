@@ -108,7 +108,8 @@ def test_preprocess_retriever_dataset_equals_jax(toy_csv):
 
 def test_train_retriever_dropout_resume_and_raises(tmp_path, toy_csv):
     """Dropout (the default) trains, differs from use_dropout=False and repeats itself per seed; a run resumed
-    from its epoch-0 checkpoint ends where the uninterrupted run ends; is_autoregressive raises naming the knob."""
+    from its epoch-0 checkpoint ends where the uninterrupted run ends; the knobs not ported yet raise naming
+    themselves (``is_autoregressive`` is ported: tests/test_torch_ar_retriever.py)."""
     kw = dict(KW, use_dropout=True, per_device_train_batch_size=4, device="cpu", seed=3, use_peft=True,
               lr_scheduler_type="constant")
     a = train_retriever("tiny", toy_csv, max_train_steps=2, **kw)
@@ -123,6 +124,6 @@ def test_train_retriever_dropout_resume_and_raises(tmp_path, toy_csv):
     straight = train_retriever("tiny", toy_csv, num_train_epochs=2, output_dir=str(tmp_path / "s"), **kw)
     assert resumed["steps"] == straight["steps"] == 8
     assert abs(resumed["final_loss"] - straight["final_loss"]) < 1e-5
-    for name, value in (("is_autoregressive", True), ("mesh", object()), ("model_parallel", 2)):
+    for name, value in (("mesh", object()), ("model_parallel", 2)):
         with pytest.raises(NotImplementedError, match=name):
             train_retriever("tiny", toy_csv, device="cpu", **{name: value})

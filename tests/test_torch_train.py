@@ -221,10 +221,7 @@ def test_metrics_logger_and_timers(tmp_path):
 # The arguments under which the reference calibrates its activation scales (dalm_tpu/train/rag_e2e.py:741-743).
 CALIBRATED = dict(use_peft="both", use_bnb="both", lora_runtime="fused", int8_compute="all")
 
-UNPORTED = [
-    ("mesh", dict(mesh=object())), ("model_parallel", dict(model_parallel=2)),
-    ("retriever_is_autoregressive", dict(retriever_is_autoregressive=True)),
-]
+UNPORTED = [("mesh", dict(mesh=object())), ("model_parallel", dict(model_parallel=2))]
 
 
 @pytest.mark.parametrize("knob,kw", UNPORTED, ids=[k for k, _ in UNPORTED])
