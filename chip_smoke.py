@@ -39,7 +39,11 @@ then int8 and int4 indexes over 16,384), ``evaluate_rag`` (bge-large +
 Llama-2-7B, exact match planted at 0.5), the autoregressive EOS-pooled
 retriever at Llama-2-7B width through the eval, ``train_retriever``,
 ``train_e2e`` (two 7B towers on the W8A8 route) and ``RagPipeline``, and the
-``dalm-torch`` CLI in subprocesses.
+``dalm-torch`` CLI in subprocesses; and runs the dense model families: each of ten presets (Llama-3 / 3.1,
+Llama-2-13B, Mistral, Qwen2.5 / 3, Phi-3, Gemma / 2 / 3) at full width and 2 layers with its kernels held to their
+plain versions, a Llama-3.1-8B checkpoint written in the Hugging Face layout and read back, bge-large +
+Llama-3.1-8B int4 serving (``answer()`` and ``answer_continuous()``), and Gemma2-2B SFT at 8,192 tokens with every
+attention call on K4's head-dim-256 kernels.
 Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
@@ -91,6 +95,14 @@ Llama-2-7B retriever: ``evaluate_retriever`` over ``AR_ROWS`` rows with K3 at D 
 ``train_e2e`` with both towers on the W8A8 route and its int8 launches split by tower, a ``RagPipeline`` with an
 int4 generator), ``cli`` (``python3 -m dalm_tpu_torch.cli``: ``version``, every ``--help``, ``eval-retriever``
 equal to the in-process call);
+``families-small`` (the ten new presets at full width and 2 layers: the flash forward against K4's plain version,
+the cached decode against the full forward, int4 on K5 against x @ dequant(W), K4 at head dim 256 on QK-normed q / k
+with window 512; a 2-layer Llama-3.1-8B written as ``config.json`` + ``model.safetensors`` and read back through
+``resolve_decoder`` and ``load_hf_decoder_packed`` with logits equal bit for bit), ``serve-llama31`` (bge-large +
+Llama-3.1-8B int4 + int8 KV cache: ``answer()`` with K5 launches by route and shape, the decode step against the
+weight-read bound, the cache against Llama-2-7B's, ``answer_continuous()`` token for token), ``sft-gemma2``
+(``train_generator("gemma2-2b", ...)`` at 8,192 tokens, 3 steps: K4's D-256 launches held to 26 layers x (2
+forwards + 1 backward) a step); ``k4`` also times the D-256 kernels at sft-gemma2's shape against SDPA;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
 trace of the RAG / SFT training steps: device busy share and the top kernels
 by device time) and ``profile-serve`` (the same over 8 decode iterations of
@@ -106,7 +118,9 @@ forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, the backwa
 ``k4_bwd_dq_wgmma`` / ``k4_bwd_dkv_wgmma`` and ``k4_bwd_dq`` / ``k4_bwd_dkv``, each with
 its own launches, and the dsum pre-pass ``k4_dsum``), each of the five K5 instances, the prefill route's pre-pass (base,
 nf4) and GEMM, the fold route's nibble pre-pass, fold GEMM (groupmm, i8mxu) and K2 in bf16, the int8 route's int8
-nibble pre-pass and scaled GEMM (pcol; ``launches_train``: its calls on the calibrated route of ``train``), each with its launches in its
+nibble pre-pass and scaled GEMM (pcol; ``launches_train``: its calls on the calibrated route of ``train``), K4's
+head-dim-256 forward, dq and dk/dv (``k4_fwd_d256``, ``k4_bwd_dq_d256``, ``k4_bwd_dkv_d256``, launched by sft-gemma2;
+K5 base and K3 also carry ``launches_serve_llama31``), each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven; K3's f32
@@ -141,6 +155,7 @@ tiny K5 pipeline's beside ``SMALL_Q_TOL``, serve-stream's and serve-http's near 
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -173,6 +188,20 @@ def peaks_for(name: str) -> tuple:
         if key in name:
             return PEAKS[key]
     return PEAKS["SXM"]
+
+
+@contextlib.contextmanager
+def k5_dequantised():
+    """Inside: every packed layer computes ``x @ dequant(W)`` (the reference's product off a TPU) on the same packed
+    weights instead of K5, the yardstick the K5 checks hold the kernels to."""
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+
+    saved = k5.int4_matmul_fwd
+    k5.int4_matmul_fwd = lambda x2, q4, scale4, instance: x2 @ k5._dequant(q4, scale4, x2.dtype, instance == "nf4")
+    try:
+        yield
+    finally:
+        k5.int4_matmul_fwd = saved
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -793,6 +822,9 @@ K4_CASES = (
     ("D 128, gqa 32/8", 1, 32, 8, 256, 256, 128, dict()),
     ("D 128, ragged Sq 200 Sk 333", 2, 4, 2, 200, 333, 128, dict(q_offset=133)),
     ("D 128, q_offset -128, Sq 128 Sk 128 (every row masked)", 2, 4, 2, 128, 128, 128, dict(q_offset=-128)),
+    ("D 256, gqa 8/4, packed segments, window 100, softcap 50", 1, 8, 4, 384, 384, 256,
+     dict(seg="packed", window=100, softcap=50.0)),
+    ("D 256, ragged Sq 200 Sk 333", 2, 4, 2, 200, 333, 256, dict(q_offset=133)),
 )
 # Tolerances, row by row: |kernel - plain| <= tol * max(max |plain| over the row, K4_FLOOR), a row being
 # the D values of one (batch, head, position); an lse value is a row of its own with floor 1. Scaling by
@@ -2750,13 +2782,10 @@ def serve_q_phase(device, rng, base_pipe):
     def last_logits(q, fallback=False):
         """The tier's last-position logits on the prompts; ``fallback``: through the reference's off-TPU
         path, ``x @ dequant(W)``, instead of K5 (the same packed weights)."""
-        saved = k5._kernel_feasible, k5._pcol_feasible
-        if fallback:
-            k5._kernel_feasible = k5._pcol_feasible = lambda *a: False
-        try:
+        if not fallback:
             return q.generator(p_ids, p_mask, logits_last_only=True).float()
-        finally:
-            k5._kernel_feasible, k5._pcol_feasible = saved
+        with k5_dequantised():
+            return q.generator(p_ids, p_mask, logits_last_only=True).float()
 
     def rel_err(a, b):
         return float((a - b).norm() / b.norm())
@@ -4669,6 +4698,529 @@ def cli_phase(device, workdir, smi):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# The dense families: K4 at head dim 256, families-small, serve-llama31, sft-gemma2
+# --------------------------------------------------------------------------
+
+K4_D256 = {"k4_fwd_d256": ("dalm_fa_fwd", "fwd", "dalm_tpu/kernels/flash_attention.py:221"),
+           "k4_bwd_dq_d256": ("dalm_fa_bwd_dq", "dq", "dalm_tpu/kernels/flash_attention.py:443"),
+           "k4_bwd_dkv_d256": ("dalm_fa_bwd_dkv", "dkv", "dalm_tpu/kernels/flash_attention.py:461")}
+# sft-gemma2's attention: Gemma2-2B's 8 query / 4 kv heads of 256, its context of 8192 tokens, the window 4096 of the
+# even layers (odd layers attend globally), softcap 50, query scale 1 / sqrt(256)
+GEMMA2_ATTN = dict(B=1, H=8, Hk=4, S=8192, D=256, window=4096, softcap=50.0, scale=1.0 / 16)
+
+
+def visible_share(Sq, Sk, q_offset, causal, window):
+    """The share of the (Sq, Sk) scores a causal / windowed mask keeps (what the kernels must compute)."""
+    kept = 0
+    for i in range(Sq):
+        hi = min(q_offset + i + 1, Sk) if causal else Sk
+        lo = max(0, q_offset + i - window + 1) if window else 0
+        kept += max(hi - lo, 0)
+    return kept / float(Sq * Sk)
+
+
+def k4_d256_time(gen, device, peaks, iters=5):
+    """K4's head-dim-256 kernels (the mma.sync route's D-256 instances) at sft-gemma2's shape, bf16, one segment,
+    on an odd (global) layer and an even (window 4096) one: each held against its plain version, then the forward,
+    dq and dk/dv timed through their C entry points; beside them the plain versions, SDPA's forward and backward
+    at the same shape without softcap and window (which SDPA does not take) and the bound. Returns the records."""
+    import torch
+    import torch.nn.functional as F
+
+    from dalm_tpu_torch.kernels import flash_attention as fa
+
+    c = GEMMA2_ATTN
+    B, H, Hk, S, D = c["B"], c["H"], c["Hk"], c["S"], c["D"]
+    q, k, v, do, _, _ = k4_inputs(gen, device, torch.bfloat16, B, H, Hk, S, S, D, None)
+    seg = torch.ones((B, S), dtype=torch.int32, device=device)
+    check(fa.fwd_route(q.dtype, D) == "mma", "k4 d256: head dim 256 must take the mma.sync route")
+    dims = fa._check("time", q, k, v, seg, seg, None, c["softcap"])
+    tol = K4_TOL["bfloat16"]
+    rows = {}
+    for layer, window in (("odd (global)", None), ("even (window 4096)", c["window"])):
+        kw = dict(causal=True, scale=c["scale"], window=window, softcap=c["softcap"])
+        out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+        dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+        ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+        torch.cuda.synchronize()
+        errs = {"k4_fwd_d256": max(k4_err(out, ro, tol["out"], f"d256 {layer} out"),
+                                   k4_err(lse, rl, tol["lse"], f"d256 {layer} lse"))}
+        del ro, rl
+        rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+        errs["k4_bwd_dq_d256"] = k4_err(dq, rq, tol["grad"], f"d256 {layer} dq")
+        errs["k4_bwd_dkv_d256"] = max(k4_err(dk, rk, tol["grad"], f"d256 {layer} dk"),
+                                      k4_err(dv, rv, tol["grad"], f"d256 {layer} dv"))
+        del rq, rk, rv
+        dsum = fa.dsum_ref(do, out)
+        a = fa._args(q, k, v, seg, seg, True, c["scale"], 0, window, c["softcap"], dims, out=out, dout=do, lse=lse,
+                     dsum=dsum, dq=dq, dk=dk, dv=dv)
+        ms = {name: cuda_ms(lambda e=entry, n=counter: fa._launch(e, n, a, q), iters)
+              for name, (entry, counter, _) in K4_D256.items()}
+        plain_f = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, seg, seg, **kw), 1)
+        plain_b = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw), 1)
+        vis = visible_share(S, S, 0, True, window)
+        prod = 2.0 * B * H * S * S * D * vis
+        qb, kb, stat = B * H * S * D * 2, B * Hk * S * D * 2, B * H * S * 4
+        work = {"k4_fwd_d256": (2 * prod, 2 * qb + 2 * kb + stat), "k4_bwd_dq_d256": (3 * prod, 3 * qb + 2 * kb + 2 * stat),
+                "k4_bwd_dkv_d256": (4 * prod, 2 * qb + 4 * kb + 2 * stat)}
+        rows[layer] = (ms, errs, plain_f, plain_b, work, vis)
+        del out, lse, dq, dk, dv, dsum
+        torch.cuda.empty_cache()
+    # SDPA at the same shape without softcap and window (GQA through enable_gqa); its backward alone, graph kept
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa = dict(is_causal=True, scale=c["scale"], enable_gqa=True)
+    lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), iters)
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), iters)
+    del lib_out, ql, kl, vl
+    ms, errs, plain_f, plain_b, work, vis = rows["odd (global)"]
+    ms_w, _, _, _, work_w, vis_w = rows["even (window 4096)"]
+    entries = {}
+    for name in K4_D256:
+        ops, nbytes = work[name]
+        t_ops, t_bytes = ops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
+        fwd = name == "k4_fwd_d256"
+        entries[name] = {
+            "name": name, "route": "cuda", "source": "dalm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": K4_D256[name][2], "case": f"sft-gemma2 odd layer B={B} H={H} Hk={Hk} S={S} D={D} bf16 causal "
+                                                 f"softcap 50 scale 1/16",
+            "max_abs_err": max(rows[r][1][name] for r in rows), "ms": ms[name],
+            "plain_ms": plain_f if fwd else plain_b, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_f if fwd else lib_b,
+            "library_is": "SDPA forward, same shape without softcap" if fwd else
+            "SDPA backward (dq, dk and dv in one call), same shape without softcap",
+            "tflops": ops / ms[name] / 1e9, "ms_even_layer_window_4096": ms_w[name],
+            "bound_ms_even_layer": max(work_w[name][0] / peaks[2], work_w[name][1] / peaks[0]) * 1e3,
+        }
+    for name, e in entries.items():
+        print(f"[k4] D 256 at sft-gemma2's shape, {name}: odd layer {e['ms']:.4f} ms ({e['tflops']:.1f} TFLOP/s, bound "
+              f"{e['bound_ms']:.4f} ms, {e['bound_by']}; {e['bound_ms'] / e['ms']:.1%} of it), even layer (window 4096, "
+              f"{vis_w:.3f} of the scores visible against {vis:.3f}) {e['ms_even_layer_window_4096']:.4f} ms (bound "
+              f"{e['bound_ms_even_layer']:.4f}); plain {e['plain_ms']:.2f} ms; max error {e['max_abs_err']:.3g}",
+              flush=True)
+    bwd = ms["k4_bwd_dq_d256"] + ms["k4_bwd_dkv_d256"]
+    print(f"[k4] D 256: SDPA (no softcap) forward {lib_f:.4f} ms against K4's {ms['k4_fwd_d256']:.4f} "
+          f"({ms['k4_fwd_d256'] / lib_f:.2f}x); SDPA backward {lib_b:.4f} ms against K4's dq + dk/dv {bwd:.4f} "
+          f"({bwd / lib_b:.2f}x, dsum apart)", flush=True)
+    torch.cuda.empty_cache()
+    return entries
+
+
+FAMILY_PRESETS = ("llama3-8b", "llama3.1-8b", "llama2-13b", "mistral-7b", "qwen2.5-7b", "qwen3-8b", "phi3-mini",
+                  "gemma-2b", "gemma2-2b", "gemma3-1b")
+FAMILY_S = 1024  # tokens a row: above gemma3's 512 window, so that it masks
+# Relative error ||a - b|| / ||b|| over the real tokens' logits, bf16, 2 random layers: the kernel and its plain
+# version make the same casts and differ in the order of f32 sums and where p is rounded (2e-2); the cached decode
+# against the same module's full einsum forward, one attention implementation on both sides, so only the cache,
+# the per-layer window masks and the GEMMs' row counts (another order of f32 sums, bf16 outputs) differ (1e-2: an
+# H100 read 0 for MHA and 3.4e-3 to 7.0e-3 for the GQA presets); K5
+# against x @ dequant(W) on the same packed weights (bf16 products summed in f32 in another order, 2e-2).
+FAMILY_TOL = {"plain": 2e-2, "cached": 1e-2, "int4": 2e-2}
+
+
+def write_hf_llama(path, model):
+    """``model`` (a port Decoder of the Llama family, bf16) as a Hugging Face checkpoint: ``config.json`` of
+    ``model_type`` llama and ``model.safetensors`` in the format's own layout (an 8-byte little-endian header
+    length, the JSON header padded to 8 bytes, the tensors' raw bytes), every Linear as (out, in), bf16."""
+    import torch
+
+    cfg = model.cfg
+    hf = {"model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": cfg.vocab_size,
+          "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.kv_heads, "intermediate_size": cfg.intermediate_size,
+          "max_position_embeddings": cfg.max_position_embeddings, "rope_theta": cfg.rope_theta,
+          "rms_norm_eps": cfg.rms_norm_eps, "hidden_act": "silu", "tie_word_embeddings": False,
+          "torch_dtype": "bfloat16"}
+    if cfg.rope_llama3:
+        f, lo, hi, old = cfg.rope_llama3
+        hf["rope_scaling"] = {"rope_type": "llama3", "factor": f, "low_freq_factor": lo, "high_freq_factor": hi,
+                              "original_max_position_embeddings": int(old)}
+    sd = model.state_dict()
+    names = {"embed_tokens.embedding": ("model.embed_tokens.weight", False),
+             "final_norm.scale": ("model.norm.weight", False), "lm_head.kernel": ("lm_head.weight", True)}
+    for i in range(cfg.num_layers):
+        for p in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            names[f"layer_{i}.attention.{p}.kernel"] = (f"model.layers.{i}.self_attn.{p}.weight", True)
+        for p in ("gate_proj", "up_proj", "down_proj"):
+            names[f"layer_{i}.{p}.kernel"] = (f"model.layers.{i}.mlp.{p}.weight", True)
+        names[f"layer_{i}.input_norm.scale"] = (f"model.layers.{i}.input_layernorm.weight", False)
+        names[f"layer_{i}.post_attention_norm.scale"] = (f"model.layers.{i}.post_attention_layernorm.weight", False)
+    check(sorted(names) == sorted(sd), f"write_hf_llama: the module has {sorted(set(sd) - set(names))} unmapped")
+    header, at, order = {"__metadata__": {"format": "pt"}}, 0, []
+    for ours, (theirs, linear) in names.items():
+        t = sd[ours].detach()
+        t = (t.T if linear else t).to(torch.bfloat16).contiguous()
+        header[theirs] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [at, at + t.numel() * 2]}
+        at += t.numel() * 2
+        order.append((theirs, t))
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    Path(path).mkdir(parents=True, exist_ok=True)
+    (Path(path) / "config.json").write_text(json.dumps(hf, indent=2))
+    with open(Path(path) / "model.safetensors", "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for _, t in order:
+            f.write(t.cpu().view(torch.int16).numpy().tobytes())
+    return at
+
+
+def families_small_phase(device, workdir, smi):
+    """Each of the ten new presets at full width and 2 layers, bf16, random from ``gen``, on the flash path, with
+    2 x ``FAMILY_S`` tokens (row 1 right-padded): (a) the forward through the kernels against the same module with
+    K4's plain version; (b) a cached decode (the einsum path: prefill of all but the last 8 tokens, then 8 single
+    steps) against the same module's full forward on the einsum path at the same positions; (c) the module packed
+    to int4, every projection on K5 (the prefill route at 2048 rows, the fused kernel at 32, the prefill route at
+    both for Gemma3's group 8), against the same packed weights through x @ dequant(W); (d) for Gemma / Gemma3: K4 at head dim 256 with window 512 on QK-normed q and k, forward
+    and backward, against its plain versions. Then a 2-layer Llama-3.1-8B at full width written as an HF
+    checkpoint by ``write_hf_llama`` and read back through ``resolve_decoder`` and ``load_hf_decoder_packed``:
+    logits equal to the writer's, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import dalm_tpu_torch.models.decoder as dec
+    from dalm_tpu_torch.kernels import flash_attention as fa
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models.decoder import Decoder, RMSNorm
+    from dalm_tpu_torch.models.qlora import load_hf_decoder_packed, load_packed, pack_module
+    from dalm_tpu_torch.models.registry import DECODER_PRESETS, resolve_decoder
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    gen = torch.Generator(device=device).manual_seed(20)  # the phase's own weights, whatever ran before it
+    rng = np.random.default_rng(20)
+    S = FAMILY_S
+    mask = torch.ones((2, S), dtype=torch.long, device=device)
+    mask[1, S - 100:] = 0
+    real = mask.bool()
+    rows, t_all = {}, time.perf_counter()
+    for name in FAMILY_PRESETS:
+        t0 = time.perf_counter()
+        base = DECODER_PRESETS[name]()
+        layers = base.sliding_layers[:2] if isinstance(base.sliding_layers, tuple) else base.sliding_layers
+        cfg = dataclasses.replace(base, num_layers=2, sliding_layers=layers, dtype=torch.bfloat16, remat=False,
+                                  attention_impl="flash")
+        model = Decoder(cfg, device=device).eval()
+        model.reset_parameters(gen)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, S)), device=device)
+        before = dict(fa.flash_attention.launches)
+        logits = model(ids, mask)
+        torch.cuda.synchronize()
+        check(fa.flash_attention.launches["fwd"] - before["fwd"] == 2, f"families-small {name}: K4 launches")
+        dec.flash_attention = fa.flash_attention_ref
+        try:
+            plain = model(ids, mask)
+        finally:
+            dec.flash_attention = fa.flash_attention
+        e_plain = rel(logits[real], plain[real])
+        check(bool(torch.isfinite(logits).all()) and e_plain <= FAMILY_TOL["plain"],
+              f"families-small {name}: kernel against plain forward {e_plain:.3g}")
+        del plain
+        P = S - 8
+        cache = model.init_kv_cache(2, S)
+        full = torch.ones_like(mask)
+        model.cfg = dataclasses.replace(cfg, attention_impl="einsum")  # the cached path's attention, full length
+        try:
+            logits1 = model(ids, full)
+        finally:
+            model.cfg = cfg
+        out, cache = model(ids[:, :P], full, kv_cache=cache, cache_index=0, logits_last_only=True)
+        steps = [out[:, -1]]
+        for t in range(P, S - 1):
+            out, cache = model(ids[:, t:t + 1], full, kv_cache=cache, cache_index=t)
+            steps.append(out[:, -1])
+        e_cached = rel(torch.stack(steps, 1), logits1[:, P - 1:S - 1])
+        check(e_cached <= FAMILY_TOL["cached"], f"families-small {name}: cached decode against the full forward "
+                                                f"{e_cached:.3g}")
+        del cache, logits1, logits, out, steps
+        pack_module(model, "int4")
+        calls = dict(k5.int4_matmul_fwd.launches)
+        q_full, q_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
+        torch.cuda.synchronize()
+        k5_calls = sum(k5.int4_matmul_fwd.launches.values()) - sum(calls.values())
+        with k5_dequantised():
+            d_full, d_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
+        e_int4 = max(rel(q_full[real], d_full[real]), rel(q_short, d_short))
+        projections = 2 * (7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1))
+        check(k5_calls == projections and e_int4 <= FAMILY_TOL["int4"],
+              f"families-small {name}: int4 ({k5_calls} K5 calls of {projections} projections) against "
+              f"x @ dequant(W) {e_int4:.3g}")
+        rows[name] = dict(plain=e_plain, cached=e_cached, int4=e_int4, k5_calls=k5_calls, projections=projections,
+                          s=time.perf_counter() - t0)
+        if name in ("gemma-2b", "gemma3-1b", "gemma2-2b"):
+            H, Hk, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+            q, k, v, do, _, _ = k4_inputs(gen, device, torch.bfloat16, 1, H, Hk, 2048, 2048, D, None)
+            qn, kn = RMSNorm(D, 1e-6, torch.bfloat16, torch.bfloat16, device, True), \
+                RMSNorm(D, 1e-6, torch.bfloat16, torch.bfloat16, device, True)
+            with torch.no_grad():
+                qn.scale.normal_(0.0, 0.5, generator=gen)
+                kn.scale.normal_(0.0, 0.5, generator=gen)
+                q, k = qn(q.transpose(1, 2)).transpose(1, 2), kn(k.transpose(1, 2)).transpose(1, 2)
+            kw = dict(causal=True, scale=1.0 / 16, window=512, softcap=cfg.attn_logit_softcap)
+            out, lse = fa.flash_fwd(q, k, v, None, None, **kw)
+            grads = fa.flash_bwd(q, k, v, out, lse, do, None, None, **kw)
+            ro, rl = fa.flash_fwd_ref(q, k, v, None, None, **kw)
+            refs = fa.flash_bwd_ref(q, k, v, out, lse, do, None, None, **kw)
+            tol = K4_TOL["bfloat16"]
+            rows[name]["k4_d256"] = max(k4_err(out, ro, tol["out"], f"families-small {name} out"),
+                                        k4_err(lse, rl, tol["lse"], f"families-small {name} lse"),
+                                        *(k4_err(g, r, tol["grad"], f"families-small {name} grad")
+                                          for g, r in zip(grads, refs)))
+            del q, k, v, do, out, lse, grads, ro, rl, refs
+        print(f"[families-small] {name} ({smi}): 2 of {base.num_layers} layers at width {cfg.hidden_size}, heads "
+              f"{cfg.num_heads}/{cfg.kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}, windows "
+              f"{[cfg.layer_window(i) for i in range(2)]}: kernels vs plain K4 {e_plain:.2e}, cached decode vs full "
+              f"{e_cached:.2e}, int4 ({k5_calls} of {projections} projections on K5) vs x @ dequant(W) "
+              f"{e_int4:.2e}"
+              + (f", K4 D {cfg.head_dim} window 512 on QK-normed q/k max error {rows[name]['k4_d256']:.2e}"
+                 if "k4_d256" in rows[name] else "") + f"; {rows[name]['s']:.1f} s", flush=True)
+        del model, q_full, q_short, d_full, d_short
+        torch.cuda.empty_cache()
+
+    # the HF checkpoint round trip at Llama-3.1-8B's width
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(DECODER_PRESETS["llama3.1-8b"](), num_layers=2, dtype=torch.bfloat16, remat=False)
+    model = Decoder(cfg, device=device).eval()
+    model.reset_parameters(gen)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 256)), device=device)
+    want = model(ids, mask[:, :256])
+    path = str(Path(workdir) / "llama31_hf")
+    nbytes = write_hf_llama(path, model)
+    del model
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    rcfg, state = resolve_decoder(path, dtype="bfloat16")
+    check(dataclasses.replace(rcfg, param_dtype=cfg.param_dtype) == cfg,
+          f"families-small: the checkpoint's config reads back as {rcfg}")
+    read = Decoder(rcfg, device=device).eval()
+    read.load_state_dict(state)
+    del state
+    got = read(ids, mask[:, :256])
+    del read
+    torch.cuda.empty_cache()
+    pcfg, res, quant, _ = load_hf_decoder_packed(path, quantize=False, dtype=torch.bfloat16, device=device)
+    packed = Decoder(dataclasses.replace(pcfg, param_dtype=torch.bfloat16), device="meta").eval()
+    packed.to_empty(device=device)
+    load_packed(packed, res, quant)
+    got_packed = packed(ids, mask[:, :256])
+    check(torch.equal(got, want) and torch.equal(got_packed, want),
+          f"families-small: logits read back from the HF checkpoint differ from the writer's: max "
+          f"{float((got.float() - want.float()).abs().max()):.3g} (resolve_decoder), "
+          f"{float((got_packed.float() - want.float()).abs().max()):.3g} (load_hf_decoder_packed)")
+    rt_s = time.perf_counter() - t0
+    del packed, res, quant, got, got_packed, want
+    torch.cuda.empty_cache()
+    out = dict(presets=rows, checkpoint_bytes=nbytes, checkpoint_write_s=write_s, checkpoint_round_trip_s=rt_s,
+               phase_s=time.perf_counter() - t_all)
+    print(f"[families-small] Llama-3.1-8B, 2 layers at full width ({smi}): written as config.json + "
+          f"model.safetensors ({nbytes / 1e9:.2f} GB of bf16) in {write_s:.1f} s; read back through resolve_decoder "
+          f"and through load_hf_decoder_packed (bf16 storage, streamed tensor by tensor): logits equal to the "
+          f"writer's bit for bit; {rt_s:.1f} s in all. Phase {out['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"families_small": out}), flush=True)
+    return out
+
+
+LLAMA31_SHAPES = {(4096, 4096): "q / o", (4096, 1024): "k / v", (4096, 14336): "gate / up", (14336, 4096): "down",
+                  (4096, 128256): "lm_head"}
+
+
+def serve_llama31_phase(device, passages, peaks, smi):
+    """``RagPipeline.from_pretrained("bge-large", "llama3.1-8b", quantize_generator="int4", kv_quant=True)`` at full
+    width and depth (32 layers, GQA 32 / 8, the llama3 rope bands, vocab 128,256), random from seed 1, over the
+    serve cell's 16,384 passages; 32 queries, top-4, 256-token prompts, 64 new tokens. A warm and a timed
+    ``answer()``, its K5 launches by route and (K, N) shape (every projection on K5: the prefill forward's 224 on
+    the prefill route, the rest on the fused kernel); the prefill and the decode step timed apart, the step against
+    the read of the packed weights; the int8 KV cache's bytes against Llama-2-7B's at the same slots; then
+    ``answer_continuous()`` on 32 slots, each request's tokens equal to the lockstep generate's up to EOS.
+    Returns the launches of the timed ``answer()``."""
+    import dataclasses
+
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+    from dalm_tpu_torch.models.generate import build_greedy_generate
+    from dalm_tpu_torch.serve import RagPipeline
+
+    t_all = time.perf_counter()
+    pipe = RagPipeline.from_pretrained("bge-large", "llama3.1-8b", passages, dtype="bfloat16", device=device,
+                                       quantize_generator="int4", kv_quant=True, max_passage_len=128,
+                                       max_prompt_len=256, max_new_tokens=64, embed_batch=256)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_all
+    g = pipe.generator
+    cfg = g.cfg
+    check(cfg.num_layers == 32 and cfg.kv_heads == 8 and cfg.rope_llama3 and cfg.kv_quant,
+          f"serve-llama31: generator config {cfg}")
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]
+    pipe.answer(queries, top_k=4)  # warm
+    shapes = {}
+    fwd = k5.int4_matmul_fwd
+
+    def counted(x2, q4, scale4, instance):
+        K, N = x2.shape[1], q4.shape[1]
+        route = k5._route(x2, instance, K // scale4.shape[0])
+        shapes[route, K, N] = shapes.get((route, K, N), 0) + 1
+        return fwd(x2, q4, scale4, instance)
+
+    zero_serving_counts()
+    counted.launches, counted.route_launches = fwd.launches, fwd.route_launches  # the wrapped function counts there
+    k5.int4_matmul_fwd = counted
+    try:
+        answers, rows, p_ids, p_mask, answer_s = lockstep_tokens(pipe, queries)
+    finally:
+        k5.int4_matmul_fwd = fwd
+    launches = serving_counts()
+    layers, per_forward = cfg.num_layers, 7 * cfg.num_layers + 1
+    routes = launches["routes"]
+    check(routes["prefill"] == per_forward - 1 and routes["fused"] == 64 * per_forward - routes["prefill"]
+          and launches["int4_matmul[base]"] == routes["fused"] and launches["k5_prefill_gemm"] == routes["prefill"],
+          f"serve-llama31: K5 launches {launches} for {layers} layers x 64 forwards")
+    check({(K, N) for _, K, N in shapes} == set(LLAMA31_SHAPES)
+          and {(K, N) for r, K, N in shapes if r == "fused"} == set(LLAMA31_SHAPES),
+          f"serve-llama31: K5 ran at shapes {sorted(shapes)}, not all five of Llama-3.1's on the fused kernel")
+    check(len(answers) == 32 and launches["fused_dot_topk[f32]"] > 0, "serve-llama31: answers / K3")
+    p_ids_t, p_mask_t = torch.as_tensor(p_ids, device=device), torch.as_tensor(p_mask, device=device)
+    times = []
+    for new in (1, 64):  # the 64-token run has answer()'s shapes, which the warm and the timed answer() ran
+        run = build_greedy_generate(g, new, eos_token_id=pipe.g_tok.eos_token_id, pad_token_id=pipe.g_tok.pad_token_id or 0)
+        if new == 1:
+            run(p_ids_t, p_mask_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = run(p_ids_t, p_mask_t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(tuple(toks.shape) == (32, 64) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "serve-llama31: generated ids")
+    prefill_s, decode_s = times
+    step_ms = (decode_s - prefill_s) / 63 * 1e3
+    weight_bytes = sum(b.numel() * b.element_size() for n, b in g.named_buffers() if n.rpartition(".")[2]
+                       in ("q4", "scale4"))
+    bound_ms = weight_bytes / peaks[0] * 1e3
+
+    def cache_bytes(c):
+        m = Decoder(dataclasses.replace(c, kv_quant=True), device="meta")
+        return sum(t.numel() * t.element_size() for layer in m.init_kv_cache(32, 320, device="meta").values()
+                   for t in layer.values())
+
+    kv31, kv2 = cache_bytes(cfg), cache_bytes(DecoderConfig.llama2_7b())
+    check(abs(kv2 / kv31 - 4.0) < 1e-6, f"serve-llama31: int8 cache {kv31} bytes against Llama-2-7B's {kv2}")
+    # continuous batching: one wave of 32 on 32 slots, each request equal to the lockstep rows
+    eos = pipe.g_tok.eos_token_id
+    pipe.answer_continuous(queries, top_k=4, num_slots=32)  # builds the engine
+    probe = EngineProbe(pipe._engine)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cont = pipe.answer_continuous(queries, top_k=4, num_slots=32)
+        torch.cuda.synchronize()
+        cont_s = time.perf_counter() - t0
+    finally:
+        probe.close()
+    want = [trim(r, eos, 64) for r in rows]
+    diff = [i for i in range(32) if probe.results[i] != want[i]]
+    check(not diff, f"serve-llama31: answer_continuous() tokens differ from answer()'s for requests {diff}")
+    check([a.answer for a in cont] == [a.answer for a in answers], "serve-llama31: answer_continuous() text differs")
+    occ, cb_step_ms, cb_tok_s = probe.stats(cont_s, sum(len(r) for r in probe.results))
+    out = dict(build_s=build_s, answer_s=answer_s, prefill_s=prefill_s, decode_s=decode_s, decode_step_ms=step_ms,
+               weight_bytes=weight_bytes, weight_read_bound_ms=bound_ms, kv_cache_bytes=kv31,
+               kv_cache_bytes_llama2_7b=kv2, answer_continuous_s=cont_s, continuous_decode_ms=cb_step_ms,
+               continuous_occupancy=occ, k5_by_route_and_shape={f"{r} {K}x{N}": n for (r, K, N), n in
+                                                               sorted(shapes.items())},
+               launches={k: v for k, v in launches.items() if k != "routes"}, routes=routes,
+               phase_s=time.perf_counter() - t_all)
+    print(f"[serve-llama31] bge-large + Llama-3.1-8B int4 + int8 KV cache ({smi}): built in {build_s:.1f} s (random "
+          f"init, pack, 16,384 passages embedded); answer() of 32 queries {answer_s:.3f} s; prefill (+ first token) "
+          f"{prefill_s:.3f} s, prefill + 64 tokens {decode_s:.3f} s: decode {step_ms:.2f} ms a step against a "
+          f"weight-read bound of {bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB of 4-bit weights and scales); K5 "
+          f"launches by route {routes}, by route and shape {out['k5_by_route_and_shape']}; int8 KV cache for 32 "
+          f"slots x 320 tokens {kv31 / 2 ** 20:.1f} MiB against Llama-2-7B's {kv2 / 2 ** 20:.1f} MiB "
+          f"({kv2 / kv31:.1f}x, GQA 32 / 8); answer_continuous() on 32 slots {cont_s:.3f} s ({probe.waves} wave(s), "
+          f"{probe.iters} iterations, {cb_step_ms:.2f} ms an iteration, occupancy {occ:.3f}), every request's tokens "
+          f"equal answer()'s; phase {out['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"serve_llama31": out}), flush=True)
+    del pipe, g, cont, answers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if k != "routes"}, out
+
+
+def sft_gemma2_phase(device, workdir, smi, steps=3):
+    """``train_generator("gemma2-2b", ...)`` at full width and depth (26 layers, vocab 256,000 through a byte
+    tokenizer padded to it), bf16, batch 1 x 8,192 tokens (Gemma2's own context, so that the 4,096 window of the
+    even layers masks), LoRA r = 256 in the merge runtime, packing, recompute, NEFTune 5, ``steps`` optimiser steps
+    and the validation batches: every attention call on K4's head-dim-256 kernels (the mma.sync route), counted by
+    direction and held to 26 layers x (2 forwards + 1 backward) a step plus 26 forwards a validation batch. Returns
+    the launches by kernel."""
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention, flash_bwd, flash_fwd
+    from dalm_tpu_torch.train import train_generator
+
+    t_all = time.perf_counter()
+    data = str(Path(workdir) / "chat_gemma2.jsonl")
+    # 2 x 4000 characters a row: 5 training rows pack into 4 blocks of 8192 tokens (3 used), 3 validation rows into 2
+    write_chat_jsonl(data, 8, 4000, np.random.default_rng(6))
+    held = {}
+
+    def snapshot(setup):
+        held["setup"] = setup
+        held["trainable"] = {k: p.detach().clone() for k, p in setup.state.params.items()}
+        flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
+        flash_fwd.routes = dict.fromkeys(flash_fwd.routes, 0)
+        flash_bwd.routes = dict.fromkeys(flash_bwd.routes, 0)
+
+    kw = dict(SFT_KW, seq_length=8192, tokenizer="byte@256000")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_generator("gemma2-2b", data, per_device_train_batch_size=1, per_device_eval_batch_size=1,
+                          max_train_blocks=steps, device=device, setup_hook=snapshot, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes, bwd_routes = dict(flash_attention.launches), dict(flash_fwd.routes), dict(flash_bwd.routes)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    setup = held["setup"]
+    cfg = setup.model.cfg
+    layers, n_steps = cfg.num_layers, out["steps"]
+    check(n_steps == steps and cfg.head_dim == 256 and cfg.attention_impl == "flash" and cfg.remat
+          and cfg.vocab_size == 256000 and setup.train_blocks.shape == (steps, 8192),
+          f"sft-gemma2: {n_steps} steps, config {cfg}, blocks {setup.train_blocks.shape}")
+    check(np.isfinite(out["final_loss"]) and np.isfinite(out["eval_loss"]), f"sft-gemma2: losses {out}")
+    eval_batches = len(setup.valid_blocks)
+    want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps,
+            "dsum": layers * n_steps}
+    check(eval_batches >= 1 and launches == want, f"sft-gemma2: K4 launches {launches}, {layers} layers predict {want}")
+    check(routes == {"wgmma": 0, "mma": want["fwd"]} and bwd_routes == {"wgmma": 0, "mma": want["dq"]},
+          f"sft-gemma2: every D 256 call must take the mma.sync route: {routes}, {bwd_routes}")
+    unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
+    check(len(held["trainable"]) == 4 * layers and not unchanged,
+          f"sft-gemma2: {len(unchanged)} of {len(held['trainable'])} LoRA factors did not change")
+    step_s = out["avg_step_time"]
+    res = dict(steps=n_steps, eval_batches=eval_batches, wall_s=wall, step_s=step_s, tokens_per_s=8192 / step_s,
+               peak_gib=peak_gib, final_loss=out["final_loss"], eval_loss=out["eval_loss"], launches=launches,
+               phase_s=time.perf_counter() - t_all)
+    print(f"[sft-gemma2] gemma2-2b ({layers} layers, width {cfg.hidden_size}, heads {cfg.num_heads}/{cfg.kv_heads} x "
+          f"{cfg.head_dim}, windows 4096 / global alternating, softcap 50 / 30, vocab {cfg.vocab_size}) ({smi}): "
+          f"batch 1 x 8192 tokens, bf16, LoRA r=256 (merge runtime), recompute, NEFTune 5: {n_steps} steps + "
+          f"{eval_batches} validation batches in {wall:.1f} s (init included); step {step_s:.3f} s = "
+          f"{8192 / step_s:.0f} tokens/s; loss at step {n_steps} {out['final_loss']:.4f}, validation "
+          f"{out['eval_loss']:.4f}; peak {peak_gib:.2f} GiB; K4 launches {launches} = {layers} x (2 forwards + 1 "
+          f"backward) a step + {layers} forwards a validation batch, every one at D 256 on the mma.sync route", flush=True)
+    print(json.dumps({"sft_gemma2": res}), flush=True)
+    held.clear()
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"k4_fwd_d256": launches["fwd"], "k4_bwd_dq_d256": launches["dq"], "k4_bwd_dkv_d256": launches["dkv"]}, res
+
+
 KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "int4_matmul",
                   "int4_prefill")
 TRAIN_BATCH = 18
@@ -4677,7 +5229,8 @@ SFT_BATCH = 2
 SFT_STEPS = 3
 PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh", "serve-adapter", "k3",
           "k2", "k1", "grad", "k4", "k5", "train-small", "train", "train-dycal", "train-live", "train-merge",
-          "train-retriever", "sft-small", "sft", "eval-retriever", "eval-rag", "eval-ar", "cli")
+          "train-retriever", "sft-small", "sft", "eval-retriever", "eval-rag", "eval-ar", "cli", "families-small",
+          "serve-llama31", "sft-gemma2")
 LIVE_K = 4  # marginalize_k of the train-live cell
 EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
 
@@ -4764,6 +5317,10 @@ def main() -> int:
         adapter_launches, _ = serve_adapter_phase(device, passages or corpus(16384, np.random.default_rng(0)))
         gc.collect()
         torch.cuda.empty_cache()
+    llama31_launches = {}
+    if "serve-llama31" in phases:  # an 8B of its own, likewise
+        llama31_launches, _ = serve_llama31_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks,
+                                                  smi)
     if "k3" in phases:
         cases, reps = k3_phase(gen, device, peaks)
         print(json.dumps({"k3_cases": cases}), flush=True)
@@ -4786,8 +5343,10 @@ def main() -> int:
         grad_phase(gen, device)
     if "k4" in phases:
         cases, mains = k4_phase(gen, device, peaks, SFT_BATCH)
-        print(json.dumps({"k4_cases": cases}), flush=True)
+        d256 = k4_d256_time(gen, device, peaks)
+        print(json.dumps({"k4_cases": cases + list(d256.values())}), flush=True)
         kernels.update(mains)
+        kernels.update(d256)
     if "k5" in phases:
         cases, mains, k5_ms = k5_phase(gen, device, peaks)
         # K5 per decode step of Llama-2-7B: 32 layers x (q, k, v, o at (4096, 4096), gate and up at (4096, 11008),
@@ -4839,6 +5398,13 @@ def main() -> int:
             for name, n in launches.items():
                 if name in kernels:
                     kernels[name]["launches"] = n
+        if "sft-gemma2" in phases:
+            launches, _ = sft_gemma2_phase(device, workdir, smi)
+            for name, n in launches.items():
+                if name in kernels:
+                    kernels[name]["launches"] = n
+        if "families-small" in phases:
+            families_small_phase(device, workdir, smi)
         if "eval-retriever" in phases:
             by_mode, recs, _ = eval_retriever_phase(device, peaks, smi, args.eval_rows)
             eval_cases += list(recs.values())
@@ -4874,7 +5440,7 @@ def main() -> int:
                  "k5_pcol_gemm"]
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm", "k1_cal_quant", "k1_cal_quant[dy]"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *k5_names)
+             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *K4_D256, *k5_names)
     for name, n in cb_launches.items():  # PR 15's main path: answer_continuous() (serve-cb (c))
         if name in kernels:
             kernels[name]["launches_serve_cb"] = n
@@ -4882,7 +5448,8 @@ def main() -> int:
         if name in kernels:
             kernels[name]["launches_serve_stream"] = n
     for key, counts in (("launches_serve_http", http_launches), ("launches_serve_refresh", refresh_launches),
-                        ("launches_serve_adapter", adapter_launches)):  # the rest of serving
+                        ("launches_serve_adapter", adapter_launches),
+                        ("launches_serve_llama31", llama31_launches)):  # the rest of serving, Llama-3.1
         for name, n in counts.items():
             if name in kernels:
                 kernels[name][key] = n
@@ -4897,8 +5464,10 @@ def main() -> int:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
     for name in ("fused_dot_topk[f32]", "fused_dot_topk[int8]", "fused_dot_topk[int4]", "rowquant", *k1_names,
                  "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq_wgmma",
-                 "k4_bwd_dkv_wgmma", "k4_dsum", *k5_names):
+                 "k4_bwd_dkv_wgmma", "k4_dsum", *K4_D256, *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
+    for name in ("int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm", "fused_dot_topk[f32]"):
+        check(kernels[name]["launches_serve_llama31"] > 0, f"{name} was never launched by serve-llama31")
     for name in ("fused_dot_topk[f32]", "int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm"):
         check(kernels[name]["launches_serve_stream"] > 0, f"{name} was never launched by serve-stream")
         check(kernels[name]["launches_serve_http"] > 0, f"{name} was never launched by serve-http")

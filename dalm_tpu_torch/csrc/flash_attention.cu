@@ -6,7 +6,8 @@
 //                                                 csrc/flash_fwd_wgmma.cu (kernels/flash_attention.py:fwd_route)
 //   _flash_bwd / _bwd_dq_kernel                -> fa_bwd_kernel<.., false> (dalm_fa_bwd_dq)
 //   _flash_bwd / _bwd_dkv_kernel               -> fa_bwd_kernel<.., true>  (dalm_fa_bwd_dkv)
-//                                                 both for float32 inputs and head dims other than 64 / 128;
+//                                                 both for float32 inputs and head dims other than 64 / 128
+//                                                 (16 to 256 in steps of 16);
 //                                                 bfloat16 at 64 / 128 takes csrc/flash_bwd_wgmma.cu (the
 //                                                 same route rule), which also holds the dsum pre-pass
 //                                                 that both routes' dq and dk/dv read
@@ -43,7 +44,7 @@
 // window band) are skipped by a block-uniform test; tiles that are wholly
 // visible (most of a long causal row: inside the matrix, below the diagonal,
 // inside the band, one segment on both sides by a block vote) skip the
-// per-element tests; the rest is masked element by element. The ragged edge (any Sq, Sk; D a multiple of 16 up to 128) is
+// per-element tests; the rest is masked element by element. The ragged edge (any Sq, Sk; D a multiple of 16 up to 256) is
 // zero-filled on load and masked, so no length needs padding.
 //
 // A block has 4 warps; warp w owns rows [16 w, 16 w + 16) of the block's tile
@@ -70,6 +71,15 @@
 // The dk/dv kernel is the dq kernel with the roles swapped: it computes
 // s^T = k q^T and dp^T = v do^T directly, so no operand is ever needed
 // transposed in shared memory.
+//
+// Head dims 129-256 (Gemma's 256) have instances of their own, padded to 256. A warp's accumulators are
+// 16 rows x DP columns, DP / 8 registers a thread each: the forward's one (128 registers) and dq's one still fit
+// beside their score tiles, dq with 32-wide key tiles instead of 64. dk/dv holds two (256 registers), which do
+// not: at DP = 256 its output columns are split across two thread blocks (NSPLIT = 2). Both blocks of a k tile
+// load the same rows and compute the same s^T and dp^T over all 256 columns of the contraction, and each
+// accumulates and writes its own 128 columns of dk and dv. That costs the two score products once more (4 of
+// the 6 products of a tile run twice) and keeps every accumulator in registers. Shared memory at DP = 256:
+// forward 110 KB (bf16) / 212 KB (f32), dq and dk/dv 105-213 KB, each under the 227 KB a block may take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -429,9 +439,11 @@ constexpr int bwd_smem_bytes() {
            + BC * (2 * (int)sizeof(float) + (int)sizeof(int));
 }
 
-template <typename T, int DP, int BC, bool DKV>
+// NSPLIT (dk/dv only): the block writes columns [d0, d0 + DP / NSPLIT) of dk and dv, d0 from blockIdx.x.
+template <typename T, int DP, int BC, bool DKV, int NSPLIT>
 __global__ void __launch_bounds__(THREADS) fa_bwd_kernel(const Args a) {
-    constexpr int LD = DP + Pad<T>::v, LDP = BC + Pad<T>::v;
+    static_assert(DKV || NSPLIT == 1, "only dk/dv splits its output columns");
+    constexpr int LD = DP + Pad<T>::v, LDP = BC + Pad<T>::v, DO = DP / NSPLIT;
     extern __shared__ __align__(16) unsigned char smem[];
     T* Xs = reinterpret_cast<T*>(smem);  // [BR][LD]
     T* Ys = Xs + BR * LD;                // [BR][LD]
@@ -447,7 +459,8 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_kernel(const Args a) {
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
     const int D = (int)a.D, H = (int)a.H, group = H / (int)a.Hk;
     const int b = blockIdx.z;
-    const int row0 = (DKV ? (int)blockIdx.x : (int)gridDim.x - 1 - (int)blockIdx.x) * BR;
+    const int row0 = (DKV ? (int)blockIdx.x / NSPLIT : (int)gridDim.x - 1 - (int)blockIdx.x) * BR;
+    const int d0 = ((int)blockIdx.x % NSPLIT) * DO;  // the first output column of this block
     const int hk = DKV ? (int)blockIdx.y : (int)blockIdx.y / group;
     const int h_first = DKV ? hk * group : (int)blockIdx.y, h_last = DKV ? h_first + group : h_first + 1;
     const int n_rows = DKV ? mk.Sk : mk.Sq, n_cols = DKV ? mk.Sq : mk.Sk;
@@ -484,9 +497,9 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_kernel(const Args a) {
                                                  : a.seg_q[(long long)b * mk.Sq + min(row0, n_rows - 1)]);
     const bool row_one_seg =
         mk.has_seg ? __syncthreads_and(row_seg[0] == seg_first && row_seg[1] == seg_first) != 0 : true;
-    float acc1[DP / 8][4], acc2[DKV ? DP / 8 : 1][4];
+    float acc1[DO / 8][4], acc2[DKV ? DO / 8 : 1][4];
 #pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt)
+    for (int dt = 0; dt < DO / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             acc1[dt][e] = 0.f;
@@ -539,14 +552,16 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_kernel(const Args a) {
                 bwd_probs<T, BC, DKV, true>(s, dp, dSw, Pw, mk, r0, c0, row_seg, col_seg, row_lse, row_dsum, col_lse,
                                             col_dsum, scale, cap, inv_cap, g, t);
             __syncwarp();
-            warp_gemm<DP / 8, BC, false>(acc1, dSw, LDP, Us, LD, lane);
-            if constexpr (DKV) warp_gemm<DP / 8, BC, false>(acc2, Pw, LDP, Ws, LD, lane);
+            warp_gemm<DO / 8, BC, false>(acc1, dSw, LDP, Us + d0, LD, lane);
+            if constexpr (DKV) warp_gemm<DO / 8, BC, false>(acc2, Pw, LDP, Ws + d0, LD, lane);
         }
     }
 
     if constexpr (DKV) {
-        store_rows<T, DP>(static_cast<T*>(a.dk) + b * a.dk_sb + hk * a.dk_sh, a.dk_ss, acc1, r0, n_rows, D, t, 1.f, 1.f);
-        store_rows<T, DP>(static_cast<T*>(a.dv) + b * a.dv_sb + hk * a.dv_sh, a.dv_ss, acc2, r0, n_rows, D, t, 1.f, 1.f);
+        store_rows<T, DO>(static_cast<T*>(a.dk) + b * a.dk_sb + hk * a.dk_sh + d0, a.dk_ss, acc1, r0, n_rows, D - d0,
+                          t, 1.f, 1.f);
+        store_rows<T, DO>(static_cast<T*>(a.dv) + b * a.dv_sb + hk * a.dv_sh + d0, a.dv_ss, acc2, r0, n_rows, D - d0,
+                          t, 1.f, 1.f);
     } else {
         store_rows<T, DP>(static_cast<T*>(a.dq) + b * a.dq_sb + h_first * a.dq_sh, a.dq_ss, acc1, r0, n_rows, D, t,
                           1.f, 1.f);
@@ -568,30 +583,34 @@ template <typename T, int DP>
 cudaError_t launch_one(int which, const Args& a, cudaStream_t stream) {
     const unsigned B = (unsigned)a.B, H = (unsigned)a.H, Hk = (unsigned)a.Hk;
     const unsigned nq = (unsigned)((a.Sq + BR - 1) / BR), nk = (unsigned)((a.Sk + BR - 1) / BR);
-    // the dk/dv block holds two D-wide accumulators: narrower column tiles at D > 64 keep it in registers
-    constexpr int BC_DKV = DP > 64 ? 32 : 64;
+    // the dk/dv block holds two D-wide accumulators: narrower column tiles at D > 64 keep it in registers, and
+    // at D > 128 each block takes half of the output columns; dq's one accumulator takes 32-wide key tiles there
+    constexpr int BC_DKV = DP > 64 ? 32 : 64, NSPLIT = DP > 128 ? 2 : 1, BC_DQ = DP > 128 ? 32 : 64;
     if (which == 0) return launch(fa_fwd_kernel<T, DP>, fwd_smem_bytes<T, DP>(), dim3(nq, H, B), a, stream);
     if (which == 1)
-        return launch(fa_bwd_kernel<T, DP, 64, false>, bwd_smem_bytes<T, DP, 64, false>(), dim3(nq, H, B), a, stream);
-    return launch(fa_bwd_kernel<T, DP, BC_DKV, true>, bwd_smem_bytes<T, DP, BC_DKV, true>(), dim3(nk, Hk, B), a,
-                  stream);
+        return launch(fa_bwd_kernel<T, DP, BC_DQ, false, 1>, bwd_smem_bytes<T, DP, BC_DQ, false>(), dim3(nq, H, B), a,
+                      stream);
+    return launch(fa_bwd_kernel<T, DP, BC_DKV, true, NSPLIT>, bwd_smem_bytes<T, DP, BC_DKV, true>(),
+                  dim3(nk * NSPLIT, Hk, B), a, stream);
 }
 
 int dispatch(int which, const Args* args, void* stream) {
     const Args& a = *args;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (a.D < 16 || a.D > 128 || a.D % 16 || a.B < 1 || a.H < 1 || a.Hk < 1 || a.H % a.Hk || a.Sq < 1 || a.Sk < 1)
+    if (a.D < 16 || a.D > 256 || a.D % 16 || a.B < 1 || a.H < 1 || a.Hk < 1 || a.H % a.Hk || a.Sq < 1 || a.Sk < 1)
         return (int)cudaErrorInvalidValue;
-    const int dp = a.D <= 32 ? 32 : (a.D <= 64 ? 64 : 128);
+    const int dp = a.D <= 32 ? 32 : (a.D <= 64 ? 64 : (a.D <= 128 ? 128 : 256));
     cudaError_t err;
     if (a.is_bf16) {
         err = dp == 32 ? launch_one<__nv_bfloat16, 32>(which, a, st)
             : dp == 64 ? launch_one<__nv_bfloat16, 64>(which, a, st)
-                       : launch_one<__nv_bfloat16, 128>(which, a, st);
+            : dp == 128 ? launch_one<__nv_bfloat16, 128>(which, a, st)
+                        : launch_one<__nv_bfloat16, 256>(which, a, st);
     } else {
         err = dp == 32 ? launch_one<float, 32>(which, a, st)
             : dp == 64 ? launch_one<float, 64>(which, a, st)
-                       : launch_one<float, 128>(which, a, st);
+            : dp == 128 ? launch_one<float, 128>(which, a, st)
+                        : launch_one<float, 256>(which, a, st);
     }
     return (int)err;
 }

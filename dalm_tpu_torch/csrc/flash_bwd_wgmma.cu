@@ -586,11 +586,11 @@ int dalm_fa_bwd_wgmma_maps(const void* args) {
     const int err = make_maps<false>(a, m);
     return err ? err : make_maps<true>(a, m);
 }
-// dsum = rowsum(do * out) into a.dsum, (B, H, Sq) f32 contiguous; bf16 or f32, D a multiple of 16 up to 128,
+// dsum = rowsum(do * out) into a.dsum, (B, H, Sq) f32 contiguous; bf16 or f32, D a multiple of 16 up to 256,
 // rows 16-byte aligned.
 int dalm_fa_dsum(const void* args, void* stream) {
     const Args& a = *static_cast<const Args*>(args);
-    if (a.D < 16 || a.D > 128 || a.D % 16 || a.B < 1 || a.H < 1 || a.Sq < 1) return (int)cudaErrorInvalidValue;
+    if (a.D < 16 || a.D > 256 || a.D % 16 || a.B < 1 || a.H < 1 || a.Sq < 1) return (int)cudaErrorInvalidValue;
     const long long n = a.B * a.H * a.Sq;
     const dim3 grid((unsigned)((n + DSUM_ROWS - 1) / DSUM_ROWS));
     cudaStream_t st = static_cast<cudaStream_t>(stream);

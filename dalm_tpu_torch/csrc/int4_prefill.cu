@@ -11,7 +11,8 @@
 // (pallas_call at :496) for its variants base / floorsplit (_int4_kernel :43,
 // _floorsplit :151), nf4 (_nf4 :341) and groupmm / decomp (_int4_kernel_groupmm :78,
 // _decomp :113), and its i8mxu variant (pallas_call at :464, _int4_kernel_i8mxu :199),
-// for bfloat16 activations at many rows (prefill). Decode rows, float32 activations and
+// for bfloat16 activations at many rows (prefill), and for base / nf4 at any rows where the
+// group is no multiple of 16 (the fused kernel's k-step). Decode rows, float32 activations and
 // pcol keep csrc/int4_matmul.cu; kernels/int4_matmul.py chooses.
 //
 // What it computes, as the plain versions in kernels/int4_matmul.py do:
@@ -603,7 +604,8 @@ extern "C" {
 // The pre-pass. mode 0 (base): bf16(f32(nib - 8) * scale); 1 (nf4): the codebook's value times the scale;
 // 2 (nibbles): bf16(nib - 8), no scale (scale4 unread, may be null); 3 (int8 nibbles): int8(nib - 8), no scale.
 // q4 (half, N) uint8, scale4 (2 half / group, N) f32, wt (N, 2 half) bf16 (int8 in mode 3). half % 32 == 0,
-// group % 16 == 0 dividing half, N % 8 == 0, every pointer 16-byte aligned.
+// a group of any size dividing half (each packed row reads its own scale row: Gemma3-1B's K 1,152 packs at 8),
+// N % 8 == 0, every pointer 16-byte aligned.
 int dalm_i4_dequant_t(int mode, const void* q4, const float* scale4, int half, int N, int group, void* wt,
                       cudaStream_t stream) {
     const dim3 grid((N + DQ_COLS - 1) / DQ_COLS, (half + DQ_ROWS - 1) / DQ_ROWS);

@@ -6,8 +6,12 @@ and returns state dicts for the port's ``Encoder``, ``SentenceEmbedder``
 and ``Decoder``. The port names its parameters after the flax tree and
 keeps Dense kernels in the flax ``(in, out)`` layout (``FlexLinear``
 computes ``x @ kernel``; no ``nn.Linear`` is involved), so each leaf maps
-to the key of its dotted path unchanged. A leaf the module lacks, a
-module parameter no leaf fills, or a shape mismatch raises.
+to the key of its dotted path unchanged, the dense families' leaves too
+(q/k/v ``bias``, ``q_norm`` / ``k_norm``, the sandwich norms
+``post_attention_norm`` / ``pre_feedforward_norm`` / ``post_feedforward_norm``,
+and no ``lm_head`` where the head is tied). A leaf the module lacks, a
+module parameter no leaf fills, or a shape mismatch raises. Leaves may be
+numpy arrays or tensors (the port's own readers give bfloat16 as tensors).
 
 The fused-QLoRA collections carry across the same way: ``load_packed``
 takes the reference's ``params`` residual, ``quant`` (``q`` + ``scale``,
@@ -33,6 +37,8 @@ from dalm_tpu_torch.core.tree import flatten, unflatten
 
 
 def _to_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # the port's own readers (a bfloat16 leaf of params.msgpack, HF checkpoints)
+        return x.detach().clone()
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: widen exactly, then narrow
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)

@@ -40,7 +40,7 @@ Semantics (both versions; ``T`` is the input type, bf16 or f32):
 ``_flash_fwd`` / ``_flash_bwd``; ``flash_attention`` the ``(B, S, H, D)`` of the
 JAX ``flash_attention``. The kernels read strides, so neither layout is ever
 copied: only the last axis must be contiguous. Any ``Sq``, ``Sk`` >= 1;
-``D`` a multiple of 16 up to 128. The TPU tiling arguments
+``D`` a multiple of 16 up to 256 (Gemma's 256 on the ``mma.sync`` route). The TPU tiling arguments
 (``block_q``, ``block_k``, ``interpret``) are not carried over.
 """
 
@@ -53,7 +53,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30  # finite: fully masked rows stay NaN-free
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 16
 TILE_ROWS = 64
 WGMMA_HEAD_DIMS = (64, 128)
@@ -269,7 +269,7 @@ def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route a CUDA call takes, forward and backward alike: ``"wgmma"``
     (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``) for bfloat16 at
     head dim 64 or 128, ``"mma"`` (the ``mma.sync`` kernels of
-    ``csrc/flash_attention.cu``) for float32 and every other head dim."""
+    ``csrc/flash_attention.cu``) for float32 and every other head dim, 256 included."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "mma"
 
 

@@ -25,13 +25,17 @@ the high one) and ``scale4 (K/group, N)`` f32 (``(1, N)`` for pcol). Output in
 - ``pcol``: ``xq, xs = rowquant(x)``; int32 sums over all of K;
   ``(f32(acc) * xs) * s``.
 
-``int4_matmul`` routes as the reference does (``:553-593``): a shape that
-``_kernel_feasible`` / ``_pcol_feasible`` rejects, or whose N is not a
-multiple of 8 (the kernels' column pairs), takes ``x @ dequant(W)`` in
-``x.dtype`` on any device; an admitted one takes the instance named by
-``nf4`` / ``pcol`` or else by ``DEFAULT_VARIANT`` (read from
-``DALM_INT4_VARIANT`` at import, looked up at every call). The JAX package
-runs the kernel only on a TPU and dequantises everywhere else.
+``int4_matmul`` takes the instance named by ``nf4`` / ``pcol`` or else by
+``DEFAULT_VARIANT`` (read from ``DALM_INT4_VARIANT`` at import, looked up at
+every call). On CPU tensors it routes as the reference does (``:553-593``): a
+shape that ``_kernel_feasible`` / ``_pcol_feasible`` rejects (Mosaic's
+128-lane tiles), or whose N is not a multiple of 8, takes ``x @ dequant(W)`` in
+``x.dtype``, the rest the instance's plain version. On CUDA tensors that rule
+does not bind: every shape goes to ``int4_matmul_fwd``, which launches the
+kernels wherever their own geometry (``_check``, ``_route``) takes the shape
+(Gemma3-1B's K 1,152 at group 8, Phi-3's int4pc lm_head at N 32,064, which the
+reference's rule rejects, among them) and raises where it does not. The JAX
+package runs the kernel only on a TPU and dequantises everywhere else.
 
 On the card ``int4_matmul_fwd`` has four routes (``_route``). ``"fused"``:
 the decode kernel of ``csrc/int4_matmul.cu`` (decode's few rows, float32
@@ -303,9 +307,11 @@ def _check_weight(q4: torch.Tensor, scale4: torch.Tensor, instance: str, K: int)
         return K
     rows = scale4.shape[0]
     group = K // rows if rows and K % rows == 0 else 0
-    if not group or half % group or group % 16:
-        raise ValueError(f"int4_matmul: scale4 has {rows} rows: the group must divide K/2 = {half} "
-                         f"and be a multiple of 16")
+    if not group or half % group:
+        raise ValueError(f"int4_matmul: scale4 has {rows} rows: the group must divide K/2 = {half}")
+    if group % K_STEP and instance not in SCALED_INSTANCES:
+        raise ValueError(f"int4_matmul[{instance}]: a group of {group} is no multiple of {K_STEP}: the fused and "
+                         f"the fold kernels fold whole k-steps")
     return group
 
 
@@ -581,7 +587,15 @@ prefill_fold.launches = dict.fromkeys(FOLD_INSTANCES, 0)
 def _route(x2: torch.Tensor, instance: str, group: int) -> str:
     """The route a CUDA call takes: bfloat16 activations with at least ``M_PREFILL`` rows of base / nf4
     (``"prefill"``), of groupmm / i8mxu with a group in ``FOLD_GROUPS`` (``"fold"``) and of pcol (``"int8"``); the
-    rest ``"fused"``."""
+    rest ``"fused"``. Base / nf4 at a group that is no multiple of ``K_STEP`` (Gemma3-1B's K 1,152 packs at 8), which
+    the fused kernel does not take, go to ``"prefill"`` at any M: its pre-pass reads each weight's own scale row.
+    That route takes bfloat16 activations only, so it raises for float32 ones."""
+    if group % K_STEP:  # _check admits such groups for base / nf4 only
+        if x2.dtype != torch.bfloat16:
+            raise ValueError(f"int4_matmul[{instance}]: a group of {group} takes the prefill route, which needs "
+                             f"bfloat16 activations, not {x2.dtype} (the fused kernel needs a group that is a "
+                             f"multiple of {K_STEP})")
+        return "prefill"
     route = PREFILL_ROUTE.get(instance)
     if route == "fold" and group not in FOLD_GROUPS:
         return "fused"
@@ -630,14 +644,16 @@ def _forward(x, q4, scale4, nf4, pcol, fwd):
     lead, K = x.shape[:-1], x.shape[-1]
     half, N = q4.shape
     x2 = x.reshape(math.prod(lead), K)
-    if pcol:
-        feasible, instance = _pcol_feasible(half, N), "pcol"
+    instance = "pcol" if pcol else "nf4" if nf4 else INSTANCE[DEFAULT_VARIANT]
+    if x.is_cuda:  # the kernels' own geometry: a launch or a raise
+        feasible = True
+    elif pcol:
+        feasible = _pcol_feasible(half, N) and N % 8 == 0
     else:
-        feasible = _kernel_feasible(half, K // scale4.shape[0])
-        instance = "nf4" if nf4 else INSTANCE[DEFAULT_VARIANT]
-    if feasible and N % 8 == 0:
+        feasible = _kernel_feasible(half, K // scale4.shape[0]) and N % 8 == 0
+    if feasible:
         y = fwd(x2.contiguous(), q4, scale4, instance)
-    else:  # the reference's own fallback
+    else:  # the reference's product off a TPU where its rule rejects the shape
         y = x2 @ _dequant(q4, scale4, x.dtype, nf4 and not pcol)
     return y.reshape(*lead, N)
 
@@ -661,8 +677,8 @@ class _Int4Matmul(torch.autograd.Function):
 
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, nf4: bool = False,
                 pcol: bool = False) -> torch.Tensor:
-    """``x (..., K) @ dequant(q4, scale4)`` -> ``(..., N)`` in ``x.dtype``, with
-    K5 where the reference's rule admits the shape; gradient for ``x`` only."""
+    """``x (..., K) @ dequant(q4, scale4)`` -> ``(..., N)`` in ``x.dtype``: K5 on CUDA tensors (or a raise), on CPU
+    tensors K5's plain version where the reference's rule admits the shape; gradient for ``x`` only."""
     return _Int4Matmul.apply(x, q4, scale4, bool(nf4), bool(pcol), int4_matmul_fwd)
 
 

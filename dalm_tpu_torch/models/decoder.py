@@ -1,10 +1,21 @@
-"""Decoder-only causal LM, Llama-2 subset (counterpart of ``dalm_tpu/models/decoder.py``).
+"""Decoder-only causal LM, the dense families (counterpart of ``dalm_tpu/models/decoder.py``).
 
-RMSNorm pre-norm, rotate-half RoPE at the default theta, MHA or grouped
-GQA attention, SwiGLU MLP. Attention runs on plain matmuls (the reference's
-einsum path, ``decoder.py:762-776``) or, with ``attention_impl="flash"``,
-through ``kernels.flash_attention`` (K4) whenever there is no cache and the
-sequence is at least 256 long and a multiple of 128 (the reference's rule,
+Llama-2 / 3 / 3.1, Mistral, Phi-3, Qwen2.5 / 3 and Gemma / 2 / 3 on one
+module, as in the reference: RMSNorm pre-norm (``(1 + w)`` with
+``rmsnorm_unit_offset``), rotate-half RoPE (default, ``rope_llama3`` frequency
+bands, ``rope_scaling_factor`` linear positions on the global rope only, and
+Gemma3's local table at ``rope_local_theta`` for the sliding layers), MHA or
+grouped GQA attention with optional q/k/v bias and per-head QK-norm before
+rope, the query scale ``1 / sqrt(query_pre_attn_scalar or head_dim)``, the
+logit softcap before the mask, a sliding window on the layers
+``layer_window`` names, SwiGLU / GeGLU / erf-GELU MLPs, Gemma2's sandwich
+norms, the ``sqrt(hidden)`` embedding scale, the tied head
+(``hidden @ embed.T``, no ``lm_head``) and the final-logit softcap.
+Attention runs on plain matmuls (the reference's einsum path,
+``decoder.py:762-776``) or, with ``attention_impl="flash"``, through
+``kernels.flash_attention`` (K4; each layer's window, the softcap and the
+query scale go to the kernel) whenever there is no cache and the sequence is
+at least 256 long and a multiple of 128 (the reference's rule,
 ``decoder.py:738-744``, decided by the config alone: the kernel's wrapper
 looks at the tensor's device). Padding then goes in as segment ids (pads are
 segment 0, real tokens segment 1) under a slot-causal mask, where the matmul
@@ -22,21 +33,22 @@ pad rows, which feed no real token and carry no loss. The reference's modes:
   engine's slots, ``decoder.py:596-625,907,967``); the new keys/values are
   written into the cache buffers IN PLACE (the JAX version returns an updated
   copy) and attention runs over the whole buffer under a slot-causal mask
-  (``decoder.py:961-977``). Returns ``(logits, kv_cache)``. With
-  ``cfg.kv_quant`` the cache holds int8 keys and values with one f32 scale per
-  (token, kv head) (``decoder.py:555-571,856-870``): the new entries are
-  quantised on write and attention reads the dequantised buffers.
+  (``decoder.py:961-977``), banded by the layer's window in slot space. Returns
+  ``(logits, kv_cache)``. With ``cfg.kv_quant`` the cache holds int8 keys and
+  values with one f32 scale per (token, kv head) (``decoder.py:555-571,856-870``):
+  the new entries are quantised on write and attention reads the dequantised
+  buffers.
 
 Parameter names mirror the flax tree so JAX weights carry across leaf
-for leaf (``dalm_tpu_torch/interop.py``). Every other family knob of the
-reference config is rejected with ``NotImplementedError``.
+for leaf (``dalm_tpu_torch/interop.py``). The MoE, MLA and ring-attention
+knobs of the reference config are rejected with ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,56 +60,38 @@ from dalm_tpu_torch.models.encoder import Embed
 from dalm_tpu_torch.models.layers import FlexLinear
 
 ATTENTION_IMPLS = ("einsum", "flash")
+# the MLP's activation by the config's hidden_act
+_ACTS = {
+    "silu": F.silu,
+    "gelu_tanh": lambda z: F.gelu(z, approximate="tanh"),
+    "gelu": F.gelu,
+}
 
-# Reference config fields this slice does not port, with the value at
-# which each is inert. A saved config carrying any other value raises.
+# Reference config fields the port does not run yet, with the value at which
+# each is inert, and the module that brings them. A saved config carrying any
+# other value raises.
 UNPORTED_KNOBS = {
-    "tie_embeddings": False,
-    "ring_axis": "model",
-    "ring_layout": "contiguous",
-    "attention_bias": False,
-    "head_dim_override": None,
-    "hidden_act": "silu",
-    "scale_embeddings": False,
-    "rmsnorm_unit_offset": False,
-    "query_pre_attn_scalar": None,
-    "attn_logit_softcap": None,
-    "final_logit_softcap": None,
-    "post_norms": False,
-    "sliding_layers": "all",
-    "qk_norm": False,
-    "rope_local_theta": None,
-    "rope_scaling_factor": None,
-    "rope_llama3": None,
-    "num_experts": None,
-    "num_experts_per_tok": 2,
-    "moe_intermediate_size": None,
-    "norm_topk_prob": True,
-    "moe_router": "softmax",
-    "moe_n_group": None,
-    "moe_topk_group": None,
-    "moe_routed_scaling_factor": 1.0,
-    "moe_n_shared_experts": 0,
-    "moe_layer_start": 0,
-    "moe_impl": "auto",
-    "moe_capacity_factor": None,
-    "moe_group_size": 2048,
-    "q_lora_rank": None,
-    "kv_lora_rank": None,
-    "qk_nope_head_dim": None,
-    "qk_rope_head_dim": None,
-    "v_head_dim": None,
-    "rope_interleave": False,
-    "rope_yarn": None,
-    "attn_scale_mult": 1.0,
+    "models/moe.py": {
+        "num_experts": None, "num_experts_per_tok": 2, "moe_intermediate_size": None, "norm_topk_prob": True,
+        "moe_router": "softmax", "moe_n_group": None, "moe_topk_group": None, "moe_routed_scaling_factor": 1.0,
+        "moe_n_shared_experts": 0, "moe_layer_start": 0, "moe_impl": "auto", "moe_capacity_factor": None,
+        "moe_group_size": 2048,
+    },
+    "models/mla.py": {
+        "q_lora_rank": None, "kv_lora_rank": None, "qk_nope_head_dim": None, "qk_rope_head_dim": None,
+        "v_head_dim": None, "rope_interleave": False, "rope_yarn": None, "attn_scale_mult": 1.0,
+    },
+    "kernels/ring_attention.py (multi-GPU)": {"ring_axis": "model", "ring_layout": "contiguous"},
 }
 
 
 def check_unported(fields: dict) -> None:
     """Raise on a reference config field set to a non-inert value."""
-    for name, inert in UNPORTED_KNOBS.items():
-        if name in fields and fields[name] != inert:
-            raise NotImplementedError(f"decoder knob {name}={fields[name]!r} is not ported yet")
+    for module, knobs in UNPORTED_KNOBS.items():
+        for name, inert in knobs.items():
+            if name in fields and fields[name] != inert:
+                raise NotImplementedError(
+                    f"decoder knob {name}={fields[name]!r} needs {module}, which is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +105,27 @@ class DecoderConfig:
     max_position_embeddings: int = 2048
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
+    tie_embeddings: bool = False  # logits = hidden @ embed.T, no lm_head
     remat: bool = False  # recompute each layer in the backward (train_forward only)
     attention_impl: str = "einsum"
+    # keys ``sliding_window`` or more positions behind the query are masked, on the layers of ``layer_window``
     sliding_window: Optional[int] = None
+    attention_bias: bool = False  # q/k/v projection bias (Qwen2); o_proj and the MLP stay bias-free
+    head_dim_override: Optional[int] = None  # Gemma: head_dim decoupled from hidden / heads
+    hidden_act: str = "silu"  # "gelu_tanh" (Gemma's GeGLU) or "gelu" (exact erf)
+    scale_embeddings: bool = False  # embeddings times sqrt(hidden), the factor cast to the compute type first
+    rmsnorm_unit_offset: bool = False  # RMSNorm scale is 1 + w (HF Gemma's zero-centred weights)
+    query_pre_attn_scalar: Optional[float] = None  # scores scaled by 1 / sqrt(this) instead of 1 / sqrt(head_dim)
+    attn_logit_softcap: Optional[float] = None  # scores <- cap * tanh(scores / cap) before the mask
+    final_logit_softcap: Optional[float] = None  # the same on the logits
+    post_norms: bool = False  # Gemma2 sandwich norms: 4 a layer
+    # "all" (every layer windows), "even" (even layers, Gemma2) or a per-layer tuple of bools (Gemma3)
+    sliding_layers: Any = "all"
+    qk_norm: bool = False  # per-head RMSNorm on q and k over head_dim, before rope (Gemma3, Qwen3)
+    rope_local_theta: Optional[float] = None  # Gemma3: the sliding layers' rope base (unscaled positions)
+    rope_scaling_factor: Optional[float] = None  # linear position scaling of the global rope only
+    # Llama-3.1's frequency bands: (factor, low_freq_factor, high_freq_factor, original_max_position_embeddings)
+    rope_llama3: Optional[tuple] = None
     # "fwd" | "all": int8 kernels for layers with int8 storage (models/layers.py).
     int8_compute: str = "none"
     kv_quant: bool = False
@@ -122,11 +134,22 @@ class DecoderConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
+        return self.head_dim_override or self.hidden_size // self.num_heads
 
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    def layer_window(self, layer_idx: int) -> Optional[int]:
+        """The sliding window of one layer, None for global attention (``decoder.py:204-217``): every layer
+        ("all"), even layers ("even", Gemma2), or the layers a per-layer tuple marks (Gemma3)."""
+        if not self.sliding_window:
+            return None
+        if isinstance(self.sliding_layers, (tuple, list)):
+            return self.sliding_window if self.sliding_layers[layer_idx] else None
+        if self.sliding_layers == "even" and layer_idx % 2 == 1:
+            return None
+        return self.sliding_window
 
     @staticmethod
     def tiny(vocab_size: int = 512) -> "DecoderConfig":
@@ -135,6 +158,7 @@ class DecoderConfig:
             intermediate_size=128, max_position_embeddings=512,
         )
 
+    # The presets below carry the reference's numbers (``decoder.py:219-452``), each its published HF config.
     @staticmethod
     def llama2_7b() -> "DecoderConfig":
         return DecoderConfig(
@@ -143,12 +167,115 @@ class DecoderConfig:
             remat=True, param_dtype=torch.bfloat16,
         )
 
+    @staticmethod
+    def llama2_13b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=32000, hidden_size=5120, num_layers=40, num_heads=40,
+            intermediate_size=13824, max_position_embeddings=4096,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def llama3_8b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=128256, hidden_size=4096, num_layers=32, num_heads=32,
+            num_kv_heads=8, intermediate_size=14336,
+            max_position_embeddings=8192, rope_theta=500000.0,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def llama31_8b() -> "DecoderConfig":
+        return dataclasses.replace(DecoderConfig.llama3_8b(), max_position_embeddings=131072,
+                                   rope_llama3=(8.0, 1.0, 4.0, 8192))
+
+    @staticmethod
+    def mistral_7b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+            num_kv_heads=8, intermediate_size=14336,
+            max_position_embeddings=32768, rope_theta=10000.0,
+            sliding_window=4096, remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def qwen25_7b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=152064, hidden_size=3584, num_layers=28, num_heads=28,
+            num_kv_heads=4, intermediate_size=18944,
+            max_position_embeddings=32768, rope_theta=1000000.0,
+            attention_bias=True, remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def qwen3_8b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=151936, hidden_size=4096, num_layers=36, num_heads=32,
+            num_kv_heads=8, head_dim_override=128, intermediate_size=12288,
+            max_position_embeddings=40960, rope_theta=1000000.0,
+            rms_norm_eps=1e-6, qk_norm=True,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def phi3_mini() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=32064, hidden_size=3072, num_layers=32, num_heads=32,
+            num_kv_heads=32, intermediate_size=8192,
+            max_position_embeddings=4096, rope_theta=10000.0,
+            sliding_window=2047, remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def gemma_2b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=256000, hidden_size=2048, num_layers=18, num_heads=8,
+            num_kv_heads=1, head_dim_override=256, intermediate_size=16384,
+            max_position_embeddings=8192, rms_norm_eps=1e-6,
+            tie_embeddings=True, hidden_act="gelu_tanh",
+            scale_embeddings=True, rmsnorm_unit_offset=True,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def gemma2_2b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=256000, hidden_size=2304, num_layers=26, num_heads=8,
+            num_kv_heads=4, head_dim_override=256, intermediate_size=9216,
+            max_position_embeddings=8192, rms_norm_eps=1e-6,
+            tie_embeddings=True, hidden_act="gelu_tanh",
+            scale_embeddings=True, rmsnorm_unit_offset=True,
+            query_pre_attn_scalar=256.0, attn_logit_softcap=50.0,
+            final_logit_softcap=30.0, sliding_window=4096,
+            sliding_layers="even", post_norms=True,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def gemma3_1b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=262144, hidden_size=1152, num_layers=26, num_heads=4,
+            num_kv_heads=1, head_dim_override=256, intermediate_size=6912,
+            max_position_embeddings=32768, rope_theta=1000000.0,
+            rms_norm_eps=1e-6, tie_embeddings=True, hidden_act="gelu_tanh",
+            scale_embeddings=True, rmsnorm_unit_offset=True,
+            query_pre_attn_scalar=256.0, post_norms=True,
+            sliding_window=512,
+            sliding_layers=tuple(bool((i + 1) % 6) for i in range(26)),
+            qk_norm=True, rope_local_theta=10000.0,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
 
 def _check_supported(cfg: DecoderConfig) -> None:
     if cfg.attention_impl not in ATTENTION_IMPLS:
-        raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported yet")
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported yet")
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} needs kernels/ring_attention.py (multi-GPU), not ported yet")
+    if cfg.hidden_act not in _ACTS:
+        raise ValueError(f"hidden_act must be one of {tuple(_ACTS)}, not {cfg.hidden_act!r}")
+    layers = cfg.sliding_layers
+    if not (layers in ("all", "even") or (isinstance(layers, (tuple, list)) and len(layers) >= cfg.num_layers)):
+        raise ValueError(f"sliding_layers must be 'all', 'even' or a bool for every layer, not {layers!r}")
     if cfg.num_heads % cfg.kv_heads:
         raise ValueError("num_heads must be a multiple of num_kv_heads")
 
@@ -158,10 +285,23 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x2, x1], dim=-1)
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, dtype) -> tuple:
-    """positions (B, S) → cos/sin (B, S, head_dim), default rope only."""
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, dtype,
+                 llama3_scaling: Optional[tuple] = None) -> tuple:
+    """positions (B, S) → cos/sin (B, S, head_dim). ``llama3_scaling`` =
+    (factor, low_freq_factor, high_freq_factor, original_max_position_embeddings)
+    rewrites the inverse frequencies as Llama-3.1 does (``decoder.py:502-509``):
+    wavelengths above original / low are divided by ``factor``, those below
+    original / high kept, the band between interpolated."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
     inv_freq = 1.0 / (theta ** exps)
+    if llama3_scaling is not None:
+        factor, low, high, old_len = (float(v) for v in llama3_scaling)
+        wavelen = 2.0 * math.pi / inv_freq
+        scaled = torch.where(wavelen > old_len / low, inv_freq / factor, inv_freq)
+        smooth = (old_len / wavelen - low) / (high - low)
+        smoothed = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+        medium = (wavelen >= old_len / high) & (wavelen <= old_len / low)
+        inv_freq = torch.where(medium, smoothed, scaled)
     freqs = positions[..., None].float() * inv_freq[None, None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
@@ -174,25 +314,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, features: int, eps: float, dtype, param_dtype, device=None):
+    """RMSNorm over the last axis in f32; with ``unit_offset`` the effective scale is ``1 + scale`` (Gemma's
+    parameterisation: a fresh layer holds zeros)."""
+
+    def __init__(self, features: int, eps: float, dtype, param_dtype, device=None, unit_offset: bool = False):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(features, dtype=param_dtype, device=device))
+        self.unit_offset = unit_offset
+        self.scale = nn.Parameter(torch.full((features,), 0.0 if unit_offset else 1.0, dtype=param_dtype,
+                                             device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            self.scale.fill_(1.0)
+            self.scale.fill_(0.0 if self.unit_offset else 1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-        return (x32 * torch.rsqrt(var + self.eps) * self.scale.float()).to(self.dtype)
+        s = self.scale.float() + 1.0 if self.unit_offset else self.scale.float()
+        return (x32 * torch.rsqrt(var + self.eps) * s).to(self.dtype)
 
 
-def _proj(cfg: DecoderConfig, n_in: int, n_out: int, device) -> FlexLinear:
-    return FlexLinear(n_in, n_out, use_bias=False, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+def _norm(cfg: DecoderConfig, features: int, device) -> RMSNorm:
+    return RMSNorm(features, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device, cfg.rmsnorm_unit_offset)
+
+
+def _proj(cfg: DecoderConfig, n_in: int, n_out: int, device, use_bias: bool = False) -> FlexLinear:
+    return FlexLinear(n_in, n_out, use_bias=use_bias, dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
                       int8_compute=cfg.int8_compute)
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap
 
 
 def _kv_quantize(x: torch.Tensor) -> tuple:
@@ -248,27 +402,38 @@ def _cache_write(cache: dict, new_vals: dict, cache_index, S: int) -> None:
 
 
 class DecoderAttention(nn.Module):
-    def __init__(self, cfg: DecoderConfig, device=None):
+    def __init__(self, cfg: DecoderConfig, layer_idx: int = 0, device=None):
         super().__init__()
         self.cfg = cfg
+        self.layer_idx = layer_idx
         h, nh, kvh, hd = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        self.q_proj = _proj(cfg, h, nh * hd, device)
-        self.k_proj = _proj(cfg, h, kvh * hd, device)
-        self.v_proj = _proj(cfg, h, kvh * hd, device)
+        ab = cfg.attention_bias
+        self.q_proj = _proj(cfg, h, nh * hd, device, ab)
+        self.k_proj = _proj(cfg, h, kvh * hd, device, ab)
+        self.v_proj = _proj(cfg, h, kvh * hd, device, ab)
         self.o_proj = _proj(cfg, nh * hd, h, device)
+        if cfg.qk_norm:
+            self.q_norm = _norm(cfg, hd, device)
+            self.k_norm = _norm(cfg, hd, device)
 
     def forward(self, hidden, mask, cos, sin, kv_cache=None, cache_index=None, segment_mask=None):
-        """mask: (B, 1, S_q, S_k) bool (True = attend), or None on the flash
-        path, which takes ``segment_mask`` (B, S) int32 (None: all valid)."""
+        """mask: (B, 1, S_q, S_k) bool (True = attend), this layer's (banded
+        where it slides), or None on the flash path, which takes
+        ``segment_mask`` (B, S) int32 (None: all valid) and the layer's window."""
         cfg = self.cfg
         B, S, _ = hidden.shape
         nh, kvh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        q = apply_rope(self.q_proj(hidden).view(B, S, nh, hd), cos, sin)
-        k = apply_rope(self.k_proj(hidden).view(B, S, kvh, hd), cos, sin)
+        q = self.q_proj(hidden).view(B, S, nh, hd)
+        k = self.k_proj(hidden).view(B, S, kvh, hd)
+        if cfg.qk_norm:  # per head over head_dim, before rope (decoder.py:653-663)
+            q, k = self.q_norm(q), self.k_norm(k)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         v = self.v_proj(hidden).view(B, S, kvh, hd)
+        scale = 1.0 / float(cfg.query_pre_attn_scalar or hd) ** 0.5
         if mask is None:
             # K4: never builds the (S, S) scores; K/V go in at the kv head count.
-            ctx = flash_attention(q, k, v, segment_mask, segment_mask, causal=True, scale=1.0 / math.sqrt(hd))
+            ctx = flash_attention(q, k, v, segment_mask, segment_mask, causal=True, scale=scale,
+                                  window=cfg.layer_window(self.layer_idx), softcap=cfg.attn_logit_softcap)
             return self.o_proj(ctx.reshape(B, S, nh * hd).to(cfg.dtype))
         if kv_cache is not None:
             if "k_scale" in kv_cache:  # int8 cache: quantise on write, read dequantised
@@ -286,33 +451,47 @@ class DecoderAttention(nn.Module):
         qg = q.view(B, S, kvh, rep, hd).permute(0, 2, 3, 1, 4)
         kt = k.permute(0, 2, 3, 1)[:, :, None]  # (B, kvh, 1, hd, L)
         vg = v.permute(0, 2, 1, 3)[:, :, None]  # (B, kvh, 1, L, hd)
-        scale = torch.tensor(1.0 / math.sqrt(hd), dtype=cfg.dtype)
-        scores = (qg @ kt) * scale
-        scores = torch.where(
-            mask[:, :, None], scores.float(),
-            torch.tensor(torch.finfo(torch.float32).min, device=scores.device),
-        )
+        scores = ((qg @ kt) * torch.tensor(scale, dtype=cfg.dtype)).float()
+        if cfg.attn_logit_softcap is not None:  # cap, then mask (decoder.py:730-736)
+            scores = _softcap(scores, cfg.attn_logit_softcap)
+        scores = torch.where(mask[:, :, None], scores,
+                             torch.tensor(torch.finfo(torch.float32).min, device=scores.device))
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         ctx = (probs @ vg).permute(0, 3, 1, 2, 4).reshape(B, S, nh * hd)
         return self.o_proj(ctx)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: DecoderConfig, device=None):
+    """Pre-norm attention and MLP; with ``post_norms`` Gemma2's sandwich: the
+    attention output normed by ``post_attention_norm`` before the residual add,
+    the MLP between ``pre_feedforward_norm`` and ``post_feedforward_norm``
+    (without it ``post_attention_norm`` is the MLP's pre-norm, Llama's name)."""
+
+    def __init__(self, cfg: DecoderConfig, layer_idx: int = 0, device=None):
         super().__init__()
         h = cfg.hidden_size
-        self.input_norm = RMSNorm(h, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
-        self.attention = DecoderAttention(cfg, device)
-        self.post_attention_norm = RMSNorm(h, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
+        self.post_norms = cfg.post_norms
+        self.act = _ACTS[cfg.hidden_act]
+        self.input_norm = _norm(cfg, h, device)
+        self.attention = DecoderAttention(cfg, layer_idx, device)
+        self.post_attention_norm = _norm(cfg, h, device)
+        if cfg.post_norms:
+            self.pre_feedforward_norm = _norm(cfg, h, device)
+            self.post_feedforward_norm = _norm(cfg, h, device)
         self.gate_proj = _proj(cfg, h, cfg.intermediate_size, device)
         self.up_proj = _proj(cfg, h, cfg.intermediate_size, device)
         self.down_proj = _proj(cfg, cfg.intermediate_size, h, device)
 
     def forward(self, hidden, mask, cos, sin, kv_cache=None, cache_index=None, segment_mask=None):
-        hidden = hidden + self.attention(self.input_norm(hidden), mask, cos, sin, kv_cache, cache_index,
-                                         segment_mask)
-        normed = self.post_attention_norm(hidden)
-        return hidden + self.down_proj(F.silu(self.gate_proj(normed)) * self.up_proj(normed))
+        attn = self.attention(self.input_norm(hidden), mask, cos, sin, kv_cache, cache_index, segment_mask)
+        if self.post_norms:
+            attn = self.post_attention_norm(attn)
+        hidden = hidden + attn
+        normed = (self.pre_feedforward_norm if self.post_norms else self.post_attention_norm)(hidden)
+        down = self.down_proj(self.act(self.gate_proj(normed)) * self.up_proj(normed))
+        if self.post_norms:
+            down = self.post_feedforward_norm(down)
+        return hidden + down
 
 
 class Decoder(nn.Module):
@@ -322,9 +501,10 @@ class Decoder(nn.Module):
         self.cfg = cfg
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype, cfg.param_dtype, device)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", DecoderLayer(cfg, device))
-        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
-        self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size, device)
+            self.add_module(f"layer_{i}", DecoderLayer(cfg, i, device))
+        self.final_norm = _norm(cfg, cfg.hidden_size, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _proj(cfg, cfg.hidden_size, cfg.vocab_size, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in self.modules():
@@ -420,40 +600,59 @@ class Decoder(nn.Module):
                 positions = torch.arange(S, device=dev)[None, :].expand(B, S)
 
         hidden = self.embed_tokens(input_ids)
+        if cfg.scale_embeddings:  # the factor cast to the compute type first, as HF Gemma does
+            hidden = hidden * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype)
         if noise is not None:
             scale = neftune_alpha / math.sqrt(S * cfg.hidden_size)
             hidden = hidden + (noise.to(device=dev, dtype=torch.float32) * scale).to(hidden.dtype)
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
+        # The global rope (Llama-3.1's bands, linear scaling of its positions only) and Gemma3's local one
+        # for the sliding layers, at unscaled positions (decoder.py:939-959).
+        pos_global = positions.float() / cfg.rope_scaling_factor if cfg.rope_scaling_factor else positions
+        cos, sin = rope_cos_sin(pos_global, cfg.head_dim, cfg.rope_theta, cfg.dtype, cfg.rope_llama3)
+        local = None
+        if cfg.rope_local_theta is not None:
+            local = rope_cos_sin(positions, cfg.head_dim, cfg.rope_local_theta, cfg.dtype)
 
-        segment_mask = None
+        segment_mask = mask = mask_win = None
         if self.uses_flash(S, cached=kv_cache is not None):
-            mask = None
             if attention_mask is not None:
                 segment_mask = attention_mask.to(torch.int32)
-        elif kv_cache is not None:
-            # Causality over cache SLOTS: with left padding the rope
-            # position lags the slot index by a per-row constant.
-            key_len = kv_cache["layer_0"]["k"].shape[1]
-            key_slot = torch.arange(key_len, device=dev)[None, None, None, :]
-            mask = key_slot <= q_slot[:, None, :, None]
         else:
-            mask = positions[:, None, None, :] <= positions[:, None, :, None]
-        if mask is not None and attention_mask is not None:
-            mask = mask & (attention_mask[:, None, None, :] > 0)
+            if kv_cache is not None:
+                # Causality over cache SLOTS: with left padding the rope position lags the slot index by a
+                # per-row constant, so the window band in slots is the band in positions.
+                key_len = kv_cache["layer_0"]["k"].shape[1]
+                k_at = torch.arange(key_len, device=dev)[None, None, None, :]
+                q_at = q_slot[:, None, :, None]
+            else:
+                k_at, q_at = positions[:, None, None, :], positions[:, None, :, None]
+            mask = k_at <= q_at
+            if attention_mask is not None:
+                mask = mask & (attention_mask[:, None, None, :] > 0)
+            mask_win = mask & (k_at > q_at - cfg.sliding_window) if cfg.sliding_window else mask
 
         for i in range(cfg.num_layers):
             layer_cache = kv_cache[f"layer_{i}"] if kv_cache is not None else None
             layer = getattr(self, f"layer_{i}")
+            windowed = cfg.layer_window(i) is not None
+            layer_mask = mask_win if windowed else mask
+            lcos, lsin = local if windowed and local is not None else (cos, sin)
             if remat and torch.is_grad_enabled():
-                hidden = checkpoint(layer, hidden, mask, cos, sin, None, None, segment_mask, use_reentrant=False)
+                hidden = checkpoint(layer, hidden, layer_mask, lcos, lsin, None, None, segment_mask,
+                                    use_reentrant=False)
             else:
-                hidden = layer(hidden, mask, cos, sin, layer_cache, cache_index, segment_mask)
+                hidden = layer(hidden, layer_mask, lcos, lsin, layer_cache, cache_index, segment_mask)
         hidden = self.final_norm(hidden)
         if return_hidden:
             return hidden
         if logits_last_only:
             hidden = hidden[:, -1:, :]
-        logits = self.lm_head(hidden)
+        if cfg.tie_embeddings:
+            logits = hidden @ self.embed_tokens.embedding.to(cfg.dtype).T
+        else:
+            logits = self.lm_head(hidden)
+        if cfg.final_logit_softcap is not None:
+            logits = _softcap(logits.float(), cfg.final_logit_softcap).to(cfg.dtype)
         if kv_cache is not None:
             return logits, kv_cache
         return logits

@@ -16,7 +16,9 @@ Two views of the same state:
   from the module's own kernels, ``split_state`` reads the trees back, and
   ``init_packed_on_device`` random-initialises a model built on the ``meta``
   device straight into packed storage, one leaf at a time, so a
-  full-precision tree of a 7B model never exists.
+  full-precision tree of a 7B model never exists;
+- an HF checkpoint: ``load_hf_decoder_packed`` streams a dense-family decoder into packed storage tensor by
+  tensor (``dalm_tpu/models/qlora.py:310-363``).
 """
 
 from __future__ import annotations
@@ -280,9 +282,49 @@ def init_packed_on_device(module: nn.Module, generator: torch.Generator, spec: O
         leaf = name.rpartition(".")[2]
         if p.dim() >= 2:
             value = draw(p.shape)
-        elif leaf == "scale":
-            value = torch.ones(p.shape, dtype=dtype, device=device)
+        elif leaf == "scale":  # a norm's: 1, or 0 where it is parameterised as 1 + w
+            value = torch.full(p.shape, 0.0 if getattr(owner, "unit_offset", False) else 1.0, dtype=dtype,
+                               device=device)
         else:
             value = torch.zeros(p.shape, dtype=dtype, device=device)
         setattr(owner, leaf, nn.Parameter(value))
     return module
+
+
+def load_hf_decoder_packed(path: str, spec: Optional[LoraSpec] = None, quantize: bool = True,
+                           min_size: int = MIN_SIZE, generator: Optional[torch.Generator] = None,
+                           dtype: torch.dtype = torch.bfloat16, device=None) -> Tuple[Any, dict, dict, Optional[dict]]:
+    """Stream a dense-family HF decoder checkpoint (``models/hf_loader.py``) into packed storage: every leaf is
+    read from the file (memory-mapped) as f32, packed if it is a 2-D kernel of ``min_size`` elements or more
+    (``quantize``: the reference's per-column int8, else bf16 ``w``), else cast to ``dtype``, moved to ``device`` and freed before the next is read, so the host holds one
+    full-precision tensor at a time. With ``spec``, its targets get factors ``a ~ N(0, 0.02) * alpha/r`` from
+    ``generator`` (its device's; seed 0 on the CPU when None) and ``b = 0``, in file order.
+    Returns (config, residual, quant, lora-or-None), the trees ``load_packed`` takes."""
+    from dalm_tpu_torch.models import hf_loader
+
+    storage = "int8" if quantize else "bf16"
+    hf = hf_loader.read_hf_config(path)
+    cfg = hf_loader.hf_decoder_config(hf, dtype)
+    if generator is None and spec is not None:
+        generator = torch.Generator().manual_seed(0)
+    residual: dict = {}
+    quant: dict = {}
+    lora: Optional[dict] = {} if spec is not None else None
+    state = hf_loader.open_hf_state(path)
+    try:
+        for leaf_path, read in hf_loader.decoder_leaves(cfg, hf.get("model_type") or "", state):
+            leaf = read()
+            if leaf_path[-1] == "kernel" and leaf.dim() == 2 and leaf.numel() >= min_size:
+                for name, value in _pack_leaf(leaf.to(device) if device is not None else leaf, storage).items():
+                    set_path(quant, leaf_path[:-1] + (name,), value)
+            else:
+                set_path(residual, leaf_path, leaf.to(device=device, dtype=dtype))
+            if spec is not None and leaf_path[-1] == "kernel" and leaf_path[-2] in spec.target_modules:
+                a, b = _factors(generator, leaf.shape[0], leaf.shape[1], spec, device or leaf.device)
+                set_path(lora, leaf_path[:-1] + ("a",), a)
+                set_path(lora, leaf_path[:-1] + ("b",), b)
+            del leaf
+    finally:
+        if hasattr(state, "close"):
+            state.close()
+    return cfg, residual, quant, lora

@@ -1,13 +1,18 @@
 """Model resolution + save/load (counterpart of ``dalm_tpu/models/registry.py``).
 
-A model spec is a preset name (random init by the caller) or a directory
-written by :func:`save_pretrained`: ``config.json`` in the reference's
-schema (``__class__`` + dataclass fields, ``registry.py:74-100``) plus a
-``torch.save`` state dict, ``state_dict.pt``. A saved int8 base (a layer's
-``q`` + ``scale`` leaves, what the merge runtime with ``use_bnb`` saves)
-resolves to the dequantised ``kernel = q * scale`` in f32, as the
-reference's ``dequantize_params`` forms it. Reading the reference's
-``params.msgpack`` and HF checkpoints waits for a later slice.
+A model spec is a preset name (random init by the caller) or a directory:
+
+- written by the port's :func:`save_pretrained`: ``config.json`` in the reference's schema (``__class__`` +
+  dataclass fields, ``registry.py:74-100``) plus a ``torch.save`` state dict, ``state_dict.pt``. A saved int8
+  base (a layer's ``q`` + ``scale`` leaves, what the merge runtime with ``use_bnb`` saves) resolves to the
+  dequantised ``kernel = q * scale`` in f32, as the reference's ``dequantize_params`` forms it;
+- written by the reference's ``save_pretrained``: ``config.json`` + flax's ``params.msgpack``, read by the port's
+  own reader (``core/msgpack.py``); an int8 node (``{"__int8__": q, "scale": s}``) resolves the same way;
+- a Hugging Face checkpoint (``config.json`` + ``model.safetensors`` or ``pytorch_model.bin``), read by
+  ``models/hf_loader.py``: the dense decoder families by ``model_type`` (``registry.py:156-183``), BERT encoders.
+
+The reference's MoE, MLA and GPT-2 presets and model types raise ``NotImplementedError`` naming the module each
+waits for.
 """
 
 from __future__ import annotations
@@ -20,10 +25,13 @@ from typing import Optional, Tuple
 import torch
 
 from dalm_tpu_torch.core.dtypes import DTYPE_NAMES, parse_dtype
+from dalm_tpu_torch.core.tree import flatten
 from dalm_tpu_torch.models.decoder import DecoderConfig, check_unported
 from dalm_tpu_torch.models.encoder import EncoderConfig
 
 STATE_FILE = "state_dict.pt"
+MSGPACK_FILE = "params.msgpack"
+HF_FILES = ("model.safetensors", "pytorch_model.bin")
 
 ENCODER_PRESETS = {
     "tiny": EncoderConfig.tiny,
@@ -35,6 +43,22 @@ DECODER_PRESETS = {
     "tiny": DecoderConfig.tiny,
     "tiny-decoder": DecoderConfig.tiny,
     "llama2-7b": DecoderConfig.llama2_7b,
+    "llama3-8b": DecoderConfig.llama3_8b,
+    "llama2-13b": DecoderConfig.llama2_13b,
+    "mistral-7b": DecoderConfig.mistral_7b,
+    "qwen2.5-7b": DecoderConfig.qwen25_7b,
+    "qwen3-8b": DecoderConfig.qwen3_8b,
+    "llama3.1-8b": DecoderConfig.llama31_8b,
+    "phi3-mini": DecoderConfig.phi3_mini,
+    "gemma-2b": DecoderConfig.gemma_2b,
+    "gemma2-2b": DecoderConfig.gemma2_2b,
+    "gemma3-1b": DecoderConfig.gemma3_1b,
+}
+# The reference's other presets and the HF model types of those families, with the module each waits for.
+UNPORTED_PRESETS = {
+    "mixtral-8x7b": "models/moe.py", "mixtral-mini-4b": "models/moe.py", "qwen3-moe-30b": "models/moe.py",
+    "tiny-moe": "models/moe.py", "tiny-mla": "models/mla.py", "deepseek-v3-mini": "models/mla.py",
+    "deepseek-v3-mid-7b": "models/mla.py", "tiny-gpt2": "models/gpt2.py", "gpt2": "models/gpt2.py",
 }
 
 _CLASSES = {"EncoderConfig": EncoderConfig, "DecoderConfig": DecoderConfig}
@@ -51,8 +75,10 @@ def config_to_json(cfg) -> dict:
 def config_from_json(d: dict):
     d = dict(d)
     cls_name = d.pop("__class__")
+    if cls_name == "GPT2Config":
+        raise NotImplementedError("GPT2Config needs models/gpt2.py, which is not ported yet")
     if cls_name not in _CLASSES:
-        raise NotImplementedError(f"config class {cls_name!r} is not ported yet")
+        raise ValueError(f"unknown config class {cls_name!r}")
     cls = _CLASSES[cls_name]
     if cls is DecoderConfig:
         check_unported(d)
@@ -61,6 +87,10 @@ def config_from_json(d: dict):
     for k in ("dtype", "param_dtype"):
         if k in d:
             d[k] = parse_dtype(d[k])
+    # JSON gives the per-layer sliding pattern and the llama3 rope tuple back as lists
+    for k in ("sliding_layers", "rope_llama3"):
+        if isinstance(d.get(k), list):
+            d[k] = tuple(d[k])
     return cls(**d)
 
 
@@ -91,18 +121,60 @@ def dequantize_state(state: dict) -> dict:
     return out
 
 
+def tree_to_state(tree) -> dict:
+    """A flax-named parameter tree (numpy arrays or tensors) → a state dict of CPU tensors; an int8 node
+    ``{"__int8__": q, "scale": s}`` becomes its f32 ``q * s``."""
+    import numpy as np
+
+    def tensor(x):
+        return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x, copy=True))
+
+    flat = flatten(tree)
+    int8 = {k[: -len(".__int8__")] for k in flat if k.endswith(".__int8__")}
+    out = {}
+    for key, v in flat.items():
+        owner = key.rpartition(".")[0]
+        if owner in int8:
+            if key.endswith(".__int8__"):
+                out[owner] = tensor(v).float() * tensor(flat[owner + ".scale"]).float()
+        else:
+            out[key] = tensor(v)
+    return out
+
+
+def load_msgpack_pretrained(path: str) -> Tuple[object, dict]:
+    """A reference ``save_pretrained`` directory (``config.json`` + ``params.msgpack``) → (config, CPU state dict)."""
+    from dalm_tpu_torch.core import msgpack
+
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = config_from_json(json.load(f))
+    return cfg, tree_to_state(msgpack.load(os.path.join(path, MSGPACK_FILE)))
+
+
+def _has(path: str, *names) -> bool:
+    return os.path.isdir(path) and any(os.path.exists(os.path.join(path, n)) for n in names)
+
+
 def _resolve(spec: str, presets: dict, kind: str, dtype, vocab_size):
     if spec in presets:
         cfg, state = presets[spec](), None
         if vocab_size is not None:
             cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
-    elif os.path.isdir(spec) and os.path.exists(os.path.join(spec, STATE_FILE)):
+    elif spec in UNPORTED_PRESETS:
+        raise NotImplementedError(f"preset {spec!r} needs {UNPORTED_PRESETS[spec]}, which is not ported yet")
+    elif _has(spec, STATE_FILE):
         cfg, state = load_pretrained(spec)
         state = dequantize_state(state)
-    elif os.path.isdir(spec):
-        raise NotImplementedError(
-            f"{spec!r}: only state_dict.pt artifacts are read; params.msgpack and HF checkpoints wait"
-        )
+    elif _has(spec, MSGPACK_FILE):
+        cfg, state = load_msgpack_pretrained(spec)
+    elif _has(spec, *HF_FILES):
+        from dalm_tpu_torch.models import hf_loader
+
+        if kind == "encoder":
+            cfg, tree = hf_loader.load_hf_encoder(spec)
+        else:
+            cfg, tree = hf_loader.load_hf_decoder(spec)
+        state = tree_to_state(tree)
     else:
         raise ValueError(f"unknown {kind} spec {spec!r}")
     if dtype is not None:

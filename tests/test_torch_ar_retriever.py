@@ -37,7 +37,7 @@ from dalm_tpu_torch.serve import RagPipeline
 from dalm_tpu_torch.train import train_e2e, train_retriever
 from test_torch_eval import (TOP_K, assert_margins, eval_columns, jax_embeddings, jax_search_margins,
                              port_embeddings, shared_bases, unique_passages)
-from test_torch_train import SMALL
+from test_torch_train_e2e import SMALL
 
 
 @pytest.fixture(scope="module")

@@ -722,11 +722,106 @@ def test_decoder_flash_backward_at_head_dim_128_takes_the_wgmma_route(cuda):
         assert float((a.float() - b.float()).norm()) <= 5e-2 * max(float(b.float().norm()), 1e-6)
 
 
+# K4 at head dims 129-256 (Gemma's 256): the mma.sync route's own instances (dk/dv split across two blocks by
+# output columns), at the tolerances above; Gemma2's window, softcap 50, scale 1/16 and GQA 8 -> 4 with packed
+# segments together, ragged S, and Gemma3's MQA with a 512 window.
+D256_CASES = {
+    "d256_causal": (2, 4, 4, 256, 256, 256, None, dict()),
+    "d256_gemma2": (1, 8, 4, 1024, 1024, 256, "packed", dict(window=300, softcap=50.0, scale=1.0 / 16)),
+    "d256_gemma3_mqa_window_512": (1, 4, 1, 1536, 1536, 256, "pad", dict(window=512, scale=1.0 / 16)),
+    "d256_ragged": (2, 4, 2, 200, 333, 256, None, dict(q_offset=133, softcap=50.0)),
+    "d256_non_causal": (1, 2, 2, 130, 130, 256, None, dict(causal=False)),
+    "d256_all_rows_masked": (1, 2, 1, 128, 128, 256, None, dict(q_offset=-128)),
+    "d_192": (2, 4, 2, 300, 300, 192, "pad", dict()),
+    "d_144": (1, 2, 2, 256, 256, 144, None, dict(window=100)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(D256_CASES))
+def test_flash_kernels_at_head_dim_256_match_ref_on_card(cuda, name, dtype):
+    q, k, v, do, seg, kw = _k4_inputs(name, dtype, cuda, case=D256_CASES[name], seed=sorted(D256_CASES).index(name))
+    assert fa.fwd_route(dtype, q.shape[-1]) == "mma"
+    tol_out, tol_lse, tol_grad = K4_TOL[dtype]
+    before, routes = dict(fa.flash_attention.launches), (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes))
+    out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == {n: c + 1 for n, c in before.items()}
+    assert fa.flash_fwd.routes == dict(routes[0], mma=routes[0]["mma"] + 1)
+    assert fa.flash_bwd.routes == dict(routes[1], mma=routes[1]["mma"] + 1)
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+    _k4_close(out, ro, tol_out)
+    _k4_close(lse, rl, tol_lse)
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _k4_close(got, want, tol_grad)
+    dead = rl <= -1e29
+    assert bool((lse[dead] == -1e30).all()) and not bool(out[dead].any()) and not bool(dq[dead].any())
+    if name == "d256_all_rows_masked":
+        assert bool(dead.all()) and not bool(dk.any()) and not bool(dv.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dsum_kernel_at_head_dim_256_equals_ref_on_card(cuda, dtype):
+    rng = np.random.default_rng(256)
+    do, out = (torch.from_numpy(rng.standard_normal((2, 300, 4, 256)).astype(np.float32)).to(cuda, dtype)
+               .transpose(1, 2) for _ in range(2))
+    dsum = torch.full((2, 4, 300), float("nan"), device=cuda)
+    a = fa._args(do, out, out, None, None, True, 1.0, 0, None, None, (2, 4, 4, 300, 300, 256), out=out, dout=do,
+                 dsum=dsum)
+    fa._launch("dalm_fa_dsum", "dsum", a, do)
+    torch.cuda.synchronize()
+    mag = (do.float() * out.float()).abs().sum(dim=-1)
+    assert bool(((dsum - fa.dsum_ref(do, out)).abs() <= 1e-5 * mag).all())
+
+
+def test_decoder_flash_path_at_head_dim_256_on_card(cuda):
+    """A Gemma2-shaped bf16 decoder (head dim 256, GQA 8 -> 4, a window on even layers, softcap 50, query scale
+    1/16, sandwich norms, tied head) on the flash path: every layer's attention goes through the D-256 kernels,
+    forward and backward, and logits and gradients agree with the matmul path's (two paths through two layers in
+    bf16: logits within 5e-2 of their largest value, each gradient tensor within 5e-2 of its norm)."""
+    import dataclasses
+
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+
+    cfg = dataclasses.replace(DecoderConfig.gemma2_2b(), vocab_size=512, hidden_size=512, num_layers=2,
+                              intermediate_size=1024, sliding_window=128, remat=True, dtype=torch.bfloat16,
+                              attention_impl="flash")
+    flash = Decoder(cfg, device=cuda)
+    flash.reset_parameters(torch.Generator(device=cuda).manual_seed(0))
+    plain = Decoder(dataclasses.replace(cfg, attention_impl="einsum"), device=cuda)
+    plain.load_state_dict(flash.state_dict())
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, 512, size=(2, 512))).to(cuda)
+    mask = (torch.arange(512, device=cuda)[None, :] < torch.tensor([[400], [512]], device=cuda)).long()
+    real = mask.bool()
+    before = dict(fa.flash_attention.launches)
+    outs, grads = [], []
+    for model in (flash, plain):
+        params = [p.requires_grad_() for p in model.parameters()]
+        logits = model.train_forward(ids, mask)
+        outs.append(logits[real].float())
+        grads.append(torch.autograd.grad((outs[-1] ** 2).mean(), params, allow_unused=True))
+    launched = {n: c - before[n] for n, c in fa.flash_attention.launches.items()}
+    assert launched == {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers,
+                        "dsum": cfg.num_layers}  # the forward twice a layer under remat
+    assert float((outs[0] - outs[1]).abs().max()) <= 5e-2 * float(outs[1].abs().max())
+    for a, b in zip(*grads):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert float((a.float() - b.float()).norm()) <= 5e-2 * max(float(b.float().norm()), 1e-6)
+
+
 def test_flash_wrappers_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 2, 64, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(torch.zeros((1, 2, 64, 24), device=cuda), torch.zeros((1, 2, 64, 24), device=cuda),
                      torch.zeros((1, 2, 64, 24), device=cuda))
+    wide = torch.zeros((1, 2, 64, 272), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(wide, wide, wide)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa.flash_fwd(q.half(), q.half(), q.half())
     with pytest.raises(TypeError, match="k is"):
@@ -816,6 +911,117 @@ def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
     assert k5.int4_matmul_fwd.launches[instance] == before + 1
     if k5._route(x, instance, group) != "fused":
         _k5_close(k5.fused(x, q4, scale4, instance, k5._check(x, q4, scale4, instance)), ry, instance)
+
+
+# The dense families' projection shapes (K, N): Llama-3 / Mistral / Qwen3 GQA k/v (N 1024) and MLPs (K 14,336), Qwen2.5
+# (N 512, K 18,944), the lm_heads (N 128,256 and 152,064), Gemma2 (K 2,304) and Gemma3 (K 1,152, packed at group 8,
+# which the reference's rule rejects and the fused kernel does not take: the prefill route at any M).
+K5_FAMILY_SHAPES = [(4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256), (3584, 512), (3584, 18944),
+                    (18944, 3584), (3584, 152064), (2304, 9216), (9216, 2304), (2304, 1024), (1152, 1024)]
+
+
+@pytest.mark.parametrize("M", [32, 256])
+@pytest.mark.parametrize("kn", K5_FAMILY_SHAPES, ids=[f"{k}x{n}" for k, n in K5_FAMILY_SHAPES])
+def test_int4_at_the_family_shapes_on_card(cuda, kn, M):
+    """``int4_matmul`` (the layer's entry) at the families' shapes, bf16, decode and prefill rows, against the plain
+    version: one K5 launch at every shape, on the route ``_route`` names (the fused kernel at 32 rows, the prefill
+    route at 256, and at both for Gemma3's group 8)."""
+    K, N = kn
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    d = quant.quantize_tensor_int4(torch.randn((K, N), generator=gen, device=cuda) * 0.02)
+    x = (torch.randn((M, K), generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    group = K // d["scale4"].shape[0]
+    assert (group % k5.K_STEP != 0) == (K == 1152) and k5._kernel_feasible(K // 2, group) == (K != 1152)
+    instance = k5.INSTANCE[k5.DEFAULT_VARIANT]
+    route = k5._route(x, instance, group)
+    assert route == ("prefill" if K == 1152 or M >= k5.M_PREFILL else "fused") or instance != "base"
+    before = dict(k5.int4_matmul_fwd.route_launches)
+    y = k5.int4_matmul(x, d["q4"], d["scale4"])
+    ry = k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], instance)
+    torch.cuda.synchronize()
+    moved = {key: n - before[key] for key, n in k5.int4_matmul_fwd.route_launches.items() if n != before[key]}
+    assert moved == {(instance, route): 1}
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16
+    _k5_close(y, ry, instance)
+
+
+@pytest.mark.parametrize("M", [32, 256])
+def test_int4pc_at_phi3_lm_head_on_card(cuda, M):
+    """Phi-3's int4pc lm_head, (K, N) = (3072, 32064): N is no multiple of 128, so the reference's rule rejects it;
+    K5's per-column instance takes it (the fused kernel at 32 rows, the int8 route at 256), one launch, equal to
+    the plain version (exact integer sums, the same scaling)."""
+    K, N = 3072, 32064
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    d = quant.quantize_tensor_int4pc(torch.randn((K, N), generator=gen, device=cuda) * 0.02)
+    x = (torch.randn((M, K), generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    assert not k5._pcol_feasible(K // 2, N)
+    route = "int8" if M >= k5.M_PREFILL else "fused"
+    before = k5.int4_matmul_fwd.route_launches["pcol", route]
+    y = k5.int4_matmul(x, d["q4"], d["scale4"], pcol=True)
+    torch.cuda.synchronize()
+    assert k5.int4_matmul_fwd.route_launches["pcol", route] == before + 1 and y.shape == (M, N)
+    _k5_close(y, k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "pcol"), "pcol")
+
+
+@pytest.mark.parametrize("M", [1, 32, 256])
+@pytest.mark.parametrize("instance", ["base", "nf4", "groupmm", "i8mxu"])
+def test_int4_group_8_on_card(cuda, instance, M):
+    """Gemma3-1B's q/k/v/gate/up weights (K 1,152) pack at group 8, which the fused kernel (whole 16-row k-steps a
+    scale) does not take: base and nf4 take the prefill route at every M, one pre-pass and one GEMM, against the
+    plain version; float32 activations, and groupmm / i8mxu (which fold whole k-steps), raise and launch nothing."""
+    K, N = 1152, 1024
+    q4, scale4 = _k5_weights(np.random.default_rng(8), K, N, instance, cuda, 64)
+    assert K // scale4.shape[0] == 8
+    x = torch.from_numpy((np.random.default_rng(9).standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda)
+    before = (dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.launches))
+    if instance in ("groupmm", "i8mxu"):
+        with pytest.raises(ValueError, match="group of 8"):
+            k5.int4_matmul_fwd(x.to(torch.bfloat16), q4, scale4, instance)
+    else:
+        with pytest.raises(ValueError, match="bfloat16"):
+            k5.int4_matmul_fwd(x, q4, scale4, instance)
+    assert (dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.launches)) == before
+    if instance in ("base", "nf4"):
+        xb = x.to(torch.bfloat16)
+        dq, gemm = dict(k5.prefill_dequant.launches), k5.prefill_gemm.launches
+        y = k5.int4_matmul_fwd(xb, q4, scale4, instance)
+        torch.cuda.synchronize()
+        assert k5.prefill_dequant.launches[instance] == dq[instance] + 1 and k5.prefill_gemm.launches == gemm + 1
+        assert k5.int4_matmul_fwd.route_launches[instance, "prefill"] == before[0][instance, "prefill"] + 1
+        _k5_close(y, k5.int4_matmul_fwd_ref(xb, q4, scale4, instance), instance)
+
+
+def test_safetensors_reader_on_card(cuda, tmp_path):
+    """The port's safetensors reader (no ``safetensors`` package on this machine) reads back what a writer of the
+    format put down, every type bit for bit, and the tensors go to the card unchanged."""
+    import json
+    import struct
+
+    from dalm_tpu_torch.models.hf_loader import SafetensorsFile
+
+    gen = torch.Generator().manual_seed(0)
+    tensors = {"a.weight": torch.randn((64, 48), generator=gen).to(torch.bfloat16),
+               "b.bias": torch.randn((7,), generator=gen), "c": torch.arange(12, dtype=torch.int64).reshape(3, 4),
+               "d": torch.randn((5, 3), generator=gen).half(), "e": torch.zeros((0, 4))}
+    header, blobs, at = {"__metadata__": {"format": "pt"}}, [], 0
+    names = {torch.bfloat16: "BF16", torch.float32: "F32", torch.int64: "I64", torch.float16: "F16"}
+    for k, t in tensors.items():
+        raw = t.contiguous().view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [at, at + len(raw)]}
+        blobs.append(raw)
+        at += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    path = tmp_path / "model.safetensors"
+    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    with SafetensorsFile(str(path)) as f:
+        got = {k: f[k] for k in f.keys()}
+    assert set(got) == set(tensors)
+    for k, t in tensors.items():
+        g = got[k].to(cuda)
+        assert g.dtype == t.dtype and g.shape == t.shape and torch.equal(g.cpu(), t)
+    with SafetensorsFile(str(path)) as f:
+        assert f.metadata == {"format": "pt"} and torch.equal(f["a.weight"], tensors["a.weight"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -927,7 +1133,9 @@ def test_int4_wrapper_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="group"):
         k5.int4_matmul_fwd(x, q4, torch.ones((3, 256), device=cuda), "groupmm")  # the group does not divide K/2
     with pytest.raises(ValueError, match="group"):
-        k5.int4_matmul_fwd(x, q4, torch.ones((32, 256), device=cuda), "base")  # group 8
+        k5.int4_matmul_fwd(x, q4, torch.ones((32, 256), device=cuda), "base")  # group 8 with float32 activations
+    with pytest.raises(ValueError, match="group"):
+        k5.int4_matmul_fwd(x.to(torch.bfloat16), q4, torch.ones((32, 256), device=cuda), "groupmm")  # group 8
     with pytest.raises(ValueError, match="CUDA"):
         k5.int4_matmul_fwd(x, q4.cpu(), s, "base")
     with pytest.raises(ValueError, match="unknown"):
@@ -1348,17 +1556,17 @@ def test_scaled_wrappers_reject_what_they_do_not_take(cuda):
 
 
 def test_int4_matmul_ragged_n_on_card(cuda):
-    """N = 100 is no multiple of 8: the routing sends it to x @ dequant(W) on the card as on the CPU, within
-    K5_TOL of the CPU route (bf16), and K5 is not launched."""
+    """N = 100 is no multiple of 8 (the kernels' column pairs): on the CPU the routing takes x @ dequant(W), as the
+    reference does off a TPU; on the card the wrapper raises instead of falling back, and no count moves."""
     rng = np.random.default_rng(9)
     d = quant.quantize_tensor_int4(torch.from_numpy((rng.standard_normal((256, 100)) * 0.02).astype(np.float32)), 16)
     assert d["q4"].shape == (128, 100) and d["scale4"].shape == (16, 100) and k5._kernel_feasible(128, 16)
     x = torch.from_numpy(rng.standard_normal((32, 256)).astype(np.float32)).to(torch.bfloat16)
+    assert k5.int4_matmul(x, d["q4"], d["scale4"]).shape == (32, 100)
     before = dict(k5.int4_matmul_fwd.launches)
-    y = k5.int4_matmul(x.to(cuda), d["q4"].to(cuda), d["scale4"].to(cuda))
-    torch.cuda.synchronize()
-    assert k5.int4_matmul_fwd.launches == before and y.shape == (32, 100)
-    _k5_close(y.cpu(), k5.int4_matmul(x, d["q4"], d["scale4"]), "base")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k5.int4_matmul(x.to(cuda), d["q4"].to(cuda), d["scale4"].to(cuda))
+    assert k5.int4_matmul_fwd.launches == before
 
 
 @pytest.mark.parametrize("bwd_int8", [False, True])

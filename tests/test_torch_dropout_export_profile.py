@@ -27,7 +27,7 @@ from dalm_tpu_torch.models.layers import FlexLinear
 from dalm_tpu_torch.train import train_e2e, train_generator, train_retriever
 from dalm_tpu_torch.train.metrics import MetricsLogger
 from test_torch_sft import _save_tiny_decoder, jsonl_path  # noqa: F401  (a fixture)
-from test_torch_train import SMALL
+from test_torch_train_e2e import SMALL
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

@@ -35,7 +35,7 @@ from dalm_tpu_torch.eval import common as tcommon
 from dalm_tpu_torch.eval.rag import evaluate_rag
 from dalm_tpu_torch.eval.retriever import build_embed_fn, evaluate_retriever, load_retriever_for_eval
 from dalm_tpu_torch.models import lora as tlora
-from test_torch_train import _save_tiny_bases
+from test_torch_train_e2e import _save_tiny_bases
 
 TOP_K = 4
 

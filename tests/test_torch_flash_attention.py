@@ -239,7 +239,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     # _check is what a CUDA call goes through; on CPU tensors it must name the device
     with pytest.raises(ValueError, match="CUDA"):
         T._check("flash_fwd", q, q, q, None, None, None, None)
-    for bad, err in ((torch.zeros(1, 2, 8, 24), "head dim"), (torch.zeros(1, 2, 8, 256), "head dim")):
+    for bad, err in ((torch.zeros(1, 2, 8, 24), "head dim"), (torch.zeros(1, 2, 8, 272), "head dim")):
         with pytest.raises(ValueError, match=err):
             T._check("flash_fwd", bad, bad, bad, None, None, None, None)
     with pytest.raises(TypeError, match="bfloat16 or float32"):

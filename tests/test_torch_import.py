@@ -1,6 +1,8 @@
 """The port stands alone: importing ``dalm_tpu_torch`` and every module of
-it loads no JAX, flax, optax, orbax, ``datasets``, ``click``, ``pydantic`` or
-``dalm_tpu`` module, and no source file under ``dalm_tpu_torch/`` imports them."""
+it loads no JAX, flax, optax, orbax, ``datasets``, ``click``, ``pydantic``, ``msgpack``, ``safetensors`` or
+``dalm_tpu`` module, and no source file under ``dalm_tpu_torch/`` imports them (the port reads ``params.msgpack``
+and ``.safetensors`` files with its own readers; ``transformers`` is imported only where a HF tokenizer is asked
+for)."""
 
 import ast
 import json
@@ -11,7 +13,8 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parent.parent / "dalm_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "datasets", "pandas", "click", "pydantic", "dalm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "datasets", "pandas", "click", "pydantic", "msgpack",
+             "safetensors", "dalm_tpu")
 
 
 def _modules():
@@ -42,9 +45,10 @@ def test_importing_the_port_loads_no_jax():
     assert "dalm_tpu_torch.serve" in loaded and "dalm_tpu_torch.train.rag_e2e" in loaded
     for new in ("kernels.flash_attention", "train.generator_only", "data.sft", "losses.causal",
                 "kernels.int4_matmul", "models.sampling", "models.quant", "models.decode_engine",
-                "eval.common", "eval.results", "eval.retriever", "eval.rag", "cli"):
+                "eval.common", "eval.results", "eval.retriever", "eval.rag", "cli", "core.msgpack",
+                "models.hf_loader", "data.tokenizer"):
         assert f"dalm_tpu_torch.{new}" in loaded
-    assert [m for m in loaded if _forbidden(m)] == []
+    assert [m for m in loaded if _forbidden(m)] == [] and "transformers" not in loaded
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*.py")))

@@ -234,6 +234,17 @@ def test_prefill_routing_rule():
         assert k5._route(bf, inst, 64) == "fold" and k5._route(bf[:32], inst, 64) == "fused"
         assert k5._route(bf, inst, 48) == "fused" and k5._route(bf, inst, 256) == "fused"  # no fold GEMM instance
     assert k5._route(bf, "base", 48) == "prefill" and k5._route(bf, "pcol", 256) == "int8"
+    # a group that is no multiple of the fused kernel's k-step (Gemma3-1B's K 1,152 packs at 8): base and nf4 take
+    # the prefill route at any M, with bfloat16 activations only; groupmm and i8mxu are refused
+    q4, s8 = torch.zeros((576, 64), dtype=torch.uint8), torch.ones((144, 64))
+    for inst in ("base", "nf4"):
+        assert k5._check_weight(q4, s8, inst, 1152) == 8
+        assert k5._route(bf[:1], inst, 8) == "prefill" and k5._route(bf, inst, 8) == "prefill"
+        with pytest.raises(ValueError, match="bfloat16"):
+            k5._route(bf.float(), inst, 8)
+    for inst in ("groupmm", "i8mxu"):
+        with pytest.raises(ValueError, match="group of 8"):
+            k5._check_weight(q4, s8, inst, 1152)
     assert set(k5.int4_matmul_fwd.route_launches) == {(i, r) for i in k5.INSTANCES for r in k5.ROUTES}
     d = quant.quantize_tensor_int4(torch.from_numpy(_weights(14, 256, 64)))
     x = torch.from_numpy(np.random.default_rng(15).standard_normal((k5.M_PREFILL, 256)).astype(np.float32))

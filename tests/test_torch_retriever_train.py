@@ -27,7 +27,7 @@ from dalm_tpu_torch.models import lora as tlora
 from dalm_tpu_torch.models import registry as treg
 from dalm_tpu_torch.train import train_retriever
 from dalm_tpu_torch.train.retriever_only import RetrieverSetup
-from test_torch_train import _save_tiny_bases
+from test_torch_train_e2e import _save_tiny_bases
 
 KW = dict(query_max_len=24, passage_max_len=48, learning_rate=1e-3, with_tracking=False, use_dropout=False)
 

@@ -305,8 +305,12 @@ def test_decoder_flash_gradients_equal_the_matmul_path():
 def test_unported_attention_knobs_still_raise():
     with pytest.raises(NotImplementedError, match="attention_impl"):
         Decoder(dataclasses.replace(DecoderConfig.tiny(), attention_impl="ring"))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        Decoder(dataclasses.replace(DecoderConfig.tiny(), attention_impl="flash", sliding_window=64))
+    from dalm_tpu_torch.models.decoder import check_unported
+
+    # the sliding window is ported (each layer's window goes to K4); the ring layout still raises
+    assert Decoder(dataclasses.replace(DecoderConfig.tiny(), attention_impl="flash", sliding_window=64)).uses_flash(256)
+    with pytest.raises(NotImplementedError, match="ring_layout"):
+        check_unported({"ring_layout": "zigzag"})
     q = torch.zeros(1, 8, 2, 16)
     assert flash_attention(q, q, q).shape == q.shape  # the kernel module itself takes window / softcap
 

@@ -25,7 +25,7 @@ from dalm_tpu_torch import interop
 from dalm_tpu_torch.kernels import int8_matmul as T
 from dalm_tpu_torch.models.layers import FlexLinear
 from dalm_tpu_torch.train.rag_e2e import train_e2e
-from test_torch_train import SMALL, _save_tiny_bases
+from test_torch_train_e2e import SMALL, _save_tiny_bases
 
 
 def _operands(rng, lead=(3, 5), K=40, N=24):

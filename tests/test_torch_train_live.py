@@ -21,7 +21,7 @@ from dalm_tpu.models import qlora as jqlora
 from dalm_tpu_torch import interop
 from dalm_tpu_torch.train import rag_e2e as trag
 from dalm_tpu_torch.train.rag_e2e import train_e2e
-from test_torch_train import SMALL, _save_tiny_bases
+from test_torch_train_e2e import SMALL, _save_tiny_bases
 
 
 @pytest.fixture(scope="module")

@@ -29,7 +29,7 @@ from dalm_tpu_torch.models.encoder import Encoder, EncoderConfig
 from dalm_tpu_torch.models.layers import FlexLinear
 from dalm_tpu_torch.models.quant import quantize_tensor
 from dalm_tpu_torch.train.rag_e2e import train_e2e
-from test_torch_train import SMALL, _save_tiny_bases
+from test_torch_train_e2e import SMALL, _save_tiny_bases
 
 
 @pytest.mark.parametrize("base", ["dense", "int8"])
