@@ -77,7 +77,8 @@ GEMM, and its int8 route for pcol, K2, the int8 nibble pre-pass and the scaled
 s8 GEMM (beside K1's fold instance on the same operands), against the fused
 kernel forced on the same operands; i8mxu's and pcol's exactness at the
 extremes of their operands; each route's crossover with the fused kernel by
-rows),
+rows; K5 base at group 8, Gemma3-1B's K 1,152, on the prefill route at M 32 and
+8,192 against ``x @ W_bf16``),
 ``train-small`` (tiny ``train_e2e``, card vs CPU; and a 2-step tiny run of each of these training paths:
 calibrated, dy-calibrated, the merge runtime over int8 bases, the live index with both marginal modes,
 ``train_retriever``), ``train`` (the flagship with ``a8_calibrate_every`` 0, then 16), ``train-dycal``
@@ -101,15 +102,17 @@ with window 512; a 2-layer Llama-3.1-8B written as ``config.json`` + ``model.saf
 ``resolve_decoder`` and ``load_hf_decoder_packed`` with logits equal bit for bit), ``serve-llama31`` (bge-large +
 Llama-3.1-8B int4 + int8 KV cache: ``answer()`` with K5 launches by route and shape, the decode step against the
 weight-read bound, the cache against Llama-2-7B's, ``answer_continuous()`` token for token), ``sft-gemma2``
-(``train_generator("gemma2-2b", ...)`` at 8,192 tokens, 3 steps: K4's D-256 launches held to 26 layers x (2
-forwards + 1 backward) a step); ``k4`` also times the D-256 kernels at sft-gemma2's shape against SDPA;
+(``train_generator("gemma2-2b", ...)`` at 8,192 tokens, 3 steps: K4's D-256 launches, every one on the wgmma
+route, held to 26 layers x (2 forwards + 1 backward) a step); ``k4`` also times the D-256 kernels (the wgmma route
+in turns with the kept mma.sync instances) at sft-gemma2's two layers against SDPA without softcap, and at
+Gemma-2B's attention (no softcap), where SDPA computes the same function;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
 trace of the RAG / SFT training steps: device busy share and the top kernels
 by device time) and ``profile-serve`` (the same over 8 decode iterations of
 the engine at serve-cb's shape, with launches per iteration).
 
 Output: per-phase lines, one JSON line of every measured case per kernel
-phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``),
+phase (``k3_cases``, ``k2_cases``, ``k1_cases``, ``k4_cases``, ``k5_cases``, ``k5_group8``),
 the card's name and power limit, one ``{"kernels": [...]}`` JSON line (one
 entry per K3 row storage mode, K2, K1 and each of its three launches (the
 quantise pre-pass, the weight pre-pass, the GEMM), the calibrated-scale quantiser in its two modes
@@ -119,7 +122,9 @@ forward's wgmma route ``k4_fwd_wgmma`` and mma.sync route ``k4_fwd``, the backwa
 its own launches, and the dsum pre-pass ``k4_dsum``), each of the five K5 instances, the prefill route's pre-pass (base,
 nf4) and GEMM, the fold route's nibble pre-pass, fold GEMM (groupmm, i8mxu) and K2 in bf16, the int8 route's int8
 nibble pre-pass and scaled GEMM (pcol; ``launches_train``: its calls on the calibrated route of ``train``), K4's
-head-dim-256 forward, dq and dk/dv (``k4_fwd_d256``, ``k4_bwd_dq_d256``, ``k4_bwd_dkv_d256``, launched by sft-gemma2;
+head-dim-256 forward, dq and dk/dv on the wgmma route (``k4_fwd_d256_wgmma``, ``k4_bwd_dq_d256_wgmma``,
+``k4_bwd_dkv_d256_wgmma``, launched by sft-gemma2) and the mma.sync instances that route replaced (``k4_fwd_d256``,
+``k4_bwd_dq_d256``, ``k4_bwd_dkv_d256``, no launch there);
 K5 base and K3 also carry ``launches_serve_llama31``), each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
@@ -176,6 +181,24 @@ PEAKS = {
     "NVL": (3.9e12, 60e12, 835e12, 1671e12),
     "SXM": (3.35e12, 67e12, 989e12, 1979e12),
 }
+
+
+def ptxas_counts(log: str) -> dict:
+    """ptxas's ``-v`` lines by kernel: {mangled name: {"line": the stack / spill line, "spill": bytes spilled
+    (stores + loads), "used": the registers line}}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"line": "", "spill": 0, "used": ""}
+        elif fn and "spill stores" in line:
+            out[fn]["line"] = line.strip()
+            out[fn]["spill"] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif fn and "Used" in line and "registers" in line:
+            out[fn]["used"] = line.split(":", 1)[-1].strip()
+            fn = None
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2320,6 +2343,71 @@ def _extreme_pcol(gen, device, K, N, case):
     q4 = (bits[:K // 2] | (bits[K // 2:] << 4)).contiguous()
     s4 = torch.exp2(torch.randint(-8, -4, (1, N), generator=gen, device=device).float())
     return q4, s4, x.to(torch.bfloat16)
+
+
+# Gemma3-1B's projections whose K of 1,152 packs at group 8 (quant._int4_group), which the fused K5 kernel does not
+# take: q_proj (4 heads of 256), k_proj / v_proj (1 kv head), gate_proj / up_proj
+GEMMA3_GROUP8 = (("q_proj", 1152, 1024), ("k_proj / v_proj", 1152, 256), ("gate_proj / up_proj", 1152, 6912))
+
+
+def k5_group8_time(gen, device, peaks, smi):
+    """K5 base at group 8 (Gemma3-1B's q, k / v and gate / up at K 1,152), on the route ``_route`` gives it at every
+    M, the prefill route (pre-pass + bf16 GEMM): at decode's M 32 by CUDA graph over copies of the weight (up to 64,
+    so that most reads come from device memory, as a decode step's do), and at prefill's M 8,192 by CUDA events;
+    each held against its plain version, beside ``x @ W_bf16`` timed the same way and the bound (the 4-bit weight,
+    its f32 scales, x and the bf16 output moved once, against 2 M N K bf16 operations). Returns the records."""
+    import math
+
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models import quant
+
+    recs = []
+    for label, K, N in GEMMA3_GROUP8:
+        w = torch.randn((K, N), generator=gen, device=device) * 0.02
+        d = quant.quantize_tensor_int4(w)
+        del w
+        group = K // d["scale4"].shape[0]
+        check(group == 8, f"k5 group 8: {label} packed at group {group}")
+        w_bf16 = k5._dequant(d["q4"], d["scale4"], torch.bfloat16, False)
+        wbytes = d["q4"].numel() * d["q4"].element_size() + d["scale4"].numel() * d["scale4"].element_size()
+        for M in (32, 8192):
+            x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
+            before = dict(k5.int4_matmul_fwd.route_launches)
+            y = k5.int4_matmul_fwd(x, d["q4"], d["scale4"], "base")
+            check(k5.int4_matmul_fwd.route_launches[("base", "prefill")] == before[("base", "prefill")] + 1,
+                  f"k5 group 8 {label} M {M}: not on the prefill route")
+            err, _ = k5_err(y, k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"), "base")
+            if M == 32:
+                n = max(1, min(64, math.ceil(64e6 / wbytes)))
+                qs = [(d["q4"].clone(), d["scale4"].clone()) for _ in range(n)]
+                ws = [w_bf16.clone() for _ in range(max(1, min(64, math.ceil(64e6 / (K * N * 2)))))]
+                ms = graph_ms([lambda q=q, s=s: k5.int4_matmul_fwd(x, q, s, "base") for q, s in qs])
+                lib = graph_ms([lambda wb=wb: x @ wb for wb in ws])
+                how = f"CUDA graph over {n} weight copies (library {len(ws)})"
+                del qs, ws
+            else:
+                ms = cuda_ms(lambda: k5.int4_matmul_fwd(x, d["q4"], d["scale4"], "base"), 20)
+                lib = cuda_ms(lambda: x @ w_bf16, 20)
+                how = "CUDA events, 20 calls"
+            plain = cuda_ms(lambda: k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"), 3)
+            ops, nbytes = 2.0 * M * N * K, wbytes + M * K * 2 + M * N * 2
+            t_ops, t_bytes = ops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
+            rec = dict(name="int4_matmul[base] group 8", route="cuda", source=K5_PREFILL_SOURCE,
+                       replaces=K5_AT["base"], case=f"Gemma3-1B {label} M={M} K={K} N={N} group 8 bf16", ms=ms,
+                       plain_ms=plain, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=lib,
+                       library_is="x @ W_bf16", max_abs_err=err, timed_by=how)
+            recs.append(rec)
+            print(f"[k5] group 8, Gemma3-1B {label} (K {K}, N {N}), M {M}, prefill route ({smi}): {ms:.4f} ms "
+                  f"({how}); x @ W_bf16 {lib:.4f} ms ({ms / lib:.2f}x); bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}: {rec['bound_ms'] / ms:.1%} of it); plain {plain:.3f} ms; max error {err:.3g}",
+                  flush=True)
+            del x, y
+        del d, w_bf16
+        torch.cuda.empty_cache()
+    return recs
 
 
 def k5_prefill_phase(gen, device, peaks):
@@ -4702,12 +4790,29 @@ def cli_phase(device, workdir, smi):
 # The dense families: K4 at head dim 256, families-small, serve-llama31, sft-gemma2
 # --------------------------------------------------------------------------
 
-K4_D256 = {"k4_fwd_d256": ("dalm_fa_fwd", "fwd", "dalm_tpu/kernels/flash_attention.py:221"),
-           "k4_bwd_dq_d256": ("dalm_fa_bwd_dq", "dq", "dalm_tpu/kernels/flash_attention.py:443"),
-           "k4_bwd_dkv_d256": ("dalm_fa_bwd_dkv", "dkv", "dalm_tpu/kernels/flash_attention.py:461")}
+# K4 at head dim 256 by its entry in the kernels line: C entry point, counter, source, the TPU kernel it replaces.
+# bf16 at D 256 takes the wgmma route (csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu); the mma.sync instances of
+# csrc/flash_attention.cu stay reachable through their entry points and are timed in turns with it.
+K4_D256 = {"k4_fwd_d256_wgmma": ("dalm_fa_fwd_wgmma", "fwd", "dalm_tpu_torch/csrc/flash_fwd_wgmma.cu",
+                                 "dalm_tpu/kernels/flash_attention.py:221"),
+           "k4_bwd_dq_d256_wgmma": ("dalm_fa_bwd_dq_wgmma", "dq", "dalm_tpu_torch/csrc/flash_bwd_wgmma.cu",
+                                    "dalm_tpu/kernels/flash_attention.py:443"),
+           "k4_bwd_dkv_d256_wgmma": ("dalm_fa_bwd_dkv_wgmma", "dkv", "dalm_tpu_torch/csrc/flash_bwd_wgmma.cu",
+                                     "dalm_tpu/kernels/flash_attention.py:461"),
+           "k4_fwd_d256": ("dalm_fa_fwd", "fwd", "dalm_tpu_torch/csrc/flash_attention.cu",
+                           "dalm_tpu/kernels/flash_attention.py:221"),
+           "k4_bwd_dq_d256": ("dalm_fa_bwd_dq", "dq", "dalm_tpu_torch/csrc/flash_attention.cu",
+                              "dalm_tpu/kernels/flash_attention.py:443"),
+           "k4_bwd_dkv_d256": ("dalm_fa_bwd_dkv", "dkv", "dalm_tpu_torch/csrc/flash_attention.cu",
+                               "dalm_tpu/kernels/flash_attention.py:461")}
+K4_D256_PAIRS = (("k4_fwd_d256_wgmma", "k4_fwd_d256"), ("k4_bwd_dq_d256_wgmma", "k4_bwd_dq_d256"),
+                 ("k4_bwd_dkv_d256_wgmma", "k4_bwd_dkv_d256"))
 # sft-gemma2's attention: Gemma2-2B's 8 query / 4 kv heads of 256, its context of 8192 tokens, the window 4096 of the
 # even layers (odd layers attend globally), softcap 50, query scale 1 / sqrt(256)
 GEMMA2_ATTN = dict(B=1, H=8, Hk=4, S=8192, D=256, window=4096, softcap=50.0, scale=1.0 / 16)
+# Gemma-2B's attention at the same length: 8 query heads over 1 kv head of 256, no softcap, no window, scale
+# 1 / sqrt(256): the function SDPA computes too, so the library column compares like with like
+GEMMA_2B_ATTN = dict(B=1, H=8, Hk=1, S=8192, D=256, window=None, softcap=None, scale=1.0 / 16)
 
 
 def visible_share(Sq, Sk, q_offset, causal, window):
@@ -4720,89 +4825,151 @@ def visible_share(Sq, Sk, q_offset, causal, window):
     return kept / float(Sq * Sk)
 
 
-def k4_d256_time(gen, device, peaks, iters=5):
-    """K4's head-dim-256 kernels (the mma.sync route's D-256 instances) at sft-gemma2's shape, bf16, one segment,
-    on an odd (global) layer and an even (window 4096) one: each held against its plain version, then the forward,
-    dq and dk/dv timed through their C entry points; beside them the plain versions, SDPA's forward and backward
-    at the same shape without softcap and window (which SDPA does not take) and the bound. Returns the records."""
+def k4_d256_layer(gen, device, peaks, c, window, softcap, label, iters):
+    """One D-256 shape, bf16, causal, one segment: the wgmma route's forward, dq and dk/dv (through the wrappers)
+    and the mma.sync instances (through their C entry points, on outputs of their own) each held against the plain
+    version; then each wgmma kernel timed in turns with its mma.sync instance on the same operands (wgmma,
+    mma.sync, mma.sync, wgmma), the plain versions once, SDPA's forward and backward (its backward alone, graph
+    built outside the timing) at the same shape without softcap and window, and the bound from this shape's work.
+    Returns (ms by name, turns by name, max error by name, plain fwd / bwd ms, SDPA fwd / bwd ms, bound by name,
+    visible share)."""
     import torch
     import torch.nn.functional as F
 
     from dalm_tpu_torch.kernels import flash_attention as fa
 
-    c = GEMMA2_ATTN
     B, H, Hk, S, D = c["B"], c["H"], c["Hk"], c["S"], c["D"]
     q, k, v, do, _, _ = k4_inputs(gen, device, torch.bfloat16, B, H, Hk, S, S, D, None)
     seg = torch.ones((B, S), dtype=torch.int32, device=device)
-    check(fa.fwd_route(q.dtype, D) == "mma", "k4 d256: head dim 256 must take the mma.sync route")
-    dims = fa._check("time", q, k, v, seg, seg, None, c["softcap"])
+    kw = dict(causal=True, scale=c["scale"], window=window, softcap=softcap)
+    check(fa.fwd_route(q.dtype, D) == "wgmma", "k4 d256: bf16 at head dim 256 must take the wgmma route")
+    dims = fa._check("time", q, k, v, seg, seg, window, softcap)
     tol = K4_TOL["bfloat16"]
-    rows = {}
-    for layer, window in (("odd (global)", None), ("even (window 4096)", c["window"])):
-        kw = dict(causal=True, scale=c["scale"], window=window, softcap=c["softcap"])
-        out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
-        dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
-        ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
-        torch.cuda.synchronize()
-        errs = {"k4_fwd_d256": max(k4_err(out, ro, tol["out"], f"d256 {layer} out"),
-                                   k4_err(lse, rl, tol["lse"], f"d256 {layer} lse"))}
-        del ro, rl
-        rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
-        errs["k4_bwd_dq_d256"] = k4_err(dq, rq, tol["grad"], f"d256 {layer} dq")
-        errs["k4_bwd_dkv_d256"] = max(k4_err(dk, rk, tol["grad"], f"d256 {layer} dk"),
-                                      k4_err(dv, rv, tol["grad"], f"d256 {layer} dv"))
-        del rq, rk, rv
-        dsum = fa.dsum_ref(do, out)
-        a = fa._args(q, k, v, seg, seg, True, c["scale"], 0, window, c["softcap"], dims, out=out, dout=do, lse=lse,
-                     dsum=dsum, dq=dq, dk=dk, dv=dv)
-        ms = {name: cuda_ms(lambda e=entry, n=counter: fa._launch(e, n, a, q), iters)
-              for name, (entry, counter, _) in K4_D256.items()}
-        plain_f = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, seg, seg, **kw), 1)
-        plain_b = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw), 1)
-        vis = visible_share(S, S, 0, True, window)
-        prod = 2.0 * B * H * S * S * D * vis
-        qb, kb, stat = B * H * S * D * 2, B * Hk * S * D * 2, B * H * S * 4
-        work = {"k4_fwd_d256": (2 * prod, 2 * qb + 2 * kb + stat), "k4_bwd_dq_d256": (3 * prod, 3 * qb + 2 * kb + 2 * stat),
-                "k4_bwd_dkv_d256": (4 * prod, 2 * qb + 4 * kb + 2 * stat)}
-        rows[layer] = (ms, errs, plain_f, plain_b, work, vis)
-        del out, lse, dq, dk, dv, dsum
-        torch.cuda.empty_cache()
-    # SDPA at the same shape without softcap and window (GQA through enable_gqa); its backward alone, graph kept
+    routes = (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes))
+    out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    check(fa.flash_fwd.routes["wgmma"] == routes[0]["wgmma"] + 1
+          and fa.flash_bwd.routes["wgmma"] == routes[1]["wgmma"] + 1,
+          f"k4 d256 {label}: the wrappers did not take the wgmma route")
+    mma_out, mma_lse, dsum = torch.empty_like(out), torch.empty_like(lse), torch.empty_like(lse)
+    mq, mk, mv = torch.empty_like(dq), torch.empty_like(dk), torch.empty_like(dv)
+
+    def block(**tensors):
+        return fa._args(q, k, v, seg, seg, True, c["scale"], 0, window, softcap, dims, **tensors)
+
+    # argument blocks by (direction, route); both backward routes read the wgmma forward's out and lse and one dsum
+    blk = {("fwd", "wgmma"): block(out=out, lse=lse), ("fwd", "mma"): block(out=mma_out, lse=mma_lse),
+           ("bwd", "wgmma"): block(out=out, lse=lse, dout=do, dsum=dsum, dq=dq, dk=dk, dv=dv),
+           ("bwd", "mma"): block(out=out, lse=lse, dout=do, dsum=dsum, dq=mq, dk=mk, dv=mv)}
+    fa._launch("dalm_fa_fwd", "fwd", blk["fwd", "mma"], q)
+    fa._launch("dalm_fa_dsum", "dsum", blk["bwd", "mma"], q)
+    fa._launch("dalm_fa_bwd_dq", "dq", blk["bwd", "mma"], q)
+    fa._launch("dalm_fa_bwd_dkv", "dkv", blk["bwd", "mma"], q)
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    torch.cuda.synchronize()
+    errs = {"k4_fwd_d256_wgmma": max(k4_err(out, ro, tol["out"], f"d256 {label} out"),
+                                     k4_err(lse, rl, tol["lse"], f"d256 {label} lse")),
+            "k4_fwd_d256": max(k4_err(mma_out, ro, tol["out"], f"d256 {label} mma.sync out"),
+                               k4_err(mma_lse, rl, tol["lse"], f"d256 {label} mma.sync lse"))}
+    del ro, rl, mma_out, mma_lse
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+    errs["k4_bwd_dq_d256_wgmma"] = k4_err(dq, rq, tol["grad"], f"d256 {label} dq")
+    errs["k4_bwd_dkv_d256_wgmma"] = max(k4_err(dk, rk, tol["grad"], f"d256 {label} dk"),
+                                        k4_err(dv, rv, tol["grad"], f"d256 {label} dv"))
+    errs["k4_bwd_dq_d256"] = k4_err(mq, rq, tol["grad"], f"d256 {label} mma.sync dq")
+    errs["k4_bwd_dkv_d256"] = max(k4_err(mk, rk, tol["grad"], f"d256 {label} mma.sync dk"),
+                                  k4_err(mv, rv, tol["grad"], f"d256 {label} mma.sync dv"))
+    del rq, rk, rv
+    turns = {}
+    for pair in K4_D256_PAIRS:
+        for name in (pair[0], pair[1], pair[1], pair[0]):
+            entry, counter = K4_D256[name][:2]
+            a = blk["fwd" if counter == "fwd" else "bwd", "wgmma" if name.endswith("_wgmma") else "mma"]
+            turns.setdefault(name, []).append(cuda_ms(lambda: fa._launch(entry, counter, a, q), iters))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    plain_f = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, seg, seg, **kw), 1)
+    plain_b = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw), 1)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = dict(is_causal=True, scale=c["scale"], enable_gqa=True)
     lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), iters)
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
     lib_b = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), iters)
     del lib_out, ql, kl, vl
-    ms, errs, plain_f, plain_b, work, vis = rows["odd (global)"]
-    ms_w, _, _, _, work_w, vis_w = rows["even (window 4096)"]
-    entries = {}
-    for name in K4_D256:
-        ops, nbytes = work[name]
+    vis = visible_share(S, S, 0, True, window)
+    prod = 2.0 * B * H * S * S * D * vis
+    qb, kb, stat = B * H * S * D * 2, B * Hk * S * D * 2, B * H * S * 4
+    work = {"fwd": (2 * prod, 2 * qb + 2 * kb + stat), "dq": (3 * prod, 3 * qb + 2 * kb + 2 * stat),
+            "dkv": (4 * prod, 2 * qb + 4 * kb + 2 * stat)}
+    bound = {}
+    for name, (_, counter, _, _) in K4_D256.items():
+        ops, nbytes = work[counter]
         t_ops, t_bytes = ops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
-        fwd = name == "k4_fwd_d256"
+        bound[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", ops)
+    del q, k, v, do, out, lse, dq, dk, dv, mq, mk, mv, dsum
+    torch.cuda.empty_cache()
+    return ms, turns, errs, (plain_f, plain_b), (lib_f, lib_b), bound, vis
+
+
+def k4_d256_time(gen, device, peaks, iters=5):
+    """K4 at head dim 256, bf16: the wgmma route's forward, dq and dk/dv and the kept mma.sync instances, at
+    sft-gemma2's odd (global) and even (window 4096) layers, at the odd layer without its softcap (what the
+    softcap costs), and at Gemma-2B's attention (no softcap: the function SDPA computes), each layer by
+    ``k4_d256_layer``. Returns the records of the kernels line (at the odd layer,
+    with the even layer's and the like-for-like shape's numbers beside)."""
+    import torch
+
+    c = GEMMA2_ATTN
+    B, H, Hk, S, D = c["B"], c["H"], c["Hk"], c["S"], c["D"]
+    layers = {"odd": k4_d256_layer(gen, device, peaks, c, None, c["softcap"], "sft-gemma2 odd (global)", iters),
+              "even": k4_d256_layer(gen, device, peaks, c, c["window"], c["softcap"], "sft-gemma2 even (window 4096)",
+                                    iters),
+              "gemma": k4_d256_layer(gen, device, peaks, GEMMA_2B_ATTN, None, None, "Gemma-2B H 8 / Hk 1, no softcap",
+                                     iters),
+              # the odd layer with the softcap removed: what the softcap's tanh costs each kernel, measured
+              "nocap": k4_d256_layer(gen, device, peaks, c, None, None, "sft-gemma2 odd without softcap", iters)}
+    ms, turns, errs, plain, lib, bound, vis = layers["odd"]
+    g = GEMMA_2B_ATTN
+    entries = {}
+    for name, (_, counter, source, replaces) in K4_D256.items():
+        fwd = counter == "fwd"
+        lw, ll = layers["even"], layers["gemma"]
         entries[name] = {
-            "name": name, "route": "cuda", "source": "dalm_tpu_torch/csrc/flash_attention.cu",
-            "replaces": K4_D256[name][2], "case": f"sft-gemma2 odd layer B={B} H={H} Hk={Hk} S={S} D={D} bf16 causal "
-                                                 f"softcap 50 scale 1/16",
-            "max_abs_err": max(rows[r][1][name] for r in rows), "ms": ms[name],
-            "plain_ms": plain_f if fwd else plain_b, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_f if fwd else lib_b,
-            "library_is": "SDPA forward, same shape without softcap" if fwd else
-            "SDPA backward (dq, dk and dv in one call), same shape without softcap",
-            "tflops": ops / ms[name] / 1e9, "ms_even_layer_window_4096": ms_w[name],
-            "bound_ms_even_layer": max(work_w[name][0] / peaks[2], work_w[name][1] / peaks[0]) * 1e3,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "case": f"sft-gemma2 odd layer B={B} H={H} Hk={Hk} S={S} D={D} bf16 causal softcap 50 scale 1/16",
+            "max_abs_err": max(layers[r][2][name] for r in layers), "ms": ms[name], "turns_ms": turns[name],
+            "plain_ms": plain[0] if fwd else plain[1], "bound_ms": bound[name][0], "bound_by": bound[name][1],
+            "library_ms": None,
+            "library_is": "none at this shape: SDPA takes no softcap (see like_for_like)",
+            "tflops": bound[name][2] / ms[name] / 1e9,
+            "ms_even_layer_window_4096": lw[0][name], "bound_ms_even_layer": lw[5][name][0],
+            "sdpa_no_softcap_ms": lib[0] if fwd else lib[1],
+            "ms_odd_layer_without_softcap": layers["nocap"][0][name],
+            "like_for_like": {
+                "case": f"Gemma-2B attention B={g['B']} H={g['H']} Hk={g['Hk']} S={g['S']} D={g['D']} bf16 causal, "
+                        f"no softcap, scale 1/16",
+                "ms": ll[0][name], "bound_ms": ll[5][name][0], "library_ms": ll[4][0] if fwd else ll[4][1],
+                "library_is": "SDPA forward" if fwd else "SDPA backward: dq, dk and dv in one call"},
         }
     for name, e in entries.items():
-        print(f"[k4] D 256 at sft-gemma2's shape, {name}: odd layer {e['ms']:.4f} ms ({e['tflops']:.1f} TFLOP/s, bound "
-              f"{e['bound_ms']:.4f} ms, {e['bound_by']}; {e['bound_ms'] / e['ms']:.1%} of it), even layer (window 4096, "
-              f"{vis_w:.3f} of the scores visible against {vis:.3f}) {e['ms_even_layer_window_4096']:.4f} ms (bound "
-              f"{e['bound_ms_even_layer']:.4f}); plain {e['plain_ms']:.2f} ms; max error {e['max_abs_err']:.3g}",
-              flush=True)
-    bwd = ms["k4_bwd_dq_d256"] + ms["k4_bwd_dkv_d256"]
-    print(f"[k4] D 256: SDPA (no softcap) forward {lib_f:.4f} ms against K4's {ms['k4_fwd_d256']:.4f} "
-          f"({ms['k4_fwd_d256'] / lib_f:.2f}x); SDPA backward {lib_b:.4f} ms against K4's dq + dk/dv {bwd:.4f} "
-          f"({bwd / lib_b:.2f}x, dsum apart)", flush=True)
+        lf = e["like_for_like"]
+        print(f"[k4] D 256, {name}: sft-gemma2 odd layer {e['ms']:.4f} ms (turns "
+              f"{', '.join(f'{t:.4f}' for t in e['turns_ms'])}; {e['tflops']:.1f} TFLOP/s; bound {e['bound_ms']:.4f} ms, "
+              f"{e['bound_by']}: {e['bound_ms'] / e['ms']:.1%} of it), even layer (window 4096, "
+              f"{layers['even'][6]:.3f} of the scores visible against {vis:.3f}) {e['ms_even_layer_window_4096']:.4f} ms "
+              f"(bound {e['bound_ms_even_layer']:.4f}); Gemma-2B no softcap {lf['ms']:.4f} ms (bound "
+              f"{lf['bound_ms']:.4f}, {lf['library_is']} {lf['library_ms']:.4f}); the odd layer without softcap "
+              f"{e['ms_odd_layer_without_softcap']:.4f} ms; plain {e['plain_ms']:.2f} ms; max error "
+              f"{e['max_abs_err']:.3g}", flush=True)
+    for label, (ms_l, _, _, _, (lf, lb), _, _) in (("sft-gemma2 odd layer (SDPA without softcap)", layers["odd"]),
+                                                  ("sft-gemma2 even layer (SDPA without softcap or window)",
+                                                   layers["even"]),
+                                                  ("Gemma-2B, like for like", layers["gemma"])):
+        for route, (f, dq, dkv) in (("wgmma", ("k4_fwd_d256_wgmma", "k4_bwd_dq_d256_wgmma", "k4_bwd_dkv_d256_wgmma")),
+                                    ("mma.sync", ("k4_fwd_d256", "k4_bwd_dq_d256", "k4_bwd_dkv_d256"))):
+            bwd = ms_l[dq] + ms_l[dkv]
+            print(f"[k4] D 256, {label}, {route} route: forward {ms_l[f]:.4f} ms = {ms_l[f] / lf:.2f}x SDPA's "
+                  f"{lf:.4f}; dq + dk/dv {bwd:.4f} ms = {bwd / lb:.2f}x SDPA's backward {lb:.4f} (dsum apart)",
+                  flush=True)
     torch.cuda.empty_cache()
     return entries
 
@@ -5154,9 +5321,9 @@ def sft_gemma2_phase(device, workdir, smi, steps=3):
     """``train_generator("gemma2-2b", ...)`` at full width and depth (26 layers, vocab 256,000 through a byte
     tokenizer padded to it), bf16, batch 1 x 8,192 tokens (Gemma2's own context, so that the 4,096 window of the
     even layers masks), LoRA r = 256 in the merge runtime, packing, recompute, NEFTune 5, ``steps`` optimiser steps
-    and the validation batches: every attention call on K4's head-dim-256 kernels (the mma.sync route), counted by
-    direction and held to 26 layers x (2 forwards + 1 backward) a step plus 26 forwards a validation batch. Returns
-    the launches by kernel."""
+    and the validation batches: every attention call on K4's head-dim-256 kernels (the wgmma route), counted by
+    direction and route and held to 26 layers x (2 forwards + 1 backward) a step plus 26 forwards a validation
+    batch. Returns the launches by kernel (the kept mma.sync instances' entries at 0) and the results."""
     import numpy as np
     import torch
 
@@ -5197,8 +5364,8 @@ def sft_gemma2_phase(device, workdir, smi, steps=3):
     want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps,
             "dsum": layers * n_steps}
     check(eval_batches >= 1 and launches == want, f"sft-gemma2: K4 launches {launches}, {layers} layers predict {want}")
-    check(routes == {"wgmma": 0, "mma": want["fwd"]} and bwd_routes == {"wgmma": 0, "mma": want["dq"]},
-          f"sft-gemma2: every D 256 call must take the mma.sync route: {routes}, {bwd_routes}")
+    check(routes == {"wgmma": want["fwd"], "mma": 0} and bwd_routes == {"wgmma": want["dq"], "mma": 0},
+          f"sft-gemma2: every bf16 D 256 call must take the wgmma route: {routes}, {bwd_routes}")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(len(held["trainable"]) == 4 * layers and not unchanged,
           f"sft-gemma2: {len(unchanged)} of {len(held['trainable'])} LoRA factors did not change")
@@ -5210,15 +5377,18 @@ def sft_gemma2_phase(device, workdir, smi, steps=3):
           f"{cfg.head_dim}, windows 4096 / global alternating, softcap 50 / 30, vocab {cfg.vocab_size}) ({smi}): "
           f"batch 1 x 8192 tokens, bf16, LoRA r=256 (merge runtime), recompute, NEFTune 5: {n_steps} steps + "
           f"{eval_batches} validation batches in {wall:.1f} s (init included); step {step_s:.3f} s = "
-          f"{8192 / step_s:.0f} tokens/s; loss at step {n_steps} {out['final_loss']:.4f}, validation "
+          f"{8192 / step_s:.0f} tokens/s (0.736-0.845 s on the mma.sync D-256 kernels); loss at step {n_steps} "
+          f"{out['final_loss']:.4f}, validation "
           f"{out['eval_loss']:.4f}; peak {peak_gib:.2f} GiB; K4 launches {launches} = {layers} x (2 forwards + 1 "
-          f"backward) a step + {layers} forwards a validation batch, every one at D 256 on the mma.sync route", flush=True)
+          f"backward) a step + {layers} forwards a validation batch, every one at D 256 on the wgmma route", flush=True)
     print(json.dumps({"sft_gemma2": res}), flush=True)
     held.clear()
     del setup
     gc.collect()
     torch.cuda.empty_cache()
-    return {"k4_fwd_d256": launches["fwd"], "k4_bwd_dq_d256": launches["dq"], "k4_bwd_dkv_d256": launches["dkv"]}, res
+    return {"k4_fwd_d256_wgmma": routes["wgmma"], "k4_bwd_dq_d256_wgmma": bwd_routes["wgmma"],
+            "k4_bwd_dkv_d256_wgmma": bwd_routes["wgmma"], "k4_fwd_d256": routes["mma"],
+            "k4_bwd_dq_d256": bwd_routes["mma"], "k4_bwd_dkv_d256": bwd_routes["mma"]}, res
 
 
 KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "int4_matmul",
@@ -5274,8 +5444,16 @@ def main() -> int:
     print(f"[build] kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in KERNEL_SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    for name in ("flash_fwd_wgmma", "flash_bwd_wgmma"):  # K4's D-256 wgmma instances: no spill, no serialised wgmma
+        log = build.build_log(name)
+        for fn, info in ptxas_counts(log).items():
+            if re.search(r"fa_(fwd|bwd)_wgmma_kernelILi256E", fn):
+                print(f"[build] {name}: D-256 instance {fn}: {info['line']}; {info['used']}", flush=True)
+                check(info["spill"] == 0, f"ptxas spilled {info['spill']} bytes in {fn}")
+                check(not any("Performance Loss" in ln and fn in ln for ln in log.splitlines()),
+                      f"ptxas serialised the wgmma of {fn}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     kernels = {}
@@ -5359,6 +5537,7 @@ def main() -> int:
               + ", ".join(f"{i} {v:.3f}" for i, v in per_step.items()), flush=True)
         print(json.dumps({"k5_cases": cases}), flush=True)
         print(json.dumps({"k5_prefill": k5_prefill_phase(gen, device, peaks)}), flush=True)
+        print(json.dumps({"k5_group8": k5_group8_time(gen, device, peaks, smi)}), flush=True)
         for key, e in mains.items():
             kernels[e["name"]] = dict(e, launches=k5_launches.get(key, 0)) if "serve-q" in phases else e
     with tempfile.TemporaryDirectory() as workdir:
@@ -5464,7 +5643,7 @@ def main() -> int:
         check("launches" in e, f"{e['name']}: no launch count from its main path")
     for name in ("fused_dot_topk[f32]", "fused_dot_topk[int8]", "fused_dot_topk[int4]", "rowquant", *k1_names,
                  "int8_gemm_nt", "k4_fwd_wgmma", "k4_bwd_dq_wgmma",
-                 "k4_bwd_dkv_wgmma", "k4_dsum", *K4_D256, *k5_names):
+                 "k4_bwd_dkv_wgmma", "k4_dsum", *(p[0] for p in K4_D256_PAIRS), *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     for name in ("int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm", "fused_dot_topk[f32]"):
         check(kernels[name]["launches_serve_llama31"] > 0, f"{name} was never launched by serve-llama31")

@@ -1,6 +1,6 @@
 // K4's backward rebuilt for Hopper (sm_90a): the dq and dk/dv kernels on wgmma,
 // each fed by a warp-specialised TMA ring, and the dsum pre-pass. The route of
-// bfloat16 inputs at head dim 64 or 128 (kernels/flash_attention.py:fwd_route,
+// bfloat16 inputs at head dim 64, 128 or 256 (kernels/flash_attention.py:fwd_route,
 // the same rule as the forward's); float32 inputs and other head dims keep the
 // mma.sync pair of csrc/flash_attention.cu. The dsum pre-pass serves both routes.
 //
@@ -73,10 +73,45 @@
 // Epilogue: dQ, dK, dV converted to bf16 and stored in each output's own layout
 // (the scale already sits in dS); rows past the end are not stored.
 // dsum pre-pass: 16 threads a row of do and out, 16 bytes each a step, an f32
-// sum reduced by shuffles; any D up to 128, bf16 or f32, both tensors' strides.
+// sum reduced by shuffles; any D up to 256, bf16 or f32, both tensors' strides.
 // Not done here: ping-pong of the consumers, a persistent scheduler, one fused
 // kernel with dq by atomics (which gives up run-to-run equality), FP8, skipping
 // tiles that segments alone mask.
+//
+// Head dim 256 (Gemma, Gemma2, Gemma3): the geometry of Geo<256, *> (SPLIT). At
+// sft-gemma2's global layer (B 1, H 8, Hk 4, S 8192, causal, softcap 50) dq needs
+// 412 GFLOP (0.417 ms of tensor time) and dk/dv 550 (0.556 ms) against about
+// 0.04 ms of bytes: operations. The D-128 blocks do not fit: a consumer's 64 rows
+// hold dQ in 128 registers a thread and dK + dV in 256, and 128-row X and Y
+// tiles take 128 KB of the 227. So in both kernels a block owns 64 rows (dq:
+// queries, the longest causal rows first; dk/dv: keys), and its two consumers
+// walk them over the same 64-column tiles with the work split by product, not
+// by rows: consumer 0 makes the scores (dq: S = Q K^T; dk/dv: S^T = K Q^T) on
+// wgmma.m64n64k16 (16 k steps), turns them into g = P [1 - (S / cap)^2] scale
+// (f32, 0 where masked) and, for dk/dv, the bf16 P^T fragment, writes g to a
+// double-buffered exchange in shared memory and, for dk/dv, accumulates
+// dV += P^T dO (wgmma.m64n256k16, 4 k steps: dV's 64 x 256 f32 in 128 registers
+// a thread); consumer 1 makes dP (dO V^T; dk/dv: dP^T = V dO^T) on
+// wgmma.m64n64k16, waits for the tile's g, makes dS = g (dP - dsum) in bf16 and
+// accumulates dQ += dS K (dk/dv: dK += dS^T Q) on wgmma.m64n256k16. So each
+// product is issued once a tile pair, where the mma.sync instance recomputes both
+// score products in each of its two column blocks. The exchange runs one way:
+// consumer 0 writes buffer it % 2 and arrives on a named barrier, consumer 1
+// waits on it, reads, and arrives on the buffer's empty barrier, which consumer 0
+// waits on two tiles later; so consumer 0 runs up to a tile ahead, and its
+// exponentials (and tanh) overlap consumer 1's products. Thread t's 32 entries lie
+// 128 words apart (both consumers' threads hold the same elements of the m64n64
+// layout): no bank conflicts.
+// Registers a consumer thread: 128 of output + the score or dP tile 32 + a bf16
+// fragment 16 + the row state, under 240 (chip_smoke.py prints ptxas's counts and
+// spills). Shared memory: X, Y (64 rows) 32 KB each, a 2-slot ring of 64-column
+// U, W tiles (2 x 64 KB), the exchange 2 x 16 KB: 225 KB with the slack, 226.6 KB
+// with the static column data, of the 227 (Geo's static_assert checks it).
+// dq's consumer 0 issues one product a tile and consumer 1 two, so dq's tensor
+// work is not split evenly; dk/dv's is (two products each). Measured (PERF.md
+// §6, an H100 80GB HBM3 at 700 W): dq 0.97 ms, dk/dv 1.08 ms at sft-gemma2's
+// global layer; 0.815 / 0.934 without its softcap, whose tanh adds two
+// special-function operations a score.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -87,21 +122,30 @@
 
 namespace {
 
-constexpr int BM = 128;               // rows a block: two consumer warpgroups of 64
-constexpr int BC = 64;                // columns a ring tile
-constexpr int SLOTS = 3;              // ring slots, each one U and one W tile
 constexpr int THREADS = 384;          // warpgroup 0 produces, 1 and 2 consume
-constexpr int ROW_BOX = BM * 128;     // one TMA box of X or Y: 128 rows x 64 bf16 (128 bytes, one swizzle row)
-constexpr int COL_BOX = BC * 128;     // one TMA box of U or W: 64 rows x 64 bf16
 
-// Dynamic shared memory of the head dim D: X, Y, then the ring's U and W tiles.
-template <int D>
-struct Layout {
-    static constexpr int BOXES = D / 64;               // 64-column boxes a row
-    static constexpr int XT = BOXES * ROW_BOX;         // X or Y
-    static constexpr int UT = BOXES * COL_BOX;         // U or W
-    static constexpr int X = 0, Y = XT, U = 2 * XT;    // slot s: U at U + 2 s UT, W one UT on
-    static constexpr int BYTES = U + SLOTS * 2 * UT + 1024;  // + slack to align the tiles to 1024 bytes
+// The geometry of one instance. D 64 / 128: a block owns 128 rows, 64 to a consumer, and walks column tiles of 64
+// through a 3-slot ring. D 256 (SPLIT): a block owns 64 rows, which both consumers walk, one making the scores and
+// P, the other dP and dS; 64-column tiles through a 2-slot ring, and a double-buffered shared-memory exchange of
+// 2 x 16 KB (32 f32 a consumer thread) from the first to the second.
+template <int D, bool DKV>
+struct Geo {
+    static constexpr bool SPLIT = D == 256;
+    static constexpr int BM = SPLIT ? 64 : 128;                // rows a block
+    static constexpr int BC = 64;                              // columns a ring tile
+    static constexpr int SLOTS = SPLIT ? 2 : 3;                // ring slots, each one U and one W tile
+    static constexpr int BOXES = D / 64;                       // 64-column boxes a row
+    static constexpr int ROW_BOX = BM * 128;                   // one TMA box of X or Y: BM rows x 64 bf16 (128 bytes)
+    static constexpr int COL_BOX = BC * 128;                   // one TMA box of U or W: BC rows x 64 bf16
+    static constexpr int XT = BOXES * ROW_BOX;                 // X or Y
+    static constexpr int UT = BOXES * COL_BOX;                 // U or W
+    static constexpr int X = 0, Y = XT, U = 2 * XT;            // slot s: U at U + 2 s UT, W one UT on
+    static constexpr int XCHG = U + SLOTS * 2 * UT;            // SPLIT: [2][32][128] f32, g of even and odd tiles
+    static constexpr int XCHG_BYTES = SPLIT ? 2 * 32 * 128 * 4 : 0;
+    static constexpr int BYTES = XCHG + XCHG_BYTES + 1024;     // + slack to align the tiles to 1024 bytes
+    // the static column data (segments, lse, dsum) and the barriers beside the dynamic bytes
+    static constexpr int STATIC_BYTES = SLOTS * BC * 12 + SLOTS * 8 + (2 * SLOTS + 1) * 8;
+    static_assert(BYTES + STATIC_BYTES <= 232448, "more shared memory than a block may have");
     static_assert(BYTES + 4096 < (1 << 18), "a descriptor's address field holds addresses below 2^18");
 };
 
@@ -113,13 +157,6 @@ __device__ __forceinline__ bool visible(const Mask& m, int r0, int rn, int c0, i
 template <bool DKV>
 __device__ __forceinline__ bool whole(const Mask& m, int r0, int rn, int c0, int cn) {
     return DKV ? tile_full(m, c0, cn, r0, rn) : tile_full(m, r0, rn, c0, cn);
-}
-
-// tanh(y) = 1 - 2 / (2^(2 |y| log2 e) + 1), its sign restored: one MUFU.EX2 and a division, absolute error
-// about 2e-7 (tanhf's two branches cost the dk/dv kernel at D 128 a spilled register).
-__device__ __forceinline__ float tanh_fast(float y) {
-    const float t = 1.f - __fdividef(2.f, exp2_fast(2.f * LOG2E * fabsf(y)) + 1.f);
-    return copysignf(t, y);
 }
 
 // Half H of a column tile (columns [32 H, 32 H + 32)) for a thread's rows r0 and r0 + 8, in the wgmma m64n64
@@ -211,6 +248,7 @@ __device__ __forceinline__ void tile_half(int cls, bool capped, const float (&s)
 template <int D, bool DKV, int H>
 __device__ __forceinline__ void rs_half(float (&acc1)[D / 2], float (&acc2)[DKV ? D / 2 : 1], const uint32_t (&pf)[16],
                                         const uint32_t (&df)[16], const uint8_t* us, const uint8_t* ws) {
+    constexpr int COL_BOX = 64 * 128;
 #pragma unroll
     for (int kk = 2 * H; kk < 2 * H + 2; ++kk) {
         if constexpr (DKV) {
@@ -229,14 +267,64 @@ __device__ __forceinline__ void fence_half(uint32_t (&d)[16]) {
     for (int i = 8 * H; i < 8 * H + 8; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// SPLIT's exchange buffer b is full (consumer 0 wrote g) at named barrier XCHG_FULL + b, empty (consumer 1 read it)
+// at XCHG_EMPTY + b.
+constexpr int XCHG_FULL = 1, XCHG_EMPTY = 3;
+
+// SPLIT, consumer 0: a 64-column tile of scores (the m64n64 layout; dk/dv: S^T, rows keys, columns queries) to
+// g = P [1 - (x / cap)^2] scale in place of s and, for dk/dv, P^T packed to bf16 in the A fragment of its dV
+// product, both selected to 0 where masked; consumer 1 makes dS = g (dP - dsum) from g. dq takes lse of its rows
+// (lse2r), dk/dv of its columns (lse2c). MASKED as in bwd_tile.
+template <bool DKV, bool MASKED, bool CAP>
+__device__ __forceinline__ void score_tile(float (&s)[32], uint32_t (&pf)[16], const int (&lo)[2], const int (&hi)[2],
+                                           const int (&rseg)[2], const int* cseg, bool has_seg,
+                                           const float (&lse2r)[2], const float* lse2c, float scale, float scale2,
+                                           float cap_in, float cap2, int tq) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int c = 8 * i + 2 * tq;
+        int2 seg = make_int2(0, 0);
+        if (MASKED && has_seg) seg = *reinterpret_cast<const int2*>(cseg + c);
+        float2 cl = make_float2(0.f, 0.f);
+        if (DKV) cl = *reinterpret_cast<const float2*>(lse2c + c);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float pv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int at = 4 * i + 2 * r + e;
+                const float l2 = DKV ? (e ? cl.y : cl.x) : lse2r[r];
+                float p, g;
+                if (CAP) {
+                    const float th = tanh_fast(s[at] * cap_in);
+                    p = exp2_fast(th * cap2 - l2);
+                    g = p * (1.f - th * th) * scale;
+                } else {
+                    p = exp2_fast(fmaf(s[at], scale2, -l2));
+                    g = p * scale;
+                }
+                if (MASKED) {
+                    const bool keep = c + e >= lo[r] && c + e <= hi[r] && (!has_seg || (e ? seg.y : seg.x) == rseg[r]);
+                    p = keep ? p : 0.f;
+                    g = keep ? g : 0.f;
+                }
+                pv[e] = p;
+                s[at] = g;
+            }
+            if (DKV) pf[4 * (i >> 1) + 2 * (i & 1) + r] = pack_bf16(pv[0], pv[1]);
+        }
+    }
+}
+
 // Grid: dq (q tiles, H, B), the longest causal rows first; dk/dv (k tiles, Hk, B). Tensor maps (D, S, heads, B):
-// tm_x, tm_y boxes of 64 x 128 rows, tm_u, tm_w boxes of 64 x 64 rows.
+// tm_x, tm_y boxes of 64 x BM rows, tm_u, tm_w boxes of 64 x BC rows.
 template <int D, bool DKV>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ const CUtensorMap tm_y,
                     __grid_constant__ const CUtensorMap tm_u, __grid_constant__ const CUtensorMap tm_w,
                     const Args a) {
-    using L = Layout<D>;
+    using L = Geo<D, DKV>;
+    constexpr int BM = L::BM, BC = L::BC, SLOTS = L::SLOTS, ROW_BOX = L::ROW_BOX, COL_BOX = L::COL_BOX;
     extern __shared__ uint8_t smem_raw[];
     __shared__ __align__(8) uint64_t x_full;
     __shared__ __align__(8) uint64_t full[SLOTS];
@@ -329,6 +417,180 @@ fa_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ 
                     col_one[s][1] = first;
                 }
                 mbar_arrive(&full[s]);  // every lane, after its stores
+            }
+        }
+    } else if constexpr (L::SPLIT) {
+        // D 256: both consumers walk the block's 64 rows (warp w rows [+16 w, +16)) over the same column tiles.
+        // Consumer 0 makes the scores A1 = X U^T (dq: S; dk/dv: S^T) and from them g = P [1 - (x / cap)^2] scale
+        // (f32, 0 where masked), which it hands to consumer 1 through a double-buffered exchange; for dk/dv it
+        // also packs P^T and accumulates dV += P^T dO. Consumer 1 makes A2 = Y W^T (dP; dk/dv: dP^T), dS =
+        // g (dP - dsum) in bf16, and accumulates dQ += dS K (dk/dv: dK += dS^T Q). Each product is issued once a
+        // tile, and consumer 0 runs up to a tile ahead, so its exponentials overlap consumer 1's products.
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+        const int c = wg - 1, warp = t / 32, lane = t % 32, tq = lane % 4;
+        const int wr0 = row0 + 16 * warp, r0 = wr0 + lane / 4;  // this thread's rows: r0 and r0 + 8
+        // [2][32][128] f32: g of the even and the odd tiles; thread t's entries lie 128 words apart, so a warp's
+        // accesses fall in 32 different banks (both consumers' threads hold the same elements of the m64n64 layout)
+        float* xg = reinterpret_cast<float*>(base + L::XCHG);
+        int rseg[2] = {0, 0};
+        float lse2r[2] = {0.f, 0.f}, dsumr[2] = {0.f, 0.f};  // dq: its rows' lse log2 e and dsum
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = r0 + 8 * r;
+            if (row >= n_rows) continue;
+            if (mk.has_seg) rseg[r] = (DKV ? a.seg_k : a.seg_q)[(long long)b * n_rows + row];
+            if (!DKV) {
+                const long long at = ((long long)b * H + hx) * mk.Sq + row;
+                lse2r[r] = a.lse[at] * LOG2E;
+                dsumr[r] = a.dsum[at];
+            }
+        }
+        const int seg_w = __shfl_sync(0xffffffffu, rseg[0], 0);
+        const bool row_one_seg = __all_sync(0xffffffffu, rseg[0] == seg_w && rseg[1] == seg_w);
+        const float scale = (float)a.scale, cap = (float)a.softcap;
+        const float scale2 = scale * LOG2E;
+        const bool capped = cap > 0.f;
+        const float cap_in = capped ? scale / cap : 0.f, cap2 = capped ? cap * LOG2E : 0.f;
+
+        float acc[128];  // consumer 0: dV (dk/dv); consumer 1: dQ or dK
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+        float sc[32];     // consumer 0: the scores, then g; consumer 1: dP
+        uint32_t fr[16];  // consumer 0: the bf16 P^T fragment (dk/dv); consumer 1: dS
+        if (n_it > 0) mbar_wait(&x_full, 0);
+        uint64_t dx = smem_desc(base + (c == 0 ? L::X : L::Y));
+        asm volatile("" : "+l"(dx));
+        // The visible column tiles are one range (causality and the window band are monotone in the column), so
+        // every tile of it is worked on, by both consumers.
+        for (int it = 0; it < n_it; ++it) {
+            const int slot = it % SLOTS, c0 = (c_lo + it % n_tiles) * BC, xb = it & 1;
+            float* g = xg + xb * 32 * 128;
+            mbar_wait(&full[slot], (it / SLOTS) & 1);
+            const uint8_t* us = base + L::U + 2 * slot * L::UT;
+            const uint8_t* ws = us + L::UT;
+            const uint64_t du = smem_desc(c == 0 ? us : ws);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const int ax = (kk / 4) * ROW_BOX + (kk % 4) * 32, au = (kk / 4) * COL_BOX + (kk % 4) * 32;
+                wgmma_ss_n64(sc, dx + (ax >> 4), du + (au >> 4), kk > 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(sc);
+            if (c == 0) {
+                // the warp's class: dead (P = dS = 0), whole (no per-element test) or masked element by element
+                int lo[2], hi[2];
+                bool none = true;
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const int row = r0 + 8 * r;
+                    if (DKV) {  // row = key, columns = queries
+                        hi[r] = row < n_rows ? mk.Sq - 1 - c0 : -1;
+                        lo[r] = mk.causal ? row - mk.q_offset - c0 : 0;
+                        if (mk.window > 0) hi[r] = min(hi[r], row - mk.q_offset + mk.window - 1 - c0);
+                    } else {    // row = query, columns = keys
+                        const int gq = mk.q_offset + row;
+                        hi[r] = row < n_rows ? mk.Sk - 1 - c0 : -1;
+                        if (mk.causal) hi[r] = min(hi[r], gq - c0);
+                        lo[r] = mk.window > 0 ? gq - c0 - mk.window + 1 : 0;
+                    }
+                    none = none && (hi[r] < 0 || hi[r] < lo[r] || lo[r] > BC - 1);
+                }
+                const bool col_one_seg = col_one[slot][0] != 0;
+                const bool one_seg = row_one_seg && col_one_seg && col_one[slot][1] == seg_w;
+                const bool dead = __all_sync(0xffffffffu, none) ||
+                                  (mk.has_seg && row_one_seg && col_one_seg && col_one[slot][1] != seg_w);
+                const bool full_tile = whole<DKV>(mk, wr0, 16, c0, BC) && (!mk.has_seg || one_seg);
+                const int* cseg = col_seg[slot];
+                const float* lse2c = col_lse2[slot];
+                if (dead) {
+#pragma unroll
+                    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+#pragma unroll
+                    for (int i = 0; i < 16; ++i) fr[i] = 0u;
+                } else if (capped) {
+                    if (full_tile)
+                        score_tile<DKV, false, true>(sc, fr, lo, hi, rseg, cseg, mk.has_seg, lse2r, lse2c, scale,
+                                                     scale2, cap_in, cap2, tq);
+                    else
+                        score_tile<DKV, true, true>(sc, fr, lo, hi, rseg, cseg, mk.has_seg, lse2r, lse2c, scale,
+                                                    scale2, cap_in, cap2, tq);
+                } else if (full_tile) {
+                    score_tile<DKV, false, false>(sc, fr, lo, hi, rseg, cseg, mk.has_seg, lse2r, lse2c, scale,
+                                                  scale2, cap_in, cap2, tq);
+                } else {
+                    score_tile<DKV, true, false>(sc, fr, lo, hi, rseg, cseg, mk.has_seg, lse2r, lse2c, scale,
+                                                 scale2, cap_in, cap2, tq);
+                }
+                if (it >= 2) consumers_sync(XCHG_EMPTY + xb);  // consumer 1 has read this buffer's tile it - 2
+#pragma unroll
+                for (int i = 0; i < 32; ++i) g[i * 128 + t] = sc[i];
+                consumers_arrive(XCHG_FULL + xb);
+                if constexpr (DKV) {  // dV += P^T dO: 4 k steps of 16 queries, n = 256 (the tile's four boxes)
+                    fence_regs(acc);
+                    fence_regs(fr);
+                    wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk) {
+                        const uint32_t pa[4] = {fr[4 * kk], fr[4 * kk + 1], fr[4 * kk + 2], fr[4 * kk + 3]};
+                        wgmma_rs_n256(acc, pa, smem_desc_mn(ws + kk * 2048, COL_BOX));
+                    }
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    fence_regs(acc);
+                    fence_regs(fr);
+                }
+            } else {
+                consumers_sync(XCHG_FULL + xb);  // g of this tile is in
+                const float* dsumc = col_dsum[slot];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    float2 cd = make_float2(0.f, 0.f);
+                    if (DKV) cd = *reinterpret_cast<const float2*>(dsumc + 8 * i + 2 * tq);
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        const int at = 4 * i + 2 * r;
+                        const float d0 = g[at * 128 + t] * (sc[at] - (DKV ? cd.x : dsumr[r]));
+                        const float d1 = g[(at + 1) * 128 + t] * (sc[at + 1] - (DKV ? cd.y : dsumr[r]));
+                        fr[4 * (i >> 1) + 2 * (i & 1) + r] = pack_bf16(d0, d1);
+                    }
+                }
+                if (it + 2 < n_it) consumers_arrive(XCHG_EMPTY + xb);  // consumer 0 waits on it for tile it + 2
+                // dQ += dS K (dk/dv: dK += dS^T Q): 4 k steps of 16 columns, n = 256 (the tile's four boxes)
+                fence_regs(acc);
+                fence_regs(fr);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    const uint32_t da[4] = {fr[4 * kk], fr[4 * kk + 1], fr[4 * kk + 2], fr[4 * kk + 3]};
+                    wgmma_rs_n256(acc, da, smem_desc_mn(us + kk * 2048, COL_BOX));
+                }
+                wgmma_commit();
+                wgmma_wait<0>();
+                fence_regs(acc);
+                fence_regs(fr);
+            }
+            if (lane == 0) mbar_arrive(&empty[slot]);  // each warp, after its last read of the slot
+        }
+
+        // epilogue: bf16 in the output's own layout; consumer 0 writes dV (dk/dv), consumer 1 dQ or dK
+        if (DKV || c == 1) {
+            int eb, eh;
+            asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(eb));
+            asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(eh));
+            __nv_bfloat16* o = !DKV ? static_cast<__nv_bfloat16*>(a.dq) + eb * a.dq_sb + eh * a.dq_sh
+                               : c == 1 ? static_cast<__nv_bfloat16*>(a.dk) + eb * a.dk_sb + eh * a.dk_sh
+                                        : static_cast<__nv_bfloat16*>(a.dv) + eb * a.dv_sb + eh * a.dv_sh;
+            const long long ss = !DKV ? a.dq_ss : c == 1 ? a.dk_ss : a.dv_ss;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = r0 + 8 * r;
+                if (row >= n_rows) continue;
+#pragma unroll
+                for (int i = 0; i < 32; ++i)
+                    *reinterpret_cast<__nv_bfloat162*>(o + row * ss + 8 * i + 2 * tq) =
+                        __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
             }
         }
     } else {
@@ -475,10 +737,10 @@ fa_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_x, __grid_constant__ 
     }
 }
 
-// The four tensor maps of one kernel: X and Y in boxes of 128 rows, U and W in boxes of 64.
-template <bool DKV>
+// The four tensor maps of one kernel: X and Y in boxes of BM rows, U and W in boxes of BC.
+template <int D, bool DKV>
 int make_maps(const Args& a, CUtensorMap (&m)[4]) {
-    const int row_box[4] = {64, BM, 1, 1}, col_box[4] = {64, BC, 1, 1};
+    const int row_box[4] = {64, Geo<D, DKV>::BM, 1, 1}, col_box[4] = {64, Geo<D, DKV>::BC, 1, 1};
     const long long q_dims[4] = {a.D, a.Sq, a.H, a.B}, kv_dims[4] = {a.D, a.Sk, a.Hk, a.B};
     const long long q_st[3] = {2 * a.q_ss, 2 * a.q_sh, 2 * a.q_sb}, do_st[3] = {2 * a.do_ss, 2 * a.do_sh, 2 * a.do_sb},
                     k_st[3] = {2 * a.k_ss, 2 * a.k_sh, 2 * a.k_sb}, v_st[3] = {2 * a.v_ss, 2 * a.v_sh, 2 * a.v_sb};
@@ -499,20 +761,21 @@ int make_maps(const Args& a, CUtensorMap (&m)[4]) {
 
 template <int D, bool DKV>
 int launch(const Args& a, cudaStream_t stream) {
+    using L = Geo<D, DKV>;
     CUtensorMap m[4];
-    const int err = make_maps<DKV>(a, m);
+    const int err = make_maps<D, DKV>(a, m);
     if (err) return err;
-    const cudaError_t e = cudaFuncSetAttribute(fa_bwd_wgmma_kernel<D, DKV>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::BYTES);
+    const cudaError_t e =
+        cudaFuncSetAttribute(fa_bwd_wgmma_kernel<D, DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
     if (e != cudaSuccess) return (int)e;
     const long long rows = DKV ? a.Sk : a.Sq;
-    const dim3 grid((unsigned)((rows + BM - 1) / BM), (unsigned)(DKV ? a.Hk : a.H), (unsigned)a.B);
-    fa_bwd_wgmma_kernel<D, DKV><<<grid, THREADS, Layout<D>::BYTES, stream>>>(m[0], m[1], m[2], m[3], a);
+    const dim3 grid((unsigned)((rows + L::BM - 1) / L::BM), (unsigned)(DKV ? a.Hk : a.H), (unsigned)a.B);
+    fa_bwd_wgmma_kernel<D, DKV><<<grid, THREADS, L::BYTES, stream>>>(m[0], m[1], m[2], m[3], a);
     return (int)cudaGetLastError();
 }
 
 bool takes(const Args& a) {
-    return a.is_bf16 && (a.D == 64 || a.D == 128) && a.B >= 1 && a.H >= 1 && a.Hk >= 1 && a.H % a.Hk == 0 &&
+    return a.is_bf16 && (a.D == 64 || a.D == 128 || a.D == 256) && a.B >= 1 && a.H >= 1 && a.Hk >= 1 && a.H % a.Hk == 0 &&
            a.Sq >= 1 && a.Sk >= 1;
 }
 
@@ -563,19 +826,19 @@ __global__ void __launch_bounds__(DSUM_THREADS) dsum_kernel(const Args a) {
 
 extern "C" {
 
-// bf16 q, k, v, do at head dim 64 or 128, every row 16-byte aligned; dsum and lse (B, H, Sq) f32. Each returns
+// bf16 q, k, v, do at head dim 64, 128 or 256, every row 16-byte aligned; dsum and lse (B, H, Sq) f32. Each returns
 // 0, a CUDA error, or 900 / 1000 + CUresult when a tensor map cannot be encoded.
 int dalm_fa_bwd_dq_wgmma(const void* args, void* stream) {
     const Args& a = *static_cast<const Args*>(args);
     if (!takes(a)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return a.D == 128 ? launch<128, false>(a, st) : launch<64, false>(a, st);
+    return a.D == 256 ? launch<256, false>(a, st) : a.D == 128 ? launch<128, false>(a, st) : launch<64, false>(a, st);
 }
 int dalm_fa_bwd_dkv_wgmma(const void* args, void* stream) {
     const Args& a = *static_cast<const Args*>(args);
     if (!takes(a)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return a.D == 128 ? launch<128, true>(a, st) : launch<64, true>(a, st);
+    return a.D == 256 ? launch<256, true>(a, st) : a.D == 128 ? launch<128, true>(a, st) : launch<64, true>(a, st);
 }
 // What the two launches above would return before they launch: encodes both kernels' tensor maps and launches
 // nothing, so a caller can refuse the whole backward before its first kernel runs.
@@ -583,8 +846,12 @@ int dalm_fa_bwd_wgmma_maps(const void* args) {
     const Args& a = *static_cast<const Args*>(args);
     if (!takes(a)) return (int)cudaErrorInvalidValue;
     CUtensorMap m[4];
-    const int err = make_maps<false>(a, m);
-    return err ? err : make_maps<true>(a, m);
+    if (a.D == 256) {
+        const int err = make_maps<256, false>(a, m);
+        return err ? err : make_maps<256, true>(a, m);
+    }
+    const int err = make_maps<128, false>(a, m);  // the boxes of D 64 and 128 are one geometry
+    return err ? err : make_maps<128, true>(a, m);
 }
 // dsum = rowsum(do * out) into a.dsum, (B, H, Sq) f32 contiguous; bf16 or f32, D a multiple of 16 up to 256,
 // rows 16-byte aligned.

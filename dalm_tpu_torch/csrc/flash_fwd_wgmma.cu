@@ -1,7 +1,7 @@
 // K4's forward rebuilt for Hopper (sm_90a): flash attention on wgmma, fed by a
 // warp-specialised TMA ring, with the online softmax in registers. One
-// hand-written kernel, the route of bfloat16 inputs at head dim 64 or 128;
-// float32 inputs and other head dims keep the mma.sync forward of
+// hand-written kernel, the route of bfloat16 inputs at head dim 64, 128 or 256
+// (Gemma's); float32 inputs and other head dims keep the mma.sync forward of
 // csrc/flash_attention.cu, and kernels/flash_attention.py:fwd_route chooses.
 //
 // Replaces dalm_tpu/kernels/flash_attention.py:_flash_fwd (pallas_call at :221,
@@ -58,9 +58,35 @@
 //   column bounds and the staged key segments.
 //   Epilogue: out = O / max(l, 1e-30), stored in out's own layout;
 //   lse = m + log l, or -1e30 where l = 0.
-//   Not done here: ping-pong scheduling of the two consumers, overlap of the
-//   softmax with the next Q K^T inside a warpgroup, a persistent tile scheduler,
-//   skipping tiles that segments alone mask.
+//   Not done here: a persistent tile scheduler, skipping tiles that segments
+//   alone mask. Two schedules were tried and measured slower at sft-gemma2's
+//   global layer (PERF.md §6): ping-pong (the consumers issuing a tile's P V
+//   with the next Q K^T in turns behind named barriers), 1.015 ms against 0.70,
+//   and overlap inside a warpgroup (the next Q K^T issued before this P V, the
+//   softmax run under it, P double-buffered), 1.07 ms (D 128: 0.43 against 0.29).
+//
+// Head dim 256 (Gemma, Gemma2, Gemma3). At sft-gemma2's global layer (B 1, H 8,
+// Hk 4, S 8192, causal, softcap 50) the visible half of the scores costs 2 S^2 D / 2
+// operations a head and product: 275 GFLOP, 0.278 ms of tensor time, against
+// 0.03 ms for its 101 MB of q, k, v, out, lse; so operations (window 4096: 0.209 ms).
+// The D-128 geometry does not carry over: a consumer's O is 64 x 256 f32, 128
+// registers a thread, and a 128-key tile adds 64 for S and 32 for the bf16 P
+// fragment, which spills under the consumers' 232. So the same kernel, with:
+//   k tiles of 64 keys (key_tile): S = Q K^T on wgmma.m64n64k16, 16 k steps over
+//   four 64-column boxes (32 registers), P 16 registers, O += P V on
+//   wgmma.m64n256k16 with V MN-major, four k steps of 16 keys, each reading the
+//   tile's four 64-column boxes 8 KB apart (the descriptor's leading offset);
+//   registers a consumer thread: O 128 + S 32 + P 16 + the row state, under 232
+//   (chip_smoke.py prints ptxas's counts and spills);
+//   shared memory: the 128-row q tile 64 KB, a 2-slot ring of 64-key k and v
+//   tiles 2 x 64 KB: 193 KB with the alignment slack (Layout<256>, checked against
+//   the 227 KB a block may have by a static_assert); TMA boxes stay 64 columns (128
+//   bytes, the swizzle), four to a 256-wide row.
+//   A k tile's products are 4 x fewer per score than at D 64, so the softmax
+//   costs less beside them; Q K^T at n = 64 reads 4 KB of shared memory a k step,
+//   which is what the SM's shared memory gives in that step's time at the full
+//   tensor rate, for one consumer. Measured (PERF.md §6): 0.70 ms at
+//   sft-gemma2's global layer, 0.555 ms without its softcap.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -72,19 +98,28 @@
 namespace {
 
 constexpr int BM = 128;                   // query rows a block: two consumer warpgroups of 64
-constexpr int BN = 128;                   // keys a tile
 constexpr int SLOTS = 2;                  // ring slots, each one k tile and one v tile
 constexpr int THREADS = 384;              // warpgroup 0 produces, 1 and 2 consume
-constexpr int BOX_BYTES = 128 * 128;      // one TMA box: 128 rows x 64 bf16 (128 bytes, one swizzle row)
+constexpr int Q_BOX = BM * 128;           // one TMA box of q: 128 rows x 64 bf16 (128 bytes, one swizzle row)
 constexpr float LN2 = 0.6931471805599453f;
+
+// Keys a tile: 128 at head dim 64 / 128; 64 at 256, where a consumer's O alone holds 128 registers a thread.
+template <int D>
+constexpr int key_tile() { return D == 256 ? 64 : 128; }
 
 // Dynamic shared memory of the head dim D: the q tile, then the k and v tiles of the ring.
 template <int D>
 struct Layout {
-    static constexpr int BOXES = D / 64;            // 64-column boxes a row
-    static constexpr int TILE = BOXES * BOX_BYTES;  // 128 rows of q, k or v
-    static constexpr int Q = 0, K = TILE, V = K + SLOTS * TILE;
-    static constexpr int BYTES = V + SLOTS * TILE + 1024;  // + slack to align the tiles to 1024 bytes
+    static constexpr int BN = key_tile<D>();
+    static constexpr int BOXES = D / 64;             // 64-column boxes a row
+    static constexpr int KV_BOX = BN * 128;          // one TMA box of k or v: BN rows x 64 bf16
+    static constexpr int QT = BOXES * Q_BOX;         // the q tile
+    static constexpr int KVT = BOXES * KV_BOX;       // a k or a v tile
+    static constexpr int Q = 0, K = QT, V = K + SLOTS * KVT;
+    static constexpr int BYTES = V + SLOTS * KVT + 1024;  // + slack to align the tiles to 1024 bytes
+    // D 64: 81 KB, D 128: 161 KB, D 256: 193 KB, with 512 (D 256) or 1,024 bytes of static key segments beside
+    static_assert(BYTES + SLOTS * BN * 4 + 64 <= 232448, "more shared memory than a block may have");
+    static_assert(BYTES + 4096 < (1 << 18), "a descriptor's address field holds addresses below 2^18");
 };
 
 // One k tile of the online softmax for a thread's two rows r0 and r0 + 8, in the wgmma accumulator
@@ -97,8 +132,8 @@ struct Layout {
 // segments, the keys of its own segment sq[r]; otherwise every element is attended to, and without a
 // softcap (CAP false) the maximum is taken on the raw scores and the scale folded into the exponent
 // (the caller takes this path only for scale > 0).
-template <int D, bool MASKED, bool CAP>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[32], float (&o)[D / 2], float (&m)[2],
+template <int D, int BN, bool MASKED, bool CAP>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], uint32_t (&p)[BN / 4], float (&o)[D / 2], float (&m)[2],
                                              float (&l)[2], const int (&lo)[2], const int (&hi)[2],
                                              const int (&sq)[2], const int* segk, bool has_seg, float scale2,
                                              float cap_in, float cap_out, int tq) {
@@ -106,14 +141,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[32], 
     uint32_t keep[2] = {0xffffffffu, 0xffffffffu};  // bit 2 i + (e & 1) of row e >> 1
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < BN / 8; ++i) {
         int2 seg = make_int2(0, 0);  // the segments of this thread's two columns of group i
         if (MASKED && has_seg) seg = *reinterpret_cast<const int2*>(segk + 8 * i + 2 * tq);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int r = e >> 1, col = 8 * i + 2 * tq + (e & 1);
             float x = s[4 * i + e];
-            if (!RAW) x = CAP ? tanhf(x * cap_in) * cap_out : x * scale2;
+            if (!RAW) x = CAP ? tanh_fast(x * cap_in) * cap_out : x * scale2;
             if (MASKED && !(col >= lo[r] && col <= hi[r] && (!has_seg || ((e & 1) ? seg.y : seg.x) == sq[r]))) {
                 x = NEG_INF;
                 keep[r] &= ~(1u << (2 * i + (e & 1)));
@@ -133,7 +168,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[32], 
     // p = 2^(x - m), SELECTED to 0 where masked: a row with nothing visible yet has m = NEG_INF and 2^0 = 1 there.
     float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             const float x0 = s[4 * i + 2 * r], x1 = s[4 * i + 2 * r + 1];
@@ -157,12 +192,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[32], 
     }
 }
 
-// tm_q: (D, Sq, H, B), tm_k / tm_v: (D, Sk, Hk, B), boxes of 64 x 128 x 1 x 1. Grid (q tiles, H, B).
+// tm_q: (D, Sq, H, B), tm_k / tm_v: (D, Sk, Hk, B), boxes of 64 x 128 x 1 x 1 (q) and 64 x BN x 1 x 1 (k, v).
+// Grid (q tiles, H, B).
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
                     __grid_constant__ const CUtensorMap tm_v, const Args a) {
     using L = Layout<D>;
+    constexpr int BN = L::BN;
     extern __shared__ uint8_t smem_raw[];
     __shared__ __align__(8) uint64_t q_full;
     __shared__ __align__(8) uint64_t full[SLOTS];
@@ -202,9 +239,9 @@ fa_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ 
                 tma_prefetch_map(&tm_v);
             }
             if (j_lo < j_hi && lane == 0) {
-                mbar_expect_tx(&q_full, L::TILE);
+                mbar_expect_tx(&q_full, L::QT);
                 for (int x = 0; x < L::BOXES; ++x)
-                    tma_load_4d(base + L::Q + x * BOX_BYTES, &tm_q, &q_full, 64 * x, q0, h, b);
+                    tma_load_4d(base + L::Q + x * Q_BOX, &tm_q, &q_full, 64 * x, q0, h, b);
             }
             const int* sk = a.seg_k + (long long)b * mk.Sk;
             for (int j = j_lo; j < j_hi; ++j) {
@@ -221,12 +258,12 @@ fa_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ 
                 }
                 if (it >= SLOTS) mbar_wait(&empty[s], (it / SLOTS - 1) & 1);
                 if (lane == 0) {
-                    mbar_expect_tx_only(&full[s], 2 * L::TILE);
-                    uint8_t* kd = base + L::K + s * L::TILE;
-                    uint8_t* vd = base + L::V + s * L::TILE;
+                    mbar_expect_tx_only(&full[s], 2 * L::KVT);
+                    uint8_t* kd = base + L::K + s * L::KVT;
+                    uint8_t* vd = base + L::V + s * L::KVT;
                     for (int x = 0; x < L::BOXES; ++x) {
-                        tma_load_4d(kd + x * BOX_BYTES, &tm_k, &full[s], 64 * x, k0, hk, b);
-                        tma_load_4d(vd + x * BOX_BYTES, &tm_v, &full[s], 64 * x, k0, hk, b);
+                        tma_load_4d(kd + x * L::KV_BOX, &tm_k, &full[s], 64 * x, k0, hk, b);
+                        tma_load_4d(vd + x * L::KV_BOX, &tm_v, &full[s], 64 * x, k0, hk, b);
                     }
                 }
                 if (mk.has_seg) {
@@ -267,21 +304,22 @@ fa_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ 
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
         float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-        float s[64];
-        uint32_t p[32];
+        float s[BN / 2];
+        uint32_t p[BN / 4];
         if (j_lo < j_hi) mbar_wait(&q_full, 0);
         const uint8_t* qs = base + L::Q + c * 64 * 128;  // this consumer's 64 rows of each box
         for (int j = j_lo; j < j_hi; ++j) {
             const int it = j - j_lo, slot = it % SLOTS, k0 = j * BN;
             mbar_wait(&full[slot], (it / SLOTS) & 1);
-            const uint8_t* ks = base + L::K + slot * L::TILE;
-            const uint8_t* vs = base + L::V + slot * L::TILE;
+            const uint8_t* ks = base + L::K + slot * L::KVT;
+            const uint8_t* vs = base + L::V + slot * L::KVT;
             // S = Q K^T: D / 16 k steps of 32 bytes, four to a box
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
-                const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-                wgmma_ss_n128(s, smem_desc(qs + at), smem_desc(ks + at), kk > 0);
+                const int aq = (kk / 4) * Q_BOX + (kk % 4) * 32, ak = (kk / 4) * L::KV_BOX + (kk % 4) * 32;
+                if constexpr (BN == 128) wgmma_ss_n128(s, smem_desc(qs + aq), smem_desc(ks + ak), kk > 0);
+                else wgmma_ss_n64(s, smem_desc(qs + aq), smem_desc(ks + ak), kk > 0);
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -306,25 +344,25 @@ fa_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ 
             const int* segk = segk_s[slot];
             if (dead) {
 #pragma unroll
-                for (int i = 0; i < 32; ++i) p[i] = 0u;
+                for (int i = 0; i < BN / 4; ++i) p[i] = 0u;
             } else if (cap > 0.f) {
                 if (whole)
-                    softmax_tile<D, false, true>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
+                    softmax_tile<D, BN, false, true>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
                 else
-                    softmax_tile<D, true, true>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
+                    softmax_tile<D, BN, true, true>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
             } else if (whole && scale2 > 0.f) {
-                softmax_tile<D, false, false>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
+                softmax_tile<D, BN, false, false>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
             } else {
-                softmax_tile<D, true, false>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
+                softmax_tile<D, BN, true, false>(s, p, o, m, l, lo, hi, sq, segk, mk.has_seg, scale2, cap_in, cap_out, tq);
             }
-            // O += P V: 8 k steps of 16 keys = 2048 bytes of each box; the next 64 columns one box on
+            // O += P V: BN / 16 k steps of 16 keys = 2048 bytes of each box; the next 64 columns one box on
             fence_regs(o);
             fence_regs(p);
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk) {
                 const uint32_t frag[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-                wgmma_rs_d<D>(o, frag, smem_desc_mn(vs + kk * 2048, BOX_BYTES));
+                wgmma_rs_d<D>(o, frag, smem_desc_mn(vs + kk * 2048, L::KV_BOX));
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -354,13 +392,13 @@ fa_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ 
 template <int D>
 int launch(const Args& a, cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
-    const int box[4] = {64, 128, 1, 1};
+    const int q_box[4] = {64, BM, 1, 1}, kv_box[4] = {64, Layout<D>::BN, 1, 1};
     const long long q_dims[4] = {a.D, a.Sq, a.H, a.B}, kv_dims[4] = {a.D, a.Sk, a.Hk, a.B};
     const long long q_st[3] = {2 * a.q_ss, 2 * a.q_sh, 2 * a.q_sb}, k_st[3] = {2 * a.k_ss, 2 * a.k_sh, 2 * a.k_sb},
                     v_st[3] = {2 * a.v_ss, 2 * a.v_sh, 2 * a.v_sb};
-    int err = make_map_nd(&tq, a.q, 2, 4, q_dims, q_st, box);
-    if (!err) err = make_map_nd(&tk, a.k, 2, 4, kv_dims, k_st, box);
-    if (!err) err = make_map_nd(&tv, a.v, 2, 4, kv_dims, v_st, box);
+    int err = make_map_nd(&tq, a.q, 2, 4, q_dims, q_st, q_box);
+    if (!err) err = make_map_nd(&tk, a.k, 2, 4, kv_dims, k_st, kv_box);
+    if (!err) err = make_map_nd(&tv, a.v, 2, 4, kv_dims, v_st, kv_box);
     if (err) return err;
     const cudaError_t e =
         cudaFuncSetAttribute(fa_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::BYTES);
@@ -374,15 +412,15 @@ int launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// bf16 q, k, v, out at head dim 64 or 128, every row 16-byte aligned. Returns 0, a CUDA error, or
+// bf16 q, k, v, out at head dim 64, 128 or 256, every row 16-byte aligned. Returns 0, a CUDA error, or
 // 900 / 1000 + CUresult when a tensor map cannot be encoded.
 int dalm_fa_fwd_wgmma(const void* args, void* stream) {
     const Args& a = *static_cast<const Args*>(args);
-    if (!a.is_bf16 || (a.D != 64 && a.D != 128) || a.B < 1 || a.H < 1 || a.Hk < 1 || a.H % a.Hk || a.Sq < 1 ||
+    if (!a.is_bf16 || (a.D != 64 && a.D != 128 && a.D != 256) || a.B < 1 || a.H < 1 || a.Hk < 1 || a.H % a.Hk || a.Sq < 1 ||
         a.Sk < 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return a.D == 128 ? launch<128>(a, st) : launch<64>(a, st);
+    return a.D == 256 ? launch<256>(a, st) : a.D == 128 ? launch<128>(a, st) : launch<64>(a, st);
 }
 int dalm_fa_wgmma_args_bytes() { return (int)sizeof(Args); }
 

@@ -5,7 +5,7 @@ Replaces ``dalm_tpu/kernels/flash_attention.py``: ``_flash_fwd`` (Pallas
 and the ``flash_attention`` custom gradient. The kernels are hand-written
 CUDA for ``sm_90a``. The forward and the backward each have two routes, by
 one rule (:func:`fwd_route`, a pure function of the input type and the head
-dim): for bfloat16 at head dim 64 or 128 the warp-specialised TMA ring and
+dim): for bfloat16 at head dim 64, 128 or 256 the warp-specialised TMA ring and
 ``wgmma`` kernels of ``csrc/flash_fwd_wgmma.cu`` (forward) and
 ``csrc/flash_bwd_wgmma.cu`` (dq, dk/dv), and for the rest the ``mma.sync``
 kernels of ``csrc/flash_attention.cu``. ``dsum = rowsum(do * out)`` is a
@@ -40,8 +40,9 @@ Semantics (both versions; ``T`` is the input type, bf16 or f32):
 ``_flash_fwd`` / ``_flash_bwd``; ``flash_attention`` the ``(B, S, H, D)`` of the
 JAX ``flash_attention``. The kernels read strides, so neither layout is ever
 copied: only the last axis must be contiguous. Any ``Sq``, ``Sk`` >= 1;
-``D`` a multiple of 16 up to 256 (Gemma's 256 on the ``mma.sync`` route). The TPU tiling arguments
-(``block_q``, ``block_k``, ``interpret``) are not carried over.
+``D`` a multiple of 16 up to 256 (Gemma's 256 on the ``wgmma`` route in bf16,
+on ``mma.sync`` in f32). The TPU tiling arguments (``block_q``, ``block_k``,
+``interpret``) are not carried over.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ NEG_INF = -1e30  # finite: fully masked rows stay NaN-free
 MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 16
 TILE_ROWS = 64
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 
 _STRIDED = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
 
@@ -268,8 +269,9 @@ def _launch(fn_name: str, counter: str, a: _Args, like: torch.Tensor) -> None:
 def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route a CUDA call takes, forward and backward alike: ``"wgmma"``
     (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``) for bfloat16 at
-    head dim 64 or 128, ``"mma"`` (the ``mma.sync`` kernels of
-    ``csrc/flash_attention.cu``) for float32 and every other head dim, 256 included."""
+    head dim 64, 128 or 256, ``"mma"`` (the ``mma.sync`` kernels of
+    ``csrc/flash_attention.cu``) for float32 at every head dim and bfloat16 at
+    the others (129-255 among them, which that route pads to 256)."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "mma"
 
 

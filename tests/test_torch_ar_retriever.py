@@ -39,6 +39,8 @@ from test_torch_eval import (TOP_K, assert_margins, eval_columns, jax_embeddings
                              port_embeddings, shared_bases, unique_passages)
 from test_torch_train_e2e import SMALL
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 @pytest.fixture(scope="module")
 def bases(tmp_path_factory):

@@ -24,6 +24,8 @@ from dalm_tpu_torch.cli import build_parser, main
 from test_torch_eval import (TOP_K, assert_margins, eval_columns, jax_embeddings, jax_search_margins, shared_bases,
                              unique_passages)
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 PORT_ONLY_DEVICE = {"train-rag-e2e", "train-retriever-only", "train-generator", "serve"}
 
 

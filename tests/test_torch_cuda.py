@@ -722,9 +722,11 @@ def test_decoder_flash_backward_at_head_dim_128_takes_the_wgmma_route(cuda):
         assert float((a.float() - b.float()).norm()) <= 5e-2 * max(float(b.float().norm()), 1e-6)
 
 
-# K4 at head dims 129-256 (Gemma's 256): the mma.sync route's own instances (dk/dv split across two blocks by
-# output columns), at the tolerances above; Gemma2's window, softcap 50, scale 1/16 and GQA 8 -> 4 with packed
-# segments together, ragged S, and Gemma3's MQA with a 512 window.
+# K4 at head dims 129-256 (Gemma's 256) at the tolerances above: bf16 at D 256 on the wgmma route
+# (csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu), f32 at 256 and both types at 144 / 192 on the mma.sync
+# instances (dk/dv split across two blocks by output columns); Gemma2's window, softcap 50, scale 1/16 and GQA
+# 8 -> 4 with packed segments together, ragged S, Gemma3's MQA with a 512 window, Gemma-2B's GQA 8 -> 1, a key
+# count that no tile divides, and a window of 20 keys, narrower than every key tile (64).
 D256_CASES = {
     "d256_causal": (2, 4, 4, 256, 256, 256, None, dict()),
     "d256_gemma2": (1, 8, 4, 1024, 1024, 256, "packed", dict(window=300, softcap=50.0, scale=1.0 / 16)),
@@ -734,6 +736,10 @@ D256_CASES = {
     "d256_all_rows_masked": (1, 2, 1, 128, 128, 256, None, dict(q_offset=-128)),
     "d_192": (2, 4, 2, 300, 300, 192, "pad", dict()),
     "d_144": (1, 2, 2, 256, 256, 144, None, dict(window=100)),
+    # named to sort after the cases above, whose seeds (their sorted index) stay as they were
+    "gqa_8_to_1_d256": (2, 8, 1, 384, 384, 256, "pad", dict(scale=1.0 / 16)),
+    "ragged_sk_229_sq_97_d256": (1, 4, 2, 97, 229, 256, None, dict(q_offset=132, softcap=50.0)),
+    "window_20_d256": (1, 4, 2, 320, 320, 256, "packed", dict(window=20, softcap=50.0, scale=1.0 / 16)),
 }
 
 
@@ -741,15 +747,16 @@ D256_CASES = {
 @pytest.mark.parametrize("name", sorted(D256_CASES))
 def test_flash_kernels_at_head_dim_256_match_ref_on_card(cuda, name, dtype):
     q, k, v, do, seg, kw = _k4_inputs(name, dtype, cuda, case=D256_CASES[name], seed=sorted(D256_CASES).index(name))
-    assert fa.fwd_route(dtype, q.shape[-1]) == "mma"
+    route = "wgmma" if dtype == torch.bfloat16 and q.shape[-1] == 256 else "mma"
+    assert fa.fwd_route(dtype, q.shape[-1]) == route
     tol_out, tol_lse, tol_grad = K4_TOL[dtype]
     before, routes = dict(fa.flash_attention.launches), (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes))
     out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == {n: c + 1 for n, c in before.items()}
-    assert fa.flash_fwd.routes == dict(routes[0], mma=routes[0]["mma"] + 1)
-    assert fa.flash_bwd.routes == dict(routes[1], mma=routes[1]["mma"] + 1)
+    assert fa.flash_fwd.routes == dict(routes[0], **{route: routes[0][route] + 1})
+    assert fa.flash_bwd.routes == dict(routes[1], **{route: routes[1][route] + 1})
     ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
     rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
     _k4_close(out, ro, tol_out)
@@ -798,6 +805,7 @@ def test_decoder_flash_path_at_head_dim_256_on_card(cuda):
     mask = (torch.arange(512, device=cuda)[None, :] < torch.tensor([[400], [512]], device=cuda)).long()
     real = mask.bool()
     before = dict(fa.flash_attention.launches)
+    routes = (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes))
     outs, grads = [], []
     for model in (flash, plain):
         params = [p.requires_grad_() for p in model.parameters()]
@@ -807,11 +815,52 @@ def test_decoder_flash_path_at_head_dim_256_on_card(cuda):
     launched = {n: c - before[n] for n, c in fa.flash_attention.launches.items()}
     assert launched == {"fwd": 2 * cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers,
                         "dsum": cfg.num_layers}  # the forward twice a layer under remat
+    assert fa.flash_fwd.routes == dict(routes[0], wgmma=routes[0]["wgmma"] + 2 * cfg.num_layers)
+    assert fa.flash_bwd.routes == dict(routes[1], wgmma=routes[1]["wgmma"] + cfg.num_layers)
     assert float((outs[0] - outs[1]).abs().max()) <= 5e-2 * float(outs[1].abs().max())
     for a, b in zip(*grads):
         assert (a is None) == (b is None)
         if a is not None:
             assert float((a.float() - b.float()).norm()) <= 5e-2 * max(float(b.float().norm()), 1e-6)
+
+
+def test_flash_wgmma_at_head_dim_256_raises_and_never_falls_back(cuda):
+    """A bf16 D 256 call the wgmma kernels cannot take (2^40 bytes between batches: the TMA encoder refuses
+    it) raises, forward and backward, before any launch; no route and no launch is counted."""
+    k, do = (torch.randn((1, 2, 128, 256), device=cuda).to(torch.bfloat16) for _ in range(2))
+    q = k.as_strided(k.shape, (2 ** 39,) + k.stride()[1:])
+    out, lse = fa.flash_fwd(k, k, k)
+    before, launches = (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes)), dict(fa.flash_attention.launches)
+    with pytest.raises(RuntimeError, match="tensor map was refused"):
+        fa.flash_fwd(q, k, k)
+    with pytest.raises(RuntimeError, match="tensor map was refused"):
+        fa.flash_bwd(q, k, k, out, lse, do)
+    assert (fa.flash_fwd.routes, fa.flash_bwd.routes) == before and fa.flash_attention.launches == launches
+
+
+def test_flash_mma_sync_instance_at_head_dim_256_stays_reachable_on_card(cuda):
+    """The bf16 mma.sync D-256 instances, which no route takes since the wgmma kernels serve bf16 at D 256,
+    still answer through their C entry points (the forward, dq, dk/dv that chip_smoke.py times in turns with
+    the wgmma route), within the bf16 tolerances of the plain version."""
+    name = "d256_gemma2"
+    q, k, v, do, seg, kw = _k4_inputs(name, torch.bfloat16, cuda, case=D256_CASES[name], seed=7)
+    dims = fa._check("mma", q, k, v, seg, seg, kw.get("window"), kw.get("softcap"))
+    B, H, _, Sq, _, D = dims
+    out, lse = torch.empty_like(q), torch.empty((B, H, Sq), device=cuda)
+    dsum = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    a = fa._args(q, k, v, seg, seg, kw["causal"], kw["scale"], 0, kw["window"], kw["softcap"], dims, out=out, lse=lse,
+                 dout=do, dsum=dsum, dq=dq, dk=dk, dv=dv)
+    for entry, counter in (("dalm_fa_fwd", "fwd"), ("dalm_fa_dsum", "dsum"), ("dalm_fa_bwd_dq", "dq"),
+                           ("dalm_fa_bwd_dkv", "dkv")):
+        fa._launch(entry, counter, a, q)
+    torch.cuda.synchronize()
+    tol_out, tol_lse, tol_grad = K4_TOL[torch.bfloat16]
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    _k4_close(out, ro, tol_out)
+    _k4_close(lse, rl, tol_lse)
+    for got, want in zip((dq, dk, dv), fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)):
+        _k4_close(got, want, tol_grad)
 
 
 def test_flash_wrappers_reject_what_they_do_not_take(cuda):

@@ -33,6 +33,8 @@ from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig, _cache_write
 from dalm_tpu_torch.models.generate import build_greedy_generate
 from dalm_tpu_torch.models.sampling import SamplerConfig
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 P = 16  # static prompt length (left-padded)
 
 # name -> the fields both sides set on the tiny config; "gqa-kvq" is the decoder of the reference's test_kv_quant.py

@@ -29,6 +29,8 @@ from dalm_tpu_torch.train.metrics import MetricsLogger
 from test_torch_sft import _save_tiny_decoder, jsonl_path  # noqa: F401  (a fixture)
 from test_torch_train_e2e import SMALL
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_dropout_rate_scaling_determinism_and_identity(rate):

@@ -37,6 +37,8 @@ from dalm_tpu_torch.eval.retriever import build_embed_fn, evaluate_retriever, lo
 from dalm_tpu_torch.models import lora as tlora
 from test_torch_train_e2e import _save_tiny_bases
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 TOP_K = 4
 
 

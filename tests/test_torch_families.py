@@ -28,6 +28,8 @@ from dalm_tpu_torch.kernels import flash_attention as T
 from dalm_tpu_torch.models import registry as treg
 from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig, rope_cos_sin
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 BASE = dict(vocab_size=320, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=96,
             max_position_embeddings=512)
 GEMMA = dict(head_dim_override=32, tie_embeddings=True, hidden_act="gelu_tanh", scale_embeddings=True,

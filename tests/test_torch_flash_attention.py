@@ -20,6 +20,8 @@ import torch
 from dalm_tpu.kernels import flash_attention as J
 from dalm_tpu_torch.kernels import flash_attention as T
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 FWD_TOL, GRAD_TOL = 2e-5, 3e-4
 BLK = dict(block_q=128, block_k=128, interpret=True)
 
@@ -251,7 +253,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 ROUTE_CASES = [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
     (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
-    (torch.bfloat16, 80, "mma"), (torch.bfloat16, 112, "mma"),
+    (torch.bfloat16, 80, "mma"), (torch.bfloat16, 112, "mma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.float32, 256, "mma"), (torch.bfloat16, 192, "mma"), (torch.bfloat16, 240, "mma"),
 ]
 # the C entry points of each (direction, route) live in this csrc/ source
 ROUTE_SOURCE = {("fwd", "wgmma"): "flash_fwd_wgmma", ("fwd", "mma"): "flash_attention",
@@ -265,8 +268,9 @@ ROUTE_SOURCE = {("fwd", "wgmma"): "flash_fwd_wgmma", ("fwd", "mma"): "flash_atte
     + [f"bwd-{str(t).split('.')[-1]}-{D}-{r}" for t, D, r in ROUTE_CASES])
 def test_forward_route_rule(direction, dtype, D, route):
     """The route on the card is a pure function of the type and the head dim, one rule for the forward and
-    the backward: the wgmma kernels for bf16 at D 64 / 128, the mma.sync kernels for the rest. Each route's
-    entry points (the backward's dq and dk/dv) live in its own source."""
+    the backward: the wgmma kernels for bf16 at D 64 / 128 / 256, the mma.sync kernels for the rest (f32 at
+    every head dim, bf16 at 129-255). Each route's entry points (the backward's dq and dk/dv) live in its own
+    source."""
     assert T.fwd_route(dtype, D) == route
     assert T.fwd_route(dtype, D) == T.fwd_route(dtype, D)
     entries = (T._FWD_ENTRY[route],) if direction == "fwd" else T._BWD_ENTRIES[route]
@@ -274,7 +278,7 @@ def test_forward_route_rule(direction, dtype, D, route):
     assert {T._ENTRIES[e] for e in entries} == {ROUTE_SOURCE[direction, route]}
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_cpu_bf16_forward_takes_the_plain_version(D):
     """On CPU tensors the wrappers are the plain versions, bit for bit, forward and backward, on a route
     the card would take with the wgmma kernels; no launch and no route is counted."""

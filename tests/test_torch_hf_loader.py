@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 transformers = pytest.importorskip("transformers")
 
 import jax  # noqa: E402

@@ -28,6 +28,8 @@ from dalm_tpu_torch.kernels import int8_matmul as im
 from dalm_tpu_torch.models import quant
 from dalm_tpu_torch.models.layers import FlexLinear
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 QUANTISERS = {"int4": "quantize_tensor_int4", "int4pc": "quantize_tensor_int4pc", "nf4": "quantize_tensor_nf4"}
 
 

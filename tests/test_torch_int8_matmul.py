@@ -23,6 +23,8 @@ from dalm_tpu.models.layers import FlexLinear as JaxFlexLinear
 from dalm_tpu_torch.kernels import int8_matmul as T
 from dalm_tpu_torch.models.layers import FlexLinear
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 def _to_torch(a):
     a = np.asarray(a)

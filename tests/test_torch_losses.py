@@ -14,6 +14,8 @@ from dalm_tpu.losses import marginalized as jmar
 from dalm_tpu_torch.losses import contrastive as tcon
 from dalm_tpu_torch.losses import marginalized as tmar
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 def _unit(rng, b, d):
     x = rng.standard_normal((b, d)).astype(np.float32)

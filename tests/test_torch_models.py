@@ -26,6 +26,8 @@ from dalm_tpu_torch.models.embedder import SentenceEmbedder
 from dalm_tpu_torch.models.encoder import Encoder, EncoderConfig
 from dalm_tpu_torch.models.generate import build_greedy_generate
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 def _np_tree(params):
     return jax.tree.map(np.asarray, unbox(params))

@@ -24,6 +24,8 @@ from dalm_tpu_torch.models import registry
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.encoder import Encoder
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 TINY = dict(vocab_size=320, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=96,
             max_position_embeddings=256)
 FAMILIES = {  # the per-layer tuple and QK-norm (gemma3), a bias (qwen2.5), a bf16 tree (gemma2)

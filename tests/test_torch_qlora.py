@@ -31,6 +31,8 @@ from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
 from dalm_tpu_torch.models.encoder import Encoder, EncoderConfig
 from dalm_tpu_torch.models.rag import Mode, RagE2EModel
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 def _np_tree(params):
     return jax.tree.map(np.asarray, unbox(params))

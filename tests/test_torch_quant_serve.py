@@ -35,6 +35,8 @@ from dalm_tpu_torch.models import qlora, sampling
 from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
 from dalm_tpu_torch.models.generate import build_greedy_generate
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 WIDTHS = {"tiny": {}, "feasible": dict(hidden_size=256, num_heads=4, intermediate_size=512)}
 FORMATS = ("int4", "nf4", "int4pc")
 

@@ -37,6 +37,8 @@ from dalm_tpu_torch.models.embedder import SentenceEmbedder
 from dalm_tpu_torch.models.encoder import EncoderConfig
 from dalm_tpu_torch.serve import RagPipeline
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 N, D = 100, 32
 
 

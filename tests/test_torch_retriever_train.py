@@ -29,6 +29,8 @@ from dalm_tpu_torch.train import train_retriever
 from dalm_tpu_torch.train.retriever_only import RetrieverSetup
 from test_torch_train_e2e import _save_tiny_bases
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 KW = dict(query_max_len=24, passage_max_len=48, learning_rate=1e-3, with_tracking=False, use_dropout=False)
 
 

@@ -28,6 +28,8 @@ from dalm_tpu_torch.models.encoder import EncoderConfig
 from dalm_tpu_torch.models.registry import save_pretrained
 from dalm_tpu_torch.serve import RagPipeline
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 PASSAGES = [f"passage about topic {i} with unique content {i}" for i in range(12)]
 QUERIES = ["what is topic 3", "tell me about 7"]
 OPTS = dict(max_passage_len=32, max_prompt_len=64, max_new_tokens=4, embed_batch=8)

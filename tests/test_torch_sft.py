@@ -46,6 +46,8 @@ from dalm_tpu_torch.models.layers import FlexLinear
 from dalm_tpu_torch.train import train_generator
 from dalm_tpu_torch.train.generator_only import SFTSetup
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 def _rows(n, seed=0, words=30):
     rng = np.random.default_rng(seed)

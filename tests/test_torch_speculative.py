@@ -38,6 +38,8 @@ from dalm_tpu_torch.models.sampling import SamplerConfig, token_uniforms
 from dalm_tpu_torch.models.speculative import build_speculative_generate, prompt_lookup
 from dalm_tpu_torch.models.streaming import StreamingEngine
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 P = 24  # lockstep prompts (tests/models/test_speculative.py)
 PE = 16  # engine prompts (tests/models/test_decode_engine.py)
 CONFIGS = {"mha": dict(), "gqa": dict(num_heads=4, num_kv_heads=2, hidden_size=64),

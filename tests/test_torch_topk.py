@@ -17,6 +17,8 @@ from dalm_tpu_torch.index.dense import DenseIndex, quantize_int4, quantize_int8
 from dalm_tpu_torch.kernels.topk import (BLOCKS_PER_SM, MAX_K, QUERIES_PER_TILE, ROWS_PER_TILE, _geometry,
                                          block_tiles, fused_dot_topk_ref)
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 ATOL = 1e-5
 
 

@@ -28,6 +28,8 @@ from dalm_tpu_torch.train import optim as toptim
 from dalm_tpu_torch.train.metrics import MetricsLogger, StepTimer, WindowedThroughput
 from dalm_tpu_torch.train.state import TrainState
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 SCHEDULES = ["linear", "cosine", "cosine_with_restarts", "polynomial", "constant", "constant_with_warmup"]
 
 

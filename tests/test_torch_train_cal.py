@@ -27,6 +27,8 @@ from dalm_tpu_torch.models.layers import FlexLinear
 from dalm_tpu_torch.train.rag_e2e import train_e2e
 from test_torch_train_e2e import SMALL, _save_tiny_bases
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 def _operands(rng, lead=(3, 5), K=40, N=24):
     x = (rng.standard_normal(lead + (K,)) * 2).astype(np.float32)

@@ -23,6 +23,8 @@ from dalm_tpu_torch.train import rag_e2e as trag
 from dalm_tpu_torch.train.rag_e2e import train_e2e
 from test_torch_train_e2e import SMALL, _save_tiny_bases
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 @pytest.fixture(scope="module")
 def repeat_csv(tmp_path_factory):

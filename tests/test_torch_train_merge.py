@@ -31,6 +31,8 @@ from dalm_tpu_torch.models.quant import quantize_tensor
 from dalm_tpu_torch.train.rag_e2e import train_e2e
 from test_torch_train_e2e import SMALL, _save_tiny_bases
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
+
 
 @pytest.mark.parametrize("base", ["dense", "int8"])
 def test_flexlinear_merge_matches_jax(base):
