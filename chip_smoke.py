@@ -43,7 +43,10 @@ retriever at Llama-2-7B width through the eval, ``train_retriever``,
 Llama-2-13B, Mistral, Qwen2.5 / 3, Phi-3, Gemma / 2 / 3) at full width and 2 layers with its kernels held to their
 plain versions, a Llama-3.1-8B checkpoint written in the Hugging Face layout and read back, bge-large +
 Llama-3.1-8B int4 serving (``answer()`` and ``answer_continuous()``), and Gemma2-2B SFT at 8,192 tokens with every
-attention call on K4's head-dim-256 kernels.
+attention call on K4's head-dim-256 kernels; and the rest of the model families: Qwen3-30B-A3B (sparse MoE, 128
+experts) served at full width and depth in int4 with the int8 KV cache and trained with ``moe_aux_weight``,
+deepseek-v3-mid-7b (MLA) served in int4 on its latent cache, and Mixtral, Qwen3-MoE, DeepSeek-V3 (MLA, noaux-tc MoE,
+YaRN) and GPT-2 in families-small.
 Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
@@ -103,7 +106,16 @@ with window 512; a 2-layer Llama-3.1-8B written as ``config.json`` + ``model.saf
 Llama-3.1-8B int4 + int8 KV cache: ``answer()`` with K5 launches by route and shape, the decode step against the
 weight-read bound, the cache against Llama-2-7B's, ``answer_continuous()`` token for token), ``sft-gemma2``
 (``train_generator("gemma2-2b", ...)`` at 8,192 tokens, 3 steps: K4's D-256 launches, every one on the wgmma
-route, held to 26 layers x (2 forwards + 1 backward) a step); ``k4`` also times the D-256 kernels (the wgmma route
+route, held to 26 layers x (2 forwards + 1 backward) a step), ``serve-moe`` (bge-large + Qwen3-30B-A3B int4 + int8 KV
+cache at full width and depth: ``answer()``, the decode step against the weights it streams, ``answer_continuous()``
+token for token, the peak memory; one MoE layer over 2,048 tokens, the indexed dispatch against the dense formula),
+``serve-mla`` (bge-large + deepseek-v3-mid-7b int4 on the latent cache, the same measurements, the cache against
+Llama-2-7B's int8 one), ``sft-moe`` (``train_generator("qwen3-moe-30b", moe_aux_weight=0.001, ...)`` at 2,048
+tokens, 3 steps: K4's D-128 launches held to 48 layers x (2 forwards + 1 backward) a step, the aux value beside each
+loss); families-small also runs Mixtral-8x7B, Qwen3-30B-A3B, deepseek-v3-mini / mid-7b at 2 layers, DeepSeek-V3 at
+its own width (2 layers, one noaux-tc MoE layer) and GPT-2 whole, the MoE rows' expert choices replayed between the
+two sides of each comparison (``RouteReplay``), and reads back HF checkpoints of ``mixtral``, ``qwen3_moe``,
+``deepseek_v3`` and ``gpt2`` bit for bit; ``k4`` also times the D-256 kernels (the wgmma route
 in turns with the kept mma.sync instances) at sft-gemma2's two layers against SDPA without softcap, and at
 Gemma-2B's attention (no softcap), where SDPA computes the same function;
 and, only when named, ``profile`` / ``profile-sft`` (a ``torch.profiler``
@@ -125,7 +137,8 @@ nibble pre-pass and scaled GEMM (pcol; ``launches_train``: its calls on the cali
 head-dim-256 forward, dq and dk/dv on the wgmma route (``k4_fwd_d256_wgmma``, ``k4_bwd_dq_d256_wgmma``,
 ``k4_bwd_dkv_d256_wgmma``, launched by sft-gemma2) and the mma.sync instances that route replaced (``k4_fwd_d256``,
 ``k4_bwd_dq_d256``, ``k4_bwd_dkv_d256``, no launch there);
-K5 base and K3 also carry ``launches_serve_llama31``), each with its launches in its
+K5 base and K3 also carry ``launches_serve_llama31``, ``launches_serve_moe`` and ``launches_serve_mla``, K4's D-128
+wgmma kernels and dsum ``launches_sft_moe``), each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven; K3's f32
@@ -4206,11 +4219,32 @@ def serve_phase(device, rng, peaks, kernels):
     return pipe
 
 
+# The preset each eval phase cuts and the layers it keeps (bge-large has 24, Llama-2-7B 32), so that the whole
+# script stays within its time limit beside the MoE / MLA phases: a cut of depth, as the widths, shapes, kernels and
+# metrics these phases check do not depend on it (PERF.md §4)
+EVAL_DEPTH = {"eval-rag": ("decoder", "llama2-7b", 16), "eval-ar": ("decoder", "llama2-7b", 8)}
 EVAL_ROWS = 65536  # eval-retriever's f32 run: its rows are its queries, their unique passages its index
 EVAL_Q_ROWS = 16384  # the int8 / int4 runs' and the CLI's rows
 EVAL_DUPS = 64  # rows that repeat an earlier passage
 RAG_ROWS = 64  # eval-rag
 AR_ROWS = 4096  # eval-ar (a)
+
+
+@contextlib.contextmanager
+def cut_depth(phase):
+    """``EVAL_DEPTH[phase]``'s preset cut to its layers while the block runs, for every entry point that resolves it."""
+    import dataclasses
+
+    from dalm_tpu_torch.models import registry
+
+    kind, name, layers = EVAL_DEPTH[phase]
+    presets = registry.ENCODER_PRESETS if kind == "encoder" else registry.DECODER_PRESETS
+    make = presets[name]
+    presets[name] = lambda: dataclasses.replace(make(), num_layers=layers)
+    try:
+        yield
+    finally:
+        presets[name] = make
 
 
 def eval_columns(n, rng, dups=EVAL_DUPS):
@@ -4428,7 +4462,8 @@ def eval_rag_phase(device, smi):
     same retrieval (the eval's own helpers, batch sizes and K3) gives each query's top-1 passage, the same
     generator (llama2-7b from seed 0) answers its prompt greedily in the same 16-prompt batches, and every second
     row's answer is set to that text; ``exact_match`` must then read 0.5, and the prompts the eval generates from
-    must be those. Returns (K3 launches, numbers)."""
+    must be those. main() runs it with llama2-7b cut to ``EVAL_DEPTH["eval-rag"]``'s layers. Returns (K3
+    launches, numbers)."""
     import gc
 
     import numpy as np
@@ -4570,7 +4605,8 @@ def eval_ar_phase(device, workdir, peaks, smi):
     K1 / the calibrated route's launches split by tower;
     (d) ``RagPipeline.from_pretrained("llama2-7b", "llama2-7b", 4,096 passages, retriever_is_autoregressive=True,
     quantize_generator="int4")``: one ``answer()`` of 32 queries, its retrieval held against the plain top-k.
-    Returns ({phase part: launches}, K3's record at D 4096, numbers)."""
+    main() runs it with llama2-7b cut to ``EVAL_DEPTH["eval-ar"]``'s layers (its width, 4096, is what K3 at
+    D 4096 and the towers' routes check). Returns ({phase part: launches}, K3's record at D 4096, numbers)."""
     import gc
 
     import numpy as np
@@ -4975,74 +5011,270 @@ def k4_d256_time(gen, device, peaks, iters=5):
 
 
 FAMILY_PRESETS = ("llama3-8b", "llama3.1-8b", "llama2-13b", "mistral-7b", "qwen2.5-7b", "qwen3-8b", "phi3-mini",
-                  "gemma-2b", "gemma2-2b", "gemma3-1b")
+                  "gemma-2b", "gemma2-2b", "gemma3-1b", "mixtral-8x7b", "qwen3-moe-30b", "deepseek-v3-mini",
+                  "deepseek-v3-mid-7b", "deepseek-v3", "gpt2")
 FAMILY_S = 1024  # tokens a row: above gemma3's 512 window, so that it masks
-# Relative error ||a - b|| / ||b|| over the real tokens' logits, bf16, 2 random layers: the kernel and its plain
+# deepseek-ai/DeepSeek-V3's published config.json (the values hf_decoder_config reads), cut to 2 layers with
+# first_k_dense_replace lowered from 3 to 1, so that the second layer is a noaux-tc MoE layer (about 27 GB in bf16)
+DEEPSEEK_V3_HF = {
+    "model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168, "intermediate_size": 18432,
+    "moe_intermediate_size": 2048, "num_hidden_layers": 2, "num_attention_heads": 128, "num_key_value_heads": 128,
+    "n_shared_experts": 1, "n_routed_experts": 256, "routed_scaling_factor": 2.5, "kv_lora_rank": 512,
+    "q_lora_rank": 1536, "qk_rope_head_dim": 64, "v_head_dim": 128, "qk_nope_head_dim": 128,
+    "topk_method": "noaux_tc", "n_group": 8, "topk_group": 4, "num_experts_per_tok": 8, "first_k_dense_replace": 1,
+    "norm_topk_prob": True, "scoring_func": "sigmoid", "hidden_act": "silu", "max_position_embeddings": 163840,
+    "rms_norm_eps": 1e-06, "tie_word_embeddings": False, "rope_theta": 10000, "attention_bias": False,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 1.0, "mscale_all_dim": 1.0,
+                     "original_max_position_embeddings": 4096, "type": "yarn"}}
+# Relative error ||a - b|| / ||b|| over the real tokens' logits, bf16, 2 random layers (the MoE rows with their
+# expert choices replayed between the two sides of each comparison: RouteReplay): the kernel and its plain
 # version make the same casts and differ in the order of f32 sums and where p is rounded (2e-2); the cached decode
 # against the same module's full einsum forward, one attention implementation on both sides, so only the cache,
 # the per-layer window masks and the GEMMs' row counts (another order of f32 sums, bf16 outputs) differ (1e-2: an
-# H100 read 0 for MHA and 3.4e-3 to 7.0e-3 for the GQA presets); K5
+# H100 read 0 for MHA and 3.4e-3 to 7.0e-3 for the GQA presets; the MoE rows run their dense path on both sides);
+# MLA's absorbed decode against its decompressed
+# forward, which round different bf16 intermediates (3e-2: deepseek-v3-mini read 1.3e-2 in bf16 on a CPU); K5
 # against x @ dequant(W) on the same packed weights (bf16 products summed in f32 in another order, 2e-2).
-FAMILY_TOL = {"plain": 2e-2, "cached": 1e-2, "int4": 2e-2}
+FAMILY_TOL = {"plain": 2e-2, "cached": 1e-2, "cached_mla": 3e-2, "int4": 2e-2}
 
 
-def write_hf_llama(path, model):
-    """``model`` (a port Decoder of the Llama family, bf16) as a Hugging Face checkpoint: ``config.json`` of
-    ``model_type`` llama and ``model.safetensors`` in the format's own layout (an 8-byte little-endian header
-    length, the JSON header padded to 8 bytes, the tensors' raw bytes), every Linear as (out, in), bf16."""
+def write_safetensors(path, hf_config, tensors):
+    """A Hugging Face checkpoint: ``config.json`` and ``model.safetensors`` in the format's own layout (an 8-byte
+    little-endian header length, the JSON header padded to 8 bytes, the tensors' raw bytes), each tensor in its
+    own type (BF16 or F32). Returns the bytes of tensor data."""
     import torch
 
-    cfg = model.cfg
-    hf = {"model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": cfg.vocab_size,
-          "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
-          "num_key_value_heads": cfg.kv_heads, "intermediate_size": cfg.intermediate_size,
-          "max_position_embeddings": cfg.max_position_embeddings, "rope_theta": cfg.rope_theta,
-          "rms_norm_eps": cfg.rms_norm_eps, "hidden_act": "silu", "tie_word_embeddings": False,
-          "torch_dtype": "bfloat16"}
-    if cfg.rope_llama3:
-        f, lo, hi, old = cfg.rope_llama3
-        hf["rope_scaling"] = {"rope_type": "llama3", "factor": f, "low_freq_factor": lo, "high_freq_factor": hi,
-                              "original_max_position_embeddings": int(old)}
-    sd = model.state_dict()
-    names = {"embed_tokens.embedding": ("model.embed_tokens.weight", False),
-             "final_norm.scale": ("model.norm.weight", False), "lm_head.kernel": ("lm_head.weight", True)}
-    for i in range(cfg.num_layers):
-        for p in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            names[f"layer_{i}.attention.{p}.kernel"] = (f"model.layers.{i}.self_attn.{p}.weight", True)
-        for p in ("gate_proj", "up_proj", "down_proj"):
-            names[f"layer_{i}.{p}.kernel"] = (f"model.layers.{i}.mlp.{p}.weight", True)
-        names[f"layer_{i}.input_norm.scale"] = (f"model.layers.{i}.input_layernorm.weight", False)
-        names[f"layer_{i}.post_attention_norm.scale"] = (f"model.layers.{i}.post_attention_layernorm.weight", False)
-    check(sorted(names) == sorted(sd), f"write_hf_llama: the module has {sorted(set(sd) - set(names))} unmapped")
     header, at, order = {"__metadata__": {"format": "pt"}}, 0, []
-    for ours, (theirs, linear) in names.items():
-        t = sd[ours].detach()
-        t = (t.T if linear else t).to(torch.bfloat16).contiguous()
-        header[theirs] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [at, at + t.numel() * 2]}
-        at += t.numel() * 2
-        order.append((theirs, t))
+    for name, t in tensors:
+        t = t.detach().contiguous()
+        kind = {torch.bfloat16: "BF16", torch.float32: "F32"}[t.dtype]
+        header[name] = {"dtype": kind, "shape": list(t.shape), "data_offsets": [at, at + t.numel() * t.element_size()]}
+        at += t.numel() * t.element_size()
+        order.append(t)
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
     Path(path).mkdir(parents=True, exist_ok=True)
-    (Path(path) / "config.json").write_text(json.dumps(hf, indent=2))
+    (Path(path) / "config.json").write_text(json.dumps(hf_config, indent=2))
     with open(Path(path) / "model.safetensors", "wb") as f:
         f.write(len(head).to_bytes(8, "little"))
         f.write(head)
-        for _, t in order:
-            f.write(t.cpu().view(torch.int16).numpy().tobytes())
+        for t in order:
+            f.write(t.cpu().view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32).numpy().tobytes())
     return at
 
 
+def hf_tensors(model, model_type):
+    """The HF-named tensors of a port decoder of ``model_type`` llama, mixtral, qwen3_moe, deepseek_v3 or gpt2: Linear
+    weights as (out, in), stacked experts split one tensor an expert, MLA's raw ``kv_b_proj`` transposed, GPT-2's
+    Conv1D weights as they are (in, out). Every module parameter is named once."""
+    cfg, sd = model.cfg, model.state_dict()
+    out, seen = [], set()
+
+    def put(theirs, ours, linear=False):
+        seen.add(ours)
+        out.append((theirs, sd[ours].T if linear else sd[ours]))
+
+    if model_type == "gpt2":
+        for n in ("wte.embedding", "wpe.embedding"):
+            put(n.replace("embedding", "weight"), n)
+        put("ln_f.weight", "ln_f.scale")
+        put("ln_f.bias", "ln_f.bias")
+        for i in range(cfg.num_layers):
+            for ours, theirs in (("ln_1", "ln_1"), ("ln_2", "ln_2"), ("attn.c_attn", "attn.c_attn"),
+                                 ("attn.c_proj", "attn.c_proj"), ("c_fc", "mlp.c_fc"), ("mlp_proj", "mlp.c_proj")):
+                leaf = "scale" if ours.startswith("ln") else "kernel"
+                put(f"h.{i}.{theirs}.weight", f"layer_{i}.{ours}.{leaf}")
+                put(f"h.{i}.{theirs}.bias", f"layer_{i}.{ours}.bias")
+    else:
+        put("model.embed_tokens.weight", "embed_tokens.embedding")
+        put("model.norm.weight", "final_norm.scale")
+        put("lm_head.weight", "lm_head.kernel", True)
+        for i in range(cfg.num_layers):
+            hl, at = f"model.layers.{i}", f"layer_{i}"
+            put(f"{hl}.input_layernorm.weight", f"{at}.input_norm.scale")
+            put(f"{hl}.post_attention_layernorm.weight", f"{at}.post_attention_norm.scale")
+            sa = f"{hl}.self_attn"
+            if cfg.mla:
+                put(f"{sa}.q_a_proj.weight", f"{at}.attention.q_a_proj.kernel", True)
+                put(f"{sa}.q_a_layernorm.weight", f"{at}.attention.q_a_norm.scale")
+                put(f"{sa}.q_b_proj.weight", f"{at}.attention.q_b_proj.kernel", True)
+                put(f"{sa}.kv_a_proj_with_mqa.weight", f"{at}.attention.kv_a_proj.kernel", True)
+                put(f"{sa}.kv_a_layernorm.weight", f"{at}.attention.kv_a_norm.scale")
+                put(f"{sa}.kv_b_proj.weight", f"{at}.attention.kv_b_proj", True)
+                put(f"{sa}.o_proj.weight", f"{at}.attention.o_proj.kernel", True)
+            else:
+                for p in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                    put(f"{sa}.{p}.weight", f"{at}.attention.{p}.kernel", True)
+                if cfg.qk_norm:
+                    for p in ("q_norm", "k_norm"):
+                        put(f"{sa}.{p}.weight", f"{at}.attention.{p}.scale")
+            if hasattr(getattr(model, at), "moe"):
+                base, names = (f"{hl}.block_sparse_moe", ("w1", "w3", "w2")) if model_type == "mixtral" else \
+                    (f"{hl}.mlp", ("gate_proj", "up_proj", "down_proj"))
+                put(f"{base}.gate.weight", f"{at}.moe.router", True)
+                for ours, theirs in zip(("w_gate", "w_up", "w_down"), names):
+                    seen.add(f"{at}.moe.{ours}")
+                    out += [(f"{base}.experts.{j}.{theirs}.weight", w.T) for j, w in enumerate(sd[f"{at}.moe.{ours}"])]
+                if cfg.moe_router == "noaux_tc":
+                    put(f"{base}.gate.e_score_correction_bias", f"{at}.moe.e_score_correction_bias")
+                if cfg.moe_n_shared_experts:
+                    for ours, theirs in (("shared_gate", "gate_proj"), ("shared_up", "up_proj"),
+                                         ("shared_down", "down_proj")):
+                        put(f"{base}.shared_experts.{theirs}.weight", f"{at}.moe.{ours}", True)
+            else:
+                for p in ("gate_proj", "up_proj", "down_proj"):
+                    put(f"{hl}.mlp.{p}.weight", f"{at}.{p}.kernel", True)
+    check(seen == set(sd), f"hf_tensors: {sorted(set(sd) - seen)} unmapped")
+    return out
+
+
+def family_checkpoints():
+    """(model type, the writer's config, the HF config.json) of each checkpoint families-small writes and reads
+    back: Llama-3.1-8B at full width and 2 layers, Mixtral-8x7B and Qwen3-30B-A3B at full width and 1 layer, DeepSeek-V3's format at deepseek-v3-mini's width
+    (8 routed experts, 1 shared, first_k_dense_replace 1, 2 layers), GPT-2 whole."""
+    import dataclasses
+
+    import torch
+
+    from dalm_tpu_torch.models.gpt2 import GPT2Config
+    from dalm_tpu_torch.models.hf_loader import hf_decoder_config
+    from dalm_tpu_torch.models.registry import DECODER_PRESETS
+
+    def common(c):
+        return {"vocab_size": c.vocab_size, "hidden_size": c.hidden_size, "num_hidden_layers": c.num_layers,
+                "num_attention_heads": c.num_heads, "num_key_value_heads": c.kv_heads,
+                "intermediate_size": c.intermediate_size, "max_position_embeddings": c.max_position_embeddings,
+                "rope_theta": c.rope_theta, "rms_norm_eps": c.rms_norm_eps, "hidden_act": "silu",
+                "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+
+    bf = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16, remat=False)
+    llama = dataclasses.replace(DECODER_PRESETS["llama3.1-8b"](), num_layers=2, **bf)
+    f, lo, hi, old = llama.rope_llama3
+    mix = dataclasses.replace(DECODER_PRESETS["mixtral-8x7b"](), num_layers=1, **bf)
+    qw = dataclasses.replace(DECODER_PRESETS["qwen3-moe-30b"](), num_layers=1, **bf)
+    mini = DECODER_PRESETS["deepseek-v3-mini"]()
+    ds_hf = dict(common(mini), model_type="deepseek_v3", num_hidden_layers=2, q_lora_rank=mini.q_lora_rank,
+                 kv_lora_rank=mini.kv_lora_rank, qk_nope_head_dim=mini.qk_nope_head_dim,
+                 qk_rope_head_dim=mini.qk_rope_head_dim, v_head_dim=mini.v_head_dim, n_routed_experts=8,
+                 num_experts_per_tok=2, n_group=4, topk_group=2, moe_intermediate_size=1536, n_shared_experts=1,
+                 routed_scaling_factor=2.5, norm_topk_prob=True, first_k_dense_replace=1)
+    g = GPT2Config.gpt2_124m()
+    return (
+        ("llama", llama, dict(common(llama), model_type="llama", rope_scaling={
+            "rope_type": "llama3", "factor": f, "low_freq_factor": lo, "high_freq_factor": hi,
+            "original_max_position_embeddings": int(old)})),
+        ("mixtral", mix, dict(common(mix), model_type="mixtral", num_local_experts=8, num_experts_per_tok=2,
+                              sliding_window=None)),
+        ("qwen3_moe", qw, dict(common(qw), model_type="qwen3_moe", head_dim=128, moe_intermediate_size=768,
+                               num_experts=128, num_experts_per_tok=8, norm_topk_prob=True, use_sliding_window=False,
+                               sliding_window=None)),
+        ("deepseek_v3", dataclasses.replace(hf_decoder_config(ds_hf), **bf), ds_hf),
+        ("gpt2", dataclasses.replace(g, dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+         {"model_type": "gpt2", "vocab_size": g.vocab_size, "n_embd": g.hidden_size, "n_layer": g.num_layers,
+          "n_head": g.num_heads, "n_positions": g.max_position_embeddings, "layer_norm_epsilon": g.layer_norm_eps}),
+    )
+
+
+class RouteReplay:
+    """Holds the MoE rows' expert choices fixed between two computations that round differently (K4 and its plain
+    version; a cached decode and the full forward; K5 and x @ dequant(W)), so that a near tie between two experts' router scores cannot flip
+    a route between them: ``record`` keeps each MoE layer's indices in call order; ``replay`` gives each layer the
+    recorded indices of the tokens ``rows`` names (None: the same tokens) and the weights of those experts from its
+    own router scores. Installed over ``models/moe.py``'s two routers, removed by ``close``."""
+
+    def __init__(self):
+        from dalm_tpu_torch.models import moe
+
+        self.moe, self.orig = moe, (moe.route_topk, moe.route_noaux_tc)
+        self.mode, self.rec, self.calls, self.rows = None, [], 0, None
+        moe.route_topk, moe.route_noaux_tc = self.topk, self.noaux_tc
+
+    def start(self, mode, rows=None):
+        self.mode, self.calls, self.rows = mode, 0, rows
+        if mode == "record":
+            self.rec = []
+
+    def _route(self, weights, idx, scores, norm, eps=0.0, scaling=1.0):
+        import torch
+
+        if self.mode == "record":
+            self.rec.append(idx)
+        elif self.mode == "replay":
+            want = self.rec[self.calls % len(self.rec)]
+            self.calls += 1
+            idx = want if self.rows is None else want[self.rows]
+            weights = torch.gather(scores, 1, idx)
+            if norm:
+                weights = weights / (weights.sum(dim=-1, keepdim=True) + eps)
+            weights = weights * scaling
+        return weights, idx
+
+    def topk(self, logits, k, norm):
+        import torch
+
+        w, idx = self.orig[0](logits, k, norm)
+        return self._route(w, idx, torch.softmax(logits.float(), dim=-1), norm)
+
+    def noaux_tc(self, logits, bias, k, n_group, topk_group, norm, scaling):
+        import torch
+
+        w, idx = self.orig[1](logits, bias, k, n_group, topk_group, norm, scaling)
+        return self._route(w, idx, torch.sigmoid(logits), norm, 1e-20, scaling)
+
+    def close(self):
+        self.moe.route_topk, self.moe.route_noaux_tc = self.orig
+
+
+def family_config(name):
+    """families-small's config of a preset: 2 layers (GPT-2 whole), bf16, no recompute, the flash path where the
+    family has one."""
+    import dataclasses
+
+    import torch
+
+    from dalm_tpu_torch.models.gpt2 import GPT2Config
+    from dalm_tpu_torch.models.hf_loader import hf_decoder_config
+    from dalm_tpu_torch.models.registry import DECODER_PRESETS
+
+    if name == "gpt2":
+        return dataclasses.replace(GPT2Config.gpt2_124m(), dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    if name == "deepseek-v3":
+        return dataclasses.replace(hf_decoder_config(DEEPSEEK_V3_HF), dtype=torch.bfloat16,
+                                   param_dtype=torch.bfloat16, attention_impl="flash")
+    base = DECODER_PRESETS[name]()
+    layers = base.sliding_layers[:2] if isinstance(base.sliding_layers, tuple) else base.sliding_layers
+    return dataclasses.replace(base, num_layers=2, sliding_layers=layers, dtype=torch.bfloat16, remat=False,
+                               attention_impl="flash")
+
+
+def packed_projections(cfg):
+    """The projections ``pack_module`` packs to 4 bits, one K5 call each a forward, counted from the architecture:
+    GPT-2's four a layer (``c_attn``, ``c_proj``, ``c_fc``, ``mlp_proj``; the head tied); a decoder layer's attention
+    (q / k / v / o; MLA's ``q_a_proj`` / ``q_b_proj`` / ``kv_a_proj`` / ``o_proj``, or ``q_proj`` / ``kv_a_proj`` /
+    ``o_proj`` without q-LoRA) and, but in an MoE layer, gate / up / down; an untied head. The experts, the router and
+    MLA's ``kv_b_proj`` are raw parameters and stay bf16, as the reference packs only 2-D ``kernel`` leaves
+    (``dalm_tpu/models/quant.py:204-227``)."""
+    from dalm_tpu_torch.models.decoder import DecoderConfig
+
+    if not isinstance(cfg, DecoderConfig):
+        return 4 * cfg.num_layers
+    attention = (4 if cfg.q_lora_rank else 3) if cfg.mla else 4
+    moe_layers = cfg.num_layers - min(cfg.moe_layer_start, cfg.num_layers) if cfg.num_experts else 0
+    return attention * cfg.num_layers + 3 * (cfg.num_layers - moe_layers) + (0 if cfg.tie_embeddings else 1)
+
+
 def families_small_phase(device, workdir, smi):
-    """Each of the ten new presets at full width and 2 layers, bf16, random from ``gen``, on the flash path, with
-    2 x ``FAMILY_S`` tokens (row 1 right-padded): (a) the forward through the kernels against the same module with
-    K4's plain version; (b) a cached decode (the einsum path: prefill of all but the last 8 tokens, then 8 single
-    steps) against the same module's full forward on the einsum path at the same positions; (c) the module packed
-    to int4, every projection on K5 (the prefill route at 2048 rows, the fused kernel at 32, the prefill route at
-    both for Gemma3's group 8), against the same packed weights through x @ dequant(W); (d) for Gemma / Gemma3: K4 at head dim 256 with window 512 on QK-normed q and k, forward
-    and backward, against its plain versions. Then a 2-layer Llama-3.1-8B at full width written as an HF
-    checkpoint by ``write_hf_llama`` and read back through ``resolve_decoder`` and ``load_hf_decoder_packed``:
-    logits equal to the writer's, bit for bit."""
+    """Each family preset at full width and 2 layers (GPT-2 whole; DeepSeek-V3 at its own width from its published
+    config.json, 2 layers, one of them a noaux-tc MoE layer), bf16, random from ``gen``, with 2 x ``FAMILY_S`` tokens
+    (row 1 right-padded): (a) for the families with a flash path, the forward through the kernels against the same
+    module with K4's plain version (MLA and GPT-2 attend by matmuls, as the reference's); (b) a cached decode
+    (prefill of all but the last 8 tokens, then 8 single steps; MLA's absorbed path) against the same module's full
+    forward on the matmul path at the same positions (the MoE rows on their dense path on both sides); (c) the module
+    packed to int4, every packed projection on K5 (the experts and MLA's kv_b stay bf16), against the same packed
+    weights through x @ dequant(W); (d) for Gemma / Gemma3: K4 at head dim 256 with window 512 on QK-normed q and k,
+    forward and backward, against its plain versions. Then HF checkpoints written here and read back through
+    ``resolve_decoder`` (and ``load_hf_decoder_packed`` for the decoder types), logits equal to the writer's bit for
+    bit: ``family_checkpoints()``."""
     import dataclasses
 
     import numpy as np
@@ -5051,12 +5283,19 @@ def families_small_phase(device, workdir, smi):
     import dalm_tpu_torch.models.decoder as dec
     from dalm_tpu_torch.kernels import flash_attention as fa
     from dalm_tpu_torch.kernels import int4_matmul as k5
-    from dalm_tpu_torch.models.decoder import Decoder, RMSNorm
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig, RMSNorm
+    from dalm_tpu_torch.models.layers import FlexLinear
+    from dalm_tpu_torch.models.moe import MoEBlock
     from dalm_tpu_torch.models.qlora import load_hf_decoder_packed, load_packed, pack_module
-    from dalm_tpu_torch.models.registry import DECODER_PRESETS, resolve_decoder
+    from dalm_tpu_torch.models.registry import DECODER_PRESETS, build_decoder, resolve_decoder
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def set_moe_impl(model, impl):
+        for m in model.modules():
+            if isinstance(m, MoEBlock):
+                m.cfg = dataclasses.replace(m.cfg, moe_impl=impl)
 
     gen = torch.Generator(device=device).manual_seed(20)  # the phase's own weights, whatever ran before it
     rng = np.random.default_rng(20)
@@ -5067,55 +5306,78 @@ def families_small_phase(device, workdir, smi):
     rows, t_all = {}, time.perf_counter()
     for name in FAMILY_PRESETS:
         t0 = time.perf_counter()
-        base = DECODER_PRESETS[name]()
-        layers = base.sliding_layers[:2] if isinstance(base.sliding_layers, tuple) else base.sliding_layers
-        cfg = dataclasses.replace(base, num_layers=2, sliding_layers=layers, dtype=torch.bfloat16, remat=False,
-                                  attention_impl="flash")
-        model = Decoder(cfg, device=device).eval()
+        cfg = family_config(name)
+        flash = isinstance(cfg, DecoderConfig) and not cfg.mla
+        model = build_decoder(cfg, device=device).eval()
         model.reset_parameters(gen)
         ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, S)), device=device)
         before = dict(fa.flash_attention.launches)
-        logits = model(ids, mask)
-        torch.cuda.synchronize()
-        check(fa.flash_attention.launches["fwd"] - before["fwd"] == 2, f"families-small {name}: K4 launches")
-        dec.flash_attention = fa.flash_attention_ref
+        routes = RouteReplay()
         try:
-            plain = model(ids, mask)
+            routes.start("record")
+            logits = model(ids, mask)
+            torch.cuda.synchronize()
+            e_plain = None
+            if flash:
+                check(fa.flash_attention.launches["fwd"] - before["fwd"] == 2, f"families-small {name}: K4 launches")
+                dec.flash_attention = fa.flash_attention_ref
+                routes.start("replay")
+                plain = model(ids, mask)
         finally:
             dec.flash_attention = fa.flash_attention
-        e_plain = rel(logits[real], plain[real])
-        check(bool(torch.isfinite(logits).all()) and e_plain <= FAMILY_TOL["plain"],
-              f"families-small {name}: kernel against plain forward {e_plain:.3g}")
-        del plain
+            routes.close()
+        if flash:
+            e_plain = rel(logits[real], plain[real])
+            check(bool(torch.isfinite(logits).all()) and e_plain <= FAMILY_TOL["plain"],
+                  f"families-small {name}: kernel against plain forward {e_plain:.3g}")
+            del plain
+        check(bool(torch.isfinite(logits[real]).all()), f"families-small {name}: logits")
         P = S - 8
         cache = model.init_kv_cache(2, S)
         full = torch.ones_like(mask)
-        model.cfg = dataclasses.replace(cfg, attention_impl="einsum")  # the cached path's attention, full length
+        set_moe_impl(model, "dense")
+        if flash:
+            model.cfg = dataclasses.replace(cfg, attention_impl="einsum")  # the cached path's attention, full length
+        routes = RouteReplay()
         try:
+            routes.start("record")
             logits1 = model(ids, full)
+            routes.start("replay", (torch.arange(2, device=device)[:, None] * S
+                                    + torch.arange(P, device=device)).reshape(-1))
+            model.cfg = cfg
+            out, cache = model(ids[:, :P], full, kv_cache=cache, cache_index=0, logits_last_only=True)
+            steps = [out[:, -1]]
+            for t in range(P, S - 1):
+                routes.start("replay", torch.arange(2, device=device) * S + t)
+                out, cache = model(ids[:, t:t + 1], full, kv_cache=cache, cache_index=t)
+                steps.append(out[:, -1])
         finally:
             model.cfg = cfg
-        out, cache = model(ids[:, :P], full, kv_cache=cache, cache_index=0, logits_last_only=True)
-        steps = [out[:, -1]]
-        for t in range(P, S - 1):
-            out, cache = model(ids[:, t:t + 1], full, kv_cache=cache, cache_index=t)
-            steps.append(out[:, -1])
+            routes.close()
+        set_moe_impl(model, cfg.moe_impl if isinstance(cfg, DecoderConfig) else "auto")
         e_cached = rel(torch.stack(steps, 1), logits1[:, P - 1:S - 1])
-        check(e_cached <= FAMILY_TOL["cached"], f"families-small {name}: cached decode against the full forward "
-                                                f"{e_cached:.3g}")
+        tol = FAMILY_TOL["cached_mla" if getattr(cfg, "mla", False) else "cached"]
+        check(e_cached <= tol, f"families-small {name}: cached decode against the full forward {e_cached:.3g}")
         del cache, logits1, logits, out, steps
         pack_module(model, "int4")
+        packed = sum(1 for m in model.modules() if isinstance(m, FlexLinear) and m.q4 is not None)
         calls = dict(k5.int4_matmul_fwd.launches)
-        q_full, q_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
-        torch.cuda.synchronize()
-        k5_calls = sum(k5.int4_matmul_fwd.launches.values()) - sum(calls.values())
-        with k5_dequantised():
-            d_full, d_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
+        routes = RouteReplay()
+        try:
+            routes.start("record")
+            q_full, q_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
+            torch.cuda.synchronize()
+            k5_calls = sum(k5.int4_matmul_fwd.launches.values()) - sum(calls.values())
+            routes.start("replay")
+            with k5_dequantised():
+                d_full, d_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
+        finally:
+            routes.close()
         e_int4 = max(rel(q_full[real], d_full[real]), rel(q_short, d_short))
-        projections = 2 * (7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1))
-        check(k5_calls == projections and e_int4 <= FAMILY_TOL["int4"],
-              f"families-small {name}: int4 ({k5_calls} K5 calls of {projections} projections) against "
-              f"x @ dequant(W) {e_int4:.3g}")
+        projections = 2 * packed_projections(cfg)
+        check(2 * packed == projections and k5_calls == projections and e_int4 <= FAMILY_TOL["int4"],
+              f"families-small {name}: int4 ({packed} projections packed, {k5_calls} K5 calls of {projections} "
+              f"projections) against x @ dequant(W) {e_int4:.3g}")
         rows[name] = dict(plain=e_plain, cached=e_cached, int4=e_int4, k5_calls=k5_calls, projections=projections,
                           s=time.perf_counter() - t0)
         if name in ("gemma-2b", "gemma3-1b", "gemma2-2b"):
@@ -5138,55 +5400,64 @@ def families_small_phase(device, workdir, smi):
                                         *(k4_err(g, r, tol["grad"], f"families-small {name} grad")
                                           for g, r in zip(grads, refs)))
             del q, k, v, do, out, lse, grads, ro, rl, refs
-        print(f"[families-small] {name} ({smi}): 2 of {base.num_layers} layers at width {cfg.hidden_size}, heads "
-              f"{cfg.num_heads}/{cfg.kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}, windows "
-              f"{[cfg.layer_window(i) for i in range(2)]}: kernels vs plain K4 {e_plain:.2e}, cached decode vs full "
-              f"{e_cached:.2e}, int4 ({k5_calls} of {projections} projections on K5) vs x @ dequant(W) "
-              f"{e_int4:.2e}"
+        shape = (f"heads {cfg.num_heads} x {cfg.head_dim}" if not isinstance(cfg, DecoderConfig) else
+                 f"heads {cfg.num_heads}/{cfg.kv_heads} x {cfg.qk_head_dim if cfg.mla else cfg.head_dim}"
+                 + (f", latent {cfg.kv_lora_rank} + rope {cfg.qk_rope_head_dim}" if cfg.mla else "")
+                 + (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok} from layer {cfg.moe_layer_start}"
+                    if cfg.num_experts else "") + f", windows {[cfg.layer_window(i) for i in range(2)]}")
+        print(f"[families-small] {name} ({smi}): {cfg.num_layers} layers at width {cfg.hidden_size}, {shape}, vocab "
+              f"{cfg.vocab_size}: "
+              + (f"kernels vs plain K4 {e_plain:.2e}, " if e_plain is not None else "no K4 (matmul attention), ")
+              + f"cached decode vs full {e_cached:.2e}, int4 ({k5_calls} of {projections} projections on K5) vs "
+              f"x @ dequant(W) {e_int4:.2e}"
               + (f", K4 D {cfg.head_dim} window 512 on QK-normed q/k max error {rows[name]['k4_d256']:.2e}"
                  if "k4_d256" in rows[name] else "") + f"; {rows[name]['s']:.1f} s", flush=True)
         del model, q_full, q_short, d_full, d_short
         torch.cuda.empty_cache()
 
-    # the HF checkpoint round trip at Llama-3.1-8B's width
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(DECODER_PRESETS["llama3.1-8b"](), num_layers=2, dtype=torch.bfloat16, remat=False)
-    model = Decoder(cfg, device=device).eval()
-    model.reset_parameters(gen)
-    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 256)), device=device)
-    want = model(ids, mask[:, :256])
-    path = str(Path(workdir) / "llama31_hf")
-    nbytes = write_hf_llama(path, model)
-    del model
-    torch.cuda.empty_cache()
-    write_s = time.perf_counter() - t0
-    rcfg, state = resolve_decoder(path, dtype="bfloat16")
-    check(dataclasses.replace(rcfg, param_dtype=cfg.param_dtype) == cfg,
-          f"families-small: the checkpoint's config reads back as {rcfg}")
-    read = Decoder(rcfg, device=device).eval()
-    read.load_state_dict(state)
-    del state
-    got = read(ids, mask[:, :256])
-    del read
-    torch.cuda.empty_cache()
-    pcfg, res, quant, _ = load_hf_decoder_packed(path, quantize=False, dtype=torch.bfloat16, device=device)
-    packed = Decoder(dataclasses.replace(pcfg, param_dtype=torch.bfloat16), device="meta").eval()
-    packed.to_empty(device=device)
-    load_packed(packed, res, quant)
-    got_packed = packed(ids, mask[:, :256])
-    check(torch.equal(got, want) and torch.equal(got_packed, want),
-          f"families-small: logits read back from the HF checkpoint differ from the writer's: max "
-          f"{float((got.float() - want.float()).abs().max()):.3g} (resolve_decoder), "
-          f"{float((got_packed.float() - want.float()).abs().max()):.3g} (load_hf_decoder_packed)")
-    rt_s = time.perf_counter() - t0
-    del packed, res, quant, got, got_packed, want
-    torch.cuda.empty_cache()
-    out = dict(presets=rows, checkpoint_bytes=nbytes, checkpoint_write_s=write_s, checkpoint_round_trip_s=rt_s,
-               phase_s=time.perf_counter() - t_all)
-    print(f"[families-small] Llama-3.1-8B, 2 layers at full width ({smi}): written as config.json + "
-          f"model.safetensors ({nbytes / 1e9:.2f} GB of bf16) in {write_s:.1f} s; read back through resolve_decoder "
-          f"and through load_hf_decoder_packed (bf16 storage, streamed tensor by tensor): logits equal to the "
-          f"writer's bit for bit; {rt_s:.1f} s in all. Phase {out['phase_s']:.1f} s", flush=True)
+    checkpoints = {}
+    for model_type, cfg, hf in family_checkpoints():
+        t0 = time.perf_counter()
+        model = build_decoder(cfg, device=device).eval()
+        model.reset_parameters(gen)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 256)), device=device)
+        want = model(ids, mask[:, :256])
+        path = str(Path(workdir) / f"{model_type}_hf")
+        nbytes = write_safetensors(path, hf, hf_tensors(model, model_type))
+        del model
+        torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t0
+        rcfg, state = resolve_decoder(path, dtype="bfloat16")
+        check(dataclasses.replace(rcfg, param_dtype=cfg.param_dtype) == cfg,
+              f"families-small: the {model_type} checkpoint's config reads back as {rcfg}")
+        read = build_decoder(rcfg, device=device).eval()
+        read.load_state_dict(state)
+        del state
+        got = read(ids, mask[:, :256])
+        del read
+        torch.cuda.empty_cache()
+        check(torch.equal(got, want), f"families-small: {model_type} logits read back through resolve_decoder differ "
+                                      f"from the writer's: max {float((got.float() - want.float()).abs().max()):.3g}")
+        if model_type != "gpt2":
+            pcfg, res, quant, _ = load_hf_decoder_packed(path, quantize=False, dtype=torch.bfloat16, device=device)
+            packed = Decoder(dataclasses.replace(pcfg, param_dtype=torch.bfloat16), device="meta").eval()
+            packed.to_empty(device=device)
+            load_packed(packed, res, quant)
+            got_packed = packed(ids, mask[:, :256])
+            check(torch.equal(got_packed, want), f"families-small: {model_type} logits through "
+                  f"load_hf_decoder_packed differ: max {float((got_packed.float() - want.float()).abs().max()):.3g}")
+            del packed, res, quant, got_packed
+        checkpoints[model_type] = dict(bytes=nbytes, write_s=write_s, round_trip_s=time.perf_counter() - t0)
+        del got, want
+        torch.cuda.empty_cache()
+        print(f"[families-small] {model_type} checkpoint ({cfg.num_layers} layers at width {cfg.hidden_size}; {smi}): "
+              f"written as config.json + model.safetensors ({nbytes / 1e9:.2f} GB) in {write_s:.1f} s; read back "
+              f"through resolve_decoder" + (" and load_hf_decoder_packed (bf16 storage, streamed tensor by tensor)"
+                                            if model_type != "gpt2" else "")
+              + f": logits equal to the writer's bit for bit; {checkpoints[model_type]['round_trip_s']:.1f} s in all",
+              flush=True)
+    out = dict(presets=rows, checkpoints=checkpoints, phase_s=time.perf_counter() - t_all)
+    print(f"[families-small] phase {out['phase_s']:.1f} s", flush=True)
     print(json.dumps({"families_small": out}), flush=True)
     return out
 
@@ -5196,125 +5467,26 @@ LLAMA31_SHAPES = {(4096, 4096): "q / o", (4096, 1024): "k / v", (4096, 14336): "
 
 
 def serve_llama31_phase(device, passages, peaks, smi):
-    """``RagPipeline.from_pretrained("bge-large", "llama3.1-8b", quantize_generator="int4", kv_quant=True)`` at full
-    width and depth (32 layers, GQA 32 / 8, the llama3 rope bands, vocab 128,256), random from seed 1, over the
-    serve cell's 16,384 passages; 32 queries, top-4, 256-token prompts, 64 new tokens. A warm and a timed
-    ``answer()``, its K5 launches by route and (K, N) shape (every projection on K5: the prefill forward's 224 on
-    the prefill route, the rest on the fused kernel); the prefill and the decode step timed apart, the step against
-    the read of the packed weights; the int8 KV cache's bytes against Llama-2-7B's at the same slots; then
-    ``answer_continuous()`` on 32 slots, each request's tokens equal to the lockstep generate's up to EOS.
-    Returns the launches of the timed ``answer()``."""
-    import dataclasses
-
+    """``serve_family_phase`` at Llama-3.1-8B int4 + int8 KV cache (32 layers, GQA 32 / 8, the llama3 rope bands,
+    vocab 128,256): every one of Llama-3.1's five projection shapes on the fused kernel, its int8 cache a quarter of
+    Llama-2-7B's (GQA 32 / 8). Returns the launches of the timed ``answer()`` and the results."""
     import torch
 
-    from dalm_tpu_torch.kernels import int4_matmul as k5
-    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
-    from dalm_tpu_torch.models.generate import build_greedy_generate
-    from dalm_tpu_torch.serve import RagPipeline
-
-    t_all = time.perf_counter()
-    pipe = RagPipeline.from_pretrained("bge-large", "llama3.1-8b", passages, dtype="bfloat16", device=device,
-                                       quantize_generator="int4", kv_quant=True, max_passage_len=128,
-                                       max_prompt_len=256, max_new_tokens=64, embed_batch=256)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t_all
-    g = pipe.generator
-    cfg = g.cfg
+    launches, out, pipe, shapes = serve_family_phase("serve-llama31", "llama3.1-8b", device, passages, peaks, smi,
+                                                     True)
+    cfg = pipe.generator.cfg
     check(cfg.num_layers == 32 and cfg.kv_heads == 8 and cfg.rope_llama3 and cfg.kv_quant,
           f"serve-llama31: generator config {cfg}")
-    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]
-    pipe.answer(queries, top_k=4)  # warm
-    shapes = {}
-    fwd = k5.int4_matmul_fwd
-
-    def counted(x2, q4, scale4, instance):
-        K, N = x2.shape[1], q4.shape[1]
-        route = k5._route(x2, instance, K // scale4.shape[0])
-        shapes[route, K, N] = shapes.get((route, K, N), 0) + 1
-        return fwd(x2, q4, scale4, instance)
-
-    zero_serving_counts()
-    counted.launches, counted.route_launches = fwd.launches, fwd.route_launches  # the wrapped function counts there
-    k5.int4_matmul_fwd = counted
-    try:
-        answers, rows, p_ids, p_mask, answer_s = lockstep_tokens(pipe, queries)
-    finally:
-        k5.int4_matmul_fwd = fwd
-    launches = serving_counts()
-    layers, per_forward = cfg.num_layers, 7 * cfg.num_layers + 1
-    routes = launches["routes"]
-    check(routes["prefill"] == per_forward - 1 and routes["fused"] == 64 * per_forward - routes["prefill"]
-          and launches["int4_matmul[base]"] == routes["fused"] and launches["k5_prefill_gemm"] == routes["prefill"],
-          f"serve-llama31: K5 launches {launches} for {layers} layers x 64 forwards")
     check({(K, N) for _, K, N in shapes} == set(LLAMA31_SHAPES)
           and {(K, N) for r, K, N in shapes if r == "fused"} == set(LLAMA31_SHAPES),
           f"serve-llama31: K5 ran at shapes {sorted(shapes)}, not all five of Llama-3.1's on the fused kernel")
-    check(len(answers) == 32 and launches["fused_dot_topk[f32]"] > 0, "serve-llama31: answers / K3")
-    p_ids_t, p_mask_t = torch.as_tensor(p_ids, device=device), torch.as_tensor(p_mask, device=device)
-    times = []
-    for new in (1, 64):  # the 64-token run has answer()'s shapes, which the warm and the timed answer() ran
-        run = build_greedy_generate(g, new, eos_token_id=pipe.g_tok.eos_token_id, pad_token_id=pipe.g_tok.pad_token_id or 0)
-        if new == 1:
-            run(p_ids_t, p_mask_t)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        toks = run(p_ids_t, p_mask_t)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    check(tuple(toks.shape) == (32, 64) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          "serve-llama31: generated ids")
-    prefill_s, decode_s = times
-    step_ms = (decode_s - prefill_s) / 63 * 1e3
-    weight_bytes = sum(b.numel() * b.element_size() for n, b in g.named_buffers() if n.rpartition(".")[2]
-                       in ("q4", "scale4"))
-    bound_ms = weight_bytes / peaks[0] * 1e3
-
-    def cache_bytes(c):
-        m = Decoder(dataclasses.replace(c, kv_quant=True), device="meta")
-        return sum(t.numel() * t.element_size() for layer in m.init_kv_cache(32, 320, device="meta").values()
-                   for t in layer.values())
-
-    kv31, kv2 = cache_bytes(cfg), cache_bytes(DecoderConfig.llama2_7b())
+    kv31, kv2 = out["kv_cache_bytes"], out["kv_cache_bytes_llama2_7b_int8"]
     check(abs(kv2 / kv31 - 4.0) < 1e-6, f"serve-llama31: int8 cache {kv31} bytes against Llama-2-7B's {kv2}")
-    # continuous batching: one wave of 32 on 32 slots, each request equal to the lockstep rows
-    eos = pipe.g_tok.eos_token_id
-    pipe.answer_continuous(queries, top_k=4, num_slots=32)  # builds the engine
-    probe = EngineProbe(pipe._engine)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cont = pipe.answer_continuous(queries, top_k=4, num_slots=32)
-        torch.cuda.synchronize()
-        cont_s = time.perf_counter() - t0
-    finally:
-        probe.close()
-    want = [trim(r, eos, 64) for r in rows]
-    diff = [i for i in range(32) if probe.results[i] != want[i]]
-    check(not diff, f"serve-llama31: answer_continuous() tokens differ from answer()'s for requests {diff}")
-    check([a.answer for a in cont] == [a.answer for a in answers], "serve-llama31: answer_continuous() text differs")
-    occ, cb_step_ms, cb_tok_s = probe.stats(cont_s, sum(len(r) for r in probe.results))
-    out = dict(build_s=build_s, answer_s=answer_s, prefill_s=prefill_s, decode_s=decode_s, decode_step_ms=step_ms,
-               weight_bytes=weight_bytes, weight_read_bound_ms=bound_ms, kv_cache_bytes=kv31,
-               kv_cache_bytes_llama2_7b=kv2, answer_continuous_s=cont_s, continuous_decode_ms=cb_step_ms,
-               continuous_occupancy=occ, k5_by_route_and_shape={f"{r} {K}x{N}": n for (r, K, N), n in
-                                                               sorted(shapes.items())},
-               launches={k: v for k, v in launches.items() if k != "routes"}, routes=routes,
-               phase_s=time.perf_counter() - t_all)
-    print(f"[serve-llama31] bge-large + Llama-3.1-8B int4 + int8 KV cache ({smi}): built in {build_s:.1f} s (random "
-          f"init, pack, 16,384 passages embedded); answer() of 32 queries {answer_s:.3f} s; prefill (+ first token) "
-          f"{prefill_s:.3f} s, prefill + 64 tokens {decode_s:.3f} s: decode {step_ms:.2f} ms a step against a "
-          f"weight-read bound of {bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB of 4-bit weights and scales); K5 "
-          f"launches by route {routes}, by route and shape {out['k5_by_route_and_shape']}; int8 KV cache for 32 "
-          f"slots x 320 tokens {kv31 / 2 ** 20:.1f} MiB against Llama-2-7B's {kv2 / 2 ** 20:.1f} MiB "
-          f"({kv2 / kv31:.1f}x, GQA 32 / 8); answer_continuous() on 32 slots {cont_s:.3f} s ({probe.waves} wave(s), "
-          f"{probe.iters} iterations, {cb_step_ms:.2f} ms an iteration, occupancy {occ:.3f}), every request's tokens "
-          f"equal answer()'s; phase {out['phase_s']:.1f} s", flush=True)
     print(json.dumps({"serve_llama31": out}), flush=True)
-    del pipe, g, cont, answers
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: v for k, v in launches.items() if k != "routes"}, out
+    return launches, out
 
 
 def sft_gemma2_phase(device, workdir, smi, steps=3):
@@ -5391,6 +5563,297 @@ def sft_gemma2_phase(device, workdir, smi, steps=3):
             "k4_bwd_dq_d256": bwd_routes["mma"], "k4_bwd_dkv_d256": bwd_routes["mma"]}, res
 
 
+MOE_TOL = 1e-2  # the indexed dispatch against the dense formula, bf16, same routes: only the order of the sums
+
+
+def moe_layer_check(block, device, T=2048, dense_tokens=(32, 128, 512, 2048)):
+    """One MoE layer of the served model at full width over ``T`` random bf16 tokens: the dispatch path by index
+    (dropless) against the reference's all-expert dense formula on the same routes; both timed by CUDA events. Then
+    the dense path's two forms, split at ``moe.DENSE_ALL_TOKENS``, on the first ``dense_tokens`` of them: the
+    all-expert formula and the sum over the touched experts, held to each other and timed (events around the calls,
+    so the touched form's host sync on its per-expert counts is inside its time)."""
+    import torch
+
+    from dalm_tpu_torch.models import moe
+
+    cfg = block.cfg
+    x = torch.randn((1, T, cfg.hidden_size), generator=torch.Generator(device=device).manual_seed(5),
+                    device=device).to(cfg.dtype)
+    with torch.no_grad():
+        x2 = x.reshape(T, -1)
+        w, idx = moe.route_topk(x2 @ block.router.to(cfg.dtype), cfg.num_experts_per_tok, cfg.norm_topk_prob)
+        dense = block._dense_all(x2, w, idx)
+        disp, aux = block(x)
+        err = float((disp.reshape(T, -1).float() - dense.float()).norm() / dense.float().norm())
+        check(bool(torch.isfinite(disp).all()) and err <= MOE_TOL and bool(torch.isfinite(aux)),
+              f"serve-moe: indexed dispatch against the dense formula {err:.3g}")
+        dispatch_ms = cuda_ms(lambda: block(x), 3)
+        dense_ms = cuda_ms(lambda: block._dense_all(x2, w, idx), 3)
+        forms = {}
+        for t in dense_tokens:
+            xt, wt, it = x2[:t], w[:t], idx[:t]
+            every, by_touched = block._dense_all(xt, wt, it), block._by_index(xt, wt, it, None)
+            e = float((by_touched.float() - every.float()).norm() / every.float().norm())
+            check(e <= MOE_TOL, f"serve-moe: the dense path's two forms over {t} tokens differ by {e:.3g}")
+            forms[t] = dict(rel_err=e, all_experts_ms=cuda_ms(lambda: block._dense_all(xt, wt, it), 3),
+                            touched_ms=cuda_ms(lambda: block._by_index(xt, wt, it, None), 3),
+                            experts_touched=int(torch.unique(it).numel()))
+    touched = int(torch.unique(idx).numel())
+    return dict(tokens=T, rel_err=err, dispatch_ms=dispatch_ms, dense_ms=dense_ms, experts_touched=touched,
+                aux=float(aux), dense_forms=forms)
+
+
+def serve_family_phase(tag, preset, device, passages, peaks, smi, kv_quant):
+    """``RagPipeline.from_pretrained("bge-large", preset, quantize_generator="int4", kv_quant=kv_quant)`` at full
+    width and depth, bf16, random from seed 1, over the serve cell's 16,384 passages; 32 queries, top-4, 256-token
+    prompts, 64 new tokens: a warm and a counted ``answer()`` (every packed projection on K5: the prefill forward's
+    on the prefill route but the head, the rest on the fused kernel), the prefill and the decode step timed apart,
+    the step against the read of the weights it must stream, the KV cache's bytes against Llama-2-7B's int8 cache at
+    the same slots, ``answer_continuous()`` on 32 slots (each request's tokens equal to the lockstep generate's up
+    to EOS) and the peak memory. Returns (launches of the counted ``answer()``, results, the pipeline, its K5 calls
+    by (route, K, N))."""
+    import dataclasses
+
+    import torch
+
+    from dalm_tpu_torch.kernels import int4_matmul as k5
+    from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+    from dalm_tpu_torch.models.generate import build_greedy_generate
+    from dalm_tpu_torch.models.layers import FlexLinear
+    from dalm_tpu_torch.serve import RagPipeline
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    pipe = RagPipeline.from_pretrained("bge-large", preset, passages, dtype="bfloat16", device=device,
+                                       quantize_generator="int4", kv_quant=kv_quant, max_passage_len=128,
+                                       max_prompt_len=256, max_new_tokens=64, embed_batch=256)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_all
+    g = pipe.generator
+    cfg = g.cfg
+    queries = [f"what about topic {i}" for i in range(0, 16384, 512)]
+    pipe.answer(queries, top_k=4)  # warm
+    shapes = {}
+    fwd = k5.int4_matmul_fwd
+
+    def counted(x2, q4, scale4, instance):
+        K, N = x2.shape[1], q4.shape[1]
+        route = k5._route(x2, instance, K // scale4.shape[0])
+        shapes[route, K, N] = shapes.get((route, K, N), 0) + 1
+        return fwd(x2, q4, scale4, instance)
+
+    zero_serving_counts()
+    counted.launches, counted.route_launches = fwd.launches, fwd.route_launches  # the wrapped function counts there
+    k5.int4_matmul_fwd = counted
+    try:
+        answers, rows, p_ids, p_mask, answer_s = lockstep_tokens(pipe, queries)
+    finally:
+        k5.int4_matmul_fwd = fwd
+    launches = serving_counts()
+    per_forward = packed_projections(cfg)
+    packed_modules = sum(1 for m in g.modules() if isinstance(m, FlexLinear) and m.q4 is not None)
+    check(packed_modules == per_forward, f"{tag}: {packed_modules} projections packed, not {per_forward}")
+    routes = launches["routes"]
+    check(routes["prefill"] == per_forward - 1 and routes["fused"] == 64 * per_forward - routes["prefill"]
+          and launches["int4_matmul[base]"] == routes["fused"] and launches["k5_prefill_gemm"] == routes["prefill"],
+          f"{tag}: K5 launches {launches} for {per_forward} packed projections x 64 forwards")
+    check(len(answers) == 32 and launches["fused_dot_topk[f32]"] > 0, f"{tag}: answers / K3")
+    p_ids_t, p_mask_t = torch.as_tensor(p_ids, device=device), torch.as_tensor(p_mask, device=device)
+    times = []
+    for new in (1, 64):
+        run = build_greedy_generate(g, new, eos_token_id=pipe.g_tok.eos_token_id,
+                                    pad_token_id=pipe.g_tok.pad_token_id or 0)
+        if new == 1:
+            run(p_ids_t, p_mask_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = run(p_ids_t, p_mask_t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(tuple(toks.shape) == (32, 64) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{tag}: ids")
+    prefill_s, decode_s = times
+    step_ms = (decode_s - prefill_s) / 63 * 1e3
+    # what a decode step streams: the packed projections, and the raw bf16 weights it reads whole (the MoE experts,
+    # every one on the dense path at 32 slots; MLA's kv_b)
+    packed = sum(b.numel() * b.element_size() for n, b in g.named_buffers() if n.rpartition(".")[2]
+                 in ("q4", "scale4"))
+    raw = sum(p.numel() * p.element_size() for n, p in g.named_parameters()
+              if n.rpartition(".")[2] in ("w_gate", "w_up", "w_down", "kv_b_proj", "shared_gate", "shared_up",
+                                           "shared_down"))
+    bound_ms = (packed + raw) / peaks[0] * 1e3
+    cache = g.init_kv_cache(32, 320)
+    kv_bytes = sum(t.numel() * t.element_size() for layer in cache.values() for t in layer.values())
+    del cache
+    llama = Decoder(dataclasses.replace(DecoderConfig.llama2_7b(), kv_quant=True), device="meta")
+    kv_llama = sum(t.numel() * t.element_size() for layer in llama.init_kv_cache(32, 320, device="meta").values()
+                   for t in layer.values())
+    eos = pipe.g_tok.eos_token_id
+    pipe.answer_continuous(queries, top_k=4, num_slots=32)  # warm; builds the engine
+    probe = EngineProbe(pipe._engine)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cont = pipe.answer_continuous(queries, top_k=4, num_slots=32)
+        torch.cuda.synchronize()
+        cont_s = time.perf_counter() - t0
+    finally:
+        probe.close()
+    want = [trim(r, eos, 64) for r in rows]
+    diff = [i for i in range(32) if probe.results[i] != want[i]]
+    check(not diff, f"{tag}: answer_continuous() tokens differ from answer()'s for requests {diff}")
+    check([a.answer for a in cont] == [a.answer for a in answers], f"{tag}: answer_continuous() text differs")
+    occ, cb_step_ms, _ = probe.stats(cont_s, sum(len(r) for r in probe.results))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = dict(preset=preset, layers=cfg.num_layers, build_s=build_s, answer_s=answer_s, prefill_s=prefill_s,
+               decode_s=decode_s, decode_step_ms=step_ms, packed_weight_bytes=packed, raw_weight_bytes=raw,
+               weight_read_bound_ms=bound_ms, kv_cache_bytes=kv_bytes, kv_cache_bytes_llama2_7b_int8=kv_llama,
+               answer_continuous_s=cont_s, continuous_decode_ms=cb_step_ms, continuous_occupancy=occ,
+               peak_gib=peak_gib, packed_projections_a_forward=per_forward,
+               k5_by_route_and_shape={f"{r} {K}x{N}": n for (r, K, N), n in sorted(shapes.items())},
+               launches={k: v for k, v in launches.items() if k != "routes"}, routes=routes,
+               phase_s=time.perf_counter() - t_all)
+    print(f"[{tag}] bge-large + {preset} int4{' + int8 KV cache' if kv_quant else ''} ({smi}): {cfg.num_layers} "
+          f"layers, built in {build_s:.1f} s; answer() of 32 queries {answer_s:.3f} s; prefill (+ first token) "
+          f"{prefill_s:.3f} s, prefill + 64 tokens {decode_s:.3f} s: decode {step_ms:.2f} ms a step against a "
+          f"weight-read bound of {bound_ms:.3f} ms ({packed / 1e9:.3f} GB packed + {raw / 1e9:.3f} GB bf16 read "
+          f"whole); K5 launches by route {routes} ({per_forward} packed projections a forward); KV cache for 32 slots "
+          f"x 320 tokens {kv_bytes / 2 ** 20:.1f} MiB against Llama-2-7B's int8 cache {kv_llama / 2 ** 20:.1f} MiB; "
+          f"answer_continuous() on 32 slots {cont_s:.3f} s ({probe.waves} wave(s), {probe.iters} iterations, "
+          f"{cb_step_ms:.2f} ms an iteration), every request's tokens equal answer()'s; peak {peak_gib:.2f} GiB; "
+          f"K5 by route and shape {out['k5_by_route_and_shape']}; phase {out['phase_s']:.1f} s", flush=True)
+    return {k: v for k, v in launches.items() if k != "routes"}, out, pipe, shapes
+
+
+def serve_moe_phase(device, passages, peaks, smi):
+    """serve-moe: Qwen3-30B-A3B (48 layers, 128 experts, top-8, hidden 2048, vocab 151,936) served at full width
+    and depth, packed to int4 (attention and head; the experts stay bf16, as the reference packs only 2-D kernels)
+    with the int8 KV cache; then one of its MoE layers at full width over 2,048 tokens, the indexed dispatch held
+    against the dense formula."""
+    import torch
+
+    from dalm_tpu_torch.models.moe import DENSE_ALL_TOKENS
+
+    launches, out, pipe, _ = serve_family_phase("serve-moe", "qwen3-moe-30b", device, passages, peaks, smi, True)
+    g = pipe.generator
+    check(g.cfg.num_experts == 128 and g.cfg.num_experts_per_tok == 8 and g.cfg.num_layers == 48
+          and all(hasattr(getattr(g, f"layer_{i}"), "moe") for i in range(48)), f"serve-moe: config {g.cfg}")
+    out["moe_layer"] = moe_layer_check(g.layer_0.moe, device)
+    m = out["moe_layer"]
+    print(f"[serve-moe] one MoE layer at full width over {m['tokens']} tokens: indexed dispatch against the dense "
+          f"formula rel. error {m['rel_err']:.2e} (bound {MOE_TOL}); dispatch {m['dispatch_ms']:.2f} ms, dense "
+          f"formula {m['dense_ms']:.2f} ms; {m['experts_touched']} of 128 experts touched; the dense path's forms "
+          f"(split at {DENSE_ALL_TOKENS} tokens) by tokens, all experts / touched experts: "
+          + ", ".join(f"{t}: {f['all_experts_ms']:.2f} / {f['touched_ms']:.2f} ms ({f['experts_touched']} touched, "
+                      f"rel. error {f['rel_err']:.1e})" for t, f in m["dense_forms"].items()), flush=True)
+    print(json.dumps({"serve_moe": out}), flush=True)
+    del pipe, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def serve_mla_phase(device, passages, peaks, smi):
+    """serve-mla: deepseek-v3-mid-7b (32 layers, latent 512 + rope 64, q-LoRA 1536, about 5.9B parameters) served at
+    full width and depth, packed to int4 on K5, on the latent cache (no int8 KV: the reference raises there)."""
+    import torch
+
+    launches, out, pipe, _ = serve_family_phase("serve-mla", "deepseek-v3-mid-7b", device, passages, peaks, smi, False)
+    cfg = pipe.generator.cfg
+    check(cfg.mla and cfg.kv_lora_rank == 512 and cfg.qk_rope_head_dim == 64 and cfg.num_layers == 32,
+          f"serve-mla: config {cfg}")
+    want = 32 * 32 * 320 * (512 + 64) * 2
+    check(out["kv_cache_bytes"] == want, f"serve-mla: latent cache {out['kv_cache_bytes']} bytes, not {want}")
+    print(json.dumps({"serve_mla": out}), flush=True)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def sft_moe_phase(device, workdir, smi, steps=3):
+    """``train_generator("qwen3-moe-30b", moe_aux_weight=0.001, use_peft=True, lora_r=256, packing=True,
+    gradient_checkpointing=True)`` at full width and depth (48 layers, about 61 GB of frozen bf16 base), batch 1 x
+    2,048 tokens, ``steps`` steps and the validation batches: K4's forward, dq and dk/dv at GQA 32 / 4 (the wgmma
+    route) held to 48 layers x (2 forwards + 1 backward) a step plus 48 forwards a validation batch, the dispatch
+    path's backward, the aux value of each step beside its loss (0.001 is Qwen3-MoE's published
+    ``router_aux_loss_coef``). Returns the K4 launches by kernel and the results."""
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention, flash_bwd, flash_fwd
+    from dalm_tpu_torch.train import train_generator
+
+    t_all = time.perf_counter()
+    data = str(Path(workdir) / "chat_moe.jsonl")
+    write_chat_jsonl(data, 8, 1500, np.random.default_rng(7))
+    held = {"aux": []}
+
+    def snapshot(setup):
+        held["setup"] = setup
+        fwd = setup.model.train_forward
+
+        def train_forward(*a, **k):
+            out = fwd(*a, **k)
+            if k.get("return_moe_aux"):
+                held["aux"].append(out[1].detach())
+            return out
+
+        setup.model.train_forward = train_forward
+        held["trainable"] = {k: p.detach().clone() for k, p in setup.state.params.items()}
+        flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
+        flash_fwd.routes = dict.fromkeys(flash_fwd.routes, 0)
+        flash_bwd.routes = dict.fromkeys(flash_bwd.routes, 0)
+
+    kw = dict(SFT_KW, seq_length=2048, tokenizer="byte@151936", moe_aux_weight=0.001)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_generator("qwen3-moe-30b", data, per_device_train_batch_size=1, per_device_eval_batch_size=1,
+                          max_train_blocks=steps, device=device, setup_hook=snapshot, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes, bwd_routes = dict(flash_attention.launches), dict(flash_fwd.routes), dict(flash_bwd.routes)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    setup = held["setup"]
+    cfg = setup.model.cfg
+    layers, n_steps = cfg.num_layers, out["steps"]
+    check(n_steps == steps and cfg.num_experts == 128 and cfg.attention_impl == "flash" and cfg.remat
+          and layers == 48 and setup.train_blocks.shape == (steps, 2048),
+          f"sft-moe: {n_steps} steps, config {cfg}, blocks {setup.train_blocks.shape}")
+    aux = [float(a) for a in held["aux"]]
+    check(len(aux) == steps and all(np.isfinite(aux)) and min(aux) > 0 and np.isfinite(out["final_loss"])
+          and np.isfinite(out["eval_loss"]), f"sft-moe: losses {out}, aux {aux}")
+    eval_batches = len(setup.valid_blocks)
+    want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps,
+            "dsum": layers * n_steps}
+    check(eval_batches >= 1 and launches == want, f"sft-moe: K4 launches {launches}, {layers} layers predict {want}")
+    check(routes == {"wgmma": want["fwd"], "mma": 0} and bwd_routes == {"wgmma": want["dq"], "mma": 0},
+          f"sft-moe: every bf16 D 128 call must take the wgmma route: {routes}, {bwd_routes}")
+    unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
+    check(len(held["trainable"]) == 4 * layers and not unchanged,
+          f"sft-moe: {len(unchanged)} of {len(held['trainable'])} LoRA factors did not change")
+    step_s = out["avg_step_time"]
+    res = dict(steps=n_steps, eval_batches=eval_batches, wall_s=wall, step_s=step_s, tokens_per_s=2048 / step_s,
+               peak_gib=peak_gib, final_loss=out["final_loss"], eval_loss=out["eval_loss"], aux=aux,
+               launches=launches, phase_s=time.perf_counter() - t_all)
+    print(f"[sft-moe] qwen3-moe-30b ({layers} layers, 128 experts top-8, width {cfg.hidden_size}, heads "
+          f"{cfg.num_heads}/{cfg.kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}) ({smi}): batch 1 x 2048 tokens, "
+          f"bf16, LoRA r=256 (merge runtime), recompute, NEFTune 5, moe_aux_weight 0.001: {n_steps} steps + {eval_batches} "
+          f"validation batches in {wall:.1f} s (init included); step {step_s:.3f} s = {2048 / step_s:.0f} tokens/s; "
+          f"loss at step {n_steps} {out['final_loss']:.4f} (loss + 0.001 x aux), aux by step "
+          f"{[round(a, 5) for a in aux]}, validation {out['eval_loss']:.4f}; peak {peak_gib:.2f} GiB; K4 launches "
+          f"{launches} = {layers} x (2 forwards + 1 backward) a step + {layers} forwards a validation batch, every "
+          f"one on the wgmma route", flush=True)
+    print(json.dumps({"sft_moe": res}), flush=True)
+    held.clear()
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"k4_fwd_wgmma": routes["wgmma"], "k4_bwd_dq_wgmma": bwd_routes["wgmma"],
+            "k4_bwd_dkv_wgmma": bwd_routes["wgmma"], "k4_dsum": launches["dsum"]}, res
+
+
 KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "int4_matmul",
                   "int4_prefill")
 TRAIN_BATCH = 18
@@ -5400,7 +5863,7 @@ SFT_STEPS = 3
 PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh", "serve-adapter", "k3",
           "k2", "k1", "grad", "k4", "k5", "train-small", "train", "train-dycal", "train-live", "train-merge",
           "train-retriever", "sft-small", "sft", "eval-retriever", "eval-rag", "eval-ar", "cli", "families-small",
-          "serve-llama31", "sft-gemma2")
+          "serve-llama31", "sft-gemma2", "serve-moe", "serve-mla", "sft-moe")
 LIVE_K = 4  # marginalize_k of the train-live cell
 EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
 
@@ -5499,6 +5962,11 @@ def main() -> int:
     if "serve-llama31" in phases:  # an 8B of its own, likewise
         llama31_launches, _ = serve_llama31_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks,
                                                   smi)
+    moe_launches, mla_launches = {}, {}
+    if "serve-moe" in phases:  # a 30B of its own, after the 8B is freed
+        moe_launches, _ = serve_moe_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks, smi)
+    if "serve-mla" in phases:
+        mla_launches, _ = serve_mla_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks, smi)
     if "k3" in phases:
         cases, reps = k3_phase(gen, device, peaks)
         print(json.dumps({"k3_cases": cases}), flush=True)
@@ -5582,6 +6050,11 @@ def main() -> int:
             for name, n in launches.items():
                 if name in kernels:
                     kernels[name]["launches"] = n
+        if "sft-moe" in phases:
+            launches, _ = sft_moe_phase(device, workdir, smi)
+            for name, n in launches.items():
+                if name in kernels:
+                    kernels[name]["launches_sft_moe"] = n
         if "families-small" in phases:
             families_small_phase(device, workdir, smi)
         if "eval-retriever" in phases:
@@ -5589,10 +6062,12 @@ def main() -> int:
             eval_cases += list(recs.values())
             eval_launches["launches_eval_retriever"] = {f"fused_dot_topk[{m}]": n[m] for m, n in by_mode.items()}
         if "eval-rag" in phases:
-            k3, _ = eval_rag_phase(device, smi)
+            with cut_depth("eval-rag"):
+                k3, _ = eval_rag_phase(device, smi)
             eval_launches["launches_eval_rag"] = {"fused_dot_topk[f32]": k3["f32"]}
         if "eval-ar" in phases:
-            parts, rec, ar = eval_ar_phase(device, workdir, peaks, smi)
+            with cut_depth("eval-ar"):
+                parts, rec, ar = eval_ar_phase(device, workdir, peaks, smi)
             eval_cases.append(rec)
             pipe = parts["pipeline"]
             eval_launches["launches_eval_ar"] = {
@@ -5628,7 +6103,8 @@ def main() -> int:
             kernels[name]["launches_serve_stream"] = n
     for key, counts in (("launches_serve_http", http_launches), ("launches_serve_refresh", refresh_launches),
                         ("launches_serve_adapter", adapter_launches),
-                        ("launches_serve_llama31", llama31_launches)):  # the rest of serving, Llama-3.1
+                        ("launches_serve_llama31", llama31_launches), ("launches_serve_moe", moe_launches),
+                        ("launches_serve_mla", mla_launches)):  # the rest of serving, Llama-3.1, MoE, MLA
         for name, n in counts.items():
             if name in kernels:
                 kernels[name][key] = n
@@ -5646,7 +6122,10 @@ def main() -> int:
                  "k4_bwd_dkv_wgmma", "k4_dsum", *(p[0] for p in K4_D256_PAIRS), *k5_names):
         check(kernels[name]["launches"] > 0, f"{name} was never launched on its main path")
     for name in ("int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm", "fused_dot_topk[f32]"):
-        check(kernels[name]["launches_serve_llama31"] > 0, f"{name} was never launched by serve-llama31")
+        for key in ("launches_serve_llama31", "launches_serve_moe", "launches_serve_mla"):
+            check(kernels[name][key] > 0, f"{name} was never launched by {key[9:].replace('_', '-')}")
+    for name in ("k4_fwd_wgmma", "k4_bwd_dq_wgmma", "k4_bwd_dkv_wgmma", "k4_dsum"):
+        check(kernels[name]["launches_sft_moe"] > 0, f"{name} was never launched by sft-moe")
     for name in ("fused_dot_topk[f32]", "int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm"):
         check(kernels[name]["launches_serve_stream"] > 0, f"{name} was never launched by serve-stream")
         check(kernels[name]["launches_serve_http"] > 0, f"{name} was never launched by serve-http")

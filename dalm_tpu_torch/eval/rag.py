@@ -36,7 +36,7 @@ from dalm_tpu_torch.eval.retriever import embed_and_index, load_retriever_for_ev
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.generate import build_greedy_generate
 from dalm_tpu_torch.models.lora import load_adapter, merge_lora_inplace
-from dalm_tpu_torch.models.registry import resolve_decoder
+from dalm_tpu_torch.models.registry import build_decoder, resolve_decoder
 
 logger = logging.getLogger(__name__)
 
@@ -48,7 +48,7 @@ def load_generator_for_eval(generator_name_or_path: str, generator_peft_model_pa
     ``generator_peft_model_path`` merged into its kernels."""
     dev = resolve_device(device)
     cfg, state = resolve_decoder(generator_name_or_path, dtype=parse_dtype(torch_dtype) if torch_dtype else None)
-    generator = Decoder(cfg, device=dev)
+    generator = build_decoder(cfg, device=dev)
     if state is None:
         generator.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     else:

@@ -6,8 +6,10 @@ and returns state dicts for the port's ``Encoder``, ``SentenceEmbedder``
 and ``Decoder``. The port names its parameters after the flax tree and
 keeps Dense kernels in the flax ``(in, out)`` layout (``FlexLinear``
 computes ``x @ kernel``; no ``nn.Linear`` is involved), so each leaf maps
-to the key of its dotted path unchanged, the dense families' leaves too
-(q/k/v ``bias``, ``q_norm`` / ``k_norm``, the sandwich norms
+to the key of its dotted path unchanged, every family's leaves too (the MoE
+blocks' stacked ``router`` / ``w_gate`` / ``w_up`` / ``w_down``, MLA's raw
+``kv_b_proj``, GPT-2's ``c_attn`` / ``c_proj`` / ``c_fc`` / ``mlp_proj``; the dense families'
+q/k/v ``bias``, ``q_norm`` / ``k_norm``, the sandwich norms
 ``post_attention_norm`` / ``pre_feedforward_norm`` / ``post_feedforward_norm``,
 and no ``lm_head`` where the head is tied). A leaf the module lacks, a
 module parameter no leaf fills, or a shape mismatch raises. Leaves may be

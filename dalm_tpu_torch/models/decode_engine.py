@@ -100,7 +100,7 @@ class DecodeEngine:
         if admit_width is not None and not (1 <= admit_width <= B):
             raise ValueError(f"admit_width must be in [1, num_slots]; got {admit_width}")
         self.admit_W = admit_width if (admit_width and admit_width < B) else None
-        self.device = decoder.final_norm.scale.device
+        self.device = next(decoder.parameters()).device
         self._state = None
 
     @property

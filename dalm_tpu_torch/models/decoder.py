@@ -1,4 +1,4 @@
-"""Decoder-only causal LM, the dense families (counterpart of ``dalm_tpu/models/decoder.py``).
+"""Decoder-only causal LM, every family but GPT-2 (counterpart of ``dalm_tpu/models/decoder.py``).
 
 Llama-2 / 3 / 3.1, Mistral, Phi-3, Qwen2.5 / 3 and Gemma / 2 / 3 on one
 module, as in the reference: RMSNorm pre-norm (``(1 + w)`` with
@@ -39,9 +39,16 @@ pad rows, which feed no real token and carry no loss. The reference's modes:
   the new entries are quantised on write and attention reads the dequantised
   buffers.
 
+The MoE families (``num_experts``: Mixtral, Qwen3-MoE, DeepSeek-V3's noaux-tc
+router with shared experts from ``moe_layer_start``) run ``models/moe.py``'s
+block in place of the MLP, and ``return_moe_aux`` returns its load-balancing
+value; MLA (``kv_lora_rank``: DeepSeek-V3) runs ``models/mla.py`` in place of
+the attention, with the YaRN rope (``rope_yarn``) on its rope slice and a
+latent cache ``{"k": (B, L, r), "pe": (B, L, d_rope)}``.
+
 Parameter names mirror the flax tree so JAX weights carry across leaf
-for leaf (``dalm_tpu_torch/interop.py``). The MoE, MLA and ring-attention
-knobs of the reference config are rejected with ``NotImplementedError``.
+for leaf (``dalm_tpu_torch/interop.py``). The ring-attention knobs of the
+reference config are rejected with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,16 +78,6 @@ _ACTS = {
 # each is inert, and the module that brings them. A saved config carrying any
 # other value raises.
 UNPORTED_KNOBS = {
-    "models/moe.py": {
-        "num_experts": None, "num_experts_per_tok": 2, "moe_intermediate_size": None, "norm_topk_prob": True,
-        "moe_router": "softmax", "moe_n_group": None, "moe_topk_group": None, "moe_routed_scaling_factor": 1.0,
-        "moe_n_shared_experts": 0, "moe_layer_start": 0, "moe_impl": "auto", "moe_capacity_factor": None,
-        "moe_group_size": 2048,
-    },
-    "models/mla.py": {
-        "q_lora_rank": None, "kv_lora_rank": None, "qk_nope_head_dim": None, "qk_rope_head_dim": None,
-        "v_head_dim": None, "rope_interleave": False, "rope_yarn": None, "attn_scale_mult": 1.0,
-    },
     "kernels/ring_attention.py (multi-GPU)": {"ring_axis": "model", "ring_layout": "contiguous"},
 }
 
@@ -126,11 +123,44 @@ class DecoderConfig:
     rope_scaling_factor: Optional[float] = None  # linear position scaling of the global rope only
     # Llama-3.1's frequency bands: (factor, low_freq_factor, high_freq_factor, original_max_position_embeddings)
     rope_llama3: Optional[tuple] = None
+    # Sparse MoE (models/moe.py): num_experts set -> the layers from moe_layer_start on have an MoE MLP.
+    num_experts: Optional[int] = None
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: Optional[int] = None
+    norm_topk_prob: bool = True
+    moe_router: str = "softmax"  # or "noaux_tc" (DeepSeek-V3: sigmoid scores, group-limited top-k)
+    moe_n_group: Optional[int] = None  # noaux_tc: expert groups
+    moe_topk_group: Optional[int] = None  # noaux_tc: groups kept
+    moe_routed_scaling_factor: float = 1.0  # noaux_tc: weight scale
+    moe_n_shared_experts: int = 0  # DeepSeek-V3's always-on experts
+    moe_layer_start: int = 0  # DeepSeek-V3's first_k_dense_replace: the layers before it keep a dense MLP
+    moe_impl: str = "auto"  # "dense", "dispatch" or "auto" (dense with a KV cache)
+    moe_capacity_factor: Optional[float] = None  # dispatch capacity ceil(g·K·cf / E); None -> dropless
+    moe_group_size: Optional[int] = 2048  # dispatch groups of this many tokens, each with its own capacity
     # "fwd" | "all": int8 kernels for layers with int8 storage (models/layers.py).
     int8_compute: str = "none"
     kv_quant: bool = False
+    # Multi-head latent attention (models/mla.py): kv_lora_rank set -> every layer's attention is MLA, and the
+    # KV cache holds the normed latent "k" (B, L, kv_lora_rank) and the rope key "pe" (B, L, qk_rope_head_dim).
+    q_lora_rank: Optional[int] = None  # None -> a direct q_proj
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: Optional[int] = None
+    qk_rope_head_dim: Optional[int] = None
+    v_head_dim: Optional[int] = None
+    rope_interleave: bool = False  # DeepSeek checkpoints' pair-interleaved rope lanes
+    # YaRN: (factor, beta_fast, beta_slow, original_max_position_embeddings, attention_factor); see rope_cos_sin
+    rope_yarn: Optional[tuple] = None
+    attn_scale_mult: float = 1.0  # times the softmax scale (DeepSeek's yarn mscale_all_dim, squared)
     dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank is not None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return (self.qk_nope_head_dim or 0) + (self.qk_rope_head_dim or 0)
 
     @property
     def head_dim(self) -> int:
@@ -157,6 +187,16 @@ class DecoderConfig:
             vocab_size=vocab_size, hidden_size=64, num_layers=2, num_heads=2,
             intermediate_size=128, max_position_embeddings=512,
         )
+
+    @staticmethod
+    def tiny_moe(vocab_size: int = 512) -> "DecoderConfig":
+        return dataclasses.replace(DecoderConfig.tiny(vocab_size), num_experts=4, num_experts_per_tok=2,
+                                   moe_intermediate_size=64)
+
+    @staticmethod
+    def tiny_mla(vocab_size: int = 512) -> "DecoderConfig":
+        return dataclasses.replace(DecoderConfig.tiny(vocab_size), q_lora_rank=24, kv_lora_rank=16,
+                                   qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16, rope_interleave=True)
 
     # The presets below carry the reference's numbers (``decoder.py:219-452``), each its published HF config.
     @staticmethod
@@ -267,6 +307,62 @@ class DecoderConfig:
         )
 
 
+    @staticmethod
+    def mixtral_8x7b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+            num_kv_heads=8, intermediate_size=14336,
+            max_position_embeddings=32768, rope_theta=1000000.0,
+            num_experts=8, num_experts_per_tok=2,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def mixtral_mini_4b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=32000, hidden_size=2048, num_layers=16, num_heads=32,
+            num_kv_heads=8, head_dim_override=64, intermediate_size=4096,
+            num_experts=8, num_experts_per_tok=2,
+            max_position_embeddings=4096, rope_theta=1000000.0,
+            remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def qwen3_moe_30b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=151936, hidden_size=2048, num_layers=48, num_heads=32,
+            num_kv_heads=4, head_dim_override=128, intermediate_size=6144,
+            moe_intermediate_size=768, num_experts=128, num_experts_per_tok=8,
+            norm_topk_prob=True, qk_norm=True,
+            max_position_embeddings=40960, rope_theta=1000000.0,
+            rms_norm_eps=1e-6, remat=True, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def deepseek_v3_mid_7b() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=32000, hidden_size=4096, num_layers=32,
+            num_heads=32, num_kv_heads=32, intermediate_size=11008,
+            max_position_embeddings=4096, rope_theta=10000.0,
+            q_lora_rank=1536, kv_lora_rank=512,
+            qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+            rope_interleave=True, remat=True,
+            dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        )
+
+    @staticmethod
+    def deepseek_v3_mini() -> "DecoderConfig":
+        return DecoderConfig(
+            vocab_size=32000, hidden_size=2560, num_layers=28,
+            num_heads=20, num_kv_heads=20, intermediate_size=8960,
+            max_position_embeddings=4096, rope_theta=10000.0,
+            q_lora_rank=1024, kv_lora_rank=512,
+            qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+            rope_interleave=True, remat=True,
+            dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        )
+
+
 def _check_supported(cfg: DecoderConfig) -> None:
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise NotImplementedError(
@@ -278,6 +374,8 @@ def _check_supported(cfg: DecoderConfig) -> None:
         raise ValueError(f"sliding_layers must be 'all', 'even' or a bool for every layer, not {layers!r}")
     if cfg.num_heads % cfg.kv_heads:
         raise ValueError("num_heads must be a multiple of num_kv_heads")
+    if cfg.mla and cfg.sliding_window:  # the reference asserts it (mla.py:81)
+        raise ValueError("MLA has no sliding-window support")
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -286,14 +384,30 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, dtype,
-                 llama3_scaling: Optional[tuple] = None) -> tuple:
+                 llama3_scaling: Optional[tuple] = None, yarn: Optional[tuple] = None) -> tuple:
     """positions (B, S) → cos/sin (B, S, head_dim). ``llama3_scaling`` =
     (factor, low_freq_factor, high_freq_factor, original_max_position_embeddings)
     rewrites the inverse frequencies as Llama-3.1 does (``decoder.py:502-509``):
     wavelengths above original / low are divided by ``factor``, those below
-    original / high kept, the band between interpolated."""
+    original / high kept, the band between interpolated. ``yarn`` = (factor,
+    beta_fast, beta_slow, original_max_position_embeddings, attention_factor)
+    is YaRN (HF ``_compute_yarn_parameters``, truncated; ``decoder.py:482-501``):
+    each frequency a linear blend of ``inv_freq / factor`` and ``inv_freq`` over
+    the beta correction range, cos and sin times ``attention_factor``."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
     inv_freq = 1.0 / (theta ** exps)
+    if yarn is not None:
+        factor, beta_fast, beta_slow, old_len, _ = (float(v) for v in yarn)
+
+        def corr_dim(rot):
+            return (head_dim * math.log(old_len / (rot * 2 * math.pi))) / (2 * math.log(theta))
+
+        low = max(math.floor(corr_dim(beta_fast)), 0)
+        high = min(math.ceil(corr_dim(beta_slow)), head_dim - 1)
+        ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32, device=positions.device) - low)
+                           / max(high - low, 1e-3), 0.0, 1.0)
+        extrapolation = 1.0 - ramp
+        inv_freq = (inv_freq / factor) * (1.0 - extrapolation) + inv_freq * extrapolation
     if llama3_scaling is not None:
         factor, low, high, old_len = (float(v) for v in llama3_scaling)
         wavelen = 2.0 * math.pi / inv_freq
@@ -304,6 +418,9 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, dtype,
         inv_freq = torch.where(medium, smoothed, scaled)
     freqs = positions[..., None].float() * inv_freq[None, None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
+    if yarn is not None:
+        af = float(yarn[4])
+        return (torch.cos(emb) * af).to(dtype), (torch.sin(emb) * af).to(dtype)
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
 
 
@@ -465,7 +582,11 @@ class DecoderLayer(nn.Module):
     """Pre-norm attention and MLP; with ``post_norms`` Gemma2's sandwich: the
     attention output normed by ``post_attention_norm`` before the residual add,
     the MLP between ``pre_feedforward_norm`` and ``post_feedforward_norm``
-    (without it ``post_attention_norm`` is the MLP's pre-norm, Llama's name)."""
+    (without it ``post_attention_norm`` is the MLP's pre-norm, Llama's name).
+    The attention is MLA (``models/mla.py``) when the config sets
+    ``kv_lora_rank``; the MLP an MoE block (``models/moe.py``, named ``moe``)
+    from ``moe_layer_start`` on when it sets ``num_experts``. Returns (hidden,
+    the MoE block's aux value or None)."""
 
     def __init__(self, cfg: DecoderConfig, layer_idx: int = 0, device=None):
         super().__init__()
@@ -473,14 +594,24 @@ class DecoderLayer(nn.Module):
         self.post_norms = cfg.post_norms
         self.act = _ACTS[cfg.hidden_act]
         self.input_norm = _norm(cfg, h, device)
-        self.attention = DecoderAttention(cfg, layer_idx, device)
+        if cfg.mla:
+            from dalm_tpu_torch.models.mla import MLAAttention
+
+            self.attention = MLAAttention(cfg, layer_idx, device)
+        else:
+            self.attention = DecoderAttention(cfg, layer_idx, device)
         self.post_attention_norm = _norm(cfg, h, device)
         if cfg.post_norms:
             self.pre_feedforward_norm = _norm(cfg, h, device)
             self.post_feedforward_norm = _norm(cfg, h, device)
-        self.gate_proj = _proj(cfg, h, cfg.intermediate_size, device)
-        self.up_proj = _proj(cfg, h, cfg.intermediate_size, device)
-        self.down_proj = _proj(cfg, cfg.intermediate_size, h, device)
+        if cfg.num_experts and layer_idx >= cfg.moe_layer_start:
+            from dalm_tpu_torch.models.moe import MoEBlock
+
+            self.moe = MoEBlock(cfg, device)
+        else:
+            self.gate_proj = _proj(cfg, h, cfg.intermediate_size, device)
+            self.up_proj = _proj(cfg, h, cfg.intermediate_size, device)
+            self.down_proj = _proj(cfg, cfg.intermediate_size, h, device)
 
     def forward(self, hidden, mask, cos, sin, kv_cache=None, cache_index=None, segment_mask=None):
         attn = self.attention(self.input_norm(hidden), mask, cos, sin, kv_cache, cache_index, segment_mask)
@@ -488,10 +619,14 @@ class DecoderLayer(nn.Module):
             attn = self.post_attention_norm(attn)
         hidden = hidden + attn
         normed = (self.pre_feedforward_norm if self.post_norms else self.post_attention_norm)(hidden)
-        down = self.down_proj(self.act(self.gate_proj(normed)) * self.up_proj(normed))
+        aux = None
+        if hasattr(self, "moe"):
+            down, aux = self.moe(normed, decode=kv_cache is not None)
+        else:
+            down = self.down_proj(self.act(self.gate_proj(normed)) * self.up_proj(normed))
         if self.post_norms:
             down = self.post_feedforward_norm(down)
-        return hidden + down
+        return hidden + down, aux
 
 
 class Decoder(nn.Module):
@@ -515,6 +650,19 @@ class Decoder(nn.Module):
         cfg = self.cfg
         dtype = dtype or cfg.dtype
         device = device or self.final_norm.scale.device
+        if cfg.mla:
+            # the latent cache: the normed latent and the shared rope key a token (decoder.py:836-854)
+            if cfg.kv_quant:
+                raise ValueError(
+                    "kv_quant is not supported with MLA: the latent cache is already the compressed tier "
+                    "(kv_lora_rank + qk_rope_head_dim floats/token)")
+            return {
+                f"layer_{i}": {
+                    "k": torch.zeros((batch_size, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+                    "pe": torch.zeros((batch_size, max_len, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+                }
+                for i in range(cfg.num_layers)
+            }
         shape = (batch_size, max_len, cfg.kv_heads, cfg.head_dim)
         if cfg.kv_quant:
             # Zero scales dequantise unwritten slots to 0, which the masks exclude anyway.
@@ -538,18 +686,20 @@ class Decoder(nn.Module):
     @torch.no_grad()
     def forward(self, input_ids, attention_mask=None, positions=None, kv_cache=None,
                 cache_index: "int | torch.Tensor | None" = None, return_hidden: bool = False,
-                logits_last_only: bool = False):
+                logits_last_only: bool = False, return_moe_aux: bool = False):
         """Inference (no gradient). Full-sequence: logits (B, S, V). With
-        ``kv_cache``: (logits, kv_cache).
+        ``kv_cache``: (logits, kv_cache). ``return_moe_aux`` appends the MoE
+        blocks' aux values summed over layers and divided by ``num_layers``
+        (0 for a dense model; ``decoder.py:998-1013``).
 
         ``attention_mask``: (B, S) for full-sequence; (B, max_len) over the
         cache slots when decoding with a cache."""
         return self._run(input_ids, attention_mask, positions, kv_cache, cache_index, return_hidden,
-                         logits_last_only, remat=False)
+                         logits_last_only, remat=False, return_moe_aux=return_moe_aux)
 
     def train_forward(self, input_ids, attention_mask=None, neftune_alpha: float = 0.0,
                       noise_generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None,
-                      return_hidden: bool = False):
+                      return_hidden: bool = False, return_moe_aux: bool = False):
         """Training: full-sequence logits (B, S, V) with gradients and no
         cache, or with ``return_hidden`` the final-normed hidden states
         (B, S, hidden) (the autoregressive retriever's). With ``cfg.remat``
@@ -568,14 +718,16 @@ class Decoder(nn.Module):
         if not neftune_alpha > 0.0:
             noise = None
         return self._run(input_ids, attention_mask, None, None, None, return_hidden, False, remat=self.cfg.remat,
-                         neftune_alpha=neftune_alpha, noise=noise)
+                         neftune_alpha=neftune_alpha, noise=noise, return_moe_aux=return_moe_aux)
 
     def uses_flash(self, seq_len: int, cached: bool = False) -> bool:
-        """Whether a full-sequence call of this length takes the flash kernel."""
-        return self.cfg.attention_impl == "flash" and not cached and seq_len >= 256 and seq_len % 128 == 0
+        """Whether a full-sequence call of this length takes the flash kernel. MLA attends by matmuls on both of
+        its paths, as the reference's does (``mla.py:134-156``)."""
+        return (self.cfg.attention_impl == "flash" and not self.cfg.mla and not cached and seq_len >= 256
+                and seq_len % 128 == 0)
 
     def _run(self, input_ids, attention_mask, positions, kv_cache, cache_index, return_hidden,
-             logits_last_only, remat, neftune_alpha=0.0, noise=None):
+             logits_last_only, remat, neftune_alpha=0.0, noise=None, return_moe_aux=False):
         cfg = self.cfg
         B, S = input_ids.shape
         dev = input_ids.device
@@ -608,7 +760,9 @@ class Decoder(nn.Module):
         # The global rope (Llama-3.1's bands, linear scaling of its positions only) and Gemma3's local one
         # for the sliding layers, at unscaled positions (decoder.py:939-959).
         pos_global = positions.float() / cfg.rope_scaling_factor if cfg.rope_scaling_factor else positions
-        cos, sin = rope_cos_sin(pos_global, cfg.head_dim, cfg.rope_theta, cfg.dtype, cfg.rope_llama3)
+        # MLA rotates only its decoupled rope slice (decoder.py:945-952)
+        cos, sin = rope_cos_sin(pos_global, cfg.qk_rope_head_dim if cfg.mla else cfg.head_dim, cfg.rope_theta,
+                                cfg.dtype, cfg.rope_llama3, cfg.rope_yarn)
         local = None
         if cfg.rope_local_theta is not None:
             local = rope_cos_sin(positions, cfg.head_dim, cfg.rope_local_theta, cfg.dtype)
@@ -631,6 +785,7 @@ class Decoder(nn.Module):
                 mask = mask & (attention_mask[:, None, None, :] > 0)
             mask_win = mask & (k_at > q_at - cfg.sliding_window) if cfg.sliding_window else mask
 
+        moe_aux = torch.zeros((), dtype=torch.float32, device=dev) if return_moe_aux else None
         for i in range(cfg.num_layers):
             layer_cache = kv_cache[f"layer_{i}"] if kv_cache is not None else None
             layer = getattr(self, f"layer_{i}")
@@ -638,10 +793,14 @@ class Decoder(nn.Module):
             layer_mask = mask_win if windowed else mask
             lcos, lsin = local if windowed and local is not None else (cos, sin)
             if remat and torch.is_grad_enabled():
-                hidden = checkpoint(layer, hidden, layer_mask, lcos, lsin, None, None, segment_mask,
-                                    use_reentrant=False)
+                hidden, aux = checkpoint(layer, hidden, layer_mask, lcos, lsin, None, None, segment_mask,
+                                         use_reentrant=False)
             else:
-                hidden = layer(hidden, layer_mask, lcos, lsin, layer_cache, cache_index, segment_mask)
+                hidden, aux = layer(hidden, layer_mask, lcos, lsin, layer_cache, cache_index, segment_mask)
+            if moe_aux is not None and aux is not None:
+                moe_aux = moe_aux + aux
+        if moe_aux is not None:
+            moe_aux = moe_aux / cfg.num_layers  # over every layer, dense ones included (decoder.py:1013)
         hidden = self.final_norm(hidden)
         if return_hidden:
             return hidden
@@ -654,5 +813,5 @@ class Decoder(nn.Module):
         if cfg.final_logit_softcap is not None:
             logits = _softcap(logits.float(), cfg.final_logit_softcap).to(cfg.dtype)
         if kv_cache is not None:
-            return logits, kv_cache
-        return logits
+            return (logits, kv_cache, moe_aux) if return_moe_aux else (logits, kv_cache)
+        return (logits, moe_aux) if return_moe_aux else logits

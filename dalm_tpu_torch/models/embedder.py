@@ -12,9 +12,10 @@ from typing import Union
 import torch
 from torch import nn
 
-from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
+from dalm_tpu_torch.models.decoder import DecoderConfig
 from dalm_tpu_torch.models.encoder import Encoder, EncoderConfig
 from dalm_tpu_torch.models.pooling import eos_pool, mean_pool_l2
+from dalm_tpu_torch.models.registry import build_decoder
 
 
 class SentenceEmbedder(nn.Module):
@@ -24,7 +25,7 @@ class SentenceEmbedder(nn.Module):
         self.config = config
         self.is_autoregressive = is_autoregressive
         self.normalize = normalize
-        self.module = Decoder(config, device=device) if is_autoregressive else Encoder(config, device=device)
+        self.module = build_decoder(config, device=device) if is_autoregressive else Encoder(config, device=device)
 
     @property
     def embedding_dim(self) -> int:

@@ -6,7 +6,11 @@ port's config and a parameter tree named as the flax one, so ``interop.load_para
 decoder families (Llama-2 / 3 / 3.1, Mistral, Phi-3 with its fused ``qkv_proj`` / ``gate_up_proj`` split, Qwen2 /
 2.5 / 3, Gemma / 2 / 3-text), with every rejection of the reference (``hf_loader.py:135-230``, ``:390``). torch
 ``nn.Linear`` stores (out, in); the kernels come out transposed to the flax (in, out) layout, every leaf in f32.
-The MoE, MLA and GPT-2 model types raise ``NotImplementedError`` naming the module they wait for.
+The MoE families stack their per-expert tensors into the block's (E, H, M) / (E, M, H) parameters
+(``hf_loader.py:495-530``): ``mixtral`` (``block_sparse_moe``, ``w1`` / ``w3`` / ``w2``), ``qwen3_moe`` (``mlp``,
+QK-norm; interleaved dense layers rejected) and ``deepseek_v3`` (MLA attention with q-LoRA or a direct ``q_proj``,
+the noaux-tc router and its ``e_score_correction_bias``, shared experts, ``first_k_dense_replace`` dense layers,
+YaRN with mscale / ``mscale_all_dim``; ``:221-270``). GPT-2 checkpoints load through ``models/gpt2.py``.
 
 ``safetensors`` files are read by this module's own reader, :class:`SafetensorsFile` (an 8-byte little-endian
 header length, a JSON header, raw little-endian tensors; BF16 through ``torch.frombuffer``), over a private
@@ -24,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import mmap
 import os
 import struct
@@ -36,9 +41,6 @@ logger = logging.getLogger(__name__)
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
               "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
               "BOOL": torch.bool}
-# HF model types of the families the port does not run yet, and the module each waits for.
-UNPORTED_MODEL_TYPES = {"mixtral": "models/moe.py", "qwen3_moe": "models/moe.py",
-                        "deepseek_v3": "models/moe.py and models/mla.py", "gpt2": "models/gpt2.py"}
 
 
 class SafetensorsFile:
@@ -118,8 +120,19 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel(t: torch.Tensor) -> torch.Tensor:
-    """A torch Linear weight (out, in) as a flax kernel (in, out), f32."""
-    return t.to(torch.float32).T.contiguous()
+    """A torch Linear weight (out, in) as a flax kernel (in, out), f32 (one pass: the cast writes the transpose)."""
+    return t.T.to(torch.float32, memory_format=torch.contiguous_format)
+
+
+def _stacked_kernels(state, names) -> torch.Tensor:
+    """Per-expert Linear weights (out, in) as one (E, in, out) f32 tensor, each cast and transposed into its slot."""
+    out = None
+    for j, name in enumerate(names):
+        t = state[name]
+        if out is None:
+            out = torch.empty((len(names), t.shape[1], t.shape[0]), dtype=torch.float32)
+        out[j].copy_(t.T)
+    return out
 
 
 def _set(tree: dict, path: tuple, value) -> None:
@@ -198,9 +211,6 @@ def hf_decoder_config(hf: dict, dtype=None):
     from dalm_tpu_torch.models.decoder import DecoderConfig
 
     model_type = hf.get("model_type") or ""
-    if model_type in UNPORTED_MODEL_TYPES:
-        raise NotImplementedError(
-            f"HF model_type {model_type!r} needs {UNPORTED_MODEL_TYPES[model_type]}, which is not ported yet")
     # A bare "gemma3" config is the multimodal wrapper (a vision tower, language_model.* weights).
     if model_type.startswith("gemma") and model_type not in ("gemma", "gemma2", "gemma3_text"):
         raise ValueError(
@@ -209,13 +219,27 @@ def hf_decoder_config(hf: dict, dtype=None):
     gemma_family = model_type in ("gemma", "gemma2", "gemma3_text")
     gemma3 = model_type == "gemma3_text"
     # Qwen3 gates all four attention projections (o_proj too) on attention_bias; this decoder biases q/k/v only.
-    if model_type == "qwen3" and hf.get("attention_bias"):
+    if model_type in ("qwen3", "qwen3_moe") and hf.get("attention_bias"):
         raise ValueError(f"{model_type} with attention_bias=true puts a bias on o_proj too, which this loader does "
                          "not map; no shipped checkpoint sets it")
+    # Qwen3-MoE can interleave dense MLP layers; this decoder makes every layer sparse when num_experts is set
+    if model_type == "qwen3_moe" and (hf.get("decoder_sparse_step", 1) != 1 or hf.get("mlp_only_layers")):
+        raise ValueError("qwen3_moe with decoder_sparse_step != 1 or non-empty mlp_only_layers interleaves dense MLP "
+                         "layers, which this decoder does not implement")
+    # deepseek_v3's experts count only when some layer is MoE (first_k_dense_replace below the depth)
+    ds_moe = (model_type == "deepseek_v3" and bool(hf.get("n_routed_experts"))
+              and hf.get("first_k_dense_replace", 0) < hf["num_hidden_layers"])
+    num_experts = {"mixtral": hf.get("num_local_experts"), "qwen3_moe": hf.get("num_experts"),
+                   "deepseek_v3": hf.get("n_routed_experts") if ds_moe else None}.get(model_type)
     if model_type == "phi3" and float(hf.get("partial_rotary_factor") or 1.0) != 1.0:
         raise ValueError("phi3 with partial_rotary_factor != 1.0 is not implemented (this decoder rotates the full "
                          "head_dim)")
-    rope_scaling_factor = rope_llama3 = None
+    rope_scaling_factor = rope_llama3 = rope_yarn = None
+    attn_scale_mult = 1.0
+    mla = model_type == "deepseek_v3"
+    if mla:
+        rope_yarn, attn_scale_mult = _deepseek_yarn(hf.get("rope_scaling"), hf)
+        hf = dict(hf, rope_scaling=None)  # consumed here, not by the generic branch
     if isinstance(hf.get("rope_scaling"), dict):
         rs = hf["rope_scaling"]
         rs_type = rs.get("rope_type", rs.get("type"))
@@ -262,10 +286,29 @@ def hf_decoder_config(hf: dict, dtype=None):
         final_logit_softcap=hf.get("final_logit_softcapping") if model_type == "gemma2" else None,
         post_norms=model_type in ("gemma2", "gemma3_text"),
         sliding_layers=sliding if gemma3 else ("even" if model_type == "gemma2" else "all"),
-        qk_norm=gemma3 or model_type == "qwen3",
+        qk_norm=gemma3 or model_type in ("qwen3", "qwen3_moe"),
         rope_local_theta=hf.get("rope_local_base_freq") if gemma3 else None,
         rope_scaling_factor=rope_scaling_factor,
         rope_llama3=rope_llama3,
+        # MoE: Mixtral always renormalises the top-k weights (no config key); Qwen3-MoE gates it on norm_topk_prob
+        num_experts=num_experts,
+        num_experts_per_tok=hf.get("num_experts_per_tok") or 2,
+        moe_intermediate_size=hf.get("moe_intermediate_size"),
+        norm_topk_prob=bool(hf.get("norm_topk_prob", True)),
+        q_lora_rank=hf.get("q_lora_rank") if mla else None,
+        kv_lora_rank=hf.get("kv_lora_rank") if mla else None,
+        qk_nope_head_dim=hf.get("qk_nope_head_dim") if mla else None,
+        qk_rope_head_dim=hf.get("qk_rope_head_dim") if mla else None,
+        v_head_dim=hf.get("v_head_dim") if mla else None,
+        rope_interleave=bool(hf.get("rope_interleave", True)) if mla else False,
+        rope_yarn=rope_yarn,
+        attn_scale_mult=attn_scale_mult,
+        moe_router="noaux_tc" if ds_moe else "softmax",
+        moe_n_group=hf.get("n_group") if ds_moe else None,
+        moe_topk_group=hf.get("topk_group") if ds_moe else None,
+        moe_routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)) if ds_moe else 1.0,
+        moe_n_shared_experts=int(hf.get("n_shared_experts") or 0) if ds_moe else 0,
+        moe_layer_start=int(hf.get("first_k_dense_replace", 0)) if ds_moe else 0,
     )
     if model_type == "gemma2" and hf.get("layer_types"):
         expected = ["sliding_attention" if i % 2 == 0 else "full_attention" for i in range(hf["num_hidden_layers"])]
@@ -277,37 +320,109 @@ def hf_decoder_config(hf: dict, dtype=None):
     return cfg
 
 
+def _deepseek_yarn(rs, hf: dict) -> tuple:
+    """deepseek_v3's ``rope_scaling`` -> (``rope_yarn`` or None, ``attn_scale_mult``) (``hf_loader.py:221-270``):
+    YaRN's attention factor is ``mscale / mscale_all_dim`` by DeepSeek's ``get_mscale`` unless given, and
+    ``mscale_all_dim`` also multiplies the softmax scale by ``get_mscale(factor, mscale_all_dim) ** 2``; other
+    types raise."""
+    if rs is None:
+        return None, 1.0
+    rs_type = rs.get("rope_type", rs.get("type")) if isinstance(rs, dict) else None
+    if rs_type != "yarn":
+        raise ValueError(f"deepseek_v3 rope_scaling type {rs_type!r} is not implemented (yarn and null are)")
+
+    def get_mscale(scale, ms=1.0):
+        return 1.0 if scale <= 1 else 0.1 * ms * math.log(scale) + 1.0
+
+    factor = float(rs["factor"])
+    af = rs.get("attention_factor")
+    msc, msc_all = rs.get("mscale"), rs.get("mscale_all_dim")
+    if af is None:
+        af = get_mscale(factor, msc) / get_mscale(factor, msc_all) if msc and msc_all else get_mscale(factor)
+    if not rs.get("truncate", True):
+        raise ValueError("yarn with truncate=false is not implemented")
+    yarn = (factor, float(rs.get("beta_fast") or 32), float(rs.get("beta_slow") or 1),
+            float(rs.get("original_max_position_embeddings") or hf.get("max_position_embeddings", 4096)), float(af))
+    mult = get_mscale(factor, float(msc_all)) ** 2 if msc_all else 1.0
+    return yarn, mult
+
+
+def _mla_leaves(cfg, hl: str, at: tuple, state):
+    """DeepSeek-V3's attention leaves; ``kv_b_proj`` is the raw (r, nh·(dn + dv)) parameter, no ``kernel`` node."""
+    sa = f"{hl}.self_attn"
+    names = [("kv_a_proj", "kv_a_proj_with_mqa", cfg.attention_bias), ("o_proj", "o_proj", cfg.attention_bias)]
+    if cfg.q_lora_rank:
+        names += [("q_a_proj", "q_a_proj", cfg.attention_bias), ("q_b_proj", "q_b_proj", False)]
+        yield at + ("q_a_norm", "scale"), lambda: _f32(state[f"{sa}.q_a_layernorm.weight"])
+    else:
+        names.append(("q_proj", "q_proj", False))
+    for ours, theirs, bias in names:
+        yield at + (ours, "kernel"), lambda theirs=theirs: _kernel(state[f"{sa}.{theirs}.weight"])
+        if bias:
+            yield at + (ours, "bias"), lambda theirs=theirs: _f32(state[f"{sa}.{theirs}.bias"])
+    yield at + ("kv_a_norm", "scale"), lambda: _f32(state[f"{sa}.kv_a_layernorm.weight"])
+    yield at + ("kv_b_proj",), lambda: _kernel(state[f"{sa}.kv_b_proj.weight"])
+
+
+def _moe_leaves(cfg, model_type: str, hl: str, state):
+    """An MoE layer's leaves: the router (H, E), the per-expert tensors stacked to (E, H, M) / (E, M, H), the
+    noaux-tc correction bias and the shared experts."""
+    base, names = (f"{hl}.block_sparse_moe", ("w1", "w3", "w2")) if model_type == "mixtral" else \
+        (f"{hl}.mlp", ("gate_proj", "up_proj", "down_proj"))
+    at = (hl.replace("model.layers.", "layer_"), "moe")
+    yield at + ("router",), lambda: _kernel(state[f"{base}.gate.weight"])
+    for ours, theirs in zip(("w_gate", "w_up", "w_down"), names):
+        yield at + (ours,), lambda theirs=theirs: _stacked_kernels(
+            state, [f"{base}.experts.{j}.{theirs}.weight" for j in range(cfg.num_experts)])
+    if cfg.moe_router == "noaux_tc":
+        yield at + ("e_score_correction_bias",), lambda: _f32(state[f"{base}.gate.e_score_correction_bias"])
+    if cfg.moe_n_shared_experts:
+        for ours, theirs in (("shared_gate", "gate_proj"), ("shared_up", "up_proj"), ("shared_down", "down_proj")):
+            yield at + (ours,), lambda theirs=theirs: _kernel(state[f"{base}.shared_experts.{theirs}.weight"])
+
+
+def _attention_leaves(cfg, model_type: str, hl: str, at: tuple, state):
+    """The dense families' attention leaves: q / k / v (Phi-3's fused ``qkv_proj`` split), o, the QK-norms."""
+    if model_type == "phi3":
+        # qkv_proj stacks [q; k; v] rows, gate_up_proj [gate; up] (HF Phi3Attention / Phi3MLP)
+        q_rows, kv_rows = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+        cuts = {"q_proj": (0, q_rows), "k_proj": (q_rows, q_rows + kv_rows),
+                "v_proj": (q_rows + kv_rows, q_rows + 2 * kv_rows)}
+        for name, (lo, hi) in cuts.items():
+            yield at + (name, "kernel"), lambda lo=lo, hi=hi: _kernel(state[f"{hl}.self_attn.qkv_proj.weight"][lo:hi])
+    else:
+        for name in ("q_proj", "k_proj", "v_proj"):
+            yield at + (name, "kernel"), lambda name=name: _kernel(state[f"{hl}.self_attn.{name}.weight"])
+            if cfg.attention_bias:
+                yield at + (name, "bias"), lambda name=name: _f32(state[f"{hl}.self_attn.{name}.bias"])
+    yield at + ("o_proj", "kernel"), lambda: _kernel(state[f"{hl}.self_attn.o_proj.weight"])
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            yield at + (name, "scale"), lambda name=name: _f32(state[f"{hl}.self_attn.{name}.weight"])
+
+
 def decoder_leaves(cfg, model_type: str, state) -> Iterator[Tuple[tuple, Callable[[], torch.Tensor]]]:
     """(flax path, reader) for every leaf of a decoder checkpoint: each reader returns that leaf as an f32 tensor
     when called, so a caller can hold one at a time."""
     yield ("embed_tokens", "embedding"), lambda: _f32(state["model.embed_tokens.weight"])
     for i in range(cfg.num_layers):
         hl, at = f"model.layers.{i}", (f"layer_{i}", "attention")
-        if model_type == "phi3":
-            # qkv_proj stacks [q; k; v] rows, gate_up_proj [gate; up] (HF Phi3Attention / Phi3MLP)
-            q_rows, kv_rows = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
-            cuts = {"q_proj": (0, q_rows), "k_proj": (q_rows, q_rows + kv_rows),
-                    "v_proj": (q_rows + kv_rows, q_rows + 2 * kv_rows)}
-            for name, (lo, hi) in cuts.items():
-                yield at + (name, "kernel"), lambda lo=lo, hi=hi: _kernel(state[f"{hl}.self_attn.qkv_proj.weight"][lo:hi])
+        if cfg.mla:
+            yield from _mla_leaves(cfg, hl, at, state)
         else:
-            for name in ("q_proj", "k_proj", "v_proj"):
-                yield at + (name, "kernel"), lambda name=name: _kernel(state[f"{hl}.self_attn.{name}.weight"])
-                if cfg.attention_bias:
-                    yield at + (name, "bias"), lambda name=name: _f32(state[f"{hl}.self_attn.{name}.bias"])
-        yield at + ("o_proj", "kernel"), lambda: _kernel(state[f"{hl}.self_attn.o_proj.weight"])
-        if cfg.qk_norm:
-            for name in ("q_norm", "k_norm"):
-                yield at + (name, "scale"), lambda name=name: _f32(state[f"{hl}.self_attn.{name}.weight"])
+            yield from _attention_leaves(cfg, model_type, hl, at, state)
         yield (f"layer_{i}", "input_norm", "scale"), lambda: _f32(state[f"{hl}.input_layernorm.weight"])
-        if model_type == "phi3":
-            m = cfg.intermediate_size
-            yield (f"layer_{i}", "gate_proj", "kernel"), lambda: _kernel(state[f"{hl}.mlp.gate_up_proj.weight"][:m])
-            yield (f"layer_{i}", "up_proj", "kernel"), lambda: _kernel(state[f"{hl}.mlp.gate_up_proj.weight"][m:])
+        if cfg.num_experts and i >= cfg.moe_layer_start:
+            yield from _moe_leaves(cfg, model_type, hl, state)
         else:
-            for name in ("gate_proj", "up_proj"):
-                yield (f"layer_{i}", name, "kernel"), lambda name=name: _kernel(state[f"{hl}.mlp.{name}.weight"])
-        yield (f"layer_{i}", "down_proj", "kernel"), lambda: _kernel(state[f"{hl}.mlp.down_proj.weight"])
+            if model_type == "phi3":
+                m = cfg.intermediate_size
+                yield (f"layer_{i}", "gate_proj", "kernel"), lambda: _kernel(state[f"{hl}.mlp.gate_up_proj.weight"][:m])
+                yield (f"layer_{i}", "up_proj", "kernel"), lambda: _kernel(state[f"{hl}.mlp.gate_up_proj.weight"][m:])
+            else:
+                for name in ("gate_proj", "up_proj"):
+                    yield (f"layer_{i}", name, "kernel"), lambda name=name: _kernel(state[f"{hl}.mlp.{name}.weight"])
+            yield (f"layer_{i}", "down_proj", "kernel"), lambda: _kernel(state[f"{hl}.mlp.down_proj.weight"])
         # Gemma2 / 3 sandwich norms: HF's post_attention_layernorm is the post-attention norm there, Llama's
         # pre-MLP norm elsewhere; the names in the tree follow the reference's.
         norms = ["post_attention_norm"] + (["pre_feedforward_norm", "post_feedforward_norm"] if cfg.post_norms else [])
@@ -321,7 +436,8 @@ def decoder_leaves(cfg, model_type: str, state) -> Iterator[Tuple[tuple, Callabl
 
 
 def load_hf_decoder(path: str, dtype=None):
-    """A dense-family HF decoder directory → (``DecoderConfig``, flax-named parameter tree of f32 tensors)."""
+    """An HF decoder directory (every family but GPT-2) → (``DecoderConfig``, flax-named parameter tree of f32
+    tensors)."""
     hf = read_hf_config(path)
     cfg = hf_decoder_config(hf, dtype)
     state = open_hf_state(path)

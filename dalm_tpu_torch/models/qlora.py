@@ -17,7 +17,7 @@ Two views of the same state:
   ``init_packed_on_device`` random-initialises a model built on the ``meta``
   device straight into packed storage, one leaf at a time, so a
   full-precision tree of a 7B model never exists;
-- an HF checkpoint: ``load_hf_decoder_packed`` streams a dense-family decoder into packed storage tensor by
+- an HF checkpoint: ``load_hf_decoder_packed`` streams a decoder (every family but GPT-2) into packed storage tensor by
   tensor (``dalm_tpu/models/qlora.py:310-363``).
 """
 
@@ -294,11 +294,13 @@ def init_packed_on_device(module: nn.Module, generator: torch.Generator, spec: O
 def load_hf_decoder_packed(path: str, spec: Optional[LoraSpec] = None, quantize: bool = True,
                            min_size: int = MIN_SIZE, generator: Optional[torch.Generator] = None,
                            dtype: torch.dtype = torch.bfloat16, device=None) -> Tuple[Any, dict, dict, Optional[dict]]:
-    """Stream a dense-family HF decoder checkpoint (``models/hf_loader.py``) into packed storage: every leaf is
-    read from the file (memory-mapped) as f32, packed if it is a 2-D kernel of ``min_size`` elements or more
-    (``quantize``: the reference's per-column int8, else bf16 ``w``), else cast to ``dtype``, moved to ``device`` and freed before the next is read, so the host holds one
-    full-precision tensor at a time. With ``spec``, its targets get factors ``a ~ N(0, 0.02) * alpha/r`` from
-    ``generator`` (its device's; seed 0 on the CPU when None) and ``b = 0``, in file order.
+    """Stream an HF decoder checkpoint (``models/hf_loader.py``, every family but GPT-2) into packed storage: every
+    leaf is read from the file (memory-mapped) as f32, packed if it is a 2-D kernel of ``min_size`` elements or more
+    (``quantize``: the reference's per-column int8, else bf16 ``w``), else cast to ``dtype``, moved to ``device``
+    and freed before the next is read, so the host holds one full-precision tensor at a time. The MoE experts, the
+    router and MLA's ``kv_b_proj`` are raw parameters, not ``kernel`` leaves: they stay unpacked, as in the
+    reference. With ``spec``, its targets get factors ``a ~ N(0, 0.02) * alpha/r`` from ``generator`` (its
+    device's; seed 0 on the CPU when None) and ``b = 0``, in file order.
     Returns (config, residual, quant, lora-or-None), the trees ``load_packed`` takes."""
     from dalm_tpu_torch.models import hf_loader
 

@@ -21,6 +21,7 @@ import torch
 from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig
 from dalm_tpu_torch.models.encoder import Encoder, EncoderConfig
 from dalm_tpu_torch.models.pooling import eos_pool, mean_pool_l2
+from dalm_tpu_torch.models.registry import build_decoder
 
 
 class Mode(str, enum.Enum):
@@ -46,7 +47,7 @@ class RagE2EModel:
         devices = device if isinstance(device, dict) else {"retriever": device, "generator": device}
         r_cls = Decoder if retriever_is_autoregressive else Encoder
         self.retriever = r_cls(retriever_config, device=devices["retriever"])
-        self.generator = Decoder(generator_config, device=devices["generator"])
+        self.generator = build_decoder(generator_config, device=devices["generator"])
 
     def embed_with(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                    dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:

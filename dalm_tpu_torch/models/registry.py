@@ -9,10 +9,10 @@ A model spec is a preset name (random init by the caller) or a directory:
 - written by the reference's ``save_pretrained``: ``config.json`` + flax's ``params.msgpack``, read by the port's
   own reader (``core/msgpack.py``); an int8 node (``{"__int8__": q, "scale": s}``) resolves the same way;
 - a Hugging Face checkpoint (``config.json`` + ``model.safetensors`` or ``pytorch_model.bin``), read by
-  ``models/hf_loader.py``: the dense decoder families by ``model_type`` (``registry.py:156-183``), BERT encoders.
+  ``models/hf_loader.py``: the decoder families by ``model_type`` (``registry.py:156-183``; ``gpt2`` through
+  ``models/gpt2.py:load_hf_gpt2``), BERT encoders.
 
-The reference's MoE, MLA and GPT-2 presets and model types raise ``NotImplementedError`` naming the module each
-waits for.
+A decoder config is a ``DecoderConfig`` or a ``GPT2Config``; :func:`build_decoder` makes the module of either.
 """
 
 from __future__ import annotations
@@ -26,8 +26,9 @@ import torch
 
 from dalm_tpu_torch.core.dtypes import DTYPE_NAMES, parse_dtype
 from dalm_tpu_torch.core.tree import flatten
-from dalm_tpu_torch.models.decoder import DecoderConfig, check_unported
+from dalm_tpu_torch.models.decoder import Decoder, DecoderConfig, check_unported
 from dalm_tpu_torch.models.encoder import EncoderConfig
+from dalm_tpu_torch.models.gpt2 import GPT2Config, GPT2Decoder, is_hf_gpt2, load_hf_gpt2
 
 STATE_FILE = "state_dict.pt"
 MSGPACK_FILE = "params.msgpack"
@@ -53,15 +54,26 @@ DECODER_PRESETS = {
     "gemma-2b": DecoderConfig.gemma_2b,
     "gemma2-2b": DecoderConfig.gemma2_2b,
     "gemma3-1b": DecoderConfig.gemma3_1b,
-}
-# The reference's other presets and the HF model types of those families, with the module each waits for.
-UNPORTED_PRESETS = {
-    "mixtral-8x7b": "models/moe.py", "mixtral-mini-4b": "models/moe.py", "qwen3-moe-30b": "models/moe.py",
-    "tiny-moe": "models/moe.py", "tiny-mla": "models/mla.py", "deepseek-v3-mini": "models/mla.py",
-    "deepseek-v3-mid-7b": "models/mla.py", "tiny-gpt2": "models/gpt2.py", "gpt2": "models/gpt2.py",
+    "mixtral-8x7b": DecoderConfig.mixtral_8x7b,
+    "mixtral-mini-4b": DecoderConfig.mixtral_mini_4b,
+    "qwen3-moe-30b": DecoderConfig.qwen3_moe_30b,
+    "tiny-moe": DecoderConfig.tiny_moe,
+    "tiny-mla": DecoderConfig.tiny_mla,
+    "deepseek-v3-mini": DecoderConfig.deepseek_v3_mini,
+    "deepseek-v3-mid-7b": DecoderConfig.deepseek_v3_mid_7b,
+    "tiny-gpt2": GPT2Config.tiny,
+    "gpt2": GPT2Config.gpt2_124m,
 }
 
-_CLASSES = {"EncoderConfig": EncoderConfig, "DecoderConfig": DecoderConfig}
+
+def build_decoder(cfg, device=None):
+    """Config type -> the matching decoder module (``registry.py:65-68``)."""
+    if isinstance(cfg, GPT2Config):
+        return GPT2Decoder(cfg, device=device)
+    return Decoder(cfg, device=device)
+
+
+_CLASSES = {"EncoderConfig": EncoderConfig, "DecoderConfig": DecoderConfig, "GPT2Config": GPT2Config}
 
 
 def config_to_json(cfg) -> dict:
@@ -75,8 +87,6 @@ def config_to_json(cfg) -> dict:
 def config_from_json(d: dict):
     d = dict(d)
     cls_name = d.pop("__class__")
-    if cls_name == "GPT2Config":
-        raise NotImplementedError("GPT2Config needs models/gpt2.py, which is not ported yet")
     if cls_name not in _CLASSES:
         raise ValueError(f"unknown config class {cls_name!r}")
     cls = _CLASSES[cls_name]
@@ -87,8 +97,8 @@ def config_from_json(d: dict):
     for k in ("dtype", "param_dtype"):
         if k in d:
             d[k] = parse_dtype(d[k])
-    # JSON gives the per-layer sliding pattern and the llama3 rope tuple back as lists
-    for k in ("sliding_layers", "rope_llama3"):
+    # JSON gives the per-layer sliding pattern and the llama3 / YaRN rope tuples back as lists
+    for k in ("sliding_layers", "rope_llama3", "rope_yarn"):
         if isinstance(d.get(k), list):
             d[k] = tuple(d[k])
     return cls(**d)
@@ -160,8 +170,6 @@ def _resolve(spec: str, presets: dict, kind: str, dtype, vocab_size):
         cfg, state = presets[spec](), None
         if vocab_size is not None:
             cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
-    elif spec in UNPORTED_PRESETS:
-        raise NotImplementedError(f"preset {spec!r} needs {UNPORTED_PRESETS[spec]}, which is not ported yet")
     elif _has(spec, STATE_FILE):
         cfg, state = load_pretrained(spec)
         state = dequantize_state(state)
@@ -172,6 +180,8 @@ def _resolve(spec: str, presets: dict, kind: str, dtype, vocab_size):
 
         if kind == "encoder":
             cfg, tree = hf_loader.load_hf_encoder(spec)
+        elif is_hf_gpt2(spec):
+            cfg, tree = load_hf_gpt2(spec)
         else:
             cfg, tree = hf_loader.load_hf_decoder(spec)
         state = tree_to_state(tree)
@@ -192,6 +202,6 @@ def resolve_encoder(spec: str, dtype=None, vocab_size: Optional[int] = None):
 
 def resolve_decoder(spec: str, dtype=None, vocab_size: Optional[int] = None):
     cfg, state = _resolve(spec, DECODER_PRESETS, "decoder", dtype, vocab_size)
-    if not isinstance(cfg, DecoderConfig):
-        raise ValueError(f"{spec!r} holds a {type(cfg).__name__}, not a DecoderConfig")
+    if not isinstance(cfg, (DecoderConfig, GPT2Config)):
+        raise ValueError(f"{spec!r} holds a {type(cfg).__name__}, not a DecoderConfig or GPT2Config")
     return cfg, state

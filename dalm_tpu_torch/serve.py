@@ -99,6 +99,8 @@ class RagPipeline:
         for name, m in (("retriever", retriever), ("generator", generator)):
             if next(m.parameters()).device != self.device:
                 raise ValueError(f"the {name} is not on {self.device}")
+        if kv_quant and not hasattr(generator.cfg, "kv_quant"):  # GPT-2 has no int8 cache (serve.py:86-89)
+            raise ValueError("kv_quant requires a models.decoder.Decoder generator")
         if quantize_generator:
             pack_module(generator, quantize=quantize_generator)
         if kv_quant:

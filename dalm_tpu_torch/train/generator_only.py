@@ -10,6 +10,8 @@
   ``W + (A @ B) * alpha / r`` and autograd gives dA, dB; or full-parameter
   training (``use_peft=False``);
 - AdamW (weight decay 0.05) with a cosine schedule and warm-up;
+- ``moe_aux_weight``: the MoE families' load-balancing value (the layer mean of
+  ``models/moe.py``'s aux) added to the loss, ``loss + w · aux``;
 - validation loss every ``eval_steps`` and at the end, a save per epoch and a
   ``final_checkpoint`` (``config.json`` + ``state_dict.pt`` + adapter files),
   JSON-lines metrics;
@@ -26,8 +28,9 @@ config and, as in the reference's trainer, not applied; ``setup_hook`` gets the
 :class:`SFTSetup` before the first step. Knobs of paths that are not ported
 yet raise ``NotImplementedError`` naming the knob: ``context_parallel``,
 ``cp_layout != "contiguous"``, ``pipeline_stages > 1``, ``pp_microbatches``,
-``pp_model_parallel``, ``moe_aux_weight > 0``, ``mesh``, ``streaming``,
-``local_dataset=False``. ``export_peft`` also writes the adapter in PEFT
+``pp_model_parallel``, ``mesh``, ``streaming``, ``local_dataset=False``. A
+GPT-2 model trains its full parameters (LoRA's ``q_proj`` / ``v_proj`` targets
+match none of its layers, so ``use_peft`` raises, as in the reference). ``export_peft`` also writes the adapter in PEFT
 layout (``models/hf_loader.py``) beside each save; ``profile_dir`` (the
 port's addition) writes a ``torch.profiler`` trace of steps
 ``[profile_start_step, profile_start_step + profile_num_steps)``.
@@ -54,7 +57,7 @@ from dalm_tpu_torch.losses.causal import causal_lm_loss
 from dalm_tpu_torch.models import lora as lora_mod
 from dalm_tpu_torch.models.decoder import Decoder
 from dalm_tpu_torch.models.hf_loader import export_peft_if_supported
-from dalm_tpu_torch.models.registry import resolve_decoder, save_pretrained
+from dalm_tpu_torch.models.registry import build_decoder, resolve_decoder, save_pretrained
 from dalm_tpu_torch.train.metrics import MetricsLogger, WindowedThroughput
 from dalm_tpu_torch.train.optim import make_optimizer
 from dalm_tpu_torch.train.state import TrainState
@@ -138,7 +141,6 @@ def train_generator(
         ("pipeline_stages", pipeline_stages, int(pipeline_stages) > 1),
         ("pp_microbatches", pp_microbatches, int(pp_microbatches) != 0),
         ("pp_model_parallel", pp_model_parallel, int(pp_model_parallel) != 1),
-        ("moe_aux_weight", moe_aux_weight, float(moe_aux_weight) > 0),
         ("mesh", mesh, mesh is not None),
         ("streaming", streaming, bool(streaming)),
         ("local_dataset", local_dataset, not local_dataset),
@@ -160,8 +162,10 @@ def train_generator(
         raise ValueError(
             f"model vocab_size {cfg.vocab_size} < tokenizer vocab {tok.vocab_size}: token ids would index "
             "out of bounds; use a tokenizer the checkpoint was built for")
-    cfg = dataclasses.replace(cfg, remat=bool(gradient_checkpointing))
-    if seq_length % 128 == 0:
+    field_names = {f.name for f in dataclasses.fields(cfg)}  # GPT-2's config has neither knob
+    if "remat" in field_names:
+        cfg = dataclasses.replace(cfg, remat=bool(gradient_checkpointing))
+    if seq_length % 128 == 0 and "attention_impl" in field_names:
         cfg = dataclasses.replace(cfg, attention_impl="flash")
     elif seq_length >= 1024:
         logger.warning(
@@ -195,7 +199,7 @@ def train_generator(
     total_steps = steps_per_epoch * num_train_epochs
 
     # ---- model: frozen base + merge-runtime factors, or every parameter ----
-    model = Decoder(cfg, device=dev)
+    model = build_decoder(cfg, device=dev)
     if init_state is None:
         model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     else:
@@ -227,6 +231,7 @@ def train_generator(
 
     noise_gen = torch.Generator(device=dev)
     alpha = float(neftune_noise_alpha)
+    moe_w = float(moe_aux_weight)
 
     def run_validation() -> float:
         if len(valid_blocks) == 0:
@@ -257,8 +262,13 @@ def train_generator(
             ids, mask = put(train_blocks[idx], train_masks[idx])
             noise_gen.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | completed)  # keyed per step
             profiler.maybe_start(completed)
-            logits = model.train_forward(ids, mask, neftune_alpha=alpha, noise_generator=noise_gen)
-            loss = causal_lm_loss(logits, ids, mask)
+            if moe_w > 0:  # loss + w * aux (generator_only.py:336-352)
+                logits, moe_aux = model.train_forward(ids, mask, neftune_alpha=alpha, noise_generator=noise_gen,
+                                                      return_moe_aux=True)
+                loss = causal_lm_loss(logits, ids, mask) + moe_w * moe_aux
+            else:
+                logits = model.train_forward(ids, mask, neftune_alpha=alpha, noise_generator=noise_gen)
+                loss = causal_lm_loss(logits, ids, mask)
             del logits
             loss.backward()
             state.apply_gradients()

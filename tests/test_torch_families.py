@@ -186,16 +186,18 @@ def test_preset_numbers_and_windows_match_jax(name):
 
 
 def test_unported_presets_and_knobs_raise_naming_their_module():
-    from dalm_tpu_torch.models.decoder import check_unported
+    """Every preset of the reference's registry resolves in the port to the reference's config (GPT-2's through
+    ``config_from_json``), the MoE and MLA knobs are taken, and only the ring's knobs still raise."""
+    from dalm_tpu_torch.models.decoder import UNPORTED_KNOBS, check_unported
 
-    for name, module in (("mixtral-8x7b", "moe"), ("tiny-mla", "mla"), ("gpt2", "gpt2")):
-        with pytest.raises(NotImplementedError, match=f"models/{module}.py"):
-            treg.resolve_decoder(name)
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        check_unported({"num_experts": 8})
-    with pytest.raises(NotImplementedError, match="models/mla.py"):
-        check_unported({"kv_lora_rank": 512})
-    assert set(jreg.DECODER_PRESETS) == set(treg.DECODER_PRESETS) | set(treg.UNPORTED_PRESETS)
+    assert set(jreg.DECODER_PRESETS) == set(treg.DECODER_PRESETS) and not hasattr(treg, "UNPORTED_PRESETS")
+    for name, make in jreg.DECODER_PRESETS.items():
+        assert treg.resolve_decoder(name)[0] == treg.config_from_json(jreg._config_to_json(make())), name
+    check_unported({"num_experts": 8, "kv_lora_rank": 512, "moe_router": "noaux_tc", "rope_yarn": [4, 32, 1, 64, 1]})
+    assert list(UNPORTED_KNOBS.values()) == [{"ring_axis": "model", "ring_layout": "contiguous"}]
+    for knob, value in (("ring_axis", "data"), ("ring_layout", "zigzag")):
+        with pytest.raises(NotImplementedError, match="ring_attention"):
+            check_unported({knob: value})
 
 
 def test_windowed_preset_through_the_decode_engine():

@@ -127,10 +127,12 @@ def test_greedy_generate_matches_jax_with_eos_mid_answer():
 def test_unported_decoder_knobs_raise():
     from dalm_tpu_torch.models.decoder import check_unported
 
-    # sliding windows are ported (tests/test_torch_families.py); the MoE knobs still raise, naming their module
+    # sliding windows are ported (tests/test_torch_families.py); so are the MoE knobs (tests/test_torch_moe.py):
+    # check_unported takes them and the decoder builds an MoE block
     assert Decoder(dataclasses.replace(DecoderConfig.tiny(), sliding_window=16)).cfg.layer_window(0) == 16
-    with pytest.raises(NotImplementedError):
-        check_unported({"num_experts": 8})
+    check_unported({"num_experts": 8})
+    moe = Decoder(dataclasses.replace(DecoderConfig.tiny(), num_experts=8)).layer_0.moe
+    assert tuple(moe.w_gate.shape) == (8, 64, 128) and not hasattr(moe, "e_score_correction_bias")
     # the int8 KV cache is ported (tests/test_torch_quant_serve.py): its cache holds int8 and scales
     cache = Decoder(dataclasses.replace(DecoderConfig.tiny(), kv_quant=True)).init_kv_cache(1, 4)["layer_0"]
     assert cache["k"].dtype == torch.int8 and cache["k_scale"].shape == (1, 4, 2)

@@ -490,8 +490,20 @@ SFT_UNPORTED = [
 ]
 
 
+# knobs ported since, each with the model it needs: the case asserts the knob is taken and changes the loss
+# (tests/test_torch_moe.py holds moe_aux_weight to the JAX trainer)
+SFT_PORTED = {"moe_aux_weight": "tiny-moe"}
+
+
 @pytest.mark.parametrize("knob,kw", SFT_UNPORTED, ids=[k for k, _ in SFT_UNPORTED])
 def test_sft_unported_knobs_raise_naming_the_knob(jsonl_path, knob, kw):
+    if knob in SFT_PORTED:
+        small = dict(device="cpu", output_dir=None, seq_length=128, per_device_train_batch_size=4,
+                     max_train_blocks=4, validation_split=0.3, lora_r=4, lora_alpha=8, num_warmup_steps=0)
+        on = train_generator(SFT_PORTED[knob], jsonl_path, **small, **{knob: 1.0})
+        off = train_generator(SFT_PORTED[knob], jsonl_path, **small)
+        assert np.isfinite(on["final_loss"]) and on["final_loss"] != off["final_loss"]
+        return
     with pytest.raises(NotImplementedError, match=knob):
         train_generator("tiny", jsonl_path, device="cpu", output_dir=None, **kw)
 
