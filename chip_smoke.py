@@ -44,9 +44,13 @@ Llama-2-13B, Mistral, Qwen2.5 / 3, Phi-3, Gemma / 2 / 3) at full width and 2 lay
 plain versions, a Llama-3.1-8B checkpoint written in the Hugging Face layout and read back, bge-large +
 Llama-3.1-8B int4 serving (``answer()`` and ``answer_continuous()``), and Gemma2-2B SFT at 8,192 tokens with every
 attention call on K4's head-dim-256 kernels; and the rest of the model families: Qwen3-30B-A3B (sparse MoE, 128
-experts) served at full width and depth in int4 with the int8 KV cache and trained with ``moe_aux_weight``,
+experts) served at full width (24 of its 48 layers) in int4 with the int8 KV cache and trained with ``moe_aux_weight``
+at full depth,
 deepseek-v3-mid-7b (MLA) served in int4 on its latent cache, and Mixtral, Qwen3-MoE, DeepSeek-V3 (MLA, noaux-tc MoE,
-YaRN) and GPT-2 in families-small.
+YaRN) and GPT-2 in families-small; and data generation: QA-gen with a Qwen2.5-7B writer, the reading-comprehension
+pipeline with a Mistral-7B writer (regex and LLM tasks, then SFT of Mistral-7B on them), both at full width and depth,
+and the CLI's ``qa-gen``. Depth cut to keep the whole within its time limit (``CUT_DEPTH``): eval-retriever's and the
+CLI's bge-large 12 of 24 layers, eval-rag's Llama-2-7B 16 and eval-ar's 8 of 32, serve-moe's Qwen3-30B-A3B 24 of 48.
 Fails (non-zero exit, no result line)
 without a CUDA device, without the repository beside it, or if any phase
 fails. ``--phases`` runs a subset while developing and prints no result line.
@@ -98,7 +102,7 @@ half the answers planted from the same generator's greedy output: exact match 0.
 Llama-2-7B retriever: ``evaluate_retriever`` over ``AR_ROWS`` rows with K3 at D 4096, ``train_retriever``,
 ``train_e2e`` with both towers on the W8A8 route and its int8 launches split by tower, a ``RagPipeline`` with an
 int4 generator), ``cli`` (``python3 -m dalm_tpu_torch.cli``: ``version``, every ``--help``, ``eval-retriever``
-equal to the in-process call);
+and ``qa-gen --device cuda`` at tiny, each equal to the in-process call);
 ``families-small`` (the ten new presets at full width and 2 layers: the flash forward against K4's plain version,
 the cached decode against the full forward, int4 on K5 against x @ dequant(W), K4 at head dim 256 on QK-normed q / k
 with window 512; a 2-layer Llama-3.1-8B written as ``config.json`` + ``model.safetensors`` and read back through
@@ -107,12 +111,18 @@ Llama-3.1-8B int4 + int8 KV cache: ``answer()`` with K5 launches by route and sh
 weight-read bound, the cache against Llama-2-7B's, ``answer_continuous()`` token for token), ``sft-gemma2``
 (``train_generator("gemma2-2b", ...)`` at 8,192 tokens, 3 steps: K4's D-256 launches, every one on the wgmma
 route, held to 26 layers x (2 forwards + 1 backward) a step), ``serve-moe`` (bge-large + Qwen3-30B-A3B int4 + int8 KV
-cache at full width and depth: ``answer()``, the decode step against the weights it streams, ``answer_continuous()``
+cache at full width, 24 of its 48 layers: ``answer()``, the decode step against the weights it streams, ``answer_continuous()``
 token for token, the peak memory; one MoE layer over 2,048 tokens, the indexed dispatch against the dense formula),
 ``serve-mla`` (bge-large + deepseek-v3-mid-7b int4 on the latent cache, the same measurements, the cache against
 Llama-2-7B's int8 one), ``sft-moe`` (``train_generator("qwen3-moe-30b", moe_aux_weight=0.001, ...)`` at 2,048
 tokens, 3 steps: K4's D-128 launches held to 48 layers x (2 forwards + 1 backward) a step, the aux value beside each
-loss); families-small also runs Mixtral-8x7B, Qwen3-30B-A3B, deepseek-v3-mini / mid-7b at 2 layers, DeepSeek-V3 at
+loss), ``datagen-small`` (``TorchTextGenerator("tiny")`` and ``pipeline(SynthMode.BOTH)`` with a scripted writer,
+the card against the CPU), ``qa-gen`` (``generate_qa_from_disk`` with ``TorchTextGenerator("qwen2.5-7b")``: the
+decode step against the weight-read bound, first tokens against the uncached argmax, the CSVs against the filtered
+questions), ``rc-pipeline`` (``pipeline("mistral-7b", SynthMode.BOTH)``: 6 LLM chunks, the regex rows, SFT at 2,560
+tokens in the preset's f32 compute, K4's launches on the route ``fwd_route`` gives held to 32 layers x (2 forwards +
+1 backward) a step, the state file, each chunk's JSON, the rows against the regex and extracted conversations);
+families-small also runs Mixtral-8x7B, Qwen3-30B-A3B, deepseek-v3-mini / mid-7b at 2 layers, DeepSeek-V3 at
 its own width (2 layers, one noaux-tc MoE layer) and GPT-2 whole, the MoE rows' expert choices replayed between the
 two sides of each comparison (``RouteReplay``), and reads back HF checkpoints of ``mixtral``, ``qwen3_moe``,
 ``deepseek_v3`` and ``gpt2`` bit for bit; ``k4`` also times the D-256 kernels (the wgmma route
@@ -138,7 +148,9 @@ head-dim-256 forward, dq and dk/dv on the wgmma route (``k4_fwd_d256_wgmma``, ``
 ``k4_bwd_dkv_d256_wgmma``, launched by sft-gemma2) and the mma.sync instances that route replaced (``k4_fwd_d256``,
 ``k4_bwd_dq_d256``, ``k4_bwd_dkv_d256``, no launch there);
 K5 base and K3 also carry ``launches_serve_llama31``, ``launches_serve_moe`` and ``launches_serve_mla``, K4's D-128
-wgmma kernels and dsum ``launches_sft_moe``), each with its launches in its
+wgmma kernels and dsum ``launches_sft_moe``; the pipeline's SFT computes in f32, on K4's mma.sync route, and
+rc-pipeline holds and times those f32 instances at its own geometry (``k4_fwd[f32]``, ``k4_bwd_dq[f32]``,
+``k4_bwd_dkv[f32]``, ``k4_dsum[f32]``, whose main path it is), each with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven; K3's f32
@@ -177,6 +189,7 @@ import contextlib
 import gc
 import json
 import re
+import shutil
 import string
 import subprocess
 import sys
@@ -900,15 +913,17 @@ def k4_inputs(gen, device, dtype, B, H, Hk, Sq, Sk, D, seg):
     return q, k, v, do, seg_q, seg_k
 
 
-def k4_ops_bytes(B, H, Hk, Sq, Sk, D, esize, q_offset, causal):
+def k4_ops_bytes(B, H, Hk, Sq, Sk, D, esize, q_offset, causal, vis=None):
     """The work the kernels NEED on these inputs: the visible share of the (Sq, Sk) scores times
     2 Sq Sk D per product (forward 2 products, either route; dq 3: s, dp, dq; dk/dv 4: s, dp, dv, dk),
     and each input read and output written once; dsum 2 D f32 operations a row (CUDA cores) against do
-    and out read and dsum written."""
-    vis = 1.0
-    if causal:
-        rows = [min(max(q_offset + i + 1, 0), Sk) for i in range(Sq)]
-        vis = sum(rows) / float(Sq * Sk)
+    and out read and dsum written. ``vis``: the visible share where segments or a window set it (else the
+    causal triangle's)."""
+    if vis is None:
+        vis = 1.0
+        if causal:
+            rows = [min(max(q_offset + i + 1, 0), Sk) for i in range(Sq)]
+            vis = sum(rows) / float(Sq * Sk)
     prod = 2.0 * B * H * Sq * Sk * D * vis
     qb, kb, stat = B * H * Sq * D * esize, B * Hk * Sk * D * esize, B * H * Sq * 4
     fwd = (2 * prod, 2 * qb + 2 * kb + stat)
@@ -1043,6 +1058,120 @@ def k4_time(gen, device, peaks, B, S, label, iters):
           f"its bound ({tol['out']} x max(row max, {K4_FLOOR}))", flush=True)
     torch.cuda.empty_cache()
     return entries
+
+
+# K4's f32 instances (csrc/flash_attention.cu's mma.sync route: the products in exact f32 on the CUDA cores) by
+# their kernels-line entry: the mma.sync entry of the same kernel, whose C entry point, source and counter they share.
+K4_F32 = {"k4_fwd[f32]": "k4_fwd", "k4_bwd_dq[f32]": "k4_bwd_dq", "k4_bwd_dkv[f32]": "k4_bwd_dkv",
+          "k4_dsum[f32]": "k4_dsum"}
+
+
+def k4_f32_time(gen, device, peaks, geo, label, iters):
+    """K4's f32 instances at a main path's own geometry ``geo`` (the shapes, segment ids, scale, window and softcap
+    of the path's first attention call): random f32 q, k, v, do at those shapes through ``flash_fwd`` /
+    ``flash_bwd`` on the mma.sync route, held to the plain versions at ``K4_TOL["float32"]`` (the dsum pre-pass to
+    1e-5 of its row's sum of |do out|); then the forward, dq, dk/dv and dsum each timed through its C entry point
+    against the plain version, one library call (SDPA in f32 with the same boolean mask, k and v repeated to the
+    query heads outside the timing: its forward, and its backward for the three gradients) and the bound at the f32
+    CUDA-core peak, the work counted over the (query, key) pairs this run's segments leave visible. Returns the
+    kernels-line records by ``K4_F32`` name."""
+    import torch
+    import torch.nn.functional as F
+
+    from dalm_tpu_torch.kernels import flash_attention as fa
+
+    B, S, H, D = geo["q"]
+    Hk = geo["k"][2]
+    seg = None if geo["seg"] is None else geo["seg"].to(torch.int32).contiguous()
+    q, k, v, do, _, _ = k4_inputs(gen, device, torch.float32, B, H, Hk, S, S, D, None)
+    kw = dict(causal=geo["causal"], scale=geo["scale"], window=geo["window"], softcap=geo["softcap"])
+    check(fa.fwd_route(q.dtype, D) == "mma", "k4 f32: float32 must take the mma.sync route")
+    fwd_before, bwd_before = dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes)
+    out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
+    check(fa.flash_fwd.routes == dict(fwd_before, mma=fwd_before["mma"] + 1)
+          and fa.flash_bwd.routes == dict(bwd_before, mma=bwd_before["mma"] + 1),
+          f"k4 {label}: the forward or the backward did not take the mma.sync route")
+    dims = fa._check("time", q, k, v, seg, seg, kw["window"], kw["softcap"])
+
+    def block(**tensors):
+        return fa._args(q, k, v, seg, seg, kw["causal"], kw["scale"], 0, kw["window"], kw["softcap"], dims, **tensors)
+
+    dsum = torch.empty_like(lse)
+    fwd_b = block(out=torch.empty_like(out), lse=torch.empty_like(lse))
+    bwd_b = block(out=out, dout=do, lse=lse, dsum=dsum, dq=torch.empty_like(dq), dk=torch.empty_like(dk),
+                  dv=torch.empty_like(dv))
+    fa._launch("dalm_fa_dsum", "dsum", bwd_b, q)
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
+    rsum = fa.dsum_ref(do, out)
+    torch.cuda.synchronize()
+    tol = K4_TOL["float32"]
+    K4_SHARE[0] = 0.0
+    sum_err = (dsum - rsum).abs()
+    check(bool((sum_err <= 1e-5 * (do * out).abs().sum(dim=-1)).all()),
+          f"k4 {label}: the dsum pre-pass is more than 1e-5 of its row's sum of |do out| from the plain version")
+    errs = {"k4_fwd[f32]": max(k4_err(out, ro, tol["out"], f"{label} out"),
+                               k4_err(lse, rl, tol["lse"], f"{label} lse")),
+            "k4_bwd_dq[f32]": k4_err(dq, rq, tol["grad"], f"{label} dq"),
+            "k4_bwd_dkv[f32]": max(k4_err(dk, rk, tol["grad"], f"{label} dk"),
+                                   k4_err(dv, rv, tol["grad"], f"{label} dv")),
+            "k4_dsum[f32]": float(sum_err.max())}
+    share = K4_SHARE[0]
+    del ro, rl, rq, rk, rv, rsum
+
+    blocks = {"k4_fwd[f32]": fwd_b, "k4_bwd_dq[f32]": bwd_b, "k4_bwd_dkv[f32]": bwd_b, "k4_dsum[f32]": bwd_b}
+    ms = {}
+    for name, base in K4_F32.items():
+        entry, _, counter = K4_ENTRY[base]
+        a = blocks[name]
+        ms[name] = cuda_ms(lambda: fa._launch(entry, counter, a, q), iters)
+    plain_f = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, seg, seg, **kw), 2)
+    plain_b = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw), 2)
+    plain_dsum = cuda_ms(lambda: fa.dsum_ref(do, out), iters)
+
+    keep = fa._keep_mask(S, S, seg, seg, kw["causal"], 0, kw["window"], device)
+    vis = float(keep.float().mean()) if keep is not None else 1.0
+    lib_f = lib_b = None
+    if kw["softcap"] is None:  # SDPA has no softcap
+        mask = keep.reshape(keep.shape[0], 1, S, S) if keep is not None else None
+        kx, vx = (t.repeat_interleave(H // Hk, dim=1) for t in (k, v))
+        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask, scale=kw["scale"]), iters)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, kx, vx))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=kw["scale"])
+        lib_b = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), iters)
+        del lib_out, ql, kl, vl, kx, vx, mask
+    lib_dsum = cuda_ms(lambda: (do * out).sum(dim=-1), iters)
+    work = k4_ops_bytes(B, H, Hk, S, S, D, 4, 0, kw["causal"], vis=vis)
+    records = {}
+    for name, base in K4_F32.items():
+        ops, nbytes = work[base]
+        t_ops, t_bytes = ops / peaks[1] * 1e3, nbytes / peaks[0] * 1e3
+        fwd, dsum_k = name == "k4_fwd[f32]", name == "k4_dsum[f32]"
+        records[name] = {
+            "name": name, "route": "cuda", "source": K4_ENTRY[base][1], "replaces": K4_AT[base], "case": label,
+            "max_abs_err": errs[name], "ms": ms[name],
+            "plain_ms": plain_f if fwd else plain_dsum if dsum_k else plain_b,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_f if fwd else lib_dsum if dsum_k else lib_b,
+            "library_is": "SDPA forward, f32, boolean mask" if fwd else (
+                "(do * out).sum(dim=-1), the expression the wrapper used before the pre-pass" if dsum_k else
+                "SDPA backward, f32, boolean mask: dq, dk and dv in one call, the work of dq + dk/dv + dsum together"),
+            "tflops": ops / ms[name] / 1e9, "visible_share": vis,
+        }
+    r = records
+    print(f"[k4] {label}: f32 on the mma.sync route, visible share {vis:.4f}: forward {ms['k4_fwd[f32]']:.3f} ms "
+          f"({r['k4_fwd[f32]']['tflops']:.1f} TFLOP/s, bound {r['k4_fwd[f32]']['bound_ms']:.3f} ms "
+          f"{r['k4_fwd[f32]']['bound_by']}), dq {ms['k4_bwd_dq[f32]']:.3f} ms (bound "
+          f"{r['k4_bwd_dq[f32]']['bound_ms']:.3f}), dk/dv {ms['k4_bwd_dkv[f32]']:.3f} ms (bound "
+          f"{r['k4_bwd_dkv[f32]']['bound_ms']:.3f}), dsum {ms['k4_dsum[f32]']:.4f} ms (bound "
+          f"{r['k4_dsum[f32]']['bound_ms']:.4f}, {r['k4_dsum[f32]']['bound_by']}); plain forward {plain_f:.3f} ms, "
+          f"backward {plain_b:.3f} ms, dsum {plain_dsum:.4f} ms; SDPA forward {lib_f} ms, backward {lib_b} ms, the "
+          f"dsum expression {lib_dsum:.4f} ms; max errors {errs}, the worst row at {share:.3f} of its bound "
+          f"({tol} x max(row max, {K4_FLOOR}))", flush=True)
+    del q, k, v, do, out, lse, dq, dk, dv, keep
+    torch.cuda.empty_cache()
+    return records
 
 
 def k4_err(got, want, tol, what) -> float:
@@ -4219,10 +4348,14 @@ def serve_phase(device, rng, peaks, kernels):
     return pipe
 
 
-# The preset each eval phase cuts and the layers it keeps (bge-large has 24, Llama-2-7B 32), so that the whole
-# script stays within its time limit beside the MoE / MLA phases: a cut of depth, as the widths, shapes, kernels and
-# metrics these phases check do not depend on it (PERF.md §4)
-EVAL_DEPTH = {"eval-rag": ("decoder", "llama2-7b", 16), "eval-ar": ("decoder", "llama2-7b", 8)}
+# The preset each of these phases cuts and the layers it keeps (bge-large has 24, Llama-2-7B 32, Qwen3-30B-A3B 48), so
+# that the whole script stays within its time limit beside the later phases: a cut of depth, as the widths, shapes,
+# kernels and metrics these phases check do not depend on it. eval-rag and eval-ar since a whole run of 1,195.1 s,
+# eval-retriever and the CLI's eval since one of 1,106.2 s with the data-generation phases, serve-moe since one of
+# 1,146.7 s with it whole and the CLI's processes already at once (PERF.md §4).
+CUT_DEPTH = {"eval-rag": ("decoder", "llama2-7b", 16), "eval-ar": ("decoder", "llama2-7b", 8),
+             "eval-retriever": ("encoder", "bge-large", 12), "cli": ("encoder", "bge-large", 12),
+             "serve-moe": ("decoder", "qwen3-moe-30b", 24)}
 EVAL_ROWS = 65536  # eval-retriever's f32 run: its rows are its queries, their unique passages its index
 EVAL_Q_ROWS = 16384  # the int8 / int4 runs' and the CLI's rows
 EVAL_DUPS = 64  # rows that repeat an earlier passage
@@ -4232,12 +4365,12 @@ AR_ROWS = 4096  # eval-ar (a)
 
 @contextlib.contextmanager
 def cut_depth(phase):
-    """``EVAL_DEPTH[phase]``'s preset cut to its layers while the block runs, for every entry point that resolves it."""
+    """``CUT_DEPTH[phase]``'s preset cut to its layers while the block runs, for every entry point that resolves it."""
     import dataclasses
 
     from dalm_tpu_torch.models import registry
 
-    kind, name, layers = EVAL_DEPTH[phase]
+    kind, name, layers = CUT_DEPTH[phase]
     presets = registry.ENCODER_PRESETS if kind == "encoder" else registry.DECODER_PRESETS
     make = presets[name]
     presets[name] = lambda: dataclasses.replace(make(), num_layers=layers)
@@ -4462,7 +4595,7 @@ def eval_rag_phase(device, smi):
     same retrieval (the eval's own helpers, batch sizes and K3) gives each query's top-1 passage, the same
     generator (llama2-7b from seed 0) answers its prompt greedily in the same 16-prompt batches, and every second
     row's answer is set to that text; ``exact_match`` must then read 0.5, and the prompts the eval generates from
-    must be those. main() runs it with llama2-7b cut to ``EVAL_DEPTH["eval-rag"]``'s layers. Returns (K3
+    must be those. main() runs it with llama2-7b cut to ``CUT_DEPTH["eval-rag"]``'s layers. Returns (K3
     launches, numbers)."""
     import gc
 
@@ -4605,7 +4738,7 @@ def eval_ar_phase(device, workdir, peaks, smi):
     K1 / the calibrated route's launches split by tower;
     (d) ``RagPipeline.from_pretrained("llama2-7b", "llama2-7b", 4,096 passages, retriever_is_autoregressive=True,
     quantize_generator="int4")``: one ``answer()`` of 32 queries, its retrieval held against the plain top-k.
-    main() runs it with llama2-7b cut to ``EVAL_DEPTH["eval-ar"]``'s layers (its width, 4096, is what K3 at
+    main() runs it with llama2-7b cut to ``CUT_DEPTH["eval-ar"]``'s layers (its width, 4096, is what K3 at
     D 4096 and the towers' routes check). Returns ({phase part: launches}, K3's record at D 4096, numbers)."""
     import gc
 
@@ -4760,12 +4893,17 @@ def cli_phase(device, workdir, smi):
     10 --test-batch-size 256`` over ``EVAL_Q_ROWS`` rows, the module run as ``__main__`` in a process that then
     writes K3's launch counts to its stderr as JSON. That count must be one launch a query batch, on f32 rows; the
     last stdout line must parse as ``EvalResults`` and equal the in-process ``evaluate_retriever`` on the same file.
-    Returns (K3 launches in the CLI's process, numbers)."""
+    Then ``qa-gen <csv> --device cuda`` at tiny: its two CSVs equal, byte for byte, to the in-process
+    ``generate_qa_from_disk`` on the same seeded file. The four processes run at once (each spends most of its time
+    starting), beside the in-process calls. main() runs it under ``cut_depth("cli")``, and the CLI's eval-retriever
+    process cuts bge-large the same way. Returns (K3 launches in the CLI's process, numbers)."""
     import csv
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     import torch
 
+    from dalm_tpu_torch.data.qa_gen import generate_qa_from_disk
     from dalm_tpu_torch.eval.results import EvalResults
     from dalm_tpu_torch.eval.retriever import evaluate_retriever
 
@@ -4792,32 +4930,53 @@ def cli_phase(device, workdir, smi):
                 "except SystemExit as e:\n"
                 "    assert e.code in (0, None), (sys.argv, e.code)\n" + after)
 
-    stdout, _, version_s = run(["-m", "dalm_tpu_torch.cli", "version"], 120)
-    check("version: 0.1.0" in stdout, f"cli: version printed {stdout!r}")
     commands = ("version", "train-rag-e2e", "train-retriever-only", "train-generator", "qa-gen", "eval-retriever",
                 "eval-rag", "serve")
     code = "".join(as_main(argv) for argv in [["--help"]] + [[c, "--help"] for c in commands])
-    stdout, _, help_s = run(["-c", code], 120)
-    for c in commands:
-        check(f"usage: dalm-torch {c}" in stdout, f"cli: no --help for {c}")
     counted = ("from dalm_tpu_torch.kernels.topk import fused_dot_topk\n"
                "print('K3 ' + json.dumps(fused_dot_topk.launches), file=sys.stderr)\n")
-    stdout, stderr, eval_s = run(["-c", as_main(["eval-retriever", path, "bge-large", "--top-k", "10",
-                                                 "--test-batch-size", "256"], counted)], 600)
-    line = stdout.strip().splitlines()[-1]
+    _, name, layers = CUT_DEPTH["cli"]  # the cut main() applies here, applied in the CLI's process too
+    cut = ("import dataclasses\nfrom dalm_tpu_torch.models import registry\n"
+           f"_make = registry.ENCODER_PRESETS[{name!r}]\n"
+           f"registry.ENCODER_PRESETS[{name!r}] = lambda: dataclasses.replace(_make(), num_layers={layers})\n")
+    qa_path = qa_csv(Path(workdir) / "cli_qa.csv", np.random.default_rng(29))
+    with ThreadPoolExecutor(4) as pool:
+        version = pool.submit(run, ["-m", "dalm_tpu_torch.cli", "version"], 120)
+        helps = pool.submit(run, ["-c", code], 120)
+        evals = pool.submit(run, ["-c", cut + as_main(["eval-retriever", path, "bge-large", "--top-k", "10",
+                                                        "--test-batch-size", "256"], counted)], 600)
+        # qa-gen at tiny (random init from seed 0 on the card, in the CLI's process as in this one)
+        qa = pool.submit(run, ["-m", "dalm_tpu_torch.cli", "qa-gen", qa_path, "--sample-size", "16", "--batch-size",
+                               "8", "--output-dir", str(Path(workdir) / "cli_qa"), "--device", "cuda"], 300)
+        want = evaluate_retriever(path, "bge-large", top_k=10, test_batch_size=256, device=device)
+        generate_qa_from_disk(qa_path, "Abstract", "Title", 16, 8, str(Path(workdir) / "cli_qa_call"), True,
+                              model_spec="tiny", device=device)
+        torch.cuda.synchronize()
+        (stdout, _, version_s), (helped, _, help_s) = version.result(), helps.result()
+        (evaled, stderr, eval_s), (qa_out, _, qa_s) = evals.result(), qa.result()
+    check("version: 0.1.0" in stdout, f"cli: version printed {stdout!r}")
+    for c in commands:
+        check(f"usage: dalm-torch {c}" in helped, f"cli: no --help for {c}")
+    line = evaled.strip().splitlines()[-1]
     got = EvalResults(**json.loads(line))
     launches = json.loads([x for x in stderr.splitlines() if x.startswith("K3 ")][-1][3:])
     batches = -(-EVAL_Q_ROWS // 256)
     check(launches["f32"] == sum(launches.values()) == batches,
           f"cli: the CLI's process launched K3 {launches}, not once on f32 rows for each of {batches} query batches")
-    want = evaluate_retriever(path, "bge-large", top_k=10, test_batch_size=256, device=device)
-    torch.cuda.synchronize()
     check(got == want and line == want.model_dump_json(), f"cli: eval-retriever printed {line}, in process {want}")
-    out = dict(version_s=version_s, help_s=help_s, eval_s=eval_s, results=json.loads(line), launches=launches)
+    check(qa_out.strip().splitlines()[-1] == "qa-gen done", f"cli: qa-gen printed {qa_out[-500:]!r}")
+    for split in ("train", "test"):
+        name = f"question_answer_pairs_{split}.csv"
+        check((Path(workdir) / "cli_qa" / name).read_bytes() == (Path(workdir) / "cli_qa_call" / name).read_bytes(),
+              f"cli: qa-gen's {name} differs from the in-process generate_qa_from_disk's")
+    out = dict(version_s=version_s, help_s=help_s, eval_s=eval_s, results=json.loads(line), launches=launches,
+               qa_gen_s=qa_s)
     print(f"[cli] python3 -m dalm_tpu_torch.cli ({smi}): version {version_s:.2f} s; --help of the program and its "
           f"{len(commands)} commands {help_s:.2f} s; eval-retriever over {EVAL_Q_ROWS} rows {eval_s:.2f} s (process "
           f"start included), K3 launches in its process {launches}; last line {line} = the in-process "
-          f"evaluate_retriever on the same file", flush=True)
+          f"evaluate_retriever on the same file; qa-gen --device cuda at tiny over {QA_ROWS} passages {qa_s:.2f} s, "
+          f"its two CSVs equal to the in-process generate_qa_from_disk's; the four processes at once, beside the "
+          f"in-process calls", flush=True)
     print(json.dumps({"cli": out}), flush=True)
     return launches, out
 
@@ -5726,18 +5885,19 @@ def serve_family_phase(tag, preset, device, passages, peaks, smi, kv_quant):
 
 
 def serve_moe_phase(device, passages, peaks, smi):
-    """serve-moe: Qwen3-30B-A3B (48 layers, 128 experts, top-8, hidden 2048, vocab 151,936) served at full width
-    and depth, packed to int4 (attention and head; the experts stay bf16, as the reference packs only 2-D kernels)
-    with the int8 KV cache; then one of its MoE layers at full width over 2,048 tokens, the indexed dispatch held
-    against the dense formula."""
+    """serve-moe: Qwen3-30B-A3B (128 experts, top-8, hidden 2048, vocab 151,936) served at full width, its 48 layers
+    cut to ``CUT_DEPTH["serve-moe"]``'s by main(), packed to int4 (attention and head; the experts stay bf16, as the
+    reference packs only 2-D kernels) with the int8 KV cache; then one of its MoE layers at full width over 2,048
+    tokens, the indexed dispatch held against the dense formula."""
     import torch
 
     from dalm_tpu_torch.models.moe import DENSE_ALL_TOKENS
 
     launches, out, pipe, _ = serve_family_phase("serve-moe", "qwen3-moe-30b", device, passages, peaks, smi, True)
     g = pipe.generator
-    check(g.cfg.num_experts == 128 and g.cfg.num_experts_per_tok == 8 and g.cfg.num_layers == 48
-          and all(hasattr(getattr(g, f"layer_{i}"), "moe") for i in range(48)), f"serve-moe: config {g.cfg}")
+    layers = CUT_DEPTH["serve-moe"][2]
+    check(g.cfg.num_experts == 128 and g.cfg.num_experts_per_tok == 8 and g.cfg.num_layers == layers
+          and all(hasattr(getattr(g, f"layer_{i}"), "moe") for i in range(layers)), f"serve-moe: config {g.cfg}")
     out["moe_layer"] = moe_layer_check(g.layer_0.moe, device)
     m = out["moe_layer"]
     print(f"[serve-moe] one MoE layer at full width over {m['tokens']} tokens: indexed dispatch against the dense "
@@ -5854,6 +6014,531 @@ def sft_moe_phase(device, workdir, smi, steps=3):
             "k4_bwd_dkv_wgmma": bwd_routes["wgmma"], "k4_dsum": launches["dsum"]}, res
 
 
+# --------------------------------------------------------------------------
+# Data generation: datagen-small, qa-gen, rc-pipeline
+# --------------------------------------------------------------------------
+
+WB = "▁"  # sentencepiece's word-boundary marker
+RC_WORDS = ("the cell stack panel layer module array circuit wafer film contact junction emitter substrate current "
+            "voltage output yield loss efficiency temperature").split()
+RC_KEYWORDS = ("photovoltaic", "heterojunction", "passivation", "recombination", "encapsulation", "interconnection",
+               "electroluminescence", "thermoregulation", "metallization", "antireflective")
+RC_GENERAL = [WB + w for w in "the of and a to in is was for on with".split()]
+RC_DOMAIN = RC_GENERAL + [WB + k for k in RC_KEYWORDS]
+RC_DOCS = 3  # rc-pipeline's documents: 6 LLM chunks of 400 bytes, 2 train blocks + 1 validation block of 2,560 tokens
+QA_ROWS, QA_TITLES = 16, 8
+
+
+def spm_model_bytes(pieces) -> bytes:
+    """A sentencepiece ``ModelProto`` in protobuf wire format: field 1 a ``SentencePiece`` (piece, score, type) for
+    each piece, then a ``trainer_spec`` (field 2, with a varint and a 64-bit field) and a ``normalizer_spec`` (field
+    3), which a reader must skip. The card's machine has no ``tokenizers`` or ``sentencepiece`` package, and nothing is
+    downloaded: the phases (and the CPU tests) write their vocabulary files with this."""
+    import struct
+
+    def varint(n):
+        out = b""
+        while True:
+            b, n = n & 0x7F, n >> 7
+            out += bytes([b | (0x80 if n else 0)])
+            if not n:
+                return out
+
+    out = b""
+    for i, p in enumerate(pieces):
+        pb = p.encode("utf-8")
+        sub = b"\x0a" + varint(len(pb)) + pb + b"\x15" + struct.pack("<f", -float(i)) + b"\x18" + varint(1)
+        out += b"\x0a" + varint(len(sub)) + sub
+    spec = b"\x08" + varint(32000) + b"\x19" + struct.pack("<d", 0.5)
+    name = b"nmt_nfkc"
+    norm = b"\x0a" + varint(len(name)) + name
+    return out + b"\x12" + varint(len(spec)) + spec + b"\x1a" + varint(len(norm)) + norm
+
+
+def rc_clause(rng, lower=False, keywords=0) -> str:
+    """A clause the miners take: at least 50 characters, no comma, a full stop."""
+    words = list(rng.choice(RC_WORDS, size=6))
+    for k in rng.choice(RC_KEYWORDS, size=keywords, replace=False):
+        words.insert(int(rng.integers(0, len(words) + 1)), str(k))
+    s = " ".join(words)
+    while len(s) < 50:
+        s += " " + str(rng.choice(RC_WORDS))
+    return (s if lower else s[0].upper() + s[1:]) + "."
+
+
+def rc_text(rng) -> str:
+    """A domain document for the miners: one premise + connective pair for each NLI / cause-effect / paraphrase
+    verbalizer family (Therefore, However, Moreover, In other words), an effect-cause pair ("due to") and a sentence
+    of three domain keywords (word2text), in a seeded order."""
+    units = [f"{rc_clause(rng)} {verb}, {rc_clause(rng, lower=True)}"
+             for verb in ("Therefore", "However", "Moreover", "In other words")]
+    units.append(f"{rc_clause(rng)} due to {rc_clause(rng, lower=True)}")
+    units.append(rc_clause(rng, keywords=3))
+    rng.shuffle(units)
+    return " ".join(units)
+
+
+def rc_inputs(root, n_docs, rng):
+    """``n_docs`` documents under ``root / "docs"`` and the general / domain vocabulary files."""
+    docs = Path(root) / "docs"
+    docs.mkdir(parents=True, exist_ok=True)
+    for i in range(n_docs):
+        (docs / f"doc_{i}.txt").write_text(rc_text(rng))
+    general, domain = Path(root) / "general.model", Path(root) / "domain.model"
+    general.write_bytes(spm_model_bytes(RC_GENERAL))
+    domain.write_bytes(spm_model_bytes(RC_DOMAIN))
+    return str(docs), str(general), str(domain)
+
+
+def scripted_tasks(prompts):
+    """A scripted ``generate_fn`` for the comparisons of datagen-small: QUESTION / ANSWER text for most prompts, text
+    the extractor misses for every third."""
+    return ["no tasks here" if len(p) % 3 == 0 else
+            f"1. QUESTION: what does the text of {len(p)} characters say?\nANSWER: it names {p.count(' ')} words.\n"
+            f"QUESTION: is it long?\nANSWER: {'yes' if len(p) > 900 else 'no'}." for p in prompts]
+
+
+def scripted_questions(prompts):
+    """A scripted QA-gen writer for datagen-small: a question of more than five words for most prompts, and "-",
+    which ``filter_malformed_questions`` drops, for every fourth."""
+    return ["-" if i % 4 == 3 else f"Which part of the text of {len(p)} characters names {p.count(' ')} words?"
+            for i, p in enumerate(prompts)]
+
+
+def capture_generate(gen, calls, prefill=False):
+    """Wrap ``gen._generate`` (a ``TorchTextGenerator``'s greedy loop): each call appends its ids, mask, tokens and
+    wall seconds to ``calls``; with ``prefill``, also the seconds of its first decoder forward (the prefill), timed
+    between two synchronisations (the decode steps run unsynchronised)."""
+    import torch
+
+    raw, model = gen._generate, gen.model
+    fwd = model.forward
+    state = {"first": False, "prefill_s": None}
+
+    def forward(*a, **k):
+        if not state["first"]:
+            return fwd(*a, **k)
+        state["first"] = False
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fwd(*a, **k)
+        torch.cuda.synchronize()
+        state["prefill_s"] = time.perf_counter() - t
+        return out
+
+    def generate(ids, mask):
+        state["first"] = prefill
+        if ids.is_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = raw(ids, mask)
+        if ids.is_cuda:
+            torch.cuda.synchronize()
+        calls.append(dict(ids=ids, mask=mask, toks=toks, s=time.perf_counter() - t, prefill_s=state["prefill_s"]))
+        return toks
+
+    if prefill:
+        model.forward = forward
+    gen._generate = generate
+
+
+def first_token_ties(model, calls, tol):
+    """Each call's first generated token against the argmax of the same decoder's forward without a cache over the
+    same left-padded ids, mask and positions. Returns (rows compared, rows that differ, rows that differ at a top-two
+    gap under ``tol``)."""
+    import torch
+
+    n = bad = tied = 0
+    with torch.no_grad():
+        for c in calls:
+            pos = torch.clamp(torch.cumsum(c["mask"], dim=1) - 1, min=0)
+            logits = model(c["ids"], c["mask"], positions=pos, logits_last_only=True)[:, -1].float()
+            top = torch.topk(logits, 2, dim=-1).values
+            differ = c["toks"][:, 0].long() != logits.argmax(-1)
+            n += len(differ)
+            bad += int(differ.sum())
+            tied += int((differ & (top[:, 0] - top[:, 1] < tol)).sum())
+            del logits
+    return n, bad, tied
+
+
+def datagen_small_phase(device, workdir, smi):
+    """Tiny, f32, the card against ``device="cpu"``: ``TorchTextGenerator`` completions for 12 prompts of mixed length
+    at batch 8 (a padded second batch) equal token for token (the CPU's weights loaded on the card; a step where a row
+    differs must be a near tie of the CPU logits, within ``NEAR_TIE``, and none came in the recorded runs); then
+    ``pipeline(comprehension_type=SynthMode.BOTH)`` with a scripted ``generate_fn`` on both devices writes equal
+    ``.jsonl`` rows and trains tiny to a finite loss on each; and ``generate_qa_from_disk`` with a scripted writer
+    (``scripted_questions``) on both devices writes the same CSV bytes, whose rows are the kept questions."""
+    import csv
+    import io
+    import random
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.data.backends import TorchTextGenerator
+    from dalm_tpu_torch.data.loading import load_dataset
+    from dalm_tpu_torch.data.qa_gen import generate_qa_from_disk
+    from dalm_tpu_torch.pipelines import LLMKwargs, SynthKwargs, SynthMode, pipeline
+
+    t_all = time.perf_counter()
+    kw = dict(max_input_tokens=128, max_new_tokens=16, batch_size=8, system_message="Write one question.")
+    cpu = TorchTextGenerator("tiny", device="cpu", **kw)
+    card = TorchTextGenerator("tiny", device=device, **kw)
+    card.model.load_state_dict(cpu.model.state_dict())
+    rng = np.random.default_rng(12)
+    prompts = [" ".join(rng.choice(RC_WORDS, size=int(rng.integers(1, 30)))) for _ in range(12)]
+    calls = {"cpu": [], "card": []}
+    capture_generate(cpu, calls["cpu"])
+    capture_generate(card, calls["card"])
+    texts = {"cpu": cpu(prompts), "card": card(prompts)}
+    check(len(calls["card"]) == 2 and calls["card"][1]["ids"].shape == (8, 128),
+          f"datagen-small: {len(calls['card'])} generate calls")
+    steps_equal = []
+    for c, g in zip(calls["cpu"], calls["card"]):
+        want, got = c["toks"], g["toks"].cpu()
+        diff = torch.nonzero((got != want).any(dim=0)).flatten()
+        if len(diff):
+            step = int(diff[0])
+            full = torch.cat([c["ids"], want[:, :step].long()], 1)
+            m = torch.cat([c["mask"], torch.ones_like(want[:, :step]).long()], 1)
+            pos = torch.clamp(torch.cumsum(m, 1) - 1, min=0)
+            top = torch.topk(cpu.model(full, m, positions=pos)[:, -1], 2).values
+            rows = (got[:, step] != want[:, step]).nonzero().flatten()
+            check(bool(((top[rows, 0] - top[rows, 1]) < NEAR_TIE).all()),
+                  f"datagen-small: the card's tokens differ from the CPU's at step {step} without a near tie")
+            steps_equal.append(step)
+        else:
+            steps_equal.append(want.shape[1])
+    if steps_equal == [16, 16]:
+        check(texts["card"] == texts["cpu"], "datagen-small: equal tokens decoded to different completions")
+
+    docs, general, domain = rc_inputs(Path(workdir) / "datagen_small", 2, np.random.default_rng(13))
+    rows, losses = {}, {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        out = Path(workdir) / "datagen_small" / name
+        out.mkdir()
+        random.seed(0)
+        res = pipeline("tiny", str(out / "rc_dataset"), docs, str(out / "model"),
+                       llm_kwargs=LLMKwargs("tiny", 1024, str(out / "llm"), True, str(out / "raw")),
+                       synth_kwargs=SynthKwargs(general, domain), comprehension_type=SynthMode.BOTH,
+                       generation_state_file=str(out / "state.pkl"), seq_length=256, per_device_train_batch_size=1,
+                       eval_steps=0, logging_steps=1, lora_r=8, lora_alpha=16, gradient_checkpointing=False,
+                       validation_split=0.25, num_warmup_steps=0, generate_fn=scripted_tasks, device=dev)
+        rows[name] = load_dataset(str(out / "rc_dataset.jsonl"))["messages"]
+        losses[name] = res["final_loss"]
+        check(not (out / "state.pkl").exists(), f"datagen-small: the {name} run left its state file")
+    check(rows["card"] == rows["cpu"] and len(rows["card"]) > 2, "datagen-small: the card's rows differ from the CPU's")
+    check(all(np.isfinite(v) for v in losses.values()), f"datagen-small: losses {losses}")
+
+    qa_path = qa_csv(Path(workdir) / "datagen_small" / "passages.csv", np.random.default_rng(14))
+    csvs, written = {}, {}
+
+    def writer(outs):  # scripted_questions, keeping what it wrote
+        def generate(prompts):
+            outs.extend(scripted_questions(prompts))
+            return outs[-len(prompts):]
+        return generate
+
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        out = Path(workdir) / "datagen_small" / f"qa_{name}"
+        generate_qa_from_disk(qa_path, "Abstract", "Title", QA_ROWS, 8, str(out), True,
+                              generate_fn=writer(written.setdefault(name, [])), device=dev)
+        csvs[name] = [(out / f"question_answer_pairs_{split}.csv").read_bytes() for split in ("train", "test")]
+    kept = [q for q in written["card"] if q != "-"]
+    got = []
+    for data in csvs["card"]:
+        table = list(csv.reader(io.StringIO(data.decode("utf-8"), newline="")))
+        check(not table or table[0] == ["Title", "Abstract", "Question", "Answer"], f"datagen-small: header {table[:1]}")
+        got += [r[2] for r in table[1:]]
+    qa_bytes = sum(map(len, csvs["card"]))
+    check(csvs["card"] == csvs["cpu"] and got == kept and len(written["card"]) == QA_ROWS and kept,
+          f"datagen-small: QA-gen CSVs of {qa_bytes} bytes, rows {got} against the kept questions {kept}")
+    res = dict(steps_equal=steps_equal, rows=len(rows["card"]), losses=losses, qa_rows=len(kept),
+               qa_csv_bytes=qa_bytes, phase_s=time.perf_counter() - t_all)
+    print(f"[datagen-small] tiny, f32 ({smi}): TorchTextGenerator on the card equal to the CPU token for token over 12 "
+          f"prompts at batch 8 (steps compared {steps_equal}); pipeline(BOTH) with a scripted generate_fn wrote "
+          f"{len(rows['card'])} equal rows on both devices; final loss card {losses['card']:.6f}, CPU "
+          f"{losses['cpu']:.6f}; generate_qa_from_disk with a scripted writer wrote the same {qa_bytes} CSV "
+          f"bytes on both devices, {len(kept)} rows; {res['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"datagen_small": res}), flush=True)
+    return res
+
+
+def qa_csv(path, rng):
+    """The QA-gen cell's passages: ``QA_ROWS`` rows over ``QA_TITLES`` titles in the CLI's columns, Title / Abstract."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Title", "Abstract"])
+        w.writerows([f"Title {i % QA_TITLES}", rc_text(rng)] for i in range(QA_ROWS))
+    return str(path)
+
+
+def qa_gen_phase(device, workdir, smi):
+    """``generate_qa_from_disk`` on a seeded CSV (``QA_ROWS`` passages over ``QA_TITLES`` titles, ``sample_size`` 16,
+    ``batch_size`` 8, ``max_input_tokens`` 512, ``as_csv=True``) with ``TorchTextGenerator("qwen2.5-7b",
+    max_new_tokens=128)`` at full width and depth (28 layers, bf16 parameters, the preset's f32 compute, as the JAX
+    class takes it; *cut of scale*: 128 new tokens against the class's 512). Checks every row's first generated
+    token against the argmax of the same decoder's forward without a cache (a differing row must sit at a top-two
+    gap under ``TIE_TOL``) and the CSVs against the generated questions that pass ``filter_malformed_questions``.
+    Prints wall s, generate calls, prefill s, decode ms a step against the weight-read bound, rows kept, titles."""
+    import csv
+    import io
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.data.backends import TorchTextGenerator
+    from dalm_tpu_torch.data.loading import load_dataset
+    from dalm_tpu_torch.data.qa_gen import SPLIT_SEED, filter_malformed_questions, generate_qa_from_disk, split_dataset
+
+    t_all = time.perf_counter()
+    root = Path(workdir) / "qa_gen"
+    root.mkdir()
+    path = qa_csv(root / "passages.csv", np.random.default_rng(23))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = TorchTextGenerator("qwen2.5-7b", max_new_tokens=128, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = gen.model.cfg
+    check(cfg.num_layers == 28 and cfg.hidden_size == 3584 and cfg.vocab_size == 152064
+          and cfg.param_dtype == torch.bfloat16, f"qa-gen: config {cfg}")
+    calls, outputs = [], []
+    capture_generate(gen, calls, prefill=True)
+
+    def generate_fn(prompts):
+        outs = gen(prompts)
+        outputs.extend(zip(prompts, outs))
+        return outs
+
+    t0 = time.perf_counter()
+    generate_qa_from_disk(path, "Abstract", "Title", 16, 8, str(root / "out"), True, max_input_tokens=512,
+                          generate_fn=generate_fn)
+    wall = time.perf_counter() - t0
+    del gen.model.forward  # the timing wrapper of capture_generate
+    n, bad, tied = first_token_ties(gen.model, calls, TIE_TOL)
+    check(bad == tied, f"qa-gen: {bad} of {n} first tokens differ from the uncached argmax, {tied} of them at a tie")
+    passages = load_dataset(path)
+    kept = []
+    for prompt, question in outputs:  # build_prompt ends with the passage and a line break
+        passage = next(a for a in passages["Abstract"] if prompt.endswith(a + "\n"))
+        q = question.strip().replace("\n", " ")
+        if filter_malformed_questions({"Question": q}):
+            kept.append((passage, q))
+    got = []
+    for split in ("train", "test"):
+        data = (root / "out" / f"question_answer_pairs_{split}.csv").read_text(encoding="utf-8")
+        if data:
+            table = list(csv.reader(io.StringIO(data, newline="")))
+            check(table[0] == ["Title", "Abstract", "Question", "Answer"], f"qa-gen: {split} header {table[0]}")
+            got += [(r[1], r[2]) for r in table[1:]]
+    check(got == kept, f"qa-gen: the CSVs hold {len(got)} rows, the filter keeps {len(kept)} generated questions")
+    splits = split_dataset(passages.shuffle(seed=SPLIT_SEED).select(range(16)), "Title")
+    titles = {k: sorted(set(v["Title"])) for k, v in splits.items()}
+    batches = sum(-(-len(v) // 8) for v in splits.values())  # each split in batches of 8
+    check(len(calls) == batches and len(outputs) == 16 and not set(titles["train"]) & set(titles["test"]),
+          f"qa-gen: {len(calls)} generate calls for {batches} batches, {len(outputs)} questions, titles {titles}")
+    prefill_s = [c["prefill_s"] for c in calls]
+    step_ms = [1e3 * (c["s"] - c["prefill_s"]) / (c["toks"].shape[1] - 1) for c in calls]
+    read = sum(p.numel() * p.element_size() for name, p in gen.model.named_parameters()
+               if cfg.tie_embeddings or not name.startswith("embed_tokens."))
+    bound_ms = 1e3 * read / 3.35e12
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    res = dict(wall_s=wall, build_s=build_s, calls=len(calls), prefill_s=prefill_s, decode_step_ms=step_ms,
+               bound_ms=bound_ms, weight_bytes=read, rows=len(outputs), kept=len(kept), titles=titles,
+               first_token_rows=n, first_token_ties=tied, peak_gib=peak_gib, phase_s=time.perf_counter() - t_all)
+    print(f"[qa-gen] generate_qa_from_disk with TorchTextGenerator('qwen2.5-7b') ({cfg.num_layers} layers, width "
+          f"{cfg.hidden_size}, vocab {cfg.vocab_size}, bf16 parameters, f32 compute) ({smi}): {QA_ROWS} passages, "
+          f"batch 8 x 512 tokens, 128 new tokens: {wall:.2f} s over {len(calls)} generate calls (model built in "
+          f"{build_s:.2f} s); prefill {', '.join(f'{s:.3f}' for s in prefill_s)} s, decode "
+          f"{', '.join(f'{s:.2f}' for s in step_ms)} ms a step against a weight-read bound of {bound_ms:.2f} ms "
+          f"({read / 1e9:.2f} GB of bf16 parameters a step reads); {len(kept)} of {len(outputs)} questions kept by the "
+          f"filter (random weights: ids past 255 decode to nothing); titles train {titles['train']}, test "
+          f"{titles['test']}; first tokens {n - bad} of {n} equal to the uncached argmax ({tied} near ties); peak "
+          f"{peak_gib:.2f} GiB", flush=True)
+    print(json.dumps({"qa_gen": res}), flush=True)
+    del gen, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def rc_pipeline_phase(device, workdir, smi, torch_gen, peaks):
+    """``pipeline(model_name="mistral-7b", comprehension_type=SynthMode.BOTH, ...)`` at full width and depth: regex
+    RC over ``RC_DOCS`` seeded documents with vocabulary files written here, LLM RC with ``TorchTextGenerator(
+    "mistral-7b", max_input_tokens=1024, max_new_tokens=96)`` (chunks of 1,024 tokens less the prompt's 624), then
+    ``train_generator`` at ``seq_length=2560`` (2600, the default, is no multiple of 128 and would never reach K4),
+    LoRA r 256 / alpha 512, recompute, packing, NEFTune 5, ``validation_split=0.25``, ``tokenizer="byte@32000"`` (byte
+    ids in Mistral's 32,000-row vocabulary, as the sft cell), in the preset's dtypes (bf16 parameters, f32 compute, as
+    the JAX pipeline trains it). Checks the state file gone, each chunk's unprocessed JSON,
+    the ``.jsonl`` rows against the regex conversations plus the extracted ones, a finite loss, and K4's launches on
+    the mma.sync route (the f32 compute's) held to 32 layers x (2 forwards + 1 backward) a step plus 32 forwards a
+    validation block; then ``k4_f32_time`` holds and times those f32 instances at the geometry of the SFT's first
+    attention call (its shapes and packed segment ids). Returns (the ``K4_F32`` kernels-line records with this run's
+    launches, numbers)."""
+    import random
+    from functools import partial
+
+    import numpy as np
+    import torch
+
+    from dalm_tpu_torch.data.backends import TorchTextGenerator
+    from dalm_tpu_torch.data.loading import load_dataset
+    from dalm_tpu_torch.data.rc_regex import RegexBasedReadingComprehension
+    from dalm_tpu_torch.data.rc_synthetic import SYSTEM_MESSAGE
+    from dalm_tpu_torch.data.rc_utils import question_and_answer_extractor
+    from dalm_tpu_torch.kernels.flash_attention import flash_attention, flash_bwd, flash_fwd, fwd_route
+    from dalm_tpu_torch.models import decoder
+    from dalm_tpu_torch.pipelines import LLMKwargs, SynthKwargs, SynthMode, pipeline
+    from dalm_tpu_torch.pipelines import reading_comprehension as rcp
+    from dalm_tpu_torch.train import generator_only, train_generator
+
+    t_all = time.perf_counter()
+    root = Path(workdir) / "rc_pipeline"
+    docs, general, domain = rc_inputs(root, RC_DOCS, np.random.default_rng(31))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = TorchTextGenerator("mistral-7b", max_input_tokens=1024, max_new_tokens=96, system_message=SYSTEM_MESSAGE,
+                             device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    calls = []
+    capture_generate(gen, calls)
+    held = {}
+
+    def snapshot(setup):
+        held["setup"] = setup
+        flash_attention.launches = dict.fromkeys(flash_attention.launches, 0)
+        flash_fwd.routes = dict.fromkeys(flash_fwd.routes, 0)
+        flash_bwd.routes = dict.fromkeys(flash_bwd.routes, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held["t"] = time.perf_counter()
+        held["marks"] = [held["t"]]
+        apply = setup.state.apply_gradients
+
+        def apply_gradients(*a, **k):  # the end of each step, on the device too: the trainer's own meter reads
+            out = apply(*a, **k)      # windows between loss read-backs, here one window holding the epoch's save
+            torch.cuda.synchronize()
+            held["marks"].append(time.perf_counter())
+            return out
+
+        setup.state.apply_gradients = apply_gradients
+
+    saves = []
+    save = generator_only._save
+
+    def timed_save(*a, **k):  # the SFT saves its base (14.5 GB of bf16) and the adapter per epoch and at the end
+        t = time.perf_counter()
+        save(*a, **k)
+        saves.append(time.perf_counter() - t)
+
+    attend = decoder.flash_attention
+
+    def capturing(q, k, v, seg_q=None, seg_k=None, **kw):  # the geometry of the SFT's first attention call
+        if "geo" not in held:
+            seg = None if seg_q is None else seg_q.detach().clone()
+            held["geo"] = dict(q=tuple(q.shape), k=tuple(k.shape), seg=seg, **kw)
+        return attend(q, k, v, seg_q, seg_k, **kw)
+
+    rcp.train_generator = partial(train_generator, setup_hook=snapshot)
+    generator_only._save = timed_save
+    decoder.flash_attention = capturing
+    try:
+        random.seed(0)
+        t0 = time.perf_counter()
+        out = pipeline("mistral-7b", str(root / "rc_dataset"), docs, str(root / "model"),
+                       llm_kwargs=LLMKwargs("mistral-7b", context_length=1024, dataset_output_path=str(root / "llm"),
+                                            chunk=True, unprocessed_dataset_output_path=str(root / "raw")),
+                       synth_kwargs=SynthKwargs(general_spm_path=general, domain_spm_path=domain),
+                       comprehension_type=SynthMode.BOTH, generation_state_file=str(root / "state.pkl"),
+                       seq_length=2560, lora_r=256, lora_alpha=512, gradient_checkpointing=True, packing=True,
+                       neftune_noise_alpha=5, validation_split=0.25, tokenizer="byte@32000", generate_fn=gen,
+                       device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sft_s = time.perf_counter() - held["t"]
+    finally:
+        rcp.train_generator = train_generator
+        generator_only._save = save
+        decoder.flash_attention = attend
+    launches, routes, bwd_routes = dict(flash_attention.launches), dict(flash_fwd.routes), dict(flash_bwd.routes)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    setup = held.pop("setup")
+    cfg = setup.model.cfg
+    layers, steps, eval_batches = cfg.num_layers, out["steps"], len(setup.valid_blocks)
+
+    check(not (root / "state.pkl").exists(), "rc-pipeline: the generation state file was not removed")
+    raw = {f.name: json.loads(f.read_text()) for f in sorted((root / "raw").iterdir())}
+    extracted = []
+    for name, r in raw.items():
+        want = question_and_answer_extractor(r["gen_text"], r["context"])
+        check(r["qanda"] == want and name == f"{r['text_identifier']}_{r['index']}.json",
+              f"rc-pipeline: {name} holds {r['qanda']}, the extractor gives {want}")
+        if want:
+            extracted.append(want)
+    check(len(raw) == len(calls) and len(calls) >= 2 * RC_DOCS,
+          f"rc-pipeline: {len(raw)} unprocessed JSON files for {len(calls)} chunks")
+    llm_files = sorted((root / "llm").iterdir())
+    check(len(llm_files) == len(extracted), f"rc-pipeline: {len(llm_files)} LLM rows, {len(extracted)} extracted")
+    regex = [conv for _, _, conv in RegexBasedReadingComprehension(general, domain).dataset_generator(docs)]
+    rows = load_dataset(str(root / "rc_dataset.jsonl"))["messages"]
+    key = lambda conv: json.dumps(conv, sort_keys=True)  # noqa: E731
+    check(sorted(map(key, rows)) == sorted(map(key, regex + extracted)),
+          f"rc-pipeline: {len(rows)} rows written, {len(regex)} regex + {len(extracted)} extracted expected")
+    check(np.isfinite(out["final_loss"]) and np.isfinite(out["eval_loss"]) and 2 <= steps <= 4 and eval_batches >= 1
+          and layers == 32 and cfg.hidden_size == 4096 and cfg.vocab_size == 32000 and cfg.attention_impl == "flash"
+          and cfg.remat and setup.train_blocks.shape[1] == 2560,
+          f"rc-pipeline: {out}, {steps} steps, {eval_batches} validation blocks, config {cfg}")
+    route = fwd_route(cfg.dtype, cfg.head_dim)
+    want = {"fwd": 2 * layers * steps + layers * eval_batches, "dq": layers * steps, "dkv": layers * steps,
+            "dsum": layers * steps}
+    check(cfg.dtype == torch.float32 and route == "mma" and launches == want
+          and routes == {"mma": want["fwd"], "wgmma": 0} and bwd_routes == {"mma": want["dq"], "wgmma": 0},
+          f"rc-pipeline: {cfg.dtype} compute, K4 launches {launches}, routes {routes} / {bwd_routes}; {layers} layers "
+          f"predict {want}, every call on the f32 mma.sync route")
+    gen_s = [c["s"] for c in calls]
+    step_times = list(np.diff(held.pop("marks")))  # the first holds the first step's set-up on the card
+    check(len(step_times) == steps, f"rc-pipeline: {len(step_times)} steps timed, {steps} run")
+    step_s = step_times[-1]
+    res = dict(wall_s=wall, build_s=build_s, chunks=len(calls), generate_s=gen_s,
+               texts_missed=len(raw) - len(extracted), regex_rows=len(regex), rows=len(rows), sft_s=sft_s, steps=steps,
+               eval_batches=eval_batches,
+               step_s=step_s, tokens_per_s=2560 / step_s, peak_gib=peak_gib, final_loss=out["final_loss"],
+               eval_loss=out["eval_loss"], save_s=saves, step_times=step_times, route=route, launches=launches)
+    print(f"[rc-pipeline] pipeline('mistral-7b', SynthMode.BOTH) ({layers} layers, width {cfg.hidden_size}, heads "
+          f"{cfg.num_heads}/{cfg.kv_heads} x {cfg.head_dim}, bf16 parameters, {str(cfg.dtype)[6:]} compute) ({smi}): "
+          f"{wall:.1f} s (generator built in {build_s:.1f} s first); LLM RC {len(calls)} chunks at "
+          f"{np.mean(gen_s):.2f} s a chunk ({min(gen_s):.2f}-{max(gen_s):.2f}; batch 8 x 1024 tokens, 96 new), "
+          f"{len(raw) - len(extracted)} texts missed; {len(regex)} regex rows; SFT {steps} steps + {eval_batches} "
+          f"validation blocks in {sft_s:.1f} s (init and {len(saves)} saves of {sum(saves):.1f} s included): steps "
+          f"{', '.join(f'{t:.3f}' for t in step_times)} s, the last = {2560 / step_s:.0f} tokens/s, loss "
+          f"{out['final_loss']:.4f}, validation "
+          f"{out['eval_loss']:.4f}, peak {peak_gib:.2f} GiB; K4 launches "
+          f"{launches} = {layers} x (2 forwards + 1 backward) a step + {layers} forwards a validation block, every one "
+          f"on the {route} route", flush=True)
+    del gen, setup, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)  # the saved checkpoints: the disk is shared with the later phases
+    geo = held.pop("geo")
+    check(geo["q"] == (1, 2560, cfg.num_heads, cfg.head_dim) and geo["k"] == (1, 2560, cfg.kv_heads, cfg.head_dim)
+          and geo["seg"] is not None, f"rc-pipeline: the first attention call's geometry {geo}")
+    B, S, H, D = geo["q"]
+    records = k4_f32_time(torch_gen, device, peaks, geo, f"rc-pipeline's SFT, B={B} H={H}/{geo['k'][2]} S={S} D={D} "
+                          f"f32 causal, window {geo['window']}, segment ids {geo['seg'].unique().tolist()}", 5)
+    for name, kind in (("k4_fwd[f32]", "fwd"), ("k4_bwd_dq[f32]", "dq"), ("k4_bwd_dkv[f32]", "dkv"),
+                       ("k4_dsum[f32]", "dsum")):
+        records[name]["launches"] = records[name]["launches_rc_pipeline"] = launches[kind]
+    res["phase_s"] = time.perf_counter() - t_all
+    print(json.dumps({"rc_pipeline": res}), flush=True)
+    return records, res
+
+
 KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "int4_matmul",
                   "int4_prefill")
 TRAIN_BATCH = 18
@@ -5863,9 +6548,21 @@ SFT_STEPS = 3
 PHASES = ("small", "serve", "serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh", "serve-adapter", "k3",
           "k2", "k1", "grad", "k4", "k5", "train-small", "train", "train-dycal", "train-live", "train-merge",
           "train-retriever", "sft-small", "sft", "eval-retriever", "eval-rag", "eval-ar", "cli", "families-small",
-          "serve-llama31", "sft-gemma2", "serve-moe", "serve-mla", "sft-moe")
+          "serve-llama31", "sft-gemma2", "serve-moe", "serve-mla", "sft-moe", "datagen-small", "qa-gen",
+          "rc-pipeline")
 LIVE_K = 4  # marginalize_k of the train-live cell
 EXTRA_PHASES = ("profile", "profile-sft", "profile-serve")  # run only when named
+PHASE_S = {}  # wall seconds of each phase of this run, for the cuts of depth in PERF.md
+
+
+@contextlib.contextmanager
+def timed(phase):
+    """Adds the block's wall seconds to ``PHASE_S[phase]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[phase] = PHASE_S.get(phase, 0.0) + time.perf_counter() - t0
 
 
 def main() -> int:
@@ -5921,11 +6618,13 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     kernels = {}
     if "small" in phases:
-        small_pipeline_agrees(device)
-        small_quant_agrees(device)
+        with timed("small"):
+            small_pipeline_agrees(device)
+            small_quant_agrees(device)
     base_pipe = None
     if "serve" in phases:
-        base_pipe = serve_phase(device, np.random.default_rng(0), peaks, kernels)
+        with timed("serve"):
+            base_pipe = serve_phase(device, np.random.default_rng(0), peaks, kernels)
     k5_launches, cb_launches, stream_launches, int4_pipe = {}, {}, {}, None
     http_launches, refresh_launches, adapter_launches, stream_s = {}, {}, {}, None
     if base_pipe is None and {"serve-q", "serve-cb", "serve-stream", "serve-http", "serve-refresh",
@@ -5936,154 +6635,200 @@ def main() -> int:
                                                 dtype="bfloat16", device=device, max_passage_len=128,
                                                 max_prompt_len=256, max_new_tokens=64, embed_batch=256)
     if "serve-q" in phases:
-        k5_launches, _, int4_pipe = serve_q_phase(device, np.random.default_rng(0), base_pipe)
+        with timed("serve-q"):
+            k5_launches, _, int4_pipe = serve_q_phase(device, np.random.default_rng(0), base_pipe)
     if int4_pipe is None and {"serve-cb", "serve-stream", "serve-http", "profile-serve"} & set(phases):
         int4_pipe = int4_pipeline(device, base_pipe)
     if "serve-cb" in phases:
-        cb_launches, _ = serve_cb_phase(device, int4_pipe, args.seed)
+        with timed("serve-cb"):
+            cb_launches, _ = serve_cb_phase(device, int4_pipe, args.seed)
     if "serve-stream" in phases:
-        stream_launches, stream_out = serve_stream_phase(device, int4_pipe, args.seed)
-        stream_s = stream_out["d_s"]
+        with timed("serve-stream"):
+            stream_launches, stream_out = serve_stream_phase(device, int4_pipe, args.seed)
+            stream_s = stream_out["d_s"]
     if "serve-http" in phases:
-        http_launches, _ = serve_http_phase(device, int4_pipe, args.seed, stream_s)
+        with timed("serve-http"):
+            http_launches, _ = serve_http_phase(device, int4_pipe, args.seed, stream_s)
     if "profile-serve" in phases:
-        profile_serve_phase(device, int4_pipe)
+        with timed("profile-serve"):
+            profile_serve_phase(device, int4_pipe)
     if "serve-refresh" in phases:
-        refresh_launches, _ = serve_refresh_phase(device, base_pipe)
+        with timed("serve-refresh"):
+            refresh_launches, _ = serve_refresh_phase(device, base_pipe)
     passages = base_pipe.passages if base_pipe is not None else None
     del base_pipe, int4_pipe
     gc.collect()
     torch.cuda.empty_cache()
     if "serve-adapter" in phases:  # a 7B of its own: after the serve cell's pipelines are freed
-        adapter_launches, _ = serve_adapter_phase(device, passages or corpus(16384, np.random.default_rng(0)))
-        gc.collect()
-        torch.cuda.empty_cache()
+        with timed("serve-adapter"):
+            adapter_launches, _ = serve_adapter_phase(device, passages or corpus(16384, np.random.default_rng(0)))
+            gc.collect()
+            torch.cuda.empty_cache()
     llama31_launches = {}
     if "serve-llama31" in phases:  # an 8B of its own, likewise
-        llama31_launches, _ = serve_llama31_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks,
-                                                  smi)
+        with timed("serve-llama31"):
+            llama31_launches, _ = serve_llama31_phase(device, passages or corpus(16384, np.random.default_rng(0)),
+                                                      peaks, smi)
     moe_launches, mla_launches = {}, {}
     if "serve-moe" in phases:  # a 30B of its own, after the 8B is freed
-        moe_launches, _ = serve_moe_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks, smi)
+        with timed("serve-moe"), cut_depth("serve-moe"):
+            moe_launches, _ = serve_moe_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks,
+                                              smi)
     if "serve-mla" in phases:
-        mla_launches, _ = serve_mla_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks, smi)
+        with timed("serve-mla"):
+            mla_launches, _ = serve_mla_phase(device, passages or corpus(16384, np.random.default_rng(0)), peaks, smi)
     if "k3" in phases:
-        cases, reps = k3_phase(gen, device, peaks)
-        print(json.dumps({"k3_cases": cases}), flush=True)
-        for mode, entry in reps.items():  # the modes the serving path does not run, at N = 1M, k = 4
-            kernels[entry["name"]] = dict(entry, launches=kernels.get("_k3_launches", {}).get(mode, 0))
+        with timed("k3"):
+            cases, reps = k3_phase(gen, device, peaks)
+            print(json.dumps({"k3_cases": cases}), flush=True)
+            for mode, entry in reps.items():  # the modes the serving path does not run, at N = 1M, k = 4
+                kernels[entry["name"]] = dict(entry, launches=kernels.get("_k3_launches", {}).get(mode, 0))
     kernel_ms, eval_cases, eval_launches = {}, [], {}
     if "k2" in phases:
-        cases, main_entry = k2_phase(gen, device, peaks)
-        print(json.dumps({"k2_cases": cases}), flush=True)
-        kernels["rowquant"] = main_entry
-        kernel_ms.update({("rowquant", e["K"]): e["ms"] for e in cases if e["case"].startswith(f"R={M_TRAIN} ")})
+        with timed("k2"):
+            cases, main_entry = k2_phase(gen, device, peaks)
+            print(json.dumps({"k2_cases": cases}), flush=True)
+            kernels["rowquant"] = main_entry
+            kernel_ms.update({("rowquant", e["K"]): e["ms"] for e in cases if e["case"].startswith(f"R={M_TRAIN} ")})
     if "k1" in phases:
-        cases, mains = k1_phase(gen, device, peaks)
-        cal_cases, cal_mains = k1_cal_phase(gen, device, peaks)
-        print(json.dumps({"k1_cases": cases + cal_cases}), flush=True)
-        kernels.update(mains)
-        kernels.update(cal_mains)
-        kernel_ms.update({(e["name"], tuple(e["KN"])): e["ms"] for e in cases})
+        with timed("k1"):
+            cases, mains = k1_phase(gen, device, peaks)
+            cal_cases, cal_mains = k1_cal_phase(gen, device, peaks)
+            print(json.dumps({"k1_cases": cases + cal_cases}), flush=True)
+            kernels.update(mains)
+            kernels.update(cal_mains)
+            kernel_ms.update({(e["name"], tuple(e["KN"])): e["ms"] for e in cases})
     if "grad" in phases:
-        grad_phase(gen, device)
+        with timed("grad"):
+            grad_phase(gen, device)
     if "k4" in phases:
-        cases, mains = k4_phase(gen, device, peaks, SFT_BATCH)
-        d256 = k4_d256_time(gen, device, peaks)
-        print(json.dumps({"k4_cases": cases + list(d256.values())}), flush=True)
-        kernels.update(mains)
-        kernels.update(d256)
+        with timed("k4"):
+            cases, mains = k4_phase(gen, device, peaks, SFT_BATCH)
+            d256 = k4_d256_time(gen, device, peaks)
+            print(json.dumps({"k4_cases": cases + list(d256.values())}), flush=True)
+            kernels.update(mains)
+            kernels.update(d256)
     if "k5" in phases:
-        cases, mains, k5_ms = k5_phase(gen, device, peaks)
-        # K5 per decode step of Llama-2-7B: 32 layers x (q, k, v, o at (4096, 4096), gate and up at (4096, 11008),
-        # down at (11008, 4096)) + lm_head at (4096, 32000), each at the kernel's own time at M = 32
-        per_step = {inst: 32 * (4 * k5_ms[inst, 4096, 4096, 32] + 2 * k5_ms[inst, 4096, 11008, 32]
-                                + k5_ms[inst, 11008, 4096, 32]) + k5_ms[inst, 4096, 32000, 32]
-                    for inst in ("base", "groupmm", "nf4", "i8mxu", "pcol")}
-        print(f"[serve-q] K5's device time per decode step (225 fused launches: 32 x (4 x (4096, 4096) + 2 x (4096, "
-              f"11008) + (11008, 4096)) + (4096, 32000), each at its [k5] time at M=32), ms by instance: "
-              + ", ".join(f"{i} {v:.3f}" for i, v in per_step.items()), flush=True)
-        print(json.dumps({"k5_cases": cases}), flush=True)
-        print(json.dumps({"k5_prefill": k5_prefill_phase(gen, device, peaks)}), flush=True)
-        print(json.dumps({"k5_group8": k5_group8_time(gen, device, peaks, smi)}), flush=True)
-        for key, e in mains.items():
-            kernels[e["name"]] = dict(e, launches=k5_launches.get(key, 0)) if "serve-q" in phases else e
+        with timed("k5"):
+            cases, mains, k5_ms = k5_phase(gen, device, peaks)
+            # K5 per decode step of Llama-2-7B: 32 layers x (q, k, v, o at (4096, 4096), gate and up at (4096, 11008),
+            # down at (11008, 4096)) + lm_head at (4096, 32000), each at the kernel's own time at M = 32
+            per_step = {inst: 32 * (4 * k5_ms[inst, 4096, 4096, 32] + 2 * k5_ms[inst, 4096, 11008, 32]
+                                    + k5_ms[inst, 11008, 4096, 32]) + k5_ms[inst, 4096, 32000, 32]
+                        for inst in ("base", "groupmm", "nf4", "i8mxu", "pcol")}
+            print(f"[serve-q] K5's device time per decode step (225 fused launches: 32 x (4 x (4096, 4096) + 2 x (4096, "
+                  f"11008) + (11008, 4096)) + (4096, 32000), each at its [k5] time at M=32), ms by instance: "
+                  + ", ".join(f"{i} {v:.3f}" for i, v in per_step.items()), flush=True)
+            print(json.dumps({"k5_cases": cases}), flush=True)
+            print(json.dumps({"k5_prefill": k5_prefill_phase(gen, device, peaks)}), flush=True)
+            print(json.dumps({"k5_group8": k5_group8_time(gen, device, peaks, smi)}), flush=True)
+            for key, e in mains.items():
+                kernels[e["name"]] = dict(e, launches=k5_launches.get(key, 0)) if "serve-q" in phases else e
     with tempfile.TemporaryDirectory() as workdir:
         if "train-small" in phases:
-            train_small_phase(device, workdir)
+            with timed("train-small"):
+                train_small_phase(device, workdir)
         if "train" in phases:
-            full = "k1" in phases and "k2" in phases
-            _, dynamic = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, kernel_ms if full else None,
-                                     a8_calibrate_every=0)
-            launches, flagship = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, None)
-            print(f"[train] step time, flagship (a8_calibrate_every=16) {flagship['avg_step_time']:.3f} s against "
-                  f"a8_calibrate_every=0 {dynamic['avg_step_time']:.3f} s in the same run "
-                  f"({flagship['avg_step_time'] / dynamic['avg_step_time'] - 1:+.1%}); with one calibration forward "
-                  f"({flagship['calibration_s'] * 1e3:.1f} ms) every 16 steps, {flagship['amortised_step_time']:.3f} s "
-                  f"({flagship['amortised_step_time'] / dynamic['avg_step_time'] - 1:+.1%})", flush=True)
-            for name, n in launches.items():
-                if name == "k5_pcol_gemm":  # the scaled GEMM: its main path is serving; here the calibrated route
-                    if name in kernels:
-                        kernels[name]["launches_train"] = n
-                elif name in kernels and name != "k1_cal_quant[dy]":
-                    kernels[name]["launches"] = n
+            with timed("train"):
+                full = "k1" in phases and "k2" in phases
+                _, dynamic = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, kernel_ms if full else None,
+                                         a8_calibrate_every=0)
+                launches, flagship = train_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, None)
+                print(f"[train] step time, flagship (a8_calibrate_every=16) {flagship['avg_step_time']:.3f} s against "
+                      f"a8_calibrate_every=0 {dynamic['avg_step_time']:.3f} s in the same run "
+                      f"({flagship['avg_step_time'] / dynamic['avg_step_time'] - 1:+.1%}); with one calibration forward "
+                      f"({flagship['calibration_s'] * 1e3:.1f} ms) every 16 steps, {flagship['amortised_step_time']:.3f} s "
+                      f"({flagship['amortised_step_time'] / dynamic['avg_step_time'] - 1:+.1%})", flush=True)
+                for name, n in launches.items():
+                    if name == "k5_pcol_gemm":  # the scaled GEMM: its main path is serving; here the calibrated route
+                        if name in kernels:
+                            kernels[name]["launches_train"] = n
+                    elif name in kernels and name != "k1_cal_quant[dy]":
+                        kernels[name]["launches"] = n
         if "train-dycal" in phases:
-            launches = train_dycal_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
-            if "k1_cal_quant[dy]" in kernels:
-                kernels["k1_cal_quant[dy]"]["launches"] = launches["k1_cal_quant[dy]"]
+            with timed("train-dycal"):
+                launches = train_dycal_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
+                if "k1_cal_quant[dy]" in kernels:
+                    kernels["k1_cal_quant[dy]"]["launches"] = launches["k1_cal_quant[dy]"]
         if "train-live" in phases:
-            train_live_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, k=LIVE_K)
+            with timed("train-live"):
+                train_live_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS, k=LIVE_K)
         if "train-merge" in phases:
-            train_merge_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
+            with timed("train-merge"):
+                train_merge_phase(device, workdir, TRAIN_BATCH, TRAIN_STEPS)
         if "train-retriever" in phases:
-            train_retriever_phase(device, workdir, TRAIN_STEPS)
+            with timed("train-retriever"):
+                train_retriever_phase(device, workdir, TRAIN_STEPS)
         if "sft-small" in phases:
-            sft_small_phase(device, workdir)
+            with timed("sft-small"):
+                sft_small_phase(device, workdir)
         if "sft" in phases:
-            k4_ms = {name: kernels[name]["ms"] for name in K4_AT} if "k4" in phases else None
-            launches = sft_phase(device, workdir, SFT_BATCH, SFT_STEPS, k4_ms)
-            for name, n in launches.items():
-                if name in kernels:
-                    kernels[name]["launches"] = n
+            with timed("sft"):
+                k4_ms = {name: kernels[name]["ms"] for name in K4_AT} if "k4" in phases else None
+                launches = sft_phase(device, workdir, SFT_BATCH, SFT_STEPS, k4_ms)
+                for name, n in launches.items():
+                    if name in kernels:
+                        kernels[name]["launches"] = n
         if "sft-gemma2" in phases:
-            launches, _ = sft_gemma2_phase(device, workdir, smi)
-            for name, n in launches.items():
-                if name in kernels:
-                    kernels[name]["launches"] = n
+            with timed("sft-gemma2"):
+                launches, _ = sft_gemma2_phase(device, workdir, smi)
+                for name, n in launches.items():
+                    if name in kernels:
+                        kernels[name]["launches"] = n
         if "sft-moe" in phases:
-            launches, _ = sft_moe_phase(device, workdir, smi)
-            for name, n in launches.items():
-                if name in kernels:
-                    kernels[name]["launches_sft_moe"] = n
+            with timed("sft-moe"):
+                launches, _ = sft_moe_phase(device, workdir, smi)
+                for name, n in launches.items():
+                    if name in kernels:
+                        kernels[name]["launches_sft_moe"] = n
+        if "datagen-small" in phases:
+            with timed("datagen-small"):
+                datagen_small_phase(device, workdir, smi)
+        if "qa-gen" in phases:
+            with timed("qa-gen"):
+                qa_gen_phase(device, workdir, smi)
+        if "rc-pipeline" in phases:
+            with timed("rc-pipeline"):
+                records, _ = rc_pipeline_phase(device, workdir, smi, gen, peaks)
+                kernels.update(records)
         if "families-small" in phases:
-            families_small_phase(device, workdir, smi)
+            with timed("families-small"):
+                families_small_phase(device, workdir, smi)
         if "eval-retriever" in phases:
-            by_mode, recs, _ = eval_retriever_phase(device, peaks, smi, args.eval_rows)
-            eval_cases += list(recs.values())
-            eval_launches["launches_eval_retriever"] = {f"fused_dot_topk[{m}]": n[m] for m, n in by_mode.items()}
+            with timed("eval-retriever"):
+                with cut_depth("eval-retriever"):
+                    by_mode, recs, _ = eval_retriever_phase(device, peaks, smi, args.eval_rows)
+                eval_cases += list(recs.values())
+                eval_launches["launches_eval_retriever"] = {f"fused_dot_topk[{m}]": n[m] for m, n in by_mode.items()}
         if "eval-rag" in phases:
-            with cut_depth("eval-rag"):
-                k3, _ = eval_rag_phase(device, smi)
-            eval_launches["launches_eval_rag"] = {"fused_dot_topk[f32]": k3["f32"]}
+            with timed("eval-rag"):
+                with cut_depth("eval-rag"):
+                    k3, _ = eval_rag_phase(device, smi)
+                eval_launches["launches_eval_rag"] = {"fused_dot_topk[f32]": k3["f32"]}
         if "eval-ar" in phases:
-            with cut_depth("eval-ar"):
-                parts, rec, ar = eval_ar_phase(device, workdir, peaks, smi)
-            eval_cases.append(rec)
-            pipe = parts["pipeline"]
-            eval_launches["launches_eval_ar"] = {
-                "fused_dot_topk[f32]": parts["eval"]["f32"] + pipe["fused_dot_topk[f32]"],
-                **{k: pipe[k] for k in ("int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm")},
-                **parts["train_e2e"]}
-            eval_launches["launches_eval_ar_retriever"] = dict(ar["train_e2e"]["by_tower"]["retriever"])
+            with timed("eval-ar"):
+                with cut_depth("eval-ar"):
+                    parts, rec, ar = eval_ar_phase(device, workdir, peaks, smi)
+                eval_cases.append(rec)
+                pipe = parts["pipeline"]
+                eval_launches["launches_eval_ar"] = {
+                    "fused_dot_topk[f32]": parts["eval"]["f32"] + pipe["fused_dot_topk[f32]"],
+                    **{k: pipe[k] for k in ("int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm")},
+                    **parts["train_e2e"]}
+                eval_launches["launches_eval_ar_retriever"] = dict(ar["train_e2e"]["by_tower"]["retriever"])
         if "cli" in phases:
-            k3, _ = cli_phase(device, workdir, smi)
-            eval_launches["launches_cli"] = {"fused_dot_topk[f32]": k3["f32"]}
+            with timed("cli"):
+                with cut_depth("cli"):
+                    k3, _ = cli_phase(device, workdir, smi)
+                eval_launches["launches_cli"] = {"fused_dot_topk[f32]": k3["f32"]}
         if eval_cases:
             print(json.dumps({"k3_eval_cases": eval_cases}), flush=True)
         if "profile" in phases:
-            profile_phase(device, workdir, "profile", TRAIN_BATCH, TRAIN_STEPS)
+            with timed("profile"):
+                profile_phase(device, workdir, "profile", TRAIN_BATCH, TRAIN_STEPS)
         if "profile-sft" in phases:
-            profile_phase(device, workdir, "profile-sft", SFT_BATCH, SFT_STEPS)
+            with timed("profile-sft"):
+                profile_phase(device, workdir, "profile-sft", SFT_BATCH, SFT_STEPS)
     kernels.pop("_k3_launches", None)
     if set(phases) != set(PHASES):
         print(f"chip_smoke: ran only {phases}; no result line", flush=True)
@@ -6094,7 +6839,7 @@ def main() -> int:
                  "k5_pcol_gemm"]
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm", "k1_cal_quant", "k1_cal_quant[dy]"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *K4_D256, *k5_names)
+             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *K4_F32, *K4_D256, *k5_names)
     for name, n in cb_launches.items():  # PR 15's main path: answer_continuous() (serve-cb (c))
         if name in kernels:
             kernels[name]["launches_serve_cb"] = n
@@ -6126,6 +6871,8 @@ def main() -> int:
             check(kernels[name][key] > 0, f"{name} was never launched by {key[9:].replace('_', '-')}")
     for name in ("k4_fwd_wgmma", "k4_bwd_dq_wgmma", "k4_bwd_dkv_wgmma", "k4_dsum"):
         check(kernels[name]["launches_sft_moe"] > 0, f"{name} was never launched by sft-moe")
+    for name in K4_F32:  # the pipeline's SFT in f32: the mma.sync route
+        check(kernels[name]["launches_rc_pipeline"] > 0, f"{name} was never launched by rc-pipeline")
     for name in ("fused_dot_topk[f32]", "int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm"):
         check(kernels[name]["launches_serve_stream"] > 0, f"{name} was never launched by serve-stream")
         check(kernels[name]["launches_serve_http"] > 0, f"{name} was never launched by serve-http")
@@ -6139,6 +6886,7 @@ def main() -> int:
     check(kernels["k1_cal_quant"]["launches_eval_ar_retriever"] > 0, "the retriever tower never took the calibrated "
                                                                     "route in eval-ar")
     print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s", flush=True)
+    print(f"[time] seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

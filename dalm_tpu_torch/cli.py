@@ -10,12 +10,13 @@ option names, ``--x/--no-x`` pairs, choices and defaults, on ``argparse``.
 Differences from the JAX package's CLI:
 
 - ``--device`` (default ``cuda``) is passed to the entry point: the eval
-  commands have it there with the default ``tpu``; the training commands and
-  ``serve`` have it here only. Nothing retries on the CPU.
+  commands have it there with the default ``tpu``; the training commands,
+  ``qa-gen`` and ``serve`` have it here only. Nothing retries on the CPU.
 - ``--index-kernel`` keeps its name, choices and default, but is inert: on the
   card the search is K3, the hand-written kernel, whatever it says.
-- ``qa-gen`` takes its options and exits non-zero: ``data/qa_gen.py`` is not
-  ported yet.
+- ``qa-gen --as-dataset`` (a dataset saved by ``save_to_disk``) needs the
+  ``datasets`` package, which the port does not use: the command exits with
+  status 2 and the entry point's ``NotImplementedError``.
 - Knobs of paths that are not ported (``--model-parallel`` above 1,
   ``--context-parallel``, ``--pipeline-stages``, ``--pp-model-parallel``) reach
   the entry points, which raise ``NotImplementedError`` naming them; the
@@ -178,7 +179,7 @@ def build_parser() -> argparse.ArgumentParser:
     _opt(p, "--pp-model-parallel", 1, help="not ported yet above 1")
     _device(p)
 
-    p = sub.add_parser("qa-gen", help="Generate question / answer pairs from a passage dataset (not ported yet).")
+    p = sub.add_parser("qa-gen", help="Generate question / answer pairs from a passage dataset.")
     p.add_argument("dataset_path")
     _opt(p, "--passage-column-name", "Abstract")
     _opt(p, "--title-column-name", "Title")
@@ -189,6 +190,7 @@ def build_parser() -> argparse.ArgumentParser:
     _opt(p, "--max-input-tokens", 512)
     _opt(p, "--model-spec", "tiny", help="generator model for question writing")
     _opt(p, "--tokenizer", "byte")
+    _device(p)
 
     p = sub.add_parser("eval-retriever", help="Evaluate retrieval recall / precision / hit rate.")
     for name in ("dataset_path", "retriever_name_or_path"):
@@ -271,9 +273,10 @@ def run(args: argparse.Namespace) -> int:
         result = train_generator(model_name=kw.pop("model_name_or_path"), dataset_name=kw.pop("dataset_path"), **kw)
         print(f"train-generator done: {result}")
     elif command == "qa-gen":
-        print("dalm-torch qa-gen: data/qa_gen.py is not ported yet (dalm_tpu_torch has no data/qa_gen.py)",
-              file=sys.stderr)
-        return 2
+        from dalm_tpu_torch.data.qa_gen import generate_qa_from_disk
+
+        generate_qa_from_disk(dataset_path=kw.pop("dataset_path"), **kw)
+        print("qa-gen done")
     elif command == "eval-retriever":
         from dalm_tpu_torch.eval.retriever import evaluate_retriever
 

@@ -1,12 +1,23 @@
 """Dataset loading without third-party packages: a small column store over
 CSV / JSON / JSON-lines files (the reference reads the same files through
-the ``datasets`` package, ``dalm_tpu/data/loading.py``)."""
+the ``datasets`` package, ``dalm_tpu/data/loading.py``).
+
+``ColumnDataset`` keeps the few ``datasets.Dataset`` operations the data
+layer runs, with the same results: ``shuffle(seed)`` (the permutation
+``numpy.random.default_rng(seed).permutation(n)`` that ``Dataset.shuffle``
+draws), ``select``, a row-wise ``filter`` that keeps the order, and
+``to_csv`` (the bytes ``Dataset.to_csv`` writes: pandas' CSV without the
+index, LF line ends, nothing at all for zero rows). CSV cells are read
+as strings, where ``datasets`` infers numbers."""
 
 from __future__ import annotations
 
 import csv
 import json
-from typing import Callable, Dict, List, Mapping, Sequence, Union
+import os
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Mapping, Sequence, Union
+
+import numpy as np
 
 
 class ColumnDataset:
@@ -34,10 +45,45 @@ class ColumnDataset:
         old ones are dropped)."""
         return ColumnDataset(fn(self.columns))
 
+    def __repr__(self) -> str:
+        return f"ColumnDataset(columns={self.column_names}, num_rows={len(self)})"
 
-def _from_rows(rows: Sequence[Mapping]) -> ColumnDataset:
+    def row(self, i: int) -> Dict[str, Any]:
+        return {name: col[i] for name, col in self.columns.items()}
+
+    def rows(self) -> Iterator[Dict[str, Any]]:
+        return (self.row(i) for i in range(len(self)))
+
+    def select(self, indices: Iterable[int]) -> "ColumnDataset":
+        idx = list(indices)
+        return ColumnDataset({name: [col[i] for i in idx] for name, col in self.columns.items()})
+
+    def shuffle(self, seed: int) -> "ColumnDataset":
+        return self.select(np.random.default_rng(seed).permutation(len(self)).tolist())
+
+    def filter(self, keep: Callable[[Dict[str, Any]], bool]) -> "ColumnDataset":
+        """The rows for which ``keep(row)`` is true, in their order."""
+        return self.select(i for i in range(len(self)) if keep(self.row(i)))
+
+    def to_csv(self, path: str) -> None:
+        with open(path, "w", newline="", encoding="utf-8") as f:
+            if len(self):
+                w = csv.writer(f, lineterminator="\n")
+                w.writerow(self.column_names)
+                w.writerows(zip(*self.columns.values()))
+
+
+def from_rows(rows: Sequence[Mapping]) -> ColumnDataset:
+    """Rows of one schema (the first row's keys) as columns."""
     names = list(rows[0]) if rows else []
     return ColumnDataset({n: [r[n] for r in rows] for n in names})
+
+
+def write_jsonl(rows: Iterable[Mapping], path: str) -> None:
+    """One JSON object a line."""
+    with open(path, "w", encoding="utf-8") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
 
 
 def load_dataset(dataset_or_path: Union[str, ColumnDataset, Mapping[str, Sequence]]) -> ColumnDataset:
@@ -48,12 +94,15 @@ def load_dataset(dataset_or_path: Union[str, ColumnDataset, Mapping[str, Sequenc
     if isinstance(dataset_or_path, Mapping):
         return ColumnDataset(dataset_or_path)
     path = str(dataset_or_path)
+    if os.path.isdir(path):
+        raise NotImplementedError(f"{path!r} is a directory: a dataset saved by save_to_disk needs the 'datasets' "
+                                  "package, which the port does not use; give a .csv, .json or .jsonl file")
     if path.endswith(".jsonl"):
         with open(path) as f:
-            return _from_rows([json.loads(line) for line in f if line.strip()])
+            return from_rows([json.loads(line) for line in f if line.strip()])
     if path.endswith(".json"):
         with open(path) as f:
             data = json.load(f)
-        return ColumnDataset(data) if isinstance(data, Mapping) else _from_rows(data)
+        return ColumnDataset(data) if isinstance(data, Mapping) else from_rows(data)
     with open(path, newline="") as f:
-        return _from_rows(list(csv.DictReader(f)))
+        return from_rows(list(csv.DictReader(f)))

@@ -34,7 +34,7 @@ def filter_unique_passages(dataset: ColumnDataset, passage_column_name: str) -> 
         if p not in seen:
             seen.add(p)
             keep.append(i)
-    return ColumnDataset({name: [col[i] for i in keep] for name, col in dataset.columns.items()})
+    return dataset.select(keep)
 
 
 def calculate_precision_recall(retrieved_items: Sequence[str], correct_items: Sequence[str]) -> Tuple[float, float]:

@@ -2,7 +2,7 @@
 
 Every JAX command exists in the port with the same positional arguments, option names, ``--x/--no-x`` pairs,
 choices, types and defaults. The stated differences: ``--device`` (default ``cuda``; the JAX package has it only on
-the eval commands, default ``tpu``, and the port adds it to every command that runs a model) and ``--index-kernel``
+the eval commands, default ``tpu``, and the port adds it to every command that runs a model, ``qa-gen`` too) and ``--index-kernel``
 (same name, choices and default; inert in the port, where K3 runs on the card whatever it says). ``eval-retriever
 --device cpu`` prints the JSON line the JAX CLI prints for the same tiny weights (each side its own saved
 directory, f32).
@@ -26,7 +26,7 @@ from test_torch_eval import (TOP_K, assert_margins, eval_columns, jax_embeddings
 
 torch.set_num_threads(1)  # one intra-op thread: the suite's pytest workers share the CPU's cores
 
-PORT_ONLY_DEVICE = {"train-rag-e2e", "train-retriever-only", "train-generator", "serve"}
+PORT_ONLY_DEVICE = {"train-rag-e2e", "train-retriever-only", "train-generator", "qa-gen", "serve"}
 
 
 def _port_commands():
@@ -105,9 +105,26 @@ def test_version(capsys):
     assert CliRunner().invoke(jax_cli, ["version"]).exit_code == 0
 
 
-def test_qa_gen_exits_non_zero_naming_the_module(capsys):
-    assert main(["qa-gen", "data.csv", "--sample-size", "4", "--as-dataset"]) != 0
-    assert "data/qa_gen.py" in capsys.readouterr().err
+def test_qa_gen_writes_the_csvs_of_the_in_process_call(tmp_path, capsys):
+    """``qa-gen --device cpu --model-spec tiny``: the tiny preset random-initialised from seed 0 on both sides."""
+    from dalm_tpu_torch.data.qa_gen import generate_qa_from_disk
+    from test_torch_qa_gen import write_passages_csv
+
+    path = write_passages_csv(tmp_path / "passages.csv", 10, 4, seed=2)
+    assert main(["qa-gen", path, "--sample-size", "9", "--batch-size", "4", "--max-input-tokens", "64",
+                 "--output-dir", str(tmp_path / "cli"), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1] == "qa-gen done"
+    generate_qa_from_disk(path, "Abstract", "Title", 9, 4, str(tmp_path / "call"), True, max_input_tokens=64,
+                          model_spec="tiny", device="cpu")
+    for split in ("train", "test"):
+        name = f"question_answer_pairs_{split}.csv"
+        assert (tmp_path / "cli" / name).read_bytes() == (tmp_path / "call" / name).read_bytes()
+
+
+def test_qa_gen_as_dataset_exits_2_naming_datasets(tmp_path, capsys):
+    assert main(["qa-gen", str(tmp_path / "data.csv"), "--sample-size", "4", "--as-dataset", "--device", "cpu",
+                 "--output-dir", str(tmp_path / "out")]) == 2
+    assert "needs the 'datasets' package" in capsys.readouterr().err and not (tmp_path / "out").exists()
 
 
 def test_unported_multi_gpu_flags_reach_the_entry_points(capsys, toy_csv, tmp_path):

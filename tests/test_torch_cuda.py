@@ -2246,3 +2246,48 @@ def test_mla_absorbed_decode_equals_the_full_forward_on_card(cuda):
         steps.append(out[:, -1])
     got, want = torch.stack(steps, 1).float(), full[:, P - 1:S - 1].float()
     assert torch.isfinite(got).all() and float((got - want).norm() / want.norm()) < 3e-2
+
+
+def test_text_generator_on_card_equals_cpu(cuda):
+    """``TorchTextGenerator("tiny")`` on the card against the CPU, f32 (TF32 off), the CPU side's weights loaded on
+    the card: 12 prompts of mixed length at batch 8 (a padded last batch), tokens equal up to the first step where a
+    row's top two CPU logits lie within 1e-5 (a near tie two f32 sum orders may resolve either way), and the
+    completions equal when no such step comes."""
+    from dalm_tpu_torch.data.backends import TorchTextGenerator
+
+    kw = dict(max_input_tokens=96, max_new_tokens=12, batch_size=8, system_message="Write questions.")
+    cpu = TorchTextGenerator("tiny", device="cpu", **kw)
+    card = TorchTextGenerator("tiny", device=cuda, **kw)
+    card.model.load_state_dict(cpu.model.state_dict())
+    prompts = [f"prompt {i} " + "about cells " * i for i in range(12)]
+    seen = {"cpu": [], "card": []}
+
+    def capture(gen, out):
+        raw = gen._generate
+
+        def generate(ids, mask):
+            tokens = raw(ids, mask)
+            out.append((ids.cpu(), mask.cpu(), tokens))
+            return tokens
+
+        gen._generate = generate
+
+    capture(cpu, seen["cpu"])
+    capture(card, seen["card"])
+    texts = {name: gen(prompts) for name, gen in (("cpu", cpu), ("card", card))}
+    assert len(seen["card"]) == 2 and seen["card"][1][0].device.type == "cpu"
+    tied = False
+    for (ids, mask, want), (_, _, got) in zip(seen["cpu"], seen["card"]):
+        got = got.cpu()
+        diff = torch.nonzero((got != want).any(dim=0)).flatten()
+        if len(diff):
+            step = int(diff[0])
+            full = torch.cat([ids, want[:, :step].long()], 1)
+            m = torch.cat([mask, torch.ones_like(want[:, :step]).long()], 1)
+            pos = torch.clamp(torch.cumsum(m, 1) - 1, min=0)
+            top = torch.topk(cpu.model(full, m, positions=pos)[:, -1], 2).values
+            rows = (got[:, step] != want[:, step]).nonzero().flatten()
+            assert ((top[rows, 0] - top[rows, 1]) < 1e-5).all(), f"step {step} differs without a near tie"
+            tied = True
+    if not tied:
+        assert texts["card"] == texts["cpu"]

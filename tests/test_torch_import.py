@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
     for new in ("kernels.flash_attention", "train.generator_only", "data.sft", "losses.causal",
                 "kernels.int4_matmul", "models.sampling", "models.quant", "models.decode_engine",
                 "eval.common", "eval.results", "eval.retriever", "eval.rag", "cli", "core.msgpack",
-                "models.hf_loader", "data.tokenizer", "models.moe", "models.mla", "models.gpt2"):
+                "models.hf_loader", "data.tokenizer", "models.moe", "models.mla", "models.gpt2", "data.qa_gen",
+                "data.rc_regex", "data.backends", "pipelines.reading_comprehension"):
         assert f"dalm_tpu_torch.{new}" in loaded
     assert [m for m in loaded if _forbidden(m)] == [] and "transformers" not in loaded
 
