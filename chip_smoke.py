@@ -71,9 +71,9 @@ Llama-2-7B pipeline of its own with both towers' adapters merged), ``k3`` (every
 copies larger than the L2 at the train shapes and again at decode's 32
 rows), ``k1`` (K1, its three launches one by one, and the two int8 GEMM
 entries), ``grad``,
-``k4`` (flash attention, the forward and the backward each on both routes: the
-wgmma kernels for bf16 at head dim 64 / 128 and the mma.sync kernels for the
-rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances, the
+``k4`` (flash attention, the forward and the backward each on its route: the
+wgmma kernels for bf16 at head dim 64 / 128, the tf32x3 kernels for f32 at 64 / 128
+and the mma.sync kernels for the rest; dq, dk/dv and the dsum pre-pass), ``k5`` (the five K5 instances, the
 fused decode kernel held to its plain version, counted once per call and
 repeated bit for bit, and at M = 32 timed by CUDA graph over copies of the
 weight in turns with ``x @ W_bf16``; K2 alone and the wrapper's host time per
@@ -84,8 +84,9 @@ GEMM, and its int8 route for pcol, K2, the int8 nibble pre-pass and the scaled
 s8 GEMM (beside K1's fold instance on the same operands), against the fused
 kernel forced on the same operands; i8mxu's and pcol's exactness at the
 extremes of their operands; each route's crossover with the fused kernel by
-rows; K5 base at group 8, Gemma3-1B's K 1,152, on the prefill route at M 32 and
-8,192 against ``x @ W_bf16``),
+rows; K5 base and nf4 at group 8, Gemma3-1B's K 1,152: the fused kernel's instances
+for groups of 8 at M 32 in bf16 and f32, in turns with ``x @ W_bf16`` and with the
+prefill route forced, and the prefill route at M 8,192 against ``x @ W_bf16``),
 ``train-small`` (tiny ``train_e2e``, card vs CPU; and a 2-step tiny run of each of these training paths:
 calibrated, dy-calibrated, the merge runtime over int8 bases, the live index with both marginal modes,
 ``train_retriever``), ``train`` (the flagship with ``a8_calibrate_every`` 0, then 16), ``train-dycal``
@@ -148,9 +149,12 @@ head-dim-256 forward, dq and dk/dv on the wgmma route (``k4_fwd_d256_wgmma``, ``
 ``k4_bwd_dkv_d256_wgmma``, launched by sft-gemma2) and the mma.sync instances that route replaced (``k4_fwd_d256``,
 ``k4_bwd_dq_d256``, ``k4_bwd_dkv_d256``, no launch there);
 K5 base and K3 also carry ``launches_serve_llama31``, ``launches_serve_moe`` and ``launches_serve_mla``, K4's D-128
-wgmma kernels and dsum ``launches_sft_moe``; the pipeline's SFT computes in f32, on K4's mma.sync route, and
-rc-pipeline holds and times those f32 instances at its own geometry (``k4_fwd[f32]``, ``k4_bwd_dq[f32]``,
-``k4_bwd_dkv[f32]``, ``k4_dsum[f32]``, whose main path it is), each with its launches in its
+wgmma kernels and dsum ``launches_sft_moe``; the pipeline's SFT computes in f32 at head dim 128, on K4's tf32x3 route,
+and rc-pipeline holds and times those kernels at its own geometry (``k4_fwd_tf32x3``, ``k4_bwd_dq_tf32x3``,
+``k4_bwd_dkv_tf32x3`` and the dsum pre-pass ``k4_dsum[f32]``, whose main path it is) in turns with the mma.sync f32
+instances they replaced there (``k4_fwd[f32]``, ``k4_bwd_dq[f32]``, ``k4_bwd_dkv[f32]``, no launch there); K5 base's
+instance for groups of 8 (``int4_matmul[base,group8]``) carries its launches in families-small's Gemma3-1B row; each
+with its launches in its
 main path: ``answer()`` for K3, the ``train_e2e`` run for the int8 kernels,
 the ``train_generator`` run for K4, the 4-bit tier's own ``answer()`` for each
 K5 instance, every count set to 0 just before that path is driven; K3's f32
@@ -1060,21 +1064,37 @@ def k4_time(gen, device, peaks, B, S, label, iters):
     return entries
 
 
-# K4's f32 instances (csrc/flash_attention.cu's mma.sync route: the products in exact f32 on the CUDA cores) by
+# K4's f32 instances on the mma.sync route (csrc/flash_attention.cu: the products in exact f32 on the CUDA cores) by
 # their kernels-line entry: the mma.sync entry of the same kernel, whose C entry point, source and counter they share.
+# Since the tf32x3 route took float32 at head dim 64 / 128 they run on no main path at D 128; they stay timed beside it.
 K4_F32 = {"k4_fwd[f32]": "k4_fwd", "k4_bwd_dq[f32]": "k4_bwd_dq", "k4_bwd_dkv[f32]": "k4_bwd_dkv",
           "k4_dsum[f32]": "k4_dsum"}
+# K4's tf32x3 route (csrc/flash_tf32.cu: float32 at head dim 64 / 128 on the tensor cores, every product 3xTF32): C
+# entry point, source, counter, and the mma.sync f32 entry it is timed in turns with.
+K4_TF32 = {"k4_fwd_tf32x3": ("dalm_fa_fwd_tf32", "dalm_tpu_torch/csrc/flash_tf32.cu", "fwd", "k4_fwd[f32]"),
+           "k4_bwd_dq_tf32x3": ("dalm_fa_bwd_dq_tf32", "dalm_tpu_torch/csrc/flash_tf32.cu", "dq", "k4_bwd_dq[f32]"),
+           "k4_bwd_dkv_tf32x3": ("dalm_fa_bwd_dkv_tf32", "dalm_tpu_torch/csrc/flash_tf32.cu", "dkv",
+                                 "k4_bwd_dkv[f32]")}
+
+
+def tf32_rate(peaks) -> float:
+    """The dense TF32 tensor-core rate: half the bf16 one on Hopper's data sheets (SXM 494.5 of 989 TFLOP/s, PCIe 378
+    of 756, NVL 417.5 of 835)."""
+    return peaks[2] / 2
 
 
 def k4_f32_time(gen, device, peaks, geo, label, iters):
-    """K4's f32 instances at a main path's own geometry ``geo`` (the shapes, segment ids, scale, window and softcap
+    """K4's float32 kernels at a main path's own geometry ``geo`` (the shapes, segment ids, scale, window and softcap
     of the path's first attention call): random f32 q, k, v, do at those shapes through ``flash_fwd`` /
-    ``flash_bwd`` on the mma.sync route, held to the plain versions at ``K4_TOL["float32"]`` (the dsum pre-pass to
-    1e-5 of its row's sum of |do out|); then the forward, dq, dk/dv and dsum each timed through its C entry point
-    against the plain version, one library call (SDPA in f32 with the same boolean mask, k and v repeated to the
-    query heads outside the timing: its forward, and its backward for the three gradients) and the bound at the f32
-    CUDA-core peak, the work counted over the (query, key) pairs this run's segments leave visible. Returns the
-    kernels-line records by ``K4_F32`` name."""
+    ``flash_bwd``, which must take the tf32x3 route (the forward, the dsum pre-pass, dq and dk/dv), and through the
+    kept mma.sync f32 instances' C entry points on the same inputs; each held to the plain versions at
+    ``K4_TOL["float32"]`` (the dsum pre-pass to 1e-5 of its row's sum of |do out|). Then the forward, dq and dk/dv of
+    the two routes timed through their C entry points in turns (tf32x3, mma.sync, mma.sync, tf32x3), dsum once,
+    against the plain versions, one library call (SDPA in f32 with the same boolean mask, k and v repeated to the
+    query heads outside the timing: its forward, and its backward for the three gradients) and the bounds, the work
+    counted over the (query, key) pairs this run's segments leave visible: the mma.sync instances at the f32
+    CUDA-core peak, the tf32x3 kernels at 3 x the operations over the TF32 tensor-core peak (``bound_ms``) and at the
+    CUDA-core one (``bound_f32_ms``). Returns the kernels-line records by ``K4_F32`` and ``K4_TF32`` name."""
     import torch
     import torch.nn.functional as F
 
@@ -1085,23 +1105,28 @@ def k4_f32_time(gen, device, peaks, geo, label, iters):
     seg = None if geo["seg"] is None else geo["seg"].to(torch.int32).contiguous()
     q, k, v, do, _, _ = k4_inputs(gen, device, torch.float32, B, H, Hk, S, S, D, None)
     kw = dict(causal=geo["causal"], scale=geo["scale"], window=geo["window"], softcap=geo["softcap"])
-    check(fa.fwd_route(q.dtype, D) == "mma", "k4 f32: float32 must take the mma.sync route")
+    check(fa.fwd_route(q.dtype, D) == "tf32x3", f"k4 f32: float32 at D {D} must take the tf32x3 route")
     fwd_before, bwd_before = dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes)
     out, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg, seg, **kw)
-    check(fa.flash_fwd.routes == dict(fwd_before, mma=fwd_before["mma"] + 1)
-          and fa.flash_bwd.routes == dict(bwd_before, mma=bwd_before["mma"] + 1),
-          f"k4 {label}: the forward or the backward did not take the mma.sync route")
+    check(fa.flash_fwd.routes == dict(fwd_before, tf32x3=fwd_before["tf32x3"] + 1)
+          and fa.flash_bwd.routes == dict(bwd_before, tf32x3=bwd_before["tf32x3"] + 1),
+          f"k4 {label}: the forward or the backward did not take the tf32x3 route")
     dims = fa._check("time", q, k, v, seg, seg, kw["window"], kw["softcap"])
 
     def block(**tensors):
         return fa._args(q, k, v, seg, seg, kw["causal"], kw["scale"], 0, kw["window"], kw["softcap"], dims, **tensors)
 
+    # the mma.sync f32 instances on the same inputs: their own forward, then their backward from the tf32x3
+    # forward's out and lse (the pair the plain backward is given)
     dsum = torch.empty_like(lse)
-    fwd_b = block(out=torch.empty_like(out), lse=torch.empty_like(lse))
-    bwd_b = block(out=out, dout=do, lse=lse, dsum=dsum, dq=torch.empty_like(dq), dk=torch.empty_like(dk),
-                  dv=torch.empty_like(dv))
-    fa._launch("dalm_fa_dsum", "dsum", bwd_b, q)
+    m_out, m_lse = torch.empty_like(out), torch.empty_like(lse)
+    m_dq, m_dk, m_dv = torch.empty_like(dq), torch.empty_like(dk), torch.empty_like(dv)
+    fwd_b = block(out=m_out, lse=m_lse)
+    bwd_b = block(out=out, dout=do, lse=lse, dsum=dsum, dq=m_dq, dk=m_dk, dv=m_dv)
+    fa._launch("dalm_fa_fwd", "fwd", fwd_b, q)
+    for name in ("k4_dsum", "k4_bwd_dq", "k4_bwd_dkv"):
+        fa._launch(K4_ENTRY[name][0], K4_ENTRY[name][2], bwd_b, q)
     ro, rl = fa.flash_fwd_ref(q, k, v, seg, seg, **kw)
     rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw)
     rsum = fa.dsum_ref(do, out)
@@ -1111,21 +1136,37 @@ def k4_f32_time(gen, device, peaks, geo, label, iters):
     sum_err = (dsum - rsum).abs()
     check(bool((sum_err <= 1e-5 * (do * out).abs().sum(dim=-1)).all()),
           f"k4 {label}: the dsum pre-pass is more than 1e-5 of its row's sum of |do out| from the plain version")
-    errs = {"k4_fwd[f32]": max(k4_err(out, ro, tol["out"], f"{label} out"),
-                               k4_err(lse, rl, tol["lse"], f"{label} lse")),
-            "k4_bwd_dq[f32]": k4_err(dq, rq, tol["grad"], f"{label} dq"),
-            "k4_bwd_dkv[f32]": max(k4_err(dk, rk, tol["grad"], f"{label} dk"),
-                                   k4_err(dv, rv, tol["grad"], f"{label} dv")),
-            "k4_dsum[f32]": float(sum_err.max())}
-    share = K4_SHARE[0]
+    errs = {"k4_fwd_tf32x3": max(k4_err(out, ro, tol["out"], f"{label} tf32x3 out"),
+                                 k4_err(lse, rl, tol["lse"], f"{label} tf32x3 lse")),
+            "k4_bwd_dq_tf32x3": k4_err(dq, rq, tol["grad"], f"{label} tf32x3 dq"),
+            "k4_bwd_dkv_tf32x3": max(k4_err(dk, rk, tol["grad"], f"{label} tf32x3 dk"),
+                                     k4_err(dv, rv, tol["grad"], f"{label} tf32x3 dv"))}
+    share_tf32 = K4_SHARE[0]
+    K4_SHARE[0] = 0.0
+    errs.update({"k4_fwd[f32]": max(k4_err(m_out, ro, tol["out"], f"{label} mma.sync out"),
+                                    k4_err(m_lse, rl, tol["lse"], f"{label} mma.sync lse")),
+                 "k4_bwd_dq[f32]": k4_err(m_dq, rq, tol["grad"], f"{label} mma.sync dq"),
+                 "k4_bwd_dkv[f32]": max(k4_err(m_dk, rk, tol["grad"], f"{label} mma.sync dk"),
+                                        k4_err(m_dv, rv, tol["grad"], f"{label} mma.sync dv")),
+                 "k4_dsum[f32]": float(sum_err.max())})
+    share_mma = K4_SHARE[0]
     del ro, rl, rq, rk, rv, rsum
 
-    blocks = {"k4_fwd[f32]": fwd_b, "k4_bwd_dq[f32]": bwd_b, "k4_bwd_dkv[f32]": bwd_b, "k4_dsum[f32]": bwd_b}
-    ms = {}
-    for name, base in K4_F32.items():
-        entry, _, counter = K4_ENTRY[base]
-        a = blocks[name]
-        ms[name] = cuda_ms(lambda: fa._launch(entry, counter, a, q), iters)
+    tf_fwd_b = block(out=torch.empty_like(out), lse=torch.empty_like(lse))
+    tf_bwd_b = block(out=out, dout=do, lse=lse, dsum=dsum, dq=torch.empty_like(dq), dk=torch.empty_like(dk),
+                     dv=torch.empty_like(dv))
+    calls = {"k4_fwd[f32]": ("dalm_fa_fwd", "fwd", fwd_b), "k4_bwd_dq[f32]": ("dalm_fa_bwd_dq", "dq", bwd_b),
+             "k4_bwd_dkv[f32]": ("dalm_fa_bwd_dkv", "dkv", bwd_b), "k4_dsum[f32]": ("dalm_fa_dsum", "dsum", bwd_b)}
+    for name, (entry, _, counter, _) in K4_TF32.items():
+        calls[name] = (entry, counter, tf_fwd_b if counter == "fwd" else tf_bwd_b)
+    turns = {}
+    for name, (_, _, _, mma_name) in K4_TF32.items():
+        for which in (name, mma_name, mma_name, name):
+            entry, counter, a = calls[which]
+            turns.setdefault(which, []).append(cuda_ms(lambda: fa._launch(entry, counter, a, q), iters))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    entry, counter, a = calls["k4_dsum[f32]"]
+    ms["k4_dsum[f32]"] = cuda_ms(lambda: fa._launch(entry, counter, a, q), iters)
     plain_f = cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, seg, seg, **kw), 2)
     plain_b = cuda_ms(lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, seg, seg, **kw), 2)
     plain_dsum = cuda_ms(lambda: fa.dsum_ref(do, out), iters)
@@ -1144,13 +1185,16 @@ def k4_f32_time(gen, device, peaks, geo, label, iters):
     lib_dsum = cuda_ms(lambda: (do * out).sum(dim=-1), iters)
     work = k4_ops_bytes(B, H, Hk, S, S, D, 4, 0, kw["causal"], vis=vis)
     records = {}
-    for name, base in K4_F32.items():
+    bases = dict(K4_F32, **{name: K4_F32[spec[3]] for name, spec in K4_TF32.items()})
+    for name, base in bases.items():
         ops, nbytes = work[base]
-        t_ops, t_bytes = ops / peaks[1] * 1e3, nbytes / peaks[0] * 1e3
-        fwd, dsum_k = name == "k4_fwd[f32]", name == "k4_dsum[f32]"
+        tf32 = name in K4_TF32
+        t_f32, t_bytes = ops / peaks[1] * 1e3, nbytes / peaks[0] * 1e3
+        t_ops = 3 * ops / tf32_rate(peaks) * 1e3 if tf32 else t_f32
+        fwd, dsum_k = base == "k4_fwd", base == "k4_dsum"
         records[name] = {
-            "name": name, "route": "cuda", "source": K4_ENTRY[base][1], "replaces": K4_AT[base], "case": label,
-            "max_abs_err": errs[name], "ms": ms[name],
+            "name": name, "route": "cuda", "source": K4_TF32[name][1] if tf32 else K4_ENTRY[base][1],
+            "replaces": K4_AT[base], "case": label, "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_f if fwd else plain_dsum if dsum_k else plain_b,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_f if fwd else lib_dsum if dsum_k else lib_b,
@@ -1159,17 +1203,31 @@ def k4_f32_time(gen, device, peaks, geo, label, iters):
                 "SDPA backward, f32, boolean mask: dq, dk and dv in one call, the work of dq + dk/dv + dsum together"),
             "tflops": ops / ms[name] / 1e9, "visible_share": vis,
         }
+        if name in turns:
+            records[name]["turns_ms"] = turns[name]
+        if tf32:
+            records[name]["bound_f32_ms"] = max(t_f32, t_bytes)
     r = records
-    print(f"[k4] {label}: f32 on the mma.sync route, visible share {vis:.4f}: forward {ms['k4_fwd[f32]']:.3f} ms "
-          f"({r['k4_fwd[f32]']['tflops']:.1f} TFLOP/s, bound {r['k4_fwd[f32]']['bound_ms']:.3f} ms "
-          f"{r['k4_fwd[f32]']['bound_by']}), dq {ms['k4_bwd_dq[f32]']:.3f} ms (bound "
-          f"{r['k4_bwd_dq[f32]']['bound_ms']:.3f}), dk/dv {ms['k4_bwd_dkv[f32]']:.3f} ms (bound "
-          f"{r['k4_bwd_dkv[f32]']['bound_ms']:.3f}), dsum {ms['k4_dsum[f32]']:.4f} ms (bound "
-          f"{r['k4_dsum[f32]']['bound_ms']:.4f}, {r['k4_dsum[f32]']['bound_by']}); plain forward {plain_f:.3f} ms, "
-          f"backward {plain_b:.3f} ms, dsum {plain_dsum:.4f} ms; SDPA forward {lib_f} ms, backward {lib_b} ms, the "
-          f"dsum expression {lib_dsum:.4f} ms; max errors {errs}, the worst row at {share:.3f} of its bound "
-          f"({tol} x max(row max, {K4_FLOOR}))", flush=True)
-    del q, k, v, do, out, lse, dq, dk, dv, keep
+
+    def line(name):
+        e = r[name]
+        return (f"{e['ms']:.3f} ms ({e['tflops']:.1f} TFLOP/s of the f32 work; turns "
+                f"{', '.join(f'{t:.3f}' for t in e.get('turns_ms', []))}; bound {e['bound_ms']:.3f} ms)")
+
+    grads = {route: ms["k4_dsum[f32]"] + ms[dq_name] + ms[dkv_name] for route, dq_name, dkv_name in
+             (("tf32x3", "k4_bwd_dq_tf32x3", "k4_bwd_dkv_tf32x3"), ("mma.sync", "k4_bwd_dq[f32]", "k4_bwd_dkv[f32]"))}
+    print(f"[k4] {label}, visible share {vis:.4f}: forward tf32x3 {line('k4_fwd_tf32x3')}, mma.sync "
+          f"{line('k4_fwd[f32]')}: tf32x3 {ms['k4_fwd[f32]'] / ms['k4_fwd_tf32x3']:.2f}x faster; dq tf32x3 "
+          f"{line('k4_bwd_dq_tf32x3')}, mma.sync {line('k4_bwd_dq[f32]')}; dk/dv tf32x3 {line('k4_bwd_dkv_tf32x3')}, "
+          f"mma.sync {line('k4_bwd_dkv[f32]')}; dsum {ms['k4_dsum[f32]']:.4f} ms (bound "
+          f"{r['k4_dsum[f32]']['bound_ms']:.4f}, {r['k4_dsum[f32]']['bound_by']}); the three gradients with dsum: "
+          f"tf32x3 {grads['tf32x3']:.3f} ms, mma.sync {grads['mma.sync']:.3f} ms, SDPA's f32 backward {lib_b} ms; "
+          f"SDPA forward {lib_f} ms; bounds at the f32 CUDA-core peak {r['k4_fwd_tf32x3']['bound_f32_ms']:.3f} / "
+          f"{r['k4_bwd_dq_tf32x3']['bound_f32_ms']:.3f} / {r['k4_bwd_dkv_tf32x3']['bound_f32_ms']:.3f} ms; plain "
+          f"forward {plain_f:.3f} ms, backward {plain_b:.3f} ms, dsum {plain_dsum:.4f} ms; the dsum expression "
+          f"{lib_dsum:.4f} ms; max errors {errs}, the worst row at {share_tf32:.3f} (tf32x3) / {share_mma:.3f} "
+          f"(mma.sync) of its bound ({tol} x max(row max, {K4_FLOOR}))", flush=True)
+    del q, k, v, do, out, lse, dq, dk, dv, keep, m_out, m_lse, m_dq, m_dk, m_dv
     torch.cuda.empty_cache()
     return records
 
@@ -2104,9 +2162,9 @@ def sft_phase(device, workdir, batch, steps, k4_ms):
     want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps,
             "dsum": layers * n_steps}
     check(eval_batches >= 1 and launches == want, f"sft: K4 launches {launches}, {layers} layers predict {want}")
-    check(routes == {"wgmma": want["fwd"], "mma": 0}, f"sft: forward launches by route {routes}: every one of the "
+    check(routes == {"wgmma": want["fwd"], "tf32x3": 0, "mma": 0}, f"sft: forward launches by route {routes}: every one of the "
           f"{want['fwd']} bf16 D {cfg.hidden_size // cfg.num_heads} forwards must take the wgmma route")
-    check(bwd_routes == {"wgmma": want["dq"], "mma": 0}, f"sft: backward calls by route {bwd_routes}: every one of "
+    check(bwd_routes == {"wgmma": want["dq"], "tf32x3": 0, "mma": 0}, f"sft: backward calls by route {bwd_routes}: every one of "
           f"the {want['dq']} backwards must take the wgmma route")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(len(held["trainable"]) == 4 * layers and not unchanged,
@@ -2487,17 +2545,24 @@ def _extreme_pcol(gen, device, K, N, case):
     return q4, s4, x.to(torch.bfloat16)
 
 
-# Gemma3-1B's projections whose K of 1,152 packs at group 8 (quant._int4_group), which the fused K5 kernel does not
-# take: q_proj (4 heads of 256), k_proj / v_proj (1 kv head), gate_proj / up_proj
+# Gemma3-1B's projections whose K of 1,152 packs at group 8 (quant._int4_group): q_proj (4 heads of 256),
+# k_proj / v_proj (1 kv head), gate_proj / up_proj; 26 layers. The fused kernel takes them on its instances for
+# groups of 8 (csrc/int4_matmul.cu i4_kernel<BASE|NF4, T, true>); the kernels-line entry is the q shape at M 32, bf16.
 GEMMA3_GROUP8 = (("q_proj", 1152, 1024), ("k_proj / v_proj", 1152, 256), ("gate_proj / up_proj", 1152, 6912))
+GEMMA3_LAYERS = 26
+K5_G8 = "int4_matmul[base,group8]"
+K5_FUSED_SOURCE = "dalm_tpu_torch/csrc/int4_matmul.cu"
 
 
 def k5_group8_time(gen, device, peaks, smi):
-    """K5 base at group 8 (Gemma3-1B's q, k / v and gate / up at K 1,152), on the route ``_route`` gives it at every
-    M, the prefill route (pre-pass + bf16 GEMM): at decode's M 32 by CUDA graph over copies of the weight (up to 64,
-    so that most reads come from device memory, as a decode step's do), and at prefill's M 8,192 by CUDA events;
-    each held against its plain version, beside ``x @ W_bf16`` timed the same way and the bound (the 4-bit weight,
-    its f32 scales, x and the bf16 output moved once, against 2 M N K bf16 operations). Returns the records."""
+    """K5 base and nf4 at group 8 (Gemma3-1B's q, k / v and gate / up at K 1,152). At decode's M 32, bf16 and f32:
+    ``int4_matmul_fwd`` on the route ``_route`` gives (the fused kernel's instances for groups of 8), one launch
+    counted in ``fused.group8_launches``, held to the plain version (base and nf4); base timed by CUDA graph over
+    copies of the weight (up to 64, so that most reads come from device memory, as a decode step's do) in turns with
+    ``x @ W_bf16`` (fused, library, prefill, prefill, library, fused), the prefill route (pre-pass + GEMM, the route
+    these shapes took before) forced on the same operands; f32 in turns with ``x @ W`` in f32. At prefill's M 8,192:
+    the prefill route by CUDA events against ``x @ W_bf16``. Bounds: the 4-bit weight, its f32 scales, x and the
+    output moved once, against 2 M N K bf16 operations. Returns (the records, the kernels-line entry)."""
     import math
 
     import torch
@@ -2505,51 +2570,107 @@ def k5_group8_time(gen, device, peaks, smi):
     from dalm_tpu_torch.kernels import int4_matmul as k5
     from dalm_tpu_torch.models import quant
 
-    recs = []
+    recs, entry, step = [], None, {"fused": 0.0, "prefill": 0.0, "library": 0.0}
     for label, K, N in GEMMA3_GROUP8:
         w = torch.randn((K, N), generator=gen, device=device) * 0.02
-        d = quant.quantize_tensor_int4(w)
+        d, dn = quant.quantize_tensor_int4(w), quant.quantize_tensor_nf4(w)
         del w
         group = K // d["scale4"].shape[0]
-        check(group == 8, f"k5 group 8: {label} packed at group {group}")
+        check(group == 8 and K // dn["scale4"].shape[0] == 8, f"k5 group 8: {label} packed at group {group}")
         w_bf16 = k5._dequant(d["q4"], d["scale4"], torch.bfloat16, False)
         wbytes = d["q4"].numel() * d["q4"].element_size() + d["scale4"].numel() * d["scale4"].element_size()
         for M in (32, 8192):
-            x = (torch.randn((M, K), generator=gen, device=device) * 0.5).to(torch.bfloat16)
-            before = dict(k5.int4_matmul_fwd.route_launches)
-            y = k5.int4_matmul_fwd(x, d["q4"], d["scale4"], "base")
-            check(k5.int4_matmul_fwd.route_launches[("base", "prefill")] == before[("base", "prefill")] + 1,
-                  f"k5 group 8 {label} M {M}: not on the prefill route")
-            err, _ = k5_err(y, k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"), "base")
+            xf = torch.randn((M, K), generator=gen, device=device) * 0.5
+            x = xf.to(torch.bfloat16)
+            ops = 2.0 * M * N * K
             if M == 32:
+                errs = {}
+                for inst, dd in (("base", d), ("nf4", dn)):
+                    for xt in (x, xf):
+                        key = (inst, "fused")
+                        before, g8 = dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.group8_launches)
+                        y = k5.int4_matmul_fwd(xt, dd["q4"], dd["scale4"], inst)
+                        check(k5.int4_matmul_fwd.route_launches[key] == before[key] + 1
+                              and k5.fused.group8_launches[inst] == g8[inst] + 1,
+                              f"k5 group 8 {label} {inst} {xt.dtype} M 32: not on the fused instance for groups of 8")
+                        errs[inst, str(xt.dtype)[6:]] = k5_err(y, k5.int4_matmul_fwd_ref(xt, dd["q4"], dd["scale4"],
+                                                                                         inst), inst)[0]
+                        del y
                 n = max(1, min(64, math.ceil(64e6 / wbytes)))
                 qs = [(d["q4"].clone(), d["scale4"].clone()) for _ in range(n)]
                 ws = [w_bf16.clone() for _ in range(max(1, min(64, math.ceil(64e6 / (K * N * 2)))))]
-                ms = graph_ms([lambda q=q, s=s: k5.int4_matmul_fwd(x, q, s, "base") for q, s in qs])
-                lib = graph_ms([lambda wb=wb: x @ wb for wb in ws])
-                how = f"CUDA graph over {n} weight copies (library {len(ws)})"
-                del qs, ws
+                wt = torch.empty((N, K), dtype=torch.bfloat16, device=device)
+                out = torch.empty((M, N), dtype=torch.bfloat16, device=device)
+                fns = {"fused": [lambda q=q, s=s: k5.int4_matmul_fwd(x, q, s, "base") for q, s in qs],
+                       "library": [lambda wb=wb: x @ wb for wb in ws],
+                       "prefill": [lambda q=q, s=s: (k5.launch_dequant(q, s, group, False, wt),
+                                                     k5.launch_gemm(x, wt, out)) for q, s in qs],
+                       "fused_f32": [lambda q=q, s=s: k5.int4_matmul_fwd(xf, q, s, "base") for q, s in qs],
+                       "library_f32": [lambda wf=wf: xf @ wf for wf in [wb.float() for wb in ws[:max(1, len(ws) // 2)]]]}
+                turns = {}
+                for which in ("fused", "library", "prefill", "prefill", "library", "fused", "fused_f32",
+                              "library_f32", "library_f32", "fused_f32"):
+                    turns.setdefault(which, []).append(graph_ms(fns[which]))
+                t = {k: sum(v) / len(v) for k, v in turns.items()}
+                del qs, ws, wt, out, fns
+                plain = cuda_ms(lambda: k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"), 3)
+                reps = 2 if label != "q_proj" else 1  # per layer: k and v, gate and up
+                for key in step:
+                    step[key] += GEMMA3_LAYERS * reps * t[key]
+                t_ops = ops / peaks[2] * 1e3
+                for dtype, xbytes in (("bf16", 2), ("f32", 4)):
+                    t_bytes = (wbytes + M * K * xbytes + M * N * xbytes) / peaks[0] * 1e3
+                    f = "fused" if dtype == "bf16" else "fused_f32"
+                    rec = dict(name=K5_G8 if dtype == "bf16" else f"{K5_G8}[f32]", route="cuda",
+                               source=K5_FUSED_SOURCE, replaces=K5_AT["base"],
+                               case=f"Gemma3-1B {label} M={M} K={K} N={N} group 8 {dtype}", ms=t[f],
+                               turns_ms=turns[f], plain_ms=plain, bound_ms=max(t_ops, t_bytes),
+                               bound_by="operations" if t_ops >= t_bytes else "bytes",
+                               library_ms=t["library" if dtype == "bf16" else "library_f32"],
+                               library_is="x @ W_bf16" if dtype == "bf16" else "x @ W in f32 (W = dequant(W) as f32)",
+                               max_abs_err=errs["base", "bfloat16" if dtype == "bf16" else "float32"],
+                               max_abs_err_nf4=errs["nf4", "bfloat16" if dtype == "bf16" else "float32"],
+                               timed_by=f"CUDA graph over {n} weight copies, in turns")
+                    if dtype == "bf16":
+                        rec.update(prefill_ms=t["prefill"], prefill_turns_ms=turns["prefill"],
+                                   library_turns_ms=turns["library"])
+                        bf = rec
+                        if entry is None:
+                            entry = rec
+                    recs.append(rec)
+                print(f"[k5] group 8, Gemma3-1B {label} (K {K}, N {N}), M 32 ({smi}): fused instance for groups of 8 "
+                      f"bf16 {t['fused']:.4f} ms (turns {turns['fused']}), f32 {t['fused_f32']:.4f} ms; x @ W_bf16 "
+                      f"{t['library']:.4f} ms ({t['fused'] / t['library']:.2f}x), x @ W f32 {t['library_f32']:.4f} ms; "
+                      f"the prefill route forced {t['prefill']:.4f} ms (turns {turns['prefill']}): the fused instance "
+                      f"{t['prefill'] / t['fused']:.2f}x faster; bound {bf['bound_ms']:.4f} ms ({bf['bound_by']}); "
+                      f"plain {plain:.3f} ms; max errors {errs}; by CUDA graph over {n} weight copies", flush=True)
             else:
+                before = dict(k5.int4_matmul_fwd.route_launches)
+                y = k5.int4_matmul_fwd(x, d["q4"], d["scale4"], "base")
+                check(k5.int4_matmul_fwd.route_launches[("base", "prefill")] == before[("base", "prefill")] + 1,
+                      f"k5 group 8 {label} M {M}: not on the prefill route")
+                err, _ = k5_err(y, k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"), "base")
                 ms = cuda_ms(lambda: k5.int4_matmul_fwd(x, d["q4"], d["scale4"], "base"), 20)
                 lib = cuda_ms(lambda: x @ w_bf16, 20)
-                how = "CUDA events, 20 calls"
-            plain = cuda_ms(lambda: k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"), 3)
-            ops, nbytes = 2.0 * M * N * K, wbytes + M * K * 2 + M * N * 2
-            t_ops, t_bytes = ops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
-            rec = dict(name="int4_matmul[base] group 8", route="cuda", source=K5_PREFILL_SOURCE,
-                       replaces=K5_AT["base"], case=f"Gemma3-1B {label} M={M} K={K} N={N} group 8 bf16", ms=ms,
-                       plain_ms=plain, bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=lib,
-                       library_is="x @ W_bf16", max_abs_err=err, timed_by=how)
-            recs.append(rec)
-            print(f"[k5] group 8, Gemma3-1B {label} (K {K}, N {N}), M {M}, prefill route ({smi}): {ms:.4f} ms "
-                  f"({how}); x @ W_bf16 {lib:.4f} ms ({ms / lib:.2f}x); bound {rec['bound_ms']:.4f} ms "
-                  f"({rec['bound_by']}: {rec['bound_ms'] / ms:.1%} of it); plain {plain:.3f} ms; max error {err:.3g}",
-                  flush=True)
-            del x, y
-        del d, w_bf16
+                plain = cuda_ms(lambda: k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], "base"), 3)
+                t_ops, t_bytes = ops / peaks[2] * 1e3, (wbytes + M * K * 2 + M * N * 2) / peaks[0] * 1e3
+                rec = dict(name="int4_matmul[base] group 8, prefill route", route="cuda", source=K5_PREFILL_SOURCE,
+                           replaces=K5_AT["base"], case=f"Gemma3-1B {label} M={M} K={K} N={N} group 8 bf16", ms=ms,
+                           plain_ms=plain, bound_ms=max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=lib,
+                           library_is="x @ W_bf16", max_abs_err=err, timed_by="CUDA events, 20 calls")
+                recs.append(rec)
+                print(f"[k5] group 8, Gemma3-1B {label} (K {K}, N {N}), M {M}, prefill route ({smi}): {ms:.4f} ms; "
+                      f"x @ W_bf16 {lib:.4f} ms ({ms / lib:.2f}x); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                      f"{rec['bound_ms'] / ms:.1%} of it); plain {plain:.3f} ms; max error {err:.3g}", flush=True)
+                del y
+            del x, xf
+        del d, dn, w_bf16
         torch.cuda.empty_cache()
-    return recs
+    print(f"[k5] group 8, Gemma3-1B's decode step at M 32 ({GEMMA3_LAYERS} layers x (q + k + v + gate + up), each at "
+          f"its time above): the fused instances {step['fused']:.3f} ms, the prefill route {step['prefill']:.3f} ms, "
+          f"x @ W_bf16 {step['library']:.3f} ms", flush=True)
+    return recs, entry
 
 
 def k5_prefill_phase(gen, device, peaks):
@@ -5521,12 +5642,16 @@ def families_small_phase(device, workdir, smi):
         pack_module(model, "int4")
         packed = sum(1 for m in model.modules() if isinstance(m, FlexLinear) and m.q4 is not None)
         calls = dict(k5.int4_matmul_fwd.launches)
+        by_route, g8 = dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.group8_launches)
         routes = RouteReplay()
         try:
             routes.start("record")
             q_full, q_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
             torch.cuda.synchronize()
             k5_calls = sum(k5.int4_matmul_fwd.launches.values()) - sum(calls.values())
+            k5_routes = {f"{i}/{r}": n - by_route[i, r] for (i, r), n in k5.int4_matmul_fwd.route_launches.items()
+                         if n != by_route[i, r]}
+            k5_g8 = {i: n - g8[i] for i, n in k5.fused.group8_launches.items() if n != g8[i]}
             routes.start("replay")
             with k5_dequantised():
                 d_full, d_short = model(ids, mask), model(ids[:, :16], mask[:, :16])
@@ -5537,8 +5662,12 @@ def families_small_phase(device, workdir, smi):
         check(2 * packed == projections and k5_calls == projections and e_int4 <= FAMILY_TOL["int4"],
               f"families-small {name}: int4 ({packed} projections packed, {k5_calls} K5 calls of {projections} "
               f"projections) against x @ dequant(W) {e_int4:.3g}")
+        if name == "gemma3-1b":  # K 1,152 packs at group 8: the 32-row forward runs the fused instances for it
+            want_g8 = 5 * cfg.num_layers  # q, k, v, gate, up a layer, in the 32-row forward only
+            check(k5_g8.get("base", 0) == want_g8,
+                  f"families-small {name}: {k5_g8} fused launches at group 8, {want_g8} expected (K5 routes {k5_routes})")
         rows[name] = dict(plain=e_plain, cached=e_cached, int4=e_int4, k5_calls=k5_calls, projections=projections,
-                          s=time.perf_counter() - t0)
+                          k5_routes=k5_routes, k5_group8_launches=k5_g8, s=time.perf_counter() - t0)
         if name in ("gemma-2b", "gemma3-1b", "gemma2-2b"):
             H, Hk, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
             q, k, v, do, _, _ = k4_inputs(gen, device, torch.bfloat16, 1, H, Hk, 2048, 2048, D, None)
@@ -5567,7 +5696,8 @@ def families_small_phase(device, workdir, smi):
         print(f"[families-small] {name} ({smi}): {cfg.num_layers} layers at width {cfg.hidden_size}, {shape}, vocab "
               f"{cfg.vocab_size}: "
               + (f"kernels vs plain K4 {e_plain:.2e}, " if e_plain is not None else "no K4 (matmul attention), ")
-              + f"cached decode vs full {e_cached:.2e}, int4 ({k5_calls} of {projections} projections on K5) vs "
+              + f"cached decode vs full {e_cached:.2e}, int4 ({k5_calls} of {projections} projections on K5; by "
+              f"instance / route {k5_routes}, of them on the fused instances for groups of 8 {k5_g8}) vs "
               f"x @ dequant(W) {e_int4:.2e}"
               + (f", K4 D {cfg.head_dim} window 512 on QK-normed q/k max error {rows[name]['k4_d256']:.2e}"
                  if "k4_d256" in rows[name] else "") + f"; {rows[name]['s']:.1f} s", flush=True)
@@ -5695,7 +5825,8 @@ def sft_gemma2_phase(device, workdir, smi, steps=3):
     want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps,
             "dsum": layers * n_steps}
     check(eval_batches >= 1 and launches == want, f"sft-gemma2: K4 launches {launches}, {layers} layers predict {want}")
-    check(routes == {"wgmma": want["fwd"], "mma": 0} and bwd_routes == {"wgmma": want["dq"], "mma": 0},
+    check(routes == {"wgmma": want["fwd"], "tf32x3": 0, "mma": 0}
+          and bwd_routes == {"wgmma": want["dq"], "tf32x3": 0, "mma": 0},
           f"sft-gemma2: every bf16 D 256 call must take the wgmma route: {routes}, {bwd_routes}")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(len(held["trainable"]) == 4 * layers and not unchanged,
@@ -5988,7 +6119,8 @@ def sft_moe_phase(device, workdir, smi, steps=3):
     want = {"fwd": 2 * layers * n_steps + layers * eval_batches, "dq": layers * n_steps, "dkv": layers * n_steps,
             "dsum": layers * n_steps}
     check(eval_batches >= 1 and launches == want, f"sft-moe: K4 launches {launches}, {layers} layers predict {want}")
-    check(routes == {"wgmma": want["fwd"], "mma": 0} and bwd_routes == {"wgmma": want["dq"], "mma": 0},
+    check(routes == {"wgmma": want["fwd"], "tf32x3": 0, "mma": 0}
+          and bwd_routes == {"wgmma": want["dq"], "tf32x3": 0, "mma": 0},
           f"sft-moe: every bf16 D 128 call must take the wgmma route: {routes}, {bwd_routes}")
     unchanged = [k for k, p in setup.state.params.items() if torch.equal(p.detach(), held["trainable"][k])]
     check(len(held["trainable"]) == 4 * layers and not unchanged,
@@ -6376,10 +6508,10 @@ def rc_pipeline_phase(device, workdir, smi, torch_gen, peaks):
     ids in Mistral's 32,000-row vocabulary, as the sft cell), in the preset's dtypes (bf16 parameters, f32 compute, as
     the JAX pipeline trains it). Checks the state file gone, each chunk's unprocessed JSON,
     the ``.jsonl`` rows against the regex conversations plus the extracted ones, a finite loss, and K4's launches on
-    the mma.sync route (the f32 compute's) held to 32 layers x (2 forwards + 1 backward) a step plus 32 forwards a
-    validation block; then ``k4_f32_time`` holds and times those f32 instances at the geometry of the SFT's first
-    attention call (its shapes and packed segment ids). Returns (the ``K4_F32`` kernels-line records with this run's
-    launches, numbers)."""
+    the tf32x3 route (the f32 compute's at head dim 128) held to 32 layers x (2 forwards + 1 backward) a step plus 32
+    forwards a validation block; then ``k4_f32_time`` holds and times the tf32x3 kernels beside the kept mma.sync f32
+    instances at the geometry of the SFT's first attention call (its shapes and packed segment ids). Returns (the
+    ``K4_TF32`` and ``K4_F32`` kernels-line records with this run's launches, numbers)."""
     import random
     from functools import partial
 
@@ -6497,10 +6629,11 @@ def rc_pipeline_phase(device, workdir, smi, torch_gen, peaks):
     route = fwd_route(cfg.dtype, cfg.head_dim)
     want = {"fwd": 2 * layers * steps + layers * eval_batches, "dq": layers * steps, "dkv": layers * steps,
             "dsum": layers * steps}
-    check(cfg.dtype == torch.float32 and route == "mma" and launches == want
-          and routes == {"mma": want["fwd"], "wgmma": 0} and bwd_routes == {"mma": want["dq"], "wgmma": 0},
+    check(cfg.dtype == torch.float32 and route == "tf32x3" and launches == want
+          and routes == {"tf32x3": want["fwd"], "wgmma": 0, "mma": 0}
+          and bwd_routes == {"tf32x3": want["dq"], "wgmma": 0, "mma": 0},
           f"rc-pipeline: {cfg.dtype} compute, K4 launches {launches}, routes {routes} / {bwd_routes}; {layers} layers "
-          f"predict {want}, every call on the f32 mma.sync route")
+          f"predict {want}, every call on the f32 tf32x3 route")
     gen_s = [c["s"] for c in calls]
     step_times = list(np.diff(held.pop("marks")))  # the first holds the first step's set-up on the card
     check(len(step_times) == steps, f"rc-pipeline: {len(step_times)} steps timed, {steps} run")
@@ -6520,7 +6653,7 @@ def rc_pipeline_phase(device, workdir, smi, torch_gen, peaks):
           f"{out['final_loss']:.4f}, validation "
           f"{out['eval_loss']:.4f}, peak {peak_gib:.2f} GiB; K4 launches "
           f"{launches} = {layers} x (2 forwards + 1 backward) a step + {layers} forwards a validation block, every one "
-          f"on the {route} route", flush=True)
+          f"on the {route} route (forwards by route {routes}, backwards {bwd_routes})", flush=True)
     del gen, setup, calls
     gc.collect()
     torch.cuda.empty_cache()
@@ -6531,16 +6664,18 @@ def rc_pipeline_phase(device, workdir, smi, torch_gen, peaks):
     B, S, H, D = geo["q"]
     records = k4_f32_time(torch_gen, device, peaks, geo, f"rc-pipeline's SFT, B={B} H={H}/{geo['k'][2]} S={S} D={D} "
                           f"f32 causal, window {geo['window']}, segment ids {geo['seg'].unique().tolist()}", 5)
-    for name, kind in (("k4_fwd[f32]", "fwd"), ("k4_bwd_dq[f32]", "dq"), ("k4_bwd_dkv[f32]", "dkv"),
-                       ("k4_dsum[f32]", "dsum")):
-        records[name]["launches"] = records[name]["launches_rc_pipeline"] = launches[kind]
+    by_route = {"fwd": routes, "dq": bwd_routes, "dkv": bwd_routes}
+    for name, (_, _, kind, mma_name) in K4_TF32.items():  # every call took the tf32x3 route, none the mma.sync one
+        records[name]["launches"] = records[name]["launches_rc_pipeline"] = by_route[kind]["tf32x3"]
+        records[mma_name]["launches"] = records[mma_name]["launches_rc_pipeline"] = by_route[kind]["mma"]
+    records["k4_dsum[f32]"]["launches"] = records["k4_dsum[f32]"]["launches_rc_pipeline"] = launches["dsum"]
     res["phase_s"] = time.perf_counter() - t_all
     print(json.dumps({"rc_pipeline": res}), flush=True)
     return records, res
 
 
-KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "int4_matmul",
-                  "int4_prefill")
+KERNEL_SOURCES = ("topk", "int8_matmul", "flash_attention", "flash_fwd_wgmma", "flash_bwd_wgmma", "flash_tf32",
+                  "int4_matmul", "int4_prefill")
 TRAIN_BATCH = 18
 TRAIN_STEPS = 4
 SFT_BATCH = 2
@@ -6721,7 +6856,9 @@ def main() -> int:
                   + ", ".join(f"{i} {v:.3f}" for i, v in per_step.items()), flush=True)
             print(json.dumps({"k5_cases": cases}), flush=True)
             print(json.dumps({"k5_prefill": k5_prefill_phase(gen, device, peaks)}), flush=True)
-            print(json.dumps({"k5_group8": k5_group8_time(gen, device, peaks, smi)}), flush=True)
+            g8_recs, g8_entry = k5_group8_time(gen, device, peaks, smi)
+            print(json.dumps({"k5_group8": g8_recs}), flush=True)
+            kernels[K5_G8] = g8_entry
             for key, e in mains.items():
                 kernels[e["name"]] = dict(e, launches=k5_launches.get(key, 0)) if "serve-q" in phases else e
     with tempfile.TemporaryDirectory() as workdir:
@@ -6793,7 +6930,9 @@ def main() -> int:
                 kernels.update(records)
         if "families-small" in phases:
             with timed("families-small"):
-                families_small_phase(device, workdir, smi)
+                fam = families_small_phase(device, workdir, smi)
+                if K5_G8 in kernels:  # its main path: Gemma3-1B int4 at 32 rows
+                    kernels[K5_G8]["launches"] = fam["presets"]["gemma3-1b"]["k5_group8_launches"].get("base", 0)
         if "eval-retriever" in phases:
             with timed("eval-retriever"):
                 with cut_depth("eval-retriever"):
@@ -6834,12 +6973,13 @@ def main() -> int:
         print(f"chip_smoke: ran only {phases}; no result line", flush=True)
         return 0
     k5_names = [f"int4_matmul[{i}]" for i in ("base", "groupmm", "nf4", "i8mxu", "pcol")]
-    k5_names += ["k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm", "k5_prefill_nibbles",
+    k5_names += [K5_G8, "k5_prefill_dequant[base]", "k5_prefill_dequant[nf4]", "k5_prefill_gemm", "k5_prefill_nibbles",
                  "k5_fold_gemm[groupmm]", "k5_fold_gemm[i8mxu]", "rowquant[bf16]", "k5_prefill_nibbles[int8]",
                  "k5_pcol_gemm"]
     k1_names = ["w8a8_fused", "k1_quant_prepass", "k1_weight_prepass", "k1_gemm", "k1_cal_quant", "k1_cal_quant[dy]"]
     order = ("fused_dot_topk[f32]", "fused_dot_topk[bf16]", "fused_dot_topk[int8]", "fused_dot_topk[int4]",
-             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *K4_F32, *K4_D256, *k5_names)
+             "rowquant", *k1_names, "int8_gemm_kn", "int8_gemm_nt", *K4_ENTRY, *K4_F32, *K4_TF32, *K4_D256,
+             *k5_names)
     for name, n in cb_launches.items():  # PR 15's main path: answer_continuous() (serve-cb (c))
         if name in kernels:
             kernels[name]["launches_serve_cb"] = n
@@ -6871,7 +7011,7 @@ def main() -> int:
             check(kernels[name][key] > 0, f"{name} was never launched by {key[9:].replace('_', '-')}")
     for name in ("k4_fwd_wgmma", "k4_bwd_dq_wgmma", "k4_bwd_dkv_wgmma", "k4_dsum"):
         check(kernels[name]["launches_sft_moe"] > 0, f"{name} was never launched by sft-moe")
-    for name in K4_F32:  # the pipeline's SFT in f32: the mma.sync route
+    for name in (*K4_TF32, "k4_dsum[f32]"):  # the pipeline's SFT in f32 at head dim 128: the tf32x3 route
         check(kernels[name]["launches_rc_pipeline"] > 0, f"{name} was never launched by rc-pipeline")
     for name in ("fused_dot_topk[f32]", "int4_matmul[base]", "k5_prefill_dequant[base]", "k5_prefill_gemm"):
         check(kernels[name]["launches_serve_stream"] > 0, f"{name} was never launched by serve-stream")

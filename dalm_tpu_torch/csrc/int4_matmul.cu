@@ -7,9 +7,10 @@
 //   _int4_matmul_fwd_pallas, variant nf4                  -> i4_kernel<NF4, T>     (mode 2)
 //   _int4_matmul_fwd_pallas, variant i8mxu                -> i4_kernel<I8MXU, T>   (mode 3)
 //   _int4pc_matmul_fwd_pallas (_int4_kernel_pcol)         -> i4_kernel<PCOL, T>    (mode 4)
-// each for float32 and bfloat16 activations / outputs. The wrapper sends here
-// every call of the fused route: decode's few rows, bf16 calls below M_PREFILL
-// rows and f32 calls at any M (kernels/int4_matmul.py:_route).
+// each for float32 and bfloat16 activations / outputs, and base / nf4 once more
+// for groups of 8 (i4_kernel<BASE|NF4, T, true>: Gemma3-1B's K 1,152 packs at 8).
+// The wrapper sends here every call of the fused route: decode's few rows, bf16
+// calls below M_PREFILL rows and f32 calls at any M (kernels/int4_matmul.py:_route).
 //
 // What they compute. y (M, N) = x (M, K) . W with W held as q4 (K/2, N) uint8
 // in the half-split layout (packed row r: K-row r in the low nibble, K-row
@@ -44,7 +45,14 @@
 //     released by 4 consumer warps through two mbarriers a stage. A stage is
 //     64 packed rows of nibbles (128 columns), the two 64-wide K slices of x
 //     they meet (all 32 rows of the block) and, for the scaled instances, the
-//     group scale rows they touch: 20 KB in bf16. The producer fills it with
+//     group scale rows they touch: 20 KB in bf16 (62,464 bytes for the ring of 3
+//     with its alignment slack; 90,112 in f32). At a group of 8 the two 8-row
+//     halves of a k-step read a scale row each (rows 2t, 2t + 1 of a thread's A
+//     fragment belong to one group, rows 2t + 8, 2t + 9 to the next), so a stage
+//     carries BP / 8 = 8 scale rows a half instead of BP / 16: 24 KB, a ring of
+//     74,752 bytes in bf16 (three blocks an SM still fit) and 102,400 in f32. The
+//     weight is still bf16(f32(decode(nib)) * scale[g]), each with its own row's
+//     scale. The producer fills it with
 //     five 2-D TMA boxes (128-byte swizzle for the nibbles and bf16 x, 64-byte
 //     for int8 x; the tensor maps are encoded by the host per call), and falls
 //     back to cp.async into the same layout where a q4 row is not 16-byte
@@ -91,7 +99,6 @@ constexpr int TN = 128;       // output columns per block: 4 consumer warps x 32
 constexpr int TM = 32;        // x rows per block: 4 n8 tiles of the swapped product
 constexpr int KS = 16;        // packed rows per k-step: one 16-deep product of each half
 constexpr int BP = 64;        // packed rows per ring stage (4 k-steps)
-constexpr int SG = BP / KS;   // scale rows of each half a stage can touch (groups >= 16, stages on k-steps)
 constexpr int STAGES = 3;
 constexpr int CONSUMERS = 4;  // consumer warps; warp 4 is the producer
 constexpr int THREADS = 32 * (CONSUMERS + 1);
@@ -99,8 +106,11 @@ constexpr int MAX_SPLITS = 8; // the portable cluster size
 
 enum Mode { BASE = 0, GROUPMM = 1, NF4 = 2, I8MXU = 3, PCOL = 4 };
 
-template <int MODE, typename T>
+// G8: the base / nf4 instances for a group that is a multiple of 8 but not of 16 (Gemma3-1B's K 1,152 packs at 8):
+// the two 8-row halves of a k-step may take different scale rows, so a stage carries BP / 8 of them a half.
+template <int MODE, typename T, bool G8 = false>
 struct Cfg {
+    static_assert(!G8 || MODE == BASE || MODE == NF4, "only the instances that scale each weight take groups of 8");
     static constexpr bool I8 = MODE == I8MXU || MODE == PCOL;
     static constexpr bool FOLD = MODE == GROUPMM || MODE == I8MXU;
     static constexpr bool SCALES = MODE != PCOL;  // group scale rows ride in the ring
@@ -110,7 +120,9 @@ struct Cfg {
     static constexpr int XE = (int)sizeof(In);
     // A stage: the nibble tile (64 packed rows of 128 bytes, the TMA's 128-byte swizzle), x (bf16 / int8: one
     // tile of TM rows x 64 values for each half, 128- / 64-byte swizzle; f32: TM padded rows of both halves) and
-    // the scale rows (SG rows of each half). Every part 1024-byte aligned.
+    // the scale rows (SG rows of each half: a stage of whole k-steps touches at most BP / 16 groups of 16 or more,
+    // BP / 8 groups of 8). Every part 1024-byte aligned.
+    static constexpr int SG = G8 ? BP / 8 : BP / KS;
     static constexpr int NIB = BP * TN;
     static constexpr int XH = F32X ? 0 : TM * BP * XE;
     static constexpr int XLD = 2 * BP * 4 + 16;
@@ -195,10 +207,10 @@ __device__ __forceinline__ uint32_t signed_nibbles(uint32_t v) {
 // The producer warp: stage i holds packed rows [p, p + rows) of the block's
 // slice, the x values they meet and their scale rows.
 // ---------------------------------------------------------------------------
-template <int MODE, typename T>
+template <int MODE, typename T, bool G8>
 __device__ void produce(const Args& g, char* ring, uint64_t* full, uint64_t* empty, int row0, int n0, int p_begin,
                         int nst, int lane) {
-    using C = Cfg<MODE, T>;
+    using C = Cfg<MODE, T, G8>;
     constexpr int XC = BP * C::XE / 16;                 // 16-byte chunks of x per row and half in a full stage
     const int half = g.K / 2;
     const int ncols = min(TN, g.N - n0);                // the tile's columns (a multiple of 8)
@@ -222,7 +234,7 @@ __device__ void produce(const Args& g, char* ring, uint64_t* full, uint64_t* emp
                 tma_load_2d(st + C::NIB + C::XH, &g.tx, bar, half + p, row0);
                 if constexpr (C::SCALES) {
                     tma_load_2d(st + C::NIB + C::XB, &g.ts, bar, n0, g0);
-                    tma_load_2d(st + C::NIB + C::XB + SG * TN * 4, &g.ts, bar, n0, hrow + g0);
+                    tma_load_2d(st + C::NIB + C::XB + C::SG * TN * 4, &g.ts, bar, n0, hrow + g0);
                 }
             }
             continue;
@@ -256,7 +268,7 @@ __device__ void produce(const Args& g, char* ring, uint64_t* full, uint64_t* emp
             for (int c = lane; c < ng * 64; c += 32) {
                 const int j = c >> 6, h = (c >> 5) & 1, cc = (c & 31) << 2;
                 if (cc < ncols)
-                    cp_async16(st + C::NIB + C::XB + ((h * SG + j) * TN + cc) * 4,
+                    cp_async16(st + C::NIB + C::XB + ((h * C::SG + j) * TN + cc) * 4,
                                g.scale4 + (size_t)(h * hrow + g0 + j) * g.N + n0 + cc);
             }
         }
@@ -322,10 +334,12 @@ struct Step {
         }
     }
 
-    // bf16 A fragments of both halves from the words (rows 2t, 2t + 1, 2t + 8, 2t + 9).
+    // bf16 A fragments of both halves from the words (rows 2t, 2t + 1, 2t + 8, 2t + 9): rows 2t, 2t + 1 scale by
+    // slo[0] / shi[0], rows 2t + 8, 2t + 9 by slo[1] / shi[1] (one group's row twice, but at a group of 8).
     __device__ static void make_a(uint32_t (&alo)[2][4], uint32_t (&ahi)[2][4], const uint32_t (&w)[4],
-                                  const float4& slo, const float4& shi, const float* cb) {
-        const float sl[4] = {slo.x, slo.y, slo.z, slo.w}, sh[4] = {shi.x, shi.y, shi.z, shi.w};
+                                  const float4 (&slo)[2], const float4 (&shi)[2], const float* cb) {
+        const float sl[2][4] = {{slo[0].x, slo[0].y, slo[0].z, slo[0].w}, {slo[1].x, slo[1].y, slo[1].z, slo[1].w}};
+        const float sh[2][4] = {{shi[0].x, shi[0].y, shi[0].z, shi[0].w}, {shi[1].x, shi[1].y, shi[1].z, shi[1].w}};
 #pragma unroll
         for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
@@ -336,17 +350,18 @@ struct Step {
                     const uint32_t w0 = w[2 * kp], w1 = w[2 * kp + 1];
                     if constexpr (MODE == NF4) {
                         const int s0 = 8 * c;
-                        alo[tile][idx] = pack2(__fmul_rn(cb[(w0 >> s0) & 15], sl[c]), __fmul_rn(cb[(w1 >> s0) & 15], sl[c]));
-                        ahi[tile][idx] = pack2(__fmul_rn(cb[(w0 >> (s0 + 4)) & 15], sh[c]),
-                                               __fmul_rn(cb[(w1 >> (s0 + 4)) & 15], sh[c]));
+                        alo[tile][idx] = pack2(__fmul_rn(cb[(w0 >> s0) & 15], sl[kp][c]),
+                                               __fmul_rn(cb[(w1 >> s0) & 15], sl[kp][c]));
+                        ahi[tile][idx] = pack2(__fmul_rn(cb[(w0 >> (s0 + 4)) & 15], sh[kp][c]),
+                                               __fmul_rn(cb[(w1 >> (s0 + 4)) & 15], sh[kp][c]));
                     } else {
                         // [w0.byte c, -, w1.byte c, -]: the column's two packed rows in the two bf16 halves
                         const uint32_t x = __byte_perm(w0, w1, c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12));
                         const uint32_t lo = minus136((x & 0x000F000Fu) | 0x43004300u);
                         const uint32_t hi = minus136(((x >> 4) & 0x000F000Fu) | 0x43004300u);
                         if constexpr (MODE == BASE) {
-                            alo[tile][idx] = scale2(lo, sl[c]);
-                            ahi[tile][idx] = scale2(hi, sh[c]);
+                            alo[tile][idx] = scale2(lo, sl[kp][c]);
+                            ahi[tile][idx] = scale2(hi, sh[kp][c]);
                         } else {
                             alo[tile][idx] = lo;
                             ahi[tile][idx] = hi;
@@ -389,9 +404,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, const float (&v)[4]) {
 
 // Block (bx, by, bz) owns output columns [128 bx, +128), x rows [32 by, +32) and packed rows
 // [rows_per_split bz, +rows_per_split); the gridDim.z blocks of a tile form one cluster.
-template <int MODE, typename T>
+template <int MODE, typename T, bool G8>
 __global__ void __launch_bounds__(THREADS, 3) i4_kernel(const __grid_constant__ Args g) {
-    using C = Cfg<MODE, T>;
+    using C = Cfg<MODE, T, G8>;
     using Acc = typename C::Acc;
     using S = Step<MODE, T>;
     extern __shared__ char smem_raw[];
@@ -425,7 +440,7 @@ __global__ void __launch_bounds__(THREADS, 3) i4_kernel(const __grid_constant__ 
             tma_prefetch_map(&g.tx);
             if (C::SCALES) tma_prefetch_map(&g.ts);
         }
-        produce<MODE, T>(g, ring, full, empty, row0, n0, p_begin, nst, lane);
+        produce<MODE, T, G8>(g, ring, full, empty, row0, n0, p_begin, nst, lane);
     } else {
         const int gq = lane >> 2;
         int gpos = C::SCALES ? p_begin % g.group : 0;  // packed rows into the current group
@@ -446,7 +461,17 @@ __global__ void __launch_bounds__(THREADS, 3) i4_kernel(const __grid_constant__ 
                 float4 slo = make_float4(0.f, 0.f, 0.f, 0.f), shi = slo;
                 if constexpr (C::SCALES) {
                     slo = *reinterpret_cast<const float4*>(sa + gl * TN);
-                    shi = *reinterpret_cast<const float4*>(sa + (SG + gl) * TN);
+                    shi = *reinterpret_cast<const float4*>(sa + (C::SG + gl) * TN);
+                }
+                float4 slo2[2] = {slo, slo}, shi2[2] = {shi, shi};  // the scales of rows 0-7 and 8-15 of the k-step
+                if constexpr (G8) {  // the group may end after the k-step's first 8 rows: move on to the next row
+                    gpos += KS / 2;
+                    if (gpos == g.group) {
+                        ++gl;
+                        gpos = 0;
+                    }
+                    slo2[1] = *reinterpret_cast<const float4*>(sa + gl * TN);
+                    shi2[1] = *reinterpret_cast<const float4*>(sa + (C::SG + gl) * TN);
                 }
                 if constexpr (C::I8) {
                     uint32_t alo[2][2], ahi[2][2];
@@ -462,7 +487,7 @@ __global__ void __launch_bounds__(THREADS, 3) i4_kernel(const __grid_constant__ 
                         }
                 } else {
                     uint32_t alo[2][4], ahi[2][4];
-                    S::make_a(alo, ahi, w, slo, shi, cb);
+                    S::make_a(alo, ahi, w, slo2, shi2, cb);
 #pragma unroll
                     for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
@@ -474,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 3) i4_kernel(const __grid_constant__ 
                         }
                 }
                 if constexpr (C::SCALES) {
-                    gpos += KS;
+                    gpos += G8 ? KS / 2 : KS;
                     const bool end = gpos == g.group;
                     if constexpr (C::FOLD) {
                         if (end) {  // end of a group: acc += p_lo * s_lo + p_hi * s_hi, as the plain version
@@ -592,13 +617,13 @@ __global__ void __launch_bounds__(THREADS, 3) i4_kernel(const __grid_constant__ 
     }
 }
 
-template <int MODE, typename T>
+template <int MODE, typename T, bool G8 = false>
 int launch(const Args& args, int splits, cudaStream_t stream) {
-    using C = Cfg<MODE, T>;
+    using C = Cfg<MODE, T, G8>;
     static bool configured = false;
     if (!configured) {
         const cudaError_t e =
-            cudaFuncSetAttribute(i4_kernel<MODE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+            cudaFuncSetAttribute(i4_kernel<MODE, T, G8>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
         if (e != cudaSuccess) return (int)e;
         configured = true;
     }
@@ -614,7 +639,7 @@ int launch(const Args& args, int splits, cudaStream_t stream) {
     attr[0].val.clusterDim.z = splits;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, i4_kernel<MODE, T>, args);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, i4_kernel<MODE, T, G8>, args);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -631,11 +656,11 @@ int make_map_x8(CUtensorMap* map, const void* base, int rows, int cols) {
 }
 
 template <typename T>
-int dispatch(int mode, const Args& args, int splits, cudaStream_t stream) {
+int dispatch(int mode, bool g8, const Args& args, int splits, cudaStream_t stream) {
     switch (mode) {
-        case BASE: return launch<BASE, T>(args, splits, stream);
+        case BASE: return g8 ? launch<BASE, T, true>(args, splits, stream) : launch<BASE, T>(args, splits, stream);
         case GROUPMM: return launch<GROUPMM, T>(args, splits, stream);
-        case NF4: return launch<NF4, T>(args, splits, stream);
+        case NF4: return g8 ? launch<NF4, T, true>(args, splits, stream) : launch<NF4, T>(args, splits, stream);
         case I8MXU: return launch<I8MXU, T>(args, splits, stream);
         case PCOL: return launch<PCOL, T>(args, splits, stream);
         default: return (int)cudaErrorInvalidValue;
@@ -648,8 +673,9 @@ extern "C" {
 
 // mode: 0 base, 1 groupmm, 2 nf4, 3 i8mxu, 4 pcol. is_bf16: the output type (and, for modes 0-2, the type of
 // x). a: x (M, K), or xq (M, K) int8 for modes 3-4 with xs (M) f32. q4 (K/2, N) uint8, scale4 (K/group, N) f32
-// ((1, N) for mode 4). K/2 % 16 == 0, group % 16 == 0 dividing K/2 (modes 0-3), N % 8 == 0; splits (1-8) slices
-// of K/2 run as one cluster, each (K/2) / splits packed rows, a multiple of 16 (and of group for modes 1, 3).
+// ((1, N) for mode 4). K/2 % 16 == 0, a group dividing K/2 (modes 0-3) that is a multiple of 16 (of 8 for modes 0
+// and 2, whose instances for groups of 8 scale each 8-row half of a k-step on its own), N % 8 == 0; splits (1-8)
+// slices of K/2 run as one cluster, each (K/2) / splits packed rows, a multiple of 16 (and of group for modes 1, 3).
 // Every pointer 16-byte aligned. One launch; returns its CUDA error.
 int dalm_i4_matmul(int mode, int is_bf16, const void* a, const float* xs, const void* q4, const float* scale4, int M,
                    int K, int N, int group, int splits, void* out, cudaStream_t stream) {
@@ -658,7 +684,9 @@ int dalm_i4_matmul(int mode, int is_bf16, const void* a, const float* xs, const 
         return (int)cudaErrorInvalidValue;
     const int rows = half / splits;
     const bool fold = mode == GROUPMM || mode == I8MXU;
-    if (rows % KS || (mode != PCOL && (group < KS || group % KS || half % group)) || (fold && rows % group))
+    const bool g8 = (mode == BASE || mode == NF4) && group % KS != 0;  // the instances for groups of 8
+    const int unit = g8 ? KS / 2 : KS;
+    if (rows % KS || (mode != PCOL && (group < unit || group % unit || half % group)) || (fold && rows % group))
         return (int)cudaErrorInvalidValue;
     Args args{};
     args.a = a;
@@ -678,13 +706,13 @@ int dalm_i4_matmul(int mode, int is_bf16, const void* a, const float* xs, const 
         if (!err) err = mode >= I8MXU ? make_map_x8(&args.tx, a, M, K) : make_map(&args.tx, a, 2, M, K, TM);
         if (!err && mode != PCOL) {
             const long long dims[2] = {N, K / group}, strides[1] = {(long long)N * 4};
-            const int box[2] = {TN, SG};
+            const int box[2] = {TN, g8 ? Cfg<BASE, float, true>::SG : Cfg<BASE, float>::SG};
             err = make_map_nd(&args.ts, scale4, 4, 2, dims, strides, box);
         }
         if (err) return err;
     }
-    if (is_bf16) return dispatch<__nv_bfloat16>(mode, args, splits, stream);
-    return dispatch<float>(mode, args, splits, stream);
+    if (is_bf16) return dispatch<__nv_bfloat16>(mode, g8, args, splits, stream);
+    return dispatch<float>(mode, g8, args, splits, stream);
 }
 
 }  // extern "C"

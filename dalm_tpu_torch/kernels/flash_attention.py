@@ -3,13 +3,17 @@
 Replaces ``dalm_tpu/kernels/flash_attention.py``: ``_flash_fwd`` (Pallas
 ``_fwd_kernel``), ``_flash_bwd`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``)
 and the ``flash_attention`` custom gradient. The kernels are hand-written
-CUDA for ``sm_90a``. The forward and the backward each have two routes, by
+CUDA for ``sm_90a``. The forward and the backward each have three routes, by
 one rule (:func:`fwd_route`, a pure function of the input type and the head
 dim): for bfloat16 at head dim 64, 128 or 256 the warp-specialised TMA ring and
 ``wgmma`` kernels of ``csrc/flash_fwd_wgmma.cu`` (forward) and
-``csrc/flash_bwd_wgmma.cu`` (dq, dk/dv), and for the rest the ``mma.sync``
-kernels of ``csrc/flash_attention.cu``. ``dsum = rowsum(do * out)`` is a
-hand-written pre-pass of both backward routes (``csrc/flash_bwd_wgmma.cu``).
+``csrc/flash_bwd_wgmma.cu`` (dq, dk/dv); for float32 at head dim 64 or 128 the
+tensor-core kernels of ``csrc/flash_tf32.cu``, every product split 3xTF32
+(``hi = tf32(x)``, ``lo = tf32(x - hi)``, ``lo hi + hi lo + hi hi`` summed in
+f32: about f32's accuracy); and for the rest the ``mma.sync`` kernels of
+``csrc/flash_attention.cu`` (float32 products exact on the CUDA cores).
+``dsum = rowsum(do * out)`` is a hand-written pre-pass of every backward route
+(``csrc/flash_bwd_wgmma.cu``).
 Each file's header says what bounds its kernels on an H100 and what the
 design does about it.
 Beside every kernel stands its plain PyTorch version (``*_ref``: dense scores
@@ -58,6 +62,7 @@ MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 16
 TILE_ROWS = 64
 WGMMA_HEAD_DIMS = (64, 128, 256)
+TF32_HEAD_DIMS = (64, 128)  # float32 on the tensor cores (csrc/flash_tf32.cu)
 
 _STRIDED = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
 
@@ -79,11 +84,13 @@ class _Args(ctypes.Structure):
 _ENTRIES = {"dalm_fa_fwd": "flash_attention", "dalm_fa_bwd_dq": "flash_attention",
             "dalm_fa_bwd_dkv": "flash_attention", "dalm_fa_fwd_wgmma": "flash_fwd_wgmma",
             "dalm_fa_bwd_dq_wgmma": "flash_bwd_wgmma", "dalm_fa_bwd_dkv_wgmma": "flash_bwd_wgmma",
-            "dalm_fa_dsum": "flash_bwd_wgmma"}
+            "dalm_fa_dsum": "flash_bwd_wgmma", "dalm_fa_fwd_tf32": "flash_tf32",
+            "dalm_fa_bwd_dq_tf32": "flash_tf32", "dalm_fa_bwd_dkv_tf32": "flash_tf32"}
 # the values each library reports of its side of the contract: sizeof(Args) (all), the mma.sync tile rows
 _CONTRACT = {"flash_attention": {"dalm_fa_args_bytes": ctypes.sizeof(_Args), "dalm_fa_tile_rows": TILE_ROWS},
              "flash_fwd_wgmma": {"dalm_fa_wgmma_args_bytes": ctypes.sizeof(_Args)},
-             "flash_bwd_wgmma": {"dalm_fa_bwd_wgmma_args_bytes": ctypes.sizeof(_Args)}}
+             "flash_bwd_wgmma": {"dalm_fa_bwd_wgmma_args_bytes": ctypes.sizeof(_Args)},
+             "flash_tf32": {"dalm_fa_tf32_args_bytes": ctypes.sizeof(_Args)}}
 _libs: dict = {}
 
 
@@ -130,12 +137,12 @@ def _keep_mask(Sq, Sk, seg_q, seg_k, causal, q_offset, window, device):
     return keep
 
 
-def _scores(q, k, seg_q, seg_k, causal, scale, q_offset, window, softcap):
-    """Capped f32 scores (B, Hk, G, Sq, Sk) before masking, the keep-mask, and q grouped by kv head."""
+def _scores(q, k, seg_q, seg_k, causal, scale, q_offset, window, softcap, ct=torch.float32):
+    """Capped scores (B, Hk, G, Sq, Sk) in ``ct`` before masking, the keep-mask, and q grouped by kv head."""
     B, H, Sq, D = q.shape
     Hk, Sk = k.shape[1], k.shape[2]
-    qg = q.reshape(B, Hk, H // Hk, Sq, D).float()
-    s = (qg @ k.float()[:, :, None].transpose(-1, -2)) * scale
+    qg = q.reshape(B, Hk, H // Hk, Sq, D).to(ct)
+    s = (qg @ k.to(ct)[:, :, None].transpose(-1, -2)) * scale
     if softcap is not None:
         s = torch.tanh(s * (1.0 / softcap)) * softcap
     return s, _keep_mask(Sq, Sk, seg_q, seg_k, causal, q_offset, window, q.device), qg
@@ -160,31 +167,36 @@ def flash_fwd_ref(q, k, v, seg_q=None, seg_k=None, *, causal=True, scale=None, q
 
 
 def dsum_ref(do, out):
-    """Plain PyTorch dsum pre-pass: ``rowsum(do * out)`` in f32, (B, H, Sq) from (B, H, Sq, D)."""
-    return (do.float() * out.float()).sum(dim=-1)
+    """Plain PyTorch dsum pre-pass: ``rowsum(do * out)`` in f32 (float64 for float64 inputs), (B, H, Sq) from
+    (B, H, Sq, D)."""
+    ct = torch.promote_types(do.dtype, torch.float32)
+    return (do.to(ct) * out.to(ct)).sum(dim=-1)
 
 
 def flash_bwd_ref(q, k, v, out, lse, do, seg_q=None, seg_k=None, *, causal=True, scale=None, q_offset=0,
                   window=None, softcap=None):
-    """Plain PyTorch K4 backward by the formulas (no autograd): (dq, dk, dv) in the input types."""
+    """Plain PyTorch K4 backward by the formulas (no autograd): (dq, dk, dv) in the input types, the products in
+    f32 (float64 inputs: in float64, the exact gradient that a test may hold an f32 kernel to where f32 rounding
+    of the plain version itself is the larger error)."""
     B, H, Sq, D = q.shape
     Hk = k.shape[1]
     G = H // Hk
+    ct = torch.promote_types(q.dtype, torch.float32)  # the products' type
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    s, keep, qg = _scores(q, k, seg_q, seg_k, causal, scale, q_offset, window, softcap)
-    p = torch.exp(s - lse.reshape(B, Hk, G, Sq, 1))  # true softmax probabilities (global lse)
+    s, keep, qg = _scores(q, k, seg_q, seg_k, causal, scale, q_offset, window, softcap, ct)
+    p = torch.exp(s - lse.reshape(B, Hk, G, Sq, 1).to(ct))  # true softmax probabilities (global lse)
     if keep is not None:
         p = torch.where(keep, p, torch.zeros_like(p))  # selects the overflow of masked rows away
-    dog = do.reshape(B, Hk, G, Sq, D).float()
-    dsum = dsum_ref(do, out).reshape(B, Hk, G, Sq, 1)
-    dv = (p.to(do.dtype).float().transpose(-1, -2) @ dog).sum(dim=2)
-    dp = dog @ v.float()[:, :, None].transpose(-1, -2)
+    dog = do.reshape(B, Hk, G, Sq, D).to(ct)
+    dsum = dsum_ref(do, out).reshape(B, Hk, G, Sq, 1).to(ct)
+    dv = (p.to(do.dtype).to(ct).transpose(-1, -2) @ dog).sum(dim=2)
+    dp = dog @ v.to(ct)[:, :, None].transpose(-1, -2)
     ds = p * (dp - dsum)
     if softcap is not None:
         t = s * (1.0 / softcap)  # s is the capped value: tanh' = 1 - (s / cap)^2
         ds = ds * (1.0 - t * t)
-    ds = (ds * scale).to(q.dtype).float()
-    dq = (ds @ k.float()[:, :, None]).reshape(B, H, Sq, D)
+    ds = (ds * scale).to(q.dtype).to(ct)
+    dq = (ds @ k.to(ct)[:, :, None]).reshape(B, H, Sq, D)
     dk = (ds.transpose(-1, -2) @ qg).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -269,14 +281,18 @@ def _launch(fn_name: str, counter: str, a: _Args, like: torch.Tensor) -> None:
 def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route a CUDA call takes, forward and backward alike: ``"wgmma"``
     (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``) for bfloat16 at
-    head dim 64, 128 or 256, ``"mma"`` (the ``mma.sync`` kernels of
-    ``csrc/flash_attention.cu``) for float32 at every head dim and bfloat16 at
-    the others (129-255 among them, which that route pads to 256)."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "mma"
+    head dim 64, 128 or 256, ``"tf32x3"`` (``csrc/flash_tf32.cu``) for float32
+    at head dim 64 or 128, ``"mma"`` (the ``mma.sync`` kernels of
+    ``csrc/flash_attention.cu``) for the rest: float32 at the other head dims and
+    bfloat16 at the others (129-255 among them, which that route pads to 256)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "tf32x3" if dtype == torch.float32 and head_dim in TF32_HEAD_DIMS else "mma"
 
 
-_FWD_ENTRY = {"wgmma": "dalm_fa_fwd_wgmma", "mma": "dalm_fa_fwd"}
+_FWD_ENTRY = {"wgmma": "dalm_fa_fwd_wgmma", "tf32x3": "dalm_fa_fwd_tf32", "mma": "dalm_fa_fwd"}
 _BWD_ENTRIES = {"wgmma": ("dalm_fa_bwd_dq_wgmma", "dalm_fa_bwd_dkv_wgmma"),
+                "tf32x3": ("dalm_fa_bwd_dq_tf32", "dalm_fa_bwd_dkv_tf32"),
                 "mma": ("dalm_fa_bwd_dq", "dalm_fa_bwd_dkv")}
 
 
@@ -408,8 +424,8 @@ def flash_attention_ref(q, k, v, segment_ids_q=None, segment_ids_k=None, *, caus
                   softcap)
 
 
-# Kernel launches by kernel ("fwd", "dq" and "dkv" count both routes; "dsum" the pre-pass), and the forward's
+# Kernel launches by kernel ("fwd", "dq" and "dkv" count every route; "dsum" the pre-pass), and the forward's
 # and the backward's calls by route; CPU calls (the plain versions) do not count.
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0, "dsum": 0}
-flash_fwd.routes = {"wgmma": 0, "mma": 0}
-flash_bwd.routes = {"wgmma": 0, "mma": 0}
+flash_fwd.routes = {"wgmma": 0, "tf32x3": 0, "mma": 0}
+flash_bwd.routes = {"wgmma": 0, "tf32x3": 0, "mma": 0}

@@ -39,7 +39,7 @@ package runs the kernel only on a TPU and dequantises everywhere else.
 
 On the card ``int4_matmul_fwd`` has four routes (``_route``). ``"fused"``:
 the decode kernel of ``csrc/int4_matmul.cu`` (decode's few rows, float32
-activations), one launch a call: it dequantises the nibbles in registers into a
+activations; base / nf4 at a group of 8 on instances of their own), one launch a call: it dequantises the nibbles in registers into a
 swapped product (the weight is the 16-row operand, the x rows the narrow one),
 reads them through a TMA ring fed by a producer warp (cp.async where TMA cannot
 take the rows), and sums the slices of a split K in a thread-block cluster
@@ -90,6 +90,9 @@ TILE_HALF = 32  # K/2 must be a multiple of this (the reference's blocks; every 
 # The fused kernel's geometry (csrc/int4_matmul.cu): a k-step is 16 packed rows (16 K values of each half), a
 # block's output tile TILE_M rows by TILE_N columns, at most MAX_CLUSTER slices of K/2 in one cluster.
 K_STEP = 16
+# The base / nf4 instances for groups that are a multiple of FUSED_GROUP_MIN but not of K_STEP (Gemma3-1B's K 1,152
+# packs at 8) scale each 8-row half of a k-step with its own group's row.
+FUSED_GROUP_MIN = 8
 TILE_M = 32
 TILE_N = 128
 MAX_CLUSTER = 8
@@ -347,7 +350,8 @@ class Geometry(NamedTuple):
 def _splits(M: int, N: int, half: int, group: int, instance: str, sms: int) -> Geometry:
     """The fused kernel's cluster and slice geometry. Each block owns a TILE_M x TILE_N output tile and one slice
     of K/2; a slice is a whole number of k-steps (of whole groups where the scales fold per group: groupmm,
-    i8mxu), at most MAX_CLUSTER slices (the portable cluster size). Where the tiles alone give every SM a block,
+    i8mxu; base / nf4 scale each weight, so a group of 8 still splits on k-steps), at most MAX_CLUSTER slices (the
+    portable cluster size). Where the tiles alone give every SM a block,
     one slice; else the fewest slices that give every SM two blocks (``N / TILE_N x M / TILE_M x splits >= 2
     sms``), or the most if none does. (Chosen by timing every split on an H100 at the Llama-2-7B shapes: fewer,
     longer blocks wait on their ring's latency; more slices pay for more epilogues.)"""
@@ -375,7 +379,8 @@ def _sm_count(device: torch.device) -> int:
 
 def launch(instance: str, a: torch.Tensor, xs, q4: torch.Tensor, scale4: torch.Tensor, group: int,
            out: torch.Tensor) -> None:
-    """One launch of the fused kernel on checked operands (counted in ``fused.launches[instance]``): ``a`` is x
+    """One launch of the fused kernel on checked operands (counted in ``fused.launches[instance]``, and in
+    ``fused.group8_launches[instance]`` too where base / nf4 take their instance for groups of 8): ``a`` is x
     (M, K), or xq (M, K) int8 with its row scales ``xs`` for i8mxu / pcol; writes ``out``."""
     M, K = a.shape
     N = q4.shape[1]
@@ -387,6 +392,8 @@ def launch(instance: str, a: torch.Tensor, xs, q4: torch.Tensor, scale4: torch.T
     if err != 0:
         raise RuntimeError(f"int4_matmul[{instance}] kernel launch failed: CUDA error {err}")
     fused.launches[instance] += 1
+    if instance in SCALED_INSTANCES and group % K_STEP:
+        fused.group8_launches[instance] += 1
 
 
 def fused(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: str, group: int) -> torch.Tensor:
@@ -399,6 +406,7 @@ def fused(x2: torch.Tensor, q4: torch.Tensor, scale4: torch.Tensor, instance: st
 
 
 fused.launches = dict.fromkeys(INSTANCES, 0)
+fused.group8_launches = dict.fromkeys(SCALED_INSTANCES, 0)  # the base / nf4 instances for groups of 8
 
 
 def launch_dequant(q4: torch.Tensor, scale4: torch.Tensor, group: int, nf4: bool, wt: torch.Tensor) -> None:
@@ -587,14 +595,15 @@ prefill_fold.launches = dict.fromkeys(FOLD_INSTANCES, 0)
 def _route(x2: torch.Tensor, instance: str, group: int) -> str:
     """The route a CUDA call takes: bfloat16 activations with at least ``M_PREFILL`` rows of base / nf4
     (``"prefill"``), of groupmm / i8mxu with a group in ``FOLD_GROUPS`` (``"fold"``) and of pcol (``"int8"``); the
-    rest ``"fused"``. Base / nf4 at a group that is no multiple of ``K_STEP`` (Gemma3-1B's K 1,152 packs at 8), which
-    the fused kernel does not take, go to ``"prefill"`` at any M: its pre-pass reads each weight's own scale row.
-    That route takes bfloat16 activations only, so it raises for float32 ones."""
-    if group % K_STEP:  # _check admits such groups for base / nf4 only
+    rest ``"fused"``. Base / nf4 at a group of 8 (a multiple of ``FUSED_GROUP_MIN`` that is no multiple of
+    ``K_STEP``; Gemma3-1B's K 1,152 packs at 8) route the same way, on the fused kernel's instances for such groups.
+    At a group below 8 (K/2 = 32 x an odd number packs at 4) base / nf4 take ``"prefill"`` at any M, whose pre-pass
+    reads each weight's own scale row; that route takes bfloat16 activations only, so it raises for float32 ones."""
+    if group % FUSED_GROUP_MIN:  # _check admits such groups for base / nf4 only
         if x2.dtype != torch.bfloat16:
             raise ValueError(f"int4_matmul[{instance}]: a group of {group} takes the prefill route, which needs "
                              f"bfloat16 activations, not {x2.dtype} (the fused kernel needs a group that is a "
-                             f"multiple of {K_STEP})")
+                             f"multiple of {FUSED_GROUP_MIN})")
         return "prefill"
     route = PREFILL_ROUTE.get(instance)
     if route == "fold" and group not in FOLD_GROUPS:

@@ -7,6 +7,8 @@ JAX-side conftest::
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -537,10 +539,11 @@ def test_flash_fwd_wgmma_route_matches_ref_on_card(cuda, name, D):
 
 
 def test_flash_fwd_routes_count_on_card(cuda):
-    """bf16 at D 64 / 128 launch the wgmma kernel; f32 and other head dims the mma.sync kernel; every
-    launch also counts in flash_attention.launches["fwd"]."""
-    calls = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
-             (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma")]
+    """bf16 at D 64 / 128 launch the wgmma kernel; f32 at D 64 / 128 the tf32x3 kernel; f32 and bf16 at other
+    head dims the mma.sync kernel; every launch also counts in flash_attention.launches["fwd"]."""
+    calls = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "tf32x3"),
+             (torch.float32, 128, "tf32x3"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
+             (torch.float32, 32, "mma")]
     for dtype, D, route in calls:
         q = torch.randn((1, 2, 256, D), device=cuda).to(dtype)
         before, fwd_before = dict(fa.flash_fwd.routes), fa.flash_attention.launches["fwd"]
@@ -626,10 +629,15 @@ def test_flash_bwd_wgmma_route_matches_ref_on_card(cuda, name):
 
 
 def test_flash_bwd_routes_count_on_card(cuda):
-    """bf16 at D 64 / 128 launch the wgmma backward; f32 and other head dims the mma.sync pair. Either way one
-    dsum, one dq and one dk/dv launch a call, counted in flash_attention.launches."""
-    calls = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
-             (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma")]
+    """bf16 at D 64 / 128 launch the wgmma backward; f32 at D 64 / 128 the tf32x3 pair; other head dims the
+    mma.sync pair. Whatever the route, one dsum, one dq and one dk/dv launch a call, counted in
+    flash_attention.launches. The gradients are held at K4's tolerance to the plain version in the inputs' type,
+    f32 ones to the plain version on float64 copies (the exact gradient): with q = k = v each query attends mostly to
+    itself, dp - dsum cancels, and the f32 plain version's own rounding reached 1.43x the bound at D 128 on an H100,
+    where the tf32x3 kernels stayed within 0.67x of the exact gradient."""
+    calls = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "tf32x3"),
+             (torch.float32, 128, "tf32x3"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
+             (torch.float32, 32, "mma")]
     for dtype, D, route in calls:
         q, do = (torch.randn((1, 2, 256, D), device=cuda).to(dtype) for _ in range(2))
         out, lse = fa.flash_fwd(q, q, q)
@@ -640,8 +648,89 @@ def test_flash_bwd_routes_count_on_card(cuda):
         assert fa.flash_bwd.routes == dict(before, **{route: before[route] + 1}), (dtype, D)
         assert fa.flash_attention.launches == dict(launches, dq=launches["dq"] + 1, dkv=launches["dkv"] + 1,
                                                    dsum=launches["dsum"] + 1), (dtype, D)
-        for got, want in zip(grads, fa.flash_bwd_ref(q, q, q, out, lse, do)):
+        exact = dtype == torch.float32
+        qx, ox, lx, dx = (t.double() for t in (q, out, lse, do)) if exact else (q, out, lse, do)
+        for got, want in zip(grads, fa.flash_bwd_ref(qx, qx, qx, ox, lx, dx)):
             _k4_close(got, want, K4_TOL[dtype][2])
+
+
+# The tf32x3 route (csrc/flash_tf32.cu: float32 at D 64 / 128 on the tensor cores, every product 3xTF32):
+# causal / window / segments / softcap / GQA and odd Sq, Sk, each at D 64 and 128. (B, H, Hk, Sq, Sk, seg, options)
+TF32_CASES = {
+    "causal_pad_segment": (2, 4, 4, 384, 384, "pad", dict()),
+    "gqa_8_2_packed_window_100": (2, 8, 2, 320, 320, "packed", dict(window=100)),
+    "gqa_32_8_length_2560_window": (1, 32, 8, 2560, 2560, "packed", dict(window=4096)),
+    "softcap_2_window_100": (1, 4, 4, 384, 384, None, dict(softcap=2.0, window=100)),
+    "non_causal_softcap_30": (1, 4, 2, 200, 200, None, dict(causal=False, softcap=30.0)),
+    "odd_sq_97_sk_229_q_offset_132": (2, 4, 2, 97, 229, None, dict(q_offset=132)),
+    "odd_sq_333_sk_201_packed_non_causal": (1, 4, 1, 333, 201, "packed", dict(causal=False)),
+    "all_rows_masked": (2, 4, 2, 128, 128, None, dict(q_offset=-128)),
+}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("name", sorted(TF32_CASES))
+def test_flash_tf32x3_route_matches_ref_on_card(cuda, name, D):
+    """The tf32x3 forward and backward (after the dsum pre-pass) on (B, H, S, D) views of (B, S, H, D) storage,
+    against the plain versions at K4's float32 tolerance, row by row: out and lse 2e-5, gradients 2e-4 of
+    max(row max, 0.02). One launch each of fwd / dsum / dq / dk/dv, every call on the tf32x3 route; fully masked rows
+    give out 0, lse -1e30 and zero gradients exactly."""
+    B, H, Hk, Sq, Sk, seg, opts = TF32_CASES[name]
+    rng = np.random.default_rng(sorted(TF32_CASES).index(name) + 100 * D)
+
+    def mk(S, heads):
+        return torch.from_numpy(rng.standard_normal((B, S, heads, D)).astype(np.float32)).to(cuda).transpose(1, 2)
+
+    q, k, v, do = mk(Sq, H), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, H)
+    seg_q = seg_k = None
+    if seg == "pad":
+        n_real = rng.integers(Sq // 3, Sq - 8, size=(B, 1))
+        seg_q = seg_k = torch.from_numpy((np.arange(Sq)[None, :] < n_real).astype(np.int32)).to(cuda)
+    elif seg == "packed":
+        ids = np.sort(rng.integers(0, 3, size=(B, max(Sq, Sk))), axis=1).astype(np.int32)
+        seg_q, seg_k = torch.from_numpy(ids[:, :Sq].copy()).to(cuda), torch.from_numpy(ids[:, :Sk].copy()).to(cuda)
+    kw = {"causal": True, **opts}
+    assert fa.fwd_route(torch.float32, D) == "tf32x3"
+    fwd_routes, bwd_routes = dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes)
+    launches = dict(fa.flash_attention.launches)
+    out, lse = fa.flash_fwd(q, k, v, seg_q, seg_k, **kw)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, seg_q, seg_k, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.routes == dict(fwd_routes, tf32x3=fwd_routes["tf32x3"] + 1)
+    assert fa.flash_bwd.routes == dict(bwd_routes, tf32x3=bwd_routes["tf32x3"] + 1)
+    assert fa.flash_attention.launches == {n: c + 1 for n, c in launches.items()}
+    ro, rl = fa.flash_fwd_ref(q, k, v, seg_q, seg_k, **kw)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, out, lse, do, seg_q, seg_k, **kw)
+    tol_out, tol_lse, tol_grad = K4_TOL[torch.float32]
+    _k4_close(out, ro, tol_out)
+    _k4_close(lse, rl, tol_lse)
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _k4_close(got, want, tol_grad)
+    dead = rl <= -1e29
+    assert bool((lse[dead] == -1e30).all()) and not bool(out[dead].any()) and not bool(dq[dead].any())
+    if name == "all_rows_masked":
+        assert bool(dead.all()) and not bool(dk.any()) and not bool(dv.any())
+
+
+def test_flash_tf32x3_entry_points_refuse_what_they_do_not_take(cuda):
+    """The tf32x3 entry points take float32 at head dim 64 / 128 only: a bf16 block or another head dim comes back
+    refused (cudaErrorInvalidValue) with nothing launched; the wrapper raises on a refused launch and counts
+    nothing."""
+    q = torch.randn((1, 2, 128, 64), device=cuda)
+    dims = fa._check("t", q, q, q, None, None, None, None)
+    lib = fa._lib("flash_tf32")
+    for bad in (dict(is_bf16=1), dict(D=96)):
+        a = fa._args(q, q, q, None, None, True, 0.125, 0, None, None, dims, out=torch.empty_like(q),
+                     lse=torch.empty((1, 2, 128), device=cuda))
+        for field, value in bad.items():
+            setattr(a, field, value)
+        for fn in ("dalm_fa_fwd_tf32", "dalm_fa_bwd_dq_tf32", "dalm_fa_bwd_dkv_tf32"):
+            assert getattr(lib, fn)(ctypes.byref(a), torch.cuda.current_stream().cuda_stream) != 0, (fn, bad)
+    before = dict(fa.flash_attention.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa._launch("dalm_fa_fwd_tf32", "fwd", a, q)
+    assert fa.flash_attention.launches == before
 
 
 def test_flash_bwd_wgmma_raises_and_never_falls_back(cuda, monkeypatch):
@@ -964,7 +1053,7 @@ def test_int4_kernel_matches_ref_on_card(cuda, instance, mkng, dtype):
 
 # The dense families' projection shapes (K, N): Llama-3 / Mistral / Qwen3 GQA k/v (N 1024) and MLPs (K 14,336), Qwen2.5
 # (N 512, K 18,944), the lm_heads (N 128,256 and 152,064), Gemma2 (K 2,304) and Gemma3 (K 1,152, packed at group 8,
-# which the reference's rule rejects and the fused kernel does not take: the prefill route at any M).
+# which the reference's rule rejects: the fused kernel's instances for groups of 8 below M_PREFILL).
 K5_FAMILY_SHAPES = [(4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256), (3584, 512), (3584, 18944),
                     (18944, 3584), (3584, 152064), (2304, 9216), (9216, 2304), (2304, 1024), (1152, 1024)]
 
@@ -974,7 +1063,7 @@ K5_FAMILY_SHAPES = [(4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256), 
 def test_int4_at_the_family_shapes_on_card(cuda, kn, M):
     """``int4_matmul`` (the layer's entry) at the families' shapes, bf16, decode and prefill rows, against the plain
     version: one K5 launch at every shape, on the route ``_route`` names (the fused kernel at 32 rows, the prefill
-    route at 256, and at both for Gemma3's group 8)."""
+    route at 256; Gemma3's group 8 on the fused kernel's instances for groups of 8 at 32 rows)."""
     K, N = kn
     gen = torch.Generator(device=cuda).manual_seed(K + N)
     d = quant.quantize_tensor_int4(torch.randn((K, N), generator=gen, device=cuda) * 0.02)
@@ -983,7 +1072,7 @@ def test_int4_at_the_family_shapes_on_card(cuda, kn, M):
     assert (group % k5.K_STEP != 0) == (K == 1152) and k5._kernel_feasible(K // 2, group) == (K != 1152)
     instance = k5.INSTANCE[k5.DEFAULT_VARIANT]
     route = k5._route(x, instance, group)
-    assert route == ("prefill" if K == 1152 or M >= k5.M_PREFILL else "fused") or instance != "base"
+    assert route == ("prefill" if M >= k5.M_PREFILL else "fused") or instance != "base"
     before = dict(k5.int4_matmul_fwd.route_launches)
     y = k5.int4_matmul(x, d["q4"], d["scale4"])
     ry = k5.int4_matmul_fwd_ref(x, d["q4"], d["scale4"], instance)
@@ -1015,29 +1104,61 @@ def test_int4pc_at_phi3_lm_head_on_card(cuda, M):
 @pytest.mark.parametrize("M", [1, 32, 256])
 @pytest.mark.parametrize("instance", ["base", "nf4", "groupmm", "i8mxu"])
 def test_int4_group_8_on_card(cuda, instance, M):
-    """Gemma3-1B's q/k/v/gate/up weights (K 1,152) pack at group 8, which the fused kernel (whole 16-row k-steps a
-    scale) does not take: base and nf4 take the prefill route at every M, one pre-pass and one GEMM, against the
-    plain version; float32 activations, and groupmm / i8mxu (which fold whole k-steps), raise and launch nothing."""
+    """Gemma3-1B's q/k/v/gate/up weights (K 1,152) pack at group 8. Base and nf4 take the fused kernel's instances
+    for groups of 8 (each 8-row half of a k-step with its own scale row) below M_PREFILL in bf16 and at every M in
+    f32, one launch a call, counted in fused.group8_launches; bf16 from M_PREFILL takes the prefill route (one
+    pre-pass, one GEMM); each within K5_TOL (f32) / 2^-7 (bf16) of the plain version. groupmm / i8mxu, which fold
+    whole k-steps, raise and launch nothing."""
     K, N = 1152, 1024
     q4, scale4 = _k5_weights(np.random.default_rng(8), K, N, instance, cuda, 64)
     assert K // scale4.shape[0] == 8
     x = torch.from_numpy((np.random.default_rng(9).standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda)
-    before = (dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.launches))
     if instance in ("groupmm", "i8mxu"):
+        before = (dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.launches))
         with pytest.raises(ValueError, match="group of 8"):
             k5.int4_matmul_fwd(x.to(torch.bfloat16), q4, scale4, instance)
-    else:
-        with pytest.raises(ValueError, match="bfloat16"):
-            k5.int4_matmul_fwd(x, q4, scale4, instance)
-    assert (dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.launches)) == before
-    if instance in ("base", "nf4"):
-        xb = x.to(torch.bfloat16)
+        assert (dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.launches)) == before
+        return
+    for xt in (x, x.to(torch.bfloat16)):
+        route = "prefill" if xt.dtype == torch.bfloat16 and M >= k5.M_PREFILL else "fused"
+        assert k5._route(xt, instance, 8) == route
+        routes, fused, g8 = (dict(k5.int4_matmul_fwd.route_launches), dict(k5.fused.launches),
+                             dict(k5.fused.group8_launches))
         dq, gemm = dict(k5.prefill_dequant.launches), k5.prefill_gemm.launches
-        y = k5.int4_matmul_fwd(xb, q4, scale4, instance)
+        y = k5.int4_matmul_fwd(xt, q4, scale4, instance)
         torch.cuda.synchronize()
-        assert k5.prefill_dequant.launches[instance] == dq[instance] + 1 and k5.prefill_gemm.launches == gemm + 1
-        assert k5.int4_matmul_fwd.route_launches[instance, "prefill"] == before[0][instance, "prefill"] + 1
-        _k5_close(y, k5.int4_matmul_fwd_ref(xb, q4, scale4, instance), instance)
+        moved = {key: n - routes[key] for key, n in k5.int4_matmul_fwd.route_launches.items() if n != routes[key]}
+        assert moved == {(instance, route): 1} and y.dtype == xt.dtype and y.shape == (M, N)
+        if route == "fused":
+            assert k5.fused.launches == dict(fused, **{instance: fused[instance] + 1})
+            assert k5.fused.group8_launches == dict(g8, **{instance: g8[instance] + 1})
+        else:
+            assert k5.prefill_dequant.launches[instance] == dq[instance] + 1 and k5.prefill_gemm.launches == gemm + 1
+            assert k5.fused.launches == fused and k5.fused.group8_launches == g8
+        _k5_close(y, k5.int4_matmul_fwd_ref(xt, q4, scale4, instance), instance)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("instance", ["base", "nf4"])
+def test_int4_group_8_fused_ragged_on_card(cuda, instance, dtype):
+    """The instances for groups of 8 at ragged shapes through their launch (``fused``): N no multiple of 128 or 16
+    (the cp.async producer), M across a tile edge, K/2 = 608 (38 k-steps: a split K whose slices end mid-stage),
+    a group of 24 (a multiple of 8 whose groups end inside k-steps, at either half), Gemma3-1B's gate / up
+    (N 6,912) and k / v (N 256), and M 191 at K 2,304; within K5_TOL / 2^-7 of the plain version."""
+    rng = np.random.default_rng(29)
+    for M, K, N, group in ((33, 1216, 136, 8), (7, 1152, 6912, 8), (32, 1152, 256, 8), (64, 1152, 392, 24),
+                           (191, 2304, 1000, 8)):
+        w = torch.from_numpy((rng.standard_normal((K, N)) * 0.02).astype(np.float32))
+        d = quant.quantize_tensor_nf4(w) if instance == "nf4" else quant.quantize_tensor_int4(w)
+        q4 = d["q4"].to(cuda)
+        scale4 = torch.from_numpy(rng.uniform(0.001, 0.03, size=(K // group, N)).astype(np.float32)).to(cuda)
+        assert (K // 2) % group == 0 and group % k5.K_STEP
+        x = torch.from_numpy((rng.standard_normal((M, K)) * 0.5).astype(np.float32)).to(cuda, dtype)
+        g8 = k5.fused.group8_launches[instance]
+        y = k5.fused(x, q4, scale4, instance, k5._check(x, q4, scale4, instance))
+        torch.cuda.synchronize()
+        assert k5.fused.group8_launches[instance] == g8 + 1, (M, K, N, group)
+        _k5_close(y, k5.int4_matmul_fwd_ref(x, q4, scale4, instance), instance)
 
 
 def test_safetensors_reader_on_card(cuda, tmp_path):
@@ -1182,7 +1303,7 @@ def test_int4_wrapper_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="group"):
         k5.int4_matmul_fwd(x, q4, torch.ones((3, 256), device=cuda), "groupmm")  # the group does not divide K/2
     with pytest.raises(ValueError, match="group"):
-        k5.int4_matmul_fwd(x, q4, torch.ones((32, 256), device=cuda), "base")  # group 8 with float32 activations
+        k5.int4_matmul_fwd(x, q4, torch.ones((64, 256), device=cuda), "base")  # group 4 with float32 activations
     with pytest.raises(ValueError, match="group"):
         k5.int4_matmul_fwd(x.to(torch.bfloat16), q4, torch.ones((32, 256), device=cuda), "groupmm")  # group 8
     with pytest.raises(ValueError, match="CUDA"):

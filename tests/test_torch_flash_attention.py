@@ -251,14 +251,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 ROUTE_CASES = [
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "mma"),
-    (torch.float32, 128, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 48, "mma"),
     (torch.bfloat16, 80, "mma"), (torch.bfloat16, 112, "mma"), (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 256, "mma"), (torch.bfloat16, 192, "mma"), (torch.bfloat16, 240, "mma"),
+    (torch.float32, 32, "mma"), (torch.float32, 96, "mma"),
 ]
 # the C entry points of each (direction, route) live in this csrc/ source
 ROUTE_SOURCE = {("fwd", "wgmma"): "flash_fwd_wgmma", ("fwd", "mma"): "flash_attention",
-                ("bwd", "wgmma"): "flash_bwd_wgmma", ("bwd", "mma"): "flash_attention"}
+                ("bwd", "wgmma"): "flash_bwd_wgmma", ("bwd", "mma"): "flash_attention",
+                ("fwd", "tf32x3"): "flash_tf32", ("bwd", "tf32x3"): "flash_tf32"}
 
 
 @pytest.mark.parametrize(
@@ -268,9 +270,9 @@ ROUTE_SOURCE = {("fwd", "wgmma"): "flash_fwd_wgmma", ("fwd", "mma"): "flash_atte
     + [f"bwd-{str(t).split('.')[-1]}-{D}-{r}" for t, D, r in ROUTE_CASES])
 def test_forward_route_rule(direction, dtype, D, route):
     """The route on the card is a pure function of the type and the head dim, one rule for the forward and
-    the backward: the wgmma kernels for bf16 at D 64 / 128 / 256, the mma.sync kernels for the rest (f32 at
-    every head dim, bf16 at 129-255). Each route's entry points (the backward's dq and dk/dv) live in its own
-    source."""
+    the backward: the wgmma kernels for bf16 at D 64 / 128 / 256, the 3xTF32 tensor-core kernels for f32 at
+    D 64 / 128, the mma.sync kernels for the rest (f32 at the other head dims, bf16 at 129-255). Each route's
+    entry points (the backward's dq and dk/dv) live in its own source."""
     assert T.fwd_route(dtype, D) == route
     assert T.fwd_route(dtype, D) == T.fwd_route(dtype, D)
     entries = (T._FWD_ENTRY[route],) if direction == "fwd" else T._BWD_ENTRIES[route]
@@ -316,3 +318,131 @@ def test_dsum_ref_matches_the_jax_formula(dtype):
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 3, 37)
     mag = (tdo.float() * tout.float()).abs().sum(dim=-1).numpy()
     assert (np.abs(got.numpy() - want) <= 1e-5 * mag).all()
+
+
+# --------------------------------------------------------------------------
+# the tf32x3 route's arithmetic (csrc/flash_tf32.cu), emulated on the CPU
+# --------------------------------------------------------------------------
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: the f32 value rounded to 10 mantissa bits, to nearest (ties away from zero: half an ulp
+    added to the magnitude bits, then the 13 low bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernels take it: each operand split into hi = tf32(x) and lo = tf32(x - hi), then
+    lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b) in f32 (each tf32 x tf32 product is exact in f32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _fwd_formula(q, k, v, seg_q, seg_k, causal, scale, q_offset, window, softcap, mm):
+    """flash_fwd_ref's formulas with both products taken by ``mm``, in the inputs' type."""
+    B, H, Sq, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hk, H // Hk, Sq, D)
+    s = mm(qg, k[:, :, None].transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = torch.tanh(s * (1.0 / softcap)) * softcap
+    keep = T._keep_mask(Sq, Sk, seg_q, seg_k, causal, q_offset, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, T.NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    l = p.sum(dim=-1, keepdim=True)
+    out = mm(p, v[:, :, None]) / torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)), torch.full_like(l, T.NEG_INF))
+    return out.reshape(B, H, Sq, D), lse.reshape(B, H, Sq)
+
+
+def _bwd_formula(q, k, v, out, lse, do, seg_q, seg_k, causal, scale, q_offset, window, softcap, mm):
+    """flash_bwd_ref's formulas with their five products (s, dp, dv, dq, dk) taken by ``mm``, p and ds operands
+    like any other, in the inputs' type; dsum = rowsum(do out)."""
+    B, H, Sq, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    G = H // Hk
+    qg, dog = q.reshape(B, Hk, G, Sq, D), do.reshape(B, Hk, G, Sq, D)
+    s = mm(qg, k[:, :, None].transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = torch.tanh(s * (1.0 / softcap)) * softcap
+    keep = T._keep_mask(Sq, Sk, seg_q, seg_k, causal, q_offset, window, q.device)
+    p = torch.exp(s - lse.reshape(B, Hk, G, Sq, 1))
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    dp = mm(dog, v[:, :, None].transpose(-1, -2))
+    ds = p * (dp - (do * out).sum(dim=-1).reshape(B, Hk, G, Sq, 1))
+    if softcap is not None:
+        t = s * (1.0 / softcap)
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dv = mm(p.transpose(-1, -2), dog).sum(dim=2)
+    dq = mm(ds, k[:, :, None]).reshape(B, H, Sq, D)
+    dk = mm(ds.transpose(-1, -2), qg).sum(dim=2)
+    return dq, dk, dv
+
+
+def _row_share(got, want, tol, floor):
+    """The largest |got - want| / (tol * max(max |want| of its row, floor)), rows the last axis (lse: each value)."""
+    if want.dim() == 3:
+        got, want, floor = got[..., None], want[..., None], 1.0
+    return float(((got - want).abs() / (tol * want.abs().amax(dim=-1, keepdim=True).clamp(min=floor))).max())
+
+
+def test_tf32_rounding_and_split():
+    """The emulated cvt.rna.tf32: 10 mantissa bits, ties away from zero, exact on values it can hold; hi + lo
+    within 2^-22 of x over a million normal f32 values of every sign and scale."""
+    one = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 0.75])
+    assert _tf32(one).tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10), 1.0, 0.75]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.standard_normal(1 << 20) * 10.0 ** rng.integers(-6, 6, 1 << 20)).astype(np.float32))
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all()) and bool(((lo.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((hi.double() + lo.double() - x.double()).abs() / x.double().abs()).max()) <= 2.0 ** -22
+
+
+# B, H, Hk, Sq, Sk, seg kind, options: causal throughout
+TF32_CASES = {
+    "gqa_window_segments": (1, 4, 2, 300, 300, "packed", dict(window=100)),
+    "softcap_ragged_q_offset": (2, 4, 1, 97, 229, None, dict(softcap=20.0, q_offset=132)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TF32_CASES))
+def test_tf32x3_arithmetic_meets_the_float32_tolerance(name):
+    """The tf32x3 route's arithmetic (every product of the forward and the backward split 3xTF32, p and ds too),
+    emulated in f32 on the CPU at D 128 on a causal, windowed, segmented GQA shape and a softcapped ragged one:
+    within K4's float32 tolerance of the exact formulas (float64), row by row as chip_smoke.py holds the kernels
+    (out and lse 2e-5, gradients 2e-4 of max(row max, 0.02); an lse value is a row of its own, floor 1); so is the
+    plain f32 version. A single TF32 pass misses the forward's bound."""
+    B, H, Hk, Sq, Sk, seg, opts = TF32_CASES[name]
+    D = 128
+    rng = np.random.default_rng(sorted(TF32_CASES).index(name) + 40)
+    mk = lambda S, h: torch.from_numpy(rng.standard_normal((B, h, S, D)).astype(np.float32))  # noqa: E731
+    q, k, v, do = mk(Sq, H), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, H)
+    seg_q = seg_k = None
+    if seg == "packed":
+        seg_k = torch.from_numpy(np.sort(rng.integers(0, 3, size=(B, Sk)), axis=1).astype(np.int32))
+        seg_q = seg_k[:, :Sq].contiguous()
+    kw = dict(causal=True, scale=1.0 / D ** 0.5, q_offset=opts.get("q_offset", 0), window=opts.get("window"),
+              softcap=opts.get("softcap"))
+    assert T.fwd_route(torch.float32, D) == "tf32x3"
+    f64 = [t.double() for t in (q, k, v)]
+    xo, xl = _fwd_formula(*f64, seg_q, seg_k, **kw, mm=torch.matmul)
+    eo, el = _fwd_formula(q, k, v, seg_q, seg_k, **kw, mm=_mm3)
+    po, pl = T.flash_fwd_ref(q, k, v, seg_q, seg_k, **kw)
+    for got in ((eo, el), (po, pl)):
+        assert _row_share(got[0].double(), xo, 2e-5, 0.02) <= 1.0 and _row_share(got[1].double(), xl, 2e-5, 1.0) <= 1.0
+    exact = _bwd_formula(*f64, po.double(), pl.double(), do.double(), seg_q, seg_k, **kw, mm=torch.matmul)
+    emus = _bwd_formula(q, k, v, po, pl, do, seg_q, seg_k, **kw, mm=_mm3)
+    plain = T.flash_bwd_ref(q, k, v, po, pl, do, seg_q, seg_k, **kw)
+    for got, want, ref in zip(emus, exact, plain):
+        assert got.shape == want.shape == ref.shape and got.dtype == torch.float32
+        assert _row_share(got.double(), want, 2e-4, 0.02) <= 1.0 and _row_share(ref.double(), want, 2e-4, 0.02) <= 1.0
+    one = _fwd_formula(q, k, v, seg_q, seg_k, **kw, mm=lambda a, b: _tf32(a) @ _tf32(b))[0]
+    assert _row_share(one.double(), xo, 2e-5, 0.02) > 1.0

@@ -236,14 +236,18 @@ def test_prefill_routing_rule():
         assert k5._route(bf, inst, 64) == "fold" and k5._route(bf[:32], inst, 64) == "fused"
         assert k5._route(bf, inst, 48) == "fused" and k5._route(bf, inst, 256) == "fused"  # no fold GEMM instance
     assert k5._route(bf, "base", 48) == "prefill" and k5._route(bf, "pcol", 256) == "int8"
-    # a group that is no multiple of the fused kernel's k-step (Gemma3-1B's K 1,152 packs at 8): base and nf4 take
-    # the prefill route at any M, with bfloat16 activations only; groupmm and i8mxu are refused
+    # a group that is no multiple of the fused kernel's k-step (Gemma3-1B's K 1,152 packs at 8): base and nf4 at a
+    # group of 8 route as at any other group, on the fused kernel's instances for groups of 8; below 8 they take the
+    # prefill route at any M, with bfloat16 activations only; groupmm and i8mxu are refused
     q4, s8 = torch.zeros((576, 64), dtype=torch.uint8), torch.ones((144, 64))
     for inst in ("base", "nf4"):
         assert k5._check_weight(q4, s8, inst, 1152) == 8
-        assert k5._route(bf[:1], inst, 8) == "prefill" and k5._route(bf, inst, 8) == "prefill"
+        assert k5._route(bf[:1], inst, 8) == "fused" and k5._route(bf, inst, 8) == "prefill"
+        assert k5._route(bf.float(), inst, 8) == "fused"
+        assert k5._check_weight(q4, torch.ones((288, 64)), inst, 1152) == 4
+        assert k5._route(bf[:1], inst, 4) == "prefill" and k5._route(bf, inst, 4) == "prefill"
         with pytest.raises(ValueError, match="bfloat16"):
-            k5._route(bf.float(), inst, 8)
+            k5._route(bf.float(), inst, 4)
     for inst in ("groupmm", "i8mxu"):
         with pytest.raises(ValueError, match="group of 8"):
             k5._check_weight(q4, s8, inst, 1152)
@@ -257,6 +261,47 @@ def test_prefill_routing_rule():
         assert torch.equal(k5.int4_matmul_fwd(x, w["q4"], w["scale4"], inst),
                            k5.int4_matmul_fwd_ref(x, w["q4"], w["scale4"], inst))
     assert k5.int4_matmul_fwd.route_launches == before
+
+
+GEMMA3_N = (1024, 256, 6912)  # Gemma3-1B's q, k / v and gate / up at K 1,152, packed at group 8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("M", [1, 32, 191, 192])
+def test_group_8_route_check_and_geometry(M, dtype):
+    """Base / nf4 at Gemma3-1B's group of 8: the packer gives K 1,152 that group; ``_check`` admits the weight (it
+    gets as far as asking for the card); ``_route`` sends bfloat16 below ``M_PREFILL`` and float32 at every M to the
+    fused kernel's instances for groups of 8, bfloat16 from ``M_PREFILL`` to the prefill route; ``_splits`` cuts K/2 =
+    576 into whole 16-row k-steps (no whole groups needed: those instances scale each weight), at most 8 slices, a
+    grid that covers the tiles. On the CPU the wrapper is the plain version and counts nothing."""
+    K = 1152
+    d = quant.quantize_tensor_int4(torch.from_numpy(_weights(21, K, 64)))
+    group = K // d["scale4"].shape[0]
+    assert group == quant._int4_group(K // 2) == jquant._int4_group(K // 2) == 8
+    x = torch.from_numpy(np.random.default_rng(M).standard_normal((M, K)).astype(np.float32)).to(dtype)
+    for inst in ("base", "nf4"):
+        assert k5._check_weight(d["q4"], d["scale4"], inst, K) == 8
+        with pytest.raises(ValueError, match="CUDA"):
+            k5._check(x, d["q4"], d["scale4"], inst)
+        want = "prefill" if dtype == torch.bfloat16 and M >= k5.M_PREFILL else "fused"
+        assert k5._route(x, inst, group) == want
+    for inst in ("groupmm", "i8mxu"):
+        with pytest.raises(ValueError, match="group of 8"):
+            k5._check(x, d["q4"], d["scale4"], inst)
+    for N in GEMMA3_N:
+        for sms in (132, 114):
+            geo = k5._splits(M, N, K // 2, group, "base", sms)
+            assert geo == k5._splits(M, N, K // 2, group, "nf4", sms)
+            assert 1 <= geo.splits <= k5.MAX_CLUSTER and geo.splits * geo.slice_rows == K // 2
+            assert geo.slice_rows % k5.K_STEP == 0
+            assert geo.grid == (-(-N // k5.TILE_N), -(-M // k5.TILE_M), geo.splits)
+    before = (dict(k5.fused.launches), dict(k5.fused.group8_launches), dict(k5.int4_matmul_fwd.route_launches))
+    for inst in ("base", "nf4"):
+        dn = quant.quantize_tensor_nf4(torch.from_numpy(_weights(21, K, 64))) if inst == "nf4" else d
+        assert torch.equal(k5.int4_matmul_fwd(x, dn["q4"], dn["scale4"], inst),
+                           k5.int4_matmul_fwd_ref(x, dn["q4"], dn["scale4"], inst))
+    assert (dict(k5.fused.launches), dict(k5.fused.group8_launches),
+            dict(k5.int4_matmul_fwd.route_launches)) == before
 
 
 LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))  # q/k/v/o, gate/up, down, lm_head
